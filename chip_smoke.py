@@ -10,28 +10,47 @@ Phases, each printing its own lines:
    exits non-zero when torch sees no CUDA device.
 2. build: every hand-written kernel from ``uniter_tpu_torch/csrc/``, one
    ``nvcc`` per source, all at once (``-Xptxas -v`` report printed).
-3. K1 (``csrc/mha_fwd.cu``) against its plain version ``_mha_torch`` on
-   the card, at the main path's attention shapes, fp32 and bf16, with
-   random key lengths and all-padding rows; time of both at (96, 104).
-4. main path: uniter-base VQA inference (12 layers, 768 hidden, 12 heads,
-   3129 answers; random weights from a seed in the JAX package's parameter
-   layout, carried through the weight bridge) over in-memory questions fed
-   through the port's ``BucketLoader`` at ``inf_vqa``'s default 8192-token
-   budget, into the same loop over batches ``inf_vqa`` runs. Once through
-   the kernel (launch counts reset just before and read just after), once
-   through the plain attention; logits and answers must agree.
-5. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the last
+3. K1 (``csrc/mha_fwd.cu``) at rate 0 against its plain version
+   ``_mha_torch`` on the card, at the serving path's attention shapes,
+   fp32 and bf16, with random key lengths and all-padding rows; time of
+   both at (96, 104).
+4. K1 at rate 0.1 and K2 (``csrc/mha_bwd.cu``) at rates 0 and 0.1 against
+   their plain versions with the same seeds, at the training shapes, fp32
+   and bf16; the keep fraction measured through K1; times at (96, 104, 12,
+   64) of both kernels, their plain versions and
+   ``scaled_dot_product_attention`` (a library yardstick, never on a path).
+5. serving path: uniter-base VQA inference (12 layers, 768 hidden, 12
+   heads, 3129 answers; random weights from a seed in the JAX package's
+   parameter layout, carried through the weight bridge) over in-memory
+   questions fed through the port's ``BucketLoader`` at ``inf_vqa``'s
+   default 8192-token budget, into the loop over batches ``inf_vqa`` runs.
+   Once through the kernel (launch counts reset just before and read just
+   after), once through the plain attention; logits and answers agree.
+6. training path: the uniter-base VQA fine-tune step at the JAX package's
+   flagship shapes (``bench.py``: B=96, 64 text + 40 image tokens, bf16
+   over fp32 parameters, dropout 0.1, fused AdamW with bf16 moments,
+   mean BCE x 3129), through the kernels and through the plain attention
+   in turns; launch counts over the kernel runs; step 1's loss, kernel
+   against plain; a profile of the kernel step; a 2-layer fp32 dropout-0
+   run, kernel against plain.
+7. the CLI: ``train_vqa.main`` on DBs written from a seed (12 layers,
+   validate and save at 10 and 20 steps, resume to 25) and
+   ``inf_vqa.main`` on its output, on the card.
+8. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the last
    line. Any failed check raises and the script exits non-zero.
 
-TF32 is off for matmuls and cuDNN (the port's inference runs full fp32).
+TF32 is off for matmuls and cuDNN (fp32 runs are full fp32). Files go
+under the checkout's ``tmp/`` (removed at the end) and ``chiprun_out/``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +64,17 @@ K1_SHAPES = [  # (B, S, H, D): the bucketed eval shapes, uniter-base heads
     (96, 104, 16, 64),  # uniter-large heads
 ]
 K1_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+TRAIN_SHAPES = [  # (B, S, H, D): flagship, long buckets, uniter-large heads
+    (96, 104, 12, 64), (64, 172, 12, 64), (8, 512, 12, 64), (96, 104, 16, 64),
+]
+K2_TOL_FP32 = 1e-4  # another summation order over S and D
+RATE = 0.1
+# the card's published peaks (NVIDIA H100 SXM data sheet): the bound of a
+# kernel is the larger of its bytes over the memory rate and its operations
+# over the peak rate of its type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+OUT_DIR = os.path.join(REPO, "chiprun_out")
 
 
 def check(cond, msg):
@@ -149,6 +179,149 @@ def k1_phase(torch):
     return worst, timing
 
 
+def bound_ms(b, s, h, d, dtype, backward):
+    """Least time for the function on this card: K1 reads q, k, v and
+    writes out (4 tensors) and does 4*B*H*S^2*D FLOP; K2 reads q, k, v, g
+    and writes dq, dk, dv (7 tensors) and does 10*B*H*S^2*D FLOP (the
+    recomputed scores, dV, dP, dQ, dK)."""
+    elem = b * s * h * d * (4 if dtype == "float32" else 2)
+    nbytes = (7 if backward else 4) * elem + b * s * 4  # + the fp32 bias
+    flops = (10 if backward else 4) * b * h * s * s * d
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def train_inputs(torch, b, s, h, d, dtype, gen):
+    """q/k/v/g on the card; random key lengths with every row but row 0
+    holding a valid key; row 0 all padding with a zero query (exactly
+    -10000 scores; a random query there sits on the fp32 grid at -10000,
+    see tests/test_torch_attention.py)."""
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                  .to(dtype) for _ in range(4))
+    q[0] = 0
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    lens[0] = 0
+    mask = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    return q, k, v, (1.0 - mask.float()) * -10000.0, g
+
+
+def keep_fraction(torch, mha_fwd, b, s, h, d):
+    """The keep fraction at RATE measured through K1: with q = k = 0 and no
+    padding P is uniform, so with v = 1 every output entry is the row's
+    kept count / (S (1 - rate))."""
+    z = torch.zeros(b, s, h, d, device="cuda")
+    out = mha_fwd(z, z, torch.ones_like(z), torch.zeros(b, s, device="cuda"),
+                  RATE, 4242)
+    return out[..., 0].double().mean().item() * (1.0 - RATE)
+
+
+def k2_phase(torch):
+    """K1 at RATE and K2 at 0 and RATE against their plain versions; times.
+    Returns (worst fp32 errors, timing dict)."""
+    import torch.nn.functional as F
+
+    from uniter_tpu_torch.ops.attention import (
+        _mha_bwd_torch, _mha_torch, mha_bwd, mha_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    worst = {"mha_fwd": 0.0, "mha_bwd": 0.0}
+    timing = {}
+    for b, s, h, d in TRAIN_SHAPES:
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            q, k, v, bias, g = train_inputs(torch, b, s, h, d, dtype, gen)
+            qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+            out = mha_fwd(q, k, v, bias, RATE, 99)
+            ref = _mha_torch(qf, kf, vf, bias, RATE, 99)
+            err = (out.float() - ref).abs()
+            if name == "bfloat16":  # half a bf16 step at |ref|
+                err = err - 2.0**-8 * ref.abs()
+            err = err.max().item()
+            ok1 = err <= K1_TOL[name]
+            errs = []
+            for rate in (0.0, RATE):
+                got = mha_bwd(q, k, v, bias, g, rate, 99)
+                want = _mha_bwd_torch(qf, kf, vf, bias, gf, rate, 99)
+                for x, w in zip(got, want):
+                    e = (x.float() - w).abs()
+                    if name == "bfloat16":
+                        e = e - 2.0**-8 * w.abs()
+                    errs.append(e.max().item())
+            tol2 = K2_TOL_FP32 if name == "float32" else 1e-3
+            ok2 = max(errs) <= tol2
+            torch.cuda.synchronize()
+            print(f"[K2] B={b} S={s} H={h} D={d} {name}: K1 rate {RATE} "
+                  f"max|diff| {err:.3e} (tol {K1_TOL[name]:g}"
+                  f"{' + 2^-8 |ref|' if name == 'bfloat16' else ''}); K2 "
+                  f"dq/dk/dv max|diff| rate 0 {max(errs[:3]):.3e}, rate "
+                  f"{RATE} {max(errs[3:]):.3e} (tol {tol2:g}"
+                  f"{' + 2^-8 |ref|' if name == 'bfloat16' else ''}) "
+                  f"{'ok' if ok1 and ok2 else 'FAIL'}")
+            check(ok1, f"K1 at rate {RATE} disagrees at {(b, s, h, d)} {name}")
+            check(ok2, f"K2 disagrees at {(b, s, h, d)} {name}")
+            if name == "float32":
+                worst["mha_fwd"] = max(worst["mha_fwd"], err)
+                worst["mha_bwd"] = max(worst["mha_bwd"], max(errs))
+            if (b, s, h, d) == TRAIN_SHAPES[0]:
+                timing[name] = time_attention(torch, F, q, k, v, bias, g,
+                                              mha_fwd, mha_bwd, _mha_torch,
+                                              _mha_bwd_torch)
+    frac = keep_fraction(torch, mha_fwd, 96, 104, 12, 64)
+    n = 96 * 12 * 104 * 104
+    sigma = (RATE * (1 - RATE) / n) ** 0.5
+    print(f"[K2] keep fraction through K1 at rate {RATE} over {n} scores: "
+          f"{frac:.6f} (want {1 - RATE} +- 4 sigma = {4 * sigma:.1e})")
+    check(abs(frac - (1 - RATE)) <= 4 * sigma, "keep fraction")
+    return worst, timing, frac
+
+
+def time_attention(torch, F, q, k, v, bias, g, mha_fwd, mha_bwd, _mha_torch,
+                   _mha_bwd_torch):
+    """CUDA-event times (ms per call, 50 calls) in turns plain, kernel,
+    kernel, plain; SDPA forward and backward at rate 0 with the float bias
+    as attn_mask on [B, H, S, D] copies (its layout)."""
+    t = {}
+    for rate in (0.0, RATE):
+        f = [cuda_ms(torch, lambda: _mha_torch(q, k, v, bias, rate, 5)),
+             cuda_ms(torch, lambda: mha_fwd(q, k, v, bias, rate, 5)),
+             cuda_ms(torch, lambda: mha_fwd(q, k, v, bias, rate, 5)),
+             cuda_ms(torch, lambda: _mha_torch(q, k, v, bias, rate, 5))]
+        bw = [cuda_ms(torch, lambda: _mha_bwd_torch(q, k, v, bias, g, rate, 5)),
+              cuda_ms(torch, lambda: mha_bwd(q, k, v, bias, g, rate, 5)),
+              cuda_ms(torch, lambda: mha_bwd(q, k, v, bias, g, rate, 5)),
+              cuda_ms(torch, lambda: _mha_bwd_torch(q, k, v, bias, g, rate,
+                                                    5))]
+        t[rate] = {"fwd": (f[1] + f[2]) / 2, "fwd_plain": (f[0] + f[3]) / 2,
+                   "bwd": (bw[1] + bw[2]) / 2,
+                   "bwd_plain": (bw[0] + bw[3]) / 2}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = bias[:, None, None, :].to(q.dtype)
+    gt = g.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        t["sdpa_fwd"] = cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, mask))
+    out = F.scaled_dot_product_attention(qt, kt, vt, mask)
+    t["sdpa_bwd"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), gt, retain_graph=True))
+    t["sdpa_fwd_bwd"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt, mask), (qt, kt, vt), gt))
+    print(f"[K2] times at B=96 S=104 H=12 D=64 {q.dtype}, us per call "
+          f"(CUDA events over 50 calls; turns plain, kernel, kernel, plain):")
+    for rate in (0.0, RATE):
+        r = t[rate]
+        print(f"[K2]   rate {rate}: K1 {r['fwd'] * 1e3:.1f} vs plain "
+              f"{r['fwd_plain'] * 1e3:.1f}; K2 {r['bwd'] * 1e3:.1f} vs plain "
+              f"{r['bwd_plain'] * 1e3:.1f}")
+    print(f"[K2]   scaled_dot_product_attention at rate 0 (bias as "
+          f"attn_mask): forward {t['sdpa_fwd'] * 1e3:.1f}, backward "
+          f"{t['sdpa_bwd'] * 1e3:.1f}, forward+backward "
+          f"{t['sdpa_fwd_bwd'] * 1e3:.1f}")
+    return t
+
+
 def jax_layout_params(cfg, num_answer, img_dim, seed):
     """A uniter-base VQA parameter tree in the JAX package's layout (flax
     Dense kernels [in, out], layers stacked [L, ...]): normal(0, 0.02) for
@@ -241,7 +414,7 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
     from uniter_tpu_torch.inf_vqa import answer_questions
     from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
     from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
-    from uniter_tpu_torch.ops.attention import mha_fwd
+    from uniter_tpu_torch.ops.attention import mha_bwd, mha_fwd
     from uniter_tpu_torch.utils.const import IMG_DIM
 
     num_answer = 3129
@@ -279,9 +452,10 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
         return results, logits, time.perf_counter() - t
 
     run("xla")  # warm-up: cuBLAS handles, allocator, host pools
-    mha_fwd.launches = 0
+    mha_fwd.launches = mha_bwd.launches = 0
     res_k, logits_k, _ = run("cuda")
     launches = mha_fwd.launches
+    check(mha_bwd.launches == 0, "serving launched the backward kernel")
     res_x, logits_x, _ = run("xla")
     secs = {"xla": [], "cuda": []}
     for impl in ("xla", "cuda", "cuda", "xla"):
@@ -310,6 +484,294 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
     return launches, n_batches, qps, err
 
 
+def flagship_batch(torch, cfg, num_answer, img_dim, transfer_dtype):
+    """``bench.py``'s fixed batch: B=96, 64 text + 40 image tokens, full
+    masks, targets with 0.3% positives; every row real (ex_weight 1), so
+    the loss is mean BCE x num_answer."""
+    from uniter_tpu_torch.training.loop import train_batch_to_device
+
+    b, t, r = 96, 64, 40
+    rng = np.random.RandomState(0)
+    batch = dict(
+        input_ids=rng.randint(1, 28000, (b, t)).astype(np.int32),
+        position_ids=np.tile(np.arange(t, dtype=np.int32), (b, 1)),
+        img_feat=rng.randn(b, r, img_dim).astype(np.float32),
+        img_pos_feat=rng.rand(b, r, 7).astype(np.float32),
+        attn_mask=np.ones((b, t + r), np.int32),
+        targets=(rng.rand(b, num_answer) < 0.003).astype(np.float32),
+        ex_weight=np.ones(b, np.float32))
+    return train_batch_to_device(batch, torch.device("cuda"), transfer_dtype)
+
+
+def make_trainer(torch, cfg, sd, num_answer):
+    """Model, fused AdamW (bf16 moments, betas (0.9, 0.98), eps 1e-6, wd
+    0.01, clip 2.0, lr 8e-5 warmed up over 600 of 6000 steps) and the
+    step, as ``bench.py`` builds them; loss_scale "mean"."""
+    from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
+    from uniter_tpu_torch.train_vqa import vqa_loss
+    from uniter_tpu_torch.training.optim import build_optimizer
+    from uniter_tpu_torch.training.sched import get_lr_schedule
+    from uniter_tpu_torch.training.step import TrainState, make_train_step
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    model = UniterForVisualQuestionAnswering(cfg, IMG_DIM, num_answer)
+    model.load_state_dict(sd, strict=True)
+    model.to("cuda")
+    opt = build_optimizer(model, get_lr_schedule(8e-5, 600, 6000),
+                          betas=(0.9, 0.98), eps=1e-6, weight_decay=0.01,
+                          grad_norm=2.0, fused=True, mu_dtype=torch.bfloat16,
+                          nu_dtype=torch.bfloat16)
+    step = make_train_step(lambda m, b, g: vqa_loss(m, b, g, num_answer),
+                           loss_scale="mean")
+    return TrainState(step=0, model=model, opt=opt), step
+
+
+def profile_steps(torch, state, step, batch, n, tag):
+    """torch.profiler over ``n`` steps: device busy time by kernel, idle
+    share of the wall clock. The full table goes to chiprun_out/."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, m = step(state, batch, SEED)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3,
+             e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+
+    def share(*keys):
+        return sum(r[1] for r in rows
+                   if any(k in r[0].lower() for k in keys))
+
+    # the plain Philox bits run as int64 elementwise passes ("<long"
+    # functors) and the stack of their four words (8-byte cat)
+    groups = {"K1": share("mha_fwd_kernel"), "K2": share("mha_bwd_"),
+              "GEMM": share("gemm", "cutlass", "xmma", "sm90_", "nvjet"),
+              "Philox bits": share("<long", "opaquetype<8u>")}
+    groups["other"] = busy - sum(groups.values())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"train_profile_{tag}.txt"), "w") as f:
+        for name, ms, count in rows:
+            f.write(f"{ms:10.3f} ms {count:6d}  {name}\n")
+    print(f"[train] profile, {tag} attention, {n} steps: wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
+          f"{(1 - busy / 1e3 / wall) * 100:.1f}%; "
+          + ", ".join(f"{k} {v:.1f} ms ({v / busy * 100:.1f}%)"
+                      for k, v in groups.items()))
+    for name, ms, count in rows[:12]:
+        print(f"[train]   {ms:9.2f} ms {ms / busy * 100:5.1f}% x{count:<5d} "
+              f"{name[:90]}")
+    return state, {"wall_ms": wall * 1e3, "busy_ms": busy, **groups}
+
+
+def train_phase(torch):
+    """The flagship fine-tune step through the kernels and through the
+    plain attention. Returns launches, steps, examples/s per impl."""
+    from uniter_tpu_torch.config import base_config, resolve_kernel_policies
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.ops.attention import mha_bwd, mha_fwd
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    num_answer, b = 3129, 96
+    base = base_config(dtype="bfloat16", attention_impl="auto",
+                       block_fusion="auto", hidden_dropout_prob=RATE,
+                       attention_probs_dropout_prob=RATE)
+    sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+        jax_layout_params(base, num_answer, IMG_DIM, SEED)).items()}
+    batch = flagship_batch(torch, base, num_answer, IMG_DIM, torch.bfloat16)
+    trainers = {}
+    for impl in ("cuda", "xla"):
+        cfg = resolve_kernel_policies(base.replace(attention_impl=impl),
+                                      "cuda", training=True)
+        trainers[impl] = make_trainer(torch, cfg, sd, num_answer)
+    check(trainers["cuda"][0].model.uniter.config.attention_impl == "cuda",
+          "the kernel config did not resolve to the kernels")
+    losses = {"cuda": [], "xla": []}
+
+    def run(impl, n):
+        state, step = trainers[impl]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [step(state, batch, SEED)[1]["loss"] for _ in range(n)]
+        losses[impl] += [float(x) for x in ms]  # the readback ends the turn
+        return time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    mha_fwd.launches = mha_bwd.launches = 0
+    run("cuda", 3)  # warm-up: allocator, cuBLAS handles
+    run("xla", 3)
+    secs = {"cuda": [], "xla": []}
+    for impl in ("xla", "cuda", "cuda", "xla"):
+        secs[impl].append(run(impl, 10))
+    fwd, bwd = mha_fwd.launches, mha_bwd.launches
+    steps = trainers["cuda"][0].step
+    eps = {impl: 10 * b * len(v) / sum(v) for impl, v in secs.items()}
+    print(f"[train] uniter-base VQA step, B={b}, T=64, R=40, bf16 over fp32 "
+          f"parameters, dropout {RATE}, fused AdamW bf16 moments: examples/s "
+          f"kernel {eps['cuda']:.1f}, plain {eps['xla']:.1f} (turns of 10 "
+          f"steps: plain, kernel, kernel, plain; host clock, each turn ends "
+          f"in the loss readback; turn seconds "
+          f"{', '.join(f'{x:.3f}' for x in secs['xla'][:1] + secs['cuda'] + secs['xla'][1:])})")
+    print(f"[train] launches over {steps} kernel steps: K1 {fwd}, K2 {bwd} "
+          f"(want {12 * steps} each); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    lk, lx = losses["cuda"], losses["xla"]
+    # step 1 of both paths: the same parameters, batch and dropout seeds
+    # (the generator is keyed by (seed, step)), so the same Philox masks
+    rel1 = abs(lk[0] - lx[0]) / abs(lx[0])
+    print(f"[train] kernel-path loss on the fixed batch: first {lk[0]:.4f}, "
+          f"last {lk[-1]:.4f}; plain first {lx[0]:.4f}, last {lx[-1]:.4f}; "
+          f"step 1 kernel vs plain relative diff {rel1:.2e} (tol 1e-3: bf16 "
+          f"roundings, 2**-8 each, placed differently in 12 layers, "
+          f"averaged over {b} x {num_answer} loss terms)")
+    check(fwd == bwd == 12 * steps, f"K1/K2 launched {fwd}/{bwd} times in "
+          f"{steps} steps")
+    check(all(np.isfinite(lk)) and all(np.isfinite(lx)), "non-finite loss")
+    check(rel1 <= 1e-3, "bf16 dropout-0.1 step 1 losses differ, kernel vs "
+          "plain")
+    check(lk[-1] < lk[0], "the loss did not fall on the fixed batch")
+    prof = {}
+    for impl in ("cuda", "xla"):
+        state, step = trainers[impl]
+        prof[impl] = profile_steps(torch, state, step, batch, 3, impl)[1]
+    del trainers
+    torch.cuda.empty_cache()
+
+    # fp32, dropout 0, 2 layers at base width: the kernels against plain
+    cfg2 = base_config(num_hidden_layers=2, dtype="float32",
+                       hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    sd2 = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+        jax_layout_params(cfg2, num_answer, IMG_DIM, SEED)).items()}
+    batch2 = flagship_batch(torch, cfg2, num_answer, IMG_DIM, None)
+    l2 = {}
+    for impl in ("cuda", "xla"):
+        state, step = make_trainer(torch, cfg2.replace(attention_impl=impl),
+                                   sd2, num_answer)
+        l2[impl] = [float(step(state, batch2, SEED)[1]["loss"])
+                    for _ in range(3)]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(l2["cuda"], l2["xla"]))
+    print(f"[train] fp32, dropout 0, 2 layers, 3 steps: losses kernel "
+          f"{l2['cuda']}, plain {l2['xla']}; max relative diff {rel:.2e} "
+          f"(tol 1e-5: fp32 rounding of another summation order)")
+    check(rel <= 1e-5, "fp32 train losses differ, kernel vs plain")
+    return {"launches": (fwd, bwd), "steps": steps, "ex_per_s": eps,
+            "profile": prof}
+
+
+def write_vqa_dbs(root, n_img, n_q, seed):
+    """txt/img DBs of ``n_q`` questions over ``n_img`` images (10-100
+    regions of fp16 2048-d features, conf, boxes) with the port's writers."""
+    from uniter_tpu_torch.data.img_db import write_img_db
+    from uniter_tpu_torch.data.txt_db import write_txt_db
+
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal((8192, 2048), dtype=np.float32).astype(
+        np.float16)
+    names = [f"coco_{i:06d}.npz" for i in range(n_img)]
+
+    def records():
+        for n in names:
+            nbb = int(rng.integers(10, 101))
+            o = int(rng.integers(0, 8192 - nbb))
+            yield n, dict(
+                features=pool[o:o + nbb],
+                norm_bb=rng.random((nbb, 6), dtype=np.float32).astype(
+                    np.float16),
+                conf=np.linspace(1, 0.3, nbb).astype(np.float16),
+                soft_labels=np.zeros((nbb, 1601), np.float16))
+
+    write_img_db(os.path.join(root, "img"), records(), conf_th=0.2,
+                 max_bb=100, min_bb=10)
+    meta = {"CLS": 101, "SEP": 102, "MASK": 103, "v_range": [999, 28996]}
+    recs, t2i = {}, {}
+    for i in range(n_q):
+        name = names[i % n_img]
+        recs[f"q{i}"] = dict(
+            input_ids=[int(x) for x in rng.integers(999, 28996,
+                                                    int(rng.integers(4, 21)))],
+            img_fname=name,
+            target={"labels": [int(rng.integers(0, 3129))], "scores": [1.0]})
+        t2i[f"q{i}"] = name
+    write_txt_db(os.path.join(root, "txt"), recs, meta, t2i)
+
+
+def cli_phase(torch, n_q=2000):
+    """``train_vqa.main`` (uniter-base, 12 layers) for 20 steps, validating
+    and saving at 10 and 20, a resume to 25, and ``inf_vqa.main`` on its
+    output, all on the card."""
+    from uniter_tpu_torch import inf_vqa, train_vqa
+    from uniter_tpu_torch.utils.misc import parse_with_config
+
+    os.makedirs(os.path.join(REPO, "tmp"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_",
+                            dir=os.path.join(REPO, "tmp"))
+    try:
+        t0 = time.perf_counter()
+        write_vqa_dbs(work, 400, n_q, SEED)
+        out = os.path.join(work, "run")
+        conf = dict(
+            train_txt_db=os.path.join(work, "txt"),
+            train_img_db=os.path.join(work, "img"),
+            val_txt_db=os.path.join(work, "txt"),
+            val_img_db=os.path.join(work, "img"),
+            model_config=os.path.join(REPO, "configs", "uniter-base.json"),
+            output_dir=out, num_train_steps=20, valid_steps=10, log_steps=5,
+            train_batch_size=5120, val_batch_size=10240, n_workers=2,
+            moment_dtype="bfloat16", device="cuda", checkpoint="")
+        path = os.path.join(work, "train.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        t1 = time.perf_counter()
+        state = train_vqa.main(parse_with_config(train_vqa.get_parser(),
+                                                 ["--config", path]))
+        check(state.step == 20, f"train_vqa stopped at {state.step}")
+        del state
+        t2 = time.perf_counter()
+        state = train_vqa.main(parse_with_config(
+            train_vqa.get_parser(),
+            ["--config", path, "--num_train_steps", "25"]))
+        check(state.step == 25, f"resumed run stopped at {state.step}")
+        del state
+        t3 = time.perf_counter()
+        with open(os.path.join(out, "log", "log.txt")) as f:
+            log = f.read()
+        check("resumed from step 20" in log, "the rerun did not resume")
+        ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
+        scores = [json.loads(line)["valid/score"] for line in
+                  open(os.path.join(out, "log", "scalars.jsonl"))
+                  if "valid/score" in line]
+        res = inf_vqa.main(inf_vqa.get_parser().parse_args([
+            "--txt_db", os.path.join(work, "txt"),
+            "--img_db", os.path.join(work, "img"), "--train_dir", out,
+            "--output_dir", os.path.join(work, "ans"), "--device", "cuda",
+            "--save_logits"]))
+        t4 = time.perf_counter()
+        with open(res) as f:
+            answers = json.load(f)
+        logits = np.load(os.path.join(work, "ans", "logits.npz"))
+        check(sorted(a["question_id"] for a in answers)
+              == sorted(f"q{i}" for i in range(n_q)), "answer set")
+        check(all(np.isfinite(logits[k].astype(np.float32)).all()
+                  for k in logits.files), "non-finite logits")
+        print(f"[cli] {n_q} questions over 400 images written in "
+              f"{t1 - t0:.1f} s; train_vqa 20 steps (validate + save at 10, "
+              f"20) {t2 - t1:.1f} s; resumed to 25 {t3 - t2:.1f} s; inf_vqa "
+              f"{t4 - t3:.1f} s; checkpoints {ckpts}; valid scores {scores}; "
+              f"{len(answers)} answers, logits finite")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -325,20 +787,34 @@ def main():
     device_phase(torch)
     build_phase()
     k1_err, k1_time = k1_phase(torch)
+    k2_err, k2_time, _ = k2_phase(torch)
     launches, n_batches, qps, _ = main_path_phase(torch)
     check(launches == 12 * n_batches,
           f"K1 launched {launches} times for {n_batches} batches "
           f"(want 12 per batch)")
-    kernels = [{
-        "name": "mha_fwd",
-        "route": "cuda",
-        "source": "uniter_tpu_torch/csrc/mha_fwd.cu",
-        "replaces": "uniter_tpu/ops/attention.py:118",
-        "launches": launches,
-        "max_abs_err": k1_err,
-        "ms": k1_time["float32"][0],
-        "plain_ms": k1_time["float32"][1],
-    }]
+    train = train_phase(torch)
+    cli_phase(torch)
+    t = k2_time["bfloat16"]
+    kernels = []
+    for name, src, replaces, err, ms, plain, lib, bwd, n in (
+            ("mha_fwd", "mha_fwd.cu", "uniter_tpu/ops/attention.py:118",
+             max(k1_err, k2_err["mha_fwd"]), t[0.0]["fwd"],
+             t[0.0]["fwd_plain"], t["sdpa_fwd"], False,
+             train["launches"][0]),
+            ("mha_bwd", "mha_bwd.cu", "uniter_tpu/ops/attention.py:133",
+             k2_err["mha_bwd"], t[0.0]["bwd"], t[0.0]["bwd_plain"],
+             t["sdpa_bwd"], True, train["launches"][1])):
+        bound, by = bound_ms(96, 104, 12, 64, "bfloat16", bwd)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"uniter_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib})
+    print(f"[smoke] kernels line: times at (96, 104, 12, 64) bf16 rate 0, "
+          f"the training path's dtype (library: scaled_dot_product_attention"
+          f"); launches from the training path ({train['steps']} steps); "
+          f"the serving path launched K1 {launches} times; max_abs_err the "
+          f"worst fp32 difference from the plain version")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,10 +112,106 @@ def test_mha_fwd_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_attention_dropout_waits_for_training_slice():
+    """Live attention dropout needs the call's seed; deterministic calls
+    ignore the rate; a live call applies the seed's Philox mask, the same
+    through the plain version and the kernel wrapper."""
     q, k, v, bias = (torch.from_numpy(a) for a in _inputs(1, 8, 2, 8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         port.multi_head_attention(q, k, v, bias, dropout_rate=0.1,
                                   deterministic=False)
     # deterministic calls ignore the rate
-    port.multi_head_attention(q, k, v, bias, dropout_rate=0.1)
+    torch.testing.assert_close(
+        port.multi_head_attention(q, k, v, bias, dropout_rate=0.1),
+        port._mha_torch(q, k, v, bias), atol=0, rtol=0)
+    outs = [port.multi_head_attention(q, k, v, bias, impl=impl,
+                                      dropout_rate=0.1, deterministic=False,
+                                      seed=5) for impl in ("xla", "cuda")]
+    torch.testing.assert_close(outs[0], outs[1], atol=0, rtol=0)
+    torch.testing.assert_close(outs[0], port._mha_torch(q, k, v, bias, 0.1, 5),
+                               atol=0, rtol=0)
+    assert not torch.equal(outs[0], port._mha_torch(q, k, v, bias))
 
+
+def _bwd_inputs(b, s, h, d, seed=0):
+    """As ``_inputs`` plus an output gradient g, with only row 0 all padding
+    (zero query, so its scores are exactly -10000): every other row has a
+    valid key. Padded keys in the other rows are included."""
+    q, k, v, bias = _inputs(b, s, h, d, seed)
+    bias[1] = 0.0
+    bias[1, s // 2:] = -10000.0
+    g = np.random.RandomState(seed + 1).randn(b, s, h, d).astype(np.float32)
+    return q, k, v, bias, g
+
+
+def _port_grads(q, k, v, bias, g, fn):
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    (fn(tq, tk, tv, torch.from_numpy(bias)) * torch.from_numpy(g)
+     ).sum().backward()
+    return [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("s", [13, 24])
+def test_mha_backward_matches_jax_grad(jax_impl, s, pallas_interpret):
+    """autograd through ``MhaFunction`` (on the CPU: the plain forward and
+    ``_mha_bwd_torch``) against ``jax.grad`` of the JAX package's XLA path
+    and of its Pallas kernel pair under the interpreter, rate 0, 1e-5."""
+    import jax
+
+    q, k, v, bias, g = _bwd_inputs(3, s, 4, 8, seed=s)
+    want = jax.grad(
+        lambda q, k, v: jnp.sum(jax_mha(q, k, v, jnp.asarray(bias),
+                                        impl=jax_impl) * jnp.asarray(g)),
+        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    got = _port_grads(q, k, v, bias, g,
+                      lambda *a: port.MhaFunction.apply(*a, 0.0, 0))
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(x, np.asarray(ref), atol=ATOL, rtol=RTOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 3), (0.5, 1 << 40)])
+def test_mha_bwd_formula_matches_autograd(rate, seed):
+    """``_mha_bwd_torch`` (the explicit formula K2 mirrors) equals autograd
+    through ``_mha_torch`` with the same seed, so the same mask: 1e-5."""
+    q, k, v, bias, g = _bwd_inputs(2, 19, 3, 8, seed=7)
+    got = port._mha_bwd_torch(*(torch.from_numpy(a) for a in (q, k, v, bias,
+                                                              g)),
+                              rate, seed)
+    want = _port_grads(q, k, v, bias, g,
+                       lambda *a: port._mha_torch(*a, rate, seed))
+    for x, ref in zip(got, want):
+        assert x.is_contiguous()
+        np.testing.assert_allclose(x.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+def test_mha_function_gradcheck_float64():
+    """``torch.autograd.gradcheck`` of the plain forward paired with
+    ``_mha_bwd_torch``, in float64 (the plain versions keep float64) at
+    rate 0.2 with padded keys."""
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.tensor(rng.randn(2, 6, 2, 8), dtype=torch.float64,
+                            requires_grad=True) for _ in range(3))
+    bias = torch.zeros(2, 6, dtype=torch.float64)
+    bias[1, 4:] = -10000.0
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: _PlainPair.apply(q, k, v, bias, 0.2, 9), (q, k, v),
+        eps=1e-6, atol=1e-6)
+
+
+class _PlainPair(torch.autograd.Function):
+    """``MhaFunction``'s pairing (forward, then the explicit backward from
+    q, k, v, bias and the seed) on the plain versions, which take float64
+    where the kernel wrappers take fp32/bf16 only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, rate, seed):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.rate, ctx.seed = rate, seed
+        return port._mha_torch(q, k, v, bias, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        return (*port._mha_bwd_torch(q, k, v, bias, g, ctx.rate, ctx.seed),
+                None, None, None)

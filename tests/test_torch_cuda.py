@@ -8,9 +8,15 @@ machine without jax:
 
 K1 (``csrc/mha_fwd.cu``) is held against its plain version at the main
 path's attention shape, fp32 to 1e-5 and bf16 (against fp32 on the same
-bf16 inputs) to 1e-2; rows whose keys are all padding as
-tests/test_torch_attention.py explains. A small VQA model answers the same
-through the kernel and through the plain attention.
+bf16 inputs) to 1e-2, at dropout rate 0 and 0.1 (same seed, so the same
+Philox mask); at rate 0.1 the bf16 bound adds half a bf16 step of the
+value; rows whose keys are all padding as
+tests/test_torch_attention.py explains. K2 (``csrc/mha_bwd.cu``) is held
+against the explicit formula ``_mha_bwd_torch``: fp32 to 1e-4 (another
+summation order over S and D), bf16 against the fp32 formula on the same
+bf16 inputs to 2**-8 * |ref| + 1e-3 (one rounding of the result to bf16,
+half a step, plus fp32 noise). A small VQA model answers the same through
+the kernels and through the plain attention, and trains the same.
 """
 
 import pytest
@@ -18,7 +24,8 @@ import torch
 
 from uniter_tpu_torch.config import resolve_kernel_policies, tiny_config
 from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
-from uniter_tpu_torch.ops.attention import _mha_torch, mha_fwd
+from uniter_tpu_torch.ops.attention import (
+    MhaFunction, _mha_bwd_torch, _mha_torch, mha_bwd, mha_fwd)
 
 torch.set_num_threads(2)
 
@@ -46,20 +53,29 @@ def _inputs(gen, b, s, h, d, dtype):
     return q, k, v, (1.0 - mask.float()) * -10000.0
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,s", [(96, 104), (8, 512), (3, 13)])
-def test_mha_kernel_matches_plain(gen, dtype, tol, b, s):
+def test_mha_kernel_matches_plain(gen, dtype, tol, b, s, rate):
     q, k, v, bias = _inputs(gen, b, s, 12, 64, dtype)
     before = mha_fwd.launches
-    out = mha_fwd(q, k, v, bias)
+    out = mha_fwd(q, k, v, bias, rate, 1234)
     torch.cuda.synchronize()
     assert mha_fwd.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    diff = (out.float() - _mha_torch(q.float(), k.float(), v.float(),
-                                     bias)).abs()
+    ref = _mha_torch(q.float(), k.float(), v.float(), bias, rate, 1234)
+    diff = (out.float() - ref).abs()
+    if dtype == torch.bfloat16 and rate:
+        # half a bf16 step at |ref| (the rescale by 1/(1-rate) lifts |out|
+        # past 4, where that half step is 2**-6 > 1e-2); rate 0 keeps the
+        # absolute 1e-2
+        diff = diff - 2.0**-8 * ref.abs()
     assert torch.cat([diff[:1], diff[2:]]).max().item() <= tol
-    assert diff[1].max().item() <= 2.0**-9 * v[1].float().abs().max() + tol
+    assert diff[1].max().item() <= (2.0**-9 * v[1].float().abs().max()
+                                    / (1.0 - rate) + tol)
+    if rate:
+        return
     uniform = v[0].float().mean(0)
     assert (out[0].float() - uniform).abs().max().item() <= tol
 
@@ -110,3 +126,104 @@ def test_vqa_model_through_kernel(gen):
         ref = plain.predict(batch)
     assert mha_fwd.launches == before + cfg.num_hidden_layers
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+def _bwd_inputs(gen, b, s, h, d, dtype):
+    """Every query row but row 0 has a valid key; row 0 is all padding with
+    a zero query (its scores are exactly -10000, so it is well conditioned;
+    a random query there would sit on the fp32 grid at -10000)."""
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                  .to(dtype) for _ in range(4))
+    q[0] = 0
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    lens[0] = 0
+    mask = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    return q, k, v, (1.0 - mask.float()) * -10000.0, g
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d", [(96, 104, 12, 64), (8, 512, 12, 64),
+                                     (3, 13, 12, 64), (4, 70, 4, 128),
+                                     (2, 33, 3, 8)])
+def test_mha_bwd_kernel_matches_plain(gen, dtype, rate, b, s, h, d):
+    q, k, v, bias, g = _bwd_inputs(gen, b, s, h, d, dtype)
+    before = mha_bwd.launches
+    got = mha_bwd(q, k, v, bias, g, rate, 77)
+    torch.cuda.synchronize()
+    assert mha_bwd.launches == before + 1
+    want = _mha_bwd_torch(q.float(), k.float(), v.float(), bias, g.float(),
+                          rate, 77)
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and x.shape == q.shape and x.is_contiguous()
+        diff = (x.float() - ref).abs()
+        if dtype == torch.float32:
+            assert diff.max().item() <= 1e-4, name
+        else:
+            assert (diff <= 2.0**-8 * ref.abs() + 1e-3).all(), name
+
+
+def test_mha_function_grads_through_strided_views(gen):
+    """fused_qkv's q/k/v are strided views of one projection; K2's
+    gradients land in that projection's gradient through autograd."""
+    qkv = torch.randn(4, 40, 3 * 768, generator=gen, device="cuda",
+                      requires_grad=True)
+    bias = torch.zeros(4, 40, device="cuda")
+    bias[1, 30:] = -10000.0
+    g = torch.randn(4, 40, 12, 64, generator=gen, device="cuda")
+
+    def run(fn):
+        qkv.grad = None
+        q, k, v = (qkv[..., i * 768:(i + 1) * 768].view(4, 40, 12, 64)
+                   for i in range(3))
+        (fn(q, k, v) * g).sum().backward()
+        return qkv.grad.clone()
+
+    got = run(lambda q, k, v: MhaFunction.apply(q, k, v, bias, 0.1, 9))
+    want = run(lambda q, k, v: _mha_torch(q, k, v, bias, 0.1, 9))
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_vqa_train_step_through_kernels(gen):
+    """Loss and gradients of a small VQA model with live dropout (one
+    generator seed for both) agree through the kernels and the plain
+    attention; each step launches K1 and K2 once per layer."""
+    from uniter_tpu_torch.train_vqa import vqa_loss
+
+    torch.manual_seed(0)
+    cfg = tiny_config(attention_impl="pallas")
+    model = UniterForVisualQuestionAnswering(
+        resolve_kernel_policies(cfg, "cuda"), img_dim=32, num_answer=9)
+    plain = UniterForVisualQuestionAnswering(
+        resolve_kernel_policies(cfg, "cpu"), img_dim=32, num_answer=9)
+    plain.load_state_dict(model.state_dict())
+    model.cuda()
+    plain.cuda()
+    b, t, r = 6, 12, 10
+    lens = torch.tensor([1, 3, 12, 7, 12, 5], device="cuda")
+    attn = torch.cat([
+        torch.arange(t, device="cuda")[None] < lens[:, None],
+        torch.ones(b, r, dtype=torch.bool, device="cuda")], 1).int()
+    batch = dict(
+        input_ids=torch.randint(0, 512, (b, t), device="cuda"),
+        position_ids=torch.arange(t, device="cuda").repeat(b, 1),
+        img_feat=torch.randn(b, r, 32, generator=gen, device="cuda"),
+        img_pos_feat=torch.rand(b, r, 7, generator=gen, device="cuda"),
+        attn_mask=attn,
+        targets=(torch.rand(b, 9, generator=gen, device="cuda") < 0.3).float(),
+        ex_weight=torch.ones(b, device="cuda"))
+    f0, b0 = mha_fwd.launches, mha_bwd.launches
+    losses, grads = [], []
+    for m in (model, plain):
+        loss = vqa_loss(m, batch, torch.Generator().manual_seed(3), 9)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    assert mha_fwd.launches == f0 + cfg.num_hidden_layers
+    assert mha_bwd.launches == b0 + cfg.num_hidden_layers
+    assert abs(losses[0] - losses[1]) <= 1e-4 * max(1.0, abs(losses[1]))
+    for n, gk in grads[0].items():
+        gx = grads[1][n]
+        assert (gk is None) == (gx is None), n  # mask_embedding: unused
+        if gk is not None:
+            assert (gk - gx).abs().max().item() <= 1e-4, n

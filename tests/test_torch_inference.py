@@ -182,6 +182,8 @@ def test_port_imports_without_jax():
         "import uniter_tpu_torch, uniter_tpu_torch.inf_vqa\n"
         "import uniter_tpu_torch.data.loader, uniter_tpu_torch.ops.attention\n"
         "import uniter_tpu_torch.data.vqa, uniter_tpu_torch.models.checkpoint\n"
+        "import uniter_tpu_torch.train_vqa, uniter_tpu_torch.training.loop\n"
+        "import uniter_tpu_torch.models.losses\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'uniter_tpu')]\n"
         "assert not bad, bad\n"

@@ -237,9 +237,22 @@ def test_vqa_logits_match_jax_base_width():
 
 
 def test_live_dropout_waits_for_training_slice(tiny):
+    """Live dropout draws its seeds from an explicit generator (there is no
+    silent use of torch's global one); the same generator seed gives the
+    same logits, another seed other logits."""
     _, batch, _, model = tiny
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         model.predict(_tt(batch), deterministic=False)
+
+    def live(seed):
+        with torch.no_grad():
+            return model.predict(_tt(batch), deterministic=False,
+                                 generator=torch.Generator().manual_seed(seed))
+
+    torch.testing.assert_close(live(1), live(1), atol=0, rtol=0)
+    assert not torch.equal(live(1), live(2))
+    with torch.no_grad():
+        assert not torch.equal(live(1), model.predict(_tt(batch)))
 
 
 @pytest.mark.parametrize("impl,device,want", [
@@ -255,3 +268,29 @@ def test_resolve_kernel_policies_from_explicit_device(impl, device, want):
     with pytest.raises(ValueError):
         pconfig.resolve_kernel_policies(cfg.replace(attention_impl="x"),
                                         device)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_resolve_kernel_policies_for_training(device):
+    """Training: block fusion "none" and "auto" run the plain tails;
+    "pallas" asks for K3-K6, which the card refuses (the CPU takes the plain
+    version of every kernel); the 16/8-bit dropout thresholds raise on
+    every device."""
+    cfg = pconfig.UniterConfig.from_dict(dict(jax_tiny().to_dict()))
+    for bf in ("none", "auto"):
+        got = pconfig.resolve_kernel_policies(
+            cfg.replace(block_fusion=bf), device, training=True)
+        assert got.block_fusion == "none"
+    pallas = cfg.replace(block_fusion="pallas")
+    if device == "cuda":
+        with pytest.raises(NotImplementedError, match="K3"):
+            pconfig.resolve_kernel_policies(pallas, device, training=True)
+    else:
+        assert pconfig.resolve_kernel_policies(
+            pallas, device, training=True).block_fusion == "none"
+    for impl in ("u16", "u8"):
+        with pytest.raises(NotImplementedError, match=impl):
+            pconfig.resolve_kernel_policies(cfg.replace(dropout_impl=impl),
+                                            device, training=True)
+    assert pconfig.resolve_kernel_policies(
+        cfg.replace(dropout_impl="u16"), device).dropout_impl == "u16"

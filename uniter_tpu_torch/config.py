@@ -3,10 +3,10 @@
 The hyperparameter surface of ``uniter_tpu.config.UniterConfig`` (the
 reference's ``UniterConfig``, loaded from config/uniter-{base,large}.json)
 plus the compute-policy knobs this package acts on. ``from_dict`` ignores
-the JAX package's other knobs (block fusion, LayerNorm/FFN kernels, scan
-and remat settings), so a training run's ``log/model.json`` loads
-unchanged; ``resolve_kernel_policies`` maps its attention policy onto this
-package's kernel for an explicit device.
+the JAX package's other knobs (LayerNorm/FFN kernels, scan and remat
+settings), so a training run's ``log/model.json`` loads unchanged;
+``resolve_kernel_policies`` maps its attention and block-fusion policies
+onto this package's kernels for an explicit device.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
+
+from uniter_tpu_torch.utils.logger import LOGGER
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,6 +44,14 @@ class UniterConfig:
     # torch version). The JAX package's "auto"/"pallas"/"pallas_nt" are
     # accepted and resolved by resolve_kernel_policies.
     attention_impl: str = "xla"
+    # Dropout masks: "xla" is the 32-bit rule (keep iff u32 >= rate * 2**32,
+    # Philox bits, ops/dropout.py). The JAX package's "u16"/"u8" are not
+    # ported and raise when training.
+    dropout_impl: str = "xla"
+    # "pallas" fuses each dropout + residual + LayerNorm tail into one kernel
+    # in the JAX package (K3-K6, not ported yet); "none" composes the plain
+    # ops. resolve_kernel_policies decides what a device runs.
+    block_fusion: str = "none"
     layer_norm_eps: float = 1e-12
     # One [3H, H] projection instead of three (weights stay query/key/value,
     # so checkpoints are unaffected).
@@ -69,14 +79,24 @@ class UniterConfig:
         return dataclasses.asdict(self)
 
 
-def resolve_kernel_policies(cfg: UniterConfig, device) -> UniterConfig:
-    """Resolve the attention policy for ``device`` (decided from the
+def resolve_kernel_policies(cfg: UniterConfig, device, *,
+                            training: bool = False) -> UniterConfig:
+    """Resolve the kernel policies for ``device`` (decided from the
     argument, never by probing the process).
 
-    On a CUDA device "auto", "pallas" and "pallas_nt" select the
-    hand-written kernel ("cuda"); the TPU's ``pallas_nt`` layout variant
+    Attention: on a CUDA device "auto", "pallas" and "pallas_nt" select the
+    hand-written kernels ("cuda"); the TPU's ``pallas_nt`` layout variant
     has no counterpart here. "xla", and every policy on a CPU device,
     select the plain torch version.
+
+    Block fusion (the fused dropout + residual + LayerNorm tails, K3-K6)
+    runs only while a dropout mask is live (``uniter_tpu/models/encoder.py``
+    :65,92), so inference resolves it to "none" on every device. For
+    ``training``: "none" stays; "auto" becomes "none" (logged: K3-K6 are
+    not ported yet); "pallas" raises on a CUDA device rather than run the
+    plain tails in place of the kernels it asked for, and a CPU device
+    takes the plain version of every kernel, as for attention. A
+    ``dropout_impl`` other than "xla" raises when training.
     """
     on_cuda = torch.device(device).type == "cuda"
     att = cfg.attention_impl
@@ -84,7 +104,25 @@ def resolve_kernel_policies(cfg: UniterConfig, device) -> UniterConfig:
         att = "cuda" if on_cuda else "xla"
     elif att != "xla":
         raise ValueError(f"unknown attention_impl {att!r}")
-    return cfg.replace(attention_impl=att)
+    bf = cfg.block_fusion
+    if bf not in ("auto", "none", "pallas"):
+        raise ValueError(f"unknown block_fusion {bf!r}")
+    if training:
+        if bf == "pallas" and on_cuda:
+            raise NotImplementedError(
+                "block_fusion='pallas' needs the fused dropout+residual+"
+                "LayerNorm kernels K3/K4 (uniter_tpu/ops/fused_block.py "
+                "_fwd_kernel/_bwd_kernel) and LayerNorm+dropout K5/K6 "
+                "(_ln_drop_fwd_kernel/_ln_drop_bwd_kernel), which are not "
+                "ported yet; run with --block_fusion none")
+        if bf == "auto" and on_cuda:
+            LOGGER.info("block_fusion auto -> none: the fused tail kernels "
+                        "K3-K6 are not ported yet")
+        if cfg.dropout_impl != "xla":
+            raise NotImplementedError(
+                f"dropout_impl {cfg.dropout_impl!r} is not ported; use "
+                "'xla' (32-bit thresholds)")
+    return cfg.replace(attention_impl=att, block_fusion="none")
 
 
 def base_config(**overrides) -> UniterConfig:

@@ -1,9 +1,13 @@
 // K1: fused multi-head attention forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel uniter_tpu/ops/attention.py `_mha_fwd_kernel`
-// (launched by `_mha_pallas_raw`, with `_attn_probs`) at dropout rate 0:
+// (launched by `_mha_pallas_raw`, with `_attn_probs` and `_dropout_bits`):
 //
-//     out[b, i, h, :] = softmax_j(q[b,i,h,:] . k[b,j,h,:] * sm_scale + bias[b,j]) @ v[b, :, h, :]
+//     P[b, h, i, :] = softmax_j(q[b,i,h,:] . k[b,j,h,:] * sm_scale + bias[b,j])
+//     out[b, i, h, :] = dropout(P[b, h, i, :]) @ v[b, :, h, :]
+//
+// with dropout keeping P[b,h,i,j] iff its Philox word >= `thr` and scaling
+// kept values by `inv_keep` = 1 / (1 - rate) (philox.cuh states the bits).
 //
 // q, k, v are read in their [B, S, H, D] layout through strides (the
 // innermost dimension contiguous), so the caller transposes nothing; the
@@ -42,11 +46,18 @@
 //     and divides by the row sum at the end. In fp32 that differs by rounding
 //     only; in bf16 it skips the reference's rounding of P to bf16, so bf16
 //     results are compared at their own tolerance.
-// Dropout on P (and the backward, K2) arrive with the training slice.
+//
+// Dropout. The reference drops the NORMALISED probabilities
+// (attention.py:48-51), so the row sum `l` accumulates every exp(), dropped
+// or not; only the P.V accumulation takes the masked, rescaled values, and
+// the division by `l` comes at the end. thr == 0 (rate 0) draws no bits and
+// runs exactly the arithmetic of the rate-0 kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -71,7 +82,8 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                long long q_sb, long long q_ss, long long q_sh,
                long long k_sb, long long k_ss, long long k_sh,
                long long v_sb, long long v_ss, long long v_sh,
-               float sm_scale) {
+               float sm_scale, unsigned thr, float inv_keep,
+               unsigned long long seed) {
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned base
   float* qt = reinterpret_cast<float*>(smem4);  // [D][LDQ]
   float* kt = qt + D * LDQ;                     // [D][LDK]
@@ -180,6 +192,17 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4 * MAX_CG; ++c) acc[i][c] *= alpha;
     }
 
+    if (thr) {  // dropout on P, after the row sums took every exp()
+      const long long row0 = (static_cast<long long>(b) * H + h) * S + q0 + 4 * ty;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 w = uniter::mask_words(seed, row0 + i, (k0 >> 2) + tx);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[i][j] = uniter::word(w, j) >= thr ? s[i][j] * inv_keep : 0.f;
+      }
+    }
+
     // P tile, transposed: pt[key][row]
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -230,7 +253,8 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
            long long q_sb, long long q_ss, long long q_sh,
            long long k_sb, long long k_ss, long long k_sh,
            long long v_sb, long long v_ss, long long v_sh,
-           float sm_scale, cudaStream_t stream) {
+           float sm_scale, unsigned thr, float inv_keep,
+           unsigned long long seed, cudaStream_t stream) {
   const int smem = (D * LDQ + D * LDK + BK * D + BK * LDP) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       mha_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -240,29 +264,32 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(out), S, H, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-      v_sb, v_ss, v_sh, sm_scale);
+      v_sb, v_ss, v_sh, sm_scale, thr, inv_keep, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. Strides are in
-// elements (torch's convention). Returns the launch's cudaError_t (0 = ok).
+// elements (torch's convention). thr = floor(rate * 2^32) (0: no dropout),
+// inv_keep = 1 / (1 - rate). Returns the launch's cudaError_t (0 = ok).
 // The caller validates shapes, dtypes, devices and strides.
 extern "C" int uniter_mha_fwd(const void* q, const void* k, const void* v,
                               const void* bias, void* out, int B, int S,
                               int H, int D, long long q_sb, long long q_ss,
                               long long q_sh, long long k_sb, long long k_ss,
                               long long k_sh, long long v_sb, long long v_ss,
-                              long long v_sh, float sm_scale, int dtype,
-                              void* stream) {
+                              long long v_sh, float sm_scale, unsigned thr,
+                              float inv_keep, unsigned long long seed,
+                              int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, bias, out, B, S, H, D, q_sb, q_ss, q_sh,
-                         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sm_scale, st);
+                         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sm_scale, thr,
+                         inv_keep, seed, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, bias, out, B, S, H, D, q_sb, q_ss,
                                  q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                                 sm_scale, st);
+                                 sm_scale, thr, inv_keep, seed, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

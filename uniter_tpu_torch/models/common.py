@@ -4,12 +4,13 @@
 from __future__ import annotations
 
 
-def encode_batch(uniter, batch, deterministic: bool = True):
+def encode_batch(uniter, batch, deterministic: bool = True, generator=None):
     """Run the UniterModel trunk on the canonical batch dict.
 
     Canonical keys (static shapes): input_ids [B,T], position_ids [B,T],
     img_feat [B,R,D], img_pos_feat [B,R,7], attn_mask [B,T+R]; optional
-    txt_type_ids, img_type_ids, img_masks.
+    txt_type_ids, img_type_ids, img_masks. ``generator`` seeds the live
+    dropout masks (``deterministic=False``).
     """
     return uniter(
         input_ids=batch.get("input_ids"),
@@ -21,4 +22,5 @@ def encode_batch(uniter, batch, deterministic: bool = True):
         txt_type_ids=batch.get("txt_type_ids"),
         img_type_ids=batch.get("img_type_ids"),
         deterministic=deterministic,
+        generator=generator,
     )

@@ -8,6 +8,12 @@ stored fp32 and activations run in ``config.dtype``; LayerNorm statistics
 and the attention softmax run in fp32; LN eps is 1e-12 and GELU the erf
 form.
 
+Dropout (rate 0.1 in training) is live at both embedding tails, both
+sub-block tails and the attention probabilities when ``deterministic`` is
+False. Each such call draws its own seed from the ``generator`` argument, a
+``torch.Generator`` the train step makes per step (never torch's global
+one), so a step's masks are a function of that generator's seed alone.
+
 Submodules are named after the reference ``.pt`` keys that
 ``uniter_tpu.models.checkpoint.export_state_dict`` emits (for example
 ``encoder.layer.3.attention.self.query.weight``), so those state dicts load
@@ -23,7 +29,7 @@ from torch import nn
 from uniter_tpu_torch.config import UniterConfig
 from uniter_tpu_torch.ops.activations import ACT2FN
 from uniter_tpu_torch.ops.attention import multi_head_attention
-from uniter_tpu_torch.ops.dropout import dropout
+from uniter_tpu_torch.ops.dropout import draw_seed, dropout
 from uniter_tpu_torch.ops.layer_norm import layer_norm
 
 MASK_VALUE = -10000.0  # additive padding bias, reference model/model.py:345
@@ -52,15 +58,18 @@ class LayerNorm(nn.Module):
 class DropResLN(LayerNorm):
     """``LayerNorm(dropout(x) + res)``: the tail of both BERT sub-blocks
     (reference model/layer.py:104-127,158-170). Parameters are a plain
-    LayerNorm's. The fused Pallas tail runs only while a dropout mask is
-    live, so inference takes this plain composition on every device."""
+    LayerNorm's. This is the plain composition of ``block_fusion="none"``;
+    the fused tail (K3/K4) is not ported yet, and
+    ``config.resolve_kernel_policies`` refuses a training config that asks
+    for it."""
 
     def __init__(self, features: int, rate: float, eps: float = 1e-12):
         super().__init__(features, eps)
         self.rate = rate
 
-    def forward(self, x, res, deterministic: bool = True):
-        x = dropout(x, self.rate, deterministic=deterministic)
+    def forward(self, x, res, deterministic: bool = True, generator=None):
+        x = dropout(x, self.rate, deterministic=deterministic,
+                    generator=generator)
         return layer_norm(x + res, self.weight, self.bias, self.eps)
 
 
@@ -72,9 +81,10 @@ class LNDrop(LayerNorm):
         super().__init__(features, eps)
         self.rate = rate
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, generator=None):
         y = layer_norm(x, self.weight, self.bias, self.eps)
-        return dropout(y, self.rate, deterministic=deterministic)
+        return dropout(y, self.rate, deterministic=deterministic,
+                       generator=generator)
 
 
 class Embed(nn.Embedding):
@@ -108,13 +118,13 @@ class UniterTextEmbeddings(nn.Module):
                                 cfg.layer_norm_eps)
 
     def forward(self, input_ids, position_ids, token_type_ids=None, *,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         emb = (self.word_embeddings(input_ids)
                + self.position_embeddings(position_ids)
                + self.token_type_embeddings(token_type_ids))
-        return self.LayerNorm(emb, deterministic=deterministic)
+        return self.LayerNorm(emb, deterministic, generator)
 
 
 class UniterImageEmbeddings(nn.Module):
@@ -134,7 +144,8 @@ class UniterImageEmbeddings(nn.Module):
         self.LayerNorm = LNDrop(h, cfg.hidden_dropout_prob, eps)
 
     def forward(self, img_feat, img_pos_feat, type_embeddings,
-                img_masks=None, *, deterministic: bool = True):
+                img_masks=None, *, deterministic: bool = True,
+                generator=None):
         if img_masks is not None:
             row = self.mask_embedding.weight[1].to(img_feat.dtype)
             img_feat = img_feat + torch.where(
@@ -142,8 +153,8 @@ class UniterImageEmbeddings(nn.Module):
         dt = self.compute_dtype
         im = self.img_layer_norm(self.img_linear(img_feat.to(dt)))
         pos = self.pos_layer_norm(self.pos_linear(img_pos_feat.to(dt)))
-        return self.LayerNorm(im + pos + type_embeddings,
-                              deterministic=deterministic)
+        return self.LayerNorm(im + pos + type_embeddings, deterministic,
+                              generator)
 
 
 class BertSelfAttention(nn.Module):
@@ -175,14 +186,16 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(cfg)
         self.output = BertSelfOutput(cfg)
 
-    def forward(self, hidden, bias, deterministic: bool = True):
+    def forward(self, hidden, bias, deterministic: bool = True,
+                generator=None):
         cfg = self.cfg
         b, s, _ = hidden.shape
         nh, d, hs = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
         sa = self.self
         if cfg.fused_qkv:
             # one [3H, H] GEMM; q/k/v are strided views of its output, which
-            # the kernel reads through strides
+            # the kernels read through strides (K2's contiguous gradients
+            # flow back into the projection's gradient through autograd)
             w = torch.cat([sa.query.weight, sa.key.weight, sa.value.weight])
             bvec = torch.cat([sa.query.bias, sa.key.bias, sa.value.bias])
             qkv = F.linear(hidden, w.to(hidden.dtype), bvec.to(hidden.dtype))
@@ -191,12 +204,16 @@ class BertAttention(nn.Module):
         else:
             q, k, v = (m(hidden).view(b, s, nh, d)
                        for m in (sa.query, sa.key, sa.value))
+        rate = cfg.attention_probs_dropout_prob
+        live = not deterministic and rate > 0.0
+        if live and generator is None:
+            raise ValueError("live dropout needs a torch.Generator")
         ctx = multi_head_attention(
-            q, k, v, bias, impl=cfg.attention_impl,
-            dropout_rate=cfg.attention_probs_dropout_prob,
-            deterministic=deterministic).reshape(b, s, hs)
+            q, k, v, bias, impl=cfg.attention_impl, dropout_rate=rate,
+            deterministic=not live,
+            seed=draw_seed(generator) if live else None).reshape(b, s, hs)
         out = self.output.dense(ctx)
-        return self.output.LayerNorm(out, hidden, deterministic)
+        return self.output.LayerNorm(out, hidden, deterministic, generator)
 
 
 class BertIntermediate(nn.Module):
@@ -227,10 +244,11 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
 
-    def forward(self, hidden, bias, deterministic: bool = True):
-        attn_out = self.attention(hidden, bias, deterministic)
+    def forward(self, hidden, bias, deterministic: bool = True,
+                generator=None):
+        attn_out = self.attention(hidden, bias, deterministic, generator)
         out = self.output.dense(self.intermediate(attn_out))
-        return self.output.LayerNorm(out, attn_out, deterministic)
+        return self.output.LayerNorm(out, attn_out, deterministic, generator)
 
 
 class UniterEncoder(nn.Module):
@@ -242,9 +260,10 @@ class UniterEncoder(nn.Module):
         self.layer = nn.ModuleList(BertLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, hidden, bias, deterministic: bool = True):
+    def forward(self, hidden, bias, deterministic: bool = True,
+                generator=None):
         for layer in self.layer:
-            hidden = layer(hidden, bias, deterministic)
+            hidden = layer(hidden, bias, deterministic, generator)
         return hidden
 
 
@@ -287,11 +306,12 @@ class UniterModel(nn.Module):
     def forward(self, input_ids=None, position_ids=None, img_feat=None,
                 img_pos_feat=None, attn_mask=None, img_masks=None,
                 txt_type_ids=None, img_type_ids=None, *,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         embs = []
         if input_ids is not None:
             embs.append(self.embeddings(input_ids, position_ids, txt_type_ids,
-                                        deterministic=deterministic))
+                                        deterministic=deterministic,
+                                        generator=generator))
         if img_feat is not None:
             if img_type_ids is None:
                 img_type_ids = torch.ones(img_feat.shape[:2],
@@ -302,6 +322,8 @@ class UniterModel(nn.Module):
             type_emb = self.embeddings.token_type_embeddings(img_type_ids)
             embs.append(self.img_embeddings(img_feat, img_pos_feat, type_emb,
                                             img_masks,
-                                            deterministic=deterministic))
+                                            deterministic=deterministic,
+                                            generator=generator))
         emb = embs[0] if len(embs) == 1 else torch.cat(embs, dim=1)
-        return self.encoder(emb, attn_bias(attn_mask), deterministic)
+        return self.encoder(emb, attn_bias(attn_mask), deterministic,
+                            generator)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. ``nvcc`` compiles it for
 Hopper (``sm_90a``) into ``build/uniter_tpu_torch/lib<name>.so`` at first
-use, and ``ctypes`` loads it. No source includes PyTorch's headers, so a
+use, and ``ctypes`` loads it; shared device code lives in ``csrc/*.cuh``
+(a newer header rebuilds every kernel). No source includes PyTorch's headers, so a
 build takes seconds. Sources build in parallel, one ``nvcc`` each; a
 library newer than its source is reused.
 
@@ -26,9 +27,13 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 # kernel name -> ctypes signature of its C entry point ``uniter_<name>``
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U, _UL = ctypes.c_uint, ctypes.c_ulonglong
 SIGNATURES = {
-    "mha_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+    # q k v bias out, B S H D, q/k/v strides, sm_scale, dropout threshold,
+    # 1/(1-rate), seed, dtype, stream
+    "mha_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _U, _F, _UL, _I, _P],
+    # q k v g bias dq dk dv stats, B S H D, q/k/v/g strides, then as mha_fwd
+    "mha_bwd": [_P] * 9 + [_I] * 4 + [_L] * 12 + [_F, _U, _F, _UL, _I, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -51,7 +56,12 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so)
+    if not os.path.exists(so):
+        return True
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+               if f.endswith(".cuh")]
+    return max(os.path.getmtime(f) for f in [src, *headers]) > \
+        os.path.getmtime(so)
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES), *,
@@ -89,11 +99,12 @@ def build(names: Iterable[str] = tuple(SIGNATURES), *,
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built on first use."""
+    """The kernel's library. The first use of any kernel builds every stale
+    one, all at once (a training step needs K1 and K2 back to back)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            build()
             lib = ctypes.CDLL(_paths(name)[1])
             fn = getattr(lib, f"uniter_{name}")
             fn.argtypes = SIGNATURES[name]

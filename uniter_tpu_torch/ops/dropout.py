@@ -1,20 +1,128 @@
-"""Dropout, as far as inference needs it.
+"""Dropout with counter-based Philox4x32-10 masks.
 
-Counterpart of ``uniter_tpu/ops/dropout.py``. Deterministic calls (and a
-rate of 0) are the identity. Live dropout needs the counter-based (Philox)
-masks that the training slice brings with the attention backward and the
-fused residual+LayerNorm kernels; until then it raises.
+Counterpart of ``uniter_tpu/ops/dropout.py``. The rule is the JAX package's
+(``uniter_tpu/ops/attention.py:86-94``, ``ops/fused_block.py:38-43``): an
+element is kept iff its u32 draw is >= floor(rate * 2**32), and kept values
+scale by 1 / (1 - rate). The generator differs: the TPU kernels draw from
+the on-core PRNG and the XLA path from ``jax.random.bernoulli``, neither of
+which a GPU reproduces, so masks here come from Philox4x32-10 and match
+the JAX package in rate and rule, not bit for bit.
+
+The bit of an element is a function of its coordinates and the call's seed
+alone. View the tensor as ``[rows, cols]`` (``cols`` the last dimension):
+element (r, c) takes word ``c % 4`` of Philox4x32-10 with
+
+    key     = (lo32(seed), hi32(seed))
+    counter = (c // 4, lo32(r), hi32(r), offset)
+
+The attention kernels (``csrc/mha_fwd.cu``, ``csrc/mha_bwd.cu``) draw the
+mask of score (b, h, q, k) as element (k) of row ((b*H + h)*S + q) of a
+``[B, H, S, S]`` tensor by the same formula, so the plain versions, the
+forward and the backward all see the same bits, whatever their tiling.
+
+Plain torch has no unsigned 32-bit multiply, and a 32x32 -> 64-bit product
+overflows int64; ``_mulhilo`` splits the constant factor into 16-bit limbs
+(in Python, so the tensor side takes two products) and every intermediate
+stays below 2**49. The arithmetic runs on int64 tensors on the input's
+device (CPU or card).
+
+Masks are never stored by the kernels; ``dropout`` here is the plain
+composition (autograd keeps its boolean mask for the backward).
 """
 
 from __future__ import annotations
 
 import torch
 
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+SEED_MAX = 2**31 - 1  # seeds are drawn in [0, SEED_MAX)
 
-def dropout(x: torch.Tensor, rate: float, *,
-            deterministic: bool = True) -> torch.Tensor:
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi32, lo32) of the 64-bit product of the u32 constant ``a`` and the
+    u32 values ``b`` (int64 tensor), without overflowing int64."""
+    p1 = b * (a & 0xFFFF)  # < 2**48
+    p2 = b * (a >> 16)     # < 2**48
+    t = p1 + ((p2 & 0xFFFF) << 16)
+    return (p2 >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 on int64 tensors holding u32 counter words (broadcast
+    together); ``k0``/``k1`` the two u32 key words. Returns four int64
+    tensors of u32 values."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W0) & _MASK32
+            k1 = (k1 + PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _words(seed: int, offset: int, shape, device):
+    """The four Philox words of every counter of ``shape`` (module
+    docstring), each [rows, ceil(cols / 4)], and the shape's cols."""
+    shape = tuple(int(n) for n in shape)
+    cols = shape[-1] if shape else 1
+    rows = 1
+    for n in shape[:-1]:
+        rows *= n
+    seed, offset = int(seed), int(offset) & _MASK32
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c4 = torch.arange((cols + 3) // 4, dtype=torch.int64, device=device)
+    words = philox4x32_10(c4[None, :], r & _MASK32, r >> 32,
+                          torch.full((), offset, dtype=torch.int64,
+                                     device=device),
+                          seed & _MASK32, (seed >> 32) & _MASK32)
+    return words, rows, cols
+
+
+def _interleave(words, shape, rows, cols):
+    return torch.stack(words, dim=-1).reshape(rows, -1)[:, :cols].reshape(
+        shape)
+
+
+def random_bits(seed: int, offset: int, shape, device=None) -> torch.Tensor:
+    """u32 draws (as int64) for every element of ``shape`` by the rule in
+    the module docstring."""
+    words, rows, cols = _words(seed, offset, shape, device)
+    return _interleave(words, tuple(shape), rows, cols)
+
+
+def threshold(rate: float) -> int:
+    """The u32 threshold: keep iff bits >= floor(rate * 2**32)."""
+    return int(rate * 2**32)
+
+
+def keep_mask(seed: int, offset: int, shape, rate: float,
+              device=None) -> torch.Tensor:
+    """Boolean keep-mask of ``shape``; True with probability 1 - rate.
+    (Each word is compared before the four are interleaved, so the
+    interleave moves bytes, not int64s.)"""
+    words, rows, cols = _words(seed, offset, shape, device)
+    thr = threshold(rate)
+    return _interleave([w >= thr for w in words], tuple(shape), rows, cols)
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One call's seed from the step's (CPU) generator."""
+    return int(torch.randint(SEED_MAX, (1,), generator=generator))
+
+
+def dropout(x: torch.Tensor, rate: float, *, deterministic: bool = True,
+            generator: torch.Generator = None) -> torch.Tensor:
+    """Inverted dropout. Identity when deterministic or rate == 0; a live
+    call draws its seed from ``generator`` (never torch's global one)."""
     if deterministic or rate == 0.0:
         return x
-    raise NotImplementedError(
-        "live dropout arrives with the training slice of the port "
-        "(Philox masks); run with deterministic=True")
+    if generator is None:
+        raise ValueError("live dropout needs a torch.Generator for its seeds")
+    keep = keep_mask(draw_seed(generator), 0, x.shape, rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))

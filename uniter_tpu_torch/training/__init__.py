@@ -1,1 +1,1 @@
-"""Inference plumbing; training arrives with a later slice of the port."""
+"""Training and inference plumbing of the port."""

@@ -1,0 +1,305 @@
+"""Shared fine-tune driver plumbing (counterpart of
+``uniter_tpu/training/driver.py``): the common CLI surface, model config,
+checkpoint load and the run harness.
+
+Each ``train_*.py`` entry point supplies a small adapter (datasets, model,
+loss, validation) and inherits the reference's driver behavior
+(train_nlvr2.py:55-276 skeleton): config-JSON CLI, provenance dump, scalar
+log, periodic validation, checkpoints with resume. One process drives one
+device (``--device``, the card by default).
+
+The flags are the JAX drivers'. Those that tune TPU machinery are accepted
+and do nothing here: ``--attn_batch_block`` (the TPU kernel's grid
+blocking), ``--warmup_compile`` (ahead-of-time XLA compiles), ``--fp16``
+and ``--pin_mem`` (batches are always pinned). Those whose feature is not
+ported raise: ``--fsdp``, ``--param_dtype bfloat16``, ``--wire_codec int8``,
+``--remat``, ``--profile_dir``, ``--optim adam``/``adamax``,
+``--dropout_impl u16``/``u8`` and ``--block_fusion pallas`` on the card
+(the fused tail kernels K3-K6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from uniter_tpu_torch.config import UniterConfig, resolve_kernel_policies
+from uniter_tpu_torch.data.buckets import BucketSpec
+from uniter_tpu_torch.models.checkpoint import load_torch_checkpoint
+from uniter_tpu_torch.training.loop import TrainLoop
+from uniter_tpu_torch.training.optim import build_optimizer
+from uniter_tpu_torch.training.sched import get_lr_schedule
+from uniter_tpu_torch.training.step import TrainState
+from uniter_tpu_torch.utils.logger import LOGGER, TB_LOGGER, add_log_to_file
+from uniter_tpu_torch.utils.misc import set_random_seed
+from uniter_tpu_torch.utils.save import TrainStateSaver, save_training_meta
+
+
+def add_common_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--config", type=str)
+    parser.add_argument("--checkpoint", type=str, default="")
+    parser.add_argument("--model_config", type=str)
+    parser.add_argument("--output_dir", default=None, type=str)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (cuda, cuda:N, cpu)")
+    parser.add_argument("--compressed_db", action="store_true",
+                        help="img DBs use the *_compressed (npz) store "
+                             "layout (reference train_vqa.py:316)")
+    parser.add_argument("--max_txt_len", type=int, default=60)
+    parser.add_argument("--conf_th", type=float, default=0.2)
+    parser.add_argument("--max_bb", type=int, default=100)
+    parser.add_argument("--min_bb", type=int, default=10)
+    parser.add_argument("--num_bb", type=int, default=36)
+    parser.add_argument("--train_batch_size", type=int, default=4096)
+    parser.add_argument("--val_batch_size", type=int, default=4096)
+    parser.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    parser.add_argument("--steps_per_call", type=int, default=1,
+                        help="optimizer steps per stacked batch")
+    parser.add_argument("--learning_rate", type=float, default=3e-5)
+    parser.add_argument("--lr_mul", type=float, default=1.0)
+    parser.add_argument("--valid_steps", type=int, default=1000)
+    parser.add_argument("--log_steps", type=int, default=100)
+    parser.add_argument("--num_train_steps", type=int, default=8000)
+    parser.add_argument("--optim", default="adamw")
+    parser.add_argument("--fused_adamw", type=int, default=1,
+                        help="one-pass AdamW (both moments may be bf16)")
+    parser.add_argument("--moment_dtype", default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="storage dtype for both Adam moments (fp32 "
+                             "arithmetic either way; needs --fused_adamw)")
+    parser.add_argument("--param_dtype", default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="bfloat16 (master-weight mode) is not ported")
+    parser.add_argument("--wire_codec", default="cast",
+                        choices=["cast", "int8"],
+                        help="int8 is not ported")
+    parser.add_argument("--dropout_impl", default="xla",
+                        choices=["xla", "u16", "u8"],
+                        help="u16/u8 are not ported")
+    parser.add_argument("--betas", nargs=2, type=float, default=[0.9, 0.98])
+    parser.add_argument("--dropout", type=float, default=0.1)
+    parser.add_argument("--weight_decay", type=float, default=0.01)
+    parser.add_argument("--grad_norm", type=float, default=2.0)
+    parser.add_argument("--warmup_steps", type=int, default=800)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--dtype", default="bfloat16")
+    parser.add_argument("--attention_impl", default="auto",
+                        choices=["auto", "xla", "pallas", "pallas_nt"],
+                        help="auto/pallas: the hand-written CUDA kernels "
+                             "on the card, the plain version on the CPU")
+    parser.add_argument("--block_fusion", default="auto",
+                        choices=["auto", "none", "pallas"],
+                        help="auto resolves to none (K3-K6 not ported)")
+    parser.add_argument("--attn_batch_block", type=int, default=0,
+                        help="TPU kernel grid blocking; no effect here")
+    parser.add_argument("--fp16", action="store_true",
+                        help="accepted for config compat; bf16 is used")
+    parser.add_argument("--n_workers", type=int, default=4)
+    parser.add_argument("--worker_type", default=None,
+                        choices=["thread", "process", "shm"])
+    parser.add_argument("--pin_mem", action="store_true",
+                        help="accepted; batches are always pinned")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="not ported (chip_smoke.py profiles the step)")
+    parser.add_argument("--remat", action="store_true",
+                        help="not ported")
+    parser.add_argument("--fsdp", action="store_true", help="not ported")
+    parser.add_argument("--fsdp_min_size", type=int, default=2 ** 16)
+    parser.add_argument("--warmup_compile", action="store_true",
+                        help="XLA compile warm-up; no effect here")
+    return parser
+
+
+def check_unported(opts):
+    """Raise for flags whose feature the port does not have yet."""
+    for flag, bad in (("fsdp", True), ("remat", True),
+                      ("param_dtype", "bfloat16"), ("wire_codec", "int8")):
+        if getattr(opts, flag, None) == bad:
+            raise NotImplementedError(
+                f"--{flag} {bad} is not ported (see ROADMAP.md)")
+    if getattr(opts, "profile_dir", None):
+        raise NotImplementedError("--profile_dir is not ported")
+
+
+def optim_kwargs(opts) -> dict:
+    """Shared optimizer options (drivers pass these to build_optimizer)."""
+    md = getattr(opts, "moment_dtype", "float32")
+    md = torch.bfloat16 if md == "bfloat16" else None
+    fused = bool(getattr(opts, "fused_adamw", 0))
+    if md is not None and not fused:
+        raise ValueError("--moment_dtype bfloat16 requires --fused_adamw 1")
+    master = getattr(opts, "param_dtype", "float32") == "bfloat16"
+    return dict(
+        betas=tuple(opts.betas), weight_decay=opts.weight_decay,
+        grad_norm=opts.grad_norm, optim=opts.optim, fused=fused,
+        mu_dtype=md, nu_dtype=md, master=master)
+
+
+def model_config_from_opts(opts, **overrides) -> UniterConfig:
+    with open(opts.model_config) as f:
+        raw = json.load(f)
+    cfg = UniterConfig.from_dict(
+        raw, dtype=opts.dtype,
+        attention_impl=getattr(opts, "attention_impl", "auto"),
+        block_fusion=getattr(opts, "block_fusion", "auto"),
+        dropout_impl=getattr(opts, "dropout_impl", "xla"), **overrides)
+    # --dropout overrides both dropout rates (reference utils/misc.py:57-63)
+    drop = getattr(opts, "dropout", None)
+    if drop is not None:
+        cfg = cfg.replace(hidden_dropout_prob=drop,
+                          attention_probs_dropout_prob=drop)
+    return resolve_kernel_policies(cfg, opts.device, training=True)
+
+
+def init_weights(model: nn.Module, std: float):
+    """The JAX package's initialisers: normal(0, std) for linear weights
+    and embedding tables, zero biases, LayerNorm ones and zeros (torch's
+    global generator, seeded by ``set_random_seed``)."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Embedding)):
+            nn.init.normal_(module.weight, 0.0, std)
+            if getattr(module, "bias", None) is not None:
+                nn.init.zeros_(module.bias)
+        elif hasattr(module, "eps") and hasattr(module, "weight"):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+
+
+def open_img_db(path, opts, compress=None, gt=False):
+    """A ``DetectFeatDb``; ``compress=None`` resolves from
+    ``opts.compressed_db``. Ground-truth region DBs (``gt=True``, or ``coco_gt``/``*_gt`` by name, as the
+    reference detects them) open with conf_th=-1 and num_bb=100."""
+    from uniter_tpu_torch.data.img_db import DetectFeatDb
+
+    if compress is None:
+        compress = bool(getattr(opts, "compressed_db", False))
+    base = os.path.basename(os.path.normpath(path))
+    if "coco_gt" in base or base.endswith("_gt"):
+        gt = True
+    if gt:
+        return DetectFeatDb(path, conf_th=-1, max_bb=opts.max_bb,
+                            min_bb=opts.min_bb, num_bb=100,
+                            compress=compress)
+    return DetectFeatDb(path, conf_th=opts.conf_th, max_bb=opts.max_bb,
+                        min_bb=opts.min_bb, num_bb=opts.num_bb,
+                        compress=compress)
+
+
+def load_trunk_checkpoint(model, opts):
+    """Load ``--checkpoint`` (a reference or exported ``.pt``) into the
+    ``uniter`` trunk. VQA needs none of the JAX package's surgeries (type
+    or word widening). Keys the trunk does not have are skipped; a trunk
+    key the file lacks keeps its initial value, as the JAX merge does."""
+    if not opts.checkpoint:
+        return model
+    sd = load_torch_checkpoint(opts.checkpoint)
+    own = model.uniter.state_dict()
+    take = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()
+            if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    model.uniter.load_state_dict(take, strict=False)
+    LOGGER.info("loaded %d trunk tensors from %s (%d of the trunk's %d "
+                "left at init)", len(take), opts.checkpoint,
+                len(own) - len(take), len(own))
+    return model
+
+
+def setup_run(opts, model_cfg):
+    set_random_seed(opts.seed)
+    os.makedirs(opts.output_dir, exist_ok=True)
+    save_training_meta(opts.output_dir, opts, model_cfg.to_dict())
+    TB_LOGGER.create(os.path.join(opts.output_dir, "log"))
+    add_log_to_file(os.path.join(opts.output_dir, "log", "log.txt"))
+    LOGGER.info("device: %s (attention %s, block_fusion %s, dtype %s)",
+                opts.device, model_cfg.attention_impl,
+                model_cfg.block_fusion, model_cfg.dtype)
+
+
+def bucket_spec(opts, dataset, budget=None) -> BucketSpec:
+    """The JAX driver's bucket grid at data-parallel size 1."""
+    rows = getattr(dataset, "rows_per_example", 1)
+    cap = getattr(opts, "max_txt_len", 60)
+    if cap == -1:
+        cap = 506
+    cap += 6
+    txt_buckets = tuple(b for b in (32, 64, 96, 128, 160, 192, 256, 320, 512)
+                        if b < cap) + (((cap + 7) // 8) * 8,)
+    try:
+        max_r = max(dataset.size_of(i)[1] for i in range(len(dataset)))
+    except Exception:
+        max_r = opts.max_bb
+    max_r = max(max_r, 4)
+    img_buckets = tuple(b for b in (20, 40, 64, 100) if b < max_r) + (
+        ((max_r + 3) // 4) * 4,)
+    return BucketSpec(
+        txt_buckets=txt_buckets, img_buckets=img_buckets,
+        token_budget=budget or opts.train_batch_size,
+        size_mul=max(8, rows))
+
+
+def check_token_range(model_cfg, dataset, n_samples: int = 32):
+    """Fail fast on ids past the embedding tables (the lookup clamps them,
+    as the JAX package's does, which would otherwise train silently on the
+    wrong rows)."""
+    n = len(dataset)
+    if n == 0:
+        return
+
+    def deep_max(v):
+        if isinstance(v, (list, tuple)):
+            vals = [m for m in (deep_max(x) for x in v) if m is not None]
+            return max(vals) if vals else None
+        arr = np.asarray(v)
+        return int(arr.max()) if arr.size else None
+
+    rng = np.random.RandomState(0)
+    for i in range(0, n, max(1, n // n_samples)):
+        rec = dataset.get_record(i, rng)
+        if not isinstance(rec, dict):
+            return
+        m = deep_max(rec.get("input_ids", ()))
+        if m is not None and m >= model_cfg.vocab_size:
+            raise ValueError(
+                f"token id {m} >= vocab_size {model_cfg.vocab_size} "
+                f"(record {i})")
+        m = deep_max(rec.get("txt_type_ids", ()))
+        if m is not None and m >= model_cfg.type_vocab_size:
+            raise ValueError(
+                f"type id {m} >= type_vocab_size "
+                f"{model_cfg.type_vocab_size} (record {i})")
+
+
+def run_training(opts, *, model, loss_fn, train_loader, validate_fn=None,
+                 lr_mul_paths: Sequence[str] = (), loss_scale: str = "sum"):
+    """Optimizer, train state (resumed from ``output_dir`` when it holds
+    one), and the loop. ``model`` is on ``opts.device`` already."""
+    sched = get_lr_schedule(opts.learning_rate, opts.warmup_steps,
+                            opts.num_train_steps)
+    opt = build_optimizer(model, sched, lr_mul=getattr(opts, "lr_mul", 1.0),
+                          lr_mul_paths=lr_mul_paths, **optim_kwargs(opts))
+    state = TrainState(step=0, model=model, opt=opt)
+    saver = TrainStateSaver(opts.output_dir)
+    if saver.restore(state, seed=opts.seed) is not None:
+        LOGGER.info("resumed from step %d", state.step)
+    ds = getattr(train_loader, "dataset", None)
+    if ds is not None:
+        check_token_range(model.uniter.config, ds)
+    cdt = model.uniter.config.compute_dtype
+    loop = TrainLoop(
+        loss_fn=loss_fn, state=state, train_loader=train_loader,
+        device=opts.device, num_train_steps=opts.num_train_steps,
+        gradient_accumulation_steps=opts.gradient_accumulation_steps,
+        valid_steps=opts.valid_steps,
+        log_steps=getattr(opts, "log_steps", 100),
+        validate_fn=validate_fn, saver=saver, seed=opts.seed,
+        transfer_dtype=None if cdt == torch.float32 else cdt,
+        steps_per_call=getattr(opts, "steps_per_call", 1),
+        lr_schedule=sched, loss_scale=loss_scale)
+    state = loop.run()
+    LOGGER.info("training finished at step %d", state.step)
+    return state

@@ -1,7 +1,8 @@
 """Shared inference plumbing (counterpart of ``uniter_tpu/training/infer.py``):
 reload ``hps.json``/``model.json`` from a training directory, load a
-weights snapshot, and run a model over bucketed eval batches on one
-device.
+weights snapshot (the JAX package's ``model_step_N.msgpack`` or this
+package's ``model_step_N.pt``), and run a model over bucketed eval batches
+on one device.
 
 Parameters go to the device once (the caller moves the model); each batch
 is copied host -> device by a pinned, non-blocking put on the
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from uniter_tpu_torch.config import UniterConfig, resolve_kernel_policies
-from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+from uniter_tpu_torch.models.checkpoint import (
+    load_torch_checkpoint, state_dict_from_jax_params)
 from uniter_tpu_torch.utils.logger import LOGGER
 from uniter_tpu_torch.utils.save import load_params_msgpack
 
@@ -44,10 +46,27 @@ def model_config_from_meta(model_json: dict, device, **overrides) -> UniterConfi
         UniterConfig.from_dict(model_json, **overrides), device)
 
 
+_SNAPSHOT = re.compile(r"model_step_(\d+)\.(pt|msgpack)")
+# at one step, this package's own .pt before a JAX export
+_EXT_RANK = {"pt": 1, "msgpack": 0}
+
+
+def _snapshots(d: str):
+    """(step, ext rank, file) of every weights snapshot in ``d``."""
+    out = []
+    for f in os.listdir(d):
+        m = _SNAPSHOT.fullmatch(f)
+        if m:
+            out.append((int(m.group(1)), _EXT_RANK[m.group(2)], f))
+    return out
+
+
 def resolve_ckpt(train_dir: str, ckpt: Optional[str] = None) -> str:
     """An explicit snapshot file, ``best``/``<step>`` by name under
     train_dir/ckpt (the reference's ``--checkpoint best`` convention,
-    inf_re.py:53-56), or the latest model_step_N.msgpack.
+    inf_re.py:53-56), or the latest model_step_N snapshot: ``.msgpack``
+    (a JAX run) or ``.pt``  (a run of this package), the newer step first
+    and, at one step, the ``.pt``.
 
     An explicitly requested checkpoint that does not exist is an error:
     falling back to the latest snapshot would report results for the wrong
@@ -57,45 +76,53 @@ def resolve_ckpt(train_dir: str, ckpt: Optional[str] = None) -> str:
             if not train_dir:
                 raise FileNotFoundError(
                     f"--ckpt {ckpt} needs --train_dir to resolve")
-            ckpt = os.path.join(train_dir, "ckpt",
-                                f"model_step_{ckpt}.msgpack")
+            d = os.path.join(train_dir, "ckpt")
+            named = sorted((_EXT_RANK[e], f"model_step_{ckpt}.{e}")
+                           for e in _EXT_RANK
+                           if os.path.exists(os.path.join(
+                               d, f"model_step_{ckpt}.{e}")))
+            ckpt = os.path.join(d, named[-1][1] if named
+                                else f"model_step_{ckpt}.msgpack")
         if not os.path.exists(ckpt):
             raise FileNotFoundError(f"--ckpt {ckpt} does not exist")
         return ckpt
     if not train_dir:
         raise FileNotFoundError("no --train_dir and no --ckpt given")
     d = os.path.join(train_dir, "ckpt")
-    cands = []
-    for f in os.listdir(d):
-        m = re.match(r"model_step_(\d+)\.msgpack", f)
-        if m:
-            cands.append((int(m.group(1)), f))
+    cands = _snapshots(d)
     if not cands:
         raise FileNotFoundError(f"no weight snapshot under {d}")
-    path = os.path.join(d, max(cands)[1])
+    path = os.path.join(d, max(cands)[2])
     LOGGER.info("using checkpoint %s", path)
     return path
 
 
+_TRUNK = ("embeddings.", "img_embeddings.", "encoder.", "pooler.")
+
+
 def load_params(path: str) -> Dict[str, torch.Tensor]:
-    """A JAX weights snapshot as this package's state dict (CPU tensors)."""
+    """A weights snapshot as this package's state dict (CPU tensors): a JAX
+    ``.msgpack`` through the weight bridge, or a ``.pt`` in the reference
+    key layout (this package's own, or a released one with gamma/beta
+    names), normalized and with its trunk under ``uniter.``."""
     if path.endswith(".msgpack"):
         sd = state_dict_from_jax_params(load_params_msgpack(path))
-        return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
-    if path.endswith(".pt"):
-        raise ValueError(
-            "torch checkpoints load through models.checkpoint."
-            "load_torch_checkpoint, not here")
-    raise ValueError(f"unknown checkpoint format: {path}")
+    elif path.endswith(".pt"):
+        sd = {(f"uniter.{k}" if k.startswith(_TRUNK) else k): v
+              for k, v in load_torch_checkpoint(path).items()}
+    else:
+        raise ValueError(f"unknown checkpoint format: {path}")
+    return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
 
 
 def to_device(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch's numpy arrays as tensors on ``device``: pinned host
-    memory and a non-blocking copy on a CUDA device."""
+    """The batch's numpy arrays (or host tensors) as tensors on ``device``:
+    pinned host memory and a non-blocking copy on a CUDA device. Other
+    entries (question ids) are left out."""
     out = {}
     for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            t = torch.from_numpy(v)
+        if isinstance(v, (np.ndarray, torch.Tensor)):
+            t = torch.from_numpy(v) if isinstance(v, np.ndarray) else v
             if device.type == "cuda":
                 t = t.pin_memory().to(device, non_blocking=True)
             out[k] = t

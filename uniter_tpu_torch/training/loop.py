@@ -1,0 +1,257 @@
+"""The fine-tune hot loop (counterpart of ``uniter_tpu/training/loop.py``
+``TrainLoop``; reference train_nlvr2.py:55-276).
+
+Step-based loop over an infinite bucketed loader, each batch copied to the
+device by the ``DevicePrefetcher`` thread (pinned, non-blocking) while the
+previous step computes; EMA loss meter and the reference's scalar names
+(``loss``, ``lr``, ``grad_norm``, ``perf/ex_per_s``, ``valid/*``);
+validation and checkpoints at ``valid_steps``; resume with the loader
+fast-forwarded past the batches the interrupted run consumed; SIGTERM
+preemption (checkpoint and clean exit).
+
+Loss readback is deferred to the log boundaries: ``float(loss)`` every
+step would make the host wait for the card each step. ``bound_inflight``
+still caps how many unread steps pile up. The JAX loop's ahead-of-time
+compile of every bucket (``--warmup_compile``) and its mesh placement of
+batches have no counterpart on one eager device.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from uniter_tpu_torch.training.step import TrainState, make_train_step
+from uniter_tpu_torch.utils.logger import LOGGER, RunningMeter, TB_LOGGER
+
+MAX_INFLIGHT_STEPS = int(os.environ.get("UNITER_MAX_INFLIGHT_STEPS", "16"))
+
+# Inputs the model casts to its compute dtype first thing (the image
+# embeddings): cast on the host when that shrinks the bytes copied to the
+# card (fp32 -> bf16); the stores' fp16 features already travel at 2 bytes.
+TRANSFER_CAST_KEYS = ("img_feat", "img_pos_feat")
+
+
+def bound_inflight(pending):
+    """Cap unread steps by reading back the OLDEST pending loss in place
+    (entries are tuples whose last element is the device value)."""
+    if MAX_INFLIGHT_STEPS and len(pending) >= MAX_INFLIGHT_STEPS:
+        e = pending[0]
+        if isinstance(e[-1], torch.Tensor):
+            pending[0] = (*e[:-1], e[-1].cpu().numpy())
+
+
+def _crossed(step: int, k: int, every: int) -> bool:
+    """True when [step-k, step] crossed a multiple of ``every`` (with
+    steps_per_call k > 1, exact equality would skip boundaries)."""
+    return step // every > (step - k) // every
+
+
+def warn_preempted(step: int, total: int, has_saver: bool):
+    if has_saver:
+        LOGGER.warning(
+            "preempted at step %d/%d — saving resumable checkpoint and "
+            "exiting (rerun the same command to resume)", step, total)
+    else:
+        LOGGER.warning(
+            "preempted at step %d/%d — exiting WITHOUT a checkpoint "
+            "(no saver configured)", step, total)
+
+
+class NanGuard:
+    """Abort after ``limit`` consecutive non-finite losses (checked at flush
+    boundaries on the deferred values; the last good checkpoint stays
+    resumable)."""
+
+    def __init__(self, limit: int = 5):
+        self.limit = limit
+        self.streak = 0
+
+    def check(self, loss_val: float, step: int):
+        if np.isfinite(loss_val):
+            self.streak = 0
+            return
+        self.streak += 1
+        LOGGER.warning("non-finite loss at step %d (%d consecutive)",
+                       step, self.streak)
+        if self.streak >= self.limit:
+            raise FloatingPointError(
+                f"loss non-finite for {self.streak} consecutive steps at "
+                f"step {step} — aborting (last good checkpoint is resumable)")
+
+
+def train_batch_to_device(batch, device, transfer_dtype=None):
+    """The numpy arrays of a (possibly stacked) batch as device tensors,
+    with the host cast of ``TRANSFER_CAST_KEYS`` to ``transfer_dtype``."""
+    from uniter_tpu_torch.training.infer import to_device
+
+    host = {}
+    for k, v in batch.items():
+        if not isinstance(v, np.ndarray):
+            continue
+        t = torch.from_numpy(v)
+        if (transfer_dtype is not None and k in TRANSFER_CAST_KEYS
+                and t.is_floating_point()
+                and t.element_size() > transfer_dtype.itemsize):
+            t = t.to(transfer_dtype)
+        host[k] = t
+    return to_device(host, device)
+
+
+def host_weight(batch) -> int:
+    return int(batch.get(
+        "ex_weight", np.ones(batch["input_ids"].shape[:-1])).sum())
+
+
+class TrainLoop:
+    def __init__(
+        self,
+        *,
+        loss_fn: Callable,  # (model, batch, generator) -> scalar
+        state: TrainState,
+        train_loader: Iterable,
+        device,
+        num_train_steps: int,
+        gradient_accumulation_steps: int = 1,
+        valid_steps: int = 1000,
+        log_steps: int = 100,
+        validate_fn: Optional[Callable] = None,  # (state, step) -> dict
+        saver=None,
+        seed: int = 0,
+        loss_scale: str = "sum",
+        transfer_dtype=None,
+        steps_per_call: int = 1,
+        preempt=True,
+        lr_schedule=None,
+    ):
+        self.state = state
+        self.device = torch.device(device)
+        self.train_loader = train_loader
+        self._base_loader = train_loader
+        self.num_train_steps = num_train_steps
+        self.accum = gradient_accumulation_steps
+        self.valid_steps = valid_steps
+        self.log_steps = log_steps
+        self.validate_fn = validate_fn
+        self.saver = saver
+        self.seed = seed
+        self.transfer_dtype = transfer_dtype
+        self.k = steps_per_call
+        self.lr_schedule = lr_schedule
+        if self.k > 1 and num_train_steps % self.k:
+            LOGGER.warning(
+                "steps_per_call=%d does not divide num_train_steps=%d: the "
+                "run stops at step %d", self.k, num_train_steps,
+                ((num_train_steps + self.k - 1) // self.k) * self.k)
+        if self.accum > 1 or self.k > 1:
+            from uniter_tpu_torch.data.loader import AccumLoader
+
+            self.train_loader = AccumLoader(train_loader,
+                                            max(self.accum, self.k))
+        if preempt is True:
+            from uniter_tpu_torch.training.preempt import PreemptionGuard
+
+            preempt = PreemptionGuard()
+        self.preempt = preempt or None
+        self.preempted = False
+        self.step_fn = make_train_step(
+            loss_fn, loss_scale=loss_scale, accum_steps=self.accum,
+            steps_per_call=self.k)
+        self._it = None
+
+    def run(self) -> TrainState:
+        try:
+            if self.preempt is not None:
+                with self.preempt:
+                    return self._run()
+            return self._run()
+        finally:
+            if self._it is not None:
+                self._it.close()
+            self._it = None
+
+    def _run(self):
+        from uniter_tpu_torch.data.loader import DevicePrefetcher
+
+        state = self.state
+        meter = RunningMeter("loss")
+        guard = NanGuard()
+        start_step = state.step
+        if start_step > 0:
+            LOGGER.info("resuming from step %d", start_step)
+            if hasattr(self._base_loader, "skip_batches"):
+                # one stacked batch serves k steps; AccumLoader converts
+                self.train_loader.skip_batches(start_step // self.k)
+                LOGGER.info("fast-forwarded train loader to step %d",
+                            start_step)
+        n_examples = 0
+        t_start = time.time()
+
+        def put(batch):
+            return host_weight(batch), train_batch_to_device(
+                batch, self.device, self.transfer_dtype)
+
+        self._it = it = DevicePrefetcher(iter(self.train_loader), put,
+                                         depth=2)
+        global_step = start_step
+        last_saved = -1
+        pending = []  # (first step, loss tensor or [k])
+
+        def flush():
+            for s0, dev_loss in pending:
+                vals = np.asarray(dev_loss.cpu() if isinstance(
+                    dev_loss, torch.Tensor) else dev_loss).reshape(-1)
+                for j, v in enumerate(vals):
+                    guard.check(float(v), s0 + j)
+                    meter(float(v))
+            pending.clear()
+
+        while global_step < self.num_train_steps:
+            n_ex, batch = next(it)
+            n_examples += n_ex
+            state, metrics = self.step_fn(state, batch, self.seed)
+            pending.append((global_step + 1, metrics["loss"]))
+            bound_inflight(pending)
+            global_step += self.k
+            if _crossed(global_step, self.k, self.log_steps):
+                flush()
+                ex_per_s = n_examples / (time.time() - t_start)
+                TB_LOGGER.add_scalar("loss", meter.val, global_step)
+                TB_LOGGER.add_scalar("grad_norm", float(metrics["grad_norm"]),
+                                     global_step)
+                if self.lr_schedule is not None:
+                    TB_LOGGER.add_scalar(
+                        "lr", float(self.lr_schedule(global_step)),
+                        global_step)
+                TB_LOGGER.add_scalar("perf/ex_per_s", ex_per_s, global_step)
+                LOGGER.info("step %d/%d loss %.4f (%.1f ex/s)", global_step,
+                            self.num_train_steps, meter.val or 0.0, ex_per_s)
+            if self.valid_steps and _crossed(global_step, self.k,
+                                             self.valid_steps):
+                flush()
+                if self.validate_fn is not None:
+                    logs = self.validate_fn(state, global_step)
+                    if logs:
+                        TB_LOGGER.log_scalar_dict(
+                            {f"valid/{k}": v for k, v in logs.items()},
+                            step=global_step)
+                if self.saver is not None:
+                    self.saver.save(global_step, state, self.seed)
+                    last_saved = global_step
+            if self.preempt is not None and self.preempt.poll():
+                flush()
+                self.preempted = True
+                warn_preempted(global_step, self.num_train_steps,
+                               self.saver is not None)
+                break
+        flush()
+        assert global_step == state.step
+        if self.saver is not None and last_saved != global_step:
+            self.saver.save(global_step, state, self.seed)
+        self.state = state
+        return state
+

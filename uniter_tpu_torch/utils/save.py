@@ -1,5 +1,17 @@
-"""Weights-only snapshots written by the JAX package
-(``ckpt/model_step_N.msgpack``, flax ``serialization.to_bytes``), read
+"""Checkpoints and run provenance (counterpart of
+``uniter_tpu/utils/save.py``, reference utils/save.py).
+
+``save_training_meta`` writes ``log/hps.json``, ``log/model.json`` and
+``log/git_info.json``. ``TrainStateSaver`` writes, at every save, the
+weights as ``ckpt/model_step_N.pt`` (a torch state dict in the reference
+``.pt`` key layout, what ``inf_vqa`` and the reference load) and the rest of
+the train state as ``ckpt/train_state_N.pt`` (step, AdamW moments by
+parameter name, update count, gradient norm, the run's dropout seed), and
+restores the latest pair. The JAX package keeps its train state with
+Orbax; the port uses ``torch.save`` only.
+
+Weights-only snapshots written by the JAX package
+(``ckpt/model_step_N.msgpack``, flax ``serialization.to_bytes``) are read
 with ``msgpack`` and numpy alone.
 
 flax's format: a msgpack map of nested string-keyed maps whose leaves are
@@ -10,9 +22,15 @@ bytes are split into ``__msgpack_chunked_array__`` maps.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import json
+import os
+import re
+import subprocess
+from typing import Any, Dict, Optional
 
 import numpy as np
+
+from uniter_tpu_torch.utils.logger import LOGGER
 
 _NDARRAY, _NPSCALAR = 1, 3
 
@@ -53,3 +71,89 @@ def load_params_msgpack(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     return _unchunk(tree)
+
+
+def save_training_meta(output_dir: str, args: Any, model_config: dict):
+    os.makedirs(os.path.join(output_dir, "log"), exist_ok=True)
+    os.makedirs(os.path.join(output_dir, "ckpt"), exist_ok=True)
+    hps = {k: v for k, v in sorted(vars(args).items())
+           if not k.startswith("_")}
+    with open(os.path.join(output_dir, "log", "hps.json"), "w") as f:
+        json.dump(hps, f, indent=4, default=str)
+    with open(os.path.join(output_dir, "log", "model.json"), "w") as f:
+        json.dump(model_config, f, indent=4)
+    try:
+        sha = subprocess.check_output(
+            ["git", "rev-parse", "HEAD"], text=True,
+            stderr=subprocess.DEVNULL).strip()
+        branch = subprocess.check_output(
+            ["git", "rev-parse", "--abbrev-ref", "HEAD"], text=True,
+            stderr=subprocess.DEVNULL).strip()
+        with open(os.path.join(output_dir, "log", "git_info.json"), "w") as f:
+            json.dump({"branch": branch, "commit": sha}, f, indent=4)
+    except Exception:
+        LOGGER.info("git info not available")
+
+
+def _host(t):
+    return t.detach().to("cpu", copy=True)
+
+
+class TrainStateSaver:
+    """``ckpt/model_step_N.pt`` + ``ckpt/train_state_N.pt`` per save; the
+    newest ``max_to_keep`` train states are kept (every weights file is,
+    as the JAX package keeps every export)."""
+
+    def __init__(self, output_dir: str, max_to_keep: int = 3):
+        self.dir = os.path.abspath(os.path.join(output_dir, "ckpt"))
+        os.makedirs(self.dir, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def _steps(self):
+        return sorted(int(m.group(1)) for f in os.listdir(self.dir)
+                      for m in [re.fullmatch(r"train_state_(\d+)\.pt", f)]
+                      if m)
+
+    def save(self, step: int, state, seed: int = 0):
+        import torch
+
+        weights = {k: _host(v) for k, v in state.model.state_dict().items()}
+        opt = state.opt.state()
+        rest = {"step": int(step), "seed": int(seed),
+                "count": opt["count"], "gnorm": _host(opt["gnorm"]),
+                "mu": {k: _host(v) for k, v in opt["mu"].items()},
+                "nu": {k: _host(v) for k, v in opt["nu"].items()}}
+        for name, obj in ((f"model_step_{step}.pt", weights),
+                          (f"train_state_{step}.pt", rest)):
+            path = os.path.join(self.dir, name)
+            torch.save(obj, path + ".tmp")
+            os.replace(path + ".tmp", path)  # never half a file
+        for old in self._steps()[:-self.max_to_keep]:
+            os.remove(os.path.join(self.dir, f"train_state_{old}.pt"))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def restore(self, state, step: Optional[int] = None,
+                seed: Optional[int] = None):
+        """Load the latest (or ``step``'s) train state into ``state`` in
+        place; returns it, or None when there is nothing to resume. A
+        ``seed`` other than the saved run's is logged: the resumed steps
+        then draw other dropout masks than the interrupted run would."""
+        import torch
+
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        rest = torch.load(os.path.join(self.dir, f"train_state_{step}.pt"),
+                          map_location="cpu", weights_only=True)
+        weights = torch.load(os.path.join(self.dir, f"model_step_{step}.pt"),
+                             map_location="cpu", weights_only=True)
+        state.model.load_state_dict(weights, strict=True)
+        state.opt.load_state(rest)
+        state.step = int(rest["step"])
+        if seed is not None and int(seed) != int(rest["seed"]):
+            LOGGER.warning("resuming a run saved with seed %d under seed %d",
+                           int(rest["seed"]), int(seed))
+        return state
