@@ -19,25 +19,42 @@ Phases, each printing its own lines:
    and bf16; the keep fraction measured through K1; times at (96, 104, 12,
    64) of both kernels, their plain versions and
    ``scaled_dot_product_attention`` (a library yardstick, never on a path).
-5. serving path: uniter-base VQA inference (12 layers, 768 hidden, 12
+5. K3-K6 (``csrc/fused_tail.cu``: dropout + residual + LayerNorm, and
+   LayerNorm + dropout, forward and backward) against their plain versions
+   in ``ops/fused_block.py`` at rates 0 and 0.1 (same seed), fp32 and bf16,
+   at the sub-block tail (9984, 768), the text and image embedding tails
+   (6144, 768) and (3840, 768), uniter-large (9984, 1024) and a ragged 91
+   rows; the keep fraction and the mask, bit for bit, through K3; times
+   of the kernels, their plain versions and ``F.layer_norm`` (a library
+   yardstick, never on a path).
+6. serving path: uniter-base VQA inference (12 layers, 768 hidden, 12
    heads, 3129 answers; random weights from a seed in the JAX package's
    parameter layout, carried through the weight bridge) over in-memory
    questions fed through the port's ``BucketLoader`` at ``inf_vqa``'s
    default 8192-token budget, into the loop over batches ``inf_vqa`` runs.
    Once through the kernel (launch counts reset just before and read just
-   after), once through the plain attention; logits and answers agree.
-6. training path: the uniter-base VQA fine-tune step at the JAX package's
+   after; K2-K6 must not launch), once through the plain attention; logits
+   and answers agree.
+7. training path: the uniter-base VQA fine-tune step at the JAX package's
    flagship shapes (``bench.py``: B=96, 64 text + 40 image tokens, bf16
    over fp32 parameters, dropout 0.1, fused AdamW with bf16 moments,
-   mean BCE x 3129), through the kernels and through the plain attention
-   in turns; launch counts over the kernel runs; step 1's loss, kernel
-   against plain; a profile of the kernel step; a 2-layer fp32 dropout-0
-   run, kernel against plain.
-7. the CLI: ``train_vqa.main`` on DBs written from a seed (12 layers,
+   mean BCE x 3129) under three policies in turns: plain (attention
+   ``xla``, block fusion ``none``), K1/K2 (``cuda``/``none``) and K1-K6
+   (``cuda``/``cuda``, resolved from ``auto``); launch counts per step of
+   the K1-K6 path; step 1's loss of all three; profiles; 2-layer fp32 runs
+   at dropout 0 (K1/K2 against plain) and 0.1 (K1-K6 and K1/K2 against
+   plain).
+8. the CLI: ``train_vqa.main`` on DBs written from a seed (12 layers,
    validate and save at 10 and 20 steps, resume to 25) and
-   ``inf_vqa.main`` on its output, on the card.
-8. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the last
-   line. Any failed check raises and the script exits non-zero.
+   ``inf_vqa.main`` on its output, on the card, through K1-K6.
+9. NLVR2: ``UniterForNlvr2PairedAttn`` at uniter-base width on a fixed
+   batch of 48 pairs (96 rows, 64 text + 40 image tokens, bf16, dropout
+   0.1) through K1-K6 and through the plain path in turns (launches per
+   step, step 1's loss, pairs/s); then ``train_nlvr2.main`` on paired DBs
+   written from a seed (20 steps, validate and save at 10 and 20, resume to
+   25) and ``inf_nlvr2.main``, one ``results.csv`` row per example.
+10. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
+   last line. Any failed check raises and the script exits non-zero.
 
 TF32 is off for matmuls and cuDNN (fp32 runs are full fp32). Files go
 under the checkout's ``tmp/`` (removed at the end) and ``chiprun_out/``.
@@ -69,6 +86,13 @@ TRAIN_SHAPES = [  # (B, S, H, D): flagship, long buckets, uniter-large heads
 ]
 K2_TOL_FP32 = 1e-4  # another summation order over S and D
 RATE = 0.1
+# (rows, H): the flagship sub-block tail B*S = 96*104, the text and image
+# embedding tails 96*64 and 96*40, uniter-large, a ragged row count
+TAIL_SHAPES = [(9984, 768), (6144, 768), (3840, 768), (9984, 1024),
+               (91, 768)]
+TAIL_FWD_TOL_FP32 = 1e-5
+TAIL_BWD_TOL_FP32 = 1e-4  # dx/dres, as K2's
+TAIL_DWDB_REL = 1e-4  # dw/db: sums over rows in another order, of max|ref|
 # the card's published peaks (NVIDIA H100 SXM data sheet): the bound of a
 # kernel is the larger of its bytes over the memory rate and its operations
 # over the peak rate of its type
@@ -80,6 +104,26 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+KERNELS = ("mha_fwd", "mha_bwd", "drop_res_ln_fwd", "drop_res_ln_bwd",
+           "ln_drop_fwd", "ln_drop_bwd")
+
+
+def _wrappers():
+    from uniter_tpu_torch.ops import attention, fused_block
+
+    return {n: getattr(attention if n.startswith("mha") else fused_block, n)
+            for n in KERNELS}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {n: fn.launches for n, fn in _wrappers().items()}
 
 
 def device_phase(torch):
@@ -105,7 +149,8 @@ def build_phase():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {name}: {line.strip()}")
-    print(f"[build] {sorted(_kernels.SIGNATURES)} in {secs:.2f} s "
+    print(f"[build] sources {sorted(set(_kernels.SOURCES.values()))} "
+          f"(kernels {sorted(_kernels.SIGNATURES)}) in {secs:.2f} s "
           f"({len(logs)} compiled)")
 
 
@@ -322,6 +367,182 @@ def time_attention(torch, F, q, k, v, bias, g, mha_fwd, mha_bwd, _mha_torch,
     return t
 
 
+def tail_bound_ms(name, rows, h, dtype):
+    """Least time for a fused tail on this card: the bytes it must move
+    (each activation read once, each output written once, w/b and dw/db
+    fp32) over 3.35 TB/s against its fp32 operations (about 8, 16, 7 and
+    13 per element for K3-K6, the Philox integer work left out) over 67
+    TFLOP/s. Returns (ms, "bytes" or "operations")."""
+    elem = rows * h * (4 if dtype == "float32" else 2)
+    acts, vecs, flop = {"drop_res_ln_fwd": (3, 2, 8),
+                        "drop_res_ln_bwd": (5, 3, 16),
+                        "ln_drop_fwd": (2, 2, 7),
+                        "ln_drop_bwd": (3, 3, 13)}[name]
+    by_bytes = (acts * elem + vecs * h * 4) / HBM_BYTES_PER_S * 1e3
+    by_ops = flop * rows * h / PEAK_FLOPS["float32"] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def tail_errors(torch, fb, x, res, w, b, g, rate, seed):
+    """Each kernel's outputs against its plain version on the fp32 copies
+    of the same inputs. Returns {kernel: (worst abs err over its outputs,
+    worst excess over its bound, worst dw/db err / max|ref|, worst abs err
+    of its activations)}."""
+    bf16 = x.dtype == torch.bfloat16
+    xf, rf, gf = x.float(), res.float(), g.float()
+
+    def act(got, want, tol):
+        d = (got.float() - want).abs()
+        excess = d - (2.0**-8 * want.abs() + 1e-3 if bf16 else tol)
+        return d.max().item(), excess.max().item()
+
+    def vec(got, want):
+        d = (got - want).abs().max().item()
+        return d, d / max(want.abs().max().item(), 1e-30)
+
+    out = {}
+    y = fb.drop_res_ln_fwd(x, res, w, b, rate, seed)
+    e = act(y, fb._drop_res_ln_torch(xf, rf, w, b, rate, seed),
+            TAIL_FWD_TOL_FP32)
+    out["drop_res_ln_fwd"] = (*e, 0.0, e[0])
+    y = fb.ln_drop_fwd(x, w, b, rate, seed)
+    e = act(y, fb._ln_drop_torch(xf, w, b, rate, seed), TAIL_FWD_TOL_FP32)
+    out["ln_drop_fwd"] = (*e, 0.0, e[0])
+    for name, got, want, n_act in (
+            ("drop_res_ln_bwd", fb.drop_res_ln_bwd(x, res, w, g, rate, seed),
+             fb._drop_res_ln_bwd_torch(xf, rf, w, gf, rate, seed), 2),
+            ("ln_drop_bwd", fb.ln_drop_bwd(x, w, g, rate, seed),
+             fb._ln_drop_bwd_torch(xf, w, gf, rate, seed), 1)):
+        errs = [act(a, r, TAIL_BWD_TOL_FP32)
+                for a, r in zip(got[:n_act], want[:n_act])]
+        vecs = [vec(a, r) for a, r in zip(got[n_act:], want[n_act:])]
+        out[name] = (max(e[0] for e in errs + vecs),
+                     max(e[1] for e in errs), max(v[1] for v in vecs),
+                     max(e[0] for e in errs))
+    torch.cuda.synchronize()
+    return out
+
+
+def tail_phase(torch):
+    """K3-K6 against their plain versions at TAIL_SHAPES, fp32 and bf16,
+    rates 0 and RATE; the mask and keep fraction through K3; times.
+    Returns (worst fp32 abs err per kernel, timing dict)."""
+    from uniter_tpu_torch.ops import fused_block as fb
+    from uniter_tpu_torch.ops.dropout import keep_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    names = ("drop_res_ln_fwd", "drop_res_ln_bwd", "ln_drop_fwd",
+             "ln_drop_bwd")
+    worst = {n: 0.0 for n in names}
+    timing = {}
+    for rows, h in TAIL_SHAPES:
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            x, res, g = (torch.randn(rows, h, generator=gen, device="cuda")
+                         .to(dtype) for _ in range(3))
+            w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+            b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+            for rate in (0.0, RATE):
+                e = tail_errors(torch, fb, x, res, w, b, g, rate, 31)
+                ok = (all(v[1] <= 0 for v in e.values())
+                      and all(v[2] <= TAIL_DWDB_REL for v in e.values()))
+                tol = ("fp32: fwd 1e-5, dx/dres 1e-4" if dname == "float32"
+                       else "bf16: 2^-8 |ref| + 1e-3")
+                print(f"[K3-K6] ({rows}, {h}) {dname} rate {rate}: y, dx, "
+                      f"dres max|diff| "
+                      + ", ".join(f"{n} {v[3]:.2e}" for n, v in e.items())
+                      + f" ({tol}); dw/db max|diff| "
+                      + ", ".join(f"{n} {e[n][0]:.2e}" for n in names[1::2])
+                      + "; dw/db max|diff|/max|ref| "
+                      f"{max(v[2] for v in e.values()):.2e} (tol "
+                      f"{TAIL_DWDB_REL:g}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"K3-K6 disagree with their plain versions at "
+                      f"{(rows, h)} {dname} rate {rate}")
+                if dname == "float32":  # all outputs, dw/db included
+                    for n, v in e.items():
+                        worst[n] = max(worst[n], v[0])
+            if (rows, h) in ((9984, 768), (6144, 768)):
+                timing.update(time_tails(torch, fb, x, res, w, b, g, rows, h,
+                                         dname))
+    # the mask through K3, bit for bit, and its keep fraction: x = 1, res =
+    # 0, w = 1, b = 0 make LN(dropout(x)) positive exactly where x was kept
+    rows, h = TAIL_SHAPES[0]
+    ones = torch.ones(rows, h, device="cuda")
+    w, b = torch.ones(h, device="cuda"), torch.zeros(h, device="cuda")
+    kept = fb.drop_res_ln_fwd(ones, torch.zeros_like(ones), w, b, RATE,
+                              4242) > 0
+    same = torch.equal(kept, keep_mask(4242, 0, (rows, h), RATE, "cuda"))
+    n = rows * h
+    frac = kept.double().mean().item()
+    sigma = (RATE * (1 - RATE) / n) ** 0.5
+    print(f"[K3-K6] keep fraction through K3 at rate {RATE} over {n} "
+          f"elements: {frac:.6f} (want {1 - RATE} +- 4 sigma = "
+          f"{4 * sigma:.1e}); mask equal to keep_mask bit for bit: {same}")
+    check(same, "K3's mask differs from ops.dropout.keep_mask")
+    check(abs(frac - (1 - RATE)) <= 4 * sigma, "keep fraction through K3")
+    return worst, timing
+
+
+def time_tails(torch, fb, x, res, w, b, g, rows, h, dname):
+    """CUDA-event times (ms per call, 50 calls; turns plain, kernel, kernel,
+    plain) of K3/K4 (at the sub-block tail) or K5/K6 (at the text embedding
+    tail) at rates 0 and RATE, and the library yardstick at rate 0:
+    ``F.layer_norm(x + res)`` (two calls: the add, then the LayerNorm) for
+    K3, its backward on a retained graph for K4; ``F.layer_norm`` and its
+    backward for K5/K6."""
+    import torch.nn.functional as F
+
+    sub = (rows, h) == (9984, 768)
+    pairs = ((("drop_res_ln_fwd", lambda r: fb.drop_res_ln_fwd(
+                  x, res, w, b, r, 5),
+               lambda r: fb._drop_res_ln_torch(x, res, w, b, r, 5)),
+              ("drop_res_ln_bwd", lambda r: fb.drop_res_ln_bwd(
+                  x, res, w, g, r, 5),
+               lambda r: fb._drop_res_ln_bwd_torch(x, res, w, g, r, 5)))
+             if sub else
+             (("ln_drop_fwd", lambda r: fb.ln_drop_fwd(x, w, b, r, 5),
+               lambda r: fb._ln_drop_torch(x, w, b, r, 5)),
+              ("ln_drop_bwd", lambda r: fb.ln_drop_bwd(x, w, g, r, 5),
+               lambda r: fb._ln_drop_bwd_torch(x, w, g, r, 5))))
+    out = {}
+    for name, kern, plain in pairs:
+        for rate in (0.0, RATE):
+            t = [cuda_ms(torch, lambda: plain(rate)),
+                 cuda_ms(torch, lambda: kern(rate)),
+                 cuda_ms(torch, lambda: kern(rate)),
+                 cuda_ms(torch, lambda: plain(rate))]
+            out[(name, dname, rate)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    xr = x.detach().clone().requires_grad_()
+    rr = res.detach().clone().requires_grad_()
+    wl = w.to(x.dtype).detach().requires_grad_()
+    bl = b.to(x.dtype).detach().requires_grad_()
+    with torch.no_grad():
+        if sub:
+            fwd = cuda_ms(torch, lambda: F.layer_norm(x + res, (h,), wl, bl,
+                                                      1e-12))
+        else:
+            fwd = cuda_ms(torch, lambda: F.layer_norm(x, (h,), wl, bl, 1e-12))
+    y = F.layer_norm(xr + rr if sub else xr, (h,), wl, bl, 1e-12)
+    ins = (xr, rr, wl, bl) if sub else (xr, wl, bl)
+    bwd = cuda_ms(torch, lambda: torch.autograd.grad(y, ins, g,
+                                                     retain_graph=True))
+    (fname, _, _), (bname, _, _) = pairs
+    out[(fname, dname, "library")] = fwd
+    out[(bname, dname, "library")] = bwd
+    print(f"[K3-K6] times at ({rows}, {h}) {dname}, us per call (CUDA events "
+          f"over 50 calls; turns plain, kernel, kernel, plain):")
+    for name, _, _ in pairs:
+        bound, by = tail_bound_ms(name, rows, h, dname)
+        print(f"[K3-K6]   {name}: " + "; ".join(
+            f"rate {r} kernel {out[(name, dname, r)][0] * 1e3:.1f} vs plain "
+            f"{out[(name, dname, r)][1] * 1e3:.1f}" for r in (0.0, RATE))
+            + f"; bound {bound * 1e3:.1f} ({by}); library "
+            f"{out[(name, dname, 'library')] * 1e3:.1f}"
+            f"{' (two calls: add + F.layer_norm)' if sub and 'fwd' in name else ''}")
+    return out
+
+
 def jax_layout_params(cfg, num_answer, img_dim, seed):
     """A uniter-base VQA parameter tree in the JAX package's layout (flax
     Dense kernels [in, out], layers stacked [L, ...]): normal(0, 0.02) for
@@ -414,7 +635,6 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
     from uniter_tpu_torch.inf_vqa import answer_questions
     from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
     from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
-    from uniter_tpu_torch.ops.attention import mha_bwd, mha_fwd
     from uniter_tpu_torch.utils.const import IMG_DIM
 
     num_answer = 3129
@@ -452,10 +672,12 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
         return results, logits, time.perf_counter() - t
 
     run("xla")  # warm-up: cuBLAS handles, allocator, host pools
-    mha_fwd.launches = mha_bwd.launches = 0
+    reset_launches()
     res_k, logits_k, _ = run("cuda")
-    launches = mha_fwd.launches
-    check(mha_bwd.launches == 0, "serving launched the backward kernel")
+    counts = read_launches()
+    launches = counts["mha_fwd"]
+    check(all(n == 0 for k, n in counts.items() if k != "mha_fwd"),
+          f"serving launched a training kernel: {counts}")
     res_x, logits_x, _ = run("xla")
     secs = {"xla": [], "cuda": []}
     for impl in ("xla", "cuda", "cuda", "xla"):
@@ -475,7 +697,8 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
     print(f"[main] kernel vs plain attention: logits max|diff| {err:.3e} "
           f"(tol 1e-3), argmax agreement {agree * 100:.2f}% (>= 99.9%)")
     print(f"[main] kernel launches {launches} (want {base.num_hidden_layers}"
-          f" layers x {n_batches} batches)")
+          f" layers x {n_batches} batches); K2-K6 launches "
+          f"{sum(counts.values()) - launches} (want 0)")
     print(f"[main] questions/s: kernel {qps['cuda']:.1f}, plain "
           f"{qps['xla']:.1f} (turns plain, kernel, kernel, plain; host "
           f"clock, each pass ends in the logits' readback)")
@@ -555,6 +778,8 @@ def profile_steps(torch, state, step, batch, n, tag):
     # the plain Philox bits run as int64 elementwise passes ("<long"
     # functors) and the stack of their four words (8-byte cat)
     groups = {"K1": share("mha_fwd_kernel"), "K2": share("mha_bwd_"),
+              "fused tails (K3-K6)": share("tail_fwd", "tail_bwd",
+                                           "sum_partials"),
               "GEMM": share("gemm", "cutlass", "xmma", "sm90_", "nvjet"),
               "Philox bits": share("<long", "opaquetype<8u>")}
     groups["other"] = busy - sum(groups.values())
@@ -562,7 +787,7 @@ def profile_steps(torch, state, step, batch, n, tag):
     with open(os.path.join(OUT_DIR, f"train_profile_{tag}.txt"), "w") as f:
         for name, ms, count in rows:
             f.write(f"{ms:10.3f} ms {count:6d}  {name}\n")
-    print(f"[train] profile, {tag} attention, {n} steps: wall "
+    print(f"[train] profile, {tag}, {n} steps: wall "
           f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
           f"{(1 - busy / 1e3 / wall) * 100:.1f}%; "
           + ", ".join(f"{k} {v:.1f} ms ({v / busy * 100:.1f}%)"
@@ -573,99 +798,176 @@ def profile_steps(torch, state, step, batch, n, tag):
     return state, {"wall_ms": wall * 1e3, "busy_ms": busy, **groups}
 
 
+POLICIES = {  # name -> (attention_impl, block_fusion) before resolution
+    "plain": ("xla", "none"), "K1/K2": ("auto", "none"),
+    "K1-K6": ("auto", "auto")}
+
+
+def policy_configs(base, device="cuda"):
+    """Each policy's training config, resolved for ``device``."""
+    from uniter_tpu_torch.config import resolve_kernel_policies
+
+    cfgs = {name: resolve_kernel_policies(
+        base.replace(attention_impl=att, block_fusion=bf), device,
+        training=True) for name, (att, bf) in POLICIES.items()}
+    got = {n: (c.attention_impl, c.block_fusion) for n, c in cfgs.items()}
+    check(got == {"plain": ("xla", "none"), "K1/K2": ("cuda", "none"),
+                  "K1-K6": ("cuda", "cuda")},
+          f"the policies resolved to {got}")
+    return cfgs
+
+
+def run_policies(torch, trainers, batch, n_steps):
+    """Warm-up, then turns of ``n_steps`` steps per policy, in the order
+    plain, K1/K2, K1-K6, K1-K6, K1/K2, plain; launch counts set to 0 just
+    before each K1-K6 turn and read just after. Returns (seconds per
+    policy, losses per policy, K1-K6 launches summed, K1-K6 steps)."""
+    losses = {n: [] for n in trainers}
+
+    def run(name, n):
+        state, step = trainers[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [step(state, batch, SEED)[1]["loss"] for _ in range(n)]
+        losses[name] += [float(x) for x in ms]  # the readback ends the turn
+        return time.perf_counter() - t0
+
+    total = {k: 0 for k in KERNELS}
+    steps = 0
+    for name in trainers:  # warm-up: allocator, cuBLAS handles
+        if name == "K1-K6":
+            reset_launches()
+        run(name, 2)
+        if name == "K1-K6":
+            total = {k: total[k] + v for k, v in read_launches().items()}
+            steps += 2
+    secs = {n: [] for n in trainers}
+    for name in ("plain", "K1/K2", "K1-K6", "K1-K6", "K1/K2", "plain"):
+        if name == "K1-K6":
+            reset_launches()
+        secs[name].append(run(name, n_steps))
+        if name == "K1-K6":
+            total = {k: total[k] + v for k, v in read_launches().items()}
+            steps += n_steps
+    check(steps == trainers["K1-K6"][0].step, "K1-K6 step count")
+    return secs, losses, total, steps
+
+
+def check_launches(total, steps, want_per_step, tag):
+    per_step = {k: v / steps for k, v in total.items()}
+    print(f"[{tag}] K1-K6 path launches over {steps} steps: "
+          + ", ".join(f"{k} {v}" for k, v in total.items())
+          + "; per step " + ", ".join(f"{k} {per_step[k]:g}" for k in total)
+          + f" (want {want_per_step})")
+    check(per_step == want_per_step, f"{tag}: launches per step {per_step}")
+
+
+def step1_agreement(losses, tag, rows, terms):
+    """Step 1 of every policy: the same parameters, batch and dropout
+    seeds (the generator is keyed by (seed, step)), so the same masks."""
+    first = {n: v[0] for n, v in losses.items()}
+    rel = max(abs(v - first["plain"]) / abs(first["plain"])
+              for v in first.values())
+    print(f"[{tag}] step 1 losses " + ", ".join(
+        f"{n} {v:.6f}" for n, v in first.items())
+        + f"; max relative diff from plain {rel:.2e} (tol 1e-3: bf16 "
+        f"roundings, 2**-8 each, placed differently in 12 layers, averaged "
+        f"over {rows} x {terms} loss terms)")
+    check(all(np.isfinite(v).all() for v in losses.values()),
+          f"{tag}: non-finite loss")
+    check(rel <= 1e-3, f"{tag}: step 1 losses differ across policies")
+    return rel
+
+
 def train_phase(torch):
-    """The flagship fine-tune step through the kernels and through the
-    plain attention. Returns launches, steps, examples/s per impl."""
-    from uniter_tpu_torch.config import base_config, resolve_kernel_policies
+    """The flagship fine-tune step under the three policies, then the
+    2-layer fp32 runs. Returns launches per kernel, steps, examples/s per
+    policy, step-1 agreement and the profiles."""
+    from uniter_tpu_torch.config import base_config
     from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
-    from uniter_tpu_torch.ops.attention import mha_bwd, mha_fwd
     from uniter_tpu_torch.utils.const import IMG_DIM
 
     num_answer, b = 3129, 96
-    base = base_config(dtype="bfloat16", attention_impl="auto",
-                       block_fusion="auto", hidden_dropout_prob=RATE,
+    base = base_config(dtype="bfloat16", hidden_dropout_prob=RATE,
                        attention_probs_dropout_prob=RATE)
     sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
         jax_layout_params(base, num_answer, IMG_DIM, SEED)).items()}
     batch = flagship_batch(torch, base, num_answer, IMG_DIM, torch.bfloat16)
-    trainers = {}
-    for impl in ("cuda", "xla"):
-        cfg = resolve_kernel_policies(base.replace(attention_impl=impl),
-                                      "cuda", training=True)
-        trainers[impl] = make_trainer(torch, cfg, sd, num_answer)
-    check(trainers["cuda"][0].model.uniter.config.attention_impl == "cuda",
-          "the kernel config did not resolve to the kernels")
-    losses = {"cuda": [], "xla": []}
-
-    def run(impl, n):
-        state, step = trainers[impl]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ms = [step(state, batch, SEED)[1]["loss"] for _ in range(n)]
-        losses[impl] += [float(x) for x in ms]  # the readback ends the turn
-        return time.perf_counter() - t0
-
+    trainers = {name: make_trainer(torch, cfg, sd, num_answer)
+                for name, cfg in policy_configs(base).items()}
     torch.cuda.reset_peak_memory_stats()
-    mha_fwd.launches = mha_bwd.launches = 0
-    run("cuda", 3)  # warm-up: allocator, cuBLAS handles
-    run("xla", 3)
-    secs = {"cuda": [], "xla": []}
-    for impl in ("xla", "cuda", "cuda", "xla"):
-        secs[impl].append(run(impl, 10))
-    fwd, bwd = mha_fwd.launches, mha_bwd.launches
-    steps = trainers["cuda"][0].step
-    eps = {impl: 10 * b * len(v) / sum(v) for impl, v in secs.items()}
+    secs, losses, total, steps = run_policies(torch, trainers, batch, 10)
+    eps = {n: 10 * b * len(v) / sum(v) for n, v in secs.items()}
+    order = ("plain", "K1/K2", "K1-K6", "K1-K6", "K1/K2", "plain")
+    turn_s = {n: list(v) for n, v in secs.items()}
     print(f"[train] uniter-base VQA step, B={b}, T=64, R=40, bf16 over fp32 "
           f"parameters, dropout {RATE}, fused AdamW bf16 moments: examples/s "
-          f"kernel {eps['cuda']:.1f}, plain {eps['xla']:.1f} (turns of 10 "
-          f"steps: plain, kernel, kernel, plain; host clock, each turn ends "
-          f"in the loss readback; turn seconds "
-          f"{', '.join(f'{x:.3f}' for x in secs['xla'][:1] + secs['cuda'] + secs['xla'][1:])})")
-    print(f"[train] launches over {steps} kernel steps: K1 {fwd}, K2 {bwd} "
-          f"(want {12 * steps} each); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    lk, lx = losses["cuda"], losses["xla"]
-    # step 1 of both paths: the same parameters, batch and dropout seeds
-    # (the generator is keyed by (seed, step)), so the same Philox masks
-    rel1 = abs(lk[0] - lx[0]) / abs(lx[0])
-    print(f"[train] kernel-path loss on the fixed batch: first {lk[0]:.4f}, "
-          f"last {lk[-1]:.4f}; plain first {lx[0]:.4f}, last {lx[-1]:.4f}; "
-          f"step 1 kernel vs plain relative diff {rel1:.2e} (tol 1e-3: bf16 "
-          f"roundings, 2**-8 each, placed differently in 12 layers, "
-          f"averaged over {b} x {num_answer} loss terms)")
-    check(fwd == bwd == 12 * steps, f"K1/K2 launched {fwd}/{bwd} times in "
-          f"{steps} steps")
-    check(all(np.isfinite(lk)) and all(np.isfinite(lx)), "non-finite loss")
-    check(rel1 <= 1e-3, "bf16 dropout-0.1 step 1 losses differ, kernel vs "
-          "plain")
+          + ", ".join(f"{n} {v:.1f}" for n, v in eps.items())
+          + " (turns of 10 steps: " + ", ".join(order) + "; host clock, each "
+          "turn ends in the loss readback; turn seconds "
+          + ", ".join(f"{turn_s[n].pop(0):.3f}" for n in order) + "); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(three trainers)")
+    check_launches(total, steps, {"mha_fwd": 12, "mha_bwd": 12,
+                                  "drop_res_ln_fwd": 24, "drop_res_ln_bwd": 24,
+                                  "ln_drop_fwd": 2, "ln_drop_bwd": 2},
+                   "train")
+    rel1 = step1_agreement(losses, "train", b, num_answer)
+    lk = losses["K1-K6"]
+    print(f"[train] K1-K6 loss on the fixed batch: first {lk[0]:.4f}, last "
+          f"{lk[-1]:.4f}")
     check(lk[-1] < lk[0], "the loss did not fall on the fixed batch")
     prof = {}
-    for impl in ("cuda", "xla"):
-        state, step = trainers[impl]
-        prof[impl] = profile_steps(torch, state, step, batch, 3, impl)[1]
+    for name in ("K1-K6", "K1/K2", "plain"):
+        state, step = trainers[name]
+        prof[name] = profile_steps(torch, state, step, batch, 3,
+                                   name.replace("/", "_"))[1]
     del trainers
     torch.cuda.empty_cache()
+    small = two_layer_runs(torch, num_answer)
+    return {"launches": total, "steps": steps, "ex_per_s": eps,
+            "step1_rel": rel1, "profile": prof, "two_layer": small}
 
-    # fp32, dropout 0, 2 layers at base width: the kernels against plain
-    cfg2 = base_config(num_hidden_layers=2, dtype="float32",
-                       hidden_dropout_prob=0.0,
-                       attention_probs_dropout_prob=0.0)
-    sd2 = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
-        jax_layout_params(cfg2, num_answer, IMG_DIM, SEED)).items()}
-    batch2 = flagship_batch(torch, cfg2, num_answer, IMG_DIM, None)
-    l2 = {}
-    for impl in ("cuda", "xla"):
-        state, step = make_trainer(torch, cfg2.replace(attention_impl=impl),
-                                   sd2, num_answer)
-        l2[impl] = [float(step(state, batch2, SEED)[1]["loss"])
-                    for _ in range(3)]
-    rel = max(abs(a - c) / abs(c) for a, c in zip(l2["cuda"], l2["xla"]))
-    print(f"[train] fp32, dropout 0, 2 layers, 3 steps: losses kernel "
-          f"{l2['cuda']}, plain {l2['xla']}; max relative diff {rel:.2e} "
-          f"(tol 1e-5: fp32 rounding of another summation order)")
-    check(rel <= 1e-5, "fp32 train losses differ, kernel vs plain")
-    return {"launches": (fwd, bwd), "steps": steps, "ex_per_s": eps,
-            "profile": prof}
+
+def two_layer_runs(torch, num_answer):
+    """2 layers at base width in fp32, 3 steps each: at dropout 0 K1/K2
+    against plain (the tails stay plain: no mask is live), at dropout 0.1
+    K1-K6 and K1/K2 against plain (same masks). Relative loss differences
+    held to 1e-5, fp32 rounding of other summation orders (and of x * (1 /
+    (1 - rate)) against x / (1 - rate) in the tails)."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    out = {}
+    for rate in (0.0, RATE):
+        cfg = base_config(num_hidden_layers=2, dtype="float32",
+                          hidden_dropout_prob=rate,
+                          attention_probs_dropout_prob=rate)
+        sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+            jax_layout_params(cfg, num_answer, IMG_DIM, SEED)).items()}
+        batch = flagship_batch(torch, cfg, num_answer, IMG_DIM, None)
+        cfgs = policy_configs(cfg)
+        if rate == 0.0:
+            cfgs.pop("K1-K6")  # no live mask: the same path as K1/K2
+        losses = {}
+        for name, c in cfgs.items():
+            reset_launches()
+            state, step = make_trainer(torch, c, sd, num_answer)
+            losses[name] = [float(step(state, batch, SEED)[1]["loss"])
+                            for _ in range(3)]
+            tails = sum(v for k, v in read_launches().items()
+                        if not k.startswith("mha"))
+            check((tails > 0) == (name == "K1-K6" and rate > 0),
+                  f"2-layer {name} at dropout {rate}: {tails} tail launches")
+        rel = max(abs(a - c) / abs(c) for n in losses if n != "plain"
+                  for a, c in zip(losses[n], losses["plain"]))
+        print(f"[train] fp32, dropout {rate}, 2 layers, 3 steps: losses "
+              + "; ".join(f"{n} {v}" for n, v in losses.items())
+              + f"; max relative diff from plain {rel:.2e} (tol 1e-5)")
+        check(rel <= 1e-5, f"fp32 dropout-{rate} losses differ from plain")
+        out[rate] = rel
+    return out
 
 
 def write_vqa_dbs(root, n_img, n_q, seed):
@@ -772,6 +1074,189 @@ def cli_phase(torch, n_q=2000):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def nlvr2_batch(torch, n_pairs, t, r, img_dim, transfer_dtype, seed):
+    """A fixed paired batch: 2 rows per pair (left image type 1, right 2),
+    ragged text and region lengths, labels 0/1, every pair real."""
+    from uniter_tpu_torch.training.loop import train_batch_to_device
+
+    rng = np.random.RandomState(seed)
+    rows = 2 * n_pairs
+    tl = np.repeat(rng.randint(t // 2, t + 1, n_pairs), 2)
+    nb = rng.randint(r // 2, r + 1, rows)
+    attn = np.concatenate([np.arange(t) < tl[:, None],
+                           np.arange(r) < nb[:, None]], 1).astype(np.int32)
+    ids = np.repeat(rng.randint(1, 28000, (n_pairs, t)), 2, 0)
+    batch = dict(
+        input_ids=(ids * (np.arange(t) < tl[:, None])).astype(np.int32),
+        position_ids=np.tile(np.arange(t, dtype=np.int32), (rows, 1)),
+        img_feat=rng.randn(rows, r, img_dim).astype(np.float32),
+        img_pos_feat=rng.rand(rows, r, 7).astype(np.float32),
+        attn_mask=attn,
+        img_type_ids=np.tile(np.array([[1], [2]], np.int32),
+                             (n_pairs, r)) * (np.arange(r) < nb[:, None]),
+        targets=rng.randint(0, 2, n_pairs).astype(np.int32),
+        ex_weight=np.ones(n_pairs, np.float32))
+    return train_batch_to_device(batch, torch.device("cuda"), transfer_dtype)
+
+
+def nlvr2_phase(torch):
+    """UniterForNlvr2PairedAttn at uniter-base width (random weights from a
+    seed) on a fixed batch of 48 pairs through the three policies in turns.
+    Returns launches, steps, pairs/s per policy and step-1 agreement."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models.nlvr2 import UniterForNlvr2PairedAttn
+    from uniter_tpu_torch.train_nlvr2 import nlvr2_loss
+    from uniter_tpu_torch.training.driver import init_weights
+    from uniter_tpu_torch.training.optim import build_optimizer
+    from uniter_tpu_torch.training.sched import get_lr_schedule
+    from uniter_tpu_torch.training.step import TrainState, make_train_step
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    n_pairs = 48
+    base = base_config(dtype="bfloat16", type_vocab_size=3,
+                       hidden_dropout_prob=RATE,
+                       attention_probs_dropout_prob=RATE)
+    torch.manual_seed(SEED)
+    ref = UniterForNlvr2PairedAttn(base, IMG_DIM)
+    init_weights(ref, base.initializer_range)
+    sd = ref.state_dict()
+    batch = nlvr2_batch(torch, n_pairs, 64, 40, IMG_DIM, torch.bfloat16, SEED)
+    trainers = {}
+    for name, cfg in policy_configs(base).items():
+        model = UniterForNlvr2PairedAttn(cfg, IMG_DIM)
+        model.load_state_dict(sd, strict=True)
+        model.to("cuda")
+        opt = build_optimizer(model, get_lr_schedule(3e-5, 800, 8000),
+                              betas=(0.9, 0.98), weight_decay=0.01,
+                              grad_norm=2.0, fused=True)
+        trainers[name] = (TrainState(step=0, model=model, opt=opt),
+                          make_train_step(nlvr2_loss))
+    secs, losses, total, steps = run_policies(torch, trainers, batch, 10)
+    pps = {n: 10 * n_pairs * len(v) / sum(v) for n, v in secs.items()}
+    print(f"[nlvr2] paired-attn uniter-base step, {n_pairs} pairs (96 rows, "
+          f"T=64, R=40), bf16 over fp32 parameters, dropout {RATE}, fused "
+          f"AdamW: pairs/s " + ", ".join(f"{n} {v:.1f}" for n, v in pps.items())
+          + " (turns of 10 steps: plain, K1/K2, K1-K6, K1-K6, K1/K2, plain; "
+          "host clock, each turn ends in the loss readback)")
+    # 12 layers plus attn1/attn2 for K1/K2
+    check_launches(total, steps, {"mha_fwd": 14, "mha_bwd": 14,
+                                  "drop_res_ln_fwd": 24, "drop_res_ln_bwd": 24,
+                                  "ln_drop_fwd": 2, "ln_drop_bwd": 2},
+                   "nlvr2")
+    rel1 = step1_agreement(losses, "nlvr2", n_pairs, 2)
+    del trainers
+    torch.cuda.empty_cache()
+    return {"launches": total, "steps": steps, "pairs_per_s": pps,
+            "step1_rel": rel1}
+
+
+def write_nlvr2_dbs(root, n_img, n_ex, seed):
+    """An img DB of ``n_img`` images (10-100 regions) and a paired txt DB of
+    ``n_ex`` examples (2 images each, labels 0/1), with the port's writers."""
+    from uniter_tpu_torch.data.img_db import write_img_db
+    from uniter_tpu_torch.data.txt_db import write_txt_db
+
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal((8192, 2048), dtype=np.float32).astype(
+        np.float16)
+    names = [f"nlvr2_{i:05d}.npz" for i in range(n_img)]
+
+    def records():
+        for n in names:
+            nbb = int(rng.integers(10, 101))
+            o = int(rng.integers(0, 8192 - nbb))
+            yield n, dict(
+                features=pool[o:o + nbb],
+                norm_bb=rng.random((nbb, 6), dtype=np.float32).astype(
+                    np.float16),
+                conf=np.linspace(1, 0.3, nbb).astype(np.float16),
+                soft_labels=np.zeros((nbb, 1601), np.float16))
+
+    write_img_db(os.path.join(root, "img"), records(), conf_th=0.2,
+                 max_bb=100, min_bb=10)
+    meta = {"CLS": 101, "SEP": 102, "MASK": 103, "v_range": [999, 28996]}
+    recs, t2i = {}, {}
+    for i in range(n_ex):
+        pair = [names[(2 * i) % n_img], names[(2 * i + 1) % n_img]]
+        recs[f"ex_{i}"] = dict(
+            input_ids=[int(x) for x in rng.integers(999, 28996,
+                                                    int(rng.integers(4, 31)))],
+            img_fname=pair, target=int(rng.integers(0, 2)))
+        t2i[f"ex_{i}"] = pair
+    write_txt_db(os.path.join(root, "txt"), recs, meta, t2i)
+
+
+def nlvr2_cli_phase(torch, n_ex=1000):
+    """``train_nlvr2.main`` (paired-attn, uniter-base, default flags: K1-K6)
+    for 20 steps, validating and saving at 10 and 20, a resume to 25, and
+    ``inf_nlvr2.main`` on its output, all on the card."""
+    from uniter_tpu_torch import inf_nlvr2, train_nlvr2
+    from uniter_tpu_torch.utils.misc import parse_with_config
+
+    os.makedirs(os.path.join(REPO, "tmp"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_nlvr2_",
+                            dir=os.path.join(REPO, "tmp"))
+    try:
+        t0 = time.perf_counter()
+        write_nlvr2_dbs(work, 400, n_ex, SEED)
+        out = os.path.join(work, "run")
+        conf = dict(
+            train_txt_db=os.path.join(work, "txt"),
+            train_img_db=os.path.join(work, "img"),
+            val_txt_db=os.path.join(work, "txt"),
+            val_img_db=os.path.join(work, "img"),
+            model_config=os.path.join(REPO, "configs", "uniter-base.json"),
+            output_dir=out, num_train_steps=20, valid_steps=10, log_steps=5,
+            train_batch_size=5120, val_batch_size=10240, n_workers=2,
+            device="cuda", checkpoint="")
+        path = os.path.join(work, "train.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        t1 = time.perf_counter()
+        reset_launches()
+        state = train_nlvr2.main(parse_with_config(train_nlvr2.get_parser(),
+                                                   ["--config", path]))
+        counts = read_launches()
+        check(state.step == 20, f"train_nlvr2 stopped at {state.step}")
+        check(state.model.uniter.config.block_fusion == "cuda"
+              and all(v > 0 for v in counts.values()),
+              f"train_nlvr2's default flags did not run K1-K6: {counts}")
+        del state
+        t2 = time.perf_counter()
+        state = train_nlvr2.main(parse_with_config(
+            train_nlvr2.get_parser(),
+            ["--config", path, "--num_train_steps", "25"]))
+        check(state.step == 25, f"resumed run stopped at {state.step}")
+        del state
+        t3 = time.perf_counter()
+        with open(os.path.join(out, "log", "log.txt")) as f:
+            log = f.read()
+        check("resumed from step 20" in log, "the rerun did not resume")
+        check("block_fusion cuda" in log, "block_fusion not logged as cuda")
+        ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
+        accs = [json.loads(line)["valid/acc"] for line in
+                open(os.path.join(out, "log", "scalars.jsonl"))
+                if "valid/acc" in line]
+        res = inf_nlvr2.main(inf_nlvr2.get_parser().parse_args([
+            "--txt_db", os.path.join(work, "txt"),
+            "--img_db", os.path.join(work, "img"), "--train_dir", out,
+            "--output_dir", os.path.join(work, "pred"), "--device", "cuda"]))
+        t4 = time.perf_counter()
+        with open(res) as f:
+            rows = [line.strip().split(",") for line in f if line.strip()]
+        check(sorted(r[0] for r in rows) == sorted(f"ex_{i}"
+                                                   for i in range(n_ex)),
+              "results.csv does not hold one row per example")
+        check({r[1] for r in rows} <= {"True", "False"}, "labels")
+        print(f"[nlvr2-cli] {n_ex} examples over 400 images written in "
+              f"{t1 - t0:.1f} s; train_nlvr2 20 steps (validate + save at "
+              f"10, 20) {t2 - t1:.1f} s, launches {counts}; resumed to 25 "
+              f"{t3 - t2:.1f} s; inf_nlvr2 {t4 - t3:.1f} s; checkpoints "
+              f"{ckpts}; valid acc {accs}; {len(rows)} rows in results.csv")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -788,32 +1273,52 @@ def main():
     build_phase()
     k1_err, k1_time = k1_phase(torch)
     k2_err, k2_time, _ = k2_phase(torch)
+    tail_err, tail_time = tail_phase(torch)
     launches, n_batches, qps, _ = main_path_phase(torch)
     check(launches == 12 * n_batches,
           f"K1 launched {launches} times for {n_batches} batches "
           f"(want 12 per batch)")
     train = train_phase(torch)
     cli_phase(torch)
+    nlvr2 = nlvr2_phase(torch)
+    nlvr2_cli_phase(torch)
     t = k2_time["bfloat16"]
     kernels = []
-    for name, src, replaces, err, ms, plain, lib, bwd, n in (
+    for name, src, replaces, err, ms, plain, lib, bwd in (
             ("mha_fwd", "mha_fwd.cu", "uniter_tpu/ops/attention.py:118",
              max(k1_err, k2_err["mha_fwd"]), t[0.0]["fwd"],
-             t[0.0]["fwd_plain"], t["sdpa_fwd"], False,
-             train["launches"][0]),
+             t[0.0]["fwd_plain"], t["sdpa_fwd"], False),
             ("mha_bwd", "mha_bwd.cu", "uniter_tpu/ops/attention.py:133",
              k2_err["mha_bwd"], t[0.0]["bwd"], t[0.0]["bwd_plain"],
-             t["sdpa_bwd"], True, train["launches"][1])):
+             t["sdpa_bwd"], True)):
         bound, by = bound_ms(96, 104, 12, 64, "bfloat16", bwd)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"uniter_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib})
-    print(f"[smoke] kernels line: times at (96, 104, 12, 64) bf16 rate 0, "
-          f"the training path's dtype (library: scaled_dot_product_attention"
-          f"); launches from the training path ({train['steps']} steps); "
-          f"the serving path launched K1 {launches} times; max_abs_err the "
+            "launches": train["launches"][name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib})
+    for name, line, rows in (("drop_res_ln_fwd", 64, 9984),
+                             ("drop_res_ln_bwd", 71, 9984),
+                             ("ln_drop_fwd", 200, 6144),
+                             ("ln_drop_bwd", 210, 6144)):
+        bound, by = tail_bound_ms(name, rows, 768, "bfloat16")
+        ms, plain = tail_time[(name, "bfloat16", 0.0)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "uniter_tpu_torch/csrc/fused_tail.cu",
+            "replaces": f"uniter_tpu/ops/fused_block.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": tail_err[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": tail_time[(name, "bfloat16", "library")]})
+    print(f"[smoke] kernels line: times bf16 rate 0 at (96, 104, 12, 64) "
+          f"for K1/K2 (library: scaled_dot_product_attention), at (9984, "
+          f"768) for K3/K4 and (6144, 768) for K5/K6 (library: F.layer_norm,"
+          f" after an add for K3/K4); launches from the flagship training "
+          f"path through K1-K6 ({train['steps']} steps); the serving path "
+          f"launched K1 {launches} times and nothing else; NLVR2 launches "
+          f"{nlvr2['launches']} over {nlvr2['steps']} steps; max_abs_err the "
           f"worst fp32 difference from the plain version")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

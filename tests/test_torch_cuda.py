@@ -17,6 +17,14 @@ summation order over S and D), bf16 against the fp32 formula on the same
 bf16 inputs to 2**-8 * |ref| + 1e-3 (one rounding of the result to bf16,
 half a step, plus fp32 noise). A small VQA model answers the same through
 the kernels and through the plain attention, and trains the same.
+
+K3-K6 (``csrc/fused_tail.cu``) are held against their plain versions in
+``ops/fused_block.py`` at rates 0 and 0.1 (same seed, so the same Philox
+mask): fp32 forward to 1e-5; bf16 against the fp32 formula on the same bf16
+inputs to half a bf16 step of the value + 1e-3; dx/dres as K2's; dw/db
+(sums over rows in another order) to 1e-4 of their largest entry, and
+bitwise equal from run to run. A small VQA step through K1-K6 launches
+each fused tail once per tail and matches the plain tails.
 """
 
 import pytest
@@ -24,6 +32,7 @@ import torch
 
 from uniter_tpu_torch.config import resolve_kernel_policies, tiny_config
 from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
+from uniter_tpu_torch.ops import fused_block as fb
 from uniter_tpu_torch.ops.attention import (
     MhaFunction, _mha_bwd_torch, _mha_torch, mha_bwd, mha_fwd)
 
@@ -225,5 +234,112 @@ def test_vqa_train_step_through_kernels(gen):
     for n, gk in grads[0].items():
         gx = grads[1][n]
         assert (gk is None) == (gx is None), n  # mask_embedding: unused
+        if gk is not None:
+            assert (gk - gx).abs().max().item() <= 1e-4, n
+
+
+def _close(x, ref, dtype, fp32_tol):
+    diff = (x.float() - ref).abs()
+    if dtype == torch.float32:
+        return diff.max().item() <= fp32_tol
+    return bool((diff <= 2.0**-8 * ref.abs() + 1e-3).all())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,h", [(9984, 768), (91, 768), (9984, 1024),
+                                    (7, 64)])
+def test_fused_tail_kernels_match_plain(gen, dtype, rate, rows, h):
+    x, res, g = (torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+                 for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+    xf, rf, gf = x.float(), res.float(), g.float()
+    counts = [f.launches for f in (fb.drop_res_ln_fwd, fb.drop_res_ln_bwd,
+                                   fb.ln_drop_fwd, fb.ln_drop_bwd)]
+    y3 = fb.drop_res_ln_fwd(x, res, w, b, rate, 21)
+    bwd4 = fb.drop_res_ln_bwd(x, res, w, g, rate, 21)
+    y5 = fb.ln_drop_fwd(x, w, b, rate, 21)
+    bwd6 = fb.ln_drop_bwd(x, w, g, rate, 21)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fb.drop_res_ln_fwd, fb.drop_res_ln_bwd,
+                                 fb.ln_drop_fwd, fb.ln_drop_bwd)] == [
+        c + 1 for c in counts]
+    assert _close(y3, fb._drop_res_ln_torch(xf, rf, w, b, rate, 21), dtype,
+                  1e-5)
+    assert _close(y5, fb._ln_drop_torch(xf, w, b, rate, 21), dtype, 1e-5)
+    want4 = fb._drop_res_ln_bwd_torch(xf, rf, w, gf, rate, 21)
+    want6 = fb._ln_drop_bwd_torch(xf, w, gf, rate, 21)
+    for got, want in ((bwd4, want4), (bwd6, want6)):
+        n_act = len(got) - 2
+        for x_, ref in zip(got[:n_act], want[:n_act]):
+            assert x_.dtype == dtype and x_.shape == x.shape
+            assert _close(x_, ref, dtype, 1e-4)
+        for x_, ref in zip(got[n_act:], want[n_act:]):
+            assert x_.dtype == torch.float32
+            assert (x_ - ref).abs().max().item() <= 1e-4 * ref.abs().max()
+    again = fb.drop_res_ln_bwd(x, res, w, g, rate, 21)
+    assert torch.equal(again[2], bwd4[2]) and torch.equal(again[3], bwd4[3])
+
+
+def test_fused_tails_refuse_on_the_card(gen):
+    x = torch.randn(4, 6, device="cuda")
+    w, b = torch.ones(6, device="cuda"), torch.zeros(6, device="cuda")
+    with pytest.raises(ValueError):  # H % 4
+        fb.ln_drop_fwd(x, w, b)
+    x = torch.randn(8, 4, device="cuda").t()
+    w, b = torch.ones(8, device="cuda"), torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError):  # not contiguous
+        fb.ln_drop_fwd(x, w, b)
+
+
+def test_vqa_train_step_through_fused_tails(gen):
+    """A small VQA step at dropout 0.1 through K1-K6 (block_fusion
+    resolved from "auto" for training on the card) against the plain
+    tails, same generator seed: loss and gradients within 1e-4; each step
+    launches K3/K4 at the 2 sub-block tails of each layer and K5/K6 at the
+    2 embedding tails."""
+    from uniter_tpu_torch.train_vqa import vqa_loss
+
+    torch.manual_seed(0)
+    cfg = tiny_config(attention_impl="pallas", block_fusion="auto")
+    fused_cfg = resolve_kernel_policies(cfg, "cuda", training=True)
+    assert fused_cfg.block_fusion == "cuda"
+    model = UniterForVisualQuestionAnswering(fused_cfg, img_dim=32,
+                                             num_answer=9)
+    plain = UniterForVisualQuestionAnswering(
+        fused_cfg.replace(block_fusion="none"), img_dim=32, num_answer=9)
+    plain.load_state_dict(model.state_dict())
+    model.cuda()
+    plain.cuda()
+    b, t, r = 6, 12, 10
+    lens = torch.tensor([1, 3, 12, 7, 12, 5], device="cuda")
+    attn = torch.cat([
+        torch.arange(t, device="cuda")[None] < lens[:, None],
+        torch.ones(b, r, dtype=torch.bool, device="cuda")], 1).int()
+    batch = dict(
+        input_ids=torch.randint(0, 512, (b, t), device="cuda"),
+        position_ids=torch.arange(t, device="cuda").repeat(b, 1),
+        img_feat=torch.randn(b, r, 32, generator=gen, device="cuda"),
+        img_pos_feat=torch.rand(b, r, 7, generator=gen, device="cuda"),
+        attn_mask=attn,
+        targets=(torch.rand(b, 9, generator=gen, device="cuda") < 0.3).float(),
+        ex_weight=torch.ones(b, device="cuda"))
+    kernels = (fb.drop_res_ln_fwd, fb.drop_res_ln_bwd, fb.ln_drop_fwd,
+               fb.ln_drop_bwd)
+    before = [k.launches for k in kernels]
+    losses, grads = [], []
+    for m in (model, plain):
+        loss = vqa_loss(m, batch, torch.Generator().manual_seed(3), 9)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    n_layers = cfg.num_hidden_layers
+    assert [k.launches - c for k, c in zip(kernels, before)] == [
+        2 * n_layers, 2 * n_layers, 2, 2]
+    assert abs(losses[0] - losses[1]) <= 1e-4 * max(1.0, abs(losses[1]))
+    for n, gk in grads[0].items():
+        gx = grads[1][n]
+        assert (gk is None) == (gx is None), n
         if gk is not None:
             assert (gk - gx).abs().max().item() <= 1e-4, n

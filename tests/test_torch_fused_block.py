@@ -1,0 +1,266 @@
+"""The port's fused dropout + residual + LayerNorm tails (K3-K6) against the
+JAX package, on the CPU.
+
+* The plain forwards ``_drop_res_ln_torch`` and ``_ln_drop_torch`` at rate 0
+  in fp32 equal JAX ``drop_res_ln``/``ln_drop`` with ``impl="pallas"``
+  (interpret mode, as tests/test_pallas_interpret.py runs them; rows not a
+  multiple of 8 take the JAX package's own fallback) and ``impl="xla"``, to
+  1e-5 (fp32 rounding of another summation order over H).
+* The explicit backward formulas equal ``jax.grad`` of the XLA path at rate
+  0: dx/dres to 1e-5, dw/db (sums over rows) to 1e-5 of their largest
+  entry.
+* At rate 0.1 and 0.5: the formulas equal float64 autograd through the
+  plain composition on the same Philox mask (1e-10); the zeros of the
+  dropped tensors sit exactly where ``keep_mask(seed, 0, shape)`` says;
+  ``gradcheck`` passes through ``DropResLNFunction``/``LNDropFunction`` in
+  float64.
+* The wrappers refuse what the kernels do not take.
+* A tiny VQA model trained 3 steps at dropout 0.1 with ``block_fusion``
+  forced to "cuda" (the Functions, with their plain bodies on the CPU)
+  matches "none" (the trunk's plain composition) to fp32 rounding: the two
+  paths draw the same seeds in the same order, so the same masks.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from uniter_tpu_torch import config as pconfig
+from uniter_tpu_torch.ops import fused_block as fb
+from uniter_tpu_torch.ops.dropout import keep_mask
+
+torch.set_num_threads(2)
+
+SHAPES = [(32, 24), (2, 13, 64), (4, 9, 768)]
+
+
+def _inputs(shape, seed=0):
+    rng = np.random.RandomState(seed)
+    h = shape[-1]
+    return dict(x=rng.randn(*shape).astype(np.float32),
+                res=rng.randn(*shape).astype(np.float32),
+                g=rng.randn(*shape).astype(np.float32),
+                w=(1.0 + 0.1 * rng.randn(h)).astype(np.float32),
+                b=(0.1 * rng.randn(h)).astype(np.float32))
+
+
+def _t(a, dtype=torch.float32, grad=False):
+    return torch.tensor(a, dtype=dtype, requires_grad=grad)
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    monkeypatch.setenv("UNITER_PALLAS_INTERPRET", "1")
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("tail", ["drop_res_ln", "ln_drop"])
+def test_plain_forward_matches_jax(pallas_interpret, tail, shape, impl):
+    from uniter_tpu.ops import fused_block as jfb
+
+    d = _inputs(shape)
+    if tail == "drop_res_ln":
+        want = jfb.drop_res_ln(jnp.asarray(d["x"]), jnp.asarray(d["res"]),
+                               jnp.asarray(d["w"]), jnp.asarray(d["b"]),
+                               impl=impl)
+        got = fb._drop_res_ln_torch(_t(d["x"]), _t(d["res"]), _t(d["w"]),
+                                    _t(d["b"]))
+    else:
+        want = jfb.ln_drop(jnp.asarray(d["x"]), jnp.asarray(d["w"]),
+                           jnp.asarray(d["b"]), impl=impl)
+        got = fb._ln_drop_torch(_t(d["x"]), _t(d["w"]), _t(d["b"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(32, 24), (4, 9, 768)])
+@pytest.mark.parametrize("tail", ["drop_res_ln", "ln_drop"])
+def test_backward_formula_matches_jax_grad(tail, shape):
+    from uniter_tpu.ops import fused_block as jfb
+
+    d = _inputs(shape, seed=1)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    if tail == "drop_res_ln":
+        _, vjp = jax.vjp(lambda x, r, w, b: jfb.drop_res_ln(x, r, w, b,
+                                                            impl="xla"),
+                         j["x"], j["res"], j["w"], j["b"])
+        want = vjp(j["g"])  # dx, dres, dw, db
+        got = fb._drop_res_ln_bwd_torch(_t(d["x"]), _t(d["res"]), _t(d["w"]),
+                                        _t(d["g"]))
+    else:
+        _, vjp = jax.vjp(lambda x, w, b: jfb.ln_drop(x, w, b, impl="xla"),
+                         j["x"], j["w"], j["b"])
+        want = vjp(j["g"])  # dx, dw, db
+        got = fb._ln_drop_bwd_torch(_t(d["x"]), _t(d["w"]), _t(d["g"]))
+    assert len(got) == len(want)
+    for gt, wt in zip(got, want):
+        wt = np.asarray(wt)
+        scale = 1.0 if wt.ndim > 1 else max(1.0, np.abs(wt).max())
+        np.testing.assert_allclose(gt.numpy(), wt, atol=1e-5 * scale, rtol=0)
+
+
+def _composition(tail, x, res, w, b, keep, rate):
+    """The plain composition, in x's dtype (float64 here): dropout by the
+    given mask, LayerNorm with biased variance and eps 1e-12."""
+    def ln(t):
+        mean = t.mean(-1, keepdim=True)
+        var = (t - mean).square().mean(-1, keepdim=True)
+        return (t - mean) / torch.sqrt(var + 1e-12) * w + b
+
+    def drop(t):
+        return torch.where(keep, t / (1.0 - rate), torch.zeros((),
+                                                                dtype=t.dtype))
+
+    return ln(drop(x) + res) if tail == "drop_res_ln" else drop(ln(x))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("tail", ["drop_res_ln", "ln_drop"])
+def test_dropout_backward_equals_autograd_on_the_same_mask(tail, rate):
+    d = _inputs((3, 7, 64), seed=2)
+    x, res, w, b = (_t(d[k], torch.float64, grad=True)
+                    for k in ("x", "res", "w", "b"))
+    g = _t(d["g"], torch.float64)
+    seed = 1234
+    keep = keep_mask(seed, 0, x.shape, rate)
+    assert 0 < keep.sum() < keep.numel()
+    y = _composition(tail, x, res, w, b, keep, rate)
+    y.backward(g)
+    grads = [None if t.grad is None else t.grad.numpy()
+             for t in (x, res, w, b)]  # ln_drop reads no res
+    x, res, w, b = (t.detach() for t in (x, res, w, b))
+    if tail == "drop_res_ln":
+        fwd = fb._drop_res_ln_torch(x, res, w, b, rate, seed)
+        dx, dres, dw, db = fb._drop_res_ln_bwd_torch(x, res, w, g, rate, seed)
+        np.testing.assert_allclose(dres.numpy(), grads[1], atol=1e-10)
+        # dx is zero exactly where the mask drops x
+        assert torch.equal(dx == 0, ~keep)
+    else:
+        fwd = fb._ln_drop_torch(x, w, b, rate, seed)
+        dx, dw, db = fb._ln_drop_bwd_torch(x, w, g, rate, seed)
+        # the output is zero exactly where the mask drops it
+        assert torch.equal(fwd == 0, ~keep)
+    np.testing.assert_allclose(fwd.detach().numpy(), y.detach().numpy(),
+                               atol=1e-10)
+    for got, want in zip((dx, dw, db), (grads[0], grads[2], grads[3])):
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-10)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_functions_gradcheck_float64(rate):
+    rng = np.random.RandomState(3)
+    x, res = (torch.tensor(rng.randn(2, 5, 8), dtype=torch.float64,
+                           requires_grad=True) for _ in range(2))
+    w = torch.tensor(1.0 + 0.1 * rng.randn(8), dtype=torch.float64,
+                     requires_grad=True)
+    b = torch.tensor(0.1 * rng.randn(8), dtype=torch.float64,
+                     requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda x, r, w, b: fb.DropResLNFunction.apply(x, r, w, b, rate, 7,
+                                                      1e-12),
+        (x, res, w, b), eps=1e-6, atol=1e-6)
+    assert torch.autograd.gradcheck(
+        lambda x, w, b: fb.LNDropFunction.apply(x, w, b, rate, 7, 1e-12),
+        (x, w, b), eps=1e-6, atol=1e-6)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    d = _inputs((4, 8))
+    x, res, w, b = (_t(d[k]) for k in ("x", "res", "w", "b"))
+    with pytest.raises(TypeError):
+        fb.drop_res_ln_fwd(x, res.bfloat16(), w, b)
+    with pytest.raises(TypeError):
+        fb.ln_drop_fwd(x, w.bfloat16(), b)
+    with pytest.raises(ValueError):
+        fb.drop_res_ln_fwd(x, res[:2], w, b)
+    with pytest.raises(ValueError):
+        fb.ln_drop_fwd(x, w[:4], b)
+    for rate in (-0.1, 1.0):
+        with pytest.raises(ValueError):
+            fb.ln_drop_fwd(x, w, b, rate, 3)
+    with pytest.raises(ValueError):
+        fb.drop_res_ln_bwd(x, res, w, x, 0.1, -1)
+    with pytest.raises(ValueError):
+        fb.ln_drop_fwd(x[:0], w, b)
+    with pytest.raises(ValueError):
+        fb.drop_res_ln(x, res, w, b, impl="pallas")
+    # a CPU tensor takes the plain version and launches nothing
+    before = fb.drop_res_ln_fwd.launches
+    y = fb.drop_res_ln_fwd(x, res, w, b, 0.1, 3)
+    assert fb.drop_res_ln_fwd.launches == before
+    assert torch.equal(y, fb._drop_res_ln_torch(x, res, w, b, 0.1, 3))
+
+
+def test_bf16_activations_take_fp32_arithmetic():
+    """bf16 x/res: the result is the fp32 formula on the bf16 inputs,
+    rounded once to bf16; dw/db stay fp32."""
+    d = _inputs((6, 32), seed=4)
+    x, res, g = (_t(d[k]).bfloat16() for k in ("x", "res", "g"))
+    w, b = _t(d["w"]), _t(d["b"])
+    y = fb.drop_res_ln_fwd(x, res, w, b, 0.1, 5)
+    ref = fb._drop_res_ln_torch(x.float(), res.float(), w, b, 0.1, 5)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, ref.bfloat16())
+    dx, dres, dw, db = fb.drop_res_ln_bwd(x, res, w, g, 0.1, 5)
+    assert dx.dtype == dres.dtype == torch.bfloat16
+    assert dw.dtype == db.dtype == torch.float32
+
+
+def test_fused_tails_train_as_the_plain_composition(monkeypatch):
+    """3 steps of the tiny VQA model at dropout 0.1: block_fusion "cuda"
+    (DropResLNFunction/LNDropFunction on the CPU) against "none". Same
+    initial weights and generator seeds; losses to rtol 1e-5 and
+    parameters to atol 1e-5 (fp32 rounding: x * (1/(1-rate)) against
+    x / (1-rate), and the sums of the formula against autograd's)."""
+    from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
+    from uniter_tpu_torch.train_vqa import vqa_loss
+    from uniter_tpu_torch.training import optim as popt
+    from uniter_tpu_torch.training import sched as psched
+    from uniter_tpu_torch.training import step as pstep
+
+    rng = np.random.RandomState(5)
+    b, t, r = 4, 8, 6
+    attn = np.ones((b, t + r), np.int32)
+    attn[0, t - 2:t] = 0
+    batch = {k: torch.from_numpy(v) for k, v in dict(
+        input_ids=rng.randint(1, 500, (b, t)).astype(np.int32),
+        position_ids=np.tile(np.arange(t, dtype=np.int32), (b, 1)),
+        img_feat=rng.randn(b, r, 32).astype(np.float32),
+        img_pos_feat=rng.rand(b, r, 7).astype(np.float32),
+        attn_mask=attn,
+        targets=(rng.rand(b, 11) < 0.2).astype(np.float32),
+        ex_weight=np.ones(b, np.float32)).items()}
+
+    def run(block_fusion):
+        torch.manual_seed(0)
+        model = UniterForVisualQuestionAnswering(
+            pconfig.tiny_config(block_fusion=block_fusion), img_dim=32,
+            num_answer=11)
+        opt = popt.build_optimizer(model, psched.get_lr_schedule(1e-3, 1, 3),
+                                   fused=True)
+        state = pstep.TrainState(step=0, model=model, opt=opt)
+        step = pstep.make_train_step(lambda m, bt, g: vqa_loss(m, bt, g, 11))
+        losses = [float(step(state, batch, seed=11)[1]["loss"])
+                  for _ in range(3)]
+        return losses, dict(model.named_parameters())
+
+    calls = {}
+    for name in ("drop_res_ln_fwd", "ln_drop_fwd"):
+        def counted(*a, _orig=getattr(fb, name), _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _orig(*a)
+
+        monkeypatch.setattr(fb, name, counted)
+    fused_losses, fused_params = run("cuda")
+    # 2 layers x 2 sub-block tails, 2 embedding tails, per step
+    assert calls == {"drop_res_ln_fwd": 12, "ln_drop_fwd": 6}
+    plain_losses, plain_params = run("none")
+    np.testing.assert_allclose(fused_losses, plain_losses, rtol=1e-5)
+    assert len(set(plain_losses)) == 3
+    for k, p in plain_params.items():
+        np.testing.assert_allclose(fused_params[k].detach().numpy(),
+                                   p.detach().numpy(), atol=1e-5, rtol=0,
+                                   err_msg=k)

@@ -184,6 +184,9 @@ def test_port_imports_without_jax():
         "import uniter_tpu_torch.data.vqa, uniter_tpu_torch.models.checkpoint\n"
         "import uniter_tpu_torch.train_vqa, uniter_tpu_torch.training.loop\n"
         "import uniter_tpu_torch.models.losses\n"
+        "import uniter_tpu_torch.train_nlvr2, uniter_tpu_torch.inf_nlvr2\n"
+        "import uniter_tpu_torch.ops.fused_block, uniter_tpu_torch.models.heads\n"
+        "import uniter_tpu_torch.models.nlvr2, uniter_tpu_torch.data.nlvr2\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'uniter_tpu')]\n"
         "assert not bad, bad\n"

@@ -272,22 +272,23 @@ def test_resolve_kernel_policies_from_explicit_device(impl, device, want):
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_resolve_kernel_policies_for_training(device):
-    """Training: block fusion "none" and "auto" run the plain tails;
-    "pallas" asks for K3-K6, which the card refuses (the CPU takes the plain
-    version of every kernel); the 16/8-bit dropout thresholds raise on
-    every device."""
+    """Training: block fusion "auto" and "pallas" select the fused tail
+    kernels K3-K6 ("cuda") on the card and the plain tails ("none") on the
+    CPU; "none" stays "none" everywhere; inference never fuses; the 16/8-bit
+    dropout thresholds raise on every device."""
     cfg = pconfig.UniterConfig.from_dict(dict(jax_tiny().to_dict()))
-    for bf in ("none", "auto"):
+    for bf in ("auto", "pallas", "cuda"):
         got = pconfig.resolve_kernel_policies(
             cfg.replace(block_fusion=bf), device, training=True)
-        assert got.block_fusion == "none"
-    pallas = cfg.replace(block_fusion="pallas")
-    if device == "cuda":
-        with pytest.raises(NotImplementedError, match="K3"):
-            pconfig.resolve_kernel_policies(pallas, device, training=True)
-    else:
+        assert got.block_fusion == ("cuda" if device == "cuda" else "none")
         assert pconfig.resolve_kernel_policies(
-            pallas, device, training=True).block_fusion == "none"
+            cfg.replace(block_fusion=bf), device).block_fusion == "none"
+    assert pconfig.resolve_kernel_policies(
+        cfg.replace(block_fusion="none"), device,
+        training=True).block_fusion == "none"
+    with pytest.raises(ValueError):
+        pconfig.resolve_kernel_policies(cfg.replace(block_fusion="x"), device,
+                                        training=True)
     for impl in ("u16", "u8"):
         with pytest.raises(NotImplementedError, match=impl):
             pconfig.resolve_kernel_policies(cfg.replace(dropout_impl=impl),

@@ -16,8 +16,6 @@ from typing import Any, Dict
 
 import torch
 
-from uniter_tpu_torch.utils.logger import LOGGER
-
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -48,9 +46,10 @@ class UniterConfig:
     # Philox bits, ops/dropout.py). The JAX package's "u16"/"u8" are not
     # ported and raise when training.
     dropout_impl: str = "xla"
-    # "pallas" fuses each dropout + residual + LayerNorm tail into one kernel
-    # in the JAX package (K3-K6, not ported yet); "none" composes the plain
-    # ops. resolve_kernel_policies decides what a device runs.
+    # "cuda" runs each live dropout + residual + LayerNorm tail as one fused
+    # Function (K3-K6, csrc/fused_tail.cu on the card); "none" composes the
+    # plain ops. The JAX package's "auto"/"pallas" are accepted and resolved
+    # by resolve_kernel_policies.
     block_fusion: str = "none"
     layer_norm_eps: float = 1e-12
     # One [3H, H] projection instead of three (weights stay query/key/value,
@@ -91,12 +90,10 @@ def resolve_kernel_policies(cfg: UniterConfig, device, *,
 
     Block fusion (the fused dropout + residual + LayerNorm tails, K3-K6)
     runs only while a dropout mask is live (``uniter_tpu/models/encoder.py``
-    :65,92), so inference resolves it to "none" on every device. For
-    ``training``: "none" stays; "auto" becomes "none" (logged: K3-K6 are
-    not ported yet); "pallas" raises on a CUDA device rather than run the
-    plain tails in place of the kernels it asked for, and a CPU device
-    takes the plain version of every kernel, as for attention. A
-    ``dropout_impl`` other than "xla" raises when training.
+    :65,92), so inference, and every policy on a CPU device, resolve it to
+    "none". For ``training`` on a CUDA device "auto", "pallas" and "cuda"
+    select the kernels ("cuda") and "none" stays "none". A ``dropout_impl``
+    other than "xla" raises when training.
     """
     on_cuda = torch.device(device).type == "cuda"
     att = cfg.attention_impl
@@ -105,24 +102,14 @@ def resolve_kernel_policies(cfg: UniterConfig, device, *,
     elif att != "xla":
         raise ValueError(f"unknown attention_impl {att!r}")
     bf = cfg.block_fusion
-    if bf not in ("auto", "none", "pallas"):
+    if bf not in ("auto", "none", "pallas", "cuda"):
         raise ValueError(f"unknown block_fusion {bf!r}")
-    if training:
-        if bf == "pallas" and on_cuda:
-            raise NotImplementedError(
-                "block_fusion='pallas' needs the fused dropout+residual+"
-                "LayerNorm kernels K3/K4 (uniter_tpu/ops/fused_block.py "
-                "_fwd_kernel/_bwd_kernel) and LayerNorm+dropout K5/K6 "
-                "(_ln_drop_fwd_kernel/_ln_drop_bwd_kernel), which are not "
-                "ported yet; run with --block_fusion none")
-        if bf == "auto" and on_cuda:
-            LOGGER.info("block_fusion auto -> none: the fused tail kernels "
-                        "K3-K6 are not ported yet")
-        if cfg.dropout_impl != "xla":
-            raise NotImplementedError(
-                f"dropout_impl {cfg.dropout_impl!r} is not ported; use "
-                "'xla' (32-bit thresholds)")
-    return cfg.replace(attention_impl=att, block_fusion="none")
+    bf = "cuda" if training and on_cuda and bf != "none" else "none"
+    if training and cfg.dropout_impl != "xla":
+        raise NotImplementedError(
+            f"dropout_impl {cfg.dropout_impl!r} is not ported; use "
+            "'xla' (32-bit thresholds)")
+    return cfg.replace(attention_impl=att, block_fusion=bf)
 
 
 def base_config(**overrides) -> UniterConfig:

@@ -1,4 +1,4 @@
-// Philox4x32-10 for the attention kernels' dropout masks.
+// Philox4x32-10 for the kernels' dropout masks (attention, fused tails).
 //
 // The mask bit of score (b, h, q, k) is word (k % 4) of
 //   philox4x32_10(counter = (k / 4, lo32(row), hi32(row), 0),
@@ -6,6 +6,8 @@
 // kept iff that word >= threshold = floor(rate * 2^32). This is the rule of
 // uniter_tpu_torch/ops/dropout.py (`keep_mask` over a [B, H, S, S] tensor),
 // so the plain versions, K1 and K2 draw the same bits whatever their tiling.
+// The fused tails (fused_tail.cu) take element (r, c) of a [rows, H] tensor
+// as row r, key c of the same rule.
 
 #pragma once
 

@@ -13,6 +13,9 @@ sub-block tails and the attention probabilities when ``deterministic`` is
 False. Each such call draws its own seed from the ``generator`` argument, a
 ``torch.Generator`` the train step makes per step (never torch's global
 one), so a step's masks are a function of that generator's seed alone.
+With ``block_fusion="cuda"`` each live tail runs as one fused Function
+(K3/K4 at the sub-block tails, K5/K6 at the embedding tails) on the same
+seed and the same Philox bits as the plain composition.
 
 Submodules are named after the reference ``.pt`` keys that
 ``uniter_tpu.models.checkpoint.export_state_dict`` emits (for example
@@ -29,7 +32,8 @@ from torch import nn
 from uniter_tpu_torch.config import UniterConfig
 from uniter_tpu_torch.ops.activations import ACT2FN
 from uniter_tpu_torch.ops.attention import multi_head_attention
-from uniter_tpu_torch.ops.dropout import draw_seed, dropout
+from uniter_tpu_torch.ops.dropout import draw_seed, drop, live_seed
+from uniter_tpu_torch.ops.fused_block import drop_res_ln, ln_drop
 from uniter_tpu_torch.ops.layer_norm import layer_norm
 
 MASK_VALUE = -10000.0  # additive padding bias, reference model/model.py:345
@@ -58,33 +62,47 @@ class LayerNorm(nn.Module):
 class DropResLN(LayerNorm):
     """``LayerNorm(dropout(x) + res)``: the tail of both BERT sub-blocks
     (reference model/layer.py:104-127,158-170). Parameters are a plain
-    LayerNorm's. This is the plain composition of ``block_fusion="none"``;
-    the fused tail (K3/K4) is not ported yet, and
-    ``config.resolve_kernel_policies`` refuses a training config that asks
-    for it."""
+    LayerNorm's. With ``fused`` (``block_fusion="cuda"``) and a live mask
+    the tail is one ``ops.fused_block.drop_res_ln`` (K3 forward, K4
+    backward on the card); otherwise, as in the JAX module (:65), the plain
+    composition."""
 
-    def __init__(self, features: int, rate: float, eps: float = 1e-12):
+    def __init__(self, features: int, rate: float, eps: float = 1e-12,
+                 fused: bool = False):
         super().__init__(features, eps)
         self.rate = rate
+        self.fused = fused
 
     def forward(self, x, res, deterministic: bool = True, generator=None):
-        x = dropout(x, self.rate, deterministic=deterministic,
-                    generator=generator)
+        # one seed per live tail, drawn where the plain dropout draws it,
+        # so the fused and the plain path use the same masks
+        seed = live_seed(self.rate, deterministic, generator)
+        if seed is not None and self.fused:
+            return drop_res_ln(x, res, self.weight, self.bias, rate=self.rate,
+                               seed=seed, eps=self.eps)
+        if seed is not None:
+            x = drop(x, self.rate, seed)
         return layer_norm(x + res, self.weight, self.bias, self.eps)
 
 
 class LNDrop(LayerNorm):
     """``dropout(LayerNorm(x))``: the embedding tails (reference
-    model/model.py:241-244,269-271)."""
+    model/model.py:241-244,269-271); with ``fused`` and a live mask one
+    ``ops.fused_block.ln_drop`` (K5/K6 on the card)."""
 
-    def __init__(self, features: int, rate: float, eps: float = 1e-12):
+    def __init__(self, features: int, rate: float, eps: float = 1e-12,
+                 fused: bool = False):
         super().__init__(features, eps)
         self.rate = rate
+        self.fused = fused
 
     def forward(self, x, deterministic: bool = True, generator=None):
+        seed = live_seed(self.rate, deterministic, generator)
+        if seed is not None and self.fused:
+            return ln_drop(x, self.weight, self.bias, rate=self.rate,
+                           seed=seed, eps=self.eps)
         y = layer_norm(x, self.weight, self.bias, self.eps)
-        return dropout(y, self.rate, deterministic=deterministic,
-                       generator=generator)
+        return y if seed is None else drop(y, self.rate, seed)
 
 
 class Embed(nn.Embedding):
@@ -115,7 +133,7 @@ class UniterTextEmbeddings(nn.Module):
         self.token_type_embeddings = Embed(cfg.type_vocab_size,
                                            cfg.hidden_size, dt)
         self.LayerNorm = LNDrop(cfg.hidden_size, cfg.hidden_dropout_prob,
-                                cfg.layer_norm_eps)
+                                cfg.layer_norm_eps, cfg.block_fusion == "cuda")
 
     def forward(self, input_ids, position_ids, token_type_ids=None, *,
                 deterministic: bool = True, generator=None):
@@ -141,7 +159,8 @@ class UniterImageEmbeddings(nn.Module):
         self.pos_linear = Linear(7, h)
         self.pos_layer_norm = LayerNorm(h, eps)
         self.mask_embedding = nn.Embedding(2, img_dim)
-        self.LayerNorm = LNDrop(h, cfg.hidden_dropout_prob, eps)
+        self.LayerNorm = LNDrop(h, cfg.hidden_dropout_prob, eps,
+                                cfg.block_fusion == "cuda")
 
     def forward(self, img_feat, img_pos_feat, type_embeddings,
                 img_masks=None, *, deterministic: bool = True,
@@ -173,7 +192,8 @@ class BertSelfOutput(nn.Module):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = DropResLN(cfg.hidden_size, cfg.hidden_dropout_prob,
-                                   cfg.layer_norm_eps)
+                                   cfg.layer_norm_eps,
+                                   cfg.block_fusion == "cuda")
 
 
 class BertAttention(nn.Module):
@@ -231,7 +251,8 @@ class BertOutput(nn.Module):
         super().__init__()
         self.dense = Linear(cfg.intermediate_size, cfg.hidden_size)
         self.LayerNorm = DropResLN(cfg.hidden_size, cfg.hidden_dropout_prob,
-                                   cfg.layer_norm_eps)
+                                   cfg.layer_norm_eps,
+                                   cfg.block_fusion == "cuda")
 
 
 class BertLayer(nn.Module):
@@ -292,16 +313,21 @@ class UniterModel(nn.Module):
     Pass ``input_ids=None`` for image-only or ``img_feat=None`` for
     text-only encoding (the reference's three input modes,
     model/model.py:348-360). ``forward`` returns the last layer's states;
-    the pooler is called by the heads.
+    the pooler is called by the heads. A head that never reads the pooler
+    (NLVR2 paired-attn) builds the trunk with ``pooler=False``: flax creates
+    no parameters for an uncalled submodule, so the JAX package's
+    parameter tree has none to bridge.
     """
 
-    def __init__(self, cfg: UniterConfig, img_dim: int = 2048):
+    def __init__(self, cfg: UniterConfig, img_dim: int = 2048,
+                 pooler: bool = True):
         super().__init__()
         self.config = cfg
         self.embeddings = UniterTextEmbeddings(cfg)
         self.img_embeddings = UniterImageEmbeddings(cfg, img_dim)
         self.encoder = UniterEncoder(cfg)
-        self.pooler = BertPooler(cfg)
+        if pooler:
+            self.pooler = BertPooler(cfg)
 
     def forward(self, input_ids=None, position_ids=None, img_feat=None,
                 img_pos_feat=None, attn_mask=None, img_masks=None,

@@ -1,8 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface. ``nvcc`` compiles it for
-Hopper (``sm_90a``) into ``build/uniter_tpu_torch/lib<name>.so`` at first
-use, and ``ctypes`` loads it; shared device code lives in ``csrc/*.cuh``
+Each ``csrc/<source>.cu`` has a plain C interface: one or more entry points
+``uniter_<kernel>`` (``SOURCES`` says which source holds which kernel).
+``nvcc`` compiles it for Hopper (``sm_90a``) into
+``build/uniter_tpu_torch/lib<source>.so`` at first use, and ``ctypes``
+loads it; shared device code lives in ``csrc/*.cuh``
 (a newer header rebuilds every kernel). No source includes PyTorch's headers, so a
 build takes seconds. Sources build in parallel, one ``nvcc`` each; a
 library newer than its source is reused.
@@ -28,13 +30,28 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # kernel name -> ctypes signature of its C entry point ``uniter_<name>``
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _U, _UL = ctypes.c_uint, ctypes.c_ulonglong
+# the fused tails' common tail: rows, H, dropout threshold, 1/(1-rate),
+# seed, eps, dtype, stream
+_TAIL = [_L, _I, _U, _F, _UL, _F, _I, _P]
 SIGNATURES = {
     # q k v bias out, B S H D, q/k/v strides, sm_scale, dropout threshold,
     # 1/(1-rate), seed, dtype, stream
     "mha_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _U, _F, _UL, _I, _P],
     # q k v g bias dq dk dv stats, B S H D, q/k/v/g strides, then as mha_fwd
     "mha_bwd": [_P] * 9 + [_I] * 4 + [_L] * 12 + [_F, _U, _F, _UL, _I, _P],
+    # x res w b y
+    "drop_res_ln_fwd": [_P] * 5 + _TAIL,
+    # x res w g dx dres part dwdb
+    "drop_res_ln_bwd": [_P] * 8 + _TAIL,
+    # x w b y
+    "ln_drop_fwd": [_P] * 4 + _TAIL,
+    # x w g dx part dwdb
+    "ln_drop_bwd": [_P] * 6 + _TAIL,
 }
+# kernel name -> the csrc/<source>.cu that defines it
+SOURCES = {"mha_fwd": "mha_fwd", "mha_bwd": "mha_bwd",
+           **{k: "fused_tail" for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
+                                        "ln_drop_fwd", "ln_drop_bwd")}}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -64,10 +81,10 @@ def _stale(name: str) -> bool:
         os.path.getmtime(so)
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES), *,
+def build(names: Iterable[str] = tuple(sorted(set(SOURCES.values()))), *,
           verbose: bool = False) -> Dict[str, str]:
-    """Compile the stale kernels of ``names``, all at once. Returns each
-    built kernel's compiler output (``-Xptxas -v`` register and shared
+    """Compile the stale sources of ``names``, all at once. Returns each
+    built source's compiler output (``-Xptxas -v`` register and shared
     memory report when ``verbose``); raises with that output on failure."""
     todo = [n for n in names if _stale(n)]
     if not todo:
@@ -99,13 +116,14 @@ def build(names: Iterable[str] = tuple(SIGNATURES), *,
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library. The first use of any kernel builds every stale
-    one, all at once (a training step needs K1 and K2 back to back)."""
+    """The library that holds kernel ``name``, its entry point typed. The
+    first use of any kernel builds every stale source, all at once (a
+    training step needs all of them back to back)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build()
-            lib = ctypes.CDLL(_paths(name)[1])
+            lib = ctypes.CDLL(_paths(SOURCES[name])[1])
             fn = getattr(lib, f"uniter_{name}")
             fn.argtypes = SIGNATURES[name]
             fn.restype = ctypes.c_int

@@ -115,14 +115,28 @@ def draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(SEED_MAX, (1,), generator=generator))
 
 
+def live_seed(rate: float, deterministic: bool,
+              generator: torch.Generator = None):
+    """The seed of a dropout call whose mask is live (not deterministic,
+    rate > 0), drawn from ``generator`` (never torch's global one); None
+    when the call is the identity."""
+    if deterministic or rate == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("live dropout needs a torch.Generator for its seeds")
+    return draw_seed(generator)
+
+
+def drop(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout of ``x`` with the mask of ``seed`` (rate > 0)."""
+    keep = keep_mask(seed, 0, x.shape, rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+
+
 def dropout(x: torch.Tensor, rate: float, *, deterministic: bool = True,
             generator: torch.Generator = None) -> torch.Tensor:
     """Inverted dropout. Identity when deterministic or rate == 0; a live
-    call draws its seed from ``generator`` (never torch's global one)."""
-    if deterministic or rate == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("live dropout needs a torch.Generator for its seeds")
-    keep = keep_mask(draw_seed(generator), 0, x.shape, rate, x.device)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
-                                                          device=x.device))
+    call draws its seed from ``generator``."""
+    seed = live_seed(rate, deterministic, generator)
+    return x if seed is None else drop(x, rate, seed)

@@ -3,8 +3,10 @@ reference model/model.py:229).
 
 Counterpart of ``_layer_norm_xla`` in ``uniter_tpu/ops/layer_norm.py``:
 statistics in fp32 whatever the input dtype, the result cast back to it.
-The fused Pallas LayerNorm kernel is not on the inference path and is not
-ported yet.
+This is the plain LayerNorm of inference and of ``block_fusion="none"``;
+the training tails fuse it with dropout and the residual in
+``ops/fused_block.py`` (K3-K6). The JAX package's standalone Pallas
+LayerNorm kernel (K8, off by default) is not ported yet.
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ multiplier (train_vqa.py:208-214). Writes ``log/`` (hps.json, model.json,
 scalars.jsonl, log.txt) and ``ckpt/`` (model_step_N.pt, train_state_N.pt,
 ans2label.json) under ``--output_dir``; rerunning resumes from the latest
 train state; ``python -m uniter_tpu_torch.inf_vqa --train_dir OUTPUT_DIR``
-answers from it. Compute runs in ``--dtype`` (bf16) over fp32 parameters,
-attention through the hand-written kernels on the card.
+answers from it. Compute runs in ``--dtype`` (bf16) over fp32 parameters;
+on the card the default flags run attention through K1/K2 and the dropout +
+residual + LayerNorm tails through K3-K6.
 """
 
 from __future__ import annotations

@@ -8,14 +8,17 @@ loss, validation) and inherits the reference's driver behavior
 log, periodic validation, checkpoints with resume. One process drives one
 device (``--device``, the card by default).
 
-The flags are the JAX drivers'. Those that tune TPU machinery are accepted
-and do nothing here: ``--attn_batch_block`` (the TPU kernel's grid
+The flags are the JAX drivers'. ``--attention_impl`` and
+``--block_fusion`` default to ``auto``: on the card the hand-written
+attention kernels (K1/K2) and the fused dropout + residual + LayerNorm
+tails (K3-K6), on the CPU their plain versions; ``--block_fusion none``
+keeps the plain tails on the card. Flags that tune TPU machinery are
+accepted and do nothing here: ``--attn_batch_block`` (the TPU kernel's grid
 blocking), ``--warmup_compile`` (ahead-of-time XLA compiles), ``--fp16``
 and ``--pin_mem`` (batches are always pinned). Those whose feature is not
 ported raise: ``--fsdp``, ``--param_dtype bfloat16``, ``--wire_codec int8``,
-``--remat``, ``--profile_dir``, ``--optim adam``/``adamax``,
-``--dropout_impl u16``/``u8`` and ``--block_fusion pallas`` on the card
-(the fused tail kernels K3-K6).
+``--remat``, ``--profile_dir``, ``--optim adam``/``adamax`` and
+``--dropout_impl u16``/``u8``.
 """
 
 from __future__ import annotations
@@ -95,7 +98,9 @@ def add_common_args(parser: argparse.ArgumentParser):
                              "on the card, the plain version on the CPU")
     parser.add_argument("--block_fusion", default="auto",
                         choices=["auto", "none", "pallas"],
-                        help="auto resolves to none (K3-K6 not ported)")
+                        help="auto/pallas: the fused dropout+residual+"
+                             "LayerNorm kernels (K3-K6) on the card, the "
+                             "plain tails on the CPU; none: the plain tails")
     parser.add_argument("--attn_batch_block", type=int, default=0,
                         help="TPU kernel grid blocking; no effect here")
     parser.add_argument("--fp16", action="store_true",
@@ -191,18 +196,54 @@ def open_img_db(path, opts, compress=None, gt=False):
                         compress=compress)
 
 
-def load_trunk_checkpoint(model, opts):
+_TYPE_KEY = "embeddings.token_type_embeddings.weight"
+_WORD_KEY = "embeddings.word_embeddings.weight"
+
+
+def load_trunk_checkpoint(model, opts, *, n_type_rows: Optional[int] = None,
+                          type_copy_row: int = 1):
     """Load ``--checkpoint`` (a reference or exported ``.pt``) into the
-    ``uniter`` trunk. VQA needs none of the JAX package's surgeries (type
-    or word widening). Keys the trunk does not have are skipped; a trunk
-    key the file lacks keeps its initial value, as the JAX merge does."""
+    ``uniter`` trunk, with the JAX package's token-type surgery
+    (``uniter_tpu/training/driver.py`` ``load_trunk_checkpoint``): with
+    ``n_type_rows`` the file's type rows fill the first rows of the
+    model's table and row ``type_copy_row`` of the file is copied into
+    every row past them (NLVR2: 2 rows -> 3, row 1 into row 2, reference
+    model/nlvr2.py:26-34). Keys the trunk does not have are skipped; a
+    trunk key the file lacks keeps its initial value, as the JAX merge
+    does. Any other trunk key whose shape differs is skipped and logged by
+    name; a word table of another size (VCR's word widening, not ported)
+    raises."""
     if not opts.checkpoint:
         return model
     sd = load_torch_checkpoint(opts.checkpoint)
     own = model.uniter.state_dict()
-    take = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()
-            if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    take, skipped = {}, []
+    for k, v in sd.items():
+        if k not in own:
+            continue
+        v = torch.from_numpy(np.ascontiguousarray(v))
+        if k == _TYPE_KEY and n_type_rows is not None:
+            if (own[k].shape[0] != n_type_rows
+                    or v.shape[1:] != own[k].shape[1:]):
+                raise ValueError(f"{k}: cannot widen {tuple(v.shape)} to "
+                                 f"{n_type_rows} rows of "
+                                 f"{tuple(own[k].shape)}")
+            new = own[k].clone()
+            new[:v.shape[0]] = v
+            new[v.shape[0]:] = v[type_copy_row]
+            v = new
+        if tuple(own[k].shape) != tuple(v.shape):
+            if k == _WORD_KEY:
+                raise NotImplementedError(
+                    f"{k}: the checkpoint has {tuple(v.shape)}, the model "
+                    f"{tuple(own[k].shape)}; the word-widening surgery (VCR) "
+                    "is not ported")
+            skipped.append(f"{k} {tuple(v.shape)} vs {tuple(own[k].shape)}")
+            continue
+        take[k] = v
     model.uniter.load_state_dict(take, strict=False)
+    for line in skipped:
+        LOGGER.warning("checkpoint key skipped for its shape: %s", line)
     LOGGER.info("loaded %d trunk tensors from %s (%d of the trunk's %d "
                 "left at init)", len(take), opts.checkpoint,
                 len(own) - len(take), len(own))

@@ -129,12 +129,16 @@ def to_device(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def eval_batches(predict_fn, loader, device, prefetch: int = 2):
+def eval_batches(predict_fn, loader, device, prefetch: int = 2,
+                 group: int = 1):
     """Drive ``predict_fn`` (device batch -> outputs) over an eval loader,
     with the NEXT batch's host collate and transfer overlapped with the
     current predict (``DevicePrefetcher``). Yields
     ``(host_batch, device_outputs)``; rows past the real row count are
-    the collate's padding rows."""
+    the collate's padding rows. ``group`` rows form one example (NLVR2's
+    paired models read rows (2i, 2i+1) as a pair, ``inf_nlvr2.py:65-67``):
+    the batch goes to the device whole, so the groups stay intact, and a
+    batch whose row count ``group`` does not divide raises."""
     from uniter_tpu_torch.data.loader import DevicePrefetcher
 
     device = torch.device(device)
@@ -142,6 +146,9 @@ def eval_batches(predict_fn, loader, device, prefetch: int = 2):
                           depth=prefetch)
     try:
         for batch, db in it:
+            rows = db["attn_mask"].shape[0]
+            if rows % group:
+                raise ValueError(f"{rows} rows do not form groups of {group}")
             with torch.inference_mode():
                 out = predict_fn(db)
             yield batch, out

@@ -38,15 +38,18 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
     embedding tables; never biases or LayerNorm parameters (reference
     optim/misc.py:14). Decided by module type, since every parameter here
     is named ``weight`` or ``bias``: ``vqa_output.0.weight`` (a Linear)
-    decays, ``vqa_output.2.weight`` (the head's LayerNorm) does not."""
+    decays, ``vqa_output.2.weight`` (the head's LayerNorm) does not. The
+    cross-attention's ``in_proj_weight`` decays and its ``in_proj_bias``
+    does not, as the reference's substring rule has it."""
     out = {}
     for mname, module in model.named_modules():
         for pname, _ in module.named_parameters(recurse=False):
             key = f"{mname}.{pname}" if mname else pname
-            if pname == "bias":
+            if pname in ("bias", "in_proj_bias"):
                 out[key] = False
-            elif pname == "weight" and isinstance(module,
-                                                  (nn.Linear, nn.Embedding)):
+            elif pname == "in_proj_weight" or (
+                    pname == "weight" and isinstance(
+                        module, (nn.Linear, nn.Embedding))):
                 out[key] = True
             elif pname == "weight" and isinstance(module, LayerNorm):
                 out[key] = False
