@@ -33,7 +33,7 @@ Phases, each printing its own lines:
    questions fed through the port's ``BucketLoader`` at ``inf_vqa``'s
    default 8192-token budget, into the loop over batches ``inf_vqa`` runs.
    Once through the kernel (launch counts reset just before and read just
-   after; K2-K6 must not launch), once through the plain attention; logits
+   after; K2-K8 must not launch), once through the plain attention; logits
    and answers agree.
 7. training path: the uniter-base VQA fine-tune step at the JAX package's
    flagship shapes (``bench.py``: B=96, 64 text + 40 image tokens, bf16
@@ -53,7 +53,29 @@ Phases, each printing its own lines:
    step, step 1's loss, pairs/s); then ``train_nlvr2.main`` on paired DBs
    written from a seed (20 steps, validate and save at 10 and 20, resume to
    25) and ``inf_nlvr2.main``, one ``results.csv`` row per example.
-10. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
+10. K7 (``csrc/ipot.cu``: the whole IPOT loop of an example in one launch)
+   against its plain version ``ops.ot.ipot`` at (B, N, M) = (48, 64, 160)
+   (the pretrain-mix bucket), (96, 40, 64), (64, 100, 64), (8, 100, 512)
+   (T kept in device memory) and a ragged (5, 37, 23), random lengths, two
+   all-padding examples, k = 1 and 2: the plan, the distance, exact zeros
+   where the plan is masked, bitwise repeatability; times of both with
+   the two bounds.
+11. K8 (``uniter_layer_norm_fwd`` in ``csrc/fused_tail.cu``) against the
+   plain ``layer_norm`` at the tails' shapes, fp32 and bf16; times against
+   plain and ``F.layer_norm``.
+12. pretraining: ``UniterForPretraining`` at uniter-base on fixed batches
+   at ``bench.py``'s pretrain-mix shape (B=48, 160 text + 64 image tokens,
+   bf16, dropout 0.1, fused AdamW) under three policies in turns: plain,
+   K1-K6 with the plain OT, and K1-K7; per task (mlm, mrfr, itm, mrc-kl)
+   launches per step and step-1 agreement; the 2:2:1:1 mix as examples/s
+   (median over turns); the ITM step with and without OT; a profile of the
+   K1-K7 ITM step; 2-layer fp32 runs with ``layer_norm_impl="cuda"``.
+13. K8 on a path: the serving pass on a quarter of the questions with
+   ``layer_norm_impl="cuda"`` (launches per batch, logits, answers).
+14. the pretraining CLI: ``pretrain.main`` on two corpora written from a
+   seed (12 layers, four tasks mixed 2:2:1:1, validate and save at 10 and
+   20 steps, resume to 25 with the task mix fast-forwarded).
+15. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
    last line. Any failed check raises and the script exits non-zero.
 
 TF32 is off for matmuls and cuDNN (fp32 runs are full fp32). Files go
@@ -107,14 +129,26 @@ def check(cond, msg):
 
 
 KERNELS = ("mha_fwd", "mha_bwd", "drop_res_ln_fwd", "drop_res_ln_bwd",
-           "ln_drop_fwd", "ln_drop_bwd")
+           "ln_drop_fwd", "ln_drop_bwd", "ipot", "layer_norm_fwd")
+# launches per uniter-base training step of K1-K6 (12 layers, 24 sub-block
+# tails, 2 embedding tails); K7 and K8 are 0 unless a phase says otherwise
+STEP_LAUNCHES = {"mha_fwd": 12, "mha_bwd": 12, "drop_res_ln_fwd": 24,
+                 "drop_res_ln_bwd": 24, "ln_drop_fwd": 2, "ln_drop_bwd": 2,
+                 "ipot": 0, "layer_norm_fwd": 0}
+# (B, N, M): the pretrain-mix bucket, the flagship bucket, the full region
+# count, a plan too large for shared memory (T in device memory), ragged
+K7_SHAPES = [(48, 64, 160), (96, 40, 64), (64, 100, 64), (8, 100, 512),
+             (5, 37, 23)]
 
 
 def _wrappers():
-    from uniter_tpu_torch.ops import attention, fused_block
+    from uniter_tpu_torch.ops import attention, fused_block, layer_norm, ot
 
-    return {n: getattr(attention if n.startswith("mha") else fused_block, n)
-            for n in KERNELS}
+    out = {n: getattr(attention if n.startswith("mha") else fused_block, n)
+           for n in KERNELS[:6]}
+    out["ipot"] = ot.ipot_cuda
+    out["layer_norm_fwd"] = layer_norm.layer_norm_fwd
+    return out
 
 
 def reset_launches():
@@ -543,10 +577,11 @@ def time_tails(torch, fb, x, res, w, b, g, rows, h, dname):
     return out
 
 
-def jax_layout_params(cfg, num_answer, img_dim, seed):
-    """A uniter-base VQA parameter tree in the JAX package's layout (flax
-    Dense kernels [in, out], layers stacked [L, ...]): normal(0, 0.02) for
-    matrices and embeddings, ones and zeros for LayerNorm, zero biases."""
+def jax_layout_params(cfg, num_answer, img_dim, seed, label_dim=None):
+    """A uniter-base parameter tree in the JAX package's layout (flax Dense
+    kernels [in, out], layers stacked [L, ...]): normal(0, 0.02) for
+    matrices and embeddings, ones and zeros for LayerNorm, zero biases. The
+    VQA head by default; with ``label_dim`` the four pretraining heads."""
     rng = np.random.default_rng(seed)
     h, ff, nl = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
 
@@ -585,6 +620,16 @@ def jax_layout_params(cfg, num_answer, img_dim, seed):
         "encoder": {"layer": {"bert_layer": layer}},
         "pooler": {"dense": dense(h, h)},
     }
+    if label_dim is not None:
+        return {
+            "uniter": uniter,
+            "cls": {"transform": {"dense": dense(h, h), "LayerNorm": ln()},
+                    "bias": np.zeros(cfg.vocab_size, np.float32)},
+            "feat_regress": {"net_dense": dense(h, h), "net_ln": ln(),
+                             "bias": np.zeros(img_dim, np.float32)},
+            "region_classifier": {"net_dense": dense(h, h), "net_ln": ln(),
+                                  "net_out": dense(h, label_dim)},
+            "itm_output": dense(h, 2)}
     return {"uniter": uniter, "vqa_hidden": dense(h, 2 * h),
             "vqa_ln": ln(n=2 * h), "vqa_out": dense(2 * h, num_answer)}
 
@@ -624,10 +669,11 @@ class InMemoryVqa:
 
 
 def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
-                    **cfg_overrides):
-    """uniter-base VQA inference through the kernel and through the plain
-    attention. Returns (kernel launches, batches, kernel q/s, plain q/s,
-    logits max|diff|, argmax agreement)."""
+                    per_batch=None, tag="main", **cfg_overrides):
+    """uniter-base VQA inference through the kernels and through the plain
+    path. ``per_batch`` is the launches per served batch the kernel pass
+    must show (K1 alone by default; every other kernel 0). Returns (launch
+    counts, batches, questions/s per path, logits max|diff|)."""
     from uniter_tpu_torch.config import base_config, resolve_kernel_policies
     from uniter_tpu_torch.data.buckets import spec_from_dataset
     from uniter_tpu_torch.data.loader import BucketLoader
@@ -645,9 +691,11 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
         jax_layout_params(base, num_answer, IMG_DIM, SEED))
     sd = {k: torch.from_numpy(v) for k, v in sd.items()}
     models = {}
-    for impl in ("cuda", "xla"):
-        cfg = resolve_kernel_policies(base.replace(attention_impl=impl),
-                                      device)
+    for impl in ("cuda", "xla"):  # the plain path has no kernel at all
+        cfg = base.replace(attention_impl=impl)
+        if impl == "xla":
+            cfg = cfg.replace(layer_norm_impl="xla")
+        cfg = resolve_kernel_policies(cfg, device)
         m = UniterForVisualQuestionAnswering(cfg, IMG_DIM, num_answer)
         m.load_state_dict(sd, strict=True)
         models[impl] = m.to(device).eval()
@@ -659,7 +707,7 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
                           VqaDataset.collate, shuffle=False, drop_last=False)
     n_batches = len(loader)
     label2ans = {i: str(i) for i in range(num_answer)}
-    print(f"[main] uniter-base VQA, {n_questions} questions in {n_batches} "
+    print(f"[{tag}] uniter-base VQA, {n_questions} questions in {n_batches} "
           f"batches (budget {TOKEN_BUDGET} tokens); set-up "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -675,9 +723,10 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
     reset_launches()
     res_k, logits_k, _ = run("cuda")
     counts = read_launches()
-    launches = counts["mha_fwd"]
-    check(all(n == 0 for k, n in counts.items() if k != "mha_fwd"),
-          f"serving launched a training kernel: {counts}")
+    per_batch = per_batch or {"mha_fwd": base.num_hidden_layers}
+    want = {k: per_batch.get(k, 0) * n_batches for k in KERNELS}
+    check(counts == want, f"{tag}: serving launched {counts}, want {want} "
+          f"({per_batch} per batch, {n_batches} batches)")
     res_x, logits_x, _ = run("xla")
     secs = {"xla": [], "cuda": []}
     for impl in ("xla", "cuda", "cuda", "xla"):
@@ -694,17 +743,16 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
     check([r["question_id"] for r in res_k] == [r["question_id"]
                                                  for r in res_x],
           "question order differs")
-    print(f"[main] kernel vs plain attention: logits max|diff| {err:.3e} "
+    print(f"[{tag}] kernels vs plain path: logits max|diff| {err:.3e} "
           f"(tol 1e-3), argmax agreement {agree * 100:.2f}% (>= 99.9%)")
-    print(f"[main] kernel launches {launches} (want {base.num_hidden_layers}"
-          f" layers x {n_batches} batches); K2-K6 launches "
-          f"{sum(counts.values()) - launches} (want 0)")
-    print(f"[main] questions/s: kernel {qps['cuda']:.1f}, plain "
+    print(f"[{tag}] launches {counts}: {per_batch} per batch x {n_batches} "
+          f"batches, every other kernel 0")
+    print(f"[{tag}] questions/s: kernels {qps['cuda']:.1f}, plain "
           f"{qps['xla']:.1f} (turns plain, kernel, kernel, plain; host "
           f"clock, each pass ends in the logits' readback)")
     check(err <= 1e-3, f"logits differ by {err}")
     check(agree >= 0.999, f"argmax agreement {agree}")
-    return launches, n_batches, qps, err
+    return counts, n_batches, qps, err
 
 
 def flagship_batch(torch, cfg, num_answer, img_dim, transfer_dtype):
@@ -744,12 +792,13 @@ def make_trainer(torch, cfg, sd, num_answer):
                           betas=(0.9, 0.98), eps=1e-6, weight_decay=0.01,
                           grad_norm=2.0, fused=True, mu_dtype=torch.bfloat16,
                           nu_dtype=torch.bfloat16)
-    step = make_train_step(lambda m, b, g: vqa_loss(m, b, g, num_answer),
-                           loss_scale="mean")
+    step = make_train_step(
+        lambda m, b, g: (vqa_loss(m, b, g, num_answer), {}),
+        loss_scale="mean")
     return TrainState(step=0, model=model, opt=opt), step
 
 
-def profile_steps(torch, state, step, batch, n, tag):
+def profile_steps(torch, state, step, batch, n, tag, label="train"):
     """torch.profiler over ``n`` steps: device busy time by kernel, idle
     share of the wall clock. The full table goes to chiprun_out/."""
     from torch.autograd import DeviceType
@@ -780,6 +829,8 @@ def profile_steps(torch, state, step, batch, n, tag):
     groups = {"K1": share("mha_fwd_kernel"), "K2": share("mha_bwd_"),
               "fused tails (K3-K6)": share("tail_fwd", "tail_bwd",
                                            "sum_partials"),
+              "ipot (K7)": share("ipot_kernel"),
+              "K8": share("layer_norm_fwd_kernel"),
               "GEMM": share("gemm", "cutlass", "xmma", "sm90_", "nvjet"),
               "Philox bits": share("<long", "opaquetype<8u>")}
     groups["other"] = busy - sum(groups.values())
@@ -787,13 +838,13 @@ def profile_steps(torch, state, step, batch, n, tag):
     with open(os.path.join(OUT_DIR, f"train_profile_{tag}.txt"), "w") as f:
         for name, ms, count in rows:
             f.write(f"{ms:10.3f} ms {count:6d}  {name}\n")
-    print(f"[train] profile, {tag}, {n} steps: wall "
+    print(f"[{label}] profile, {tag}, {n} steps: wall "
           f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
           f"{(1 - busy / 1e3 / wall) * 100:.1f}%; "
           + ", ".join(f"{k} {v:.1f} ms ({v / busy * 100:.1f}%)"
                       for k, v in groups.items()))
     for name, ms, count in rows[:12]:
-        print(f"[train]   {ms:9.2f} ms {ms / busy * 100:5.1f}% x{count:<5d} "
+        print(f"[{label}]   {ms:9.2f} ms {ms / busy * 100:5.1f}% x{count:<5d} "
               f"{name[:90]}")
     return state, {"wall_ms": wall * 1e3, "busy_ms": busy, **groups}
 
@@ -908,10 +959,7 @@ def train_phase(torch):
           + ", ".join(f"{turn_s[n].pop(0):.3f}" for n in order) + "); peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(three trainers)")
-    check_launches(total, steps, {"mha_fwd": 12, "mha_bwd": 12,
-                                  "drop_res_ln_fwd": 24, "drop_res_ln_bwd": 24,
-                                  "ln_drop_fwd": 2, "ln_drop_bwd": 2},
-                   "train")
+    check_launches(total, steps, STEP_LAUNCHES, "train")
     rel1 = step1_agreement(losses, "train", b, num_answer)
     lk = losses["K1-K6"]
     print(f"[train] K1-K6 loss on the fixed batch: first {lk[0]:.4f}, last "
@@ -1130,7 +1178,8 @@ def nlvr2_phase(torch):
                               betas=(0.9, 0.98), weight_decay=0.01,
                               grad_norm=2.0, fused=True)
         trainers[name] = (TrainState(step=0, model=model, opt=opt),
-                          make_train_step(nlvr2_loss))
+                          make_train_step(
+                              lambda m, b, g: (nlvr2_loss(m, b, g), {})))
     secs, losses, total, steps = run_policies(torch, trainers, batch, 10)
     pps = {n: 10 * n_pairs * len(v) / sum(v) for n, v in secs.items()}
     print(f"[nlvr2] paired-attn uniter-base step, {n_pairs} pairs (96 rows, "
@@ -1139,10 +1188,8 @@ def nlvr2_phase(torch):
           + " (turns of 10 steps: plain, K1/K2, K1-K6, K1-K6, K1/K2, plain; "
           "host clock, each turn ends in the loss readback)")
     # 12 layers plus attn1/attn2 for K1/K2
-    check_launches(total, steps, {"mha_fwd": 14, "mha_bwd": 14,
-                                  "drop_res_ln_fwd": 24, "drop_res_ln_bwd": 24,
-                                  "ln_drop_fwd": 2, "ln_drop_bwd": 2},
-                   "nlvr2")
+    check_launches(total, steps, {**STEP_LAUNCHES, "mha_fwd": 14,
+                                  "mha_bwd": 14}, "nlvr2")
     rel1 = step1_agreement(losses, "nlvr2", n_pairs, 2)
     del trainers
     torch.cuda.empty_cache()
@@ -1219,8 +1266,10 @@ def nlvr2_cli_phase(torch, n_ex=1000):
         counts = read_launches()
         check(state.step == 20, f"train_nlvr2 stopped at {state.step}")
         check(state.model.uniter.config.block_fusion == "cuda"
-              and all(v > 0 for v in counts.values()),
-              f"train_nlvr2's default flags did not run K1-K6: {counts}")
+              and all((v > 0) == (STEP_LAUNCHES[k] > 0)
+                      for k, v in counts.items()),
+              f"train_nlvr2's default flags did not run K1-K6 alone: "
+              f"{counts}")
         del state
         t2 = time.perf_counter()
         state = train_nlvr2.main(parse_with_config(
@@ -1256,6 +1305,586 @@ def nlvr2_cli_phase(torch, n_ex=1000):
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+def ot_inputs(torch, b, n, m, gen, d=64):
+    """``ipot``'s arguments as ``optimal_transport_dist`` makes them: the
+    cosine cost [B, M, N] of random embeddings, random valid lengths,
+    examples 1 and B-1 all padding (the collate's batch-padding rows)."""
+    from uniter_tpu_torch.ops.ot import cost_matrix_cosine
+
+    x = torch.randn(b, m, d, generator=gen, device="cuda")
+    y = torch.randn(b, n, d, generator=gen, device="cuda")
+    x_len = torch.randint(1, m + 1, (b,), generator=gen, device="cuda")
+    y_len = torch.randint(1, n + 1, (b,), generator=gen, device="cuda")
+    x_len[0], y_len[0] = m, n
+    for i in (1, b - 1):
+        x_len[i] = y_len[i] = 0
+    x_pad = torch.arange(m, device="cuda")[None, :] >= x_len[:, None]
+    y_pad = torch.arange(n, device="cuda")[None, :] >= y_len[:, None]
+    joint = x_pad[:, :, None] | y_pad[:, None, :]
+    cost = cost_matrix_cosine(x, y).masked_fill(joint, 0.0)
+    return cost, x_len.float(), x_pad, y_len.float(), y_pad, joint
+
+
+def ipot_bound_ms(b, n, m, iteration=50, k=1):
+    """Least time for K7 on this card: A read once and T written once
+    (plus the [B, M] and [B, N] vectors) over 3.35 TB/s, against its fp32
+    operations over 67 TFLOP/s: per element and step 1 for Q = A T, 2 k each
+    for Q sigma and Q^T delta, 2 for T = delta Q sigma."""
+    nbytes = 4 * (2 * b * n * m + 2 * b * m + b * n + 2 * b)
+    flops = iteration * (3 + 4 * k) * b * n * m
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def k7_phase(torch):
+    """K7 against ``ipot`` at K7_SHAPES, k = 1 and 2; times at every shape
+    (k = 1). Returns (worst |T - ref|, {shape: (wrapper ms, plain ms, ms of
+    the launch alone)})."""
+    from uniter_tpu_torch.ops.ot import (
+        _ipot_inputs, _ipot_launch, ipot, ipot_cuda, ipot_form)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst, timing = 0.0, {}
+    for b, n, m in K7_SHAPES:
+        args = ot_inputs(torch, b, n, m, gen)
+        cost, jp_t = args[0], args[5].transpose(1, 2)
+        for k in (1, 2):
+            got = ipot_cuda(*args, 0.5, 50, k)
+            torch.cuda.synchronize()
+            want = ipot(*args, 0.5, 50, k)
+            diff = (got - want).abs()
+            excess = (diff - (1e-5 + 1e-4 * want.abs())).max().item()
+            dist = torch.einsum("bmn,bnm->b", cost, got)
+            dist_ref = torch.einsum("bmn,bnm->b", cost, want)
+            rel = ((dist - dist_ref).abs()
+                   / dist_ref.abs().clamp_min(1e-6)).max().item()
+            zeros = bool((got[jp_t] == 0).all() and (got[1] == 0).all()
+                         and (got[b - 1] == 0).all())
+            again = torch.equal(got, ipot_cuda(*args, 0.5, 50, k))
+            ok = (excess <= 0 and rel <= 1e-4 and zeros and again
+                  and bool(torch.isfinite(got).all()))
+            print(f"[K7] B={b} N={n} M={m} k={k} (form {ipot_form(n, m)}): "
+                  f"T max|diff| {diff.max().item():.3e} (tol 1e-5 + 1e-4 "
+                  f"|ref|, max|ref| {want.abs().max().item():.3e}); "
+                  f"distance max rel diff {rel:.2e} (tol 1e-4); zero where "
+                  f"masked and in all-padding examples: {zeros}; bitwise "
+                  f"equal on a second run: {again} {'ok' if ok else 'FAIL'}")
+            check(ok, f"K7 disagrees with ipot at {(b, n, m)} k={k}")
+            worst = max(worst, diff.max().item())
+        t = [cuda_ms(torch, lambda: ipot(*args, 0.5, 50, 1), 5, 1),
+             cuda_ms(torch, lambda: ipot_cuda(*args, 0.5, 50, 1), 20, 3),
+             cuda_ms(torch, lambda: ipot_cuda(*args, 0.5, 50, 1), 20, 3),
+             cuda_ms(torch, lambda: ipot(*args, 0.5, 50, 1), 5, 1)]
+        prep = [x.contiguous() for x in _ipot_inputs(*args, 0.5)[:6]]
+        alone = cuda_ms(torch, lambda: _ipot_launch(*prep, 50, 1), 20, 3)
+        timing[(b, n, m)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, alone)
+        bound, by = ipot_bound_ms(b, n, m)
+        print(f"[K7] time at B={b} N={n} M={m}, 50 steps, k=1, the wrapper "
+              f"with its elementwise preparation: kernel "
+              f"{timing[(b, n, m)][0] * 1e3:.1f} us, plain "
+              f"{timing[(b, n, m)][1] * 1e3:.1f} us per call (CUDA events; "
+              f"turns plain, kernel, kernel, plain: "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in t)}); the launch alone "
+              f"on prepared inputs {alone * 1e3:.1f} us; bound "
+              f"{bound * 1e3:.2f} us ({by})")
+    return worst, timing
+
+
+def k8_phase(torch):
+    """K8 against the plain ``layer_norm`` at TAIL_SHAPES, fp32 (1e-5) and
+    bf16 (half a bf16 step of the value + 1e-3); times at (9984, 768)
+    against plain and ``F.layer_norm``. Returns (worst fp32 err, timing)."""
+    import torch.nn.functional as F
+
+    from uniter_tpu_torch.ops.layer_norm import (
+        _layer_norm_torch, layer_norm_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst, timing = 0.0, {}
+    for rows, h in TAIL_SHAPES + [(96, 1536)]:  # + the VQA head's LayerNorm
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            x = (2.0 * torch.randn(rows, h, generator=gen, device="cuda")
+                 + 0.5).to(dtype)
+            w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+            b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+            got = layer_norm_fwd(x, w, b, 1e-12)
+            torch.cuda.synchronize()
+            want = _layer_norm_torch(x.float(), w, b, 1e-12)
+            diff = (got.float() - want).abs()
+            tol = (TAIL_FWD_TOL_FP32 if dname == "float32"
+                   else 2.0**-8 * want.abs() + 1e-3)
+            ok = (diff - tol).max().item() <= 0 and got.dtype == dtype
+            print(f"[K8] ({rows}, {h}) {dname}: max|diff| "
+                  f"{diff.max().item():.3e} "
+                  f"({'tol 1e-5' if dname == 'float32' else 'bf16: 2^-8 |ref| + 1e-3'}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"K8 disagrees with layer_norm at {(rows, h)} {dname}")
+            if dname == "float32":
+                worst = max(worst, diff.max().item())
+            if (rows, h) == TAIL_SHAPES[0]:
+                wl, bl = w.to(dtype), b.to(dtype)
+                t = [cuda_ms(torch, lambda: _layer_norm_torch(x, w, b)),
+                     cuda_ms(torch, lambda: layer_norm_fwd(x, w, b)),
+                     cuda_ms(torch, lambda: layer_norm_fwd(x, w, b)),
+                     cuda_ms(torch, lambda: _layer_norm_torch(x, w, b))]
+                lib = cuda_ms(torch, lambda: F.layer_norm(x, (h,), wl, bl,
+                                                          1e-12))
+                timing[dname] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, lib)
+                bound = ((2 * rows * h * x.element_size() + 2 * h * 4)
+                         / HBM_BYTES_PER_S * 1e3)
+                print(f"[K8] time at ({rows}, {h}) {dname}: kernel "
+                      f"{timing[dname][0] * 1e3:.1f} us, plain "
+                      f"{timing[dname][1] * 1e3:.1f} us, F.layer_norm "
+                      f"{lib * 1e3:.1f} us per call (CUDA events over 50 "
+                      f"calls; turns plain, kernel, kernel, plain: "
+                      f"{', '.join(f'{v * 1e3:.1f}' for v in t)}); bound "
+                      f"{bound * 1e3:.1f} us (bytes)")
+    return worst, timing
+
+
+PRETRAIN_SHAPE = (48, 160, 64)  # bench.py's pretrain mix: B, T, R
+PRETRAIN_TASKS = ("mlm", "mrfr", "itm", "mrc-kl")
+MIX_CYCLE = ("mlm", "itm", "mlm", "itm", "mrfr", "mrc-kl")  # 2:2:1:1
+# name -> (attention_impl, block_fusion, ot_impl) before resolution
+PRETRAIN_POLICIES = {"plain": ("xla", "none", "xla"),
+                     "K1-K6": ("auto", "auto", "xla"),
+                     "K1-K7": ("auto", "auto", "cuda")}
+
+
+def pretrain_batches(torch, b, t, r, img_dim, label_dim, transfer_dtype,
+                     seed=1):
+    """One fixed batch per task at the collate's static shapes: full masks,
+    ``mlm_slots(t)`` text slots (15% of T valid), ``mrm_slots(r)`` region
+    slots (15% of R valid, masked regions zeroed), ITM targets half 1, half
+    0."""
+    from uniter_tpu_torch.data.mlm import mlm_slots
+    from uniter_tpu_torch.data.mrm import mrm_slots
+    from uniter_tpu_torch.training.loop import train_batch_to_device
+
+    rng = np.random.RandomState(seed)
+    m_txt, m_img = mlm_slots(t), mrm_slots(r)
+    v_txt, v_img = max(1, round(0.15 * t)), max(1, round(0.15 * r))
+    out = {}
+    for task in PRETRAIN_TASKS:
+        batch = dict(
+            input_ids=rng.randint(1, 28000, (b, t)).astype(np.int32),
+            position_ids=np.tile(np.arange(t, dtype=np.int32), (b, 1)),
+            img_feat=rng.randn(b, r, img_dim).astype(np.float32),
+            img_pos_feat=rng.rand(b, r, 7).astype(np.float32),
+            attn_mask=np.ones((b, t + r), np.int32),
+            ex_weight=np.ones(b, np.float32))
+        if task == "mlm":
+            batch["mlm_pos"] = np.sort(
+                rng.randint(0, t, (b, m_txt)), -1).astype(np.int32)
+            tgt = rng.randint(1, 28000, (b, m_txt)).astype(np.int32)
+            tgt[:, v_txt:] = -1
+            batch["mlm_tgt"] = tgt
+        elif task in ("mrfr", "mrc-kl"):
+            pos = np.stack([np.sort(rng.choice(r, m_img, replace=False))
+                            for _ in range(b)]).astype(np.int32)
+            valid = np.zeros((b, m_img), np.float32)
+            valid[:, :v_img] = 1.0
+            masks = np.zeros((b, r), bool)
+            for i in range(b):
+                masks[i, pos[i, :v_img]] = True
+            batch["img_feat"] = np.where(masks[..., None], 0.0,
+                                         batch["img_feat"]).astype(np.float32)
+            batch.update(mrm_pos=pos, mrm_valid=valid, img_masks=masks)
+            if task == "mrfr":
+                batch["feat_targets"] = rng.randn(b, m_img, img_dim).astype(
+                    np.float32)
+            else:
+                soft = rng.rand(b, m_img, label_dim).astype(np.float32)
+                batch["label_targets"] = soft / soft.sum(-1, keepdims=True)
+        else:
+            batch["targets"] = np.tile(np.array([1, 0], np.int32), b // 2)
+        out[task] = train_batch_to_device(batch, torch.device("cuda"),
+                                          transfer_dtype)
+    return out
+
+
+def make_pretrainer(torch, cfg, ot_impl, sd, ot_lambda=0.1):
+    """Model, fused AdamW (fp32 moments, lr 5e-5 warmed up over 10000 of
+    200000 steps: ``pretrain``'s defaults) and one step per task, as
+    ``pretrain.main`` builds them; ``itm_no_ot`` is the ITM step with
+    ``itm_ot_lambda`` 0."""
+    from uniter_tpu_torch.models.pretrain import UniterForPretraining
+    from uniter_tpu_torch.training.optim import build_optimizer
+    from uniter_tpu_torch.training.sched import get_lr_schedule
+    from uniter_tpu_torch.training.step import TrainState, make_train_step
+
+    model = UniterForPretraining(cfg, ot_impl=ot_impl)
+    model.load_state_dict(sd, strict=True)
+    model.to("cuda")
+    opt = build_optimizer(model, get_lr_schedule(5e-5, 10000, 200000),
+                          betas=(0.9, 0.98), weight_decay=0.01,
+                          grad_norm=2.0, fused=True)
+
+    def step_for(task, lam):
+        return make_train_step(
+            lambda m, b, g: m.scalar_loss(b, task, ot_lambda=lam,
+                                          deterministic=False, generator=g))
+
+    steps = {task: step_for(task, ot_lambda if task == "itm" else 0.0)
+             for task in PRETRAIN_TASKS}
+    steps["itm_no_ot"] = step_for("itm", 0.0)
+    return TrainState(step=0, model=model, opt=opt), steps
+
+
+def pretrain_configs(base, device="cuda"):
+    from uniter_tpu_torch.config import resolve_kernel_policies
+
+    cfgs = {name: (resolve_kernel_policies(
+        base.replace(attention_impl=att, block_fusion=bf), device,
+        training=True), ot) for name, (att, bf, ot)
+        in PRETRAIN_POLICIES.items()}
+    got = {n: (c.attention_impl, c.block_fusion, ot)
+           for n, (c, ot) in cfgs.items()}
+    check(got == {"plain": ("xla", "none", "xla"),
+                  "K1-K6": ("cuda", "cuda", "xla"),
+                  "K1-K7": ("cuda", "cuda", "cuda")},
+          f"the pretraining policies resolved to {got}")
+    return cfgs
+
+
+def pretrain_phase(torch):
+    """The uniter-base pretraining step under the three policies. Returns
+    the K1-K7 launches per task, mix examples/s, ITM step times, step-1
+    agreement, the profile and the 2-layer runs."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.utils.const import IMG_DIM, IMG_LABEL_DIM
+
+    b, t, r = PRETRAIN_SHAPE
+    base = base_config(dtype="bfloat16", hidden_dropout_prob=RATE,
+                       attention_probs_dropout_prob=RATE)
+    sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+        jax_layout_params(base, 0, IMG_DIM, SEED,
+                          label_dim=IMG_LABEL_DIM)).items()}
+    batches = pretrain_batches(torch, b, t, r, IMG_DIM, IMG_LABEL_DIM,
+                               torch.bfloat16)
+    trainers = {name: make_pretrainer(torch, cfg, ot, sd)
+                for name, (cfg, ot) in pretrain_configs(base).items()}
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(name, tasks):
+        """The steps of ``tasks`` in turn; ends in the readback of every
+        step's metrics. Returns (seconds, metrics per step)."""
+        state, steps = trainers[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [steps[task](state, batches[task.replace("_no_ot", "")],
+                          SEED)[1] for task in tasks]
+        ms = [{k: float(v) for k, v in m.items()} for m in ms]
+        return time.perf_counter() - t0, ms
+
+    # per task: the first step of each policy (same parameters up to two
+    # warm-up-sized AdamW steps per earlier task, same masks), then one
+    # more; launches of the K1-K7 path set to 0 just before, read just after
+    launches, first = {}, {}
+    for task in PRETRAIN_TASKS:
+        first[task] = {}
+        for name in trainers:
+            if name == "K1-K7":
+                reset_launches()
+            _, ms = run(name, [task, task])
+            if name == "K1-K7":
+                launches[task] = read_launches()
+            first[task][name] = ms[0]
+        want = {**STEP_LAUNCHES, "ipot": 1 if task == "itm" else 0}
+        per_step = {k: v / 2 for k, v in launches[task].items()}
+        losses = {n: m["loss"] for n, m in first[task].items()}
+        rel = max(abs(v - losses["plain"]) / abs(losses["plain"])
+                  for v in losses.values())
+        print(f"[pretrain] {task}: K1-K7 launches per step {per_step}; "
+              f"first-step loss " + ", ".join(
+                  f"{n} {v:.6f}" for n, v in losses.items())
+              + f"; max relative diff from plain {rel:.2e} (tol 1e-3: bf16 "
+              f"roundings placed differently in 12 layers)")
+        check(per_step == want, f"pretrain {task}: launches {per_step}")
+        check(all(np.isfinite(list(m.values())).all()
+                  for m in first[task].values()), f"{task}: non-finite")
+        check(rel <= 1e-3, f"pretrain {task}: first-step losses differ")
+    ot = {n: m["itm_ot"] for n, m in first["itm"].items()}
+    xe = {n: m["itm_xe"] for n, m in first["itm"].items()}
+    # the OT term is a difference of two sums of distances near 1 per
+    # example, so it is held to 1e-3 of that scale (the mean distance),
+    # and K1-K7 against K1-K6 (the same states, another OT version) to 1e-4
+    state, _ = trainers["K1-K7"]
+    with torch.no_grad():
+        state.model.eval()
+        scale = float(state.model.forward_itm(
+            batches["itm"], False, True, deterministic=True)[1].mean())
+        state.model.train()
+    d_pol = max(abs(v - ot["plain"]) for v in ot.values())
+    d_ot = abs(ot["K1-K7"] - ot["K1-K6"])
+    print(f"[pretrain] itm first step: itm_xe " + ", ".join(
+        f"{n} {v:.6f}" for n, v in xe.items()) + "; itm_ot " + ", ".join(
+        f"{n} {v:.6e}" for n, v in ot.items())
+        + f"; mean OT distance per example {scale:.4f}; itm_ot max diff "
+        f"from plain {d_pol:.2e} (tol 1e-3 x that distance), K1-K7 from "
+        f"K1-K6 {d_ot:.2e} (tol 1e-4 x that distance)")
+    check(d_pol <= 1e-3 * scale and d_ot <= 1e-4 * scale,
+          "itm_ot differs across the policies")
+
+    # the 2:2:1:1 mix: one turn is one cycle of six steps
+    order = ("plain", "K1-K6", "K1-K7", "K1-K7", "K1-K6", "plain")
+    secs = {n: [] for n in trainers}
+    for _ in range(3):
+        for name in order:
+            secs[name].append(run(name, MIX_CYCLE)[0])
+    eps = {n: b * len(MIX_CYCLE) / float(np.median(v))
+           for n, v in secs.items()}
+    print(f"[pretrain] uniter-base pretraining mix mlm:itm:mrfr:mrc-kl = "
+          f"2:2:1:1, B={b}, T={t}, R={r}, bf16 over fp32 parameters, dropout "
+          f"{RATE}, fused AdamW, itm_ot_lambda 0.1: examples/s "
+          + ", ".join(f"{n} {v:.1f}" for n, v in eps.items())
+          + " (median over 6 turns of one 6-step cycle each, in the order "
+          + ", ".join(order) + " three times; host clock, each turn ends in "
+          "the readback of its metrics; turn seconds "
+          + "; ".join(f"{n} " + ", ".join(f"{x:.3f}" for x in v)
+                      for n, v in secs.items())
+          + f"); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB (three trainers)")
+
+    # the ITM step alone: with OT through K7, through the plain loop, and
+    # without OT (itm_ot_lambda 0), 5 steps a turn
+    itm = {"K1-K7 itm": [], "K1-K6 itm (plain OT)": [],
+           "K1-K7 itm_no_ot": [], "plain itm": []}
+    for _ in range(3):
+        for key, name, task in (
+                ("plain itm", "plain", "itm"),
+                ("K1-K6 itm (plain OT)", "K1-K6", "itm"),
+                ("K1-K7 itm", "K1-K7", "itm"),
+                ("K1-K7 itm_no_ot", "K1-K7", "itm_no_ot"),
+                ("K1-K7 itm_no_ot", "K1-K7", "itm_no_ot"),
+                ("K1-K7 itm", "K1-K7", "itm"),
+                ("K1-K6 itm (plain OT)", "K1-K6", "itm"),
+                ("plain itm", "plain", "itm")):
+            itm[key].append(run(name, [task] * 5)[0] / 5 * 1e3)
+    itm_ms = {k: float(np.median(v)) for k, v in itm.items()}
+    no_ot = itm_ms["K1-K7 itm_no_ot"]
+    print(f"[pretrain] ITM step, ms (median over 6 turns of 5 steps, host "
+          f"clock): " + ", ".join(f"{k} {v:.2f}" for k, v in itm_ms.items())
+          + f"; OT's share of the step: K7 "
+          f"{(itm_ms['K1-K7 itm'] - no_ot) / itm_ms['K1-K7 itm'] * 100:.1f}%"
+          f", plain OT "
+          f"{(itm_ms['K1-K6 itm (plain OT)'] - no_ot) / itm_ms['K1-K6 itm (plain OT)'] * 100:.1f}%")
+
+    state, steps = trainers["K1-K7"]
+    _, prof = profile_steps(torch, state, steps["itm"], batches["itm"], 3,
+                            "pretrain_itm_K1_K7", label="pretrain")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del trainers, state, steps
+    torch.cuda.empty_cache()
+    small = pretrain_two_layer_runs(torch)
+    return {"launches": launches, "ex_per_s": eps, "itm_ms": itm_ms,
+            "first": first, "profile": prof, "two_layer": small,
+            "peak_gib": peak}
+
+
+def pretrain_two_layer_runs(torch):
+    """2 layers at base width in fp32, dropout 0 and 0.1, two steps each of
+    itm and mlm: K1-K8 (K7 for the OT, ``layer_norm_impl="cuda"`` for the
+    LayerNorms no fused tail takes) against plain, the loss held to 1e-5
+    relative and ``itm_ot`` to 1e-5 of the mean OT distance (fp32 rounding
+    of other summation orders)."""
+    from uniter_tpu_torch.config import base_config, resolve_kernel_policies
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.utils.const import IMG_DIM, IMG_LABEL_DIM
+
+    b, t, r = PRETRAIN_SHAPE
+    out = {}
+    for rate in (0.0, RATE):
+        cfg = base_config(num_hidden_layers=2, dtype="float32",
+                          hidden_dropout_prob=rate,
+                          attention_probs_dropout_prob=rate)
+        sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+            jax_layout_params(cfg, 0, IMG_DIM, SEED,
+                              label_dim=IMG_LABEL_DIM)).items()}
+        batches = pretrain_batches(torch, b, t, r, IMG_DIM, IMG_LABEL_DIM,
+                                   None)
+        res = {}
+        for name, c, ot in (
+                ("K1-K8", resolve_kernel_policies(
+                    cfg.replace(attention_impl="auto", block_fusion="auto",
+                                layer_norm_impl="pallas"), "cuda",
+                    training=True), "cuda"),
+                ("plain", resolve_kernel_policies(
+                    cfg.replace(attention_impl="xla", block_fusion="none"),
+                    "cuda", training=True), "xla")):
+            reset_launches()
+            state, steps = make_pretrainer(torch, c, ot, sd)
+            ms = [steps[task](state, batches[task], SEED)[1]
+                  for task in ("itm", "mlm", "itm", "mlm")]
+            res[name] = [{k: float(v) for k, v in m.items()} for m in ms]
+            counts = read_launches()
+            if name == "K1-K8":
+                # per step: img/pos LayerNorm, and with no live mask the 2
+                # embedding and 4 sub-block tails; the MLM head's one more
+                ln_want = 2 * (2 + (0 if rate else 6)) + 2 * (
+                    3 + (0 if rate else 6))
+                check(counts["ipot"] == 2
+                      and counts["layer_norm_fwd"] == ln_want
+                      and (counts["drop_res_ln_fwd"] > 0) == (rate > 0),
+                      f"2-layer K1-K8 at dropout {rate}: {counts} (want "
+                      f"{ln_want} K8 launches)")
+            else:
+                check(not any(counts.values()),
+                      f"2-layer plain launched {counts}")
+                with torch.no_grad():
+                    state.model.eval()
+                    scale = float(state.model.forward_itm(
+                        batches["itm"], False, True,
+                        deterministic=True)[1].mean())
+        rel = max(abs(a["loss"] - c["loss"]) / abs(c["loss"])
+                  for a, c in zip(res["K1-K8"], res["plain"]))
+        # itm_ot is a difference of sums of per-example distances: held to
+        # 1e-5 of the mean distance, not of its own (cancelled) size
+        d_ot = max(abs(a["itm_ot"] - c["itm_ot"])
+                   for a, c in zip(res["K1-K8"], res["plain"])
+                   if "itm_ot" in c)
+        print(f"[pretrain] fp32, dropout {rate}, 2 layers, steps itm, mlm, "
+              f"itm, mlm: losses K1-K8 "
+              f"{[round(m['loss'], 6) for m in res['K1-K8']]}, plain "
+              f"{[round(m['loss'], 6) for m in res['plain']]}; max relative "
+              f"diff {rel:.2e} (tol 1e-5); itm_ot K1-K8 "
+              f"{res['K1-K8'][0]['itm_ot']:.6e}, plain "
+              f"{res['plain'][0]['itm_ot']:.6e}, max diff {d_ot:.2e} (tol "
+              f"1e-5 x the mean OT distance {scale:.4f})")
+        check(d_ot <= 1e-5 * scale,
+              f"2-layer fp32 dropout-{rate} itm_ot differs")
+        check(rel <= 1e-5, f"2-layer fp32 dropout-{rate} pretraining differs")
+        out[rate] = rel
+    return out
+
+
+def write_pretrain_dbs(root, n_img, n_txt, seed):
+    """Two corpora ("a", "b"): each an img DB of ``n_img`` images (10-100
+    regions of fp16 2048-d features, boxes, soft labels [nbb, 1601]) and a
+    txt DB of ``n_txt`` captions, with the port's writers."""
+    from uniter_tpu_torch.data.img_db import write_img_db
+    from uniter_tpu_torch.data.txt_db import write_txt_db
+
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal((8192, 2048), dtype=np.float32).astype(
+        np.float16)
+    soft_pool = rng.random((4096, 1601), dtype=np.float32)
+    soft_pool = (soft_pool / soft_pool.sum(-1, keepdims=True)).astype(
+        np.float16)
+    meta = {"CLS": 101, "SEP": 102, "MASK": 103, "v_range": [999, 28996]}
+    for c in ("a", "b"):
+        names = [f"{c}_{i:06d}.npz" for i in range(n_img)]
+
+        def records():
+            for n in names:
+                nbb = int(rng.integers(10, 101))
+                o = int(rng.integers(0, 8192 - nbb))
+                so = int(rng.integers(0, 4096 - nbb))
+                yield n, dict(
+                    features=pool[o:o + nbb],
+                    norm_bb=rng.random((nbb, 6), dtype=np.float32).astype(
+                        np.float16),
+                    conf=np.linspace(1, 0.3, nbb).astype(np.float16),
+                    soft_labels=soft_pool[so:so + nbb])
+
+        write_img_db(os.path.join(root, f"img_{c}"), records(), conf_th=0.2,
+                     max_bb=100, min_bb=10)
+        recs, t2i = {}, {}
+        for i in range(n_txt):
+            name = names[i % n_img]
+            recs[f"{c}{i}"] = dict(
+                input_ids=[int(x) for x in rng.integers(
+                    999, 28996, int(rng.integers(4, 41)))],
+                img_fname=name)
+            t2i[f"{c}{i}"] = name
+        write_txt_db(os.path.join(root, f"txt_{c}"), recs, meta, t2i)
+
+
+def pretrain_cli_phase(torch, n_txt=600):
+    """``pretrain.main`` (uniter-base, default flags: K1-K7) on two corpora
+    and four tasks for 20 steps, validating and saving at 10 and 20, and a
+    resume to 25, all on the card."""
+    from uniter_tpu_torch import pretrain
+    from uniter_tpu_torch.utils.misc import parse_with_config
+
+    os.makedirs(os.path.join(REPO, "tmp"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_pretrain_",
+                            dir=os.path.join(REPO, "tmp"))
+    try:
+        t0 = time.perf_counter()
+        write_pretrain_dbs(work, 150, n_txt, SEED)
+        out = os.path.join(work, "run")
+        datasets = [{"name": c, "db": os.path.join(work, f"txt_{c}"),
+                     "img": os.path.join(work, f"img_{c}"),
+                     "tasks": ["mlm", "itm", "mrfr", "mrc-kl"],
+                     "mix_ratio": [2, 2, 1, 1]} for c in ("a", "b")]
+        conf = dict(
+            train_datasets=datasets, val_datasets=datasets[:1],
+            model_config=os.path.join(REPO, "configs", "uniter-base.json"),
+            output_dir=out, num_train_steps=20, valid_steps=10, log_steps=5,
+            train_batch_size=5120, val_batch_size=10240, n_workers=2,
+            device="cuda", checkpoint="")
+        path = os.path.join(work, "pretrain.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        t1 = time.perf_counter()
+        reset_launches()
+        state = pretrain.main(parse_with_config(pretrain.get_parser(),
+                                                ["--config", path]))
+        counts = read_launches()
+        check(state.step == 20, f"pretrain stopped at {state.step}")
+        check(state.model.ot_impl == "cuda" and counts["ipot"] > 0
+              and counts["layer_norm_fwd"] == 0
+              and all(v > 0 for k, v in counts.items() if STEP_LAUNCHES[k]),
+              f"pretrain's default flags did not run K1-K7: {counts}")
+        del state
+        t2 = time.perf_counter()
+        state = pretrain.main(parse_with_config(
+            pretrain.get_parser(),
+            ["--config", path, "--num_train_steps", "25"]))
+        check(state.step == 25, f"resumed run stopped at {state.step}")
+        del state
+        t3 = time.perf_counter()
+        with open(os.path.join(out, "log", "log.txt")) as f:
+            log = f.read()
+        check("resumed from step 20" in log
+              and "fast-forwarded task mix by 20 steps" in log,
+              "the rerun did not resume and fast-forward the task mix")
+        check("device: cuda" in log and "ot cuda" in log
+              and "block_fusion cuda" in log,
+              "the log does not name the device and the kernel policies")
+        scalars = {}
+        for line in open(os.path.join(out, "log", "scalars.jsonl")):
+            rec = json.loads(line)
+            for k, v in rec.items():
+                if k != "step":
+                    scalars.setdefault(k, []).append(v)
+        valid = {k: v for k, v in scalars.items() if k in (
+            "valid/mlm_a_acc", "valid/mrfr_a_loss", "valid/mrc-kl_a_acc",
+            "valid/itm_a_acc")}
+        # validated at steps 10 and 20; the resumed run ends at 25 with a
+        # save and no validation
+        check(len(valid) == 4 and all(
+            len(v) == 2 and np.isfinite(v).all() for v in valid.values()),
+            f"validation logs {valid}")
+        train_losses = {k: v[-1] for k, v in scalars.items()
+                        if k.startswith("loss/")}
+        check(train_losses and np.isfinite(list(train_losses.values())).all(),
+              f"training losses {train_losses}")
+        ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
+        print(f"[pretrain-cli] 2 corpora x {n_txt} captions over 150 images "
+              f"each written in {t1 - t0:.1f} s; pretrain 20 steps (validate "
+              f"+ save at 10, 20) {t2 - t1:.1f} s, launches {counts}; "
+              f"resumed to 25 {t3 - t2:.1f} s; checkpoints {ckpts}; "
+              f"validation {valid}; last training losses {train_losses}")
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 
 def main():
     import torch
@@ -1274,14 +1903,23 @@ def main():
     k1_err, k1_time = k1_phase(torch)
     k2_err, k2_time, _ = k2_phase(torch)
     tail_err, tail_time = tail_phase(torch)
-    launches, n_batches, qps, _ = main_path_phase(torch)
-    check(launches == 12 * n_batches,
-          f"K1 launched {launches} times for {n_batches} batches "
-          f"(want 12 per batch)")
+    serve_counts, n_batches, qps, _ = main_path_phase(torch)
+    launches = serve_counts["mha_fwd"]
     train = train_phase(torch)
     cli_phase(torch)
     nlvr2 = nlvr2_phase(torch)
     nlvr2_cli_phase(torch)
+    k7_err, k7_time = k7_phase(torch)
+    k8_err, k8_time = k8_phase(torch)
+    pre = pretrain_phase(torch)
+    # K8 on a path: 29 LayerNorms per served VQA batch (the text tail,
+    # img_layer_norm, pos_layer_norm, the image tail, 24 sub-block tails,
+    # the answer head's vqa_output.2)
+    ln_counts, ln_batches, _, _ = main_path_phase(
+        torch, n_questions=N_QUESTIONS // 4, tag="serve-K8",
+        per_batch={"mha_fwd": 12, "layer_norm_fwd": 29},
+        layer_norm_impl="pallas")
+    cli_counts = pretrain_cli_phase(torch)
     t = k2_time["bfloat16"]
     kernels = []
     for name, src, replaces, err, ms, plain, lib, bwd in (
@@ -1312,14 +1950,37 @@ def main():
             "max_abs_err": tail_err[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by,
             "library_ms": tail_time[(name, "bfloat16", "library")]})
+    bound, by = ipot_bound_ms(*K7_SHAPES[0])
+    kernels.append({
+        "name": "ipot", "route": "cuda",
+        "source": "uniter_tpu_torch/csrc/ipot.cu",
+        "replaces": "uniter_tpu/ops/ot.py:102",
+        "launches": sum(c["ipot"] for c in pre["launches"].values()),
+        "max_abs_err": k7_err, "ms": k7_time[K7_SHAPES[0]][0],
+        "plain_ms": k7_time[K7_SHAPES[0]][1], "bound_ms": bound,
+        "bound_by": by, "library_ms": None})
+    rows, h = TAIL_SHAPES[0]
+    kernels.append({
+        "name": "layer_norm_fwd", "route": "cuda",
+        "source": "uniter_tpu_torch/csrc/fused_tail.cu",
+        "replaces": "uniter_tpu/ops/layer_norm.py:38",
+        "launches": ln_counts["layer_norm_fwd"], "max_abs_err": k8_err,
+        "ms": k8_time["bfloat16"][0], "plain_ms": k8_time["bfloat16"][1],
+        "bound_ms": (2 * rows * h * 2 + 2 * h * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": k8_time["bfloat16"][2]})
     print(f"[smoke] kernels line: times bf16 rate 0 at (96, 104, 12, 64) "
           f"for K1/K2 (library: scaled_dot_product_attention), at (9984, "
-          f"768) for K3/K4 and (6144, 768) for K5/K6 (library: F.layer_norm,"
-          f" after an add for K3/K4); launches from the flagship training "
-          f"path through K1-K6 ({train['steps']} steps); the serving path "
-          f"launched K1 {launches} times and nothing else; NLVR2 launches "
-          f"{nlvr2['launches']} over {nlvr2['steps']} steps; max_abs_err the "
-          f"worst fp32 difference from the plain version")
+          f"768) for K3/K4 and K8 and (6144, 768) for K5/K6 (library: "
+          f"F.layer_norm, after an add for K3/K4), fp32 at (48, 64, 160) for "
+          f"K7 (no library call computes it); launches of K1-K6 from the "
+          f"flagship training path ({train['steps']} steps), of K7 from the "
+          f"pretraining path through K1-K7 (2 steps of each of mlm, mrfr, "
+          f"itm, mrc-kl: 1 per ITM step, 0 otherwise), of K8 from the "
+          f"serving pass with layer_norm_impl cuda ({ln_batches} batches x "
+          f"29); the default serving path launched K1 {launches} times and "
+          f"nothing else; NLVR2 launches {nlvr2['launches']} over "
+          f"{nlvr2['steps']} steps; the pretraining CLI {cli_counts}; "
+          f"max_abs_err the worst fp32 difference from the plain version")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

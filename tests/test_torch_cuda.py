@@ -25,6 +25,15 @@ inputs to half a bf16 step of the value + 1e-3; dx/dres as K2's; dw/db
 (sums over rows in another order) to 1e-4 of their largest entry, and
 bitwise equal from run to run. A small VQA step through K1-K6 launches
 each fused tail once per tail and matches the plain tails.
+
+K7 (``csrc/ipot.cu``) is held against ``ops.ot.ipot`` at the pretraining
+shapes, in all three of its forms, with ragged and all-padding examples and
+k = 1 and 2: the plan to 1e-5 + 1e-4 |ref| (fp32 rounding of other
+summation orders through 50 dependent steps), exactly zero where it is
+masked, bitwise equal from run to run. K8 (``uniter_layer_norm_fwd`` in
+``csrc/fused_tail.cu``) against the plain ``layer_norm``: fp32 to 1e-5, bf16
+to half a bf16 step of the value + 1e-3; a small pretraining model takes an
+ITM step through K1-K8 with one K7 launch and matches the plain step.
 """
 
 import pytest
@@ -33,6 +42,8 @@ import torch
 from uniter_tpu_torch.config import resolve_kernel_policies, tiny_config
 from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
 from uniter_tpu_torch.ops import fused_block as fb
+from uniter_tpu_torch.ops import layer_norm as ln
+from uniter_tpu_torch.ops import ot
 from uniter_tpu_torch.ops.attention import (
     MhaFunction, _mha_bwd_torch, _mha_torch, mha_bwd, mha_fwd)
 
@@ -343,3 +354,180 @@ def test_vqa_train_step_through_fused_tails(gen):
         assert (gk is None) == (gx is None), n
         if gk is not None:
             assert (gk - gx).abs().max().item() <= 1e-4, n
+
+
+def _ot_inputs(gen, b, n, m, all_pad=()):
+    """A cosine-like cost [B, M, N] in [0, 2], ragged valid lengths, the
+    examples in ``all_pad`` all padding."""
+    cost = 2.0 * torch.rand(b, m, n, generator=gen, device="cuda")
+    x_len = torch.randint(1, m + 1, (b,), generator=gen, device="cuda")
+    y_len = torch.randint(1, n + 1, (b,), generator=gen, device="cuda")
+    for i in all_pad:
+        x_len[i] = y_len[i] = 0
+    x_pad = torch.arange(m, device="cuda")[None, :] >= x_len[:, None]
+    y_pad = torch.arange(n, device="cuda")[None, :] >= y_len[:, None]
+    joint = x_pad[:, :, None] | y_pad[:, None, :]
+    return (cost.masked_fill(joint, 0.0), x_len.float(), x_pad,
+            y_len.float(), y_pad, joint)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("b,n,m,form", [
+    (48, 64, 160, 0), (96, 40, 64, 0), (64, 100, 64, 0), (8, 100, 512, 1),
+    (4, 200, 512, 2), (5, 37, 23, 0)])
+def test_ipot_kernel_matches_plain(gen, b, n, m, form, k):
+    assert ot.ipot_form(n, m) == form
+    args = _ot_inputs(gen, b, n, m, all_pad=(1, b - 1))
+    before = ot.ipot_cuda.launches
+    got = ot.ipot_cuda(*args, 0.5, 50, k)
+    torch.cuda.synchronize()
+    assert ot.ipot_cuda.launches == before + 1
+    want = ot.ipot(*args, 0.5, 50, k)
+    assert got.shape == (b, n, m) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    excess = (got - want).abs() - (1e-5 + 1e-4 * want.abs())
+    assert excess.max().item() <= 0
+    assert (got[args[5].transpose(1, 2)] == 0).all()
+    assert (got[1] == 0).all() and (got[b - 1] == 0).all()
+    assert torch.equal(got, ot.ipot_cuda(*args, 0.5, 50, k))
+
+
+def test_ipot_kernel_through_the_distance(gen):
+    """``optimal_transport_dist`` with impl "cuda" against "xla" on the
+    same embeddings (rtol 1e-4); gradients flow through the cost alone."""
+    b, m, n, d = 16, 60, 36, 768
+    x = torch.randn(b, m, d, generator=gen, device="cuda", requires_grad=True)
+    y = torch.randn(b, n, d, generator=gen, device="cuda", requires_grad=True)
+    x_pad = torch.arange(m, device="cuda")[None, :] >= torch.randint(
+        2, m + 1, (b, 1), generator=gen, device="cuda")
+    y_pad = torch.arange(n, device="cuda")[None, :] >= torch.randint(
+        2, n + 1, (b, 1), generator=gen, device="cuda")
+    got = ot.optimal_transport_dist(x, y, x_pad, y_pad, impl="cuda")
+    want = ot.optimal_transport_dist(x, y, x_pad, y_pad, impl="xla")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    gx, gy = torch.autograd.grad(got.sum(), (x, y))
+    wx, wy = torch.autograd.grad(want.sum(), (x, y))
+    torch.testing.assert_close(gx, wx, rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(gy, wy, rtol=1e-3, atol=1e-6)
+
+
+def test_ipot_kernel_refuses_on_the_card(gen):
+    args = list(_ot_inputs(gen, 2, 8, 8))
+    with pytest.raises(ValueError, match="x_len"):
+        ot.ipot_cuda(args[0], args[1].cpu(), *args[2:], 0.5, 50, 1)
+    with pytest.raises(ValueError, match="k >= 1"):
+        ot.ipot_cuda(*args, 0.5, 50, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,h", [(9984, 768), (91, 768), (9984, 1024),
+                                    (96, 1536), (7, 2048), (33, 64)])
+def test_layer_norm_kernel_matches_plain(gen, dtype, rows, h):
+    x = (2.0 * torch.randn(rows, h, generator=gen, device="cuda")
+         + 0.5).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+    before = ln.layer_norm_fwd.launches
+    got = ln.layer_norm_fwd(x, w, b, 1e-12)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = ln._layer_norm_torch(x.float(), w, b, 1e-12)
+    tol = (1e-5 if dtype == torch.float32
+           else 2.0**-8 * want.abs() + 1e-3)
+    assert ((got.float() - want).abs() - tol).max().item() <= 0
+    # w and b at any 4-byte offset of a flat buffer, as AdamW keeps them
+    flat = torch.cat([w.new_zeros(1), w, b])
+    assert torch.equal(
+        got, ln.layer_norm_fwd(x, flat[1:1 + h], flat[1 + h:], 1e-12))
+
+
+def test_layer_norm_function_on_the_card(gen):
+    """K8 forward, plain backward, against autograd of the plain version;
+    a 3-d strided input is made contiguous; what the kernel cannot take
+    raises."""
+    x = torch.randn(6, 40, 2 * 768, generator=gen, device="cuda")[..., ::2]
+    x = x.bfloat16().requires_grad_()
+    w = (1.0 + 0.1 * torch.randn(768, generator=gen, device="cuda")
+         ).requires_grad_()
+    b = torch.zeros(768, device="cuda", requires_grad=True)
+    g = torch.randn(6, 40, 768, generator=gen, device="cuda").bfloat16()
+    before = ln.layer_norm_fwd.launches
+    got = torch.autograd.grad(ln.layer_norm(x, w, b, 1e-12, impl="cuda"),
+                              (x, w, b), g)
+    assert ln.layer_norm_fwd.launches == before + 1
+    want = torch.autograd.grad(ln.layer_norm(x, w, b, 1e-12, impl="xla"),
+                               (x, w, b), g)
+    for a, r in zip(got, want):
+        assert a.dtype == r.dtype
+        bound = 2.0**-7 * r.float().abs() + 1e-3 * r.float().abs().max()
+        assert ((a.float() - r.float()).abs() - bound).max().item() <= 0
+    with pytest.raises(ValueError, match="multiple of 4 up to 2048"):
+        ln.layer_norm_fwd(torch.zeros(4, 4096, device="cuda"),
+                          torch.ones(4096, device="cuda"),
+                          torch.zeros(4096, device="cuda"))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ln.layer_norm_fwd(torch.zeros(4, 64, device="cuda").half(),
+                          torch.ones(64, device="cuda"),
+                          torch.zeros(64, device="cuda"))
+
+
+def test_pretrain_itm_step_through_kernels(gen):
+    """A small pretraining model, fp32, dropout 0.1: the ITM step through
+    K1-K8 (one K7 launch, K8 at the image embeddings) against the plain
+    step with the same masks; the MLM step launches no K7."""
+    import numpy as np
+
+    from uniter_tpu_torch.models.pretrain import UniterForPretraining
+    from uniter_tpu_torch.training.optim import build_optimizer
+    from uniter_tpu_torch.training.step import TrainState, make_train_step
+
+    cfg = tiny_config(hidden_size=64, num_attention_heads=4,
+                      attention_impl="auto", block_fusion="auto",
+                      layer_norm_impl="pallas")
+    torch.manual_seed(0)
+    ref = UniterForPretraining(tiny_config(), img_dim=32, img_label_dim=11)
+    rng = np.random.RandomState(0)
+    b, t, r = 6, 12, 8
+    attn = np.ones((b, t + r), np.int64)
+    attn[0, t - 4:t] = 0
+    attn[1, t + r - 3:] = 0
+    attn[b - 1] = 0
+    batch = {k: torch.from_numpy(v).cuda() for k, v in dict(
+        input_ids=rng.randint(1, 500, (b, t)),
+        position_ids=np.tile(np.arange(t), (b, 1)),
+        img_feat=rng.randn(b, r, 32).astype(np.float32),
+        img_pos_feat=rng.rand(b, r, 7).astype(np.float32),
+        attn_mask=attn,
+        targets=np.array([1, 0, 1, 0, 1, -1]),
+        mlm_pos=rng.randint(0, t, (b, 3)),
+        mlm_tgt=rng.randint(1, 500, (b, 3))).items()}
+    out = {}
+    for name, c, ot_impl in (
+            ("kernels", resolve_kernel_policies(cfg, "cuda", training=True),
+             "cuda"),
+            ("plain", resolve_kernel_policies(tiny_config(), "cuda",
+                                              training=True), "xla")):
+        model = UniterForPretraining(c, img_dim=32, img_label_dim=11,
+                                     ot_impl=ot_impl)
+        model.load_state_dict(ref.state_dict(), strict=True)
+        model.cuda()
+        state = TrainState(step=0, model=model,
+                           opt=build_optimizer(model, 1e-3, fused=True))
+        steps = {task: make_train_step(
+            lambda m, bt, g, _t=task: m.scalar_loss(
+                bt, _t, ot_lambda=0.1 if _t == "itm" else 0.0,
+                deterministic=False, generator=g))
+            for task in ("itm", "mlm")}
+        k7, k8 = ot.ipot_cuda.launches, ln.layer_norm_fwd.launches
+        _, m1 = steps["itm"](state, batch, 5)
+        k7_itm = ot.ipot_cuda.launches - k7
+        _, m2 = steps["mlm"](state, batch, 5)
+        out[name] = (float(m1["loss"]), float(m1["itm_ot"]),
+                     float(m2["loss"]), k7_itm,
+                     ot.ipot_cuda.launches - k7 - k7_itm,
+                     ln.layer_norm_fwd.launches - k8)
+    assert out["kernels"][3:5] == (1, 0) and out["kernels"][5] > 0
+    assert out["plain"][3:] == (0, 0, 0)
+    for a, c in zip(out["kernels"][:3], out["plain"][:3]):
+        assert abs(a - c) <= 1e-4 * abs(c) + 1e-6

@@ -242,7 +242,8 @@ def test_fused_tails_train_as_the_plain_composition(monkeypatch):
         opt = popt.build_optimizer(model, psched.get_lr_schedule(1e-3, 1, 3),
                                    fused=True)
         state = pstep.TrainState(step=0, model=model, opt=opt)
-        step = pstep.make_train_step(lambda m, bt, g: vqa_loss(m, bt, g, 11))
+        step = pstep.make_train_step(
+            lambda m, bt, g: (vqa_loss(m, bt, g, 11), {}))
         losses = [float(step(state, batch, seed=11)[1]["loss"])
                   for _ in range(3)]
         return losses, dict(model.named_parameters())

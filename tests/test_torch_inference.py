@@ -187,6 +187,10 @@ def test_port_imports_without_jax():
         "import uniter_tpu_torch.train_nlvr2, uniter_tpu_torch.inf_nlvr2\n"
         "import uniter_tpu_torch.ops.fused_block, uniter_tpu_torch.models.heads\n"
         "import uniter_tpu_torch.models.nlvr2, uniter_tpu_torch.data.nlvr2\n"
+        "import uniter_tpu_torch.pretrain, uniter_tpu_torch.models.pretrain\n"
+        "import uniter_tpu_torch.ops.ot, uniter_tpu_torch.ops.layer_norm\n"
+        "import uniter_tpu_torch.data.mlm, uniter_tpu_torch.data.mrm\n"
+        "import uniter_tpu_torch.data.itm\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'uniter_tpu')]\n"
         "assert not bad, bad\n"

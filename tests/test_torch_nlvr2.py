@@ -214,7 +214,8 @@ def test_train_steps_match_jax():
     model.load_state_dict(_bridge(params), strict=True)
     state = pstep.TrainState(step=0, model=model, opt=popt.build_optimizer(
         model, psched.get_lr_schedule(*sched), grad_norm=1.0, fused=True))
-    step = pstep.make_train_step(nlvr2_loss, loss_scale="sum")
+    step = pstep.make_train_step(
+        lambda m, b, g: (nlvr2_loss(m, b, g), {}), loss_scale="sum")
     for batch in feed:
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in
                                     batch.items()}, jax.random.PRNGKey(0))
@@ -231,9 +232,8 @@ def test_train_steps_match_jax():
 
 def test_type_row_widening_matches_jax_driver(tmp_path):
     """A 2-row reference checkpoint into a 3-row NLVR2 trunk, both drivers;
-    a skipped key is logged by name, a word table of another size raises."""
-    import logging
-
+    a trunk key of another shape raises, as does a word table of another
+    size."""
     from uniter_tpu.training.driver import load_trunk_checkpoint as jax_load
     from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
     from uniter_tpu_torch.training.driver import load_trunk_checkpoint
@@ -262,18 +262,13 @@ def test_type_row_widening_matches_jax_driver(tmp_path):
     src_tt = sd["uniter.embeddings.token_type_embeddings.weight"]
     assert torch.equal(tt[:2], src_tt) and torch.equal(tt[2], src_tt[1])
 
-    # without the surgery the 2-row table is skipped, and said so by name
-    from uniter_tpu_torch.utils.logger import LOGGER
-
-    records = []
-    handler = logging.Handler()
-    handler.emit = records.append
-    LOGGER.addHandler(handler)
-    try:
+    # without the surgery the 2-row table does not fit the 3-row trunk: the
+    # merge raises and names the key and both shapes, as the JAX driver does
+    with pytest.raises(ValueError, match=r"token_type_embeddings.*\(2, 64\)"
+                                         r".*\(3, 64\)"):
         load_trunk_checkpoint(model, opts)
-    finally:
-        LOGGER.removeHandler(handler)
-    assert any("token_type_embeddings" in r.getMessage() for r in records)
+    with pytest.raises(ValueError, match="token_type_embeddings"):
+        jax_load(_jax_params(jmodel, batch), opts, jcfg)
     sd["uniter.embeddings.word_embeddings.weight"] = torch.zeros(7, 64)
     torch.save(sd, path)
     with pytest.raises(NotImplementedError, match="word"):

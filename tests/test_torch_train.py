@@ -253,7 +253,7 @@ def test_train_step_matches_jax(jax_params, accum):
                                lr_mul_paths=("vqa_",), fused=True)
     state = pstep.TrainState(step=0, model=model, opt=opt)
     step = pstep.make_train_step(
-        lambda m, b, g: vqa_loss(m, b, g, N_ANS), loss_scale="sum",
+        lambda m, b, g: (vqa_loss(m, b, g, N_ANS), {}), loss_scale="sum",
         accum_steps=accum)
     for batch in feed:
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in
@@ -283,7 +283,8 @@ def test_resume_replays_dropout_bitwise(tmp_path):
             mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16)
         return pstep.TrainState(step=0, model=model, opt=opt)
 
-    step = pstep.make_train_step(lambda m, b, g: vqa_loss(m, b, g, N_ANS))
+    step = pstep.make_train_step(
+        lambda m, b, g: (vqa_loss(m, b, g, N_ANS), {}))
 
     def run(state, until):
         while state.step < until:
@@ -325,7 +326,7 @@ def test_steps_per_call_and_accumulation_stack_batches():
         return pstep.TrainState(step=0, model=model, opt=opt)
 
     def loss(m, b, g):
-        return vqa_loss(m, b, g, N_ANS)
+        return vqa_loss(m, b, g, N_ANS), {}
 
     pair = [BATCHES[0], BATCHES[2]]
     single = pstep.make_train_step(loss)
@@ -345,7 +346,7 @@ def test_steps_per_call_and_accumulation_stack_batches():
     assert c.step == 1 and c.opt.count == 1
     gen = pstep.step_generator(3, 0)
     with torch.no_grad():
-        micro = [float(loss(fresh().model, _tt(bt), gen)) for bt in pair]
+        micro = [float(loss(fresh().model, _tt(bt), gen)[0]) for bt in pair]
     np.testing.assert_allclose(float(m["loss"]), np.mean(micro), rtol=1e-6)
 
 

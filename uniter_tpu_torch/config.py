@@ -3,10 +3,10 @@
 The hyperparameter surface of ``uniter_tpu.config.UniterConfig`` (the
 reference's ``UniterConfig``, loaded from config/uniter-{base,large}.json)
 plus the compute-policy knobs this package acts on. ``from_dict`` ignores
-the JAX package's other knobs (LayerNorm/FFN kernels, scan and remat
-settings), so a training run's ``log/model.json`` loads unchanged;
-``resolve_kernel_policies`` maps its attention and block-fusion policies
-onto this package's kernels for an explicit device.
+the JAX package's other knobs (the FFN kernel, scan and remat settings), so
+a training run's ``log/model.json`` loads unchanged;
+``resolve_kernel_policies`` maps its attention, block-fusion and LayerNorm
+policies onto this package's kernels for an explicit device.
 """
 
 from __future__ import annotations
@@ -51,6 +51,11 @@ class UniterConfig:
     # plain ops. The JAX package's "auto"/"pallas" are accepted and resolved
     # by resolve_kernel_policies.
     block_fusion: str = "none"
+    # "cuda" runs every LayerNorm that no fused tail takes through K8
+    # (csrc/fused_tail.cu ``uniter_layer_norm_fwd``, plain fp32 backward);
+    # "xla" is the plain version. The JAX package's "pallas" is accepted
+    # and resolved by resolve_kernel_policies.
+    layer_norm_impl: str = "xla"
     layer_norm_eps: float = 1e-12
     # One [3H, H] projection instead of three (weights stay query/key/value,
     # so checkpoints are unaffected).
@@ -94,6 +99,10 @@ def resolve_kernel_policies(cfg: UniterConfig, device, *,
     "none". For ``training`` on a CUDA device "auto", "pallas" and "cuda"
     select the kernels ("cuda") and "none" stays "none". A ``dropout_impl``
     other than "xla" raises when training.
+
+    LayerNorm: "pallas" and "cuda" select K8 ("cuda") on a CUDA device and
+    the plain version ("xla") on a CPU device, as
+    ``uniter_tpu/config.py`` ``resolve_kernel_policies`` does; "xla" stays.
     """
     on_cuda = torch.device(device).type == "cuda"
     att = cfg.attention_impl
@@ -105,11 +114,17 @@ def resolve_kernel_policies(cfg: UniterConfig, device, *,
     if bf not in ("auto", "none", "pallas", "cuda"):
         raise ValueError(f"unknown block_fusion {bf!r}")
     bf = "cuda" if training and on_cuda and bf != "none" else "none"
+    ln = cfg.layer_norm_impl
+    if ln in ("pallas", "cuda"):
+        ln = "cuda" if on_cuda else "xla"
+    elif ln != "xla":
+        raise ValueError(f"unknown layer_norm_impl {ln!r}")
     if training and cfg.dropout_impl != "xla":
         raise NotImplementedError(
             f"dropout_impl {cfg.dropout_impl!r} is not ported; use "
             "'xla' (32-bit thresholds)")
-    return cfg.replace(attention_impl=att, block_fusion=bf)
+    return cfg.replace(attention_impl=att, block_fusion=bf,
+                       layer_norm_impl=ln)
 
 
 def base_config(**overrides) -> UniterConfig:

@@ -2,10 +2,10 @@
 -> this package's state dicts.
 
 Counterpart of ``uniter_tpu/models/checkpoint.py``. The key tables
-(``_STATIC_MAP``, ``_LAYER_MAP``, ``_TASK_HEAD_MAP``) are that module's,
-re-stated here because the port imports nothing of the JAX package.
-``state_dict_from_jax_params`` is its ``export_state_dict`` in numpy for
-the trunk and the fine-tune heads: flax ``Dense`` kernels [in, out] become
+(``_STATIC_MAP``, ``_LAYER_MAP``, ``_PRETRAIN_HEAD_MAP``, ``_TASK_HEAD_MAP``)
+are that module's, re-stated here because the port imports nothing of the
+JAX package. ``state_dict_from_jax_params`` is its ``export_state_dict`` in
+numpy for the trunk, the pretraining heads and the fine-tune heads: flax ``Dense`` kernels [in, out] become
 ``nn.Linear`` weights [out, in], and the scanned ``[L, ...]`` layer stacks
 under ``encoder/layer/bert_layer`` become ``encoder.layer.{i}.*``. Module
 names in ``models/`` follow those keys, so the result loads with
@@ -60,6 +60,29 @@ _LAYER_MAP = {
     "output_dense/bias": ("output.dense.bias", "raw"),
     "output_LayerNorm/weight": ("output.LayerNorm.weight", "raw"),
     "output_LayerNorm/bias": ("output.LayerNorm.bias", "raw"),
+}
+
+# Pretraining-head flax paths (at the params root) -> reference keys
+# (reference model/pretrain.py:50-63 module names).
+_PRETRAIN_HEAD_MAP = {
+    "cls/transform/dense/kernel": ("cls.predictions.transform.dense.weight", "linear_w"),
+    "cls/transform/dense/bias": ("cls.predictions.transform.dense.bias", "raw"),
+    "cls/transform/LayerNorm/weight": ("cls.predictions.transform.LayerNorm.weight", "raw"),
+    "cls/transform/LayerNorm/bias": ("cls.predictions.transform.LayerNorm.bias", "raw"),
+    "cls/bias": ("cls.predictions.bias", "raw"),
+    "feat_regress/net_dense/kernel": ("feat_regress.net.0.weight", "linear_w"),
+    "feat_regress/net_dense/bias": ("feat_regress.net.0.bias", "raw"),
+    "feat_regress/net_ln/weight": ("feat_regress.net.2.weight", "raw"),
+    "feat_regress/net_ln/bias": ("feat_regress.net.2.bias", "raw"),
+    "feat_regress/bias": ("feat_regress.bias", "raw"),
+    "region_classifier/net_dense/kernel": ("region_classifier.net.0.weight", "linear_w"),
+    "region_classifier/net_dense/bias": ("region_classifier.net.0.bias", "raw"),
+    "region_classifier/net_ln/weight": ("region_classifier.net.2.weight", "raw"),
+    "region_classifier/net_ln/bias": ("region_classifier.net.2.bias", "raw"),
+    "region_classifier/net_out/kernel": ("region_classifier.net.3.weight", "linear_w"),
+    "region_classifier/net_out/bias": ("region_classifier.net.3.bias", "raw"),
+    "itm_output/kernel": ("itm_output.weight", "linear_w"),
+    "itm_output/bias": ("itm_output.bias", "raw"),
 }
 
 # Fine-tune task-head flax paths (at the params root) -> reference keys;
@@ -133,8 +156,9 @@ def state_dict_from_jax_params(params: Mapping[str, Any], *,
                                prefix: str = "uniter.") -> Dict[str, np.ndarray]:
     """JAX parameter tree (nested dicts of arrays) -> reference-format state
     dict of numpy arrays: trunk keys under ``prefix``, task heads at the
-    root. Equal, key for key and bit for bit, to the JAX package's
-    ``export_state_dict`` for the trunk and fine-tune heads."""
+    root. Equal, key for key, in order and bit for bit, to the JAX
+    package's ``export_state_dict`` (trunk, pretraining heads, fine-tune
+    heads)."""
     flat = _flatten(params)
     out: Dict[str, np.ndarray] = {}
     troot = f"{trunk}/" if trunk and trunk in params else ""
@@ -146,6 +170,9 @@ def state_dict_from_jax_params(params: Mapping[str, Any], *,
         if full in flat:
             for i, arr in enumerate(np.asarray(flat[full])):
                 out[f"{prefix}encoder.layer.{i}.{tsub}"] = _convert(arr, kind)
+    for path, (tkey, kind) in _PRETRAIN_HEAD_MAP.items():
+        if path in flat:
+            out[tkey] = _convert(flat[path], kind)
     two_layer_re = "re_hidden/kernel" in flat
     for path, tkey, kind in _TASK_HEAD_MAP:
         if path not in flat or tkey in out:
@@ -181,6 +208,15 @@ def normalize_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, np.ndarray]
                    for k, v in out.items()}
             break
     return out
+
+
+def pretrain_head_state_dict(state_dict: Mapping[str, np.ndarray]
+                             ) -> Dict[str, np.ndarray]:
+    """The pretraining-head tensors of a normalized state dict, under the
+    reference keys ``UniterForPretraining`` names its heads by (the JAX
+    package's ``pretrain_head_params_from_state_dict``)."""
+    return {tkey: state_dict[tkey]
+            for tkey, _ in _PRETRAIN_HEAD_MAP.values() if tkey in state_dict}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:

@@ -24,3 +24,10 @@ def encode_batch(uniter, batch, deterministic: bool = True, generator=None):
         deterministic=deterministic,
         generator=generator,
     )
+
+
+def txt_img_pad_masks(batch):
+    """(txt_pad, img_pad) boolean masks (True at padding) from attn_mask."""
+    t = batch["input_ids"].shape[1]
+    attn = batch["attn_mask"].bool()
+    return ~attn[:, :t], ~attn[:, t:]

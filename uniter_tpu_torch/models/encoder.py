@@ -15,7 +15,9 @@ False. Each such call draws its own seed from the ``generator`` argument, a
 one), so a step's masks are a function of that generator's seed alone.
 With ``block_fusion="cuda"`` each live tail runs as one fused Function
 (K3/K4 at the sub-block tails, K5/K6 at the embedding tails) on the same
-seed and the same Philox bits as the plain composition.
+seed and the same Philox bits as the plain composition. Every LayerNorm
+that no fused tail takes (the image embeddings' two, each tail when no mask
+is live) follows ``layer_norm_impl``: "cuda" is K8, "xla" the plain one.
 
 Submodules are named after the reference ``.pt`` keys that
 ``uniter_tpu.models.checkpoint.export_state_dict`` emits (for example
@@ -47,16 +49,18 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with torch-style (weight, bias) and fp32 statistics."""
+    """LayerNorm with torch-style (weight, bias) and fp32 statistics;
+    ``impl`` is the config's ``layer_norm_impl`` ("cuda": K8 on the card)."""
 
-    def __init__(self, features: int, eps: float = 1e-12):
+    def __init__(self, features: int, eps: float = 1e-12, impl: str = "xla"):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.eps = eps
+        self.impl = impl
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self.eps)
+        return layer_norm(x, self.weight, self.bias, self.eps, self.impl)
 
 
 class DropResLN(LayerNorm):
@@ -68,8 +72,8 @@ class DropResLN(LayerNorm):
     composition."""
 
     def __init__(self, features: int, rate: float, eps: float = 1e-12,
-                 fused: bool = False):
-        super().__init__(features, eps)
+                 fused: bool = False, impl: str = "xla"):
+        super().__init__(features, eps, impl)
         self.rate = rate
         self.fused = fused
 
@@ -82,7 +86,8 @@ class DropResLN(LayerNorm):
                                seed=seed, eps=self.eps)
         if seed is not None:
             x = drop(x, self.rate, seed)
-        return layer_norm(x + res, self.weight, self.bias, self.eps)
+        return layer_norm(x + res, self.weight, self.bias, self.eps,
+                          self.impl)
 
 
 class LNDrop(LayerNorm):
@@ -91,8 +96,8 @@ class LNDrop(LayerNorm):
     ``ops.fused_block.ln_drop`` (K5/K6 on the card)."""
 
     def __init__(self, features: int, rate: float, eps: float = 1e-12,
-                 fused: bool = False):
-        super().__init__(features, eps)
+                 fused: bool = False, impl: str = "xla"):
+        super().__init__(features, eps, impl)
         self.rate = rate
         self.fused = fused
 
@@ -101,7 +106,7 @@ class LNDrop(LayerNorm):
         if seed is not None and self.fused:
             return ln_drop(x, self.weight, self.bias, rate=self.rate,
                            seed=seed, eps=self.eps)
-        y = layer_norm(x, self.weight, self.bias, self.eps)
+        y = layer_norm(x, self.weight, self.bias, self.eps, self.impl)
         return y if seed is None else drop(y, self.rate, seed)
 
 
@@ -133,7 +138,8 @@ class UniterTextEmbeddings(nn.Module):
         self.token_type_embeddings = Embed(cfg.type_vocab_size,
                                            cfg.hidden_size, dt)
         self.LayerNorm = LNDrop(cfg.hidden_size, cfg.hidden_dropout_prob,
-                                cfg.layer_norm_eps, cfg.block_fusion == "cuda")
+                                cfg.layer_norm_eps, cfg.block_fusion == "cuda",
+                                cfg.layer_norm_impl)
 
     def forward(self, input_ids, position_ids, token_type_ids=None, *,
                 deterministic: bool = True, generator=None):
@@ -155,12 +161,13 @@ class UniterImageEmbeddings(nn.Module):
         self.compute_dtype = cfg.compute_dtype
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.img_linear = Linear(img_dim, h)
-        self.img_layer_norm = LayerNorm(h, eps)
+        self.img_layer_norm = LayerNorm(h, eps, cfg.layer_norm_impl)
         self.pos_linear = Linear(7, h)
-        self.pos_layer_norm = LayerNorm(h, eps)
+        self.pos_layer_norm = LayerNorm(h, eps, cfg.layer_norm_impl)
         self.mask_embedding = nn.Embedding(2, img_dim)
         self.LayerNorm = LNDrop(h, cfg.hidden_dropout_prob, eps,
-                                cfg.block_fusion == "cuda")
+                                cfg.block_fusion == "cuda",
+                                cfg.layer_norm_impl)
 
     def forward(self, img_feat, img_pos_feat, type_embeddings,
                 img_masks=None, *, deterministic: bool = True,
@@ -193,7 +200,8 @@ class BertSelfOutput(nn.Module):
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = DropResLN(cfg.hidden_size, cfg.hidden_dropout_prob,
                                    cfg.layer_norm_eps,
-                                   cfg.block_fusion == "cuda")
+                                   cfg.block_fusion == "cuda",
+                                   cfg.layer_norm_impl)
 
 
 class BertAttention(nn.Module):
@@ -252,7 +260,8 @@ class BertOutput(nn.Module):
         self.dense = Linear(cfg.intermediate_size, cfg.hidden_size)
         self.LayerNorm = DropResLN(cfg.hidden_size, cfg.hidden_dropout_prob,
                                    cfg.layer_norm_eps,
-                                   cfg.block_fusion == "cuda")
+                                   cfg.block_fusion == "cuda",
+                                   cfg.layer_norm_impl)
 
 
 class BertLayer(nn.Module):

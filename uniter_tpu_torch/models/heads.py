@@ -1,13 +1,20 @@
-"""Auxiliary attention blocks of the task heads (counterpart of
-``uniter_tpu/models/heads.py`` ``AttentionPool`` and ``CrossAttention``):
-the attention pooling of reference model/nlvr2.py:110-125 and the torch-style
-MultiheadAttention of reference model/attention.py:268-402, which NLVR2's
-paired-attn model runs across its two streams (model/nlvr2.py:184-191).
+"""Task heads and auxiliary attention blocks (counterpart of
+``uniter_tpu/models/heads.py``): the pretraining heads
+``BertPredictionHeadTransform`` / ``MLMHead`` (reference
+model/layer.py:188-233), ``RegionFeatureRegression`` /
+``RegionClassification`` (model/pretrain.py:19-47), the attention pooling
+of reference model/nlvr2.py:110-125 and the torch-style MultiheadAttention
+of reference model/attention.py:268-402, which NLVR2's paired-attn model
+runs across its two streams (model/nlvr2.py:184-191).
 
-Parameters are named after the reference ``.pt`` keys (``attn_pool.fc.0.*``,
-``attn1.in_proj_weight``, ``attn1.out_proj.*``), so the weight bridge's
-NLVR2 state dicts load with ``strict=True``. Dropout draws its seeds from
-the step's generator, as the trunk's does.
+Parameters are named after the reference ``.pt`` keys
+(``predictions.transform.dense.*``, ``predictions.bias``, ``net.0.*``,
+``attn_pool.fc.0.*``, ``attn1.in_proj_weight``, ``attn1.out_proj.*``), so
+the weight bridge's state dicts load with ``strict=True``. The MLM decoder
+and the MRFR projection are tied: they take the word table and
+``img_linear``'s weight at call time and register no parameter of their
+own. Dropout draws its seeds from the step's generator, as the trunk's
+does.
 """
 
 from __future__ import annotations
@@ -16,9 +23,92 @@ import torch
 from torch import nn
 
 from uniter_tpu_torch.config import UniterConfig
-from uniter_tpu_torch.models.encoder import MASK_VALUE, Linear
+from uniter_tpu_torch.models.encoder import MASK_VALUE, LayerNorm, Linear
+from uniter_tpu_torch.ops.activations import ACT2FN, gelu
 from uniter_tpu_torch.ops.attention import multi_head_attention
 from uniter_tpu_torch.ops.dropout import dropout, live_seed
+
+
+class GELU(nn.Module):
+    def forward(self, x):
+        return gelu(x)
+
+
+class BertPredictionHeadTransform(nn.Module):
+    """Dense -> act -> LN (reference model/layer.py:188-202)."""
+
+    def __init__(self, cfg: UniterConfig):
+        super().__init__()
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.act = ACT2FN[cfg.hidden_act]
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                   cfg.layer_norm_impl)
+
+    def forward(self, x):
+        return self.LayerNorm(self.act(self.dense(x)))
+
+
+class BertLMPredictionHead(nn.Module):
+    """Vocabulary logits with the decoder tied to the word-embedding table
+    (reference model/layer.py:205-222): ``table`` [V, H] is
+    ``uniter.embeddings.word_embeddings.weight``, passed at call time."""
+
+    def __init__(self, cfg: UniterConfig):
+        super().__init__()
+        self.transform = BertPredictionHeadTransform(cfg)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+    def forward(self, x, table):
+        h = self.transform(x)
+        return torch.nn.functional.linear(h, table.to(h.dtype),
+                                          self.bias.to(h.dtype))
+
+
+class MLMHead(nn.Module):
+    """The reference's ``BertOnlyMLMHead`` (model/layer.py:225-233): its
+    keys are ``cls.predictions.*``."""
+
+    def __init__(self, cfg: UniterConfig):
+        super().__init__()
+        self.predictions = BertLMPredictionHead(cfg)
+
+    def forward(self, x, table):
+        return self.predictions(x, table)
+
+
+class RegionFeatureRegression(nn.Module):
+    """MRFR head: Dense + GELU + LN, then the projection back to feature
+    space with ``img_linear``'s weight [H, feat_dim], passed at call time
+    (reference model/pretrain.py:19-33)."""
+
+    def __init__(self, cfg: UniterConfig, feat_dim: int = 2048):
+        super().__init__()
+        h = cfg.hidden_size
+        self.net = nn.Sequential(
+            Linear(h, h), GELU(),
+            LayerNorm(h, cfg.layer_norm_eps, cfg.layer_norm_impl))
+        self.bias = nn.Parameter(torch.zeros(feat_dim))
+
+    def forward(self, x, img_linear_weight):
+        h = self.net(x)
+        return torch.nn.functional.linear(
+            h, img_linear_weight.t().to(h.dtype), self.bias.to(h.dtype))
+
+
+class RegionClassification(nn.Module):
+    """MRC head: Dense + GELU + LN + Dense(label_dim) (reference
+    model/pretrain.py:36-47)."""
+
+    def __init__(self, cfg: UniterConfig, label_dim: int = 1601):
+        super().__init__()
+        h = cfg.hidden_size
+        self.net = nn.Sequential(
+            Linear(h, h), GELU(),
+            LayerNorm(h, cfg.layer_norm_eps, cfg.layer_norm_impl),
+            Linear(h, label_dim))
+
+    def forward(self, x):
+        return self.net(x)
 
 
 class AttentionPool(nn.Module):

@@ -16,13 +16,8 @@ from torch import nn
 from uniter_tpu_torch.config import UniterConfig
 from uniter_tpu_torch.models.common import encode_batch
 from uniter_tpu_torch.models.encoder import LayerNorm, Linear, UniterModel
+from uniter_tpu_torch.models.heads import GELU
 from uniter_tpu_torch.models.losses import binary_cross_entropy_with_logits
-from uniter_tpu_torch.ops.activations import gelu
-
-
-class GELU(nn.Module):
-    def forward(self, x):
-        return gelu(x)
 
 
 class UniterForVisualQuestionAnswering(nn.Module):
@@ -34,7 +29,8 @@ class UniterForVisualQuestionAnswering(nn.Module):
         h = cfg.hidden_size
         self.uniter = UniterModel(cfg, img_dim)
         self.vqa_output = nn.Sequential(
-            Linear(h, 2 * h), GELU(), LayerNorm(2 * h, cfg.layer_norm_eps),
+            Linear(h, 2 * h), GELU(),
+            LayerNorm(2 * h, cfg.layer_norm_eps, cfg.layer_norm_impl),
             Linear(2 * h, num_answer))
 
     def predict(self, batch, *, deterministic: bool = True,

@@ -47,11 +47,16 @@ SIGNATURES = {
     "ln_drop_fwd": [_P] * 4 + _TAIL,
     # x w g dx part dwdb
     "ln_drop_bwd": [_P] * 6 + _TAIL,
+    # x w b y, rows, H, eps, dtype, stream
+    "layer_norm_fwd": [_P] * 4 + [_L, _I, _F, _I, _P],
+    # A sigma0 x_mask y_mask x_len y_len T, B N M, iteration, k, form, stream
+    "ipot": [_P] * 7 + [_I] * 6 + [_P],
 }
 # kernel name -> the csrc/<source>.cu that defines it
-SOURCES = {"mha_fwd": "mha_fwd", "mha_bwd": "mha_bwd",
+SOURCES = {"mha_fwd": "mha_fwd", "mha_bwd": "mha_bwd", "ipot": "ipot",
            **{k: "fused_tail" for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
-                                        "ln_drop_fwd", "ln_drop_bwd")}}
+                                        "ln_drop_fwd", "ln_drop_bwd",
+                                        "layer_norm_fwd")}}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

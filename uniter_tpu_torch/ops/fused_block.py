@@ -13,8 +13,9 @@ axis of ``[..., H]``:
 
 Arithmetic is fp32 whatever the input dtype (float64 stays float64, for
 gradient checks of the plain versions on the CPU); the statistics are the
-mean and the mean of squared deviations (``_ln_stats``), eps 1e-12 by
-default; results come back in x's dtype, dw and db in fp32. Dropout keeps an
+mean and the mean of squared deviations (``ops.layer_norm._ln_stats``), eps
+1e-12 by default; results come back in x's dtype, dw and db in fp32.
+Dropout keeps an
 element iff its Philox word of ``ops.dropout.keep_mask(seed, 0, x.shape,
 rate)`` is >= floor(rate * 2**32) and scales it by 1 / (1 - rate): the bits
 of the trunk's plain composition, so the kernels and both plain paths drop
@@ -37,40 +38,20 @@ import torch
 
 from uniter_tpu_torch.ops import _kernels
 from uniter_tpu_torch.ops.dropout import keep_mask, threshold
+from uniter_tpu_torch.ops.layer_norm import (
+    _col_sum, _f32, _ln_bwd, _ln_stats, _prep)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HIDDEN = 1024  # csrc/fused_tail.cu keeps a row in one warp's registers
-
-
-def _f32(t):
-    return t if t.dtype == torch.float64 else t.float()
 
 
 def _keep(x, rate, seed):
     return keep_mask(seed, 0, x.shape, rate, x.device)
 
 
-def _ln_stats(t, eps):
-    """(x_hat, 1/sqrt(var + eps)) over the last axis, two passes."""
-    mean = t.mean(-1, keepdim=True)
-    var = (t - mean).square().mean(-1, keepdim=True)
-    inv = torch.rsqrt(var + eps)
-    return (t - mean) * inv, inv
-
-
-def _ln_bwd(that, inv, gw):
-    """dt of the LayerNorm for g*w = ``gw`` (``_ln_bwd``)."""
-    return inv * (gw - gw.mean(-1, keepdim=True)
-                  - that * (gw * that).mean(-1, keepdim=True))
-
-
 def _dropped(t, keep, rate):
     return torch.where(keep, t * (1.0 / (1.0 - rate)),
                        torch.zeros((), dtype=t.dtype, device=t.device))
-
-
-def _col_sum(t):
-    return t.reshape(-1, t.shape[-1]).sum(0)
 
 
 def _drop_res_ln_t(x, res, rate, seed):
@@ -261,12 +242,6 @@ def ln_drop_bwd(x, weight, g, rate: float = 0.0, seed: int = 0,
 
 
 ln_drop_bwd.launches = 0
-
-
-def _prep(t):
-    """Contiguous and 16-byte aligned (a copy only when it is not)."""
-    t = t.contiguous()
-    return t.clone() if t.device.type == "cuda" and t.data_ptr() % 16 else t
 
 
 class DropResLNFunction(torch.autograd.Function):

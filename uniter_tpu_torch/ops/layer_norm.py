@@ -1,24 +1,157 @@
 """LayerNorm with fp32 statistics (replaces apex ``FusedLayerNorm(eps=1e-12)``,
-reference model/model.py:229).
+reference model/model.py:229): the plain torch version and the K8 kernel.
 
-Counterpart of ``_layer_norm_xla`` in ``uniter_tpu/ops/layer_norm.py``:
-statistics in fp32 whatever the input dtype, the result cast back to it.
-This is the plain LayerNorm of inference and of ``block_fusion="none"``;
-the training tails fuse it with dropout and the residual in
-``ops/fused_block.py`` (K3-K6). The JAX package's standalone Pallas
-LayerNorm kernel (K8, off by default) is not ported yet.
+Counterpart of ``uniter_tpu/ops/layer_norm.py``. Statistics run in fp32
+whatever the input dtype (two passes: the mean, then the mean of squared
+deviations) and the result is cast back to it.
+
+* ``_layer_norm_torch`` is the plain version (``_layer_norm_xla`` there):
+  the LayerNorm of ``layer_norm_impl="xla"``, under autograd.
+* ``layer_norm_fwd`` is K8 (``_ln_fwd_kernel`` there): a CUDA input
+  launches ``csrc/fused_tail.cu``'s ``uniter_layer_norm_fwd`` or raises, a
+  CPU input takes the plain version; ``layer_norm_fwd.launches`` counts
+  the launches.
+* ``LayerNormFunction`` pairs K8 with the backward of ``_ln_bwd`` there:
+  it saves ``(x, weight)`` only and recomputes the statistics in fp32 in
+  plain torch. The JAX package computes that backward outside any Pallas
+  kernel, so it is no kernel here either.
+
+The training tails fuse the LayerNorm with dropout and the residual in
+``ops/fused_block.py`` (K3-K6) while a mask is live; every other LayerNorm
+(the image embeddings' two, the heads', every tail at inference) comes here.
 """
 
 from __future__ import annotations
 
 import torch
 
+from uniter_tpu_torch.ops import _kernels
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HIDDEN = 2048  # csrc/fused_tail.cu keeps a row in one warp's registers
+
+
+def _f32(t):
+    # float64 stays float64, for gradient checks on the CPU
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _ln_stats(t, eps):
+    """(x_hat, 1/sqrt(var + eps)) over the last axis, two passes."""
+    mean = t.mean(-1, keepdim=True)
+    var = (t - mean).square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    return (t - mean) * inv, inv
+
+
+def _ln_bwd(that, inv, gw):
+    """dt of the LayerNorm for g*w = ``gw`` (``_ln_bwd``)."""
+    return inv * (gw - gw.mean(-1, keepdim=True)
+                  - that * (gw * that).mean(-1, keepdim=True))
+
+
+def _col_sum(t):
+    return t.reshape(-1, t.shape[-1]).sum(0)
+
+
+def _prep(t):
+    """Contiguous and 16-byte aligned (a copy only when it is not)."""
+    t = t.contiguous()
+    return t.clone() if t.device.type == "cuda" and t.data_ptr() % 16 else t
+
+
+def _layer_norm_torch(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    that, _ = _ln_stats(_f32(x), eps)
+    return (that * _f32(weight) + _f32(bias)).to(x.dtype)
+
+
+def _layer_norm_bwd_torch(x, weight, g, eps: float = 1e-12):
+    """(dx, dw, db) of the LayerNorm for the output gradient ``g``, the
+    formula of ``_ln_bwd``: statistics recomputed, everything in fp32, dx
+    in x's dtype, dw and db in the weight's."""
+    that, inv = _ln_stats(_f32(x), eps)
+    gf = _f32(g)
+    dx = _ln_bwd(that, inv, gf * _f32(weight))
+    return (dx.to(x.dtype), _col_sum(gf * that).to(weight.dtype),
+            _col_sum(gf).to(weight.dtype))
+
+
+def layer_norm_fwd(x, weight, bias, eps: float = 1e-12):
+    """K8: LayerNorm over the last axis of ``x`` [..., H] (float32 or
+    bfloat16; weight and bias float32 [H]), the result in x's dtype. A CPU
+    input takes ``_layer_norm_torch``; a CUDA input launches the kernel or
+    raises (H a multiple of 4 up to 2048, x contiguous and 16-byte
+    aligned)."""
+    dev = x.device
+    if weight.device != dev or bias.device != dev:
+        raise ValueError("layer_norm_fwd: all tensors must lie on one device")
+    if x.dim() < 1 or x.numel() == 0:
+        raise ValueError(f"layer_norm_fwd: needs a non-empty [..., H] "
+                         f"tensor, got {tuple(x.shape)}")
+    h = x.shape[-1]
+    if tuple(weight.shape) != (h,) or tuple(bias.shape) != (h,):
+        raise ValueError(f"layer_norm_fwd: weight and bias must be [{h}], "
+                         f"got {tuple(weight.shape)}, {tuple(bias.shape)}")
+    if dev.type == "cpu":
+        return _layer_norm_torch(x, weight, bias, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"layer_norm_fwd runs on cuda or cpu, not {dev}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"layer_norm_fwd takes float32 or bfloat16 "
+                        f"activations, got {x.dtype}")
+    if weight.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError("layer_norm_fwd: weight and bias must be float32")
+    if h % 4 or h > MAX_HIDDEN:
+        raise ValueError(f"layer_norm_fwd: hidden size must be a multiple "
+                         f"of 4 up to {MAX_HIDDEN}, got {h}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("layer_norm_fwd: x must be contiguous and 16-byte "
+                         "aligned")
+    if not weight.is_contiguous() or not bias.is_contiguous():
+        raise ValueError("layer_norm_fwd: weight and bias must be contiguous")
+    y = torch.empty_like(x)
+    fn = _kernels.load("layer_norm_fwd").uniter_layer_norm_fwd
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                y.data_ptr(), x.numel() // h, h, float(eps),
+                _DTYPE_CODE[x.dtype], stream)
+    if rc:
+        raise RuntimeError(f"layer_norm_fwd kernel launch failed: "
+                           f"cudaError_t {rc} at {tuple(x.shape)} {x.dtype}")
+    layer_norm_fwd.launches += 1
+    return y
+
+
+layer_norm_fwd.launches = 0
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """K8 forward, the plain fp32 recompute backward. Saves x and weight, as
+    the JAX package's ``_ln_fwd`` does (no statistics)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        x = _prep(x)
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return layer_norm_fwd(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = _layer_norm_bwd_torch(x, weight, g, ctx.eps)
+        return dx, dw, db, None
+
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-12) -> torch.Tensor:
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * weight.float() + bias.float()
-    return y.to(x.dtype)
+               eps: float = 1e-12, impl: str = "xla") -> torch.Tensor:
+    """LayerNorm over the last axis. ``impl="xla"`` is the plain version
+    under autograd, ``"cuda"`` goes through ``LayerNormFunction`` (K8 on the
+    card)."""
+    if impl == "cuda":
+        return LayerNormFunction.apply(x, weight, bias, eps)
+    if impl == "xla":
+        return _layer_norm_torch(x, weight, bias, eps)
+    raise ValueError(f"unknown layer_norm impl {impl!r}")

@@ -116,7 +116,8 @@ def main(opts):
 
     try:
         return driver.run_training(
-            opts, model=model, loss_fn=nlvr2_loss, train_loader=train_loader,
+            opts, model=model, train_loader=train_loader,
+            loss_fn=lambda m, b, g: (nlvr2_loss(m, b, g), {}),
             validate_fn=validate_fn)
     finally:
         train_loader.close()

@@ -104,7 +104,7 @@ def main(opts):
     num_answer = opts.num_answer
 
     def loss_fn(m, batch, generator):
-        return vqa_loss(m, batch, generator, num_answer)
+        return vqa_loss(m, batch, generator, num_answer), {}
 
     def validate_fn(state, step):
         logs = validate(state.model, val_loader, num_answer, opts.device)

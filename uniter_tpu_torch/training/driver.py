@@ -26,7 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -201,7 +201,8 @@ _WORD_KEY = "embeddings.word_embeddings.weight"
 
 
 def load_trunk_checkpoint(model, opts, *, n_type_rows: Optional[int] = None,
-                          type_copy_row: int = 1):
+                          type_copy_row: int = 1,
+                          extra: Optional[Callable] = None):
     """Load ``--checkpoint`` (a reference or exported ``.pt``) into the
     ``uniter`` trunk, with the JAX package's token-type surgery
     (``uniter_tpu/training/driver.py`` ``load_trunk_checkpoint``): with
@@ -210,14 +211,17 @@ def load_trunk_checkpoint(model, opts, *, n_type_rows: Optional[int] = None,
     every row past them (NLVR2: 2 rows -> 3, row 1 into row 2, reference
     model/nlvr2.py:26-34). Keys the trunk does not have are skipped; a
     trunk key the file lacks keeps its initial value, as the JAX merge
-    does. Any other trunk key whose shape differs is skipped and logged by
-    name; a word table of another size (VCR's word widening, not ported)
-    raises."""
+    does. A trunk key whose shape differs (after the widening) raises
+    ``ValueError`` with the key and both shapes, as that merge does
+    (``strict_shapes=True``); a word table of another size (VCR's word
+    widening, not ported) raises with its own message. ``extra(model, sd)``
+    then loads what lies outside the trunk (the pretraining heads) from the
+    same normalized state dict."""
     if not opts.checkpoint:
         return model
     sd = load_torch_checkpoint(opts.checkpoint)
     own = model.uniter.state_dict()
-    take, skipped = {}, []
+    take = {}
     for k, v in sd.items():
         if k not in own:
             continue
@@ -238,12 +242,13 @@ def load_trunk_checkpoint(model, opts, *, n_type_rows: Optional[int] = None,
                     f"{k}: the checkpoint has {tuple(v.shape)}, the model "
                     f"{tuple(own[k].shape)}; the word-widening surgery (VCR) "
                     "is not ported")
-            skipped.append(f"{k} {tuple(v.shape)} vs {tuple(own[k].shape)}")
-            continue
+            raise ValueError(
+                f"shape mismatch for uniter.{k}: ckpt {tuple(v.shape)} vs "
+                f"model {tuple(own[k].shape)}")
         take[k] = v
     model.uniter.load_state_dict(take, strict=False)
-    for line in skipped:
-        LOGGER.warning("checkpoint key skipped for its shape: %s", line)
+    if extra is not None:
+        extra(model, sd)
     LOGGER.info("loaded %d trunk tensors from %s (%d of the trunk's %d "
                 "left at init)", len(take), opts.checkpoint,
                 len(own) - len(take), len(own))
@@ -256,9 +261,10 @@ def setup_run(opts, model_cfg):
     save_training_meta(opts.output_dir, opts, model_cfg.to_dict())
     TB_LOGGER.create(os.path.join(opts.output_dir, "log"))
     add_log_to_file(os.path.join(opts.output_dir, "log", "log.txt"))
-    LOGGER.info("device: %s (attention %s, block_fusion %s, dtype %s)",
-                opts.device, model_cfg.attention_impl,
-                model_cfg.block_fusion, model_cfg.dtype)
+    LOGGER.info("device: %s (attention %s, block_fusion %s, layer_norm %s, "
+                "dtype %s)", opts.device, model_cfg.attention_impl,
+                model_cfg.block_fusion, model_cfg.layer_norm_impl,
+                model_cfg.dtype)
 
 
 def bucket_spec(opts, dataset, budget=None) -> BucketSpec:

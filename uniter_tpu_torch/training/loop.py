@@ -1,5 +1,6 @@
-"""The fine-tune hot loop (counterpart of ``uniter_tpu/training/loop.py``
-``TrainLoop``; reference train_nlvr2.py:55-276).
+"""The hot loops (counterpart of ``uniter_tpu/training/loop.py``): the
+fine-tune ``TrainLoop`` (reference train_nlvr2.py:55-276) and the
+pretraining ``MixedTaskLoop`` (reference pretrain.py:255-365).
 
 Step-based loop over an infinite bucketed loader, each batch copied to the
 device by the ``DevicePrefetcher`` thread (pinned, non-blocking) while the
@@ -14,13 +15,19 @@ step would make the host wait for the card each step. ``bound_inflight``
 still caps how many unread steps pile up. The JAX loop's ahead-of-time
 compile of every bucket (``--warmup_compile``) and its mesh placement of
 batches have no counterpart on one eager device.
+
+``MixedTaskLoop`` draws (task, batch) pairs from a ``MetaLoader``, runs one
+step function per task, keeps a loss meter per task and the reference's
+throughput scalars (``perf/{name}_ex_per_s``, ``_in_per_s``,
+``_loss_per_s``), validates and saves at ``valid_steps`` and resumes by
+replaying the task draws (``meta.skip_steps``).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -111,7 +118,7 @@ class TrainLoop:
     def __init__(
         self,
         *,
-        loss_fn: Callable,  # (model, batch, generator) -> scalar
+        loss_fn: Callable,  # (model, batch, generator) -> (scalar, metrics)
         state: TrainState,
         train_loader: Iterable,
         device,
@@ -255,3 +262,184 @@ class TrainLoop:
         self.state = state
         return state
 
+
+
+def pretrain_loss_units(task: str, batch) -> int:
+    """Per-task loss-unit counts (the reference's n_loss_units,
+    pretrain.py:266-293): masked tokens (mlm), masked regions (mrm),
+    examples (itm)."""
+    if task == "mlm":
+        return int((batch["mlm_tgt"] != -1).sum())
+    if task.startswith("mr"):
+        return int(batch["mrm_valid"].sum())
+    return int(batch["ex_weight"].sum())
+
+
+class MixedTaskLoop:
+    """Pretraining hot loop (reference pretrain.py:255-365): mixed-task
+    batches from a MetaLoader, one step function per task, batches copied
+    to the device by the prefetch thread, per-task loss meters and
+    throughput telemetry, deferred metric readback, periodic validation and
+    checkpoints, resume with the task mix fast-forwarded, preemption."""
+
+    def __init__(
+        self,
+        *,
+        meta: Iterable,  # yields (name, batch) forever
+        get_step: Callable[[str], Callable],  # task -> step function
+        state: TrainState,
+        device,
+        num_train_steps: int,
+        valid_steps: int = 1000,
+        log_steps: int = 100,
+        validate_fn: Optional[Callable] = None,  # (state, step) -> dict
+        saver=None,
+        seed: int = 0,
+        loss_units_fn: Optional[Callable] = None,  # (task, batch) -> int
+        transfer_dtype=None,
+        preempt=True,
+        lr_schedule=None,
+    ):
+        self.meta = meta
+        self.lr_schedule = lr_schedule
+        self.get_step = get_step
+        self.state = state
+        self.device = torch.device(device)
+        self.num_train_steps = num_train_steps
+        self.valid_steps = valid_steps
+        self.log_steps = log_steps
+        self.validate_fn = validate_fn
+        self.saver = saver
+        self.seed = seed
+        self.loss_units_fn = loss_units_fn
+        self.transfer_dtype = transfer_dtype
+        if preempt is True:
+            from uniter_tpu_torch.training.preempt import PreemptionGuard
+
+            preempt = PreemptionGuard()
+        self.preempt = preempt or None
+        self.preempted = False
+        self._it = None
+
+    def _counters(self, name, batch):
+        n_ex = (int(batch["ex_weight"].sum()) if "ex_weight" in batch
+                else int(batch["input_ids"].shape[0]))
+        n_in = int(batch["attn_mask"].sum()) if "attn_mask" in batch else n_ex
+        task = name.split("_")[0]
+        n_loss = (int(self.loss_units_fn(task, batch))
+                  if self.loss_units_fn is not None else n_ex)
+        return n_ex, n_in, n_loss
+
+    def run(self) -> TrainState:
+        try:
+            if self.preempt is not None:
+                with self.preempt:
+                    return self._run()
+            return self._run()
+        finally:
+            if self._it is not None:
+                self._it.close()
+            self._it = None
+
+    def _run(self):
+        from uniter_tpu_torch.data.loader import DevicePrefetcher
+
+        state = self.state
+        guard = NanGuard()
+        task2loss: Dict[str, RunningMeter] = {}
+        n_examples: Dict[str, int] = {}
+        n_in_units: Dict[str, int] = {}
+        n_loss_units: Dict[str, int] = {}
+        t_start = time.time()
+        global_step = state.step
+        last_saved = -1
+        if global_step > 0:
+            LOGGER.info("resuming from step %d", global_step)
+            # replay the task draws and skip each task loader's consumed
+            # batches (no record fetches)
+            if hasattr(self.meta, "skip_steps"):
+                self.meta.skip_steps(global_step)
+                LOGGER.info("fast-forwarded task mix by %d steps",
+                            global_step)
+
+        def put(item):
+            name, batch = item
+            return (name, self._counters(name, batch),
+                    train_batch_to_device(batch, self.device,
+                                          self.transfer_dtype))
+
+        self._it = it = DevicePrefetcher(iter(self.meta), put, depth=2)
+        pending = []  # (step, name, loss device scalar)
+
+        def flush():
+            for s, name, dev_loss in pending:
+                val = float(dev_loss)
+                guard.check(val, s)
+                task2loss.setdefault(
+                    name, RunningMeter(f"loss/{name}"))(val)
+            pending.clear()
+
+        while global_step < self.num_train_steps:
+            name, (n_ex, n_in, n_loss), batch = next(it)
+            task = name.split("_")[0]
+            n_examples[name] = n_examples.get(name, 0) + n_ex
+            n_in_units[name] = n_in_units.get(name, 0) + n_in
+            n_loss_units[name] = n_loss_units.get(name, 0) + n_loss
+            state, metrics = self.get_step(task)(state, batch, self.seed)
+            global_step += 1
+            pending.append((global_step, name, metrics["loss"]))
+            bound_inflight(pending)
+            if global_step % self.log_steps == 0:
+                flush()
+                dt = time.time() - t_start
+                TB_LOGGER.log_scalar_dict(
+                    {m.name: m.val for m in task2loss.values()
+                     if m.val is not None}, step=global_step)
+                if self.lr_schedule is not None:
+                    TB_LOGGER.add_scalar(
+                        "lr", float(self.lr_schedule(global_step)),
+                        global_step)
+                # reference logs grad_norm every window (pretrain.py:330-332)
+                TB_LOGGER.add_scalar(
+                    "grad_norm", float(metrics["grad_norm"]), global_step)
+                tot_ex = sum(n_examples.values())
+                TB_LOGGER.add_scalar("perf/ex_per_s", tot_ex / dt,
+                                     global_step)
+                for t_name in n_examples:
+                    TB_LOGGER.add_scalar(f"perf/{t_name}_ex_per_s",
+                                         n_examples[t_name] / dt, global_step)
+                    TB_LOGGER.add_scalar(f"perf/{t_name}_in_per_s",
+                                         n_in_units[t_name] / dt, global_step)
+                    TB_LOGGER.add_scalar(f"perf/{t_name}_loss_per_s",
+                                         n_loss_units[t_name] / dt,
+                                         global_step)
+                LOGGER.info(
+                    "step %d/%d (%.0f ex/s) %s", global_step,
+                    self.num_train_steps, tot_ex / dt,
+                    {m.name: round(m.val, 4) for m in task2loss.values()
+                     if m.val is not None})
+            if self.valid_steps and global_step % self.valid_steps == 0:
+                flush()
+                if self.validate_fn is not None:
+                    logs = self.validate_fn(state, global_step)
+                    if logs:
+                        LOGGER.info("step %d validation: %s", global_step,
+                                    logs)
+                        TB_LOGGER.log_scalar_dict(
+                            {f"valid/{k}": v for k, v in logs.items()},
+                            step=global_step)
+                if self.saver is not None:
+                    self.saver.save(global_step, state, self.seed)
+                    last_saved = global_step
+            if self.preempt is not None and self.preempt.poll():
+                flush()
+                self.preempted = True
+                warn_preempted(global_step, self.num_train_steps,
+                               self.saver is not None)
+                break
+        flush()
+        assert global_step == state.step
+        if self.saver is not None and last_saved != global_step:
+            self.saver.save(global_step, state, self.seed)
+        self.state = state
+        return state

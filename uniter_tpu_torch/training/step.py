@@ -59,10 +59,13 @@ def make_train_step(loss_fn: Callable, *, loss_scale: str = "sum",
                     accum_steps: int = 1, steps_per_call: int = 1):
     """Build ``step_fn(state, batch, seed) -> (state, metrics)``.
 
-    ``loss_fn(model, batch, generator) -> scalar mean loss`` with dropout
-    seeds drawn from ``generator``. ``metrics`` holds device tensors
-    (``loss`` a scalar, or [k] with ``steps_per_call`` k; ``grad_norm`` of
-    the last step), read back by the caller when it needs them."""
+    ``loss_fn(model, batch, generator) -> (scalar mean loss, metrics
+    dict)`` with dropout seeds drawn from ``generator``, as the JAX
+    package's loss functions return them. The step's ``metrics`` holds
+    device tensors: the loss function's own (detached; under accumulation
+    their mean over the micro-batches), ``loss`` (a scalar, or [k] with
+    ``steps_per_call`` k, which keeps no others) and ``grad_norm`` of the
+    last step, read back by the caller when it needs them."""
     if loss_scale not in ("sum", "mean"):
         raise ValueError(f"loss_scale {loss_scale!r}")
     if steps_per_call > 1 and accum_steps > 1:
@@ -72,28 +75,33 @@ def make_train_step(loss_fn: Callable, *, loss_scale: str = "sum",
         gen = step_generator(seed, state.step)
         state.model.train()
         if accum_steps == 1:
-            loss = loss_fn(state.model, batch, gen)
+            loss, metrics = loss_fn(state.model, batch, gen)
             loss.backward()
             loss = loss.detach()
+            metrics = {k: v.detach() for k, v in metrics.items()}
         else:
-            loss = 0.0
+            loss, stack = 0.0, []
             for i in range(accum_steps):
                 mb = {k: v[i] for k, v in batch.items()}
-                micro = loss_fn(state.model, mb, gen)
+                micro, aux = loss_fn(state.model, mb, gen)
                 micro.backward()  # .grad sums the micro-grads
                 loss = loss + micro.detach()
+                stack.append(aux)
             loss = loss / accum_steps
+            metrics = {k: torch.stack([m[k].detach().float()
+                                       for m in stack]).mean(0)
+                       for k in stack[0]}
         state.opt.step()
         state.step += 1
-        return loss
+        return loss, metrics
 
     def step_fn(state: TrainState, batch: Dict[str, Any], seed: int):
         if steps_per_call > 1:
-            losses = [one(state, {k: v[j] for k, v in batch.items()}, seed)
+            losses = [one(state, {k: v[j] for k, v in batch.items()}, seed)[0]
                       for j in range(steps_per_call)]
-            loss = torch.stack(losses)
+            loss, metrics = torch.stack(losses), {}
         else:
-            loss = one(state, batch, seed)
-        return state, {"loss": loss, "grad_norm": state.gnorm}
+            loss, metrics = one(state, batch, seed)
+        return state, {**metrics, "loss": loss, "grad_norm": state.gnorm}
 
     return step_fn
