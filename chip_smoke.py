@@ -75,7 +75,31 @@ Phases, each printing its own lines:
 14. the pretraining CLI: ``pretrain.main`` on two corpora written from a
    seed (12 layers, four tasks mixed 2:2:1:1, validate and save at 10 and
    20 steps, resume to 25 with the task mix fast-forwarded).
-15. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
+15. K9 (``csrc/ffn.cu``: x W1 + b1 -> erf-GELU -> W2 + b2 in one launch)
+   against its plain version ``ops.ffn.ffn_plain`` at (rows, H) = (15360,
+   768) (the retrieval train step), (9984, 768), (9984, 1024) (uniter-large
+   widths) and a ragged (4097, 768), D_mid = 4 H, fp32 and bf16, bitwise
+   repeatability; times of the kernel, the plain version and the cuBLAS
+   composition ``F.linear -> F.gelu -> F.linear`` (a yardstick, never on a
+   path) with the bound.
+16. retrieval training: ``UniterForImageTextRetrieval`` at uniter-base on a
+   fixed batch at ``configs/train-itm-flickr-base-tpu.json``'s shape (40
+   groups x 3 rows, 64 text + 64 image tokens, bf16, dropout 0.1, fused
+   AdamW) with the FFN unfused and through K9 (K1-K6 both) in turns:
+   launches per step, step 1's loss, examples/s, a profile of each; a
+   2-layer fp32 run of K1-K9 against plain.
+17. hard negatives: ``UniterForImageTextRetrievalHardNeg`` at uniter-base,
+   64 candidates, hard_size 31, 2 candidate batches a step: the mined sets
+   of both FFN policies at fp32, the losses at bf16, K9 launches.
+18. retrieval serving: ``fast_score_matrix`` (pre-embedded corpus, CLS-only
+   last layer) over 32 texts x 64 images in memory, fp32 and bf16, through
+   K1 + K9 and the plain path in turns (launches, scores, recalls,
+   pairs/s).
+19. the retrieval CLIs: ``train_itm.main`` on DBs written from a seed with a
+   model config asking for ``"ffn_impl": "pallas"`` (20 steps, validate and
+   save at 10 and 20, resume to 25), ``inf_itm.main`` on its run and
+   ``train_itm_hard_negatives.main`` for 4 steps.
+20. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
    last line. Any failed check raises and the script exits non-zero.
 
 TF32 is off for matmuls and cuDNN (fp32 runs are full fp32). Files go
@@ -129,12 +153,12 @@ def check(cond, msg):
 
 
 KERNELS = ("mha_fwd", "mha_bwd", "drop_res_ln_fwd", "drop_res_ln_bwd",
-           "ln_drop_fwd", "ln_drop_bwd", "ipot", "layer_norm_fwd")
+           "ln_drop_fwd", "ln_drop_bwd", "ipot", "layer_norm_fwd", "ffn_fwd")
 # launches per uniter-base training step of K1-K6 (12 layers, 24 sub-block
-# tails, 2 embedding tails); K7 and K8 are 0 unless a phase says otherwise
+# tails, 2 embedding tails); K7-K9 are 0 unless a phase says otherwise
 STEP_LAUNCHES = {"mha_fwd": 12, "mha_bwd": 12, "drop_res_ln_fwd": 24,
                  "drop_res_ln_bwd": 24, "ln_drop_fwd": 2, "ln_drop_bwd": 2,
-                 "ipot": 0, "layer_norm_fwd": 0}
+                 "ipot": 0, "layer_norm_fwd": 0, "ffn_fwd": 0}
 # (B, N, M): the pretrain-mix bucket, the flagship bucket, the full region
 # count, a plan too large for shared memory (T in device memory), ragged
 K7_SHAPES = [(48, 64, 160), (96, 40, 64), (64, 100, 64), (8, 100, 512),
@@ -142,12 +166,13 @@ K7_SHAPES = [(48, 64, 160), (96, 40, 64), (64, 100, 64), (8, 100, 512),
 
 
 def _wrappers():
-    from uniter_tpu_torch.ops import attention, fused_block, layer_norm, ot
+    from uniter_tpu_torch.ops import attention, ffn, fused_block, layer_norm, ot
 
     out = {n: getattr(attention if n.startswith("mha") else fused_block, n)
            for n in KERNELS[:6]}
     out["ipot"] = ot.ipot_cuda
     out["layer_norm_fwd"] = layer_norm.layer_norm_fwd
+    out["ffn_fwd"] = ffn.ffn_fwd
     return out
 
 
@@ -577,11 +602,13 @@ def time_tails(torch, fb, x, res, w, b, g, rows, h, dname):
     return out
 
 
-def jax_layout_params(cfg, num_answer, img_dim, seed, label_dim=None):
+def jax_layout_params(cfg, num_answer, img_dim, seed, label_dim=None,
+                      itm=False):
     """A uniter-base parameter tree in the JAX package's layout (flax Dense
     kernels [in, out], layers stacked [L, ...]): normal(0, 0.02) for
     matrices and embeddings, ones and zeros for LayerNorm, zero biases. The
-    VQA head by default; with ``label_dim`` the four pretraining heads."""
+    VQA head by default; with ``label_dim`` the four pretraining heads; with
+    ``itm`` the retrieval heads (``itm_output``, ``rank_output``)."""
     rng = np.random.default_rng(seed)
     h, ff, nl = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
 
@@ -620,6 +647,9 @@ def jax_layout_params(cfg, num_answer, img_dim, seed, label_dim=None):
         "encoder": {"layer": {"bert_layer": layer}},
         "pooler": {"dense": dense(h, h)},
     }
+    if itm:
+        return {"uniter": uniter, "itm_output": dense(h, 2),
+                "rank_output": dense(h, 1)}
     if label_dim is not None:
         return {
             "uniter": uniter,
@@ -831,6 +861,7 @@ def profile_steps(torch, state, step, batch, n, tag, label="train"):
                                            "sum_partials"),
               "ipot (K7)": share("ipot_kernel"),
               "K8": share("layer_norm_fwd_kernel"),
+              "K9": share("ffn_bf16_kernel", "ffn_f32_kernel"),
               "GEMM": share("gemm", "cutlass", "xmma", "sm90_", "nvjet"),
               "Philox bits": share("<long", "opaquetype<8u>")}
     groups["other"] = busy - sum(groups.values())
@@ -1886,6 +1917,609 @@ def pretrain_cli_phase(torch, n_txt=600):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# (rows, H): the retrieval train step (120 rows x 128 tokens), the flagship
+# fine-tune rows, uniter-large widths, a ragged row count; D_mid = 4 H
+K9_SHAPES = [(15360, 768), (9984, 768), (9984, 1024), (4097, 768)]
+K9_TOL_FP32 = 1e-5  # of max(1, max|ref|): another fp32 summation order
+
+
+def ffn_bound_ms(rows, h, dtype, mid=None):
+    """Least time for K9 on this card: 4 rows H D_mid FLOP (both products)
+    at the peak of the dtype, against x and y (rows x H each), W1 and W2
+    (H x D_mid each) in the dtype and the fp32 biases over the memory rate."""
+    mid = mid or 4 * h
+    elem = 4 if dtype == "float32" else 2
+    nbytes = elem * (2 * rows * h + 2 * h * mid) + 4 * (h + mid)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 4 * rows * h * mid / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def k9_phase(torch):
+    """K9 against ``ffn_plain`` at K9_SHAPES, fp32 (1e-5 of max(1,
+    max|ref|)) and bf16 (two bf16 steps of |ref| + 1e-3: fp32 sums in another
+    order can re-round h), bitwise equal on a second run; times of the
+    kernel, the plain version and the cuBLAS composition ``F.linear ->
+    F.gelu -> F.linear`` (a yardstick, never on a path) at every shape.
+    Returns (worst fp32 err, {(rows, h, dtype): (kernel, plain,
+    composition) ms})."""
+    import torch.nn.functional as F
+
+    from uniter_tpu_torch.ops.ffn import ffn_fwd, ffn_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst, timing = 0.0, {}
+    for rows, h in K9_SHAPES:
+        mid = 4 * h
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            x = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+            w1 = (0.02 * torch.randn(mid, h, generator=gen, device="cuda")
+                  ).to(dtype)
+            w2 = (0.02 * torch.randn(h, mid, generator=gen, device="cuda")
+                  ).to(dtype)
+            b1 = 0.1 * torch.randn(mid, generator=gen, device="cuda")
+            b2 = 0.1 * torch.randn(h, generator=gen, device="cuda")
+            got = ffn_fwd(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            want = ffn_plain(x, w1, b1, w2, b2).float()
+            diff = (got.float() - want).abs()
+            if dname == "float32":
+                bound = K9_TOL_FP32 * max(1.0, want.abs().max().item())
+                label = f"tol {bound:.2e}"
+            else:
+                bound = 2.0**-6 * want.abs() + 1e-3
+                label = "tol 2 bf16 steps (2^-6 |ref|) + 1e-3"
+            excess = (diff - bound).max().item()
+            again = torch.equal(got, ffn_fwd(x, w1, b1, w2, b2))
+            ok = (excess <= 0 and again and got.dtype == dtype
+                  and bool(torch.isfinite(got).all()))
+            print(f"[K9] ({rows}, {h}) -> {mid} {dname}: max|diff| "
+                  f"{diff.max().item():.3e} ({label}; worst excess over it "
+                  f"{excess:.2e}); bitwise equal on a second run: {again} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"K9 disagrees with ffn_plain at {(rows, h)} {dname}")
+            if dname == "float32":
+                worst = max(worst, diff.max().item())
+            b1c, b2c = b1.to(dtype), b2.to(dtype)
+            t = [cuda_ms(torch, lambda: ffn_plain(x, w1, b1, w2, b2), 10, 2),
+                 cuda_ms(torch, lambda: ffn_fwd(x, w1, b1, w2, b2), 10, 2),
+                 cuda_ms(torch, lambda: ffn_fwd(x, w1, b1, w2, b2), 10, 2),
+                 cuda_ms(torch, lambda: ffn_plain(x, w1, b1, w2, b2), 10, 2)]
+            comp = cuda_ms(torch, lambda: F.linear(
+                F.gelu(F.linear(x, w1, b1c)), w2, b2c), 10, 2)
+            key = (rows, h, dname)
+            timing[key] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, comp)
+            bms, by = ffn_bound_ms(rows, h, dname)
+            print(f"[K9] time at ({rows}, {h}) {dname}: kernel "
+                  f"{timing[key][0] * 1e3:.1f} us, plain "
+                  f"{timing[key][1] * 1e3:.1f} us, cuBLAS composition "
+                  f"F.linear -> F.gelu -> F.linear {comp * 1e3:.1f} us per "
+                  f"call (CUDA events over 10 calls; turns plain, kernel, "
+                  f"kernel, plain: {', '.join(f'{v * 1e3:.1f}' for v in t)}); "
+                  f"bound {bms * 1e3:.1f} us ({by}), kernel at "
+                  f"{bms / timing[key][0] * 100:.1f}% of it")
+    return worst, timing
+
+
+ITM_GROUPS, ITM_NEG = 40, 1  # configs/train-itm-flickr-base-tpu.json
+ITM_T, ITM_R = 64, 64
+# name -> (attention_impl, block_fusion, ffn_impl) before resolution
+ITM_POLICIES = {"K1-K6": ("auto", "auto", "xla"),
+                "K1-K6+K9": ("auto", "auto", "pallas")}
+
+
+def itm_batch(torch, rows, t, r, img_dim, transfer_dtype, seed):
+    """A fixed batch of ``rows`` rows: ragged text (8-``t`` tokens) and
+    region (10-``r``) lengths, every row real."""
+    from uniter_tpu_torch.training.loop import train_batch_to_device
+
+    rng = np.random.RandomState(seed)
+    attn = np.zeros((rows, t + r), np.int32)
+    tl = rng.randint(8, t + 1, rows)
+    nb = rng.randint(10, r + 1, rows)
+    for i in range(rows):
+        attn[i, :tl[i]] = 1
+        attn[i, t:t + nb[i]] = 1
+    batch = dict(
+        input_ids=rng.randint(1, 28000, (rows, t)).astype(np.int32),
+        position_ids=np.tile(np.arange(t, dtype=np.int32), (rows, 1)),
+        img_feat=rng.randn(rows, r, img_dim).astype(np.float32),
+        img_pos_feat=rng.rand(rows, r, 7).astype(np.float32),
+        attn_mask=attn, ex_weight=np.ones(rows, np.float32))
+    return train_batch_to_device(batch, torch.device("cuda"), transfer_dtype)
+
+
+def itm_state_dict(torch, cfg):
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    return {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+        jax_layout_params(cfg, 0, IMG_DIM, SEED, itm=True)).items()}
+
+
+def make_itm_trainer(torch, cfg, sd, hard_size=None, accum=1):
+    """The retrieval model and fused AdamW as ``train_itm`` builds them
+    (fp32 moments, betas (0.9, 0.98), wd 0.01, clip 2.0, lr 5e-5 warmed up
+    over 2000 of 20000 steps: the flickr recipe), with ``train_itm``'s loss
+    (groups of 1 + 2 ITM_NEG) or, with ``hard_size``, the hard-negative
+    model and loss over ``accum`` candidate batches a step."""
+    from uniter_tpu_torch import train_itm, train_itm_hard_negatives
+    from uniter_tpu_torch.models.itm import (
+        UniterForImageTextRetrieval, UniterForImageTextRetrievalHardNeg)
+    from uniter_tpu_torch.training.optim import build_optimizer
+    from uniter_tpu_torch.training.sched import get_lr_schedule
+    from uniter_tpu_torch.training.step import TrainState, make_train_step
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    if hard_size is None:
+        model = UniterForImageTextRetrieval(cfg, IMG_DIM)
+        sample = 1 + 2 * ITM_NEG
+        step = make_train_step(lambda m, b, g: (
+            train_itm.rank_loss(m, b, g, sample), {}))
+    else:
+        model = UniterForImageTextRetrievalHardNeg(cfg, IMG_DIM,
+                                                   hard_size=hard_size)
+        step = make_train_step(train_itm_hard_negatives.hard_neg_loss,
+                               loss_scale="mean", accum_steps=accum)
+    model.load_state_dict(sd, strict=True)
+    model.to("cuda")
+    opt = build_optimizer(model, get_lr_schedule(5e-5, 2000, 20000),
+                          betas=(0.9, 0.98), weight_decay=0.01,
+                          grad_norm=2.0, fused=True)
+    return TrainState(step=0, model=model, opt=opt), step
+
+
+def itm_configs(base, policies=ITM_POLICIES):
+    from uniter_tpu_torch.config import resolve_kernel_policies
+
+    cfgs = {name: resolve_kernel_policies(
+        base.replace(attention_impl=att, block_fusion=bf, ffn_impl=ffn),
+        "cuda", training=True) for name, (att, bf, ffn) in policies.items()}
+    got = {n: (c.attention_impl, c.block_fusion, c.ffn_impl)
+           for n, c in cfgs.items()}
+    want = {n: tuple("cuda" if v in ("auto", "pallas") else v for v in p)
+            for n, p in policies.items()}
+    check(got == want, f"the retrieval policies resolved to {got}")
+    return cfgs
+
+
+def itm_train_phase(torch):
+    """The retrieval fine-tune step at the flickr recipe's shape under
+    K1-K6 (the FFN unfused) and K1-K6 + K9 in turns: launches per step,
+    step-1 agreement, examples/s; then the 2-layer fp32 runs."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    rows = ITM_GROUPS * (1 + 2 * ITM_NEG)
+    base = base_config(dtype="bfloat16", hidden_dropout_prob=RATE,
+                       attention_probs_dropout_prob=RATE)
+    sd = itm_state_dict(torch, base)
+    batch = itm_batch(torch, rows, ITM_T, ITM_R, IMG_DIM, torch.bfloat16, 2)
+    trainers = {n: make_itm_trainer(torch, c, sd)
+                for n, c in itm_configs(base).items()}
+    losses = {n: [] for n in trainers}
+
+    def run(name, n):
+        state, step = trainers[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [step(state, batch, SEED)[1]["loss"] for _ in range(n)]
+        losses[name] += [float(v) for v in ms]  # the readback ends the turn
+        return time.perf_counter() - t0
+
+    counts = {}
+    for name in trainers:  # step 1 and 2 of each, counted
+        reset_launches()
+        run(name, 2)
+        counts[name] = {k: v / 2 for k, v in read_launches().items()}
+    want = {**STEP_LAUNCHES, "ffn_fwd": 12}
+    check(counts["K1-K6+K9"] == want and counts["K1-K6"] == STEP_LAUNCHES,
+          f"retrieval launches per step {counts}")
+    first = {n: v[0] for n, v in losses.items()}
+    rel = abs(first["K1-K6+K9"] - first["K1-K6"]) / abs(first["K1-K6"])
+    secs = {n: [] for n in trainers}
+    order = ("K1-K6", "K1-K6+K9", "K1-K6+K9", "K1-K6")
+    for _ in range(3):
+        for name in order:
+            secs[name].append(run(name, 5))
+    eps = {n: 5 * ITM_GROUPS / float(np.median(v)) for n, v in secs.items()}
+    print(f"[itm] uniter-base retrieval step, {ITM_GROUPS} groups x "
+          f"{1 + 2 * ITM_NEG} rows = {rows} rows, {ITM_T} text + {ITM_R} "
+          f"image tokens (ragged), bf16 over fp32 parameters, dropout {RATE}, "
+          f"fused AdamW: examples (groups)/s " + ", ".join(
+              f"{n} {v:.1f}" for n, v in eps.items())
+          + " (median over 6 turns of 5 steps, in the order "
+          + ", ".join(order) + " three times; host clock, each turn ends in "
+          "the loss readback; turn seconds " + "; ".join(
+              f"{n} " + ", ".join(f"{x:.3f}" for x in v)
+              for n, v in secs.items()) + ")")
+    print(f"[itm] launches per step {counts['K1-K6+K9']} (K1-K6+K9), "
+          f"{counts['K1-K6']} (K1-K6); step-1 loss K1-K6 "
+          f"{first['K1-K6']:.6f}, K1-K6+K9 {first['K1-K6+K9']:.6f}, relative "
+          f"diff {rel:.2e} (tol 1e-2: bf16 roundings of the FFN placed "
+          f"differently in 12 layers, under a margin loss near 0.2)")
+    check(all(np.isfinite(v).all() for v in losses.values()),
+          "retrieval: non-finite loss")
+    check(rel <= 1e-2, "retrieval: step-1 losses differ with K9")
+    prof = {}
+    for name in ("K1-K6+K9", "K1-K6"):
+        state, step = trainers[name]
+        prof[name] = profile_steps(
+            torch, state, step, batch, 3,
+            "itm_" + name.replace("+", "_").replace("-", "_"), "itm")[1]
+    del trainers
+    torch.cuda.empty_cache()
+    small = itm_two_layer_runs(torch)
+    return {"launches": counts["K1-K6+K9"], "ex_per_s": eps,
+            "k9_launches": int(2 * counts["K1-K6+K9"]["ffn_fwd"]),
+            "step1_rel": rel, "profile": prof, "two_layer": small}
+
+
+def itm_two_layer_runs(torch):
+    """2 layers at base width in fp32, dropout 0.1, 3 steps: K1-K9 (every
+    policy on: attention, fused tails, K8 LayerNorms, K9 FFN) against plain,
+    losses held to 1e-5 relative (fp32 rounding of other summation orders)."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    cfg = base_config(num_hidden_layers=2, dtype="float32",
+                      hidden_dropout_prob=RATE,
+                      attention_probs_dropout_prob=RATE)
+    sd = itm_state_dict(torch, cfg)
+    rows = ITM_GROUPS * (1 + 2 * ITM_NEG)
+    batch = itm_batch(torch, rows, ITM_T, ITM_R, IMG_DIM, None, 3)
+    cfgs = itm_configs(cfg, {"plain": ("xla", "none", "xla"),
+                             "K1-K9": ("auto", "auto", "pallas")})
+    cfgs["K1-K9"] = cfgs["K1-K9"].replace(layer_norm_impl="cuda")
+    losses, counts = {}, {}
+    for name, c in cfgs.items():
+        reset_launches()
+        state, step = make_itm_trainer(torch, c, sd)
+        losses[name] = [float(step(state, batch, SEED)[1]["loss"])
+                        for _ in range(3)]
+        counts[name] = read_launches()
+    check(counts["K1-K9"]["ffn_fwd"] == 6 and counts["K1-K9"]["mha_bwd"] == 6
+          and counts["K1-K9"]["layer_norm_fwd"] > 0
+          and not any(counts["plain"].values()),
+          f"2-layer retrieval launches {counts}")
+    rel = max(abs(a - c) / abs(c)
+              for a, c in zip(losses["K1-K9"], losses["plain"]))
+    print(f"[itm] fp32, dropout {RATE}, 2 layers, 3 steps: losses K1-K9 "
+          f"{losses['K1-K9']}, plain {losses['plain']}; max relative diff "
+          f"{rel:.2e} (tol 1e-5); K1-K9 launches {counts['K1-K9']}")
+    check(rel <= 1e-5, "2-layer fp32 retrieval through K1-K9 differs")
+    return rel
+
+
+HN_CAND, HN_HARD, HN_ACCUM = 64, 31, 2
+
+
+def hn_phase(torch):
+    """The hard-negative step at uniter-base: 64 candidates (one positive,
+    63 negatives), hard_size 31, 2 candidate batches a step. fp32: the two
+    policies mine the same candidates; bf16: one step each, losses, K9
+    launches (12 scoring + 12 training per candidate batch)."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    out = {}
+    for dname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        base = base_config(dtype=dname, hidden_dropout_prob=RATE,
+                           attention_probs_dropout_prob=RATE)
+        sd = itm_state_dict(torch, base)
+        cands = [itm_batch(torch, HN_CAND, ITM_T, ITM_R, IMG_DIM, dtype,
+                           10 + i) for i in range(HN_ACCUM)]
+        stacked = {k: torch.stack([c[k] for c in cands]) for k in cands[0]}
+        res = {}
+        for name, c in itm_configs(base).items():
+            state, step = make_itm_trainer(torch, c, sd, HN_HARD, HN_ACCUM)
+            if dname == "bfloat16":  # what the step will mine, uncounted
+                model = state.model
+                res[name + " mined"] = model.mine(cands[0]).tolist()
+                with torch.no_grad():
+                    model.eval()
+                    res[name + " sig"] = torch.sigmoid(
+                        model.predict(cands[0])[:, 0])
+                    model.train()
+            reset_launches()
+            if dname == "float32":
+                res[name] = [state.model.mine(b).tolist() for b in cands]
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[name] = float(step(state, stacked, SEED)[1]["loss"])
+                res[name + " s"] = time.perf_counter() - t0
+            res[name + " launches"] = read_launches()["ffn_fwd"]
+            del state, step
+        torch.cuda.empty_cache()
+        out[dname] = res
+    f32, b16 = out["float32"], out["bfloat16"]
+    same = all(set(a) == set(b) for a, b in zip(f32["K1-K6"],
+                                                f32["K1-K6+K9"]))
+    order = f32["K1-K6"] == f32["K1-K6+K9"]
+    rel = abs(b16["K1-K6+K9"] - b16["K1-K6"]) / abs(b16["K1-K6"])
+    overlap = len(set(b16["K1-K6 mined"]) & set(b16["K1-K6+K9 mined"]))
+    d_sig = (b16["K1-K6+K9 sig"] - b16["K1-K6 sig"]).abs().max().item()
+    print(f"[hn] hard negatives, uniter-base, {HN_CAND} candidates, hard_size "
+          f"{HN_HARD}, {HN_ACCUM} candidate batches a step: fp32 mined sets "
+          f"equal across K9 on/off: {same} (order equal: {order}; first "
+          f"batch K9 {f32['K1-K6+K9'][0][:8]}...); K9 launches mining fp32 "
+          f"{f32['K1-K6+K9 launches']} (12 per candidate batch); bf16: the "
+          f"two policies' sigmoid scores differ by up to {d_sig:.2e}, their "
+          f"mined sets share {overlap} of {HN_HARD + 1} candidates; step-1 "
+          f"loss K1-K6 {b16['K1-K6']:.6f}, K1-K6+K9 {b16['K1-K6+K9']:.6f}, "
+          f"relative diff {rel:.2e} (tol 5e-2: at bf16 near-ties swap in and "
+          f"out of the mined set, and each swap moves a triplet term by its "
+          f"score gap, on top of the step's own bf16 rounding); K9 "
+          f"launches per step {b16['K1-K6+K9 launches']} (want "
+          f"{HN_ACCUM} x (12 scoring + 12 training)); step 1 "
+          f"{b16['K1-K6 s'] * 1e3:.1f} ms / {b16['K1-K6+K9 s'] * 1e3:.1f} ms "
+          f"(first step, host clock)")
+    check(same, "hard negatives: the mined sets differ with K9 at fp32")
+    check(f32["K1-K6+K9 launches"] == 12 * HN_ACCUM
+          and f32["K1-K6 launches"] == 0
+          and b16["K1-K6+K9 launches"] == 24 * HN_ACCUM,
+          f"hard-negative K9 launches {out}")
+    check(np.isfinite([b16["K1-K6"], b16["K1-K6+K9"]]).all() and rel <= 5e-2,
+          "hard negatives: bf16 losses differ with K9")
+    return {"launches": b16["K1-K6+K9 launches"], "same": same,
+            "rel": rel, "overlap": overlap, "d_sig": d_sig}
+
+
+class InMemoryItmEval:
+    """A retrieval eval corpus made from a seed (``n_txt`` captions of 8-60
+    tokens, ``n_img`` images of 10-100 regions of fp16 features), duck-typing
+    what ``fast_score_matrix`` and ``itm_eval`` read of an
+    ``ItmEvalDataset``: caption i describes image i % n_img (an image that
+    no caption describes counts for no text-retrieval recall)."""
+
+    def __init__(self, n_txt, n_img, img_dim, seed):
+        rng = np.random.default_rng(seed)
+        self.ids = [f"t{i}" for i in range(n_txt)]
+        self.all_img_ids = [f"i{j}" for j in range(n_img)]
+        self.txt2img = {t: f"i{i % n_img}" for i, t in enumerate(self.ids)}
+        self.img2txts = {im: [] for im in self.all_img_ids}
+        for t, im in self.txt2img.items():
+            self.img2txts[im].append(t)
+        self._txt = [rng.integers(1000, 28996, int(n)).astype(np.int32)
+                     for n in rng.integers(6, 59, n_txt)]
+        nbb = rng.integers(10, 101, n_img)
+        self._img = [(rng.standard_normal((int(n), img_dim),
+                                          dtype=np.float32).astype(np.float16),
+                      rng.random((int(n), 7), dtype=np.float32))
+                     for n in nbb]
+        self.txt_db = self
+        self.img_db = self
+
+    def combine_inputs(self, ids):
+        return np.concatenate([[101], ids, [102]]).astype(np.int32)
+
+    def example(self, i):
+        return {"input_ids": self._txt[i]}
+
+    def get_img_feat(self, name):
+        feat, pos = self._img[int(name[1:])]
+        return feat, pos, feat.shape[0]
+
+
+def itm_serve_phase(torch, n_txt=32, n_img=64):
+    """``fast_score_matrix`` (the default ``inf_itm`` path: pre-embedded
+    corpus, CLS-only last layer) at uniter-base over an in-memory corpus,
+    fp32 and bf16, through K1 + K9 and through the plain path in turns."""
+    from uniter_tpu_torch.config import base_config, resolve_kernel_policies
+    from uniter_tpu_torch.models.itm import UniterForImageTextRetrieval
+    from uniter_tpu_torch.utils.const import IMG_DIM
+    from uniter_tpu_torch.utils.itm_eval import itm_eval
+    from uniter_tpu_torch.utils.itm_fast import fast_score_matrix
+
+    ds = InMemoryItmEval(n_txt, n_img, IMG_DIM, SEED)
+    tile = dict(txt_tile=32, img_tile=64)
+    n_calls = -(-n_txt // 32) * -(-n_img // 64)
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        base = base_config(dtype=dname)
+        sd = itm_state_dict(torch, base)
+        models = {}
+        for name, att, ffn in (("K1+K9", "pallas", "pallas"),
+                               ("plain", "xla", "xla")):
+            m = UniterForImageTextRetrieval(resolve_kernel_policies(
+                base.replace(attention_impl=att, ffn_impl=ffn), "cuda"),
+                IMG_DIM)
+            m.load_state_dict(sd, strict=True)
+            models[name] = m.to("cuda").eval()
+
+        def run(name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mat, ids = fast_score_matrix(models[name], ds, 64, 64,
+                                         dtype=dname, **tile)
+            return mat, ids, time.perf_counter() - t0
+
+        run("plain")  # warm-up
+        reset_launches()
+        mat_k, ids, _ = run("K1+K9")
+        counts = read_launches()
+        mat_x = run("plain")[0]
+        want = {k: 0 for k in KERNELS}
+        want.update(mha_fwd=11 * n_calls, ffn_fwd=11 * n_calls)
+        check(counts == want, f"retrieval serving {dname} launched {counts}, "
+              f"want {want}")
+        secs = {"plain": [], "K1+K9": []}
+        for name in ("plain", "K1+K9", "K1+K9", "plain"):
+            secs[name].append(run(name)[2])
+        pps = {n: n_txt * n_img * len(v) / sum(v) for n, v in secs.items()}
+        err = float(np.abs(mat_k - mat_x).max())
+        rec = {n: itm_eval(m, ids, ds.all_img_ids, ds.txt2img, ds.img2txts)
+               for n, m in (("K1+K9", mat_k), ("plain", mat_x))}
+        tol = 1e-4 if dname == "float32" else 5e-2
+        print(f"[itm-serve] {dname}: {n_txt} texts x {n_img} images "
+              f"({n_calls} tile call(s) of 32 x 64 pairs, 64 text + 64 image "
+              f"tokens), scores max|diff| K1+K9 vs plain {err:.3e} (tol "
+              f"{tol:g}); r_mean K1+K9 {rec['K1+K9']['r_mean']:.4f}, plain "
+              f"{rec['plain']['r_mean']:.4f} (equal: "
+              f"{rec['K1+K9'] == rec['plain']}); pairs/s K1+K9 "
+              f"{pps['K1+K9']:.1f}, plain {pps['plain']:.1f} (turns plain, "
+              f"kernel, kernel, plain; host clock, each call ends in the "
+              f"matrix's readback); launches {counts} (11 K1 and 11 K9 per "
+              f"tile call: the CLS-only last layer takes neither)")
+        check(np.isfinite(mat_k).all() and mat_k.shape == (n_txt, n_img),
+              "retrieval scores not finite or misshapen")
+        check(err <= tol, f"retrieval serving {dname} scores differ by {err}")
+        if dname == "float32":
+            check(rec["K1+K9"] == rec["plain"],
+                  "retrieval recalls differ at fp32")
+        out[dname] = {"launches": counts, "pairs_per_s": pps, "err": err}
+        del models
+        torch.cuda.empty_cache()
+    return out
+
+
+def write_itm_dbs(root, n_img, n_txt, n_val, seed):
+    """An img DB of ``n_img`` images (10-100 regions of fp16 2048-d
+    features, boxes, conf) and two txt DBs, ``txt`` (``n_txt`` captions)
+    and ``txt_val`` (``n_val`` captions of the first ``n_val`` images), caption
+    i describing image i % n_img, with the port's writers."""
+    from uniter_tpu_torch.data.img_db import write_img_db
+    from uniter_tpu_torch.data.txt_db import write_txt_db
+
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal((8192, 2048), dtype=np.float32).astype(
+        np.float16)
+    names = [f"flickr30k_{i:06d}.npz" for i in range(n_img)]
+
+    def records():
+        for n in names:
+            nbb = int(rng.integers(10, 101))
+            o = int(rng.integers(0, 8192 - nbb))
+            yield n, dict(
+                features=pool[o:o + nbb],
+                norm_bb=rng.random((nbb, 6), dtype=np.float32).astype(
+                    np.float16),
+                conf=np.linspace(1, 0.3, nbb).astype(np.float16),
+                soft_labels=np.zeros((nbb, 1601), np.float16))
+
+    write_img_db(os.path.join(root, "img"), records(), conf_th=0.2,
+                 max_bb=100, min_bb=10)
+    meta = {"CLS": 101, "SEP": 102, "MASK": 103, "v_range": [999, 28996]}
+    for db, n, off in (("txt", n_txt, 0), ("txt_val", n_val, n_txt)):
+        recs, t2i = {}, {}
+        for i in range(n):
+            name = names[i % n_img]
+            recs[f"c{off + i}"] = dict(
+                input_ids=[int(x) for x in rng.integers(
+                    999, 28996, int(rng.integers(6, 41)))],
+                img_fname=name)
+            t2i[f"c{off + i}"] = name
+        write_txt_db(os.path.join(root, db), recs, meta, t2i)
+
+
+def itm_cli_phase(torch):
+    """``train_itm.main`` (uniter-base, a model config with ``"ffn_impl":
+    "pallas"``) for 20 steps, validating and saving at 10 and 20, a resume
+    to 25, ``inf_itm.main`` on the run, and ``train_itm_hard_negatives.main``
+    for 4 steps, all on the card."""
+    from uniter_tpu_torch import inf_itm, train_itm, train_itm_hard_negatives
+    from uniter_tpu_torch.utils.misc import parse_with_config
+
+    os.makedirs(os.path.join(REPO, "tmp"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_itm_",
+                            dir=os.path.join(REPO, "tmp"))
+    try:
+        t0 = time.perf_counter()
+        write_itm_dbs(work, 100, 500, 32, SEED)
+        with open(os.path.join(REPO, "configs", "uniter-base.json")) as f:
+            model_json = dict(json.load(f), ffn_impl="pallas")
+        model_path = os.path.join(work, "uniter-base-ffn.json")
+        with open(model_path, "w") as f:
+            json.dump(model_json, f)
+        out = os.path.join(work, "run")
+        conf = dict(
+            train_txt_dbs=[os.path.join(work, "txt")],
+            train_img_dbs=[os.path.join(work, "img")],
+            val_txt_db=os.path.join(work, "txt_val"),
+            val_img_db=os.path.join(work, "img"), model_config=model_path,
+            output_dir=out, num_train_steps=20, valid_steps=10, log_steps=5,
+            train_batch_size=8192, inf_minibatch_size=40, negative_size=1,
+            n_workers=2, device="cuda", checkpoint="", warmup_steps=2000,
+            learning_rate=5e-5)
+        path = os.path.join(work, "train_itm.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        t1 = time.perf_counter()
+        reset_launches()
+        state = train_itm.main(parse_with_config(train_itm.get_parser(),
+                                                 ["--config", path]))
+        counts = read_launches()
+        check(state.step == 20, f"train_itm stopped at {state.step}")
+        check(counts["ffn_fwd"] > 0 and counts["mha_bwd"] > 0,
+              f"train_itm did not run K9 and K2: {counts}")
+        del state
+        t2 = time.perf_counter()
+        state = train_itm.main(parse_with_config(
+            train_itm.get_parser(),
+            ["--config", path, "--num_train_steps", "25"]))
+        check(state.step == 25, f"resumed run stopped at {state.step}")
+        del state
+        t3 = time.perf_counter()
+        with open(os.path.join(out, "log", "log.txt")) as f:
+            log = f.read()
+        check("resumed from step 20" in log and "device: cuda" in log
+              and "ffn cuda" in log,
+              "train_itm's log does not name the resume, the device and "
+              "ffn cuda")
+        valid = [json.loads(line).get("valid/r_mean") for line in
+                 open(os.path.join(out, "log", "scalars.jsonl"))]
+        valid = [v for v in valid if v is not None]
+        check(len(valid) == 2 and np.isfinite(valid).all(),
+              f"train_itm validation {valid}")
+        pred = os.path.join(work, "pred")
+        reset_launches()
+        logs = inf_itm.main(inf_itm.get_parser().parse_args(
+            ["--txt_db", os.path.join(work, "txt_val"), "--img_db",
+             os.path.join(work, "img"), "--train_dir", out, "--output_dir",
+             pred, "--img_tile", "32"]))
+        inf_counts = read_launches()
+        t4 = time.perf_counter()
+        mat = np.load(os.path.join(pred, "score_matrix.npz"))
+        check(mat["score_matrix"].shape == (32, 32)
+              and np.isfinite(mat["score_matrix"]).all()
+              and np.isfinite(list(logs.values())).all()
+              and inf_counts["ffn_fwd"] == 11,
+              f"inf_itm: {mat['score_matrix'].shape}, {logs}, {inf_counts}")
+        hn_out = os.path.join(work, "hn")
+        hn = dict(conf, output_dir=hn_out, num_train_steps=4, valid_steps=4,
+                  log_steps=2, train_batch_size=2, negative_size=31,
+                  hard_neg_size=15)
+        hn_path = os.path.join(work, "hn.json")
+        with open(hn_path, "w") as f:
+            json.dump(hn, f)
+        reset_launches()
+        state = train_itm_hard_negatives.main(parse_with_config(
+            train_itm_hard_negatives.get_parser(), ["--config", hn_path]))
+        hn_counts = read_launches()
+        check(state.step == 4 and hn_counts["ffn_fwd"] > 0,
+              f"train_itm_hard_negatives: step {state.step}, {hn_counts}")
+        del state
+        t5 = time.perf_counter()
+        with open(os.path.join(hn_out, "log", "log.txt")) as f:
+            check("ffn cuda" in f.read(), "the HN log does not say ffn cuda")
+        print(f"[itm-cli] 500 + 32 captions over 100 images written in "
+              f"{t1 - t0:.1f} s; train_itm 20 steps (validate + save at 10, "
+              f"20) {t2 - t1:.1f} s, launches {counts}; resumed to 25 "
+              f"{t3 - t2:.1f} s; validation r_mean {valid}; inf_itm (fp32, "
+              f"fast path, 32 texts x 32 images) {t4 - t3:.1f} s, results "
+              f"{logs}, launches "
+              f"{inf_counts}; train_itm_hard_negatives 4 steps (32 "
+              f"candidates, hard 15, 2 batches a step, validate + save at 4) "
+              f"{t5 - t4:.1f} s, launches {hn_counts}; the logs name device "
+              f"cuda and ffn cuda")
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -1920,6 +2554,11 @@ def main():
         per_batch={"mha_fwd": 12, "layer_norm_fwd": 29},
         layer_norm_impl="pallas")
     cli_counts = pretrain_cli_phase(torch)
+    k9_err, k9_time = k9_phase(torch)
+    itm = itm_train_phase(torch)
+    hn = hn_phase(torch)
+    serve_itm = itm_serve_phase(torch)
+    itm_cli_counts = itm_cli_phase(torch)
     t = k2_time["bfloat16"]
     kernels = []
     for name, src, replaces, err, ms, plain, lib, bwd in (
@@ -1968,6 +2607,24 @@ def main():
         "ms": k8_time["bfloat16"][0], "plain_ms": k8_time["bfloat16"][1],
         "bound_ms": (2 * rows * h * 2 + 2 * h * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": k8_time["bfloat16"][2]})
+    rows, h = K9_SHAPES[0]
+    bound, by = ffn_bound_ms(rows, h, "bfloat16")
+    kt = k9_time[(rows, h, "bfloat16")]
+    kernels.append({
+        "name": "ffn_fwd", "route": "cuda",
+        "source": "uniter_tpu_torch/csrc/ffn.cu",
+        "replaces": "uniter_tpu/ops/ffn.py:48",
+        "launches": itm["k9_launches"], "max_abs_err": k9_err,
+        "ms": kt[0], "plain_ms": kt[1], "bound_ms": bound, "bound_by": by,
+        "library_ms": None})
+    print(f"[smoke] K9 at ({rows}, {h}) bf16: the cuBLAS composition "
+          f"F.linear -> F.gelu -> F.linear (no one PyTorch call computes the "
+          f"fused FFN, so library_ms is null) took {kt[2] * 1e3:.1f} us; K9 "
+          f"launches from the retrieval train path ({itm['k9_launches']} over "
+          f"its 2 counted steps), the hard-negative step {hn['launches']} per "
+          f"step, retrieval serving "
+          f"{serve_itm['float32']['launches']['ffn_fwd']} per fp32 scoring "
+          f"pass, the retrieval CLI {itm_cli_counts}")
     print(f"[smoke] kernels line: times bf16 rate 0 at (96, 104, 12, 64) "
           f"for K1/K2 (library: scaled_dot_product_attention), at (9984, "
           f"768) for K3/K4 and K8 and (6144, 768) for K5/K6 (library: "

@@ -34,6 +34,13 @@ masked, bitwise equal from run to run. K8 (``uniter_layer_norm_fwd`` in
 ``csrc/fused_tail.cu``) against the plain ``layer_norm``: fp32 to 1e-5, bf16
 to half a bf16 step of the value + 1e-3; a small pretraining model takes an
 ITM step through K1-K8 with one K7 launch and matches the plain step.
+
+K9 (``csrc/ffn.cu``) is held against ``ops.ffn.ffn_plain`` at the retrieval
+and uniter-large widths, a ragged row count and a partial last chunk: fp32
+to 1e-5 of max(1, max|ref|), bf16 within two bf16 steps of |ref| + 1e-3
+(fp32 sums in another order can re-round the intermediate), bitwise equal
+from run to run; ``FfnFunction``'s backward is the plain formula; a small
+retrieval model trains the same with K9 as without.
 """
 
 import pytest
@@ -531,3 +538,119 @@ def test_pretrain_itm_step_through_kernels(gen):
     assert out["plain"][3:] == (0, 0, 0)
     for a, c in zip(out["kernels"][:3], out["plain"][:3]):
         assert abs(a - c) <= 1e-4 * abs(c) + 1e-6
+
+
+def _ffn_inputs(gen, rows, d_in, d_mid, d_out, dtype):
+    x = torch.randn(rows, d_in, generator=gen, device="cuda").to(dtype)
+    w1 = (0.02 * torch.randn(d_mid, d_in, generator=gen, device="cuda")
+          ).to(dtype)
+    w2 = (0.02 * torch.randn(d_out, d_mid, generator=gen, device="cuda")
+          ).to(dtype)
+    b1 = 0.1 * torch.randn(d_mid, generator=gen, device="cuda")
+    b2 = 0.1 * torch.randn(d_out, generator=gen, device="cuda")
+    return x, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d_in,d_mid,d_out", [
+    (2048, 768, 3072, 768), (1024, 1024, 4096, 1024), (97, 768, 3072, 768),
+    (33, 64, 144, 48)])
+def test_ffn_kernel_matches_plain(gen, dtype, rows, d_in, d_mid, d_out):
+    """K9 against ``ffn_plain``: fp32 to 1e-5 of max(1, max|ref|) (another
+    summation order), bf16 within two bf16 steps of |ref| + 1e-3 (fp32 sums
+    in another order can re-round the intermediate); bitwise equal from
+    run to run; ragged row counts and a partial last D_mid chunk."""
+    from uniter_tpu_torch.ops.ffn import ffn_fwd, ffn_plain
+
+    args = _ffn_inputs(gen, rows, d_in, d_mid, d_out, dtype)
+    before = ffn_fwd.launches
+    got = ffn_fwd(*args)
+    torch.cuda.synchronize()
+    assert ffn_fwd.launches == before + 1
+    want = ffn_plain(*args).float()
+    diff = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    else:
+        assert (diff - (2.0**-6 * want.abs() + 1e-3)).max().item() <= 0
+    assert got.dtype == dtype and got.shape == (rows, d_out)
+    assert torch.equal(got, ffn_fwd(*args))
+
+
+def test_ffn_function_on_the_card(gen):
+    """K9 forward, the plain fp32 backward, against autograd of the plain
+    version's formula; what the kernel cannot take raises."""
+    from uniter_tpu_torch.ops.ffn import (
+        FfnFunction, _ffn_bwd_torch, ffn_fwd, ffn_plain)
+
+    x, w1, b1, w2, b2 = (t.requires_grad_() for t in _ffn_inputs(
+        gen, 300, 768, 3072, 768, torch.bfloat16))
+    g = torch.randn(300, 768, generator=gen, device="cuda").bfloat16()
+    got = torch.autograd.grad(FfnFunction.apply(x, w1, b1, w2, b2),
+                              (x, w1, b1, w2, b2), g)
+    want = _ffn_bwd_torch(x, w1, b1, w2, b2, g)
+    for a, r, t in zip(got, want, (x, w1, b1, w2, b2)):
+        assert a.dtype == t.dtype and torch.equal(a, r)
+    ref = torch.autograd.grad(ffn_plain(x.float(), w1.float(), b1, w2.float(),
+                                        b2), (x, w1, b1, w2, b2), g.float())
+    for a, r in zip(got, ref):
+        bound = 2.0**-7 * r.float().abs() + 1e-3 * r.float().abs().max()
+        assert ((a.float() - r.float()).abs() - bound).max().item() <= 0
+    z = torch.zeros(64, 2048, device="cuda")
+    with pytest.raises(ValueError, match="<= 1024"):
+        ffn_fwd(z, torch.zeros(64, 2048, device="cuda"),
+                torch.zeros(64, device="cuda"),
+                torch.zeros(2048, 64, device="cuda"),
+                torch.zeros(2048, device="cuda"))
+    x, w1, b1, w2, b2 = _ffn_inputs(gen, 8, 64, 128, 64, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ffn_fwd(x.half(), w1.half(), b1, w2.half(), b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ffn_fwd(x.t().contiguous().t(), w1, b1, w2, b2)
+    with pytest.raises(TypeError, match="weights"):
+        ffn_fwd(x, w1.bfloat16(), b1, w2, b2)
+
+
+def test_retrieval_step_through_ffn_kernel(gen):
+    """A small retrieval model, fp32, dropout 0.1: one train step with
+    ``ffn_impl="pallas"`` (K9 once per layer, with K1-K6) against the same
+    step with the unfused FFN, losses to 1e-5 relative."""
+    import numpy as np
+
+    from uniter_tpu_torch.models.itm import UniterForImageTextRetrieval
+    from uniter_tpu_torch.ops.ffn import ffn_fwd
+    from uniter_tpu_torch.train_itm import rank_loss
+    from uniter_tpu_torch.training.optim import build_optimizer
+    from uniter_tpu_torch.training.step import TrainState, make_train_step
+
+    torch.manual_seed(0)
+    base = tiny_config(hidden_size=64, num_hidden_layers=3,
+                       num_attention_heads=4, intermediate_size=256,
+                       attention_impl="auto", block_fusion="auto")
+    ref = UniterForImageTextRetrieval(base, img_dim=32)
+    rng = np.random.RandomState(0)
+    rows, t, r = 12, 10, 6
+    attn = np.ones((rows, t + r), np.int64)
+    attn[0, t - 4:t] = 0
+    batch = {k: torch.from_numpy(v).cuda() for k, v in dict(
+        input_ids=rng.randint(1, 500, (rows, t)),
+        position_ids=np.tile(np.arange(t), (rows, 1)),
+        img_feat=rng.randn(rows, r, 32).astype(np.float32),
+        img_pos_feat=rng.rand(rows, r, 7).astype(np.float32),
+        attn_mask=attn, ex_weight=np.ones(rows, np.float32)).items()}
+    losses = {}
+    for ffn_impl in ("pallas", "xla"):
+        cfg = resolve_kernel_policies(base.replace(ffn_impl=ffn_impl),
+                                      "cuda", training=True)
+        model = UniterForImageTextRetrieval(cfg, img_dim=32)
+        model.load_state_dict(ref.state_dict(), strict=True)
+        model.cuda()
+        state = TrainState(step=0, model=model,
+                           opt=build_optimizer(model, 1e-3, fused=True))
+        step = make_train_step(lambda m, b, g: (rank_loss(m, b, g, 3), {}))
+        before = ffn_fwd.launches
+        losses[ffn_impl] = [float(step(state, batch, 3)[1]["loss"])
+                            for _ in range(2)]
+        assert ffn_fwd.launches - before == (6 if ffn_impl == "pallas" else 0)
+    for a, c in zip(losses["pallas"], losses["xla"]):
+        assert abs(a - c) <= 1e-5 * abs(c) + 1e-6

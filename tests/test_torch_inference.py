@@ -190,7 +190,11 @@ def test_port_imports_without_jax():
         "import uniter_tpu_torch.pretrain, uniter_tpu_torch.models.pretrain\n"
         "import uniter_tpu_torch.ops.ot, uniter_tpu_torch.ops.layer_norm\n"
         "import uniter_tpu_torch.data.mlm, uniter_tpu_torch.data.mrm\n"
-        "import uniter_tpu_torch.data.itm\n"
+        "import uniter_tpu_torch.data.itm, uniter_tpu_torch.ops.ffn\n"
+        "import uniter_tpu_torch.models.itm, uniter_tpu_torch.train_itm\n"
+        "import uniter_tpu_torch.inf_itm, uniter_tpu_torch.utils.itm_fast\n"
+        "import uniter_tpu_torch.train_itm_hard_negatives\n"
+        "import uniter_tpu_torch.utils.itm_eval\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'uniter_tpu')]\n"
         "assert not bad, bad\n"

@@ -153,8 +153,14 @@ def test_resolve_rejects_unknown_and_from_dict_keeps_the_field():
                scan_unroll=2)
     cfg = pconfig.UniterConfig.from_dict(raw)
     assert cfg.layer_norm_impl == "pallas"
-    assert "ffn_impl" not in cfg.to_dict()
+    # the FFN policy travels too and resolves as the LayerNorm's does
+    assert cfg.ffn_impl == "pallas" and "scan_unroll" not in cfg.to_dict()
+    assert pconfig.resolve_kernel_policies(cfg, "cpu").ffn_impl == "xla"
+    assert pconfig.resolve_kernel_policies(cfg, "cuda").ffn_impl == "cuda"
+    with pytest.raises(ValueError, match="ffn_impl"):
+        pconfig.resolve_kernel_policies(cfg.replace(ffn_impl="tpu"), "cpu")
     assert pconfig.UniterConfig().layer_norm_impl == "xla"
+    assert pconfig.UniterConfig().ffn_impl == "xla"
 
 
 def test_modules_follow_layer_norm_impl():

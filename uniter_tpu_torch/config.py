@@ -3,10 +3,10 @@
 The hyperparameter surface of ``uniter_tpu.config.UniterConfig`` (the
 reference's ``UniterConfig``, loaded from config/uniter-{base,large}.json)
 plus the compute-policy knobs this package acts on. ``from_dict`` ignores
-the JAX package's other knobs (the FFN kernel, scan and remat settings), so
-a training run's ``log/model.json`` loads unchanged;
-``resolve_kernel_policies`` maps its attention, block-fusion and LayerNorm
-policies onto this package's kernels for an explicit device.
+the JAX package's other knobs (scan and remat settings), so a training
+run's ``log/model.json`` loads unchanged; ``resolve_kernel_policies`` maps
+its attention, block-fusion, LayerNorm and FFN policies onto this package's
+kernels for an explicit device.
 """
 
 from __future__ import annotations
@@ -56,6 +56,11 @@ class UniterConfig:
     # "xla" is the plain version. The JAX package's "pallas" is accepted
     # and resolved by resolve_kernel_policies.
     layer_norm_impl: str = "xla"
+    # "cuda" runs each BERT layer's gelu FFN as K9 (csrc/ffn.cu: both
+    # products and the GELU in one launch, plain fp32 backward); "xla" is
+    # the unfused Linear -> GELU -> Linear. The JAX package's "pallas" is
+    # accepted and resolved by resolve_kernel_policies.
+    ffn_impl: str = "xla"
     layer_norm_eps: float = 1e-12
     # One [3H, H] projection instead of three (weights stay query/key/value,
     # so checkpoints are unaffected).
@@ -103,6 +108,8 @@ def resolve_kernel_policies(cfg: UniterConfig, device, *,
     LayerNorm: "pallas" and "cuda" select K8 ("cuda") on a CUDA device and
     the plain version ("xla") on a CPU device, as
     ``uniter_tpu/config.py`` ``resolve_kernel_policies`` does; "xla" stays.
+    The FFN (``ffn_impl``) resolves the same way: "pallas" and "cuda" to K9
+    ("cuda") on a CUDA device, to "xla" on a CPU device.
     """
     on_cuda = torch.device(device).type == "cuda"
     att = cfg.attention_impl
@@ -119,12 +126,17 @@ def resolve_kernel_policies(cfg: UniterConfig, device, *,
         ln = "cuda" if on_cuda else "xla"
     elif ln != "xla":
         raise ValueError(f"unknown layer_norm_impl {ln!r}")
+    ffn = cfg.ffn_impl
+    if ffn in ("pallas", "cuda"):
+        ffn = "cuda" if on_cuda else "xla"
+    elif ffn != "xla":
+        raise ValueError(f"unknown ffn_impl {ffn!r}")
     if training and cfg.dropout_impl != "xla":
         raise NotImplementedError(
             f"dropout_impl {cfg.dropout_impl!r} is not ported; use "
             "'xla' (32-bit thresholds)")
     return cfg.replace(attention_impl=att, block_fusion=bf,
-                       layer_norm_impl=ln)
+                       layer_norm_impl=ln, ffn_impl=ffn)
 
 
 def base_config(**overrides) -> UniterConfig:

@@ -18,6 +18,13 @@ With ``block_fusion="cuda"`` each live tail runs as one fused Function
 seed and the same Philox bits as the plain composition. Every LayerNorm
 that no fused tail takes (the image embeddings' two, each tail when no mask
 is live) follows ``layer_norm_impl``: "cuda" is K8, "xla" the plain one.
+With ``ffn_impl="cuda"`` and the gelu activation each layer's FFN runs as
+one ``ops.ffn.FfnFunction`` (K9 on the card) over the same
+``intermediate.dense`` and ``output.dense`` parameters.
+
+``BertLayerCLS`` computes only the CLS row of a layer (the retrieval
+scorer's last layer, ``utils/itm_fast.py``); it loads a ``BertLayer``'s
+state dict as it is.
 
 Submodules are named after the reference ``.pt`` keys that
 ``uniter_tpu.models.checkpoint.export_state_dict`` emits (for example
@@ -35,6 +42,7 @@ from uniter_tpu_torch.config import UniterConfig
 from uniter_tpu_torch.ops.activations import ACT2FN
 from uniter_tpu_torch.ops.attention import multi_head_attention
 from uniter_tpu_torch.ops.dropout import draw_seed, drop, live_seed
+from uniter_tpu_torch.ops.ffn import ffn
 from uniter_tpu_torch.ops.fused_block import drop_res_ln, ln_drop
 from uniter_tpu_torch.ops.layer_norm import layer_norm
 
@@ -266,19 +274,67 @@ class BertOutput(nn.Module):
 
 class BertLayer(nn.Module):
     """Post-LN BERT layer: attention -> FFN(gelu) -> residual LN (reference
-    model/layer.py:130-170)."""
+    model/layer.py:130-170). The FFN is one ``ops.ffn.ffn(impl="cuda")``
+    when ``ffn_impl`` is "cuda" and the activation gelu, as the JAX layer
+    takes its kernel (:329-332)."""
 
     def __init__(self, cfg: UniterConfig):
         super().__init__()
         self.attention = BertAttention(cfg)
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
+        self.fused_ffn = cfg.ffn_impl == "cuda" and cfg.hidden_act == "gelu"
+
+    def feed_forward(self, x):
+        if self.fused_ffn:
+            w1, w2 = self.intermediate.dense, self.output.dense
+            return ffn(x, w1.weight, w1.bias, w2.weight, w2.bias, impl="cuda")
+        return self.output.dense(self.intermediate(x))
 
     def forward(self, hidden, bias, deterministic: bool = True,
                 generator=None):
         attn_out = self.attention(hidden, bias, deterministic, generator)
-        out = self.output.dense(self.intermediate(attn_out))
+        out = self.feed_forward(attn_out)
         return self.output.LayerNorm(out, attn_out, deterministic, generator)
+
+
+class BertAttentionCLS(BertAttention):
+    """Inference-only attention that computes the CLS (position 0) row
+    alone (JAX ``BertAttentionCLS``): a [1, S] query against every key,
+    the plain attention (one query row is far below the kernel's tiles),
+    then the output projection and LayerNorm on that row. Parameters are
+    ``BertAttention``'s."""
+
+    def forward(self, hidden, bias, deterministic: bool = True,
+                generator=None):
+        cfg = self.cfg
+        b, s, _ = hidden.shape
+        nh, d = cfg.num_attention_heads, cfg.head_dim
+        sa = self.self
+        q = sa.query(hidden[:, :1]).view(b, 1, nh, d)
+        k, v = (m(hidden).view(b, s, nh, d) for m in (sa.key, sa.value))
+        ctx = multi_head_attention(q, k, v, bias, impl="xla").reshape(
+            b, 1, cfg.hidden_size)
+        return self.output.LayerNorm(self.output.dense(ctx), hidden[:, :1])
+
+
+class BertLayerCLS(BertLayer):
+    """The last BERT layer restricted to the CLS row (JAX
+    ``BertLayerCLS``): attention is the only op across positions and its
+    query rows are independent, so this is ``BertLayer(...)[:, :1]``. The
+    FFN on its one row is the unfused Linear -> activation -> Linear
+    whatever ``ffn_impl`` says, as in the JAX layer. Returns [B, 1, H]."""
+
+    def __init__(self, cfg: UniterConfig):
+        super().__init__(cfg)
+        self.attention = BertAttentionCLS(cfg)
+        self.fused_ffn = False
+
+    def forward(self, hidden, bias, deterministic: bool = True,
+                generator=None):
+        attn_out = self.attention(hidden, bias)
+        out = self.feed_forward(attn_out)
+        return self.output.LayerNorm(out, attn_out)
 
 
 class UniterEncoder(nn.Module):
@@ -291,8 +347,8 @@ class UniterEncoder(nn.Module):
                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, hidden, bias, deterministic: bool = True,
-                generator=None):
-        for layer in self.layer:
+                generator=None, n_layers=None):
+        for layer in self.layer[:n_layers]:
             hidden = layer(hidden, bias, deterministic, generator)
         return hidden
 
@@ -337,6 +393,15 @@ class UniterModel(nn.Module):
         self.encoder = UniterEncoder(cfg)
         if pooler:
             self.pooler = BertPooler(cfg)
+
+    def encode(self, emb, attn_mask, deterministic: bool = True,
+               generator=None, n_layers=None):
+        """The encoder layers on joint embeddings ``emb`` [B, S, H] under
+        the 0/1 validity mask [B, S] (JAX ``UniterModel.encode``); with
+        ``n_layers`` only the first that many (the retrieval scorer runs
+        the last one as ``BertLayerCLS``)."""
+        return self.encoder(emb, attn_bias(attn_mask), deterministic,
+                            generator, n_layers)
 
     def forward(self, input_ids=None, position_ids=None, img_feat=None,
                 img_pos_feat=None, attn_mask=None, img_masks=None,

@@ -51,9 +51,12 @@ SIGNATURES = {
     "layer_norm_fwd": [_P] * 4 + [_L, _I, _F, _I, _P],
     # A sigma0 x_mask y_mask x_len y_len T, B N M, iteration, k, form, stream
     "ipot": [_P] * 7 + [_I] * 6 + [_P],
+    # x w1 b1 w2 b2 y, rows, D_in, D_mid, D_out, dtype, stream
+    "ffn_fwd": [_P] * 6 + [_L] + [_I] * 4 + [_P],
 }
 # kernel name -> the csrc/<source>.cu that defines it
 SOURCES = {"mha_fwd": "mha_fwd", "mha_bwd": "mha_bwd", "ipot": "ipot",
+           "ffn_fwd": "ffn",
            **{k: "fused_tail" for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
                                         "ln_drop_fwd", "ln_drop_bwd",
                                         "layer_norm_fwd")}}

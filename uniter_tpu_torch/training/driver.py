@@ -12,7 +12,10 @@ The flags are the JAX drivers'. ``--attention_impl`` and
 ``--block_fusion`` default to ``auto``: on the card the hand-written
 attention kernels (K1/K2) and the fused dropout + residual + LayerNorm
 tails (K3-K6), on the CPU their plain versions; ``--block_fusion none``
-keeps the plain tails on the card. Flags that tune TPU machinery are
+keeps the plain tails on the card. The LayerNorm and FFN policies
+(``layer_norm_impl``, ``ffn_impl``) come from the ``--model_config`` JSON
+and resolve for ``--device`` (K8, K9 on the card when set to
+``pallas``/``cuda``). Flags that tune TPU machinery are
 accepted and do nothing here: ``--attn_batch_block`` (the TPU kernel's grid
 blocking), ``--warmup_compile`` (ahead-of-time XLA compiles), ``--fp16``
 and ``--pin_mem`` (batches are always pinned). Those whose feature is not
@@ -262,9 +265,9 @@ def setup_run(opts, model_cfg):
     TB_LOGGER.create(os.path.join(opts.output_dir, "log"))
     add_log_to_file(os.path.join(opts.output_dir, "log", "log.txt"))
     LOGGER.info("device: %s (attention %s, block_fusion %s, layer_norm %s, "
-                "dtype %s)", opts.device, model_cfg.attention_impl,
+                "ffn %s, dtype %s)", opts.device, model_cfg.attention_impl,
                 model_cfg.block_fusion, model_cfg.layer_norm_impl,
-                model_cfg.dtype)
+                model_cfg.ffn_impl, model_cfg.dtype)
 
 
 def bucket_spec(opts, dataset, budget=None) -> BucketSpec:
