@@ -9,16 +9,24 @@ Phases, each printing its own lines:
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
    exits non-zero when torch sees no CUDA device.
 2. build: every hand-written kernel from ``uniter_tpu_torch/csrc/``, one
-   ``nvcc`` per source, all at once (``-Xptxas -v`` report printed).
+   ``nvcc`` per source, all at once (``-Xptxas -v`` report printed); the
+   count of tensor-core instructions (HMMA) in ``cuobjdump -sass`` of the
+   attention libraries, which must not be 0.
 3. K1 (``csrc/mha_fwd.cu``) at rate 0 against its plain version
    ``_mha_torch`` on the card, at the serving path's attention shapes,
-   fp32 and bf16, with random key lengths and all-padding rows; time of
-   both at (96, 104).
-4. K1 at rate 0.1 and K2 (``csrc/mha_bwd.cu``) at rates 0 and 0.1 against
-   their plain versions with the same seeds, at the training shapes, fp32
-   and bf16; the keep fraction measured through K1; times at (96, 104, 12,
-   64) of both kernels, their plain versions and
-   ``scaled_dot_product_attention`` (a library yardstick, never on a path).
+   fp32 (the SIMT kernel) and bf16 (the tensor-core kernel), with random key
+   lengths and all-padding rows; time of both at (96, 104).
+4. K1 and K2 (``csrc/mha_bwd.cu``) at rates 0 and 0.1 against their plain
+   versions with the same seeds, at the training shapes (flagship,
+   pretrain mix, retrieval, long buckets, uniter-large heads): bf16 through
+   the tensor-core pair (K1's LSE against the plain one, K2 from K1's out,
+   output remainder and LSE against ``_mha_bwd_lse_torch`` and against
+   ``_mha_bwd_torch``, bitwise replay), fp32 through the SIMT pair; the
+   keep fraction measured through K1; at every shape and dtype the times of
+   K1 and K2 against ``scaled_dot_product_attention`` forward and backward
+   (a library yardstick, never on a path) in turns kernel, SDPA, SDPA,
+   kernel, medians, with the bounds; at (96, 104, 12, 64) also the plain
+   versions at rates 0 and 0.1.
 5. K3-K6 (``csrc/fused_tail.cu``: dropout + residual + LayerNorm, and
    LayerNorm + dropout, forward and backward) against their plain versions
    in ``ops/fused_block.py`` at rates 0 and 0.1 (same seed), fp32 and bf16,
@@ -127,10 +135,17 @@ K1_SHAPES = [  # (B, S, H, D): the bucketed eval shapes, uniter-base heads
     (96, 104, 16, 64),  # uniter-large heads
 ]
 K1_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-TRAIN_SHAPES = [  # (B, S, H, D): flagship, long buckets, uniter-large heads
-    (96, 104, 12, 64), (64, 172, 12, 64), (8, 512, 12, 64), (96, 104, 16, 64),
+TRAIN_SHAPES = [  # (B, S, H, D): flagship, pretrain mix, retrieval, long
+    # buckets, uniter-large heads
+    (96, 104, 12, 64), (48, 224, 12, 64), (120, 128, 12, 64),
+    (64, 172, 12, 64), (8, 512, 12, 64), (96, 104, 16, 64),
 ]
 K2_TOL_FP32 = 1e-4  # another summation order over S and D
+# bf16 K2 against the fp32 formula on the same bf16 inputs, out and LSE:
+# 1e-3 + 2^-8 |ref| (one rounding of the result to bf16, half a step, plus
+# the hi/lo split's ~2^-16 and fp32 noise)
+K2_TOL_BF16 = 1e-3
+TIME_TURNS = 3
 RATE = 0.1
 # (rows, H): the flagship sub-block tail B*S = 96*104, the text and image
 # embedding tails 96*64 and 96*40, uniter-large, a ragged row count
@@ -287,7 +302,8 @@ def bound_ms(b, s, h, d, dtype, backward):
     """Least time for the function on this card: K1 reads q, k, v and
     writes out (4 tensors) and does 4*B*H*S^2*D FLOP; K2 reads q, k, v, g
     and writes dq, dk, dv (7 tensors) and does 10*B*H*S^2*D FLOP (the
-    recomputed scores, dV, dP, dQ, dK)."""
+    scores, dV, dP, dQ, dK). The bf16 K2 also reads out and the LSE, its
+    own design's choice, not counted here."""
     elem = b * s * h * d * (4 if dtype == "float32" else 2)
     nbytes = (7 if backward else 4) * elem + b * s * 4  # + the fp32 bias
     flops = (10 if backward else 4) * b * h * s * s * d
@@ -321,108 +337,237 @@ def keep_fraction(torch, mha_fwd, b, s, h, d):
     return out[..., 0].double().mean().item() * (1.0 - RATE)
 
 
+def excess(x, ref, rel):
+    """max(|x - ref| - rel |ref|): the absolute part of a tolerance
+    ``atol + rel |ref|`` that x uses."""
+    return ((x.float() - ref).abs() - rel * ref.abs()).max().item()
+
+
+def sass_phase():
+    """``cuobjdump -sass`` of the attention libraries: the bf16 kernels
+    must run on the tensor cores (HMMA instructions)."""
+    from uniter_tpu_torch.ops import _kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in ("mha_fwd", "mha_bwd"):
+        res = subprocess.run([tool, "-sass", _kernels._paths(name)[1]],
+                             capture_output=True, text=True, timeout=120)
+        check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
+        counts[name] = sum("HMMA" in line for line in res.stdout.splitlines())
+    print(f"[sass] HMMA instructions: libmha_fwd.so {counts['mha_fwd']}, "
+          f"libmha_bwd.so {counts['mha_bwd']}")
+    check(all(counts.values()), "no HMMA in the attention libraries")
+    return counts
+
+
 def k2_phase(torch):
-    """K1 at RATE and K2 at 0 and RATE against their plain versions; times.
-    Returns (worst fp32 errors, timing dict)."""
+    """K1 and K2 at rates 0 and RATE against their plain versions at every
+    training shape, both dtypes: bf16 through the tensor-core kernels (K1
+    with its LSE and output remainder, K2 from K1's out, out_lo and LSE,
+    held to ``_mha_bwd_lse_torch`` and to the JAX kernel's formula
+    ``_mha_bwd_torch``, both at K2_TOL_BF16 + 2^-8 |ref|), fp32 through the
+    SIMT kernels; bitwise replay of the bf16 pair; times at every shape.
+    Returns (worst fp32 errors, worst bf16 excess, timing, keep fraction)."""
     import torch.nn.functional as F
 
     from uniter_tpu_torch.ops.attention import (
-        _mha_bwd_torch, _mha_torch, mha_bwd, mha_fwd)
+        _mha_bwd_lse_torch, _mha_bwd_torch, _mha_torch, mha_bwd, mha_fwd)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = {"mha_fwd": 0.0, "mha_bwd": 0.0}
+    worst_bf16 = {"mha_fwd": -1.0, "mha_bwd": -1.0, "mha_bwd_jax": -1.0,
+                  "lse": -1.0, "coarse_di": -1.0, "mha_fwd_abs": 0.0,
+                  "mha_bwd_abs": 0.0}
     timing = {}
     for b, s, h, d in TRAIN_SHAPES:
         for name, dtype in (("float32", torch.float32),
                             ("bfloat16", torch.bfloat16)):
             q, k, v, bias, g = train_inputs(torch, b, s, h, d, dtype, gen)
             qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
-            out = mha_fwd(q, k, v, bias, RATE, 99)
-            ref = _mha_torch(qf, kf, vf, bias, RATE, 99)
-            err = (out.float() - ref).abs()
-            if name == "bfloat16":  # half a bf16 step at |ref|
-                err = err - 2.0**-8 * ref.abs()
-            err = err.max().item()
-            ok1 = err <= K1_TOL[name]
-            errs = []
-            for rate in (0.0, RATE):
-                got = mha_bwd(q, k, v, bias, g, rate, 99)
-                want = _mha_bwd_torch(qf, kf, vf, bias, gf, rate, 99)
-                for x, w in zip(got, want):
-                    e = (x.float() - w).abs()
-                    if name == "bfloat16":
-                        e = e - 2.0**-8 * w.abs()
-                    errs.append(e.max().item())
-            tol2 = K2_TOL_FP32 if name == "float32" else 1e-3
-            ok2 = max(errs) <= tol2
-            torch.cuda.synchronize()
-            print(f"[K2] B={b} S={s} H={h} D={d} {name}: K1 rate {RATE} "
-                  f"max|diff| {err:.3e} (tol {K1_TOL[name]:g}"
-                  f"{' + 2^-8 |ref|' if name == 'bfloat16' else ''}); K2 "
-                  f"dq/dk/dv max|diff| rate 0 {max(errs[:3]):.3e}, rate "
-                  f"{RATE} {max(errs[3:]):.3e} (tol {tol2:g}"
-                  f"{' + 2^-8 |ref|' if name == 'bfloat16' else ''}) "
-                  f"{'ok' if ok1 and ok2 else 'FAIL'}")
-            check(ok1, f"K1 at rate {RATE} disagrees at {(b, s, h, d)} {name}")
-            check(ok2, f"K2 disagrees at {(b, s, h, d)} {name}")
             if name == "float32":
+                out = mha_fwd(q, k, v, bias, RATE, 99)
+                err = (out - _mha_torch(qf, kf, vf, bias, RATE, 99)).abs()
+                err = err.max().item()
+                errs = []
+                for rate in (0.0, RATE):
+                    got = mha_bwd(q, k, v, bias, g, rate, 99)
+                    want = _mha_bwd_torch(qf, kf, vf, bias, gf, rate, 99)
+                    errs += [(x - w).abs().max().item()
+                             for x, w in zip(got, want)]
+                torch.cuda.synchronize()
+                ok1, ok2 = err <= K1_TOL[name], max(errs) <= K2_TOL_FP32
+                print(f"[K2] B={b} S={s} H={h} D={d} float32 (SIMT): K1 rate "
+                      f"{RATE} max|diff| {err:.3e} (tol {K1_TOL[name]:g}); "
+                      f"K2 dq/dk/dv max|diff| rate 0 {max(errs[:3]):.3e}, "
+                      f"rate {RATE} {max(errs[3:]):.3e} (tol {K2_TOL_FP32:g})"
+                      f" {'ok' if ok1 and ok2 else 'FAIL'}")
+                check(ok1, f"K1 at rate {RATE} disagrees at {(b, s, h, d)} "
+                           f"float32")
+                check(ok2, f"K2 disagrees at {(b, s, h, d)} float32")
                 worst["mha_fwd"] = max(worst["mha_fwd"], err)
                 worst["mha_bwd"] = max(worst["mha_bwd"], max(errs))
-            if (b, s, h, d) == TRAIN_SHAPES[0]:
-                timing[name] = time_attention(torch, F, q, k, v, bias, g,
-                                              mha_fwd, mha_bwd, _mha_torch,
-                                              _mha_bwd_torch)
+            else:
+                e1, el, elo, e2, e3, e4, same = [], [], [], [], [], [], True
+                for rate in (0.0, RATE):
+                    lse = torch.empty(b, h, s, device="cuda")
+                    lo = torch.empty_like(q)
+                    out = mha_fwd(q, k, v, bias, rate, 99, lse=lse,
+                                  out_lo=lo)
+                    ref, rlse = _mha_torch(qf, kf, vf, bias, rate, 99,
+                                           return_lse=True)
+                    full = out.float() + lo.float()
+                    e1.append(excess(out, ref, 2.0**-8))
+                    abs1 = (out.float() - ref).abs().max().item()
+                    elo.append((full - ref).abs().max().item())
+                    el.append(excess(lse, rlse, 2.0**-20))
+                    got = mha_bwd(q, k, v, bias, g, rate, 99, out=out,
+                                  lse=lse, out_lo=lo)
+                    want = _mha_bwd_lse_torch(qf, kf, vf, bias, gf, full,
+                                              lse, rate, 99)
+                    jax_formula = _mha_bwd_torch(qf, kf, vf, bias, gf, rate,
+                                                 99)
+                    e2.append(max(excess(x, w, 2.0**-8)
+                                  for x, w in zip(got, want)))
+                    abs2 = max((x.float() - w).abs().max().item()
+                               for x, w in zip(got, want))
+                    worst_bf16["mha_fwd_abs"] = max(worst_bf16["mha_fwd_abs"],
+                                                    abs1)
+                    worst_bf16["mha_bwd_abs"] = max(worst_bf16["mha_bwd_abs"],
+                                                    abs2)
+                    e3.append(max(excess(x, w, 2.0**-8)
+                                  for x, w in zip(got, jax_formula)))
+                    # what the out_lo remainder is for: Di from the bf16
+                    # output alone, through the plain formula (not used)
+                    coarse = _mha_bwd_lse_torch(qf, kf, vf, bias, gf,
+                                                out.float(), lse, rate, 99)
+                    e4.append(max(excess(x.bfloat16(), w, 2.0**-8)
+                                  for x, w in zip(coarse, jax_formula)))
+                    lse2, lo2 = torch.empty_like(lse), torch.empty_like(lo)
+                    again = mha_fwd(q, k, v, bias, rate, 99, lse=lse2,
+                                    out_lo=lo2)
+                    same = same and torch.equal(out, again) and \
+                        torch.equal(lse, lse2) and torch.equal(lo, lo2) and \
+                        all(torch.equal(x, y) for x, y in zip(
+                            got, mha_bwd(q, k, v, bias, g, rate, 99,
+                                         out=out, lse=lse, out_lo=lo)))
+                    same = same and all(bool(torch.isfinite(t).all())
+                                        for t in (out, lse, lo, *got))
+                torch.cuda.synchronize()
+                ok = (max(e1) <= K1_TOL[name] and max(el) <= 1e-5
+                      and max(e2) <= K2_TOL_BF16 and max(e3) <= K2_TOL_BF16
+                      and same)
+                print(f"[K2] B={b} S={s} H={h} D={d} bfloat16 (tensor "
+                      f"cores): K1 |diff| - 2^-8 |ref| rate 0 {e1[0]:.3e}, "
+                      f"rate {RATE} {e1[1]:.3e} (tol {K1_TOL[name]:g}, "
+                      f"margin {K1_TOL[name] - max(e1):.3e}); out + out_lo "
+                      f"max|diff| {max(elo):.3e}; LSE |diff| - "
+                      f"2^-20 |ref| {max(el):.3e} (tol 1e-5); K2 vs "
+                      f"_mha_bwd_lse_torch rate 0 {e2[0]:.3e}, rate {RATE} "
+                      f"{e2[1]:.3e} (tol {K2_TOL_BF16:g} + 2^-8 |ref|, margin "
+                      f"{K2_TOL_BF16 - max(e2):.3e}); K2 vs _mha_bwd_torch "
+                      f"(the JAX kernel's formula, Di from P) rate 0 "
+                      f"{e3[0]:.3e}, rate {RATE} {e3[1]:.3e} (same tol, "
+                      f"margin {K2_TOL_BF16 - max(e3):.3e}); with Di from "
+                      f"the bf16 output alone it would be {max(e4):.3e}; "
+                      f"replay bitwise "
+                      f"and finite {same} {'ok' if ok else 'FAIL'}")
+                check(ok, f"bf16 K1/K2 disagree or do not replay at "
+                          f"{(b, s, h, d)}")
+                for key, val in (("mha_fwd", max(e1)), ("mha_bwd", max(e2)),
+                                 ("mha_bwd_jax", max(e3)), ("lse", max(el)),
+                                 ("coarse_di", max(e4))):
+                    worst_bf16[key] = max(worst_bf16[key], val)
+            timing[(b, s, h, d, name)] = time_attention(
+                torch, F, q, k, v, bias, g, mha_fwd, mha_bwd,
+                _mha_torch, _mha_bwd_torch,
+                plain=(b, s, h, d) == TRAIN_SHAPES[0])
     frac = keep_fraction(torch, mha_fwd, 96, 104, 12, 64)
     n = 96 * 12 * 104 * 104
     sigma = (RATE * (1 - RATE) / n) ** 0.5
     print(f"[K2] keep fraction through K1 at rate {RATE} over {n} scores: "
           f"{frac:.6f} (want {1 - RATE} +- 4 sigma = {4 * sigma:.1e})")
     check(abs(frac - (1 - RATE)) <= 4 * sigma, "keep fraction")
-    return worst, timing, frac
+    print(f"[K2] worst bf16 over {len(TRAIN_SHAPES)} shapes x 2 rates: K1 "
+          f"{worst_bf16['mha_fwd']:.3e} of {K1_TOL['bfloat16']:g} (+ 2^-8 "
+          f"|ref|), K2 {worst_bf16['mha_bwd']:.3e} of {K2_TOL_BF16:g} (+ 2^-8 "
+          f"|ref|), K2 against the JAX kernel's formula "
+          f"{worst_bf16['mha_bwd_jax']:.3e} (with Di from the bf16 output "
+          f"alone {worst_bf16['coarse_di']:.3e}), LSE "
+          f"{worst_bf16['lse']:.3e}")
+    return worst, worst_bf16, timing, frac
 
 
 def time_attention(torch, F, q, k, v, bias, g, mha_fwd, mha_bwd, _mha_torch,
-                   _mha_bwd_torch):
-    """CUDA-event times (ms per call, 50 calls) in turns plain, kernel,
-    kernel, plain; SDPA forward and backward at rate 0 with the float bias
-    as attn_mask on [B, H, S, D] copies (its layout)."""
-    t = {}
+                   _mha_bwd_torch, plain=False):
+    """CUDA-event times (ms per call, 20 calls each) of K1 and K2 at rate
+    0 against ``scaled_dot_product_attention`` forward and backward (the
+    float bias as attn_mask on [B, H, S, D] copies, its layout), in
+    ``TIME_TURNS`` turns of kernel, SDPA, SDPA, kernel; medians. bf16 times
+    the tensor-core pair (K2 from K1's out and LSE), fp32 the SIMT pair.
+    With ``plain``, also K1 and K2 at RATE and the plain versions at both
+    rates (turns plain, kernel, kernel, plain)."""
+    b, s, h, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    lse = torch.empty(b, h, s, device="cuda") if bf16 else None
+    lo = torch.empty_like(q) if bf16 else None
+    out = mha_fwd(q, k, v, bias, 0.0, 5, lse=lse, out_lo=lo)
+    extra = {"out": out, "lse": lse, "out_lo": lo} if bf16 else {}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = bias[:, None, None, :].to(q.dtype)
+    gt = g.transpose(1, 2).contiguous()
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, mask)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, mask)
+
+    fns = {"fwd": lambda: mha_fwd(q, k, v, bias, 0.0, 5, lse=lse, out_lo=lo),
+           "bwd": lambda: mha_bwd(q, k, v, bias, g, 0.0, 5, **extra),
+           "sdpa_fwd": sdpa_fwd,
+           "sdpa_bwd": lambda: torch.autograd.grad(
+               sdpa_out, (qt, kt, vt), gt, retain_graph=True)}
+    runs = {key: [] for key in fns}
+    for _ in range(TIME_TURNS):
+        for kern, lib in (("fwd", "sdpa_fwd"), ("bwd", "sdpa_bwd")):
+            for key in (kern, lib, lib, kern):
+                runs[key].append(cuda_ms(torch, fns[key], iters=20,
+                                         warmup=3))
+    t = {key: float(np.median(v)) for key, v in runs.items()}
+    t["turns"] = runs
+    print(f"[K2] times at B={b} S={s} H={h} D={d} {q.dtype}, us per call "
+          f"(median of {TIME_TURNS} turns kernel, SDPA, SDPA, kernel): K1 "
+          f"{t['fwd'] * 1e3:.1f} (bound "
+          f"{bound_ms(b, s, h, d, str(q.dtype)[6:], False)[0] * 1e3:.1f}), "
+          f"SDPA forward {t['sdpa_fwd'] * 1e3:.1f}; K2 {t['bwd'] * 1e3:.1f} "
+          f"(bound {bound_ms(b, s, h, d, str(q.dtype)[6:], True)[0] * 1e3:.1f}"
+          f"), SDPA backward {t['sdpa_bwd'] * 1e3:.1f} (SDPA backward turns "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in runs['sdpa_bwd'])})")
+    if not plain:
+        return t
     for rate in (0.0, RATE):
+        lse_r = torch.empty(b, h, s, device="cuda") if bf16 else None
+        out_r = mha_fwd(q, k, v, bias, rate, 5, lse=lse_r, out_lo=lo)
+        ex = {"out": out_r, "lse": lse_r, "out_lo": lo} if bf16 else {}
         f = [cuda_ms(torch, lambda: _mha_torch(q, k, v, bias, rate, 5)),
-             cuda_ms(torch, lambda: mha_fwd(q, k, v, bias, rate, 5)),
-             cuda_ms(torch, lambda: mha_fwd(q, k, v, bias, rate, 5)),
+             cuda_ms(torch, lambda: mha_fwd(q, k, v, bias, rate, 5,
+                                            lse=lse_r, out_lo=lo)),
+             cuda_ms(torch, lambda: mha_fwd(q, k, v, bias, rate, 5,
+                                            lse=lse_r, out_lo=lo)),
              cuda_ms(torch, lambda: _mha_torch(q, k, v, bias, rate, 5))]
         bw = [cuda_ms(torch, lambda: _mha_bwd_torch(q, k, v, bias, g, rate, 5)),
-              cuda_ms(torch, lambda: mha_bwd(q, k, v, bias, g, rate, 5)),
-              cuda_ms(torch, lambda: mha_bwd(q, k, v, bias, g, rate, 5)),
+              cuda_ms(torch, lambda: mha_bwd(q, k, v, bias, g, rate, 5, **ex)),
+              cuda_ms(torch, lambda: mha_bwd(q, k, v, bias, g, rate, 5, **ex)),
               cuda_ms(torch, lambda: _mha_bwd_torch(q, k, v, bias, g, rate,
                                                     5))]
         t[rate] = {"fwd": (f[1] + f[2]) / 2, "fwd_plain": (f[0] + f[3]) / 2,
                    "bwd": (bw[1] + bw[2]) / 2,
                    "bwd_plain": (bw[0] + bw[3]) / 2}
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    mask = bias[:, None, None, :].to(q.dtype)
-    gt = g.transpose(1, 2).contiguous()
-    with torch.no_grad():
-        t["sdpa_fwd"] = cuda_ms(
-            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, mask))
-    out = F.scaled_dot_product_attention(qt, kt, vt, mask)
-    t["sdpa_bwd"] = cuda_ms(torch, lambda: torch.autograd.grad(
-        out, (qt, kt, vt), gt, retain_graph=True))
-    t["sdpa_fwd_bwd"] = cuda_ms(torch, lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qt, kt, vt, mask), (qt, kt, vt), gt))
-    print(f"[K2] times at B=96 S=104 H=12 D=64 {q.dtype}, us per call "
-          f"(CUDA events over 50 calls; turns plain, kernel, kernel, plain):")
-    for rate in (0.0, RATE):
-        r = t[rate]
-        print(f"[K2]   rate {rate}: K1 {r['fwd'] * 1e3:.1f} vs plain "
-              f"{r['fwd_plain'] * 1e3:.1f}; K2 {r['bwd'] * 1e3:.1f} vs plain "
-              f"{r['bwd_plain'] * 1e3:.1f}")
-    print(f"[K2]   scaled_dot_product_attention at rate 0 (bias as "
-          f"attn_mask): forward {t['sdpa_fwd'] * 1e3:.1f}, backward "
-          f"{t['sdpa_bwd'] * 1e3:.1f}, forward+backward "
-          f"{t['sdpa_fwd_bwd'] * 1e3:.1f}")
+        print(f"[K2]   rate {rate} (50 calls, turns plain, kernel, kernel, "
+              f"plain): K1 {t[rate]['fwd'] * 1e3:.1f} vs plain "
+              f"{t[rate]['fwd_plain'] * 1e3:.1f}; K2 {t[rate]['bwd'] * 1e3:.1f}"
+              f" vs plain {t[rate]['bwd_plain'] * 1e3:.1f}")
     return t
 
 
@@ -856,7 +1001,7 @@ def profile_steps(torch, state, step, batch, n, tag, label="train"):
 
     # the plain Philox bits run as int64 elementwise passes ("<long"
     # functors) and the stack of their four words (8-byte cat)
-    groups = {"K1": share("mha_fwd_kernel"), "K2": share("mha_bwd_"),
+    groups = {"K1": share("mha_fwd_"), "K2": share("mha_bwd_"),
               "fused tails (K3-K6)": share("tail_fwd", "tail_bwd",
                                            "sum_partials"),
               "ipot (K7)": share("ipot_kernel"),
@@ -2534,8 +2679,9 @@ def main():
 
     device_phase(torch)
     build_phase()
+    sass_phase()
     k1_err, k1_time = k1_phase(torch)
-    k2_err, k2_time, _ = k2_phase(torch)
+    k2_err, k2_bf16, k2_time, _ = k2_phase(torch)
     tail_err, tail_time = tail_phase(torch)
     serve_counts, n_batches, qps, _ = main_path_phase(torch)
     launches = serve_counts["mha_fwd"]
@@ -2559,22 +2705,25 @@ def main():
     hn = hn_phase(torch)
     serve_itm = itm_serve_phase(torch)
     itm_cli_counts = itm_cli_phase(torch)
-    t = k2_time["bfloat16"]
+    t = k2_time[TRAIN_SHAPES[0] + ("bfloat16",)]
     kernels = []
-    for name, src, replaces, err, ms, plain, lib, bwd in (
-            ("mha_fwd", "mha_fwd.cu", "uniter_tpu/ops/attention.py:118",
-             max(k1_err, k2_err["mha_fwd"]), t[0.0]["fwd"],
-             t[0.0]["fwd_plain"], t["sdpa_fwd"], False),
-            ("mha_bwd", "mha_bwd.cu", "uniter_tpu/ops/attention.py:133",
-             k2_err["mha_bwd"], t[0.0]["bwd"], t[0.0]["bwd_plain"],
-             t["sdpa_bwd"], True)):
-        bound, by = bound_ms(96, 104, 12, 64, "bfloat16", bwd)
+    for name, src, kern, replaces, err, bwd in (
+            ("mha_fwd", "mha_fwd.cu", "mha_fwd_tc_kernel<64>",
+             "uniter_tpu/ops/attention.py:118", k2_bf16["mha_fwd_abs"],
+             False),
+            ("mha_bwd", "mha_bwd.cu", "mha_bwd_tc_kernel<64>",
+             "uniter_tpu/ops/attention.py:133", k2_bf16["mha_bwd_abs"],
+             True)):
+        bound, by = bound_ms(*TRAIN_SHAPES[0], "bfloat16", bwd)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"uniter_tpu_torch/csrc/{src}", "replaces": replaces,
+            "source": f"uniter_tpu_torch/csrc/{src}", "kernel": kern,
+            "replaces": replaces,
             "launches": train["launches"][name], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib})
+            "ms": t["bwd" if bwd else "fwd"],
+            "plain_ms": t[0.0]["bwd_plain" if bwd else "fwd_plain"],
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": t["sdpa_bwd" if bwd else "sdpa_fwd"]})
     for name, line, rows in (("drop_res_ln_fwd", 64, 9984),
                              ("drop_res_ln_bwd", 71, 9984),
                              ("ln_drop_fwd", 200, 6144),
@@ -2626,7 +2775,8 @@ def main():
           f"{serve_itm['float32']['launches']['ffn_fwd']} per fp32 scoring "
           f"pass, the retrieval CLI {itm_cli_counts}")
     print(f"[smoke] kernels line: times bf16 rate 0 at (96, 104, 12, 64) "
-          f"for K1/K2 (library: scaled_dot_product_attention), at (9984, "
+          f"for K1/K2 (the tensor-core kernels; medians of {TIME_TURNS} "
+          f"turns; library: scaled_dot_product_attention), at (9984, "
           f"768) for K3/K4 and K8 and (6144, 768) for K5/K6 (library: "
           f"F.layer_norm, after an add for K3/K4), fp32 at (48, 64, 160) for "
           f"K7 (no library call computes it); launches of K1-K6 from the "
@@ -2637,7 +2787,10 @@ def main():
           f"29); the default serving path launched K1 {launches} times and "
           f"nothing else; NLVR2 launches {nlvr2['launches']} over "
           f"{nlvr2['steps']} steps; the pretraining CLI {cli_counts}; "
-          f"max_abs_err the worst fp32 difference from the plain version")
+          f"max_abs_err of K1/K2 the worst bf16 difference from the plain "
+          f"version over the training shapes, of K3-K9 the worst fp32 "
+          f"difference; K1 and K2 in fp32 run the SIMT kernels, timed in "
+          f"the [K2] lines")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

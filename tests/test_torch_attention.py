@@ -215,3 +215,137 @@ class _PlainPair(torch.autograd.Function):
         q, k, v, bias = ctx.saved_tensors
         return (*port._mha_bwd_torch(q, k, v, bias, g, ctx.rate, ctx.seed),
                 None, None, None)
+
+
+@pytest.mark.parametrize("s", [13, 104])
+def test_mha_lse_matches_jax_logsumexp(s):
+    """``_mha_torch(return_lse=True)``'s LSE (what the bf16 K1 writes and K2
+    reads) against ``jax.nn.logsumexp`` of the JAX package's scaled, biased
+    scores (``_mha_xla``'s), rows 0 and 1 all padding: 1e-5 + 2**-20 |ref|
+    (all-padding rows sit near -10000, where the fp32 grid is 2**-10 and
+    two correct sums may land one step apart); ``mha_fwd(lse=...)`` fills
+    the buffer with the same values on the CPU."""
+    import jax
+
+    q, k, v, bias = _inputs(4, s, 3, 8, seed=s)
+    scores = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), jnp.asarray(k),
+                        preferred_element_type=jnp.float32)
+    scores = scores / jnp.sqrt(jnp.float32(8)) + jnp.asarray(bias)[:, None,
+                                                                   None, :]
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1))
+    tq, tk, tv, tb = (torch.from_numpy(a) for a in (q, k, v, bias))
+    out, lse = port._mha_torch(tq, tk, tv, tb, return_lse=True)
+    assert lse.shape == (4, 3, s) and lse.dtype == torch.float32
+    assert np.isfinite(lse.numpy()).all()
+    assert (np.abs(lse.numpy() - want) <= 1e-5 + 2.0**-20 * np.abs(want)).all()
+    buf = torch.empty(4, 3, s)
+    torch.testing.assert_close(port.mha_fwd(tq, tk, tv, tb, lse=buf), out,
+                               atol=0, rtol=0)
+    torch.testing.assert_close(buf, lse, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("s", [13, 70, 130])
+def test_mha_bwd_lse_formula_matches_reference(s, rate):
+    """``_mha_bwd_lse_torch`` (the one-pass formula of the bf16 K2: P from
+    the forward's LSE, Di = rowsum(g * out)) equals ``_mha_bwd_torch`` (the
+    JAX kernel's formula) in float64 within 1e-12, with an all-padding row
+    (zero query) and padded keys, at rates 0 and 0.1 (same mask); the CPU
+    wrapper takes it when given out and lse."""
+    q, k, v, bias, g = (torch.from_numpy(a.astype(np.float64))
+                        for a in _bwd_inputs(3, s, 2, 8, seed=s))
+    out, lse = port._mha_torch(q, k, v, bias, rate, 5, return_lse=True)
+    got = port._mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate, 5)
+    want = port._mha_bwd_torch(q, k, v, bias, g, rate, 5)
+    for x, ref in zip(got, want):
+        assert x.dtype == torch.float64 and x.is_contiguous()
+        assert (x - ref).abs().max().item() <= 1e-12
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+    b32 = bias.float()
+    out32, lse32 = port._mha_torch(q32, k32, v32, b32, rate, 5,
+                                   return_lse=True)
+    for x, ref in zip(port.mha_bwd(q32, k32, v32, b32, g32, rate, 5,
+                                   out=out32, lse=lse32),
+                      port._mha_bwd_lse_torch(q32, k32, v32, b32, g32,
+                                              out32, lse32, rate, 5)):
+        torch.testing.assert_close(x, ref, atol=0, rtol=0)
+
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)
+                            ).bfloat16().float().numpy()
+
+
+def _tensor_core_products(a, b):
+    """a @ b as the tensor cores form it from bf16 operands: exact products,
+    fp32 sums of at most 64 terms, the partials added in fp32."""
+    out = np.zeros(a.shape[:-1] + (b.shape[-1],), np.float32)
+    for k0 in range(0, a.shape[-1], 64):
+        out += np.matmul(a[..., k0:k0 + 64], b[..., k0:k0 + 64, :])
+    return out
+
+
+def test_hi_lo_split_sits_inside_the_bf16_tolerance():
+    """The numerics decision of the bf16 K2, made before the card: P_d and
+    dS are fp32, and the tensor cores take bf16, so each goes in as
+    hi = bf16(x) plus lo = bf16(x - hi), two products. Emulated in numpy at
+    (B, S, H, D) = (8, 104, 2, 64) with bf16 q, k, v, g and padded keys,
+    dV = P^T g, dQ = dS K and dK = dS^T Q through the split stay >= 10x
+    inside K2's tolerance 1e-3 + 2**-8 |ref| of the exact float64 product;
+    one bf16 rounding of P and dS (FlashAttention's way) would not fit in
+    it at all."""
+    b, s, h, d = 8, 104, 2, 64
+    rng = np.random.RandomState(0)
+    q, k, v, g = (_bf16(rng.randn(b, h, s, d)) for _ in range(4))
+    lens = rng.randint(1, s + 1, size=b)
+    bias = ((np.arange(s)[None, :] >= lens[:, None]) * -10000.0
+            ).astype(np.float32)
+    scores = np.einsum("bhqd,bhkd->bhqk", q, k) / np.float32(8.0) \
+        + bias[:, None, None, :]
+    p = np.exp(scores - scores.max(-1, keepdims=True))
+    p = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+    dp = np.einsum("bhqd,bhkd->bhqk", g, v).astype(np.float32)
+    ds = (p * (dp - (dp * p).sum(-1, keepdims=True)) / 8.0).astype(np.float32)
+    for a, rhs in ((p.swapaxes(-1, -2), g), (ds, k), (ds.swapaxes(-1, -2), q)):
+        exact = np.matmul(a.astype(np.float64), rhs.astype(np.float64))
+        tol = 1e-3 + 2.0**-8 * np.abs(exact)
+        hi = _bf16(a)
+        split = (_tensor_core_products(hi, rhs)
+                 + _tensor_core_products(_bf16(a - hi), rhs))
+        assert (np.abs(split - exact) / tol).max() <= 0.1
+        assert (np.abs(_tensor_core_products(hi, rhs) - exact) / tol
+                ).max() > 1.0
+
+
+def test_mha_function_bf16_saves_out_and_lse():
+    """In bf16 ``MhaFunction`` saves the output, its bf16 remainder and the
+    fp32 LSE besides q, k, v and bias, and its backward is
+    ``_mha_bwd_lse_torch`` on them (out + out_lo, the fp32 output); fp32
+    saves q, k, v and bias only (the fp32 K2 recomputes the statistics).
+    The bf16 gradients agree with the JAX kernel's formula
+    (``_mha_bwd_torch``) in fp32 on the same bf16 inputs to K2's tolerance
+    2**-8 |ref| + 1e-3 (one rounding of each gradient), since Di comes from
+    the fp32 output; from the bf16 output alone they would not."""
+    q, k, v, bias, g = _bwd_inputs(3, 24, 4, 8, seed=2)
+    tq, tk, tv, tg = (torch.from_numpy(a).bfloat16() for a in (q, k, v, g))
+    tb = torch.from_numpy(bias)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = port.MhaFunction.apply(*leaves, tb, 0.1, 7)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 7 and saved[5].dtype == torch.float32
+    assert saved[5].shape == (3, 4, 24) and saved[6].dtype == torch.bfloat16
+    out.backward(tg)
+    full = saved[4].float() + saved[6].float()  # the fp32 output to 2**-16
+    torch.testing.assert_close(full, port._mha_torch(
+        *(t.float() for t in (tq, tk, tv)), tb, 0.1, 7),
+        atol=2.0**-15 * full.abs().max().item(), rtol=0)
+    want = port._mha_bwd_lse_torch(tq, tk, tv, tb, tg, full, saved[5], 0.1, 7)
+    ref = port._mha_bwd_torch(*(t.float() for t in (tq, tk, tv)), tb,
+                              tg.float(), 0.1, 7)
+    for leaf, w, r in zip(leaves, want, ref):
+        torch.testing.assert_close(leaf.grad, w, atol=0, rtol=0)
+        assert ((leaf.grad.float() - r).abs() <= 2.0**-8 * r.abs() + 1e-3
+                ).all()
+    f32 = port.MhaFunction.apply(*(torch.from_numpy(a).requires_grad_()
+                                   for a in (q, k, v)), tb, 0.1, 7)
+    assert len(f32.grad_fn.saved_tensors) == 4

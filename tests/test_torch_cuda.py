@@ -7,16 +7,22 @@ machine without jax:
 (``--noconftest``: tests/conftest.py configures jax for the CPU suite.)
 
 K1 (``csrc/mha_fwd.cu``) is held against its plain version at the main
-path's attention shape, fp32 to 1e-5 and bf16 (against fp32 on the same
-bf16 inputs) to 1e-2, at dropout rate 0 and 0.1 (same seed, so the same
-Philox mask); at rate 0.1 the bf16 bound adds half a bf16 step of the
-value; rows whose keys are all padding as
-tests/test_torch_attention.py explains. K2 (``csrc/mha_bwd.cu``) is held
-against the explicit formula ``_mha_bwd_torch``: fp32 to 1e-4 (another
-summation order over S and D), bf16 against the fp32 formula on the same
-bf16 inputs to 2**-8 * |ref| + 1e-3 (one rounding of the result to bf16,
-half a step, plus fp32 noise). A small VQA model answers the same through
-the kernels and through the plain attention, and trains the same.
+path's attention shape, fp32 (the SIMT kernel) to 1e-5 and bf16 (the
+tensor-core kernel, against fp32 on the same bf16 inputs) to 1e-2, at
+dropout rate 0 and 0.1 (same seed, so the same Philox mask); at rate 0.1 the
+bf16 bound adds half a bf16 step of the value; rows whose keys are all
+padding as tests/test_torch_attention.py explains; its LSE to 1e-5 +
+2**-20 |ref| (the fp32 grid near -10000). K2 (``csrc/mha_bwd.cu``): fp32
+(the SIMT passes) against the explicit formula ``_mha_bwd_torch`` to 1e-4
+(another summation order over S and D); bf16 (the one-pass tensor-core
+kernel, from K1's out, output remainder and LSE) against
+``_mha_bwd_lse_torch`` in fp32 on the same bf16 inputs, out and LSE, and
+against ``_mha_bwd_torch``, to 2**-8 * |ref| + 1e-3 (one rounding of the
+result to bf16, half a step, plus the hi/lo split's ~2**-16 and fp32
+noise), at the training shapes, with bitwise replay, fused-QKV strided
+views and the refusal of a misaligned view. A small VQA model answers the
+same through the kernels and through the plain attention, and trains the
+same.
 
 K3-K6 (``csrc/fused_tail.cu``) are held against their plain versions in
 ``ops/fused_block.py`` at rates 0 and 0.1 (same seed, so the same Philox
@@ -52,7 +58,8 @@ from uniter_tpu_torch.ops import fused_block as fb
 from uniter_tpu_torch.ops import layer_norm as ln
 from uniter_tpu_torch.ops import ot
 from uniter_tpu_torch.ops.attention import (
-    MhaFunction, _mha_bwd_torch, _mha_torch, mha_bwd, mha_fwd)
+    MhaFunction, _mha_bwd_lse_torch, _mha_bwd_torch, _mha_torch, mha_bwd,
+    mha_fwd)
 
 torch.set_num_threads(2)
 
@@ -87,11 +94,16 @@ def _inputs(gen, b, s, h, d, dtype):
 def test_mha_kernel_matches_plain(gen, dtype, tol, b, s, rate):
     q, k, v, bias = _inputs(gen, b, s, 12, 64, dtype)
     before = mha_fwd.launches
-    out = mha_fwd(q, k, v, bias, rate, 1234)
+    lse = torch.empty(b, 12, s, device="cuda") \
+        if dtype == torch.bfloat16 else None
+    out = mha_fwd(q, k, v, bias, rate, 1234, lse=lse)
     torch.cuda.synchronize()
     assert mha_fwd.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    ref = _mha_torch(q.float(), k.float(), v.float(), bias, rate, 1234)
+    ref, ref_lse = _mha_torch(q.float(), k.float(), v.float(), bias, rate,
+                              1234, return_lse=True)
+    if lse is not None:
+        assert ((lse - ref_lse).abs() <= 1e-5 + 2.0**-20 * ref_lse.abs()).all()
     diff = (out.float() - ref).abs()
     if dtype == torch.bfloat16 and rate:
         # half a bf16 step at |ref| (the rescale by 1/(1-rate) lifts |out|
@@ -172,22 +184,119 @@ def _bwd_inputs(gen, b, s, h, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,d", [(96, 104, 12, 64), (8, 512, 12, 64),
                                      (3, 13, 12, 64), (4, 70, 4, 128),
-                                     (2, 33, 3, 8)])
+                                     (2, 33, 3, 8), (48, 224, 12, 64),
+                                     (120, 128, 12, 64), (64, 172, 12, 64),
+                                     (96, 104, 16, 64), (2, 512, 2, 128)])
 def test_mha_bwd_kernel_matches_plain(gen, dtype, rate, b, s, h, d):
+    """fp32: the SIMT passes against ``_mha_bwd_torch``. bf16: the one-pass
+    tensor-core kernel from K1's out, out_lo and LSE against
+    ``_mha_bwd_lse_torch`` on the same inputs and against the JAX kernel's
+    formula ``_mha_bwd_torch`` ((2, 512, 2, 128) keeps dQ in device memory:
+    it does not fit in shared memory)."""
     q, k, v, bias, g = _bwd_inputs(gen, b, s, h, d, dtype)
+    extra = {}
+    if dtype == torch.bfloat16:
+        lse, lo = torch.empty(b, h, s, device="cuda"), torch.empty_like(q)
+        extra = {"out": mha_fwd(q, k, v, bias, rate, 77, lse=lse, out_lo=lo),
+                 "lse": lse, "out_lo": lo}
     before = mha_bwd.launches
-    got = mha_bwd(q, k, v, bias, g, rate, 77)
+    got = mha_bwd(q, k, v, bias, g, rate, 77, **extra)
     torch.cuda.synchronize()
     assert mha_bwd.launches == before + 1
-    want = _mha_bwd_torch(q.float(), k.float(), v.float(), bias, g.float(),
-                          rate, 77)
-    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    if dtype == torch.float32:
+        want = _mha_bwd_torch(qf, kf, vf, bias, gf, rate, 77)
+    else:
+        want = _mha_bwd_lse_torch(
+            qf, kf, vf, bias, gf, extra["out"].float() + lo.float(), lse,
+            rate, 77)
+        jax_formula = _mha_bwd_torch(qf, kf, vf, bias, gf, rate, 77)
+    for i, (name, x, ref) in enumerate(zip(("dq", "dk", "dv"), got, want)):
         assert x.dtype == dtype and x.shape == q.shape and x.is_contiguous()
         diff = (x.float() - ref).abs()
         if dtype == torch.float32:
             assert diff.max().item() <= 1e-4, name
         else:
             assert (diff <= 2.0**-8 * ref.abs() + 1e-3).all(), name
+            ref = jax_formula[i]
+            assert ((x.float() - ref).abs() <= 2.0**-8 * ref.abs() + 1e-3
+                    ).all(), name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,s,h,d", [(96, 104, 12, 64), (48, 224, 12, 64),
+                                     (120, 128, 12, 64), (64, 172, 12, 64),
+                                     (8, 512, 12, 64), (96, 104, 16, 64),
+                                     (4, 70, 4, 128), (2, 33, 3, 8)])
+def test_mha_tc_forward_matches_plain(gen, rate, b, s, h, d):
+    """The bf16 K1 at the training shapes against ``_mha_torch`` in fp32 on
+    the same inputs: the output to 1e-2 + 2**-8 |ref|, the LSE to 1e-5 +
+    2**-20 |ref|, and out + out_lo (the fp32 output the backward's Di reads)
+    to 2**-14 max|ref| + 1e-5."""
+    q, k, v, bias, _ = _bwd_inputs(gen, b, s, h, d, torch.bfloat16)
+    lse, lo = torch.empty(b, h, s, device="cuda"), torch.empty_like(q)
+    out = mha_fwd(q, k, v, bias, rate, 31, lse=lse, out_lo=lo)
+    ref, ref_lse = _mha_torch(q.float(), k.float(), v.float(), bias, rate,
+                              31, return_lse=True)
+    assert ((out.float() - ref).abs() <= 2.0**-8 * ref.abs() + 1e-2).all()
+    assert ((lse - ref_lse).abs() <= 1e-5 + 2.0**-20 * ref_lse.abs()).all()
+    full = out.float() + lo.float()
+    assert (full - ref).abs().max().item() <= \
+        2.0**-14 * ref.abs().max().item() + 1e-5
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_mha_tc_kernels_replay_bitwise(gen, rate):
+    """The bf16 K1 (out, out_lo and LSE) and K2 repeat bit for bit: no
+    atomics, no sums across blocks."""
+    q, k, v, bias, g = _bwd_inputs(gen, 48, 224, 12, 64, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        lse, lo = torch.empty(48, 12, 224, device="cuda"), torch.empty_like(q)
+        out = mha_fwd(q, k, v, bias, rate, 5, lse=lse, out_lo=lo)
+        runs.append((out, lse, lo, *mha_bwd(q, k, v, bias, g, rate, 5,
+                                            out=out, lse=lse, out_lo=lo)))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+def test_mha_tc_kernels_read_fused_qkv_views(gen):
+    """fused_qkv's bf16 q/k/v are strided views of one projection (row
+    stride 3 * 768): K1 and K2 read them as they are and give what they
+    give on contiguous copies, bit for bit."""
+    qkv = torch.randn(4, 40, 3 * 768, generator=gen, device="cuda").bfloat16()
+    q, k, v = (qkv[..., i * 768:(i + 1) * 768].view(4, 40, 12, 64)
+               for i in range(3))
+    assert not q.is_contiguous()
+    bias = torch.zeros(4, 40, device="cuda")
+    bias[1, 30:] = -10000.0
+    g = torch.randn(4, 40, 12, 64, generator=gen, device="cuda").bfloat16()
+    res = []
+    for args in ((q, k, v), tuple(t.contiguous() for t in (q, k, v))):
+        lse, lo = torch.empty(4, 12, 40, device="cuda"), torch.empty_like(g)
+        out = mha_fwd(*args, bias, 0.1, 3, lse=lse, out_lo=lo)
+        res.append((out, lse, lo, *mha_bwd(*args, bias, g, 0.1, 3, out=out,
+                                           lse=lse, out_lo=lo)))
+    for x, y in zip(*res):
+        assert torch.equal(x, y)
+
+
+def test_mha_tc_kernels_refuse_misaligned_views(gen):
+    """cp.async stages 16 bytes: a bf16 view whose base or row stride is not
+    a multiple of 8 elements is refused, with no fallback; the bf16 K2
+    needs the forward's out, LSE and output remainder."""
+    buf = torch.randn(2, 16, 4 * 64 + 4, generator=gen,
+                      device="cuda").bfloat16()
+    q = buf[..., 4:].view(2, 16, 4, 64)  # base 8 bytes off
+    k = v = buf[..., :256].view(2, 16, 4, 64)  # row stride 260 elements
+    bias = torch.zeros(2, 16, device="cuda")
+    for args in ((q, q.contiguous(), q.contiguous()),
+                 (k, k.contiguous(), v.contiguous())):
+        with pytest.raises(ValueError):
+            mha_fwd(*args, bias)
+    c = q.contiguous()
+    with pytest.raises(ValueError):
+        mha_bwd(c, c, c, bias, c)
 
 
 def test_mha_function_grads_through_strided_views(gen):

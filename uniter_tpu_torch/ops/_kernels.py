@@ -34,11 +34,12 @@ _U, _UL = ctypes.c_uint, ctypes.c_ulonglong
 # seed, eps, dtype, stream
 _TAIL = [_L, _I, _U, _F, _UL, _F, _I, _P]
 SIGNATURES = {
-    # q k v bias out, B S H D, q/k/v strides, sm_scale, dropout threshold,
-    # 1/(1-rate), seed, dtype, stream
-    "mha_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _U, _F, _UL, _I, _P],
-    # q k v g bias dq dk dv stats, B S H D, q/k/v/g strides, then as mha_fwd
-    "mha_bwd": [_P] * 9 + [_I] * 4 + [_L] * 12 + [_F, _U, _F, _UL, _I, _P],
+    # q k v bias out out_lo lse, B S H D, q/k/v strides, sm_scale, dropout
+    # threshold, 1/(1-rate), seed, dtype, stream
+    "mha_fwd": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_F, _U, _F, _UL, _I, _P],
+    # q k v g bias out out_lo lse dq dk dv scratch, B S H D, q/k/v/g
+    # strides, then as mha_fwd
+    "mha_bwd": [_P] * 12 + [_I] * 4 + [_L] * 12 + [_F, _U, _F, _UL, _I, _P],
     # x res w b y
     "drop_res_ln_fwd": [_P] * 5 + _TAIL,
     # x res w g dx dres part dwdb
