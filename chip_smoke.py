@@ -2,7 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (``uniter_tpu_torch``) on one NVIDIA
 card: the quickest proof that the port builds and runs on the GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, as below
+    python3 chip_smoke.py tails train  # device, build, then these alone
+
+A small kernel is timed two ways: its device time (``graph_ms``: 50 calls
+captured in one CUDA graph, the graph replayed between CUDA events) and its
+call time (``cuda_ms``: 500 calls from Python between CUDA events). The
+first is what the card spends; the second adds the host's launch path
+(checks, allocation, the ctypes call) whenever the host is the slower.
 
 Phases, each printing its own lines:
 
@@ -32,9 +39,14 @@ Phases, each printing its own lines:
    in ``ops/fused_block.py`` at rates 0 and 0.1 (same seed), fp32 and bf16,
    at the sub-block tail (9984, 768), the text and image embedding tails
    (6144, 768) and (3840, 768), uniter-large (9984, 1024) and a ragged 91
-   rows; the keep fraction and the mask, bit for bit, through K3; times
-   of the kernels, their plain versions and ``F.layer_norm`` (a library
-   yardstick, never on a path).
+   rows, and a width that takes the 4-wide path in bf16 (33, 772); the
+   keep fraction and the mask, bit for bit, through K3; dw/db bit for bit
+   on replay and equal to the fixed-order sum of the kernel's own
+   per-block partials (``_sum_partials_torch``); device and call times of
+   K3/K4 at (9984, 768) and K5/K6 at (6144, 768) and (3840, 768), rates 0
+   and 0.1, in turns with ``F.layer_norm`` and its backward (a library
+   yardstick, never on a path); the plain versions' call times; the host
+   time of a launch, piece by piece (``launch_path``).
 6. serving path: uniter-base VQA inference (12 layers, 768 hidden, 12
    heads, 3129 answers; random weights from a seed in the JAX package's
    parameter layout, carried through the weight bridge) over in-memory
@@ -67,10 +79,11 @@ Phases, each printing its own lines:
    (T kept in device memory) and a ragged (5, 37, 23), random lengths, two
    all-padding examples, k = 1 and 2: the plan, the distance, exact zeros
    where the plan is masked, bitwise repeatability; times of both with
-   the two bounds.
+   the two bounds; the launch alone on prepared inputs, device and call
+   time.
 11. K8 (``uniter_layer_norm_fwd`` in ``csrc/fused_tail.cu``) against the
-   plain ``layer_norm`` at the tails' shapes, fp32 and bf16; times against
-   plain and ``F.layer_norm``.
+   plain ``layer_norm`` at the tails' shapes, fp32 and bf16; device and
+   call times in turns with ``F.layer_norm``, the plain call time.
 12. pretraining: ``UniterForPretraining`` at uniter-base on fixed batches
    at ``bench.py``'s pretrain-mix shape (B=48, 160 text + 64 image tokens,
    bf16, dropout 0.1, fused AdamW) under three policies in turns: plain,
@@ -118,6 +131,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -148,9 +162,15 @@ K2_TOL_BF16 = 1e-3
 TIME_TURNS = 3
 RATE = 0.1
 # (rows, H): the flagship sub-block tail B*S = 96*104, the text and image
-# embedding tails 96*64 and 96*40, uniter-large, a ragged row count
+# embedding tails 96*64 and 96*40, uniter-large, a ragged row count, a
+# width that bf16 rows cannot take 8 at a time (the kernels' 4-wide path)
 TAIL_SHAPES = [(9984, 768), (6144, 768), (3840, 768), (9984, 1024),
-               (91, 768)]
+               (91, 768), (33, 772)]
+# (rows, H) -> the tails timed there: K3/K4 at the sub-block tail, K5/K6
+# at the text and image embedding tails
+TAIL_TIMED = {(9984, 768): ("drop_res_ln_fwd", "drop_res_ln_bwd"),
+              (6144, 768): ("ln_drop_fwd", "ln_drop_bwd"),
+              (3840, 768): ("ln_drop_fwd", "ln_drop_bwd")}
 TAIL_FWD_TOL_FP32 = 1e-5
 TAIL_BWD_TOL_FP32 = 1e-4  # dx/dres, as K2's
 TAIL_DWDB_REL = 1e-4  # dw/db: sums over rows in another order, of max|ref|
@@ -213,6 +233,34 @@ def device_phase(torch):
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
 
+def ptxas_report(log):
+    """One line per kernel of ``nvcc -Xptxas -v``'s report: its name
+    (demangled by ``c++filt`` where the toolkit's host has it), registers,
+    barriers and shared memory, and its spills."""
+    entries, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m[1], ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            entries.append((name, line.split(":", 1)[-1].strip(), spill))
+            name = None
+    names = [e[0] for e in entries]
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "")
+                     .split("(")[0].removeprefix("void ")
+                     for n in out.stdout.splitlines()]
+    except OSError:
+        pass
+    return [f"{n}: {used}; {spill}" for n, (_, used, spill)
+            in zip(names, entries)]
+
+
 def build_phase():
     from uniter_tpu_torch.ops import _kernels
 
@@ -220,9 +268,8 @@ def build_phase():
     logs = _kernels.build(verbose=True)
     secs = time.perf_counter() - t0
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for line in ptxas_report(log):
+            print(f"[build] {name}: {line}")
     print(f"[build] sources {sorted(set(_kernels.SOURCES.values()))} "
           f"(kernels {sorted(_kernels.SIGNATURES)}) in {secs:.2f} s "
           f"({len(logs)} compiled)")
@@ -254,6 +301,49 @@ def cuda_ms(torch, fn, iters=50, warmup=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters=50, warmup=5, stream=None):
+    """Device time per call (ms): after ``warmup`` calls, ``iters`` calls of
+    ``fn`` captured into one CUDA graph, the graph replayed between CUDA
+    events, divided by ``iters``. The host's launch path (Python checks,
+    allocation, the ctypes call) runs once, at capture, and not in the
+    replay, so this is what the card spends; ``cuda_ms`` beside it is the
+    call time a step pays when the host is slower than the card. Inputs
+    stay the same across the calls, as in ``cuda_ms`` (an input under the
+    50 MB L2 may be served from it). ``stream``: the capture stream; an
+    autograd backward is captured on the stream its forward ran on."""
+    s = stream if stream is not None else torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        for _ in range(iters):
+            fn()
+    graph.replay()  # the first replay uploads the graph
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(s):
+        start.record()
+        graph.replay()
+        end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def both_ms(torch, fn, stream=None):
+    """(device ms, call ms) of ``fn``: ``graph_ms``, then ``cuda_ms`` over
+    500 calls (a host-paced time wanders between calls of 50)."""
+    dev = graph_ms(torch, fn, stream=stream)
+    if stream is None:
+        return dev, cuda_ms(torch, fn, 500, 50)
+    with torch.cuda.stream(stream):
+        return dev, cuda_ms(torch, fn, 500, 50)
 
 
 def k1_phase(torch):
@@ -628,6 +718,62 @@ def tail_errors(torch, fb, x, res, w, b, g, rate, seed):
     return out
 
 
+def tail_tree(torch, fb, x, res, w, g, rate):
+    """K4's and K6's dw/db against ``_sum_partials_torch`` (the kernels'
+    fixed-order sum, in torch) of their own per-block partials, and
+    against a second launch. Returns {kernel: (equal to the torch sum,
+    equal on replay, blocks)}."""
+    out = {}
+    for name, r in (("drop_res_ln_bwd", res), ("ln_drop_bwd", None)):
+        _, _, part, dwdb = fb._tail_bwd(x, r, w, g, rate, 31, 1e-12)
+        again = fb._tail_bwd(x, r, w, g, rate, 31, 1e-12)[3]
+        out[name] = (torch.equal(dwdb, fb._sum_partials_torch(part)),
+                     torch.equal(dwdb, again), part.shape[1])
+    return out
+
+
+def launch_path(torch, fb):
+    """Host time of a launch, us per call (the host clock over 2,000 calls
+    after 200, the card synchronised every 100): the K5 wrapper and
+    ``F.layer_norm`` at (8, 768) bf16, where the card is faster than the
+    host, and the wrapper's parts."""
+    import torch.nn.functional as F
+
+    x = torch.randn(8, 768, device="cuda").bfloat16()
+    w, b = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    wl, bl = w.bfloat16(), b.bfloat16()
+    dev = x.device
+    grid = fb._entry("tail_bwd_grid")
+
+    def host_us(fn, n=2000):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn()
+            if i % 100 == 99:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    parts = {
+        "K5 wrapper": lambda: fb.ln_drop_fwd(x, w, b),
+        "F.layer_norm": lambda: F.layer_norm(x, (768,), wl, bl, 1e-12),
+        "short check": lambda: fb._launchable((x,), (w, b), 0.0, 5),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw current stream":
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "a 5-argument ctypes call": lambda: grid(8, 768, 1, 0, dev.index)}
+    us = {k: host_us(f) for k, f in parts.items()}
+    print("[K3-K6] host time of a launch, us a call (host clock, 2,000 calls "
+          "at (8, 768) bf16): " + "; ".join(f"{k} {v:.2f}"
+                                            for k, v in us.items()))
+    return us
+
+
 def tail_phase(torch):
     """K3-K6 against their plain versions at TAIL_SHAPES, fp32 and bf16,
     rates 0 and RATE; the mask and keep fraction through K3; times.
@@ -663,12 +809,22 @@ def tail_phase(torch):
                       f"{TAIL_DWDB_REL:g}) {'ok' if ok else 'FAIL'}")
                 check(ok, f"K3-K6 disagree with their plain versions at "
                       f"{(rows, h)} {dname} rate {rate}")
+                tree = tail_tree(torch, fb, x, res, w, g, rate)
+                print(f"[K3-K6] ({rows}, {h}) {dname} rate {rate}: dw/db "
+                      f"equal to _sum_partials_torch of the kernel's own "
+                      f"block partials, bit for bit: " + ", ".join(
+                          f"{n} {v[0]} ({v[2]} blocks)"
+                          for n, v in tree.items())
+                      + "; equal on replay: " + ", ".join(
+                          f"{n} {v[1]}" for n, v in tree.items()))
+                check(all(v[0] and v[1] for v in tree.values()),
+                      f"K4/K6 dw/db: fixed-order sum or replay at "
+                      f"{(rows, h)} {dname} rate {rate}")
                 if dname == "float32":  # all outputs, dw/db included
                     for n, v in e.items():
                         worst[n] = max(worst[n], v[0])
-            if (rows, h) in ((9984, 768), (6144, 768)):
-                timing.update(time_tails(torch, fb, x, res, w, b, g, rows, h,
-                                         dname))
+            if (rows, h) in TAIL_TIMED:
+                timing.update(time_tails(torch, fb, x, res, w, b, g, dname))
     # the mask through K3, bit for bit, and its keep fraction: x = 1, res =
     # 0, w = 1, b = 0 make LN(dropout(x)) positive exactly where x was kept
     rows, h = TAIL_SHAPES[0]
@@ -685,65 +841,78 @@ def tail_phase(torch):
           f"{4 * sigma:.1e}); mask equal to keep_mask bit for bit: {same}")
     check(same, "K3's mask differs from ops.dropout.keep_mask")
     check(abs(frac - (1 - RATE)) <= 4 * sigma, "keep fraction through K3")
+    timing["launch_path"] = launch_path(torch, fb)
     return worst, timing
 
 
-def time_tails(torch, fb, x, res, w, b, g, rows, h, dname):
-    """CUDA-event times (ms per call, 50 calls; turns plain, kernel, kernel,
-    plain) of K3/K4 (at the sub-block tail) or K5/K6 (at the text embedding
-    tail) at rates 0 and RATE, and the library yardstick at rate 0:
-    ``F.layer_norm(x + res)`` (two calls: the add, then the LayerNorm) for
-    K3, its backward on a retained graph for K4; ``F.layer_norm`` and its
-    backward for K5/K6."""
+def time_tails(torch, fb, x, res, w, b, g, dname):
+    """Device and call times (``both_ms``, ms per call) of K3/K4 at the
+    sub-block tail or K5/K6 at an embedding tail (``TAIL_TIMED``), rates 0
+    and RATE, each in turns kernel, library, library, kernel; the plain
+    versions' call times before and after. Library (a yardstick, never on
+    a path), in x's dtype: ``F.layer_norm(x + res)`` (two calls: the add,
+    then the LayerNorm) for K3 and its autograd backward for K4;
+    ``F.layer_norm`` and its backward for K5/K6. Returns {(name, dname,
+    rows, rate): {"dev", "call", "lib_dev", "lib_call", "plain"}}."""
     import torch.nn.functional as F
 
-    sub = (rows, h) == (9984, 768)
-    pairs = ((("drop_res_ln_fwd", lambda r: fb.drop_res_ln_fwd(
-                  x, res, w, b, r, 5),
-               lambda r: fb._drop_res_ln_torch(x, res, w, b, r, 5)),
-              ("drop_res_ln_bwd", lambda r: fb.drop_res_ln_bwd(
-                  x, res, w, g, r, 5),
-               lambda r: fb._drop_res_ln_bwd_torch(x, res, w, g, r, 5)))
-             if sub else
-             (("ln_drop_fwd", lambda r: fb.ln_drop_fwd(x, w, b, r, 5),
-               lambda r: fb._ln_drop_torch(x, w, b, r, 5)),
-              ("ln_drop_bwd", lambda r: fb.ln_drop_bwd(x, w, g, r, 5),
-               lambda r: fb._ln_drop_bwd_torch(x, w, g, r, 5))))
-    out = {}
-    for name, kern, plain in pairs:
-        for rate in (0.0, RATE):
-            t = [cuda_ms(torch, lambda: plain(rate)),
-                 cuda_ms(torch, lambda: kern(rate)),
-                 cuda_ms(torch, lambda: kern(rate)),
-                 cuda_ms(torch, lambda: plain(rate))]
-            out[(name, dname, rate)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    rows, h = x.shape
+    fname, bname = TAIL_TIMED[(rows, h)]
+    sub = fname == "drop_res_ln_fwd"
+    if sub:
+        kern = {fname: lambda r: fb.drop_res_ln_fwd(x, res, w, b, r, 5),
+                bname: lambda r: fb.drop_res_ln_bwd(x, res, w, g, r, 5)}
+        plain = {fname: lambda r: fb._drop_res_ln_torch(x, res, w, b, r, 5),
+                 bname: lambda r: fb._drop_res_ln_bwd_torch(x, res, w, g, r,
+                                                            5)}
+    else:
+        kern = {fname: lambda r: fb.ln_drop_fwd(x, w, b, r, 5),
+                bname: lambda r: fb.ln_drop_bwd(x, w, g, r, 5)}
+        plain = {fname: lambda r: fb._ln_drop_torch(x, w, b, r, 5),
+                 bname: lambda r: fb._ln_drop_bwd_torch(x, w, g, r, 5)}
     xr = x.detach().clone().requires_grad_()
     rr = res.detach().clone().requires_grad_()
     wl = w.to(x.dtype).detach().requires_grad_()
     bl = b.to(x.dtype).detach().requires_grad_()
-    with torch.no_grad():
-        if sub:
-            fwd = cuda_ms(torch, lambda: F.layer_norm(x + res, (h,), wl, bl,
-                                                      1e-12))
-        else:
-            fwd = cuda_ms(torch, lambda: F.layer_norm(x, (h,), wl, bl, 1e-12))
-    y = F.layer_norm(xr + rr if sub else xr, (h,), wl, bl, 1e-12)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.layer_norm(x + res if sub else x, (h,), wl, bl, 1e-12)
+
+    s = torch.cuda.Stream()  # the backward's forward, and so its capture
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        y = F.layer_norm(xr + rr if sub else xr, (h,), wl, bl, 1e-12)
     ins = (xr, rr, wl, bl) if sub else (xr, wl, bl)
-    bwd = cuda_ms(torch, lambda: torch.autograd.grad(y, ins, g,
-                                                     retain_graph=True))
-    (fname, _, _), (bname, _, _) = pairs
-    out[(fname, dname, "library")] = fwd
-    out[(bname, dname, "library")] = bwd
-    print(f"[K3-K6] times at ({rows}, {h}) {dname}, us per call (CUDA events "
-          f"over 50 calls; turns plain, kernel, kernel, plain):")
-    for name, _, _ in pairs:
+    lib = {fname: (lib_fwd, None),
+           bname: (lambda: torch.autograd.grad(y, ins, g, retain_graph=True),
+                   s)}
+    out = {}
+    print(f"[K3-K6] times at ({rows}, {h}) {dname}, us per call: device "
+          f"(50 calls in one CUDA graph, replayed) / call (500 calls from "
+          f"Python, CUDA events); turns kernel, library, library, kernel:")
+    for name in (fname, bname):
+        lfn, ls = lib[name]
         bound, by = tail_bound_ms(name, rows, h, dname)
-        print(f"[K3-K6]   {name}: " + "; ".join(
-            f"rate {r} kernel {out[(name, dname, r)][0] * 1e3:.1f} vs plain "
-            f"{out[(name, dname, r)][1] * 1e3:.1f}" for r in (0.0, RATE))
-            + f"; bound {bound * 1e3:.1f} ({by}); library "
-            f"{out[(name, dname, 'library')] * 1e3:.1f}"
-            f"{' (two calls: add + F.layer_norm)' if sub and 'fwd' in name else ''}")
+        for rate in (0.0, RATE):
+            p0 = cuda_ms(torch, lambda: plain[name](rate))
+            t = [both_ms(torch, lambda: kern[name](rate)),
+                 both_ms(torch, lfn, ls), both_ms(torch, lfn, ls),
+                 both_ms(torch, lambda: kern[name](rate))]
+            p1 = cuda_ms(torch, lambda: plain[name](rate))
+            r = {"dev": (t[0][0] + t[3][0]) / 2,
+                 "call": (t[0][1] + t[3][1]) / 2,
+                 "lib_dev": (t[1][0] + t[2][0]) / 2,
+                 "lib_call": (t[1][1] + t[2][1]) / 2, "plain": (p0 + p1) / 2}
+            out[(name, dname, rows, rate)] = r
+            print(f"[K3-K6]   {name} rate {rate}: kernel {r['dev'] * 1e3:.1f}"
+                  f" / {r['call'] * 1e3:.1f}; library {r['lib_dev'] * 1e3:.1f}"
+                  f" / {r['lib_call'] * 1e3:.1f}"
+                  f"{' (add + F.layer_norm)' if sub and name == fname else ''}"
+                  f"; turns " + ", ".join(f"{d * 1e3:.1f}/{c * 1e3:.1f}"
+                                          for d, c in t)
+                  + f"; plain call {r['plain'] * 1e3:.1f}; bound "
+                  f"{bound * 1e3:.1f} ({by})")
     return out
 
 
@@ -1010,6 +1179,9 @@ def profile_steps(torch, state, step, batch, n, tag, label="train"):
               "GEMM": share("gemm", "cutlass", "xmma", "sm90_", "nvjet"),
               "Philox bits": share("<long", "opaquetype<8u>")}
     groups["other"] = busy - sum(groups.values())
+    tails = [r for r in rows
+             if any(k in r[0] for k in ("tail_fwd", "tail_bwd",
+                                        "sum_partials"))]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"train_profile_{tag}.txt"), "w") as f:
         for name, ms, count in rows:
@@ -1022,6 +1194,10 @@ def profile_steps(torch, state, step, batch, n, tag, label="train"):
     for name, ms, count in rows[:12]:
         print(f"[{label}]   {ms:9.2f} ms {ms / busy * 100:5.1f}% x{count:<5d} "
               f"{name[:90]}")
+    if tails:
+        print(f"[{label}] fused tails by kernel, us a call: " + "; ".join(
+            f"{re.search(r'(tail_fwd|tail_bwd|sum_partials)(<[^>]*>)?', name)[0]}"
+            f" x{count} {ms / count * 1e3:.1f}" for name, ms, count in tails))
     return state, {"wall_ms": wall * 1e3, "busy_ms": busy, **groups}
 
 
@@ -1554,8 +1730,9 @@ def k7_phase(torch):
              cuda_ms(torch, lambda: ipot_cuda(*args, 0.5, 50, 1), 20, 3),
              cuda_ms(torch, lambda: ipot(*args, 0.5, 50, 1), 5, 1)]
         prep = [x.contiguous() for x in _ipot_inputs(*args, 0.5)[:6]]
-        alone = cuda_ms(torch, lambda: _ipot_launch(*prep, 50, 1), 20, 3)
-        timing[(b, n, m)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, alone)
+        alone_dev, alone = both_ms(torch, lambda: _ipot_launch(*prep, 50, 1))
+        timing[(b, n, m)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, alone,
+                             alone_dev)
         bound, by = ipot_bound_ms(b, n, m)
         print(f"[K7] time at B={b} N={n} M={m}, 50 steps, k=1, the wrapper "
               f"with its elementwise preparation: kernel "
@@ -1563,7 +1740,8 @@ def k7_phase(torch):
               f"{timing[(b, n, m)][1] * 1e3:.1f} us per call (CUDA events; "
               f"turns plain, kernel, kernel, plain: "
               f"{', '.join(f'{x * 1e3:.1f}' for x in t)}); the launch alone "
-              f"on prepared inputs {alone * 1e3:.1f} us; bound "
+              f"on prepared inputs: device {alone_dev * 1e3:.1f} us (CUDA "
+              f"graph), call {alone * 1e3:.1f} us; bound "
               f"{bound * 1e3:.2f} us ({by})")
     return worst, timing
 
@@ -1602,21 +1780,30 @@ def k8_phase(torch):
                 worst = max(worst, diff.max().item())
             if (rows, h) == TAIL_SHAPES[0]:
                 wl, bl = w.to(dtype), b.to(dtype)
-                t = [cuda_ms(torch, lambda: _layer_norm_torch(x, w, b)),
-                     cuda_ms(torch, lambda: layer_norm_fwd(x, w, b)),
-                     cuda_ms(torch, lambda: layer_norm_fwd(x, w, b)),
-                     cuda_ms(torch, lambda: _layer_norm_torch(x, w, b))]
-                lib = cuda_ms(torch, lambda: F.layer_norm(x, (h,), wl, bl,
-                                                          1e-12))
-                timing[dname] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, lib)
+                p0 = cuda_ms(torch, lambda: _layer_norm_torch(x, w, b))
+                t = [both_ms(torch, lambda: layer_norm_fwd(x, w, b)),
+                     both_ms(torch, lambda: F.layer_norm(x, (h,), wl, bl,
+                                                         1e-12)),
+                     both_ms(torch, lambda: F.layer_norm(x, (h,), wl, bl,
+                                                         1e-12)),
+                     both_ms(torch, lambda: layer_norm_fwd(x, w, b))]
+                p1 = cuda_ms(torch, lambda: _layer_norm_torch(x, w, b))
+                r = {"dev": (t[0][0] + t[3][0]) / 2,
+                     "call": (t[0][1] + t[3][1]) / 2,
+                     "lib_dev": (t[1][0] + t[2][0]) / 2,
+                     "lib_call": (t[1][1] + t[2][1]) / 2,
+                     "plain": (p0 + p1) / 2}
+                timing[dname] = r
                 bound = ((2 * rows * h * x.element_size() + 2 * h * 4)
                          / HBM_BYTES_PER_S * 1e3)
-                print(f"[K8] time at ({rows}, {h}) {dname}: kernel "
-                      f"{timing[dname][0] * 1e3:.1f} us, plain "
-                      f"{timing[dname][1] * 1e3:.1f} us, F.layer_norm "
-                      f"{lib * 1e3:.1f} us per call (CUDA events over 50 "
-                      f"calls; turns plain, kernel, kernel, plain: "
-                      f"{', '.join(f'{v * 1e3:.1f}' for v in t)}); bound "
+                print(f"[K8] time at ({rows}, {h}) {dname}, us per call, "
+                      f"device (CUDA graph) / call (CUDA events), turns "
+                      f"kernel, F.layer_norm, F.layer_norm, kernel: kernel "
+                      f"{r['dev'] * 1e3:.1f} / {r['call'] * 1e3:.1f}, "
+                      f"F.layer_norm {r['lib_dev'] * 1e3:.1f} / "
+                      f"{r['lib_call'] * 1e3:.1f} (turns "
+                      f"{', '.join(f'{d * 1e3:.1f}/{c * 1e3:.1f}' for d, c in t)}"
+                      f"); plain call {r['plain'] * 1e3:.1f}; bound "
                       f"{bound * 1e3:.1f} us (bytes)")
     return worst, timing
 
@@ -2665,9 +2852,17 @@ def itm_cli_phase(torch):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def main():
+def main(argv):
+    """No arguments: every phase, the kernels line and the last line. Phase
+    names (``PHASES``): the device and build phases, then those phases
+    alone, and no kernels line or last line."""
     import torch
 
+    unknown = [a for a in argv if a not in PHASES]
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}; choose from "
+              f"{sorted(PHASES)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -2679,6 +2874,10 @@ def main():
 
     device_phase(torch)
     build_phase()
+    if argv:
+        for name in argv:
+            PHASES[name](torch)
+        return 0
     sass_phase()
     k1_err, k1_time = k1_phase(torch)
     k2_err, k2_bf16, k2_time, _ = k2_phase(torch)
@@ -2729,15 +2928,16 @@ def main():
                              ("ln_drop_fwd", 200, 6144),
                              ("ln_drop_bwd", 210, 6144)):
         bound, by = tail_bound_ms(name, rows, 768, "bfloat16")
-        ms, plain = tail_time[(name, "bfloat16", 0.0)]
+        tt = tail_time[(name, "bfloat16", rows, 0.0)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "uniter_tpu_torch/csrc/fused_tail.cu",
             "replaces": f"uniter_tpu/ops/fused_block.py:{line}",
             "launches": train["launches"][name],
-            "max_abs_err": tail_err[name], "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": tail_time[(name, "bfloat16", "library")]})
+            "max_abs_err": tail_err[name], "ms": tt["call"],
+            "plain_ms": tt["plain"], "bound_ms": bound, "bound_by": by,
+            "library_ms": tt["lib_call"], "device_ms": tt["dev"],
+            "library_device_ms": tt["lib_dev"]})
     bound, by = ipot_bound_ms(*K7_SHAPES[0])
     kernels.append({
         "name": "ipot", "route": "cuda",
@@ -2746,16 +2946,20 @@ def main():
         "launches": sum(c["ipot"] for c in pre["launches"].values()),
         "max_abs_err": k7_err, "ms": k7_time[K7_SHAPES[0]][0],
         "plain_ms": k7_time[K7_SHAPES[0]][1], "bound_ms": bound,
-        "bound_by": by, "library_ms": None})
+        "bound_by": by, "library_ms": None,
+        "device_ms": k7_time[K7_SHAPES[0]][3], "library_device_ms": None})
     rows, h = TAIL_SHAPES[0]
     kernels.append({
         "name": "layer_norm_fwd", "route": "cuda",
         "source": "uniter_tpu_torch/csrc/fused_tail.cu",
         "replaces": "uniter_tpu/ops/layer_norm.py:38",
         "launches": ln_counts["layer_norm_fwd"], "max_abs_err": k8_err,
-        "ms": k8_time["bfloat16"][0], "plain_ms": k8_time["bfloat16"][1],
+        "ms": k8_time["bfloat16"]["call"],
+        "plain_ms": k8_time["bfloat16"]["plain"],
         "bound_ms": (2 * rows * h * 2 + 2 * h * 4) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": k8_time["bfloat16"][2]})
+        "bound_by": "bytes", "library_ms": k8_time["bfloat16"]["lib_call"],
+        "device_ms": k8_time["bfloat16"]["dev"],
+        "library_device_ms": k8_time["bfloat16"]["lib_dev"]})
     rows, h = K9_SHAPES[0]
     bound, by = ffn_bound_ms(rows, h, "bfloat16")
     kt = k9_time[(rows, h, "bfloat16")]
@@ -2790,7 +2994,11 @@ def main():
           f"max_abs_err of K1/K2 the worst bf16 difference from the plain "
           f"version over the training shapes, of K3-K9 the worst fp32 "
           f"difference; K1 and K2 in fp32 run the SIMT kernels, timed in "
-          f"the [K2] lines")
+          f"the [K2] lines; ms, plain_ms and library_ms are call times "
+          f"(calls from Python between CUDA events: 500 for K3-K6 and K8, "
+          f"50 for the plain versions; K7: its wrapper), device_ms and "
+          f"library_device_ms (K3-K8) device times (50 calls captured in "
+          f"one CUDA graph and replayed; K7: the launch alone)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2798,5 +3006,12 @@ def main():
     return 0
 
 
+# phases that run alone: ``python3 chip_smoke.py tails train``
+PHASES = {"k1": k1_phase, "k2": k2_phase, "tails": tail_phase,
+          "serve": main_path_phase, "train": train_phase, "nlvr2": nlvr2_phase,
+          "k7": k7_phase, "k8": k8_phase, "pretrain": pretrain_phase,
+          "k9": k9_phase, "itm": itm_train_phase}
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -28,9 +28,13 @@ K3-K6 (``csrc/fused_tail.cu``) are held against their plain versions in
 ``ops/fused_block.py`` at rates 0 and 0.1 (same seed, so the same Philox
 mask): fp32 forward to 1e-5; bf16 against the fp32 formula on the same bf16
 inputs to half a bf16 step of the value + 1e-3; dx/dres as K2's; dw/db
-(sums over rows in another order) to 1e-4 of their largest entry, and
-bitwise equal from run to run. A small VQA step through K1-K6 launches
-each fused tail once per tail and matches the plain tails.
+(sums over rows in another order) to 1e-4 of their largest entry, bitwise
+equal from run to run and to ``_sum_partials_torch`` of the kernels' own
+block partials; at the embedding tails' shapes and at a width bf16 rows
+take 4 at a time (772). The four wrappers captured in a CUDA graph replay
+their eager results bit for bit; every refusal of ``_check`` on the card
+is reached. A small VQA step through K1-K6 launches each fused tail once
+per tail and matches the plain tails.
 
 K7 (``csrc/ipot.cu``) is held against ``ops.ot.ipot`` at the pretraining
 shapes, in all three of its forms, with ragged and all-padding examples and
@@ -375,7 +379,8 @@ def _close(x, ref, dtype, fp32_tol):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,h", [(9984, 768), (91, 768), (9984, 1024),
-                                    (7, 64)])
+                                    (7, 64), (6144, 768), (3840, 768),
+                                    (33, 772)])
 def test_fused_tail_kernels_match_plain(gen, dtype, rate, rows, h):
     x, res, g = (torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
                  for _ in range(3))
@@ -407,6 +412,46 @@ def test_fused_tail_kernels_match_plain(gen, dtype, rate, rows, h):
             assert (x_ - ref).abs().max().item() <= 1e-4 * ref.abs().max()
     again = fb.drop_res_ln_bwd(x, res, w, g, rate, 21)
     assert torch.equal(again[2], bwd4[2]) and torch.equal(again[3], bwd4[3])
+    again = fb.ln_drop_bwd(x, w, g, rate, 21)
+    assert torch.equal(again[1], bwd6[1]) and torch.equal(again[2], bwd6[2])
+    # dw/db are the fixed-order sum of the kernels' own block partials
+    for r, want in ((res, bwd4), (None, bwd6)):
+        _, _, part, dwdb = fb._tail_bwd(x, r, w, g, rate, 21, 1e-12)
+        assert torch.equal(dwdb, fb._sum_partials_torch(part))
+        assert torch.equal(dwdb[0], want[-2]) and torch.equal(dwdb[1], want[-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_tails_replay_in_a_cuda_graph(gen, dtype):
+    """The four tail wrappers captured in one CUDA graph (the launches go
+    to the capture stream, the outputs come from the graph's pool): the
+    replay gives the eager results bit for bit."""
+    rows, h = 96 * 40, 768
+    x, res, g = (torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+                 for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+
+    def tails():
+        return (fb.drop_res_ln_fwd(x, res, w, b, 0.1, 9),
+                *fb.drop_res_ln_bwd(x, res, w, g, 0.1, 9),
+                fb.ln_drop_fwd(x, w, b, 0.1, 9),
+                *fb.ln_drop_bwd(x, w, g, 0.1, 9))
+
+    eager = tails()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        tails()
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tails()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert len(captured) == len(eager) == 9
+    for got, want in zip(captured, eager):
+        assert torch.equal(got, want)
 
 
 def test_fused_tails_refuse_on_the_card(gen):
@@ -418,6 +463,30 @@ def test_fused_tails_refuse_on_the_card(gen):
     w, b = torch.ones(8, device="cuda"), torch.zeros(8, device="cuda")
     with pytest.raises(ValueError):  # not contiguous
         fb.ln_drop_fwd(x, w, b)
+    x = torch.randn(4, 1028, device="cuda")
+    w, b = torch.ones(1028, device="cuda"), torch.zeros(1028, device="cuda")
+    with pytest.raises(ValueError):  # H > 1024
+        fb.drop_res_ln_fwd(x, x, w, b)
+    x = torch.randn(4 * 768 + 2, device="cuda")[2:].view(4, 768)
+    w, b = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    with pytest.raises(ValueError):  # 8 bytes off 16-byte alignment
+        fb.ln_drop_bwd(x, w, torch.ones_like(x))
+    x = torch.randn(4, 768, device="cuda")
+    with pytest.raises(ValueError):  # a weight view with a stride
+        fb.ln_drop_fwd(x, torch.ones(2 * 768, device="cuda")[::2], b)
+    with pytest.raises(ValueError):  # two devices
+        fb.drop_res_ln_bwd(x, x, w.cpu(), x)
+    with pytest.raises(TypeError):  # float16 activations
+        fb.ln_drop_fwd(x.half(), w, b)
+    with pytest.raises(TypeError):  # float64 on the card
+        fb.ln_drop_fwd(x.double(), w.double(), b.double())
+    with pytest.raises(TypeError):  # bf16 weights
+        fb.drop_res_ln_fwd(x.bfloat16(), x.bfloat16(), w.bfloat16(), b)
+    with pytest.raises(ValueError):  # rate
+        fb.drop_res_ln_fwd(x, x, w, b, 1.0, 3)
+    before = fb.ln_drop_fwd.launches
+    fb.ln_drop_fwd(x, w, b)  # what is right still launches
+    assert fb.ln_drop_fwd.launches == before + 1
 
 
 def test_vqa_train_step_through_fused_tails(gen):

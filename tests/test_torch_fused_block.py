@@ -15,6 +15,9 @@ JAX package, on the CPU.
   ``gradcheck`` passes through ``DropResLNFunction``/``LNDropFunction`` in
   float64.
 * The wrappers refuse what the kernels do not take.
+* ``_sum_partials_torch``, the backward kernels' fixed-order sum of their
+  per-block dw/db partials in torch, is within 1e-4 of the float64 sum and
+  takes the kernel's order, one fp32 addition at a time.
 * A tiny VQA model trained 3 steps at dropout 0.1 with ``block_fusion``
   forced to "cuda" (the Functions, with their plain bodies on the CPU)
   matches "none" (the trunk's plain composition) to fp32 rounding: the two
@@ -188,11 +191,64 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fb.ln_drop_fwd(x[:0], w, b)
     with pytest.raises(ValueError):
         fb.drop_res_ln(x, res, w, b, impl="pallas")
+    with pytest.raises(TypeError):  # float16 activations
+        fb.ln_drop_fwd(x.half(), w, b)
+    with pytest.raises(TypeError):  # float64 activations, float32 weights
+        fb.ln_drop_bwd(x.double(), w, x.double())
+    with pytest.raises(ValueError):  # a scalar
+        fb.ln_drop_fwd(x[0, 0], w, b)
+    with pytest.raises(ValueError):  # two devices
+        fb.ln_drop_fwd(x, w.to("meta"), b)
+    with pytest.raises(ValueError):  # neither cuda nor cpu
+        fb.drop_res_ln_bwd(*(t.to("meta") for t in (x, res, w, x)))
+    for t in (x, x.to("meta")):  # only a CUDA tensor takes the short check
+        assert not fb._launchable((t, t), (w.to(t.device),), 0.0, 0)
     # a CPU tensor takes the plain version and launches nothing
     before = fb.drop_res_ln_fwd.launches
     y = fb.drop_res_ln_fwd(x, res, w, b, 0.1, 3)
     assert fb.drop_res_ln_fwd.launches == before
     assert torch.equal(y, fb._drop_res_ln_torch(x, res, w, b, 0.1, 3))
+
+
+@pytest.mark.parametrize("n,h", [(1, 24), (7, 24), (16, 772), (132, 768),
+                                 (264, 768), (1056, 64)])
+def test_sum_partials_torch_matches_float64(n, h):
+    """The fixed-order fp32 sum of the backward kernels' per-block dw/db
+    partials against the float64 sum, within chip_smoke.py's TAIL_DWDB_REL
+    (1e-4 of the largest entry)."""
+    rng = np.random.RandomState(n + h)
+    part = rng.randn(2, n, h).astype(np.float32) * rng.uniform(
+        0.1, 10.0, (2, n, 1)).astype(np.float32)
+    got = fb._sum_partials_torch(torch.from_numpy(part))
+    want = part.astype(np.float64).sum(1)
+    assert got.dtype == torch.float32 and got.shape == (2, h)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def test_sum_partials_torch_takes_the_kernel_order():
+    """``_sum_partials_torch`` equals, bit for bit, the order written out
+    one fp32 addition at a time: slice j of SUM_SLICES adds blocks j, j +
+    SUM_SLICES, ... from 0, then the slices pairwise, (0+1), (2+3), ...,
+    down to one (``csrc/fused_tail.cu`` ``sum_partials``). Values of mixed
+    magnitude make another order show."""
+    rng = np.random.RandomState(11)
+    n, h, k = 37, 5, fb.SUM_SLICES
+    part = (rng.randn(2, n, h) * 10.0 ** rng.randint(-4, 5, (2, n, h))
+            ).astype(np.float32)
+    want = np.empty((2, h), np.float32)
+    for q in range(2):
+        for c in range(h):
+            s = [np.float32(0.0)] * k
+            for blk in range(n):
+                s[blk % k] = np.float32(s[blk % k] + part[q, blk, c])
+            while len(s) > 1:
+                s = [np.float32(s[2 * j] + s[2 * j + 1])
+                     for j in range(len(s) // 2)]
+            want[q, c] = s[0]
+    got = fb._sum_partials_torch(torch.from_numpy(part)).numpy()
+    assert np.array_equal(got, want)
+    assert not np.array_equal(got, part.sum(1, dtype=np.float32))
 
 
 def test_bf16_activations_take_fp32_arithmetic():

@@ -25,77 +25,106 @@
 // What bounds them on an H100: bytes. K3 reads x and res and writes y, about
 // 4 FLOP and a quarter of a Philox call per element: at (9984, 768) bf16 that
 // is 46.0 MB, 13.7 us at 3.35 TB/s. K4 reads x, res, g and writes dx, dres
-// (76.7 MB). The plain versions read and write every intermediate (mask
-// words, dropped x, the sum, the statistics) in separate passes.
+// (76.7 MB, 22.9 us); K5 reads x and writes y (18.9 MB at (6144, 768), 5.6
+// us). The plain versions read and write every intermediate in separate
+// passes.
 //
-// The design for that: one warp per row, four rows per block of 128 threads.
-// Lane l owns the columns 4*(l + 32*i) .. +3, i < V (V = ceil(H / 128), a
-// template parameter: 6 for H = 768, 8 for H = 1024), so a row lives in
-// registers, every load and store is a vector of 4 elements with neighbouring
-// lanes on neighbouring addresses, and one Philox call gives a lane all four
-// bits of its columns. The row statistics are warp-shuffle sums (all lanes
-// end with the same value). Each row is read once and written once.
+// The design for that:
+// - A warp owns a row. Lane l holds the columns VEC*(l + 32*i) .. +VEC-1,
+//   i < NV, as 16-byte vectors wherever rows stay 16-byte aligned (VEC = 8
+//   bf16 when H % 8 == 0, VEC = 4 fp32); other bf16 widths (H % 4 == 0) take
+//   VEC = 4, 8-byte vectors, as a template choice. One row lives in
+//   registers, each element is read once and written once, and the
+//   statistics are warp-shuffle sums.
+// - The grid is sized to the card (the SM count, read once per device,
+//   times the blocks an SM holds), and each warp walks rows r, r + warps,
+//   ... . The next row's loads are issued before this row's reductions, and
+//   its Philox bits (which need no data) are drawn while its loads are in
+//   flight.
+// - Forward: w and b are read once per block into shared memory, after the
+//   block's first rows are asked for. Backward: w is read once per warp into
+//   registers, and each lane keeps its columns' dw/db partial sums there for
+//   the whole walk. Two paired warp reductions a row: (sum x, sum g*w), then
+//   (sum (x - mean)^2, sum g*w*(x - mean)).
+// - dw/db are deterministic: the block adds its warps' partials in warp
+//   order and writes one [H] row of a [2, blocks, H] scratch; `sum_partials`
+//   adds the scratch over blocks as a tree in a fixed order (column strips of
+//   32; in each, slice j of SUM_WARPS sums blocks j, j + SUM_WARPS, ... one
+//   after another, then the slices pairwise, (0+1), (2+3), ..., down to
+//   one). No float atomics, so a step replays bit for bit;
+//   uniter_tpu_torch/ops/fused_block.py `_sum_partials_torch` is that sum in
+//   torch, in the same order. The scratch's block count comes from
+//   `uniter_tail_bwd_grid`, the one place the grid is computed.
 //
-// The backward's dw/db are deterministic: a fixed grid of at most 528 blocks
-// (4 per SM) walks the rows in a fixed order; each lane keeps its columns'
-// partial sums in registers, the block adds its four warps' partials in
-// shared memory in warp order and stores one [H] row of a [2, blocks, H]
-// scratch, and a second small kernel adds the scratch over blocks in order.
-// No float atomics, so a step replays bit for bit.
-//
-// K8 is K5's row code with no dropout: the same warp per row, the same
-// two-pass statistics, no Philox call. It reads x and writes y (30.7 MB at
-// (9984, 768) bf16: 9.2 us at 3.35 TB/s) and also takes the wider rows of the
-// task heads (H up to 2048: V up to 16).
+// K8 is K5's row code with no dropout; it also takes the wider rows of the
+// task heads (H up to 2048).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
+#include <type_traits>
 
 #include "philox.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;               // rows in flight per block
-constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_H = 1024;            // V <= 8
-constexpr int MAX_BWD_BLOCKS = 4 * 132;
+constexpr int FWD_WARPS = 8;           // rows in flight per forward block
+constexpr int BWD_WARPS = 8;           // per backward block
+constexpr int SUM_WARPS = 16;          // slices of the dw/db tree
+constexpr int MAX_H = 1024;            // the tails
+constexpr int LN_MAX_H = 2048;         // K8
+constexpr int MAX_DEVICES = 64;
 
-__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  o[0] = a.x;
-  o[1] = a.y;
-  o[2] = a.z;
-  o[3] = a.w;
+using bf16 = __nv_bfloat16;
+
+// The raw vector of VEC elements of T: 16 bytes, or 8 (bf16 x 4).
+template <typename T, int VEC>
+using Raw = typename std::conditional<VEC * sizeof(T) == 16, uint4, uint2>::type;
+
+template <typename T, int VEC>
+__device__ __forceinline__ Raw<T, VEC> ld_vec(const T* p) {
+  return __ldg(reinterpret_cast<const Raw<T, VEC>*>(p));
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
-  const uint2 a = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.y));
-  o[0] = lo.x;
-  o[1] = lo.y;
-  o[2] = hi.x;
-  o[3] = hi.y;
+__device__ __forceinline__ float2 bf2(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 
-// w and b: parameters may be views into a flat buffer at any 4-byte offset,
-// so they are read element by element (the four loads hit one cache line).
-__device__ __forceinline__ void load4_param(const float* p, float (&o)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) o[j] = __ldg(p + j);
+__device__ __forceinline__ unsigned pack_bf2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
 }
 
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack(const Raw<T, VEC>& a, float (&o)[VEC]) {
+  if constexpr (std::is_same<T, float>::value) {
+    o[0] = __uint_as_float(a.x);
+    o[1] = __uint_as_float(a.y);
+    o[2] = __uint_as_float(a.z);
+    o[3] = __uint_as_float(a.w);
+  } else if constexpr (VEC == 8) {
+    const float2 p0 = bf2(a.x), p1 = bf2(a.y), p2 = bf2(a.z), p3 = bf2(a.w);
+    o[0] = p0.x; o[1] = p0.y; o[2] = p1.x; o[3] = p1.y;
+    o[4] = p2.x; o[5] = p2.y; o[6] = p3.x; o[7] = p3.y;
+  } else {
+    const float2 p0 = bf2(a.x), p1 = bf2(a.y);
+    o[0] = p0.x; o[1] = p0.y; o[2] = p1.x; o[3] = p1.y;
+  }
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 a;
-  a.x = *reinterpret_cast<const unsigned*>(&lo);
-  a.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = a;
+template <typename T, int VEC>
+__device__ __forceinline__ void st_vec(T* p, const float (&v)[VEC]) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC == 8) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf2(v[0], v[1]), pack_bf2(v[2], v[3]),
+                   pack_bf2(v[4], v[5]), pack_bf2(v[6], v[7]));
+  } else {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf2(v[0], v[1]), pack_bf2(v[2], v[3]));
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float s) {
@@ -104,411 +133,572 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// The keep bits of columns c .. c+3 of `row`, as bits 0..3.
-__device__ __forceinline__ unsigned keep_bits(unsigned long long seed,
-                                              long long row, int c,
-                                              unsigned thr) {
-  const uint4 m = uniter::mask_words(seed, row, c >> 2);
-  return (m.x >= thr) | ((m.y >= thr) << 1) | ((m.z >= thr) << 2) |
-         ((m.w >= thr) << 3);
+// Two independent sums, their shuffles interleaved.
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
 }
 
-// Row `row` of t (x, dropped and plus res when kRes), the row's mean and
-// 1/sqrt(var + eps); `keep` gets the keep bits (4 per column group) when kRes
-// and thr != 0. Columns past H read as 0 and take no part in the sums.
-template <typename T, int V, bool kRes>
-__device__ __forceinline__ void load_row(const T* __restrict__ x,
-                                         const T* __restrict__ res,
-                                         long long row, int H, int lane,
-                                         unsigned thr, float inv_keep,
-                                         unsigned long long seed, float eps,
-                                         float (&t)[V][4], unsigned& keep,
-                                         float& mean, float& inv) {
-  const T* xr = x + row * H;
-  float s = 0.f;
-  keep = 0xffffffffu;
+// The keep bits of a lane's NV vectors in `row`: bit VEC*i + j for column
+// VEC*(lane + 32*i) + j, one Philox call per 4 columns.
+template <int VEC, int NV>
+__device__ __forceinline__ unsigned row_keep(unsigned long long seed,
+                                             long long row, int H, int lane,
+                                             unsigned thr) {
+  static_assert(VEC * NV <= 32, "keep bits of a lane fit 32 bits");
+  unsigned keep = 0u;
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = 4 * (lane + 32 * i);
+  for (int i = 0; i < NV; ++i) {
+    const int c = VEC * (lane + 32 * i);
     if (c < H) {
-      load4(xr + c, t[i]);
-      if (kRes) {
-        if (thr) {
-          const unsigned kb = keep_bits(seed, row, c, thr);
-          keep &= ~(0xfu << (4 * i)) | (kb << (4 * i));
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            t[i][j] = (kb >> j) & 1u ? t[i][j] * inv_keep : 0.f;
+      for (int q = 0; q < VEC / 4; ++q) {
+        const uint4 m = uniter::mask_words(seed, row, (c >> 2) + q);
+        const unsigned kb = (m.x >= thr) | ((m.y >= thr) << 1) |
+                            ((m.z >= thr) << 2) | ((m.w >= thr) << 3);
+        keep |= kb << (VEC * i + 4 * q);
+      }
+    }
+  }
+  return keep;
+}
+
+__device__ __forceinline__ float kept(unsigned keep, int bit, float v,
+                                      float inv_keep) {
+  return (keep >> bit) & 1u ? v * inv_keep : 0.f;
+}
+
+template <typename T, int VEC, int NV>
+__device__ __forceinline__ void load_rows(const T* __restrict__ p,
+                                          long long row, int H, int lane,
+                                          Raw<T, VEC> (&r)[NV]) {
+  const T* pr = p + row * H;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = VEC * (lane + 32 * i);
+    if (c < H) r[i] = ld_vec<T, VEC>(pr + c);
+  }
+}
+
+// The forward row walk: K3 (kRes), K5 (!kRes, kDrop), K8 (neither).
+template <typename T, int VEC, int NV, bool kRes, bool kDrop>
+__device__ __forceinline__ void fwd_rows(
+    const T* __restrict__ x, const T* __restrict__ res,
+    const float* __restrict__ w, const float* __restrict__ b,
+    T* __restrict__ y, long long rows, int H, unsigned thr, float inv_keep,
+    unsigned long long seed, float eps) {
+  __shared__ __align__(16) float sw[32 * VEC * NV];
+  __shared__ __align__(16) float sb[32 * VEC * NV];
+  const int lane = threadIdx.x & 31;
+  const long long step = static_cast<long long>(gridDim.x) * FWD_WARPS;
+  long long row =
+      static_cast<long long>(blockIdx.x) * FWD_WARPS + (threadIdx.x >> 5);
+  Raw<T, VEC> rx[NV], rr[NV];
+  if (row < rows) {
+    load_rows<T, VEC, NV>(x, row, H, lane, rx);
+    if (kRes) load_rows<T, VEC, NV>(res, row, H, lane, rr);
+  }
+  // w and b may be views at any 4-byte offset: scalar loads, once a block
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    sw[c] = __ldg(w + c);
+    sb[c] = __ldg(b + c);
+  }
+  __syncthreads();
+  for (; row < rows; row += step) {
+    unsigned keep = 0u;
+    if constexpr (kDrop) {
+      if (thr) keep = row_keep<VEC, NV>(seed, row, H, lane, thr);
+    }
+    float t[NV][VEC];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = VEC * (lane + 32 * i);
+      if (c < H) {
+        unpack<T, VEC>(rx[i], t[i]);
+        if (kRes) {
+          float r[VEC];
+          unpack<T, VEC>(rr[i], r);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            if constexpr (kDrop) {
+              if (thr) t[i][j] = kept(keep, VEC * i + j, t[i][j], inv_keep);
+            }
+            t[i][j] += r[j];
+          }
         }
-        float r[4];
-        load4(res + row * H + c, r);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) t[i][j] += r[j];
-      }
-      s += (t[i][0] + t[i][1]) + (t[i][2] + t[i][3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) t[i][j] = 0.f;
-    }
-  }
-  mean = warp_sum(s) / static_cast<float>(H);
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = 4 * (lane + 32 * i);
-    if (c < H) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float d = t[i][j] - mean;
-        q = fmaf(d, d, q);
+        for (int j = 0; j < VEC; ++j) s += t[i][j];
       }
     }
+    const long long next = row + step;  // in flight while this row reduces
+    if (next < rows) {
+      load_rows<T, VEC, NV>(x, next, H, lane, rx);
+      if (kRes) load_rows<T, VEC, NV>(res, next, H, lane, rr);
+    }
+    const float mean = warp_sum(s) / static_cast<float>(H);
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = VEC * (lane + 32 * i);
+      if (c < H) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float d = t[i][j] - mean;
+          q = fmaf(d, d, q);
+        }
+      }
+    }
+    const float inv = rsqrtf(warp_sum(q) / static_cast<float>(H) + eps);
+    T* yr = y + row * H;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = VEC * (lane + 32 * i);
+      if (c < H) {
+        float o[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          o[j] = (t[i][j] - mean) * inv * sw[c + j] + sb[c + j];
+          if constexpr (!kRes && kDrop) {
+            if (thr) o[j] = kept(keep, VEC * i + j, o[j], inv_keep);
+          }
+        }
+        st_vec<T, VEC>(yr + c, o);
+      }
+    }
   }
-  inv = rsqrtf(warp_sum(q) / static_cast<float>(H) + eps);
 }
 
-template <typename T, int V, bool kRes>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int VEC, int NV, bool kRes>
+__global__ void __launch_bounds__(32 * FWD_WARPS)
 tail_fwd(const T* __restrict__ x, const T* __restrict__ res,
          const float* __restrict__ w, const float* __restrict__ b,
          T* __restrict__ y, long long rows, int H, unsigned thr,
          float inv_keep, unsigned long long seed, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  float t[V][4];
-  unsigned keep;
-  float mean, inv;
-  load_row<T, V, kRes>(x, res, row, H, lane, thr, inv_keep, seed, eps, t,
-                       keep, mean, inv);
-  T* yr = y + row * H;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = 4 * (lane + 32 * i);
-    if (c < H) {
-      float wv[4], bv[4], o[4];
-      load4_param(w + c, wv);
-      load4_param(b + c, bv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = (t[i][j] - mean) * inv * wv[j] + bv[j];
-      if (!kRes && thr) {
-        const unsigned kb = keep_bits(seed, row, c, thr);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] = (kb >> j) & 1u ? o[j] * inv_keep : 0.f;
-      }
-      store4(yr + c, o);
-    }
-  }
+  fwd_rows<T, VEC, NV, kRes, true>(x, res, w, b, y, rows, H, thr, inv_keep,
+                                   seed, eps);
 }
 
-// K8: y = LN(x) * w + b, one warp per row; draws no random bits.
-template <typename T, int V>
-__global__ void __launch_bounds__(THREADS)
+// K8: y = LN(x) * w + b; draws no random bits.
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(32 * FWD_WARPS)
 layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                       const float* __restrict__ b, T* __restrict__ y,
                       long long rows, int H, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  float t[V][4];
-  unsigned keep;
-  float mean, inv;
-  load_row<T, V, false>(x, nullptr, row, H, lane, 0u, 1.f, 0ull, eps, t, keep,
-                        mean, inv);
-  T* yr = y + row * H;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = 4 * (lane + 32 * i);
-    if (c < H) {
-      float wv[4], bv[4], o[4];
-      load4_param(w + c, wv);
-      load4_param(b + c, bv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = (t[i][j] - mean) * inv * wv[j] + bv[j];
-      store4(yr + c, o);
-    }
-  }
+  fwd_rows<T, VEC, NV, false, false>(x, nullptr, w, b, y, rows, H, 0u, 1.f,
+                                     0ull, eps);
 }
 
-// dx (and dres when kRes) per row; per-block partial dw/db into
+// dx (and dres when kRes) per row; the block's dw/db partials into
 // part[0][blockIdx.x][:] and part[1][blockIdx.x][:].
-template <typename T, int V, bool kRes>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int VEC, int NV, bool kRes>
+__global__ void __launch_bounds__(32 * BWD_WARPS)
 tail_bwd(const T* __restrict__ x, const T* __restrict__ res,
          const float* __restrict__ w, const T* __restrict__ g,
          T* __restrict__ dx, T* __restrict__ dres, float* __restrict__ part,
          long long rows, int H, unsigned thr, float inv_keep,
          unsigned long long seed, float eps) {
-  __shared__ float red[2][WARPS][MAX_H];
+  __shared__ float red[2][32 * VEC * NV];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float inv_h = 1.f / static_cast<float>(H);
-  float dw[V][4], db[V][4];
+  const long long step = static_cast<long long>(gridDim.x) * BWD_WARPS;
+  long long row = static_cast<long long>(blockIdx.x) * BWD_WARPS + warp;
+  Raw<T, VEC> rx[NV], rr[NV], rg[NV];
+  if (row < rows) {
+    load_rows<T, VEC, NV>(x, row, H, lane, rx);
+    if (kRes) load_rows<T, VEC, NV>(res, row, H, lane, rr);
+    load_rows<T, VEC, NV>(g, row, H, lane, rg);
+  }
+  float wv[NV][VEC], dw[NV][VEC], db[NV][VEC];
 #pragma unroll
-  for (int i = 0; i < V; ++i)
+  for (int i = 0; i < NV; ++i) {
+    const int c = VEC * (lane + 32 * i);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dw[i][j] = db[i][j] = 0.f;
-
-  for (long long row = static_cast<long long>(blockIdx.x) * WARPS + warp;
-       row < rows; row += static_cast<long long>(gridDim.x) * WARPS) {
-    float t[V][4];
-    unsigned keep;
-    float mean, inv;
-    load_row<T, V, kRes>(x, res, row, H, lane, thr, inv_keep, seed, eps, t,
-                         keep, mean, inv);
-    // t <- x_hat; gv <- g (masked for K6); sums of g*w and g*w*x_hat
-    float gv[V][4];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = 4 * (lane + 32 * i);
-      if (c < H) {
-        float wv[4];
-        load4(g + row * H + c, gv[i]);
-        load4_param(w + c, wv);
-        if (!kRes && thr) {
-          const unsigned kb = keep_bits(seed, row, c, thr);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            gv[i][j] = (kb >> j) & 1u ? gv[i][j] * inv_keep : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          t[i][j] = (t[i][j] - mean) * inv;
-          const float gw = gv[i][j] * wv[j];
-          s1 += gw;
-          s2 = fmaf(gw, t[i][j], s2);
-        }
-      }
+    for (int j = 0; j < VEC; ++j) {
+      wv[i][j] = c < H ? __ldg(w + c + j) : 0.f;
+      dw[i][j] = db[i][j] = 0.f;
     }
-    const float m1 = warp_sum(s1) * inv_h;
-    const float m2 = warp_sum(s2) * inv_h;
+  }
+  const float fh = static_cast<float>(H);
+
+  for (; row < rows; row += step) {
+    const unsigned keep = thr ? row_keep<VEC, NV>(seed, row, H, lane, thr) : 0u;
+    // g of vector i, masked and rescaled for K6 (its dropout follows the LN)
+    auto grad = [&](const Raw<T, VEC>& raw, int i, float (&gv)[VEC]) {
+      unpack<T, VEC>(raw, gv);
+      if (!kRes && thr) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = 4 * (lane + 32 * i);
+        for (int j = 0; j < VEC; ++j) gv[j] = kept(keep, VEC * i + j, gv[j], inv_keep);
+      }
+    };
+    float t[NV][VEC];
+    Raw<T, VEC> cg[NV];
+    float s = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = VEC * (lane + 32 * i);
       if (c < H) {
-        float wv[4], d[4];
-        load4_param(w + c, wv);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          d[j] = inv * ((gv[i][j] * wv[j] - m1) - t[i][j] * m2);
-          dw[i][j] = fmaf(gv[i][j], t[i][j], dw[i][j]);
-          db[i][j] += gv[i][j];
-        }
+        unpack<T, VEC>(rx[i], t[i]);
         if (kRes) {
-          store4(dres + row * H + c, d);
-          if (thr) {
+          float r[VEC];
+          unpack<T, VEC>(rr[i], r);
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              d[j] = (keep >> (4 * i + j)) & 1u ? d[j] * inv_keep : 0.f;
+          for (int j = 0; j < VEC; ++j) {
+            if (thr) t[i][j] = kept(keep, VEC * i + j, t[i][j], inv_keep);
+            t[i][j] += r[j];
           }
         }
-        store4(dx + row * H + c, d);
+        cg[i] = rg[i];
+        float gv[VEC];
+        grad(cg[i], i, gv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          s += t[i][j];
+          s1 = fmaf(gv[j], wv[i][j], s1);
+        }
+      }
+    }
+    const long long next = row + step;  // in flight while this row reduces
+    if (next < rows) {
+      load_rows<T, VEC, NV>(x, next, H, lane, rx);
+      if (kRes) load_rows<T, VEC, NV>(res, next, H, lane, rr);
+      load_rows<T, VEC, NV>(g, next, H, lane, rg);
+    }
+    warp_sum2(s, s1);
+    const float mean = s / fh, m1 = s1 / fh;
+    float q = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = VEC * (lane + 32 * i);
+      if (c < H) {
+        float gv[VEC];
+        grad(cg[i], i, gv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float d = t[i][j] - mean;
+          q = fmaf(d, d, q);
+          s2 = fmaf(gv[j] * wv[i][j], d, s2);
+        }
+      }
+    }
+    warp_sum2(q, s2);
+    const float inv = rsqrtf(q / fh + eps);
+    const float m2 = s2 / fh * inv;  // mean of g*w*x_hat
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = VEC * (lane + 32 * i);
+      if (c < H) {
+        float gv[VEC], d[VEC];
+        grad(cg[i], i, gv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xh = (t[i][j] - mean) * inv;
+          d[j] = inv * ((gv[j] * wv[i][j] - m1) - xh * m2);
+          dw[i][j] = fmaf(gv[j], xh, dw[i][j]);
+          db[i][j] += gv[j];
+        }
+        if (kRes) {
+          st_vec<T, VEC>(dres + row * H + c, d);
+          if (thr) {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) d[j] = kept(keep, VEC * i + j, d[j], inv_keep);
+          }
+        }
+        st_vec<T, VEC>(dx + row * H + c, d);
       }
     }
   }
 
+  // the block's partials, its warps added in warp order
+  for (int wi = 0; wi < BWD_WARPS; ++wi) {
+    if (warp == wi) {
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = 4 * (lane + 32 * i);
-    if (c < H) {
+      for (int i = 0; i < NV; ++i) {
+        const int c = VEC * (lane + 32 * i);
+        if (c < H) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        red[0][warp][c + j] = dw[i][j];
-        red[1][warp][c + j] = db[i][j];
+          for (int j = 0; j < VEC; ++j) {
+            red[0][c + j] = wi ? red[0][c + j] + dw[i][j] : dw[i][j];
+            red[1][c + j] = wi ? red[1][c + j] + db[i][j] : db[i][j];
+          }
+        }
       }
     }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < H; c += THREADS) {
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      float s = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < WARPS; ++wi) s += red[k][wi][c];
-      part[(static_cast<long long>(k) * gridDim.x + blockIdx.x) * H + c] = s;
-    }
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    part[static_cast<long long>(blockIdx.x) * H + c] = red[0][c];
+    part[(static_cast<long long>(gridDim.x) + blockIdx.x) * H + c] = red[1][c];
   }
 }
 
-// out[k][c] = sum over blocks, in block order, of part[k][blk][c].
-__global__ void sum_partials(const float* __restrict__ part,
-                             float* __restrict__ out, int n_blocks, int H) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 2 * H) return;
-  const int k = idx / H, c = idx - k * H;
-  const float* p = part + static_cast<long long>(k) * n_blocks * H + c;
+// out[k][c] = the sum over blocks of part[k][blk][c], as a fixed tree: a
+// block takes 32 of the 2H columns; warp j sums blocks j, j + SUM_WARPS, ...
+// in that order from 0; warp 0 adds the SUM_WARPS slice sums pairwise.
+__global__ void __launch_bounds__(32 * SUM_WARPS)
+sum_partials(const float* __restrict__ part, float* __restrict__ out,
+             int n_blocks, int H) {
+  __shared__ float red[SUM_WARPS][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int idx = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int blk = 0; blk < n_blocks; ++blk) s += p[static_cast<long long>(blk) * H];
-  out[idx] = s;
+  if (idx < 2 * H) {
+    const int k = idx / H, c = idx - k * H;
+    const float* p = part + static_cast<long long>(k) * n_blocks * H + c;
+#pragma unroll 8
+    for (int blk = warp; blk < n_blocks; blk += SUM_WARPS)
+      s += p[static_cast<long long>(blk) * H];
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && idx < 2 * H) {
+    float a[SUM_WARPS];
+#pragma unroll
+    for (int j = 0; j < SUM_WARPS; ++j) a[j] = red[j][lane];
+#pragma unroll
+    for (int width = SUM_WARPS / 2; width >= 1; width /= 2) {
+#pragma unroll
+      for (int j = 0; j < width; ++j) a[j] = a[2 * j] + a[2 * j + 1];
+    }
+    out[idx] = a[0];
+  }
 }
 
-int fwd_blocks(long long rows) {
-  return static_cast<int>((rows + WARPS - 1) / WARPS);
+int sm_count(int device) {
+  static int cache[MAX_DEVICES];
+  if (device < 0 || device >= MAX_DEVICES) return 0;
+  if (!cache[device]) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+        cudaSuccess)
+      return 0;
+    cache[device] = n;
+  }
+  return cache[device];
 }
 
-int bwd_blocks(long long rows) {
-  const long long n = (rows + WARPS - 1) / WARPS;
-  return static_cast<int>(n < MAX_BWD_BLOCKS ? n : MAX_BWD_BLOCKS);
+template <typename K>
+int blocks_per_sm(K kernel, int threads) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0) !=
+      cudaSuccess)
+    return 1;
+  return n > 0 ? n : 1;
 }
 
-template <typename T, int V, bool kRes>
-int launch_fwd(const void* x, const void* res, const void* w, const void* b,
-               void* y, long long rows, int H, unsigned thr, float inv_keep,
-               unsigned long long seed, float eps, cudaStream_t st) {
-  tail_fwd<T, V, kRes><<<fwd_blocks(rows), THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res),
-      static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<T*>(y), rows, H, thr, inv_keep, seed, eps);
-  return static_cast<int>(cudaGetLastError());
+// ceil(rows / warps) blocks, at most what the card holds at once.
+int grid(long long rows, int warps, int per_sm, int device) {
+  const long long want = (rows + warps - 1) / warps;
+  const long long most = static_cast<long long>(per_sm) * sm_count(device);
+  return static_cast<int>(want < most ? want : (most > 0 ? most : 1));
 }
 
-template <typename T, int V, bool kRes>
-int launch_bwd(const void* x, const void* res, const void* w, const void* g,
-               void* dx, void* dres, void* part, void* dwdb, long long rows,
-               int H, unsigned thr, float inv_keep, unsigned long long seed,
-               float eps, cudaStream_t st) {
-  const int nblk = bwd_blocks(rows);
-  tail_bwd<T, V, kRes><<<nblk, THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res),
-      static_cast<const float*>(w), static_cast<const T*>(g),
-      static_cast<T*>(dx), static_cast<T*>(dres), static_cast<float*>(part),
-      rows, H, thr, inv_keep, seed, eps);
-  cudaError_t err = cudaGetLastError();
+template <typename T, int VEC, int NV, bool kRes>
+struct Tail {
+  static int fwd_grid(long long rows, int device) {
+    static const int per_sm =
+        blocks_per_sm(tail_fwd<T, VEC, NV, kRes>, 32 * FWD_WARPS);
+    return grid(rows, FWD_WARPS, per_sm, device);
+  }
+  static int bwd_grid(long long rows, int device) {
+    static const int per_sm =
+        blocks_per_sm(tail_bwd<T, VEC, NV, kRes>, 32 * BWD_WARPS);
+    return grid(rows, BWD_WARPS, per_sm, device);
+  }
+};
+
+// The argument block of the tail entry points, as the caller packs it
+// (ops/fused_block.py `_CALL`): one pointer to it keeps the ctypes call
+// cheap. Pointers the kernel does not take are 0.
+struct TailCall {
+  unsigned long long x, res, w, b_or_g;  // b (forward) or g (backward)
+  unsigned long long y_or_dx, dres, part, dwdb;
+  long long rows;
+  int H;
+  unsigned thr;
+  float inv_keep;
+  int n_part;  // the blocks of part (backward)
+  unsigned long long seed;
+  float eps;
+  int dtype;
+  int device;
+  int pad;
+  unsigned long long stream;
+};
+static_assert(sizeof(TailCall) == 120, "TailCall is the caller's 120 bytes");
+
+template <typename P>
+P* ptr(unsigned long long p) {
+  return reinterpret_cast<P*>(p);
+}
+
+cudaStream_t stream_of(const TailCall& a) {
+  return reinterpret_cast<cudaStream_t>(a.stream);
+}
+
+struct FwdOp {
+  template <typename T, int VEC, int NV, bool kRes>
+  static int run(const TailCall& a) {
+    tail_fwd<T, VEC, NV, kRes>
+        <<<Tail<T, VEC, NV, kRes>::fwd_grid(a.rows, a.device), 32 * FWD_WARPS,
+           0, stream_of(a)>>>(
+            ptr<const T>(a.x), ptr<const T>(a.res), ptr<const float>(a.w),
+            ptr<const float>(a.b_or_g), ptr<T>(a.y_or_dx), a.rows, a.H, a.thr,
+            a.inv_keep, a.seed, a.eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct BwdOp {
+  template <typename T, int VEC, int NV, bool kRes>
+  static int run(const TailCall& a) {
+    const int nblk = Tail<T, VEC, NV, kRes>::bwd_grid(a.rows, a.device);
+    if (nblk != a.n_part) return static_cast<int>(cudaErrorInvalidValue);
+    tail_bwd<T, VEC, NV, kRes><<<nblk, 32 * BWD_WARPS, 0, stream_of(a)>>>(
+        ptr<const T>(a.x), ptr<const T>(a.res), ptr<const float>(a.w),
+        ptr<const T>(a.b_or_g), ptr<T>(a.y_or_dx), ptr<T>(a.dres),
+        ptr<float>(a.part), a.rows, a.H, a.thr, a.inv_keep, a.seed, a.eps);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sum_partials<<<(2 * a.H + 31) / 32, 32 * SUM_WARPS, 0, stream_of(a)>>>(
+        ptr<const float>(a.part), ptr<float>(a.dwdb), nblk, a.H);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct GridOp {  // the backward's block count, or -(cudaError_t)
+  template <typename T, int VEC, int NV, bool kRes>
+  static int run(const TailCall& a) {
+    const int n = Tail<T, VEC, NV, kRes>::bwd_grid(a.rows, a.device);
+    return sm_count(a.device) > 0 ? n
+                                  : -static_cast<int>(cudaErrorInvalidDevice);
+  }
+};
+
+// dtype 0: fp32 x 4; dtype 1: bf16 x 8 when H % 8 == 0, else bf16 x 4. NV
+// covers H: up to 256, 768 or 1024 columns a row.
+template <bool kRes, typename Op>
+int dispatch(const TailCall& a) {
+  const int H = a.H, dtype = a.dtype;
+  if (a.rows < 1 || H < 4 || H > MAX_H || H % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    if (H <= 256) return Op::template run<float, 4, 2, kRes>(a);
+    if (H <= 768) return Op::template run<float, 4, 6, kRes>(a);
+    return Op::template run<float, 4, 8, kRes>(a);
+  }
+  if (dtype == 1 && H % 8 == 0) {
+    if (H <= 256) return Op::template run<bf16, 8, 1, kRes>(a);
+    if (H <= 768) return Op::template run<bf16, 8, 3, kRes>(a);
+    return Op::template run<bf16, 8, 4, kRes>(a);
+  }
+  if (dtype == 1) {
+    if (H <= 256) return Op::template run<bf16, 4, 2, kRes>(a);
+    if (H <= 768) return Op::template run<bf16, 4, 6, kRes>(a);
+    return Op::template run<bf16, 4, 8, kRes>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One tail entry: the caller's block, launched on its device; the caller
+// gets its own current device back.
+template <bool kRes, typename Op>
+int run_call(const void* raw) {
+  TailCall a;
+  std::memcpy(&a, raw, sizeof a);  // the block may sit at any alignment
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials<<<(2 * H + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dwdb), nblk, H);
-  return static_cast<int>(cudaGetLastError());
+  if (cur != a.device && (err = cudaSetDevice(a.device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int rc = dispatch<kRes, Op>(a);
+  if (cur != a.device) cudaSetDevice(cur);
+  return rc;
 }
 
-// V = 2 for H <= 256, 6 for H <= 768, 8 for H <= 1024.
-template <bool kRes, typename T>
-int fwd_v(const void* x, const void* res, const void* w, const void* b,
-          void* y, long long rows, int H, unsigned thr, float inv_keep,
-          unsigned long long seed, float eps, cudaStream_t st) {
-  if (H <= 256)
-    return launch_fwd<T, 2, kRes>(x, res, w, b, y, rows, H, thr, inv_keep, seed, eps, st);
-  if (H <= 768)
-    return launch_fwd<T, 6, kRes>(x, res, w, b, y, rows, H, thr, inv_keep, seed, eps, st);
-  return launch_fwd<T, 8, kRes>(x, res, w, b, y, rows, H, thr, inv_keep, seed, eps, st);
-}
-
-template <bool kRes, typename T>
-int bwd_v(const void* x, const void* res, const void* w, const void* g,
-          void* dx, void* dres, void* part, void* dwdb, long long rows, int H,
-          unsigned thr, float inv_keep, unsigned long long seed, float eps,
-          cudaStream_t st) {
-  if (H <= 256)
-    return launch_bwd<T, 2, kRes>(x, res, w, g, dx, dres, part, dwdb, rows, H,
-                                  thr, inv_keep, seed, eps, st);
-  if (H <= 768)
-    return launch_bwd<T, 6, kRes>(x, res, w, g, dx, dres, part, dwdb, rows, H,
-                                  thr, inv_keep, seed, eps, st);
-  return launch_bwd<T, 8, kRes>(x, res, w, g, dx, dres, part, dwdb, rows, H,
-                                thr, inv_keep, seed, eps, st);
-}
-
-constexpr int LN_MAX_H = 2048;         // K8 alone: V <= 16
-
-template <typename T, int V>
+template <typename T, int VEC, int NV>
 int launch_ln(const void* x, const void* w, const void* b, void* y,
               long long rows, int H, float eps, cudaStream_t st) {
-  layer_norm_fwd_kernel<T, V><<<fwd_blocks(rows), THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<T*>(y), rows, H, eps);
+  static const int per_sm =
+      blocks_per_sm(layer_norm_fwd_kernel<T, VEC, NV>, 32 * FWD_WARPS);
+  int device = 0;
+  cudaGetDevice(&device);
+  layer_norm_fwd_kernel<T, VEC, NV>
+      <<<grid(rows, FWD_WARPS, per_sm, device), 32 * FWD_WARPS, 0, st>>>(
+          static_cast<const T*>(x), static_cast<const float*>(w),
+          static_cast<const float*>(b), static_cast<T*>(y), rows, H, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-// V = 2, 6, 8, 12, 16 for H <= 256, 768, 1024, 1536, 2048.
-template <typename T>
-int ln_v(const void* x, const void* w, const void* b, void* y, long long rows,
-         int H, float eps, cudaStream_t st) {
-  if (H <= 256) return launch_ln<T, 2>(x, w, b, y, rows, H, eps, st);
-  if (H <= 768) return launch_ln<T, 6>(x, w, b, y, rows, H, eps, st);
-  if (H <= 1024) return launch_ln<T, 8>(x, w, b, y, rows, H, eps, st);
-  if (H <= 1536) return launch_ln<T, 12>(x, w, b, y, rows, H, eps, st);
-  return launch_ln<T, 16>(x, w, b, y, rows, H, eps, st);
-}
-
-bool bad_shape(long long rows, int H) {
-  return rows < 1 || H < 4 || H > MAX_H || H % 4 != 0;
+// NV covers H up to 256, 768, 1024, 1536 or 2048 columns.
+template <typename T, int VEC>
+int ln_nv(const void* x, const void* w, const void* b, void* y,
+          long long rows, int H, float eps, cudaStream_t st) {
+  constexpr int k = 8 / VEC;  // vectors of 8 columns per 8-wide vector
+  if (H <= 256) return launch_ln<T, VEC, 1 * k>(x, w, b, y, rows, H, eps, st);
+  if (H <= 768) return launch_ln<T, VEC, 3 * k>(x, w, b, y, rows, H, eps, st);
+  if (H <= 1024) return launch_ln<T, VEC, 4 * k>(x, w, b, y, rows, H, eps, st);
+  if (H <= 1536) return launch_ln<T, VEC, 6 * k>(x, w, b, y, rows, H, eps, st);
+  return launch_ln<T, VEC, 8 * k>(x, w, b, y, rows, H, eps, st);
 }
 
 }  // namespace
 
-// Plain C entries for ctypes. dtype: 0 = float32, 1 = bfloat16 (x, res, g,
-// and the outputs dx, dres, y); w, b and dw/db are float32. All tensors are
-// contiguous [rows, H] with 16-byte aligned rows (w, b [H], 4-byte aligned). thr =
-// floor(rate * 2^32) (0: no dropout), inv_keep = 1 / (1 - rate). The
-// backward's `part` is a float32 scratch of [2, min(ceil(rows / 4), 528), H]
-// and `dwdb` a float32 [2, H] output (dw, then db). Each returns the launch's
-// cudaError_t (0 = ok); the caller validates shapes, dtypes and devices.
+// Plain C entries for ctypes; each tail entry takes one `TailCall`. dtype:
+// 0 = float32, 1 = bfloat16 (x, res, g, and the outputs dx, dres, y); w, b
+// and dw/db are float32. All tensors are contiguous [rows, H] with 16-byte
+// aligned rows (w, b [H], 4-byte aligned), H a multiple of 4 up to 1024, on
+// `device`, whose `stream` takes the launches (the caller's current device
+// is left as it was). thr = floor(rate * 2^32) (0: no dropout), inv_keep =
+// 1 / (1 - rate). The backward's `part` is a float32 scratch of [2, n_part,
+// H], n_part what `uniter_tail_bwd_grid` returned for the same rows, H,
+// dtype and kernel, and `dwdb` a float32 [2, H] output (dw, then db). Each
+// returns the launch's cudaError_t (0 = ok); the caller validates shapes,
+// dtypes and devices.
 
-extern "C" int uniter_drop_res_ln_fwd(const void* x, const void* res,
-                                      const void* w, const void* b, void* y,
-                                      long long rows, int H, unsigned thr,
-                                      float inv_keep, unsigned long long seed,
-                                      float eps, int dtype, void* stream) {
-  if (bad_shape(rows, H)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return fwd_v<true, float>(x, res, w, b, y, rows, H, thr, inv_keep, seed, eps, st);
-  if (dtype == 1)
-    return fwd_v<true, __nv_bfloat16>(x, res, w, b, y, rows, H, thr, inv_keep, seed, eps, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// The backward's block count for these rows, H, dtype and kernel (res: K4,
+// else K6) on `device`: what the scratch `part` must hold. Negative: a
+// cudaError_t, negated.
+extern "C" int uniter_tail_bwd_grid(long long rows, int H, int dtype,
+                                    int res, int device) {
+  if (rows < 1 || H < 4 || H > MAX_H || H % 4 != 0 || dtype < 0 || dtype > 1)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  TailCall a{};
+  a.rows = rows;
+  a.H = H;
+  a.dtype = dtype;
+  a.device = device;
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int n = res ? dispatch<true, GridOp>(a) : dispatch<false, GridOp>(a);
+  if (cur != device) cudaSetDevice(cur);
+  return n;
 }
 
-extern "C" int uniter_drop_res_ln_bwd(const void* x, const void* res,
-                                      const void* w, const void* g, void* dx,
-                                      void* dres, void* part, void* dwdb,
-                                      long long rows, int H, unsigned thr,
-                                      float inv_keep, unsigned long long seed,
-                                      float eps, int dtype, void* stream) {
-  if (bad_shape(rows, H)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_v<true, float>(x, res, w, g, dx, dres, part, dwdb, rows, H, thr,
-                              inv_keep, seed, eps, st);
-  if (dtype == 1)
-    return bwd_v<true, __nv_bfloat16>(x, res, w, g, dx, dres, part, dwdb, rows,
-                                      H, thr, inv_keep, seed, eps, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int uniter_drop_res_ln_fwd(const void* call) {
+  return run_call<true, FwdOp>(call);
 }
 
-extern "C" int uniter_ln_drop_fwd(const void* x, const void* w, const void* b,
-                                  void* y, long long rows, int H, unsigned thr,
-                                  float inv_keep, unsigned long long seed,
-                                  float eps, int dtype, void* stream) {
-  if (bad_shape(rows, H)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return fwd_v<false, float>(x, nullptr, w, b, y, rows, H, thr, inv_keep, seed, eps, st);
-  if (dtype == 1)
-    return fwd_v<false, __nv_bfloat16>(x, nullptr, w, b, y, rows, H, thr, inv_keep, seed,
-                                       eps, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int uniter_drop_res_ln_bwd(const void* call) {
+  return run_call<true, BwdOp>(call);
 }
 
-extern "C" int uniter_ln_drop_bwd(const void* x, const void* w, const void* g,
-                                  void* dx, void* part, void* dwdb,
-                                  long long rows, int H, unsigned thr,
-                                  float inv_keep, unsigned long long seed,
-                                  float eps, int dtype, void* stream) {
-  if (bad_shape(rows, H)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_v<false, float>(x, nullptr, w, g, dx, nullptr, part, dwdb, rows, H,
-                               thr, inv_keep, seed, eps, st);
-  if (dtype == 1)
-    return bwd_v<false, __nv_bfloat16>(x, nullptr, w, g, dx, nullptr, part, dwdb,
-                                       rows, H, thr, inv_keep, seed, eps, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int uniter_ln_drop_fwd(const void* call) {
+  return run_call<false, FwdOp>(call);
+}
+
+extern "C" int uniter_ln_drop_bwd(const void* call) {
+  return run_call<false, BwdOp>(call);
 }
 
 // K8. x and y contiguous [rows, H] of `dtype`, 16-byte aligned rows; w, b
-// float32 [H]; H a multiple of 4 up to 2048.
+// float32 [H]; H a multiple of 4 up to 2048; on the current device.
 extern "C" int uniter_layer_norm_fwd(const void* x, const void* w,
                                      const void* b, void* y, long long rows,
                                      int H, float eps, int dtype,
@@ -516,7 +706,9 @@ extern "C" int uniter_layer_norm_fwd(const void* x, const void* w,
   if (rows < 1 || H < 4 || H > LN_MAX_H || H % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return ln_v<float>(x, w, b, y, rows, H, eps, st);
-  if (dtype == 1) return ln_v<__nv_bfloat16>(x, w, b, y, rows, H, eps, st);
+  if (dtype == 0) return ln_nv<float, 4>(x, w, b, y, rows, H, eps, st);
+  if (dtype == 1 && H % 8 == 0)
+    return ln_nv<bf16, 8>(x, w, b, y, rows, H, eps, st);
+  if (dtype == 1) return ln_nv<bf16, 4>(x, w, b, y, rows, H, eps, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

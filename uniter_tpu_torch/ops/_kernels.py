@@ -30,9 +30,6 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # kernel name -> ctypes signature of its C entry point ``uniter_<name>``
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _U, _UL = ctypes.c_uint, ctypes.c_ulonglong
-# the fused tails' common tail: rows, H, dropout threshold, 1/(1-rate),
-# seed, eps, dtype, stream
-_TAIL = [_L, _I, _U, _F, _UL, _F, _I, _P]
 SIGNATURES = {
     # q k v bias out out_lo lse, B S H D, q/k/v strides, sm_scale, dropout
     # threshold, 1/(1-rate), seed, dtype, stream
@@ -40,14 +37,11 @@ SIGNATURES = {
     # q k v g bias out out_lo lse dq dk dv scratch, B S H D, q/k/v/g
     # strides, then as mha_fwd
     "mha_bwd": [_P] * 12 + [_I] * 4 + [_L] * 12 + [_F, _U, _F, _UL, _I, _P],
-    # x res w b y
-    "drop_res_ln_fwd": [_P] * 5 + _TAIL,
-    # x res w g dx dres part dwdb
-    "drop_res_ln_bwd": [_P] * 8 + _TAIL,
-    # x w b y
-    "ln_drop_fwd": [_P] * 4 + _TAIL,
-    # x w g dx part dwdb
-    "ln_drop_bwd": [_P] * 6 + _TAIL,
+    # the fused tails: one packed argument block (ops/fused_block.py _CALL)
+    **{k: [ctypes.c_char_p] for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
+                                      "ln_drop_fwd", "ln_drop_bwd")},
+    # the backward tails' grid: rows, H, dtype, K4 (1) or K6 (0), device
+    "tail_bwd_grid": [_L, _I, _I, _I, _I],
     # x w b y, rows, H, eps, dtype, stream
     "layer_norm_fwd": [_P] * 4 + [_L, _I, _F, _I, _P],
     # A sigma0 x_mask y_mask x_len y_len T, B N M, iteration, k, form, stream
@@ -60,7 +54,7 @@ SOURCES = {"mha_fwd": "mha_fwd", "mha_bwd": "mha_bwd", "ipot": "ipot",
            "ffn_fwd": "ffn",
            **{k: "fused_tail" for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
                                         "ln_drop_fwd", "ln_drop_bwd",
-                                        "layer_norm_fwd")}}
+                                        "tail_bwd_grid", "layer_norm_fwd")}}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

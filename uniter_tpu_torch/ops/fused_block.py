@@ -30,9 +30,19 @@ formulas of the kernel bodies (the LayerNorm backward of
 tensors; each counts its launches in ``.launches``. ``DropResLNFunction``
 and ``LNDropFunction`` pair them as the JAX package's custom VJPs do,
 saving only the inputs and the seed (no mask, no statistics).
+
+The backward kernels sum dw/db over their blocks in a fixed order;
+``_sum_partials_torch`` is that sum in torch, which the card run holds the
+kernels' dw/db to bit for bit. A wrapper's launch path is kept short, since
+a step makes 52 tail calls: ``_launchable`` looks once at each tensor and
+sends only what fails to the full ``_check`` (which raises); the ctypes
+entry points and the backward's grid are resolved once; the stream is the
+current one of x's card, with no device switch in Python.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -43,6 +53,7 @@ from uniter_tpu_torch.ops.layer_norm import (
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HIDDEN = 1024  # csrc/fused_tail.cu keeps a row in one warp's registers
+SUM_SLICES = 16  # csrc/fused_tail.cu SUM_WARPS: the slices of the dw/db tree
 
 
 def _keep(x, rate, seed):
@@ -106,9 +117,51 @@ def _ln_drop_bwd_torch(x, weight, g, rate: float = 0.0, seed: int = 0,
     return dx.to(x.dtype), _col_sum(gf * that), _col_sum(gf)
 
 
+def _sum_partials_torch(part):
+    """dw/db from the backward kernels' per-block partials ``part`` [2, n,
+    H] (fp32), summed over blocks in the kernel's fixed order
+    (``csrc/fused_tail.cu`` ``sum_partials``): slice j of ``SUM_SLICES``
+    adds blocks j, j + SUM_SLICES, ... one after another from 0, then the
+    slice sums are added pairwise, (0+1), (2+3), ..., down to one. Every
+    step is one fp32 addition, so on the same partials this equals the
+    kernel's [2, H] bit for bit."""
+    s = part.new_zeros((part.shape[0], SUM_SLICES, part.shape[2]))
+    for i in range(0, part.shape[1], SUM_SLICES):
+        blk = part[:, i:i + SUM_SLICES]
+        s[:, :blk.shape[1]] += blk
+    while s.shape[1] > 1:
+        s = s[:, 0::2] + s[:, 1::2]
+    return s[:, 0]
+
+
+def _launchable(rows_like, vecs, rate, seed):
+    """True when every tensor is as a launch wants it: the common CUDA
+    case, which this checks with one look at each tensor. False sends the
+    caller to ``_check``, which raises on what is wrong."""
+    x = rows_like[0]
+    if not (x.is_cuda and 0.0 <= rate < 1.0 and 0 <= seed < 2**63):
+        return False
+    dt, shape = x.dtype, x.shape
+    h = shape[-1] if shape else 0
+    if (dt not in _DTYPE_CODE or not 0 < h <= MAX_HIDDEN or h % 4
+            or not x.numel() or not x.is_contiguous() or x.data_ptr() % 16):
+        return False
+    dev = x.device
+    for t in rows_like[1:]:
+        if (t.device != dev or t.dtype != dt or t.shape != shape
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            return False
+    for t in vecs:
+        if (t.device != dev or t.dtype != torch.float32 or t.shape != (h,)
+                or not t.is_contiguous()):
+            return False
+    return True
+
+
 def _check(name, rows_like, vecs, rate, seed):
     """Devices, dtypes, shapes, contiguity, alignment, rate and seed; the
-    CPU also takes float64 (the plain versions keep it)."""
+    CPU also takes float64 (the plain versions keep it). Every wrapper
+    comes here unless ``_launchable`` passed."""
     x = rows_like[0]
     dev = x.device
     if any(t.device != dev for t in (*rows_like, *vecs)):
@@ -148,29 +201,82 @@ def _check(name, rows_like, vecs, rate, seed):
         raise ValueError(f"{name}: weight and bias must be contiguous")
 
 
-def _tail_args(x, rate, seed, eps):
-    rows = x.numel() // x.shape[-1]
-    return (rows, x.shape[-1], threshold(rate) if rate > 0.0 else 0,
-            1.0 / (1.0 - rate), int(seed), float(eps), _DTYPE_CODE[x.dtype])
+# csrc/fused_tail.cu `TailCall`, the tail entries' one argument: 8 pointers
+# (x, res, w, b or g, y or dx, dres, part, dwdb; 0 where a kernel has none),
+# rows, H, the dropout threshold, 1 / (1 - rate), the blocks of part, seed,
+# eps, dtype, device, stream
+_CALL = struct.Struct("<8Qqi I f i Q f i i 4x Q")
+_entries = {}  # kernel name -> its ctypes entry point
+_grids = {}  # (kernel, device, dtype, rows, H) -> the backward's blocks
 
 
-def _launch(name, x, ptrs, rate, seed, eps):
-    fn = getattr(_kernels.load(name), f"uniter_{name}")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs),
-                *_tail_args(x, rate, seed, eps), stream)
+def _entry(name):
+    """The C entry point ``uniter_<name>``, resolved once (the first use
+    builds the kernels)."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(_kernels.load(name), f"uniter_{name}")
+    return fn
+
+
+def _launch(name, x, ptrs, rate, seed, eps, n_part=0):
+    """One launch of ``uniter_<name>`` on x's card and its current stream
+    (the library switches to that card and back when it is not the
+    current one). ``ptrs``: the 8 pointer slots of ``_CALL``. The stream
+    is ``torch.cuda.current_stream(x.device)``'s handle, read as a raw int
+    (the getter torch's own generated kernels use): building the
+    ``torch.cuda.Stream`` object costs more host time than the rest of the
+    launch."""
+    h = x.shape[-1]
+    idx = x.device.index
+    rc = _entry(name)(_CALL.pack(
+        *ptrs, x.numel() // h, h, threshold(rate) if rate > 0.0 else 0,
+        1.0 / (1.0 - rate), n_part, int(seed), float(eps),
+        _DTYPE_CODE[x.dtype], idx, torch._C._cuda_getCurrentRawStream(idx)))
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc} "
                            f"at {tuple(x.shape)} {x.dtype}")
 
 
-def _bwd_scratch(x):
-    rows, h = x.numel() // x.shape[-1], x.shape[-1]
-    n_blocks = min((rows + 3) // 4, 4 * 132)  # csrc/fused_tail.cu bwd grid
-    return (torch.empty((2, n_blocks, h), dtype=torch.float32,
-                        device=x.device),
-            torch.empty((2, h), dtype=torch.float32, device=x.device))
+def _bwd_blocks(name, x):
+    """The backward's block count for x on its card: the rows of its dw/db
+    scratch. The library sizes the grid (from the card's SM count); this
+    asks it once per shape."""
+    h = x.shape[-1]
+    rows = x.numel() // h
+    key = (name, x.device.index, x.dtype, rows, h)
+    n = _grids.get(key)
+    if n is None:
+        n = _entry("tail_bwd_grid")(rows, h, _DTYPE_CODE[x.dtype],
+                                    int(name == "drop_res_ln_bwd"),
+                                    x.device.index)
+        if n < 1:
+            raise RuntimeError(f"tail_bwd_grid failed: cudaError_t {-n} at "
+                               f"{tuple(x.shape)} {x.dtype}")
+        _grids[key] = n
+    return n
+
+
+def _tail_bwd(x, res, weight, g, rate, seed, eps):
+    """K4 (``res`` given) or K6 (``res`` None) on checked CUDA inputs, not
+    counted: (dx, dres or None, the per-block dw/db partials [2, blocks,
+    H], dw/db [2, H])."""
+    name = "ln_drop_bwd" if res is None else "drop_res_ln_bwd"
+    n = _bwd_blocks(name, x)
+    h = x.shape[-1]
+    dx = torch.empty_like(x)
+    part = torch.empty((2, n, h), dtype=torch.float32, device=x.device)
+    dwdb = torch.empty((2, h), dtype=torch.float32, device=x.device)
+    if res is None:
+        _launch(name, x, (x.data_ptr(), 0, weight.data_ptr(), g.data_ptr(),
+                          dx.data_ptr(), 0, part.data_ptr(), dwdb.data_ptr()),
+                rate, seed, eps, n)
+        return dx, None, part, dwdb
+    dres = torch.empty_like(x)
+    _launch(name, x, (x.data_ptr(), res.data_ptr(), weight.data_ptr(),
+                      g.data_ptr(), dx.data_ptr(), dres.data_ptr(),
+                      part.data_ptr(), dwdb.data_ptr()), rate, seed, eps, n)
+    return dx, dres, part, dwdb
 
 
 def drop_res_ln_fwd(x, res, weight, bias, rate: float = 0.0, seed: int = 0,
@@ -178,11 +284,14 @@ def drop_res_ln_fwd(x, res, weight, bias, rate: float = 0.0, seed: int = 0,
     """K3: LN(dropout(x) + res) * w + b over the last axis. A CPU input
     takes ``_drop_res_ln_torch``; a CUDA input launches the kernel or
     raises. Rate 0 draws no bits."""
-    _check("drop_res_ln_fwd", (x, res), (weight, bias), rate, seed)
-    if x.device.type == "cpu":
-        return _drop_res_ln_torch(x, res, weight, bias, rate, seed, eps)
+    if not _launchable((x, res), (weight, bias), rate, seed):
+        _check("drop_res_ln_fwd", (x, res), (weight, bias), rate, seed)
+        if x.device.type == "cpu":
+            return _drop_res_ln_torch(x, res, weight, bias, rate, seed, eps)
     y = torch.empty_like(x)
-    _launch("drop_res_ln_fwd", x, (x, res, weight, bias, y), rate, seed, eps)
+    _launch("drop_res_ln_fwd", x, (x.data_ptr(), res.data_ptr(),
+                                   weight.data_ptr(), bias.data_ptr(),
+                                   y.data_ptr(), 0, 0, 0), rate, seed, eps)
     drop_res_ln_fwd.launches += 1
     return y
 
@@ -195,17 +304,15 @@ def drop_res_ln_bwd(x, res, weight, g, rate: float = 0.0, seed: int = 0,
     """K4: (dx, dres, dw, db) of ``drop_res_ln_fwd`` (same rate and seed)
     for the output gradient ``g``; dx and dres in x's dtype, dw and db fp32.
     A CPU input takes ``_drop_res_ln_bwd_torch``. One launch per call (the
-    kernel and its ordered sum of the per-block dw/db partials run back to
-    back on the stream)."""
-    _check("drop_res_ln_bwd", (x, res, g), (weight,), rate, seed)
-    if x.device.type == "cpu":
-        return _drop_res_ln_bwd_torch(x, res, weight, g, rate, seed, eps)
-    dx, dres = torch.empty_like(x), torch.empty_like(x)
-    part, dwdb = _bwd_scratch(x)
-    _launch("drop_res_ln_bwd", x, (x, res, weight, g, dx, dres, part, dwdb),
-            rate, seed, eps)
+    kernel and its fixed-order sum of the per-block dw/db partials run back
+    to back on the stream)."""
+    if not _launchable((x, res, g), (weight,), rate, seed):
+        _check("drop_res_ln_bwd", (x, res, g), (weight,), rate, seed)
+        if x.device.type == "cpu":
+            return _drop_res_ln_bwd_torch(x, res, weight, g, rate, seed, eps)
+    dx, dres, _, dwdb = _tail_bwd(x, res, weight, g, rate, seed, eps)
     drop_res_ln_bwd.launches += 1
-    return dx, dres, dwdb[0], dwdb[1]
+    return (dx, dres, *dwdb.unbind(0))
 
 
 drop_res_ln_bwd.launches = 0
@@ -215,11 +322,14 @@ def ln_drop_fwd(x, weight, bias, rate: float = 0.0, seed: int = 0,
                 eps: float = 1e-12):
     """K5: dropout(LN(x) * w + b) over the last axis; a CPU input takes
     ``_ln_drop_torch``."""
-    _check("ln_drop_fwd", (x,), (weight, bias), rate, seed)
-    if x.device.type == "cpu":
-        return _ln_drop_torch(x, weight, bias, rate, seed, eps)
+    if not _launchable((x,), (weight, bias), rate, seed):
+        _check("ln_drop_fwd", (x,), (weight, bias), rate, seed)
+        if x.device.type == "cpu":
+            return _ln_drop_torch(x, weight, bias, rate, seed, eps)
     y = torch.empty_like(x)
-    _launch("ln_drop_fwd", x, (x, weight, bias, y), rate, seed, eps)
+    _launch("ln_drop_fwd", x, (x.data_ptr(), 0, weight.data_ptr(),
+                               bias.data_ptr(), y.data_ptr(), 0, 0, 0),
+            rate, seed, eps)
     ln_drop_fwd.launches += 1
     return y
 
@@ -231,14 +341,13 @@ def ln_drop_bwd(x, weight, g, rate: float = 0.0, seed: int = 0,
                 eps: float = 1e-12):
     """K6: (dx, dw, db) of ``ln_drop_fwd``; a CPU input takes
     ``_ln_drop_bwd_torch``."""
-    _check("ln_drop_bwd", (x, g), (weight,), rate, seed)
-    if x.device.type == "cpu":
-        return _ln_drop_bwd_torch(x, weight, g, rate, seed, eps)
-    dx = torch.empty_like(x)
-    part, dwdb = _bwd_scratch(x)
-    _launch("ln_drop_bwd", x, (x, weight, g, dx, part, dwdb), rate, seed, eps)
+    if not _launchable((x, g), (weight,), rate, seed):
+        _check("ln_drop_bwd", (x, g), (weight,), rate, seed)
+        if x.device.type == "cpu":
+            return _ln_drop_bwd_torch(x, weight, g, rate, seed, eps)
+    dx, _, _, dwdb = _tail_bwd(x, None, weight, g, rate, seed, eps)
     ln_drop_bwd.launches += 1
-    return dx, dwdb[0], dwdb[1]
+    return (dx, *dwdb.unbind(0))
 
 
 ln_drop_bwd.launches = 0
