@@ -17,8 +17,10 @@ Phases, each printing its own lines:
    exits non-zero when torch sees no CUDA device.
 2. build: every hand-written kernel from ``uniter_tpu_torch/csrc/``, one
    ``nvcc`` per source, all at once (``-Xptxas -v`` report printed); the
-   count of tensor-core instructions (HMMA) in ``cuobjdump -sass`` of the
-   attention libraries, which must not be 0.
+   count of tensor-core instructions in ``cuobjdump -sass`` of the
+   attention libraries (HMMA) and of K9's (HGMMA), which must not be 0;
+   K9's registers, stack and shared memory per template instance
+   (``cuobjdump -res-usage``) and the dynamic shared memory of a launch.
 3. K1 (``csrc/mha_fwd.cu``) at rate 0 against its plain version
    ``_mha_torch`` on the card, at the serving path's attention shapes,
    fp32 (the SIMT kernel) and bf16 (the tensor-core kernel), with random key
@@ -46,7 +48,7 @@ Phases, each printing its own lines:
    K3/K4 at (9984, 768) and K5/K6 at (6144, 768) and (3840, 768), rates 0
    and 0.1, in turns with ``F.layer_norm`` and its backward (a library
    yardstick, never on a path); the plain versions' call times; the host
-   time of a launch, piece by piece (``launch_path``).
+   time of a launch of K5, K8 and K9, piece by piece (``launch_path``).
 6. serving path: uniter-base VQA inference (12 layers, 768 hidden, 12
    heads, 3129 answers; random weights from a seed in the JAX package's
    parameter layout, carried through the weight bridge) over in-memory
@@ -100,9 +102,11 @@ Phases, each printing its own lines:
    against its plain version ``ops.ffn.ffn_plain`` at (rows, H) = (15360,
    768) (the retrieval train step), (9984, 768), (9984, 1024) (uniter-large
    widths) and a ragged (4097, 768), D_mid = 4 H, fp32 and bf16, bitwise
-   repeatability; times of the kernel, the plain version and the cuBLAS
+   repeatability; device and call times of the kernel and of the cuBLAS
    composition ``F.linear -> F.gelu -> F.linear`` (a yardstick, never on a
-   path) with the bound.
+   path) in turns kernel, composition, composition, kernel, the plain
+   version's call time, the bound, the kernel's TFLOP/s and its share of
+   the bound.
 16. retrieval training: ``UniterForImageTextRetrieval`` at uniter-base on a
    fixed batch at ``configs/train-itm-flickr-base-tpu.json``'s shape (40
    groups x 3 rows, 64 text + 64 image tokens, bf16, dropout 0.1, fused
@@ -336,14 +340,16 @@ def graph_ms(torch, fn, iters=50, warmup=5, stream=None):
     return start.elapsed_time(end) / iters
 
 
-def both_ms(torch, fn, stream=None):
-    """(device ms, call ms) of ``fn``: ``graph_ms``, then ``cuda_ms`` over
-    500 calls (a host-paced time wanders between calls of 50)."""
-    dev = graph_ms(torch, fn, stream=stream)
+def both_ms(torch, fn, stream=None, n_graph=50, n_call=500):
+    """(device ms, call ms) of ``fn``: ``graph_ms`` over ``n_graph`` calls,
+    then ``cuda_ms`` over ``n_call`` (500 by default: a host-paced time
+    wanders between calls of 50)."""
+    dev = graph_ms(torch, fn, iters=n_graph, stream=stream)
+    warm = max(1, n_call // 10)
     if stream is None:
-        return dev, cuda_ms(torch, fn, 500, 50)
+        return dev, cuda_ms(torch, fn, n_call, warm)
     with torch.cuda.stream(stream):
-        return dev, cuda_ms(torch, fn, 500, 50)
+        return dev, cuda_ms(torch, fn, n_call, warm)
 
 
 def k1_phase(torch):
@@ -434,20 +440,48 @@ def excess(x, ref, rel):
 
 
 def sass_phase():
-    """``cuobjdump -sass`` of the attention libraries: the bf16 kernels
-    must run on the tensor cores (HMMA instructions)."""
+    """``cuobjdump -sass`` of the attention libraries and of K9's: the bf16
+    kernels must run on the tensor cores (HMMA instructions for
+    ``mma.sync``, HGMMA for K9's ``wgmma``); ``cuobjdump -res-usage`` of
+    K9's library: registers, stack (spills) and static shared memory of
+    every template instance, with the dynamic shared memory a launch asks
+    for at each width."""
     from uniter_tpu_torch.ops import _kernels
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for name in ("mha_fwd", "mha_bwd"):
+    for name, op in (("mha_fwd", "HMMA"), ("mha_bwd", "HMMA"),
+                     ("ffn", "HGMMA")):
         res = subprocess.run([tool, "-sass", _kernels._paths(name)[1]],
                              capture_output=True, text=True, timeout=120)
         check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
-        counts[name] = sum("HMMA" in line for line in res.stdout.splitlines())
+        counts[name] = sum(op in line for line in res.stdout.splitlines())
     print(f"[sass] HMMA instructions: libmha_fwd.so {counts['mha_fwd']}, "
-          f"libmha_bwd.so {counts['mha_bwd']}")
-    check(all(counts.values()), "no HMMA in the attention libraries")
+          f"libmha_bwd.so {counts['mha_bwd']}; HGMMA (wgmma) instructions: "
+          f"libffn.so {counts['ffn']}")
+    check(all(counts.values()), "no tensor-core instructions in the "
+          "attention or FFN libraries")
+    res = subprocess.run([tool, "-res-usage", _kernels._paths("ffn")[1]],
+                         capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
+    lines = res.stdout.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Function ([^:\s]+):", line)
+        if m and i + 1 < len(lines) and "ffn" in m[1]:
+            name = m[1]
+            try:
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True, timeout=60).stdout.strip()
+                name = name.replace("(anonymous namespace)::", "").split(
+                    "(")[0].removeprefix("void ")
+            except OSError:
+                pass
+            print(f"[sass] K9 {name}: {lines[i + 1].strip()}")
+    smem = _kernels.entry("ffn_smem_bytes")
+    print("[sass] K9 dynamic shared memory a launch asks for (bytes): "
+          + "; ".join(f"D_in = D_out = {h} {d}: {smem(h, h, c)}"
+                      for h in (768, 1024)
+                      for d, c in (("bf16", 1), ("fp32", 0))))
     return counts
 
 
@@ -734,16 +768,28 @@ def tail_tree(torch, fb, x, res, w, g, rate):
 
 def launch_path(torch, fb):
     """Host time of a launch, us per call (the host clock over 2,000 calls
-    after 200, the card synchronised every 100): the K5 wrapper and
-    ``F.layer_norm`` at (8, 768) bf16, where the card is faster than the
-    host, and the wrapper's parts."""
+    after 200, the card synchronised every 100): the K5, K8 and K9 wrappers
+    and ``F.layer_norm`` at widths where the card is faster than the host
+    ((8, 768) bf16; K9 at (8, 64) -> 256 -> 64), and the wrappers' parts."""
     import torch.nn.functional as F
+
+    from uniter_tpu_torch.ops import _kernels, ffn, layer_norm as ln
 
     x = torch.randn(8, 768, device="cuda").bfloat16()
     w, b = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
     wl, bl = w.bfloat16(), b.bfloat16()
     dev = x.device
-    grid = fb._entry("tail_bwd_grid")
+    grid = _kernels.entry("tail_bwd_grid")
+    fx = torch.randn(8, 64, device="cuda").bfloat16()
+    fw1 = (0.1 * torch.randn(256, 64, device="cuda")).bfloat16()
+    fw2 = (0.1 * torch.randn(64, 256, device="cuda")).bfloat16()
+    fb1, fb2 = torch.zeros(256, device="cuda"), torch.zeros(64, device="cuda")
+    fy = torch.empty(8, 64, device="cuda").bfloat16()
+    packed = ffn._CALL.pack(fx.data_ptr(), fw1.data_ptr(), fb1.data_ptr(),
+                            fw2.data_ptr(), fb2.data_ptr(), fy.data_ptr(), 8,
+                            64, 256, 64, 1, dev.index, 0,
+                            torch._C._cuda_getCurrentRawStream(dev.index))
+    k9_entry = _kernels.entry("ffn_fwd")
 
     def host_us(fn, n=2000):
         for _ in range(200):
@@ -759,16 +805,29 @@ def launch_path(torch, fb):
 
     parts = {
         "K5 wrapper": lambda: fb.ln_drop_fwd(x, w, b),
+        "K8 wrapper": lambda: ln.layer_norm_fwd(x, w, b),
         "F.layer_norm": lambda: F.layer_norm(x, (768,), wl, bl, 1e-12),
         "short check": lambda: fb._launchable((x,), (w, b), 0.0, 5),
+        "K8 one-look check": lambda: ln._fits(x, w, b),
         "torch.empty_like": lambda: torch.empty_like(x),
         "current_stream().cuda_stream":
             lambda: torch.cuda.current_stream(dev).cuda_stream,
         "raw current stream":
             lambda: torch._C._cuda_getCurrentRawStream(dev.index),
-        "a 5-argument ctypes call": lambda: grid(8, 768, 1, 0, dev.index)}
+        "a 5-argument ctypes call": lambda: grid(8, 768, 1, 0, dev.index),
+        "K9 wrapper (8, 64 -> 256 -> 64)":
+            lambda: ffn.ffn_fwd(fx, fw1, fb1, fw2, fb2),
+        "K9 one-look check": lambda: ffn._fits(fx, fw1, fb1, fw2, fb2),
+        "torch.empty (8, 64)":
+            lambda: torch.empty((8, 64), dtype=fx.dtype, device=dev),
+        "K9 packing": lambda: ffn._CALL.pack(
+            fx.data_ptr(), fw1.data_ptr(), fb1.data_ptr(), fw2.data_ptr(),
+            fb2.data_ptr(), fy.data_ptr(), 8, 64, 256, 64, 1, dev.index, 0,
+            torch._C._cuda_getCurrentRawStream(dev.index)),
+        "K9 entry on a packed block (3 tensor maps, the launch)":
+            lambda: k9_entry(packed)}
     us = {k: host_us(f) for k, f in parts.items()}
-    print("[K3-K6] host time of a launch, us a call (host clock, 2,000 calls "
+    print("[K3-K9] host time of a launch, us a call (host clock, 2,000 calls "
           "at (8, 768) bf16): " + "; ".join(f"{k} {v:.2f}"
                                             for k, v in us.items()))
     return us
@@ -1175,7 +1234,7 @@ def profile_steps(torch, state, step, batch, n, tag, label="train"):
                                            "sum_partials"),
               "ipot (K7)": share("ipot_kernel"),
               "K8": share("layer_norm_fwd_kernel"),
-              "K9": share("ffn_bf16_kernel", "ffn_f32_kernel"),
+              "K9": share("ffn_wgmma_kernel", "ffn_f32_kernel"),
               "GEMM": share("gemm", "cutlass", "xmma", "sm90_", "nvjet"),
               "Philox bits": share("<long", "opaquetype<8u>")}
     groups["other"] = busy - sum(groups.values())
@@ -2271,17 +2330,22 @@ def ffn_bound_ms(rows, h, dtype, mid=None):
 def k9_phase(torch):
     """K9 against ``ffn_plain`` at K9_SHAPES, fp32 (1e-5 of max(1,
     max|ref|)) and bf16 (two bf16 steps of |ref| + 1e-3: fp32 sums in another
-    order can re-round h), bitwise equal on a second run; times of the
-    kernel, the plain version and the cuBLAS composition ``F.linear ->
-    F.gelu -> F.linear`` (a yardstick, never on a path) at every shape.
-    Returns (worst fp32 err, {(rows, h, dtype): (kernel, plain,
-    composition) ms})."""
+    order can re-round h), bitwise equal on a second run; at every shape the
+    device and call times (``both_ms``) of the kernel and of the cuBLAS
+    composition ``F.linear -> F.gelu -> F.linear`` (a yardstick, never on a
+    path) in turns kernel, composition, composition, kernel, the plain
+    version's call time, the bound, the achieved TFLOP/s and the share of
+    the bound. Returns (worst fp32 err, {(rows, h, dtype): {"dev", "call",
+    "lib_dev", "lib_call", "plain"} ms})."""
     import torch.nn.functional as F
 
     from uniter_tpu_torch.ops.ffn import ffn_fwd, ffn_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     worst, timing = 0.0, {}
+    print("[K9] times, us per call: device (calls captured in one CUDA "
+          "graph, replayed) / call (calls from Python, CUDA events); turns "
+          "kernel, composition, composition, kernel")
     for rows, h in K9_SHAPES:
         mid = 4 * h
         for dname, dtype in (("float32", torch.float32),
@@ -2314,24 +2378,39 @@ def k9_phase(torch):
             check(ok, f"K9 disagrees with ffn_plain at {(rows, h)} {dname}")
             if dname == "float32":
                 worst = max(worst, diff.max().item())
+            del got, want, diff
             b1c, b2c = b1.to(dtype), b2.to(dtype)
-            t = [cuda_ms(torch, lambda: ffn_plain(x, w1, b1, w2, b2), 10, 2),
-                 cuda_ms(torch, lambda: ffn_fwd(x, w1, b1, w2, b2), 10, 2),
-                 cuda_ms(torch, lambda: ffn_fwd(x, w1, b1, w2, b2), 10, 2),
-                 cuda_ms(torch, lambda: ffn_plain(x, w1, b1, w2, b2), 10, 2)]
-            comp = cuda_ms(torch, lambda: F.linear(
-                F.gelu(F.linear(x, w1, b1c)), w2, b2c), 10, 2)
-            key = (rows, h, dname)
-            timing[key] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, comp)
+
+            def kern():
+                return ffn_fwd(x, w1, b1, w2, b2)
+
+            def comp():
+                return F.linear(F.gelu(F.linear(x, w1, b1c)), w2, b2c)
+
+            # about 0.1 s a measurement: few calls of a slow kernel
+            est = cuda_ms(torch, kern, 3, 1)
+            n_call = int(min(500, max(5, 100.0 / est)))
+            n_graph = int(min(50, max(3, 50.0 / est)))
+            t = [both_ms(torch, f, n_graph=n_graph, n_call=n_call)
+                 for f in (kern, comp, comp, kern)]
+            plain = cuda_ms(torch, lambda: ffn_plain(x, w1, b1, w2, b2),
+                            max(3, n_call // 10), 1)
+            r = {"dev": (t[0][0] + t[3][0]) / 2,
+                 "call": (t[0][1] + t[3][1]) / 2,
+                 "lib_dev": (t[1][0] + t[2][0]) / 2,
+                 "lib_call": (t[1][1] + t[2][1]) / 2, "plain": plain}
+            timing[(rows, h, dname)] = r
             bms, by = ffn_bound_ms(rows, h, dname)
-            print(f"[K9] time at ({rows}, {h}) {dname}: kernel "
-                  f"{timing[key][0] * 1e3:.1f} us, plain "
-                  f"{timing[key][1] * 1e3:.1f} us, cuBLAS composition "
-                  f"F.linear -> F.gelu -> F.linear {comp * 1e3:.1f} us per "
-                  f"call (CUDA events over 10 calls; turns plain, kernel, "
-                  f"kernel, plain: {', '.join(f'{v * 1e3:.1f}' for v in t)}); "
-                  f"bound {bms * 1e3:.1f} us ({by}), kernel at "
-                  f"{bms / timing[key][0] * 100:.1f}% of it")
+            tflops = 4 * rows * h * mid / (r["dev"] * 1e-3) / 1e12
+            print(f"[K9]   ({rows}, {h}) {dname}: kernel "
+                  f"{r['dev'] * 1e3:.1f} / {r['call'] * 1e3:.1f}; "
+                  f"composition {r['lib_dev'] * 1e3:.1f} / "
+                  f"{r['lib_call'] * 1e3:.1f}; turns "
+                  + ", ".join(f"{d * 1e3:.1f}/{c * 1e3:.1f}" for d, c in t)
+                  + f" ({n_graph} calls a graph, {n_call} from Python); "
+                  f"plain call {plain * 1e3:.1f}; bound {bms * 1e3:.1f} "
+                  f"({by}); kernel {tflops:.1f} TFLOP/s, "
+                  f"{bms / r['dev'] * 100:.1f}% of the bound")
     return worst, timing
 
 
@@ -2968,11 +3047,13 @@ def main(argv):
         "source": "uniter_tpu_torch/csrc/ffn.cu",
         "replaces": "uniter_tpu/ops/ffn.py:48",
         "launches": itm["k9_launches"], "max_abs_err": k9_err,
-        "ms": kt[0], "plain_ms": kt[1], "bound_ms": bound, "bound_by": by,
-        "library_ms": None})
+        "ms": kt["call"], "plain_ms": kt["plain"], "bound_ms": bound,
+        "bound_by": by, "library_ms": None, "device_ms": kt["dev"],
+        "library_device_ms": None})
     print(f"[smoke] K9 at ({rows}, {h}) bf16: the cuBLAS composition "
           f"F.linear -> F.gelu -> F.linear (no one PyTorch call computes the "
-          f"fused FFN, so library_ms is null) took {kt[2] * 1e3:.1f} us; K9 "
+          f"fused FFN, so library_ms is null) took {kt['lib_dev'] * 1e3:.1f} "
+          f"/ {kt['lib_call'] * 1e3:.1f} us (device / call); K9 "
           f"launches from the retrieval train path ({itm['k9_launches']} over "
           f"its 2 counted steps), the hard-negative step {hn['launches']} per "
           f"step, retrieval serving "
@@ -2997,7 +3078,7 @@ def main(argv):
           f"the [K2] lines; ms, plain_ms and library_ms are call times "
           f"(calls from Python between CUDA events: 500 for K3-K6 and K8, "
           f"50 for the plain versions; K7: its wrapper), device_ms and "
-          f"library_device_ms (K3-K8) device times (50 calls captured in "
+          f"library_device_ms (K3-K9) device times (50 calls captured in "
           f"one CUDA graph and replayed; K7: the launch alone)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3007,7 +3088,8 @@ def main(argv):
 
 
 # phases that run alone: ``python3 chip_smoke.py tails train``
-PHASES = {"k1": k1_phase, "k2": k2_phase, "tails": tail_phase,
+PHASES = {"sass": lambda torch: sass_phase(), "k1": k1_phase,
+          "k2": k2_phase, "tails": tail_phase, "itm-serve": itm_serve_phase,
           "serve": main_path_phase, "train": train_phase, "nlvr2": nlvr2_phase,
           "k7": k7_phase, "k8": k8_phase, "pretrain": pretrain_phase,
           "k9": k9_phase, "itm": itm_train_phase}

@@ -45,12 +45,15 @@ masked, bitwise equal from run to run. K8 (``uniter_layer_norm_fwd`` in
 to half a bf16 step of the value + 1e-3; a small pretraining model takes an
 ITM step through K1-K8 with one K7 launch and matches the plain step.
 
-K9 (``csrc/ffn.cu``) is held against ``ops.ffn.ffn_plain`` at the retrieval
-and uniter-large widths, a ragged row count and a partial last chunk: fp32
+K9 (``csrc/ffn.cu``) is held against ``ops.ffn.ffn_plain`` at chip_smoke.py's
+K9_SHAPES and more (the retrieval and uniter-large widths, ragged row
+counts, widths that are not multiples of 64, a partial last chunk): fp32
 to 1e-5 of max(1, max|ref|), bf16 within two bf16 steps of |ref| + 1e-3
 (fp32 sums in another order can re-round the intermediate), bitwise equal
-from run to run; ``FfnFunction``'s backward is the plain formula; a small
-retrieval model trains the same with K9 as without.
+from run to run and through either launch path, a second stream or a CUDA
+graph; ``FfnFunction``'s backward is the plain formula; a small retrieval
+model trains the same with K9 as without. K8 through its one-look launch
+path equals K5 at rate 0 bit for bit.
 """
 
 import pytest
@@ -625,6 +628,11 @@ def test_layer_norm_kernel_matches_plain(gen, dtype, rows, h):
     flat = torch.cat([w.new_zeros(1), w, b])
     assert torch.equal(
         got, ln.layer_norm_fwd(x, flat[1:1 + h], flat[1 + h:], 1e-12))
+    # the one-look launch path, and K5's row code: K5 at rate 0 is K8 bit
+    # for bit where it takes the width
+    assert ln._fits(x, w, b)
+    if h <= fb.MAX_HIDDEN:
+        assert torch.equal(got, fb.ln_drop_fwd(x, w, b, 0.0, 0, 1e-12))
 
 
 def test_layer_norm_function_on_the_card(gen):
@@ -732,7 +740,13 @@ def _ffn_inputs(gen, rows, d_in, d_mid, d_out, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d_in,d_mid,d_out", [
     (2048, 768, 3072, 768), (1024, 1024, 4096, 1024), (97, 768, 3072, 768),
-    (33, 64, 144, 48)])
+    (33, 64, 144, 48),
+    # chip_smoke.py K9_SHAPES: the retrieval step, the flagship rows,
+    # uniter-large widths, a ragged row count
+    (15360, 768, 3072, 768), (9984, 768, 3072, 768),
+    (9984, 1024, 4096, 1024), (4097, 768, 3072, 768),
+    # D_in and D_mid not multiples of 64, D_out not a multiple of 128
+    (130, 784, 400, 80)])
 def test_ffn_kernel_matches_plain(gen, dtype, rows, d_in, d_mid, d_out):
     """K9 against ``ffn_plain``: fp32 to 1e-5 of max(1, max|ref|) (another
     summation order), bf16 within two bf16 steps of |ref| + 1e-3 (fp32 sums
@@ -787,6 +801,43 @@ def test_ffn_function_on_the_card(gen):
         ffn_fwd(x.t().contiguous().t(), w1, b1, w2, b2)
     with pytest.raises(TypeError, match="weights"):
         ffn_fwd(x, w1.bfloat16(), b1, w2, b2)
+    with pytest.raises(ValueError, match="<= 1024"):  # D_out 1040
+        ffn_fwd(*_ffn_inputs(gen, 8, 64, 128, 1040, torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_short_and_full_launch_paths_agree(gen, dtype):
+    """The one-look path (``_fits``) and the full checks with their copies
+    (a tensor off a 16-byte boundary, biases in float64) launch the same
+    kernel on the same values: equal results, one launch each; the launch
+    on a second stream and captured in a CUDA graph repeats them too."""
+    from uniter_tpu_torch.ops import ffn
+
+    x, w1, b1, w2, b2 = _ffn_inputs(gen, 300, 768, 3072, 768, dtype)
+    assert ffn._fits(x, w1, b1, w2, b2)
+    want = ffn.ffn_fwd(x, w1, b1, w2, b2)
+
+    def off(t):  # t's values 4 bytes past a 16-byte boundary
+        flat = torch.empty(t.numel() + 8, dtype=t.dtype, device="cuda")
+        return flat[2:2 + t.numel()].view(t.shape).copy_(t)
+
+    before = ffn.ffn_fwd.launches
+    for args in ((off(x), w1, b1, w2, b2), (x, off(w1), b1, off(w2), b2),
+                 (x, w1, b1.double(), w2, b2)):
+        assert torch.equal(ffn.ffn_fwd(*args), want)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        got = ffn.ffn_fwd(x, w1, b1, w2, b2)
+    torch.cuda.current_stream().wait_stream(s)
+    assert torch.equal(got, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ffn.ffn_fwd(x, w1, b1, w2, b2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, want)
+    assert ffn.ffn_fwd.launches == before + 5
 
 
 def test_retrieval_step_through_ffn_kernel(gen):

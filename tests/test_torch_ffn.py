@@ -150,6 +150,112 @@ def test_wrapper_checks_and_unknown_impl():
     assert pffn.ffn(x3, *t[1:], impl="cuda").shape == (2, 4, 32)
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((33, 64, 144, 48), torch.float32), ((33, 64, 144, 48), torch.bfloat16),
+    ((130, 96, 400, 80), torch.bfloat16),
+    ((128, 768, 3072, 768), torch.float32)])
+def test_tiled_twin_matches_plain_and_jax_pallas(interpret, shape, dtype):
+    """``_ffn_tiled_torch``, K9's order of operations (64- or 32-row tiles,
+    h in chunks, 64-product partials over D_in added in order, D_out in
+    quarters taking the chunk's h units in turn), against ``ffn_plain`` and
+    the JAX Pallas kernel in interpret mode, at small widths (a ragged row
+    count, D_in, D_mid and D_out not multiples of 64, a partial last chunk)
+    and at uniter-base's (768 -> 3072 -> 768). fp32: within 1e-5 of max(1,
+    max|ref|) of ``ffn_plain`` (another fp32 summation order: the card's
+    tolerance) and atol 1e-5, rtol 1e-4 of Pallas (its polynomial erf, as
+    above). bf16: within two bf16 steps of |ref| + 1e-3 of both (the card's
+    tolerance: another fp32 order can re-round a value of h)."""
+    x, w1, b1, w2, b2, _ = _inputs(shape, seed=4)
+    w1, w2 = w1 * 0.1, w2 * 0.1  # uniter-base's scale at D_in 768
+    t = [torch.from_numpy(a) for a in (x, w1, b1, w2, b2)]
+    t[0], t[1], t[3] = (a.to(dtype) for a in (t[0], t[1], t[3]))
+    got = pffn._ffn_tiled_torch(*t)
+    assert got.dtype == dtype and got.shape == (shape[0], shape[3])
+    want = pffn.ffn_plain(*t).float()
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jp = torch.tensor(np.asarray(jffn._ffn_pallas(
+        jnp.asarray(x).astype(jdt), jnp.asarray(w1.T).astype(jdt),
+        jnp.asarray(b1), jnp.asarray(w2.T).astype(jdt),
+        jnp.asarray(b2)).astype(jnp.float32)))
+    diff = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.numpy(), jp.numpy(), atol=1e-5,
+                                   rtol=1e-4)
+    else:
+        for ref in (want, jp):
+            bound = 2.0**-6 * ref.abs() + 1e-3
+            assert ((got.float() - ref).abs() - bound).max().item() <= 0
+
+
+def _launch_args(d_in=64, d_mid=128, d_out=64, dtype=torch.bfloat16):
+    x, w1, b1, w2, b2, _ = _inputs((8, d_in, d_mid, d_out))
+    t = [torch.from_numpy(a) for a in (x, w1, b1, w2, b2)]
+    return [t[0].to(dtype), t[1].to(dtype), t[2], t[3].to(dtype), t[4]]
+
+
+def _misaligned(t):
+    """``t``'s values in a view 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype)[2:2 + t.numel()]
+    return flat.view(t.shape).copy_(t)
+
+
+def test_one_look_check_sends_every_bad_input_to_the_full_checks():
+    """``_fits`` (the launch path's one look at each tensor) takes the
+    inputs a launch takes as they are, at D_out up to 1024; every input it
+    refuses is either refused by the full checks (``_check_shapes``,
+    ``_check_card``: the errors a card input raised before) or fixed by a
+    copy (a tensor off a 16-byte boundary, a bias not in float32)."""
+    good = _launch_args()
+    assert pffn._fits(*good)
+    pffn._check_card(*good)
+    for d_out, ok in ((1024, True), (1040, False)):
+        args = _launch_args(d_out=d_out)
+        assert pffn._fits(*args) is ok
+        if ok:
+            pffn._check_card(*args)
+        else:
+            with pytest.raises(ValueError, match="<= 1024"):
+                pffn._check_card(*args)
+    x, w1, b1, w2, b2 = good
+    raising = {
+        "float16": ((x.half(), w1.half(), b1, w2.half(), b2), TypeError),
+        "weights' dtype": ((x, w1.float(), b1, w2, b2), TypeError),
+        "D_in 2048": (_launch_args(d_in=2048), ValueError),
+        "D_in 24": (_launch_args(d_in=24), ValueError),
+        "D_mid 136": (_launch_args(d_mid=136), ValueError),
+        "strided x": ((x.t().contiguous().t(), w1, b1, w2, b2), ValueError),
+        "strided b1": ((x, w1, torch.stack([b1, b1], 1)[:, 0], w2, b2),
+                       ValueError),
+        "w2 shape": ((x, w1, b1, w2[:, :64], b2), ValueError),
+        "b2 shape": ((x, w1, b1, w2, b2[:32]), ValueError),
+        "3-d x": ((x[None], w1, b1, w2, b2), ValueError),
+        "no rows": ((x[:0], w1, b1, w2, b2), ValueError),
+        "two devices": ((x, w1.to("meta"), b1, w2, b2), ValueError)}
+    for name, (args, err) in raising.items():
+        assert not pffn._fits(*args), name
+        with pytest.raises(err):
+            pffn._check_shapes(*args)
+            pffn._check_card(*args)
+    # the short path also asks for a card: any other device goes to the
+    # full checks, which take the CPU and refuse the rest
+    meta = [a.to("meta") for a in good]
+    assert not meta[0].is_cuda
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        pffn.ffn_fwd(*meta)
+    fixed = {"misaligned x": (_misaligned(x), w1, b1, w2, b2),
+             "misaligned w2": (x, w1, b1, _misaligned(w2), b2),
+             "bf16 b1": (x, w1, b1.bfloat16(), w2, b2)}
+    for name, args in fixed.items():
+        assert not pffn._fits(*args), name
+        pffn._check_shapes(*args)
+        pffn._check_card(*args)
+    # a CPU input never takes the launch path: the plain version answers
+    before = pffn.ffn_fwd.launches
+    assert torch.equal(pffn.ffn_fwd(*good), pffn.ffn_plain(*good))
+    assert pffn.ffn_fwd.launches == before
+
+
 @pytest.mark.parametrize("given,device,want", [
     ("xla", "cpu", "xla"), ("pallas", "cpu", "xla"), ("cuda", "cpu", "xla"),
     ("xla", "cuda", "xla"), ("pallas", "cuda", "cuda"),

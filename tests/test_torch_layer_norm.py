@@ -134,6 +134,51 @@ def test_wrapper_checks_and_unknown_impl():
         pln.layer_norm_fwd(tx[:0], tw, tb)
 
 
+def _misaligned(t):
+    """``t``'s values in a view 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype)[2:2 + t.numel()]
+    return flat.view(t.shape).copy_(t)
+
+
+def test_one_look_check_sends_every_bad_input_to_the_full_checks():
+    """K8's launch path looks once at each tensor (``_fits``, the tails'
+    ``_launchable`` for one kernel); every input it refuses is refused by
+    the full checks (``_check``, then ``_check_card`` on a card), with the
+    errors a card input raised before."""
+    x, w, b, _ = _inputs((4, 64))
+    tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
+    good = (tx.bfloat16(), tw, tb)
+    assert pln._fits(*good) and pln._fits(tx, tw, tb)
+    pln._check(*good)
+    pln._check_card(*good)
+    raising = {
+        "float16": ((tx.half(), tw, tb), TypeError),
+        "float64": ((tx.double(), tw, tb), TypeError),
+        "bf16 weight": ((tx, tw.bfloat16(), tb), TypeError),
+        "H 4096": ((torch.zeros(2, 4096), torch.ones(4096),
+                    torch.zeros(4096)), ValueError),
+        "H 66": ((torch.zeros(2, 66), torch.ones(66), torch.zeros(66)),
+                 ValueError),
+        "strided x": ((tx.t().contiguous().t(), tw, tb), ValueError),
+        "misaligned x": ((_misaligned(tx), tw, tb), ValueError),
+        "strided w": ((tx, torch.stack([tw, tw], 1)[:, 0], tb), ValueError),
+        "b shape": ((tx, tw, tb[:32]), ValueError),
+        "a scalar": ((tx[0, 0], tw, tb), ValueError),
+        "no rows": ((tx[:0], tw, tb), ValueError),
+        "two devices": ((tx, tw.to("meta"), tb), ValueError)}
+    for name, (args, err) in raising.items():
+        assert not pln._fits(*args), name
+        with pytest.raises(err):
+            pln._check(*args)
+            pln._check_card(*args)
+    # the short path also asks for a card: other devices go to the full
+    # checks, which take the CPU (the plain version) and refuse the rest
+    assert torch.equal(pln.layer_norm_fwd(tx, tw, tb),
+                       pln._layer_norm_torch(tx, tw, tb))
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        pln.layer_norm_fwd(*(a.to("meta") for a in (tx, tw, tb)))
+
+
 @pytest.mark.parametrize("given,device,want", [
     ("xla", "cpu", "xla"), ("pallas", "cpu", "xla"), ("cuda", "cpu", "xla"),
     ("xla", "cuda", "xla"), ("pallas", "cuda", "cuda"),

@@ -604,10 +604,9 @@ int dispatch(const TailCall& a) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One tail entry: the caller's block, launched on its device; the caller
+// One entry: the caller's block, run by `run` on its device; the caller
 // gets its own current device back.
-template <bool kRes, typename Op>
-int run_call(const void* raw) {
+int on_device(const void* raw, int (*run)(const TailCall&)) {
   TailCall a;
   std::memcpy(&a, raw, sizeof a);  // the block may sit at any alignment
   int cur = 0;
@@ -615,36 +614,49 @@ int run_call(const void* raw) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (cur != a.device && (err = cudaSetDevice(a.device)) != cudaSuccess)
     return static_cast<int>(err);
-  const int rc = dispatch<kRes, Op>(a);
+  const int rc = run(a);
   if (cur != a.device) cudaSetDevice(cur);
   return rc;
 }
 
+template <bool kRes, typename Op>
+int run_call(const void* raw) {
+  return on_device(raw, dispatch<kRes, Op>);
+}
+
 template <typename T, int VEC, int NV>
-int launch_ln(const void* x, const void* w, const void* b, void* y,
-              long long rows, int H, float eps, cudaStream_t st) {
+int launch_ln(const TailCall& a) {
   static const int per_sm =
       blocks_per_sm(layer_norm_fwd_kernel<T, VEC, NV>, 32 * FWD_WARPS);
-  int device = 0;
-  cudaGetDevice(&device);
   layer_norm_fwd_kernel<T, VEC, NV>
-      <<<grid(rows, FWD_WARPS, per_sm, device), 32 * FWD_WARPS, 0, st>>>(
-          static_cast<const T*>(x), static_cast<const float*>(w),
-          static_cast<const float*>(b), static_cast<T*>(y), rows, H, eps);
+      <<<grid(a.rows, FWD_WARPS, per_sm, a.device), 32 * FWD_WARPS, 0,
+         stream_of(a)>>>(ptr<const T>(a.x), ptr<const float>(a.w),
+                         ptr<const float>(a.b_or_g), ptr<T>(a.y_or_dx),
+                         a.rows, a.H, a.eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 // NV covers H up to 256, 768, 1024, 1536 or 2048 columns.
 template <typename T, int VEC>
-int ln_nv(const void* x, const void* w, const void* b, void* y,
-          long long rows, int H, float eps, cudaStream_t st) {
+int ln_nv(const TailCall& a) {
   constexpr int k = 8 / VEC;  // vectors of 8 columns per 8-wide vector
-  if (H <= 256) return launch_ln<T, VEC, 1 * k>(x, w, b, y, rows, H, eps, st);
-  if (H <= 768) return launch_ln<T, VEC, 3 * k>(x, w, b, y, rows, H, eps, st);
-  if (H <= 1024) return launch_ln<T, VEC, 4 * k>(x, w, b, y, rows, H, eps, st);
-  if (H <= 1536) return launch_ln<T, VEC, 6 * k>(x, w, b, y, rows, H, eps, st);
-  return launch_ln<T, VEC, 8 * k>(x, w, b, y, rows, H, eps, st);
+  if (a.H <= 256) return launch_ln<T, VEC, 1 * k>(a);
+  if (a.H <= 768) return launch_ln<T, VEC, 3 * k>(a);
+  if (a.H <= 1024) return launch_ln<T, VEC, 4 * k>(a);
+  if (a.H <= 1536) return launch_ln<T, VEC, 6 * k>(a);
+  return launch_ln<T, VEC, 8 * k>(a);
 }
+
+struct LnOp {  // K8 on its rows: dtype 0 fp32 x 4, 1 bf16 x 8 (or x 4)
+  static int run(const TailCall& a) {
+    if (a.rows < 1 || a.H < 4 || a.H > LN_MAX_H || a.H % 4 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (a.dtype == 0) return ln_nv<float, 4>(a);
+    if (a.dtype == 1 && a.H % 8 == 0) return ln_nv<bf16, 8>(a);
+    if (a.dtype == 1) return ln_nv<bf16, 4>(a);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+};
 
 }  // namespace
 
@@ -697,18 +709,10 @@ extern "C" int uniter_ln_drop_bwd(const void* call) {
   return run_call<false, BwdOp>(call);
 }
 
-// K8. x and y contiguous [rows, H] of `dtype`, 16-byte aligned rows; w, b
-// float32 [H]; H a multiple of 4 up to 2048; on the current device.
-extern "C" int uniter_layer_norm_fwd(const void* x, const void* w,
-                                     const void* b, void* y, long long rows,
-                                     int H, float eps, int dtype,
-                                     void* stream) {
-  if (rows < 1 || H < 4 || H > LN_MAX_H || H % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return ln_nv<float, 4>(x, w, b, y, rows, H, eps, st);
-  if (dtype == 1 && H % 8 == 0)
-    return ln_nv<bf16, 8>(x, w, b, y, rows, H, eps, st);
-  if (dtype == 1) return ln_nv<bf16, 4>(x, w, b, y, rows, H, eps, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// K8: one `TailCall` with x, w, b (in b_or_g) and y (in y_or_dx), rows, H
+// (a multiple of 4 up to 2048), eps, dtype, device and stream; the other
+// fields are not read. Bit for bit the launch the tails' K5 row code makes
+// without dropout.
+extern "C" int uniter_layer_norm_fwd(const void* call) {
+  return on_device(call, LnOp::run);
 }

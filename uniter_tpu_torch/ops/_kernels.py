@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from typing import Dict, Iterable
@@ -37,26 +38,36 @@ SIGNATURES = {
     # q k v g bias out out_lo lse dq dk dv scratch, B S H D, q/k/v/g
     # strides, then as mha_fwd
     "mha_bwd": [_P] * 12 + [_I] * 4 + [_L] * 12 + [_F, _U, _F, _UL, _I, _P],
-    # the fused tails: one packed argument block (ops/fused_block.py _CALL)
+    # the fused tails: one packed argument block (TAIL_CALL)
     **{k: [ctypes.c_char_p] for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
                                       "ln_drop_fwd", "ln_drop_bwd")},
     # the backward tails' grid: rows, H, dtype, K4 (1) or K6 (0), device
     "tail_bwd_grid": [_L, _I, _I, _I, _I],
-    # x w b y, rows, H, eps, dtype, stream
-    "layer_norm_fwd": [_P] * 4 + [_L, _I, _F, _I, _P],
     # A sigma0 x_mask y_mask x_len y_len T, B N M, iteration, k, form, stream
     "ipot": [_P] * 7 + [_I] * 6 + [_P],
-    # x w1 b1 w2 b2 y, rows, D_in, D_mid, D_out, dtype, stream
-    "ffn_fwd": [_P] * 6 + [_L] + [_I] * 4 + [_P],
+    # K8: the tails' packed block (TAIL_CALL); K9: its own (ops/ffn.py _CALL)
+    "layer_norm_fwd": [ctypes.c_char_p], "ffn_fwd": [ctypes.c_char_p],
+    # K9's dynamic shared memory at D_in, D_out, dtype (for the record)
+    "ffn_smem_bytes": [_I, _I, _I],
 }
 # kernel name -> the csrc/<source>.cu that defines it
 SOURCES = {"mha_fwd": "mha_fwd", "mha_bwd": "mha_bwd", "ipot": "ipot",
-           "ffn_fwd": "ffn",
+           "ffn_fwd": "ffn", "ffn_smem_bytes": "ffn",
            **{k: "fused_tail" for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
                                         "ln_drop_fwd", "ln_drop_bwd",
                                         "tail_bwd_grid", "layer_norm_fwd")}}
 
+# source -> what it links beyond the CUDA runtime: K9 encodes its TMA tensor
+# maps with libcuda's cuTensorMapEncodeTiled
+LINK = {"ffn": ["-lcuda"]}
+# csrc/fused_tail.cu `TailCall`, the one argument of the tail entries and of
+# K8: 8 pointers (x, res, w, b or g, y or dx, dres, part, dwdb; 0 where a
+# kernel has none), rows, H, the dropout threshold, 1 / (1 - rate), the
+# blocks of part, seed, eps, dtype, device, stream
+TAIL_CALL = struct.Struct("<8Qqi I f i Q f i i 4x Q")
+
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, object] = {}  # kernel name -> its typed entry point
 _lock = threading.Lock()
 
 
@@ -100,6 +111,12 @@ def build(names: Iterable[str] = tuple(sorted(set(SOURCES.values()))), *,
         tmp = f"{so}.{os.getpid()}"
         cmd = [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-o", tmp, src]
+        if name in LINK:  # the toolkit's link stubs stand in for libcuda
+            root = os.path.dirname(os.path.dirname(os.path.realpath(nvcc)))
+            cmd += [f"-L{os.path.join(root, d, 'stubs')}"
+                    for d in ("lib64", "targets/x86_64-linux/lib")
+                    if os.path.isdir(os.path.join(root, d, "stubs"))]
+            cmd += LINK[name]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -132,3 +149,12 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def entry(name: str):
+    """The C entry point ``uniter_<name>``, resolved once (its first use
+    builds the kernels): the wrappers' launch path looks it up in a dict."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(load(name), f"uniter_{name}")
+    return fn

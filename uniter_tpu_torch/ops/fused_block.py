@@ -42,8 +42,6 @@ current one of x's card, with no device switch in Python.
 
 from __future__ import annotations
 
-import struct
-
 import torch
 
 from uniter_tpu_torch.ops import _kernels
@@ -201,35 +199,20 @@ def _check(name, rows_like, vecs, rate, seed):
         raise ValueError(f"{name}: weight and bias must be contiguous")
 
 
-# csrc/fused_tail.cu `TailCall`, the tail entries' one argument: 8 pointers
-# (x, res, w, b or g, y or dx, dres, part, dwdb; 0 where a kernel has none),
-# rows, H, the dropout threshold, 1 / (1 - rate), the blocks of part, seed,
-# eps, dtype, device, stream
-_CALL = struct.Struct("<8Qqi I f i Q f i i 4x Q")
-_entries = {}  # kernel name -> its ctypes entry point
 _grids = {}  # (kernel, device, dtype, rows, H) -> the backward's blocks
-
-
-def _entry(name):
-    """The C entry point ``uniter_<name>``, resolved once (the first use
-    builds the kernels)."""
-    fn = _entries.get(name)
-    if fn is None:
-        fn = _entries[name] = getattr(_kernels.load(name), f"uniter_{name}")
-    return fn
 
 
 def _launch(name, x, ptrs, rate, seed, eps, n_part=0):
     """One launch of ``uniter_<name>`` on x's card and its current stream
     (the library switches to that card and back when it is not the
-    current one). ``ptrs``: the 8 pointer slots of ``_CALL``. The stream
-    is ``torch.cuda.current_stream(x.device)``'s handle, read as a raw int
-    (the getter torch's own generated kernels use): building the
+    current one). ``ptrs``: the 8 pointer slots of ``_kernels.TAIL_CALL``.
+    The stream is ``torch.cuda.current_stream(x.device)``'s handle, read as
+    a raw int (the getter torch's own generated kernels use): building the
     ``torch.cuda.Stream`` object costs more host time than the rest of the
     launch."""
     h = x.shape[-1]
     idx = x.device.index
-    rc = _entry(name)(_CALL.pack(
+    rc = _kernels.entry(name)(_kernels.TAIL_CALL.pack(
         *ptrs, x.numel() // h, h, threshold(rate) if rate > 0.0 else 0,
         1.0 / (1.0 - rate), n_part, int(seed), float(eps),
         _DTYPE_CODE[x.dtype], idx, torch._C._cuda_getCurrentRawStream(idx)))
@@ -247,9 +230,9 @@ def _bwd_blocks(name, x):
     key = (name, x.device.index, x.dtype, rows, h)
     n = _grids.get(key)
     if n is None:
-        n = _entry("tail_bwd_grid")(rows, h, _DTYPE_CODE[x.dtype],
-                                    int(name == "drop_res_ln_bwd"),
-                                    x.device.index)
+        n = _kernels.entry("tail_bwd_grid")(
+            rows, h, _DTYPE_CODE[x.dtype], int(name == "drop_res_ln_bwd"),
+            x.device.index)
         if n < 1:
             raise RuntimeError(f"tail_bwd_grid failed: cudaError_t {-n} at "
                                f"{tuple(x.shape)} {x.dtype}")

@@ -77,12 +77,26 @@ def _layer_norm_bwd_torch(x, weight, g, eps: float = 1e-12):
             _col_sum(gf).to(weight.dtype))
 
 
-def layer_norm_fwd(x, weight, bias, eps: float = 1e-12):
-    """K8: LayerNorm over the last axis of ``x`` [..., H] (float32 or
-    bfloat16; weight and bias float32 [H]), the result in x's dtype. A CPU
-    input takes ``_layer_norm_torch``; a CUDA input launches the kernel or
-    raises (H a multiple of 4 up to 2048, x contiguous and 16-byte
-    aligned)."""
+def _fits(x, weight, bias):
+    """One look at each tensor: True when a launch takes them as they are
+    (x's device aside). False sends the wrapper to ``_check``, which raises
+    on what is wrong."""
+    shape = x.shape
+    h = shape[-1] if shape else 0
+    if (x.dtype not in _DTYPE_CODE or not 0 < h <= MAX_HIDDEN or h % 4
+            or not x.numel() or not x.is_contiguous() or x.data_ptr() % 16):
+        return False
+    dev = x.device
+    for t in (weight, bias):
+        if (t.device != dev or t.dtype != torch.float32 or t.shape != (h,)
+                or not t.is_contiguous()):
+            return False
+    return True
+
+
+def _check(x, weight, bias):
+    """The rules every input obeys: one device, a non-empty [..., H] x,
+    [H] weight and bias. A CUDA input then goes through ``_check_card``."""
     dev = x.device
     if weight.device != dev or bias.device != dev:
         raise ValueError("layer_norm_fwd: all tensors must lie on one device")
@@ -93,10 +107,17 @@ def layer_norm_fwd(x, weight, bias, eps: float = 1e-12):
     if tuple(weight.shape) != (h,) or tuple(bias.shape) != (h,):
         raise ValueError(f"layer_norm_fwd: weight and bias must be [{h}], "
                          f"got {tuple(weight.shape)}, {tuple(bias.shape)}")
-    if dev.type == "cpu":
-        return _layer_norm_torch(x, weight, bias, eps)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"layer_norm_fwd runs on cuda or cpu, not {dev}")
+
+
+def _check_card(x, weight, bias):
+    """What the kernel takes beyond ``_check``'s rules: float32 or bfloat16
+    x, float32 weight and bias, H a multiple of 4 up to 2048, x contiguous
+    and 16-byte aligned, weight and bias contiguous. Raises on the first
+    rule broken; whatever ``_fits`` refuses breaks one of these or
+    ``_check``'s."""
+    h = x.shape[-1]
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"layer_norm_fwd takes float32 or bfloat16 "
                         f"activations, got {x.dtype}")
@@ -110,13 +131,29 @@ def layer_norm_fwd(x, weight, bias, eps: float = 1e-12):
                          "aligned")
     if not weight.is_contiguous() or not bias.is_contiguous():
         raise ValueError("layer_norm_fwd: weight and bias must be contiguous")
+
+
+def layer_norm_fwd(x, weight, bias, eps: float = 1e-12):
+    """K8: LayerNorm over the last axis of ``x`` [..., H] (float32 or
+    bfloat16; weight and bias float32 [H]), the result in x's dtype. A CPU
+    input takes ``_layer_norm_torch``; a CUDA input launches the kernel or
+    raises (H a multiple of 4 up to 2048, x contiguous and 16-byte
+    aligned). The launch path is the tails' (``ops/fused_block.py``): one
+    look at each tensor, the entry point resolved once, the raw handle of
+    x's card's current stream, one packed argument block, the device switch
+    in C."""
+    if not (x.is_cuda and _fits(x, weight, bias)):
+        _check(x, weight, bias)
+        if x.device.type == "cpu":
+            return _layer_norm_torch(x, weight, bias, eps)
+        _check_card(x, weight, bias)
     y = torch.empty_like(x)
-    fn = _kernels.load("layer_norm_fwd").uniter_layer_norm_fwd
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                y.data_ptr(), x.numel() // h, h, float(eps),
-                _DTYPE_CODE[x.dtype], stream)
+    h = x.shape[-1]
+    idx = x.device.index
+    rc = _kernels.entry("layer_norm_fwd")(_kernels.TAIL_CALL.pack(
+        x.data_ptr(), 0, weight.data_ptr(), bias.data_ptr(), y.data_ptr(), 0,
+        0, 0, x.numel() // h, h, 0, 1.0, 0, 0, float(eps),
+        _DTYPE_CODE[x.dtype], idx, torch._C._cuda_getCurrentRawStream(idx)))
     if rc:
         raise RuntimeError(f"layer_norm_fwd kernel launch failed: "
                            f"cudaError_t {rc} at {tuple(x.shape)} {x.dtype}")
