@@ -4,6 +4,8 @@ card: the quickest proof that the port builds and runs on the GPU.
 
     python3 chip_smoke.py              # every phase, as below
     python3 chip_smoke.py tails train  # device, build, then these alone
+    python3 chip_smoke.py k2-groups    # not in the full run: the fp32 K2
+                                       # at every split of its key tiles
 
 A small kernel is timed two ways: its device time (``graph_ms``: 50 calls
 captured in one CUDA graph, the graph replayed between CUDA events) and its
@@ -18,24 +20,30 @@ Phases, each printing its own lines:
 2. build: every hand-written kernel from ``uniter_tpu_torch/csrc/``, one
    ``nvcc`` per source, all at once (``-Xptxas -v`` report printed); the
    count of tensor-core instructions in ``cuobjdump -sass`` of the
-   attention libraries (HMMA) and of K9's (HGMMA), which must not be 0;
-   K9's registers, stack and shared memory per template instance
+   attention libraries (HMMA; TF32 HMMA in each fp32 instantiation) and of
+   K9's (HGMMA), which must not be 0; registers, stack and shared memory
+   of the fp32 attention instantiations and of every K9 instance
    (``cuobjdump -res-usage``) and the dynamic shared memory of a launch.
 3. K1 (``csrc/mha_fwd.cu``) at rate 0 against its plain version
    ``_mha_torch`` on the card, at the serving path's attention shapes,
-   fp32 (the SIMT kernel) and bf16 (the tensor-core kernel), with random key
-   lengths and all-padding rows; time of both at (96, 104).
+   fp32 (the TF32 kernel, three passes a product; its LSE and the LSE's
+   remainder) and bf16, with random key lengths and all-padding rows; at
+   every shape the device and call times of K1 and of SDPA forward in
+   turns, and the plain version's call time at (96, 104).
 4. K1 and K2 (``csrc/mha_bwd.cu``) at rates 0 and 0.1 against their plain
    versions with the same seeds, at the training shapes (flagship,
-   pretrain mix, retrieval, long buckets, uniter-large heads): bf16 through
-   the tensor-core pair (K1's LSE against the plain one, K2 from K1's out,
-   output remainder and LSE against ``_mha_bwd_lse_torch`` and against
-   ``_mha_bwd_torch``, bitwise replay), fp32 through the SIMT pair; the
-   keep fraction measured through K1; at every shape and dtype the times of
-   K1 and K2 against ``scaled_dot_product_attention`` forward and backward
-   (a library yardstick, never on a path) in turns kernel, SDPA, SDPA,
-   kernel, medians, with the bounds; at (96, 104, 12, 64) also the plain
-   versions at rates 0 and 0.1.
+   pretrain mix, retrieval, long buckets, uniter-large heads), both dtypes
+   one pass from K1's out and LSE (bf16 with the output's remainder, fp32
+   with the LSE's): K1's LSE against the plain one, K2 against
+   ``_mha_bwd_lse_torch`` and against ``_mha_bwd_torch``, bitwise replay;
+   the keep fraction measured through K1; at every shape and dtype the
+   device and call times of K1 and K2 against
+   ``scaled_dot_product_attention`` forward and backward (a library
+   yardstick, never on a path) in turns kernel, SDPA, SDPA, kernel,
+   medians, with the bounds (fp32 products at the three-pass TF32 rate,
+   the FP32 units' 67 TFLOP/s printed beside); at (96, 104, 12, 64) also
+   the plain versions at rates 0 and 0.1; the kernels SDPA launches in
+   fp32 and its error against ``_mha_torch``.
 5. K3-K6 (``csrc/fused_tail.cu``: dropout + residual + LayerNorm, and
    LayerNorm + dropout, forward and backward) against their plain versions
    in ``ops/fused_block.py`` at rates 0 and 0.1 (same seed), fp32 and bf16,
@@ -65,7 +73,9 @@ Phases, each printing its own lines:
    (``cuda``/``cuda``, resolved from ``auto``); launch counts per step of
    the K1-K6 path; step 1's loss of all three; profiles; 2-layer fp32 runs
    at dropout 0 (K1/K2 against plain) and 0.1 (K1-K6 and K1/K2 against
-   plain).
+   plain); the same step at full depth in fp32 (``--dtype float32``)
+   through K1-K6 and plain in turns: examples/s, launches, step 1's loss,
+   device busy ms a step.
 8. the CLI: ``train_vqa.main`` on DBs written from a seed (12 layers,
    validate and save at 10 and 20 steps, resume to 25) and
    ``inf_vqa.main`` on its output, on the card, through K1-K6.
@@ -127,8 +137,10 @@ Phases, each printing its own lines:
 20. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
    last line. Any failed check raises and the script exits non-zero.
 
-TF32 is off for matmuls and cuDNN (fp32 runs are full fp32). Files go
-under the checkout's ``tmp/`` (removed at the end) and ``chiprun_out/``.
+TF32 is off for matmuls and cuDNN (fp32 runs are full fp32; the fp32
+attention kernels split every product three ways on the TF32 tensor
+cores, which keeps fp32 accuracy). Files go under the checkout's ``tmp/``
+(removed at the end) and ``chiprun_out/``.
 """
 
 from __future__ import annotations
@@ -183,6 +195,10 @@ TAIL_DWDB_REL = 1e-4  # dw/db: sums over rows in another order, of max|ref|
 # over the peak rate of its type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# matrix products: fp32 at fp32 accuracy runs on the TF32 tensor cores in
+# three passes (495 TFLOP/s / 3), the least time the card can take for
+# them; the FP32 units' 67 TFLOP/s is printed beside it
+PRODUCT_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 
 
@@ -353,6 +369,13 @@ def both_ms(torch, fn, stream=None, n_graph=50, n_call=500):
 
 
 def k1_phase(torch):
+    """K1 at rate 0 against ``_mha_torch`` at K1_SHAPES, fp32 (the TF32
+    kernel, with its LSE and the LSE's remainder) and bf16; at every shape
+    and dtype the device and call times of K1 and of SDPA forward in turns
+    kernel, SDPA, SDPA, kernel, and at (96, 104) the plain version's.
+    Returns (worst fp32 err, {(shape, dtype): times})."""
+    import torch.nn.functional as F
+
     from uniter_tpu_torch.ops.attention import _mha_torch, mha_fwd
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -362,49 +385,99 @@ def k1_phase(torch):
         for name, dtype in (("float32", torch.float32),
                             ("bfloat16", torch.bfloat16)):
             q, k, v, bias = k1_inputs(torch, b, s, h, d, dtype, gen)
-            out = mha_fwd(q, k, v, bias)
+            lse = torch.empty(b, h, s, device="cuda")
+            lo = torch.empty_like(lse) if name == "float32" else None
+            out = mha_fwd(q, k, v, bias, lse=lse, lse_lo=lo)
             torch.cuda.synchronize()
-            ref = _mha_torch(q.float(), k.float(), v.float(), bias)
+            ref, ref_lse = _mha_torch(q.float(), k.float(), v.float(), bias,
+                                      return_lse=True)
             diff = (out.float() - ref).abs()
             tol = K1_TOL[name]
             err = torch.cat([diff[:1], diff[2:]]).max().item()
             grid = diff[1].max().item()
             grid_bound = 2.0 ** -9 * v[1].float().abs().max().item() + tol
             uniform = (out[0].float() - v[0].float().mean(0)).abs().max().item()
+            e_lse = excess(lse, ref_lse, 2.0**-20)
             ok = (err <= tol and grid <= grid_bound and uniform <= tol
-                  and bool(torch.isfinite(out).all()))
+                  and e_lse <= 1e-5 and bool(torch.isfinite(out).all()))
+            extra = ""
+            if lo is not None:  # lse + lse_lo against the float64 LSE,
+                # row 1 aside (its scores sit on the fp32 grid at -10000)
+                exact = _mha_torch(*(t.double() for t in (q, k, v, bias)),
+                                   return_lse=True)[1]
+                e_lo = (lse.double() + lo.double() - exact).abs()
+                e_hi = (lse.double() - exact).abs()
+                e_lo, e_hi = (torch.cat([x[:1], x[2:]]).max().item()
+                              for x in (e_lo, e_hi))
+                ok = ok and e_lo <= 1e-5
+                extra = (f"; LSE + remainder against float64 (row 1 aside) "
+                         f"{e_lo:.3e} (tol 1e-5; the LSE alone {e_hi:.3e})")
             print(f"[K1] B={b} S={s} H={h} D={d} {name}: max|diff| {err:.3e} "
                   f"(tol {tol:g}); all-padding rows: zero query vs uniform "
                   f"average {uniform:.3e}, random query {grid:.3e} (bound "
-                  f"{grid_bound:.3e}) {'ok' if ok else 'FAIL'}")
+                  f"{grid_bound:.3e}); LSE |diff| - 2^-20 |ref| {e_lse:.3e} "
+                  f"(tol 1e-5){extra} {'ok' if ok else 'FAIL'}")
             check(ok, f"K1 disagrees with _mha_torch at {(b, s, h, d)} {name}")
             if name == "float32":
                 worst = max(worst, err)
-            if (b, s, h) == K1_SHAPES[0][:3]:
-                # turns: plain, kernel, kernel, plain
-                t = [cuda_ms(torch, lambda: _mha_torch(q, k, v, bias)),
-                     cuda_ms(torch, lambda: mha_fwd(q, k, v, bias)),
-                     cuda_ms(torch, lambda: mha_fwd(q, k, v, bias)),
-                     cuda_ms(torch, lambda: _mha_torch(q, k, v, bias))]
-                timing[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
-                print(f"[K1] time at B={b} S={s} H={h} D={d} {name}: kernel "
-                      f"{timing[name][0] * 1e3:.1f} us, plain "
-                      f"{timing[name][1] * 1e3:.1f} us per call "
-                      f"(turns {', '.join(f'{x * 1e3:.1f}' for x in t)})")
+            timing[(b, s, h, d, name)] = time_k1(
+                torch, F, q, k, v, bias, mha_fwd, _mha_torch,
+                plain=(b, s, h) == K1_SHAPES[0][:3])
     return worst, timing
 
 
-def bound_ms(b, s, h, d, dtype, backward):
+def time_k1(torch, F, q, k, v, bias, mha_fwd, _mha_torch, plain=False):
+    """Device and call times (``both_ms``: 20 calls a graph, 50 from
+    Python) of K1 at rate 0 writing no LSE (the serving path's call) and of
+    ``scaled_dot_product_attention`` forward on [B, H, S, D] copies, in
+    TIME_TURNS turns kernel, SDPA, SDPA, kernel; medians. With ``plain``,
+    also the plain version's call time."""
+    b, s, h, d = q.shape
+    dname = str(q.dtype)[6:]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = bias[:, None, None, :].to(q.dtype)
+
+    def sdpa():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, mask)
+
+    fns = {"fwd": lambda: mha_fwd(q, k, v, bias), "sdpa_fwd": sdpa}
+    runs = {key: [] for key in fns}
+    for _ in range(TIME_TURNS):
+        for key in ("fwd", "sdpa_fwd", "sdpa_fwd", "fwd"):
+            runs[key].append(both_ms(torch, fns[key], n_graph=20, n_call=50))
+    t = {key: tuple(float(np.median([r[i] for r in v])) for i in (0, 1))
+         for key, v in runs.items()}
+    bms, by = bound_ms(b, s, h, d, dname, False)
+    simt = bound_ms(b, s, h, d, dname, False, simt=True)[0]
+    line = (f"[K1] times at B={b} S={s} H={h} D={d} {dname}, us device / "
+            f"call (median of {TIME_TURNS} turns kernel, SDPA, SDPA, "
+            f"kernel): K1 {t['fwd'][0] * 1e3:.1f} / {t['fwd'][1] * 1e3:.1f}, "
+            f"SDPA forward {t['sdpa_fwd'][0] * 1e3:.1f} / "
+            f"{t['sdpa_fwd'][1] * 1e3:.1f}; bound {bms * 1e3:.1f} ({by}), K1 "
+            f"{bms / t['fwd'][0] * 100:.1f}% of it")
+    if dname == "float32":
+        line += (f"; with fp32 products at the FP32 units' 67 TFLOP/s the "
+                 f"bound would read {simt * 1e3:.1f}")
+    if plain:
+        t["plain"] = cuda_ms(torch, lambda: _mha_torch(q, k, v, bias), 20, 3)
+        line += f"; plain version's call {t['plain'] * 1e3:.1f}"
+    print(line)
+    return t
+
+
+def bound_ms(b, s, h, d, dtype, backward, simt=False):
     """Least time for the function on this card: K1 reads q, k, v and
     writes out (4 tensors) and does 4*B*H*S^2*D FLOP; K2 reads q, k, v, g
     and writes dq, dk, dv (7 tensors) and does 10*B*H*S^2*D FLOP (the
-    scores, dV, dP, dQ, dK). The bf16 K2 also reads out and the LSE, its
-    own design's choice, not counted here."""
+    scores, dV, dP, dQ, dK), at PRODUCT_FLOPS (fp32: three TF32 passes;
+    ``simt``: the FP32 units' rate instead, for comparison). K2 also reads
+    out and the LSE, its own design's choice, not counted here."""
     elem = b * s * h * d * (4 if dtype == "float32" else 2)
     nbytes = (7 if backward else 4) * elem + b * s * 4  # + the fp32 bias
     flops = (10 if backward else 4) * b * h * s * s * d
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    by_ops = flops / (PEAK_FLOPS if simt else PRODUCT_FLOPS)[dtype] * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -439,49 +512,87 @@ def excess(x, ref, rel):
     return ((x.float() - ref).abs() - rel * ref.abs()).max().item()
 
 
-def sass_phase():
-    """``cuobjdump -sass`` of the attention libraries and of K9's: the bf16
+def _demangle(name):
+    try:
+        name = subprocess.run(["c++filt", name], capture_output=True,
+                              text=True, timeout=60).stdout.strip() or name
+    except OSError:
+        pass
+    return name.replace("(anonymous namespace)::", "").split("(")[0] \
+        .removeprefix("void ")
+
+
+def sass_phase(torch):
+    """``cuobjdump -sass`` of the attention libraries and of K9's: the
     kernels must run on the tensor cores (HMMA instructions for
-    ``mma.sync``, HGMMA for K9's ``wgmma``); ``cuobjdump -res-usage`` of
-    K9's library: registers, stack (spills) and static shared memory of
-    every template instance, with the dynamic shared memory a launch asks
-    for at each width."""
+    ``mma.sync``, counted per fp32 instantiation as TF32 HMMA, each of
+    which must have some; HGMMA for K9's ``wgmma``); ``cuobjdump
+    -res-usage``: registers, stack (spills) and static shared memory of the
+    fp32 attention instantiations and of every K9 instance, with the
+    dynamic shared memory a launch asks for."""
     from uniter_tpu_torch.ops import _kernels
+    from uniter_tpu_torch.ops.attention import SMEM_LIMIT, _bwd_smem
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    counts = {}
+    counts, tf32 = {}, {}
     for name, op in (("mha_fwd", "HMMA"), ("mha_bwd", "HMMA"),
                      ("ffn", "HGMMA")):
         res = subprocess.run([tool, "-sass", _kernels._paths(name)[1]],
                              capture_output=True, text=True, timeout=120)
         check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
         counts[name] = sum(op in line for line in res.stdout.splitlines())
+        fn = None
+        for line in res.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = _demangle(m[1])
+                if "tf32" in fn:
+                    tf32[fn] = 0
+            elif fn in tf32 and "HMMA" in line and "TF32" in line:
+                tf32[fn] += 1
     print(f"[sass] HMMA instructions: libmha_fwd.so {counts['mha_fwd']}, "
           f"libmha_bwd.so {counts['mha_bwd']}; HGMMA (wgmma) instructions: "
           f"libffn.so {counts['ffn']}")
+    print("[sass] TF32 HMMA (mma.sync m16n8k8) in the fp32 attention "
+          "kernels: " + "; ".join(f"{n} {c}" for n, c in tf32.items()))
     check(all(counts.values()), "no tensor-core instructions in the "
           "attention or FFN libraries")
-    res = subprocess.run([tool, "-res-usage", _kernels._paths("ffn")[1]],
-                         capture_output=True, text=True, timeout=120)
-    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
-    lines = res.stdout.splitlines()
-    for i, line in enumerate(lines):
-        m = re.search(r"Function ([^:\s]+):", line)
-        if m and i + 1 < len(lines) and "ffn" in m[1]:
-            name = m[1]
-            try:
-                name = subprocess.run(["c++filt", name], capture_output=True,
-                                      text=True, timeout=60).stdout.strip()
-                name = name.replace("(anonymous namespace)::", "").split(
-                    "(")[0].removeprefix("void ")
-            except OSError:
-                pass
-            print(f"[sass] K9 {name}: {lines[i + 1].strip()}")
+    check(len(tf32) == 8 and all(tf32.values()),
+          f"an fp32 attention instantiation without TF32 HMMA: {tf32}")
+    for lib in ("mha_fwd", "mha_bwd", "ffn"):
+        res = subprocess.run([tool, "-res-usage", _kernels._paths(lib)[1]],
+                             capture_output=True, text=True, timeout=120)
+        check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
+        lines = res.stdout.splitlines()
+        for i, line in enumerate(lines):
+            m = re.search(r"Function ([^:\s]+):", line)
+            if m and i + 1 < len(lines) and ("ffn" in m[1] or "tf32" in m[1]):
+                label = "K9" if lib == "ffn" else ("K1" if lib == "mha_fwd"
+                                                   else "K2")
+                name, usage = _demangle(m[1]), lines[i + 1].strip()
+                extra = ""
+                if label != "K9":  # blocks an SM at S = 104: shared memory
+                    # (228 KB an SM, 1 KB reserved a block) and registers
+                    dp = int(re.search(r"<(\d+)>", name)[1])
+                    regs = int(re.search(r"REG:(\d+)", usage)[1])
+                    shared = (5 * 64 * (dp + 4) * 4 if label == "K1"
+                              else _bwd_smem(104, dp, torch.float32))
+                    fit = min(228 * 1024 // (shared + 1024),
+                              65536 // (regs * 128))
+                    extra = f"; {shared} B shared at S = 104, {fit} blocks an SM"
+                print(f"[sass] {label} {name}: {usage}{extra}")
     smem = _kernels.entry("ffn_smem_bytes")
     print("[sass] K9 dynamic shared memory a launch asks for (bytes): "
           + "; ".join(f"D_in = D_out = {h} {d}: {smem(h, h, c)}"
                       for h in (768, 1024)
                       for d, c in (("bf16", 1), ("fp32", 0))))
+    print("[sass] fp32 attention dynamic shared memory a block asks for "
+          "(bytes): K1 " + ", ".join(f"D {d}: {5 * 64 * (d + 4) * 4}"
+                                     for d in (64, 128))
+          + "; K2 at D 64 " + ", ".join(
+              f"S {s}: {_bwd_smem(s, 64, torch.float32)}"
+              for s in (104, 224, 512))
+          + f" (dQ in device memory; at most {SMEM_LIMIT})")
     return counts
 
 
@@ -510,27 +621,52 @@ def k2_phase(torch):
             q, k, v, bias, g = train_inputs(torch, b, s, h, d, dtype, gen)
             qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
             if name == "float32":
-                out = mha_fwd(q, k, v, bias, RATE, 99)
-                err = (out - _mha_torch(qf, kf, vf, bias, RATE, 99)).abs()
-                err = err.max().item()
-                errs = []
+                e1, el, e2, e3, same = [], [], [], [], True
                 for rate in (0.0, RATE):
-                    got = mha_bwd(q, k, v, bias, g, rate, 99)
-                    want = _mha_bwd_torch(qf, kf, vf, bias, gf, rate, 99)
-                    errs += [(x - w).abs().max().item()
-                             for x, w in zip(got, want)]
+                    lse, lo = (torch.empty(b, h, s, device="cuda")
+                               for _ in range(2))
+                    out = mha_fwd(q, k, v, bias, rate, 99, lse=lse, lse_lo=lo)
+                    ref, rlse = _mha_torch(q, k, v, bias, rate, 99,
+                                           return_lse=True)
+                    e1.append((out - ref).abs().max().item())
+                    el.append(excess(lse, rlse, 2.0**-20))
+                    got = mha_bwd(q, k, v, bias, g, rate, 99, out=out,
+                                  lse=lse, lse_lo=lo)
+                    want = _mha_bwd_lse_torch(q, k, v, bias, g, out, lse,
+                                              rate, 99, lse_lo=lo)
+                    jax_formula = _mha_bwd_torch(q, k, v, bias, g, rate, 99)
+                    e2.append(max((x - w).abs().max().item()
+                                  for x, w in zip(got, want)))
+                    e3.append(max((x - w).abs().max().item()
+                                  for x, w in zip(got, jax_formula)))
+                    lse2, lo2 = torch.empty_like(lse), torch.empty_like(lo)
+                    again = mha_fwd(q, k, v, bias, rate, 99, lse=lse2,
+                                    lse_lo=lo2)
+                    same = same and torch.equal(out, again) and \
+                        torch.equal(lse, lse2) and torch.equal(lo, lo2) and \
+                        all(torch.equal(x, y) for x, y in zip(
+                            got, mha_bwd(q, k, v, bias, g, rate, 99, out=out,
+                                         lse=lse, lse_lo=lo)))
+                    same = same and all(bool(torch.isfinite(t).all())
+                                        for t in (out, lse, lo, *got))
                 torch.cuda.synchronize()
-                ok1, ok2 = err <= K1_TOL[name], max(errs) <= K2_TOL_FP32
-                print(f"[K2] B={b} S={s} H={h} D={d} float32 (SIMT): K1 rate "
-                      f"{RATE} max|diff| {err:.3e} (tol {K1_TOL[name]:g}); "
-                      f"K2 dq/dk/dv max|diff| rate 0 {max(errs[:3]):.3e}, "
-                      f"rate {RATE} {max(errs[3:]):.3e} (tol {K2_TOL_FP32:g})"
-                      f" {'ok' if ok1 and ok2 else 'FAIL'}")
-                check(ok1, f"K1 at rate {RATE} disagrees at {(b, s, h, d)} "
-                           f"float32")
-                check(ok2, f"K2 disagrees at {(b, s, h, d)} float32")
-                worst["mha_fwd"] = max(worst["mha_fwd"], err)
-                worst["mha_bwd"] = max(worst["mha_bwd"], max(errs))
+                ok = (max(e1) <= K1_TOL[name] and max(el) <= 1e-5
+                      and max(e2) <= K2_TOL_FP32 and max(e3) <= K2_TOL_FP32
+                      and same)
+                print(f"[K2] B={b} S={s} H={h} D={d} float32 (TF32 tensor "
+                      f"cores, three passes): K1 max|diff| rate 0 "
+                      f"{e1[0]:.3e}, rate {RATE} {e1[1]:.3e} (tol "
+                      f"{K1_TOL[name]:g}); LSE |diff| - 2^-20 |ref| "
+                      f"{max(el):.3e} (tol 1e-5); K2 dq/dk/dv max|diff| vs "
+                      f"_mha_bwd_lse_torch rate 0 {e2[0]:.3e}, rate {RATE} "
+                      f"{e2[1]:.3e}; vs _mha_bwd_torch (the JAX kernel's "
+                      f"formula) rate 0 {e3[0]:.3e}, rate {RATE} {e3[1]:.3e}"
+                      f" (tol {K2_TOL_FP32:g}); replay bitwise and finite "
+                      f"{same} {'ok' if ok else 'FAIL'}")
+                check(ok, f"fp32 K1/K2 disagree or do not replay at "
+                          f"{(b, s, h, d)}")
+                worst["mha_fwd"] = max(worst["mha_fwd"], max(e1))
+                worst["mha_bwd"] = max(worst["mha_bwd"], max(e2 + e3))
             else:
                 e1, el, elo, e2, e3, e4, same = [], [], [], [], [], [], True
                 for rate in (0.0, RATE):
@@ -624,61 +760,85 @@ def k2_phase(torch):
 
 def time_attention(torch, F, q, k, v, bias, g, mha_fwd, mha_bwd, _mha_torch,
                    _mha_bwd_torch, plain=False):
-    """CUDA-event times (ms per call, 20 calls each) of K1 and K2 at rate
-    0 against ``scaled_dot_product_attention`` forward and backward (the
-    float bias as attn_mask on [B, H, S, D] copies, its layout), in
-    ``TIME_TURNS`` turns of kernel, SDPA, SDPA, kernel; medians. bf16 times
-    the tensor-core pair (K2 from K1's out and LSE), fp32 the SIMT pair.
-    With ``plain``, also K1 and K2 at RATE and the plain versions at both
-    rates (turns plain, kernel, kernel, plain)."""
+    """Device and call times (``both_ms``: 20 calls a graph, 50 from
+    Python; ms per call) of K1 (writing the LSE, as training calls it) and
+    K2 at rate 0 against ``scaled_dot_product_attention`` forward and
+    backward (the float bias as attn_mask on [B, H, S, D] copies, its
+    layout), in ``TIME_TURNS`` turns of kernel, SDPA, SDPA, kernel;
+    medians, with the bounds. bf16 times the pair from K1's out, LSE and
+    output remainder, fp32 from K1's out, LSE and LSE remainder. With
+    ``plain``, also K1 and K2 at RATE and the plain versions at both rates
+    (call times, turns plain, kernel, kernel, plain)."""
     b, s, h, d = q.shape
     bf16 = q.dtype == torch.bfloat16
-    lse = torch.empty(b, h, s, device="cuda") if bf16 else None
-    lo = torch.empty_like(q) if bf16 else None
-    out = mha_fwd(q, k, v, bias, 0.0, 5, lse=lse, out_lo=lo)
-    extra = {"out": out, "lse": lse, "out_lo": lo} if bf16 else {}
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    mask = bias[:, None, None, :].to(q.dtype)
-    gt = g.transpose(1, 2).contiguous()
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, mask)
+    dname = str(q.dtype)[6:]
+    lse = torch.empty(b, h, s, device="cuda")
+    lo = torch.empty_like(q) if bf16 else torch.empty_like(lse)
+    key = "out_lo" if bf16 else "lse_lo"
+    out = mha_fwd(q, k, v, bias, 0.0, 5, lse=lse, **{key: lo})
+    extra = {"out": out, "lse": lse, key: lo}
+    side = torch.cuda.Stream()  # SDPA's backward is captured on its stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        mask = bias[:, None, None, :].to(q.dtype)
+        gt = g.transpose(1, 2).contiguous()
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, mask)
 
     def sdpa_fwd():
         with torch.no_grad():
             F.scaled_dot_product_attention(qt, kt, vt, mask)
 
-    fns = {"fwd": lambda: mha_fwd(q, k, v, bias, 0.0, 5, lse=lse, out_lo=lo),
-           "bwd": lambda: mha_bwd(q, k, v, bias, g, 0.0, 5, **extra),
-           "sdpa_fwd": sdpa_fwd,
-           "sdpa_bwd": lambda: torch.autograd.grad(
-               sdpa_out, (qt, kt, vt), gt, retain_graph=True)}
-    runs = {key: [] for key in fns}
+    fns = {"fwd": (lambda: mha_fwd(q, k, v, bias, 0.0, 5, lse=lse,
+                                   **{key: lo}), None),
+           "bwd": (lambda: mha_bwd(q, k, v, bias, g, 0.0, 5, **extra), None),
+           "sdpa_fwd": (sdpa_fwd, None),
+           "sdpa_bwd": (lambda: torch.autograd.grad(
+               sdpa_out, (qt, kt, vt), gt, retain_graph=True), side)}
+    runs = {name: [] for name in fns}
     for _ in range(TIME_TURNS):
         for kern, lib in (("fwd", "sdpa_fwd"), ("bwd", "sdpa_bwd")):
-            for key in (kern, lib, lib, kern):
-                runs[key].append(cuda_ms(torch, fns[key], iters=20,
-                                         warmup=3))
-    t = {key: float(np.median(v)) for key, v in runs.items()}
+            for name in (kern, lib, lib, kern):
+                fn, st = fns[name]
+                runs[name].append(both_ms(torch, fn, stream=st, n_graph=20,
+                                          n_call=50))
+    torch.cuda.synchronize()
+    t = {name: float(np.median([r[1] for r in v])) for name, v in runs.items()}
+    t.update({f"{name}_dev": float(np.median([r[0] for r in v]))
+              for name, v in runs.items()})
     t["turns"] = runs
-    print(f"[K2] times at B={b} S={s} H={h} D={d} {q.dtype}, us per call "
-          f"(median of {TIME_TURNS} turns kernel, SDPA, SDPA, kernel): K1 "
-          f"{t['fwd'] * 1e3:.1f} (bound "
-          f"{bound_ms(b, s, h, d, str(q.dtype)[6:], False)[0] * 1e3:.1f}), "
-          f"SDPA forward {t['sdpa_fwd'] * 1e3:.1f}; K2 {t['bwd'] * 1e3:.1f} "
-          f"(bound {bound_ms(b, s, h, d, str(q.dtype)[6:], True)[0] * 1e3:.1f}"
-          f"), SDPA backward {t['sdpa_bwd'] * 1e3:.1f} (SDPA backward turns "
-          f"{', '.join(f'{x * 1e3:.1f}' for x in runs['sdpa_bwd'])})")
+    bf, byf = bound_ms(b, s, h, d, dname, False)
+    bb, byb = bound_ms(b, s, h, d, dname, True)
+    line = (f"[K2] times at B={b} S={s} H={h} D={d} {dname}, us device / "
+            f"call (median of {TIME_TURNS} turns kernel, SDPA, SDPA, "
+            f"kernel): K1 {t['fwd_dev'] * 1e3:.1f} / {t['fwd'] * 1e3:.1f} "
+            f"(bound {bf * 1e3:.1f}, {byf}; {bf / t['fwd_dev'] * 100:.1f}%), "
+            f"SDPA forward {t['sdpa_fwd_dev'] * 1e3:.1f} / "
+            f"{t['sdpa_fwd'] * 1e3:.1f}; K2 {t['bwd_dev'] * 1e3:.1f} / "
+            f"{t['bwd'] * 1e3:.1f} (bound {bb * 1e3:.1f}, {byb}; "
+            f"{bb / t['bwd_dev'] * 100:.1f}%), SDPA backward "
+            f"{t['sdpa_bwd_dev'] * 1e3:.1f} / {t['sdpa_bwd'] * 1e3:.1f} (SDPA "
+            f"backward device turns "
+            f"{', '.join(f'{x[0] * 1e3:.1f}' for x in runs['sdpa_bwd'])})")
+    if not bf16:
+        simt = [bound_ms(b, s, h, d, dname, bwd, simt=True)[0] * 1e3
+                for bwd in (False, True)]
+        line += (f"; at the FP32 units' 67 TFLOP/s the bounds would read "
+                 f"{simt[0]:.1f} and {simt[1]:.1f}")
+    print(line)
     if not plain:
         return t
     for rate in (0.0, RATE):
-        lse_r = torch.empty(b, h, s, device="cuda") if bf16 else None
-        out_r = mha_fwd(q, k, v, bias, rate, 5, lse=lse_r, out_lo=lo)
-        ex = {"out": out_r, "lse": lse_r, "out_lo": lo} if bf16 else {}
+        lse_r = torch.empty(b, h, s, device="cuda")
+        lo_r = torch.empty_like(lo)
+        out_r = mha_fwd(q, k, v, bias, rate, 5, lse=lse_r, **{key: lo_r})
+        ex = {"out": out_r, "lse": lse_r, key: lo_r}
         f = [cuda_ms(torch, lambda: _mha_torch(q, k, v, bias, rate, 5)),
              cuda_ms(torch, lambda: mha_fwd(q, k, v, bias, rate, 5,
-                                            lse=lse_r, out_lo=lo)),
+                                            lse=lse_r, **{key: lo_r})),
              cuda_ms(torch, lambda: mha_fwd(q, k, v, bias, rate, 5,
-                                            lse=lse_r, out_lo=lo)),
+                                            lse=lse_r, **{key: lo_r})),
              cuda_ms(torch, lambda: _mha_torch(q, k, v, bias, rate, 5))]
         bw = [cuda_ms(torch, lambda: _mha_bwd_torch(q, k, v, bias, g, rate, 5)),
               cuda_ms(torch, lambda: mha_bwd(q, k, v, bias, g, rate, 5, **ex)),
@@ -693,6 +853,84 @@ def time_attention(torch, F, q, k, v, bias, g, mha_fwd, mha_bwd, _mha_torch,
               f"{t[rate]['fwd_plain'] * 1e3:.1f}; K2 {t[rate]['bwd'] * 1e3:.1f}"
               f" vs plain {t[rate]['bwd_plain'] * 1e3:.1f}")
     return t
+
+
+def sdpa_fp32_probe(torch):
+    """Which kernels ``scaled_dot_product_attention`` launches for fp32 at
+    the flagship shape (forward and backward, from a profile), and its
+    forward's error against ``_mha_torch``: the yardstick's own numerics."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from uniter_tpu_torch.ops.attention import _mha_torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q, k, v, bias, g = train_inputs(torch, *TRAIN_SHAPES[0], torch.float32,
+                                    gen)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = bias[:, None, None, :]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = F.scaled_dot_product_attention(qt, kt, vt, mask)
+        out.backward(g.transpose(1, 2).contiguous())
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+    ref = _mha_torch(q, k, v, bias)
+    err = (out.detach().transpose(1, 2) - ref).abs()
+    print(f"[K2] SDPA fp32 at {TRAIN_SHAPES[0]} launches: "
+          + "; ".join(n[:100] for n in names)
+          + f"; its forward against _mha_torch: max|diff| "
+          f"{torch.cat([err[:1], err[1:]]).max().item():.3e} (all-padding "
+          f"row 0 {err[0].max().item():.3e}, the rest "
+          f"{err[1:].max().item():.3e})")
+    return names
+
+
+def k2_groups_phase(torch):
+    """The fp32 K2 at TRAIN_SHAPES through its C entry with every split of
+    the key tiles into equal groups (blocks per (b, h)), call times (min of
+    3 runs of 20 calls) and the difference from one group; marks the split
+    ``_key_groups`` picks. The evidence for that policy."""
+    from uniter_tpu_torch.ops import _kernels
+    from uniter_tpu_torch.ops.attention import (_dq_pitch, _key_groups,
+                                                _sm_count, mha_fwd)
+
+    fn = _kernels.entry("mha_bwd")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    sms = _sm_count(torch.cuda.current_device())
+    for b, s, h, d in TRAIN_SHAPES:
+        q, k, v, bias, g = train_inputs(torch, b, s, h, d, torch.float32, gen)
+        lse, lo = (torch.empty(b, h, s, device="cuda") for _ in range(2))
+        out = mha_fwd(q, k, v, bias, lse=lse, lse_lo=lo)
+        tiles, ref, res = -(-s // 64), None, []
+        for groups in (n for n in range(1, tiles + 1) if tiles % n == 0):
+            scratch = torch.empty((groups, b * h, tiles * 64,
+                                   _dq_pitch(d, torch.float32)),
+                                  device="cuda")
+            grads = [torch.empty_like(q) for _ in range(3)]
+
+            def call():
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                        bias.data_ptr(), out.data_ptr(), None, lse.data_ptr(),
+                        lo.data_ptr(), *(t.data_ptr() for t in grads),
+                        scratch.data_ptr(), b, s, h, d, *q.stride()[:3],
+                        *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
+                        1.0 / d ** 0.5, 0, 1.0, 5, 0, groups,
+                        torch.cuda.current_stream().cuda_stream)
+                check(rc == 0, f"K2 with {groups} groups: cudaError_t {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            ref = ref or [t.clone() for t in grads]
+            diff = max((x - y).abs().max().item() for x, y in zip(grads, ref))
+            ms = min(cuda_ms(torch, call, 20, 3) for _ in range(3))
+            res.append(f"{groups} group(s) {ms * 1e3:.1f} us (max|diff| from "
+                       f"one group {diff:.1e})")
+        print(f"[K2] fp32 key-tile groups at B={b} S={s} H={h} D={d} "
+              f"({b * h} (b, h) pairs, {sms} SMs): " + "; ".join(res)
+              + f"; _key_groups picks {_key_groups(b * h, s, sms)}")
 
 
 def tail_bound_ms(name, rows, h, dtype):
@@ -1386,6 +1624,76 @@ def train_phase(torch):
     small = two_layer_runs(torch, num_answer)
     return {"launches": total, "steps": steps, "ex_per_s": eps,
             "step1_rel": rel1, "profile": prof, "two_layer": small}
+
+
+def train32_phase(torch, n_steps=5):
+    """The flagship fine-tune step in fp32 (``--dtype float32``: B=96, T=64,
+    R=40, dropout 0.1, fused AdamW with bf16 moments) through K1-K6 and
+    through the plain attention and tails, in turns plain, K1-K6, K1-K6,
+    plain of ``n_steps`` steps (host clock, each turn ended by the loss
+    readback), launch counts of the K1-K6 turns, step 1's losses, and a
+    3-step profile of each (device busy ms a step, idle share). Returns
+    {"ex_per_s", "busy_ms", "launches", "step1_rel"}."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    num_answer, b = 3129, 96
+    base = base_config(dtype="float32", hidden_dropout_prob=RATE,
+                       attention_probs_dropout_prob=RATE)
+    sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+        jax_layout_params(base, num_answer, IMG_DIM, SEED)).items()}
+    batch = flagship_batch(torch, base, num_answer, IMG_DIM, None)
+    cfgs = policy_configs(base)
+    trainers = {n: make_trainer(torch, cfgs[n], sd, num_answer)
+                for n in ("plain", "K1-K6")}
+    losses = {n: [] for n in trainers}
+
+    def run(name, n):
+        state, step = trainers[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [step(state, batch, SEED)[1]["loss"] for _ in range(n)]
+        losses[name] += [float(x) for x in ms]
+        return time.perf_counter() - t0
+
+    for name in trainers:  # warm-up, and step 1 of each
+        run(name, 1)
+    secs = {n: [] for n in trainers}
+    total, steps = {k: 0 for k in KERNELS}, 0
+    for name in ("plain", "K1-K6", "K1-K6", "plain"):
+        if name == "K1-K6":
+            reset_launches()
+        secs[name].append(run(name, n_steps))
+        if name == "K1-K6":
+            total = {k: total[k] + v for k, v in read_launches().items()}
+            steps += n_steps
+    eps = {n: n_steps * b * len(v) / sum(v) for n, v in secs.items()}
+    first = {n: v[0] for n, v in losses.items()}
+    rel = abs(first["K1-K6"] - first["plain"]) / abs(first["plain"])
+    print(f"[train32] uniter-base VQA step in fp32, B={b}, T=64, R=40, "
+          f"dropout {RATE}, fused AdamW bf16 moments: examples/s "
+          + ", ".join(f"{n} {v:.1f}" for n, v in eps.items())
+          + f" (turns of {n_steps} steps plain, K1-K6, K1-K6, plain after "
+          f"one warm-up step each; host clock, each turn ends in the loss "
+          f"readback); step 1 losses plain {first['plain']:.7f}, K1-K6 "
+          f"{first['K1-K6']:.7f}, relative diff {rel:.2e} (tol 1e-5: fp32 "
+          f"rounding of other summation orders)")
+    check(rel <= 1e-5, "fp32 train step: step 1 losses differ")
+    check_launches(total, steps, STEP_LAUNCHES, "train32")
+    busy = {}
+    for name in ("K1-K6", "plain"):
+        state, step = trainers[name]
+        prof = profile_steps(torch, state, step, batch, 3,
+                             "fp32_" + name.replace("/", "_"),
+                             label="train32")[1]
+        busy[name] = prof["busy_ms"] / 3
+    print(f"[train32] device busy ms a step: " + ", ".join(
+        f"{n} {v:.1f}" for n, v in busy.items()))
+    del trainers
+    torch.cuda.empty_cache()
+    return {"ex_per_s": eps, "busy_ms": busy, "launches": total,
+            "step1_rel": rel}
 
 
 def two_layer_runs(torch, num_answer):
@@ -2314,15 +2622,18 @@ K9_SHAPES = [(15360, 768), (9984, 768), (9984, 1024), (4097, 768)]
 K9_TOL_FP32 = 1e-5  # of max(1, max|ref|): another fp32 summation order
 
 
-def ffn_bound_ms(rows, h, dtype, mid=None):
+def ffn_bound_ms(rows, h, dtype, mid=None, simt=False):
     """Least time for K9 on this card: 4 rows H D_mid FLOP (both products)
-    at the peak of the dtype, against x and y (rows x H each), W1 and W2
-    (H x D_mid each) in the dtype and the fp32 biases over the memory rate."""
+    at PRODUCT_FLOPS of the dtype (fp32: three TF32 passes; ``simt``: the
+    FP32 units' rate, for comparison), against x and y (rows x H each), W1
+    and W2 (H x D_mid each) in the dtype and the fp32 biases over the memory
+    rate."""
     mid = mid or 4 * h
     elem = 4 if dtype == "float32" else 2
     nbytes = elem * (2 * rows * h + 2 * h * mid) + 4 * (h + mid)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = 4 * rows * h * mid / PEAK_FLOPS[dtype] * 1e3
+    by_ops = 4 * rows * h * mid / (PEAK_FLOPS if simt else
+                                   PRODUCT_FLOPS)[dtype] * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -2410,7 +2721,10 @@ def k9_phase(torch):
                   + f" ({n_graph} calls a graph, {n_call} from Python); "
                   f"plain call {plain * 1e3:.1f}; bound {bms * 1e3:.1f} "
                   f"({by}); kernel {tflops:.1f} TFLOP/s, "
-                  f"{bms / r['dev'] * 100:.1f}% of the bound")
+                  f"{bms / r['dev'] * 100:.1f}% of the bound"
+                  + (f" (at the FP32 units' 67 TFLOP/s the bound would read "
+                     f"{ffn_bound_ms(rows, h, dname, simt=True)[0] * 1e3:.1f})"
+                     if dname == "float32" else ""))
     return worst, timing
 
 
@@ -2957,13 +3271,15 @@ def main(argv):
         for name in argv:
             PHASES[name](torch)
         return 0
-    sass_phase()
+    sass_phase(torch)
     k1_err, k1_time = k1_phase(torch)
     k2_err, k2_bf16, k2_time, _ = k2_phase(torch)
+    sdpa_fp32_probe(torch)
     tail_err, tail_time = tail_phase(torch)
     serve_counts, n_batches, qps, _ = main_path_phase(torch)
     launches = serve_counts["mha_fwd"]
     train = train_phase(torch)
+    train32 = train32_phase(torch)
     cli_phase(torch)
     nlvr2 = nlvr2_phase(torch)
     nlvr2_cli_phase(torch)
@@ -2984,24 +3300,34 @@ def main(argv):
     serve_itm = itm_serve_phase(torch)
     itm_cli_counts = itm_cli_phase(torch)
     t = k2_time[TRAIN_SHAPES[0] + ("bfloat16",)]
+    t32 = k2_time[TRAIN_SHAPES[0] + ("float32",)]
     kernels = []
-    for name, src, kern, replaces, err, bwd in (
+    for name, src, kern, replaces, err, bwd, n32 in (
             ("mha_fwd", "mha_fwd.cu", "mha_fwd_tc_kernel<64>",
              "uniter_tpu/ops/attention.py:118", k2_bf16["mha_fwd_abs"],
-             False),
+             False, launches),
             ("mha_bwd", "mha_bwd.cu", "mha_bwd_tc_kernel<64>",
              "uniter_tpu/ops/attention.py:133", k2_bf16["mha_bwd_abs"],
-             True)):
+             True, train32["launches"]["mha_bwd"])):
         bound, by = bound_ms(*TRAIN_SHAPES[0], "bfloat16", bwd)
+        b32, by32 = bound_ms(*TRAIN_SHAPES[0], "float32", bwd)
+        key, lib = ("bwd", "sdpa_bwd") if bwd else ("fwd", "sdpa_fwd")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"uniter_tpu_torch/csrc/{src}", "kernel": kern,
             "replaces": replaces,
             "launches": train["launches"][name], "max_abs_err": err,
-            "ms": t["bwd" if bwd else "fwd"],
-            "plain_ms": t[0.0]["bwd_plain" if bwd else "fwd_plain"],
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": t["sdpa_bwd" if bwd else "sdpa_fwd"]})
+            "ms": t[key], "plain_ms": t[0.0][f"{key}_plain"],
+            "bound_ms": bound, "bound_by": by, "library_ms": t[lib],
+            "device_ms": t[f"{key}_dev"],
+            "library_device_ms": t[f"{lib}_dev"],
+            "fp32_kernel": kern.replace("tc_kernel", "tf32_kernel"),
+            "fp32_launches": n32, "fp32_max_abs_err": k2_err[name],
+            "fp32_ms": t32[key], "fp32_device_ms": t32[f"{key}_dev"],
+            "fp32_plain_ms": t32[0.0][f"{key}_plain"],
+            "fp32_bound_ms": b32, "fp32_bound_by": by32,
+            "fp32_library_ms": t32[lib],
+            "fp32_library_device_ms": t32[f"{lib}_dev"]})
     for name, line, rows in (("drop_res_ln_fwd", 64, 9984),
                              ("drop_res_ln_bwd", 71, 9984),
                              ("ln_drop_fwd", 200, 6144),
@@ -3060,8 +3386,12 @@ def main(argv):
           f"{serve_itm['float32']['launches']['ffn_fwd']} per fp32 scoring "
           f"pass, the retrieval CLI {itm_cli_counts}")
     print(f"[smoke] kernels line: times bf16 rate 0 at (96, 104, 12, 64) "
-          f"for K1/K2 (the tensor-core kernels; medians of {TIME_TURNS} "
-          f"turns; library: scaled_dot_product_attention), at (9984, "
+          f"for K1/K2 (the bf16 tensor-core kernels; medians of {TIME_TURNS} "
+          f"turns; library: scaled_dot_product_attention; the fp32_* keys: "
+          f"the TF32 kernels at the same shape, fp32 K1 launches from the "
+          f"default serving path, fp32 K2 launches from the fp32 flagship "
+          f"train step's K1-K6 turns, {train32['launches']['mha_bwd']} over "
+          f"10 steps), at (9984, "
           f"768) for K3/K4 and K8 and (6144, 768) for K5/K6 (library: "
           f"F.layer_norm, after an add for K3/K4), fp32 at (48, 64, 160) for "
           f"K7 (no library call computes it); launches of K1-K6 from the "
@@ -3073,13 +3403,14 @@ def main(argv):
           f"nothing else; NLVR2 launches {nlvr2['launches']} over "
           f"{nlvr2['steps']} steps; the pretraining CLI {cli_counts}; "
           f"max_abs_err of K1/K2 the worst bf16 difference from the plain "
-          f"version over the training shapes, of K3-K9 the worst fp32 "
-          f"difference; K1 and K2 in fp32 run the SIMT kernels, timed in "
-          f"the [K2] lines; ms, plain_ms and library_ms are call times "
-          f"(calls from Python between CUDA events: 500 for K3-K6 and K8, "
-          f"50 for the plain versions; K7: its wrapper), device_ms and "
-          f"library_device_ms (K3-K9) device times (50 calls captured in "
-          f"one CUDA graph and replayed; K7: the launch alone)")
+          f"version over the training shapes (fp32_max_abs_err: the fp32 "
+          f"kernels' worst, against the plain versions and the JAX kernel's "
+          f"formula), of K3-K9 the worst fp32 difference; ms, plain_ms and "
+          f"library_ms are call times (calls from Python between CUDA "
+          f"events: 50 for K1/K2, 500 for K3-K6 and K8, 50 for the plain "
+          f"versions; K7: its wrapper), device_ms and library_device_ms "
+          f"device times (20 (K1/K2) or 50 calls captured in one CUDA graph "
+          f"and replayed; K7: the launch alone)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3088,11 +3419,13 @@ def main(argv):
 
 
 # phases that run alone: ``python3 chip_smoke.py tails train``
-PHASES = {"sass": lambda torch: sass_phase(), "k1": k1_phase,
-          "k2": k2_phase, "tails": tail_phase, "itm-serve": itm_serve_phase,
-          "serve": main_path_phase, "train": train_phase, "nlvr2": nlvr2_phase,
-          "k7": k7_phase, "k8": k8_phase, "pretrain": pretrain_phase,
-          "k9": k9_phase, "itm": itm_train_phase}
+PHASES = {"sass": sass_phase, "k1": k1_phase, "k2": k2_phase,
+          "sdpa": sdpa_fp32_probe, "k2-groups": k2_groups_phase,
+          "tails": tail_phase, "itm-serve": itm_serve_phase,
+          "train32": train32_phase, "serve": main_path_phase,
+          "train": train_phase, "nlvr2": nlvr2_phase, "k7": k7_phase,
+          "k8": k8_phase, "pretrain": pretrain_phase, "k9": k9_phase,
+          "itm": itm_train_phase}
 
 
 if __name__ == "__main__":

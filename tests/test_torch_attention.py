@@ -321,7 +321,8 @@ def test_mha_function_bf16_saves_out_and_lse():
     """In bf16 ``MhaFunction`` saves the output, its bf16 remainder and the
     fp32 LSE besides q, k, v and bias, and its backward is
     ``_mha_bwd_lse_torch`` on them (out + out_lo, the fp32 output); fp32
-    saves q, k, v and bias only (the fp32 K2 recomputes the statistics).
+    saves the output, the LSE and the LSE's fp32 remainder in place of
+    out_lo (tests/test_torch_attention_fp32.py holds its gradients).
     The bf16 gradients agree with the JAX kernel's formula
     (``_mha_bwd_torch``) in fp32 on the same bf16 inputs to K2's tolerance
     2**-8 |ref| + 1e-3 (one rounding of each gradient), since Di comes from
@@ -348,4 +349,6 @@ def test_mha_function_bf16_saves_out_and_lse():
                 ).all()
     f32 = port.MhaFunction.apply(*(torch.from_numpy(a).requires_grad_()
                                    for a in (q, k, v)), tb, 0.1, 7)
-    assert len(f32.grad_fn.saved_tensors) == 4
+    saved32 = f32.grad_fn.saved_tensors
+    assert len(saved32) == 7 and saved32[6].dtype == torch.float32
+    assert saved32[6].shape == (3, 4, 24)

@@ -7,22 +7,24 @@ machine without jax:
 (``--noconftest``: tests/conftest.py configures jax for the CPU suite.)
 
 K1 (``csrc/mha_fwd.cu``) is held against its plain version at the main
-path's attention shape, fp32 (the SIMT kernel) to 1e-5 and bf16 (the
-tensor-core kernel, against fp32 on the same bf16 inputs) to 1e-2, at
-dropout rate 0 and 0.1 (same seed, so the same Philox mask); at rate 0.1 the
-bf16 bound adds half a bf16 step of the value; rows whose keys are all
-padding as tests/test_torch_attention.py explains; its LSE to 1e-5 +
-2**-20 |ref| (the fp32 grid near -10000). K2 (``csrc/mha_bwd.cu``): fp32
-(the SIMT passes) against the explicit formula ``_mha_bwd_torch`` to 1e-4
-(another summation order over S and D); bf16 (the one-pass tensor-core
-kernel, from K1's out, output remainder and LSE) against
-``_mha_bwd_lse_torch`` in fp32 on the same bf16 inputs, out and LSE, and
-against ``_mha_bwd_torch``, to 2**-8 * |ref| + 1e-3 (one rounding of the
-result to bf16, half a step, plus the hi/lo split's ~2**-16 and fp32
-noise), at the training shapes, with bitwise replay, fused-QKV strided
-views and the refusal of a misaligned view. A small VQA model answers the
-same through the kernels and through the plain attention, and trains the
-same.
+path's attention shape, fp32 (the TF32 kernel, three passes a product) to
+1e-5 and bf16 (the bf16 tensor-core kernel, against fp32 on the same bf16
+inputs) to 1e-2, at dropout rate 0 and 0.1 (same seed, so the same Philox
+mask); at rate 0.1 the bf16 bound adds half a bf16 step of the value; rows
+whose keys are all padding as tests/test_torch_attention.py explains; its
+LSE to 1e-5 + 2**-20 |ref| (the fp32 grid near -10000), in fp32 the LSE
+plus its remainder to 1e-5 of the float64 LSE. K2 (``csrc/mha_bwd.cu``),
+one pass from K1's out and LSE in both dtypes: fp32 (with the LSE's
+remainder) against ``_mha_bwd_lse_torch`` and the JAX kernel's formula
+``_mha_bwd_torch`` to 1e-4 (another summation order over S and D); bf16
+(with the output's remainder) against both in fp32 on the same bf16
+inputs, out and LSE, to 2**-8 * |ref| + 1e-3 (one rounding of the result
+to bf16, half a step, plus the hi/lo split's ~2**-16 and fp32 noise), at
+the training shapes, with bitwise replay in both dtypes, fused-QKV strided
+views, the copy of an fp32 view the kernels cannot stage, the refusal of a
+misaligned bf16 view and of a K2 call without the forward's out and LSE.
+A small VQA model answers the same through the kernels and through the
+plain attention, and trains the same.
 
 K3-K6 (``csrc/fused_tail.cu``) are held against their plain versions in
 ``ops/fused_block.py`` at rates 0 and 0.1 (same seed, so the same Philox
@@ -195,76 +197,147 @@ def _bwd_inputs(gen, b, s, h, d, dtype):
                                      (120, 128, 12, 64), (64, 172, 12, 64),
                                      (96, 104, 16, 64), (2, 512, 2, 128)])
 def test_mha_bwd_kernel_matches_plain(gen, dtype, rate, b, s, h, d):
-    """fp32: the SIMT passes against ``_mha_bwd_torch``. bf16: the one-pass
-    tensor-core kernel from K1's out, out_lo and LSE against
+    """The one-pass K2 from K1's out and LSE (fp32: and the LSE's
+    remainder; bf16: and the output's remainder) against
     ``_mha_bwd_lse_torch`` on the same inputs and against the JAX kernel's
-    formula ``_mha_bwd_torch`` ((2, 512, 2, 128) keeps dQ in device memory:
-    it does not fit in shared memory)."""
+    formula ``_mha_bwd_torch``: fp32 within 1e-4 of both, bf16 within
+    2**-8 |ref| + 1e-3 (in bf16 (2, 512, 2, 128) keeps dQ in device
+    memory: it does not fit in shared memory; in fp32 dQ is always there,
+    and (8, 512, 12, 64), (4, 70, 4, 128) and (2, 512, 2, 128) split the
+    keys into groups whose dQ is summed after)."""
     q, k, v, bias, g = _bwd_inputs(gen, b, s, h, d, dtype)
-    extra = {}
+    lse = torch.empty(b, h, s, device="cuda")
     if dtype == torch.bfloat16:
-        lse, lo = torch.empty(b, h, s, device="cuda"), torch.empty_like(q)
-        extra = {"out": mha_fwd(q, k, v, bias, rate, 77, lse=lse, out_lo=lo),
-                 "lse": lse, "out_lo": lo}
+        lo = torch.empty_like(q)
+        key = "out_lo"
+    else:
+        lo = torch.empty_like(lse)
+        key = "lse_lo"
+    extra = {"out": mha_fwd(q, k, v, bias, rate, 77, lse=lse, **{key: lo}),
+             "lse": lse, key: lo}
     before = mha_bwd.launches
     got = mha_bwd(q, k, v, bias, g, rate, 77, **extra)
     torch.cuda.synchronize()
     assert mha_bwd.launches == before + 1
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     if dtype == torch.float32:
-        want = _mha_bwd_torch(qf, kf, vf, bias, gf, rate, 77)
+        want = _mha_bwd_lse_torch(qf, kf, vf, bias, gf, extra["out"], lse,
+                                  rate, 77, lse_lo=lo)
     else:
         want = _mha_bwd_lse_torch(
             qf, kf, vf, bias, gf, extra["out"].float() + lo.float(), lse,
             rate, 77)
-        jax_formula = _mha_bwd_torch(qf, kf, vf, bias, gf, rate, 77)
-    for i, (name, x, ref) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+    jax_formula = _mha_bwd_torch(qf, kf, vf, bias, gf, rate, 77)
+    for name, x, ref, ref2 in zip(("dq", "dk", "dv"), got, want, jax_formula):
         assert x.dtype == dtype and x.shape == q.shape and x.is_contiguous()
-        diff = (x.float() - ref).abs()
-        if dtype == torch.float32:
-            assert diff.max().item() <= 1e-4, name
-        else:
-            assert (diff <= 2.0**-8 * ref.abs() + 1e-3).all(), name
-            ref = jax_formula[i]
-            assert ((x.float() - ref).abs() <= 2.0**-8 * ref.abs() + 1e-3
-                    ).all(), name
+        for r in (ref, ref2):
+            diff = (x.float() - r).abs()
+            if dtype == torch.float32:
+                assert diff.max().item() <= 1e-4, name
+            else:
+                assert (diff <= 2.0**-8 * r.abs() + 1e-3).all(), name
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("b,s,h,d", [(96, 104, 12, 64), (48, 224, 12, 64),
                                      (120, 128, 12, 64), (64, 172, 12, 64),
                                      (8, 512, 12, 64), (96, 104, 16, 64),
                                      (4, 70, 4, 128), (2, 33, 3, 8)])
-def test_mha_tc_forward_matches_plain(gen, rate, b, s, h, d):
-    """The bf16 K1 at the training shapes against ``_mha_torch`` in fp32 on
-    the same inputs: the output to 1e-2 + 2**-8 |ref|, the LSE to 1e-5 +
-    2**-20 |ref|, and out + out_lo (the fp32 output the backward's Di reads)
-    to 2**-14 max|ref| + 1e-5."""
-    q, k, v, bias, _ = _bwd_inputs(gen, b, s, h, d, torch.bfloat16)
-    lse, lo = torch.empty(b, h, s, device="cuda"), torch.empty_like(q)
-    out = mha_fwd(q, k, v, bias, rate, 31, lse=lse, out_lo=lo)
+def test_mha_tc_forward_matches_plain(gen, rate, b, s, h, d, dtype):
+    """K1 at the training shapes against ``_mha_torch`` in fp32 on the same
+    inputs, the LSE to 1e-5 + 2**-20 |ref|. bf16: the output to 1e-2 +
+    2**-8 |ref|, out + out_lo (the fp32 output the backward's Di reads) to
+    2**-14 max|ref| + 1e-5. fp32 (rows 0 and 1 all padding, row 1 with a
+    random query): the output to 1e-5, row 1 to the grid bound 2**-9
+    max|v| / (1 - rate) + 1e-5, and the LSE plus its remainder to 1e-5 of
+    the float64 LSE (row 1 aside: its scores sit on the fp32 grid)."""
+    lse = torch.empty(b, h, s, device="cuda")
+    if dtype == torch.bfloat16:
+        q, k, v, bias, _ = _bwd_inputs(gen, b, s, h, d, torch.bfloat16)
+        lo = torch.empty_like(q)
+        out = mha_fwd(q, k, v, bias, rate, 31, lse=lse, out_lo=lo)
+    else:
+        q, k, v, bias = _inputs(gen, b, s, h, d, torch.float32)
+        lo = torch.empty_like(lse)
+        out = mha_fwd(q, k, v, bias, rate, 31, lse=lse, lse_lo=lo)
     ref, ref_lse = _mha_torch(q.float(), k.float(), v.float(), bias, rate,
                               31, return_lse=True)
-    assert ((out.float() - ref).abs() <= 2.0**-8 * ref.abs() + 1e-2).all()
     assert ((lse - ref_lse).abs() <= 1e-5 + 2.0**-20 * ref_lse.abs()).all()
-    full = out.float() + lo.float()
-    assert (full - ref).abs().max().item() <= \
-        2.0**-14 * ref.abs().max().item() + 1e-5
+    if dtype == torch.bfloat16:
+        assert ((out.float() - ref).abs() <= 2.0**-8 * ref.abs() + 1e-2).all()
+        full = out.float() + lo.float()
+        assert (full - ref).abs().max().item() <= \
+            2.0**-14 * ref.abs().max().item() + 1e-5
+        return
+    diff = (out - ref).abs()
+    assert torch.cat([diff[:1], diff[2:]]).max().item() <= 1e-5
+    assert diff[1].max().item() <= (2.0**-9 * v[1].abs().max()
+                                    / (1.0 - rate) + 1e-5)
+    exact = _mha_torch(*(t.double() for t in (q, k, v, bias)),
+                       return_lse=True)[1]
+    e = (lse.double() + lo.double() - exact).abs()
+    assert torch.cat([e[:1], e[2:]]).max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_mha_tc_kernels_replay_bitwise(gen, rate):
-    """The bf16 K1 (out, out_lo and LSE) and K2 repeat bit for bit: no
-    atomics, no sums across blocks."""
-    q, k, v, bias, g = _bwd_inputs(gen, 48, 224, 12, 64, torch.bfloat16)
+def test_mha_tc_kernels_replay_bitwise(gen, rate, dtype):
+    """K1 (out, LSE and the remainder: out_lo in bf16, lse_lo in fp32) and
+    K2 repeat bit for bit: no atomics, no sums across blocks."""
+    q, k, v, bias, g = _bwd_inputs(gen, 48, 224, 12, 64, dtype)
+    key = "out_lo" if dtype == torch.bfloat16 else "lse_lo"
     runs = []
     for _ in range(2):
-        lse, lo = torch.empty(48, 12, 224, device="cuda"), torch.empty_like(q)
-        out = mha_fwd(q, k, v, bias, rate, 5, lse=lse, out_lo=lo)
+        lse = torch.empty(48, 12, 224, device="cuda")
+        lo = torch.empty_like(q) if key == "out_lo" else torch.empty_like(lse)
+        out = mha_fwd(q, k, v, bias, rate, 5, lse=lse, **{key: lo})
         runs.append((out, lse, lo, *mha_bwd(q, k, v, bias, g, rate, 5,
-                                            out=out, lse=lse, out_lo=lo)))
+                                            out=out, lse=lse, **{key: lo})))
     for x, y in zip(*runs):
         assert torch.equal(x, y)
+
+
+def test_mha_fp32_kernels_copy_views_they_cannot_stage(gen):
+    """The fp32 kernels stage rows by 16-byte cp.async; a view whose base
+    or row stride is not a multiple of 4 floats is copied, never refused,
+    and gives what a contiguous copy gives, bit for bit, forward and
+    backward."""
+    buf = torch.randn(2, 16, 4 * 64 + 2, generator=gen, device="cuda")
+    q = buf[..., 2:].view(2, 16, 4, 64)  # base 8 bytes off
+    k = buf[..., :256].view(2, 16, 4, 64)  # row stride 258 floats
+    v = torch.randn(2, 16, 4, 64, generator=gen, device="cuda")
+    g = torch.randn(2, 16, 4, 64, generator=gen, device="cuda")
+    bias = torch.zeros(2, 16, device="cuda")
+    bias[1, 10:] = -10000.0
+    res = []
+    for args in ((q, k, v), tuple(t.contiguous() for t in (q, k, v))):
+        lse, lo = torch.empty(2, 4, 16, device="cuda"), \
+            torch.empty(2, 4, 16, device="cuda")
+        out = mha_fwd(*args, bias, 0.1, 3, lse=lse, lse_lo=lo)
+        res.append((out, lse, lo, *mha_bwd(*args, bias, g, 0.1, 3, out=out,
+                                           lse=lse, lse_lo=lo)))
+    for x, y in zip(*res):
+        assert torch.equal(x, y)
+
+
+def test_mha_fp32_bwd_needs_the_forwards_out_and_lse(gen):
+    """The one-pass fp32 K2 reads K1's out, LSE and the LSE's remainder: a
+    call without them, or with the bf16 kernel's output remainder, is
+    refused, with no fallback."""
+    q, k, v, bias, g = _bwd_inputs(gen, 2, 16, 2, 8, torch.float32)
+    lse, lo = torch.empty(2, 2, 16, device="cuda"), \
+        torch.empty(2, 2, 16, device="cuda")
+    out = mha_fwd(q, k, v, bias, lse=lse, lse_lo=lo)
+    before = mha_bwd.launches
+    for extra in ({}, {"out": out, "lse": lse},
+                  {"out": out, "lse": lse, "lse_lo": lo,
+                   "out_lo": q.bfloat16()}):
+        with pytest.raises(ValueError):
+            mha_bwd(q, k, v, bias, g, **extra)
+    assert mha_bwd.launches == before
+    with pytest.raises(ValueError):  # the fp32 K1 writes no output remainder
+        mha_fwd(q, k, v, bias, out_lo=torch.empty_like(q).bfloat16())
 
 
 def test_mha_tc_kernels_read_fused_qkv_views(gen):

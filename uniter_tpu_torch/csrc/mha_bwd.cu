@@ -14,7 +14,7 @@
 //
 // q, k, v, g are read in their [B, S, H, D] layout through strides; dq, dk,
 // dv are written contiguous [B, S, H, D] in the inputs' dtype. Two kernels,
-// picked by dtype:
+// picked by dtype, both one pass on the tensor cores:
 //
 // * bf16 (training): `mha_bwd_tc_kernel<DP>`, one pass on the tensor cores.
 //   The function reads q, k, v, g and writes dq, dk, dv: at the flagship
@@ -63,22 +63,34 @@
 //   (one Philox call per 4 keys of a query row, 8 a thread) and read back
 //   in the transposed (key-major) fragment layout.
 //
-// * fp32 (the 2-layer fp32 gates): the two SIMT passes of
-//   `mha_bwd_dq_kernel<float>` and `mha_bwd_dkv_kernel<float>`, the
-//   FlashAttention-2 split, 256 threads per block as 16 x 16, each thread
-//   owning a 4 x 4 tile of a 64 x 64 score block fed by 16-byte
-//   shared-memory loads. Only q, k, v, bias and the seed are used, so P is
-//   recomputed here:
-//     - pass A, one block per (64-query tile, h, b): walks the keys twice.
-//       The first walk recomputes the row statistics (max m, sum l of every
-//       exp, dropped or not) and Di with an online rescale, and stores them
-//       to a [3, B, H, S] fp32 scratch; the second recomputes P and dPm and
-//       accumulates dQ = dS K.
-//     - pass B, one block per (64-key tile, h, b): walks the queries once,
-//       recomputes the transposed scores with the stored statistics, and
-//       accumulates dV = P_d^T g and dK = dS^T Q.
-//   Scores are summed over d in the same order in both passes, so they are
-//   bit-identical between them.
+// * fp32 (the fp32 train step, the 2-layer fp32 gates):
+//   `mha_bwd_tf32_kernel<DP>`, the same one-pass design on the TF32 tensor
+//   cores (mma.sync m16n8k8), every product split three ways as K1's
+//   (mma.cuh `split_tf32`: a_lo b_hi, a_hi b_lo, then a_hi b_hi into one
+//   partial of at most 64 products, added in IEEE fp32). The function moves
+//   7 * B*S*H*D * 4 bytes (64.1 us at the flagship) against 10 * B*H*S^2*D
+//   FLOP (48.3 us at 495 / 3 TFLOP/s): bytes bound it. P =
+//   exp((s - LSE) - LSE_lo) from K1's fp32 LSE and its remainder (exact to
+//   fp32 also on a row whose keys are all padding, with its LSE near
+//   -10000), Di = rowsum(g * out) from K1's fp32 output itself. Four warps
+//   a block, each owning 16 keys of the key tile and their dK, dV in fp32
+//   registers; operands split as they are loaded (fp32 fragments are twice
+//   bf16's registers), 246 registers at D = 64 with no spill. Latency, not
+//   the tensor cores, limits it at one warp an SMSP, so a block keeps 90 KB
+//   of shared memory and two blocks share an SM: K_j, V_j and one Q_i, g_i
+//   tile as fp32 by cp.async on a pitch of DP + 4 floats (every fragment
+//   load conflict-free), the next Q/g tile streaming in behind the dQ
+//   product; dS stored query-major in an fp32 [64][72] tile (the 64-bit
+//   paired loads of the dQ product's A are conflict-free on a pitch of
+//   8 mod 32); dQ in an fp32 device scratch the block alone owns. P_d and
+//   dS go from the score accumulators straight into the
+//   dV and dK products as A fragments (paired k-slots, mma.cuh). Where
+//   B*H pairs cannot fill two blocks an SM (B = 8, S = 512: 96 of 264
+//   slots) the key tiles split into groups, a block each, each adding its
+//   own dQ, and `dq_sum_kernel` adds the groups in their order. No atomics:
+//   a replay is bitwise equal. It replaces a SIMT pair (a pass recomputing
+//   the row statistics and dQ, a pass for dK and dV) that shared a
+//   [3, B, H, S] scratch.
 //
 // Numerics follow K1: padded keys (-10000) take part in the softmax, keys
 // and queries past S are absent (weight 0, nothing stored), expf not
@@ -94,105 +106,19 @@
 
 namespace {
 
-constexpr int BT = 64;          // queries or keys per tile
-constexpr int LD = BT + 4;      // pitch of transposed tiles [D][LD] and [BT][LD]
-constexpr int THREADS = 256;    // 16 x 16 threads
-constexpr int MAX_CG = 2;       // groups of 4 output columns per thread (D <= 128)
+constexpr int TC_THREADS = 128;  // 4 warps x 16 keys (dK, dV) or 16 queries (dQ)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+// ---- fp32: one pass on the TF32 tensor cores, three passes a product ----
 
-// rows r0.. of x[b, :, h, :] into dst, transposed ([D][LD], row r at column
-// r) and, when rows_out is given, also as rows ([BT][D]); rows past S are 0.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ x, long long ss,
-                                          int r0, int S, int D, float* tr,
-                                          float* rows_out) {
-  for (int idx = threadIdx.x; idx < BT * D; idx += THREADS) {
-    const int r = idx / D, d = idx - r * D;
-    const float val = r0 + r < S ? to_f32(x[(r0 + r) * ss + d]) : 0.f;
-    tr[d * LD + r] = val;
-    if (rows_out) rows_out[r * D + d] = val;
-  }
-}
+constexpr int LDSF = 64 + 8;  // pitch of the fp32 dS tile [64 queries][LDSF]
 
-// s[i][j] += a[d][4*ty+i] * c[d][4*tx+j] over d, for two pairs at once
-__device__ __forceinline__ void dot2(const float* a1, const float* c1,
-                                     const float* a2, const float* c2, int D,
-                                     int ty, int tx, float s1[4][4],
-                                     float s2[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s1[i][j] = s2[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(a1 + d * LD + 4 * ty);
-    const float4 c = *reinterpret_cast<const float4*>(c1 + d * LD + 4 * tx);
-    const float4 e = *reinterpret_cast<const float4*>(a2 + d * LD + 4 * ty);
-    const float4 f = *reinterpret_cast<const float4*>(c2 + d * LD + 4 * tx);
-    const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
-    const float ev[4] = {e.x, e.y, e.z, e.w}, fv[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s1[i][j] = fmaf(av[i], cv[j], s1[i][j]);
-        s2[i][j] = fmaf(ev[i], fv[j], s2[i][j]);
-      }
-  }
-}
-
-// acc[i][cols 4*tx + 64*g ..] += sum_r pt[r][4*ty+i] * rows[r][cols], r < n
-__device__ __forceinline__ void accumulate(const float* pt, const float* rows,
-                                           int n, int D, int ty, int tx,
-                                           float acc[4][4 * MAX_CG]) {
-  for (int r = 0; r < n; ++r) {
-    const float4 p = *reinterpret_cast<const float4*>(pt + r * LD + 4 * ty);
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-    for (int g = 0; g < MAX_CG; ++g) {
-      const int col = 4 * tx + 64 * g;
-      if (col < D) {
-        const float4 w = *reinterpret_cast<const float4*>(rows + r * D + col);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * g + 0] = fmaf(pv[i], w.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(pv[i], w.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(pv[i], w.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(pv[i], w.w, acc[i][4 * g + 3]);
-        }
-      }
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_rows(T* out, const float acc[4][4 * MAX_CG],
-                                           int b, int h, int r0, int S, int H,
-                                           int D, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 4 * ty + i;
-    if (r >= S) continue;
-    T* o = out + ((static_cast<long long>(b) * S + r) * H + h) * D;
-#pragma unroll
-    for (int g = 0; g < MAX_CG; ++g) {
-      const int col = 4 * tx + 64 * g;
-      if (col < D) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) store(o + col + e, acc[i][4 * g + e]);
-      }
-    }
-  }
-}
-
-struct Args {
-  const void *q, *k, *v, *g;
-  const float* bias;
-  void *dq, *dk, *dv;
-  float* stats;  // [3][B][H][S]: row max, row sum, Di
+struct F32Args {
+  const float *q, *k, *v, *g, *out;
+  const float *bias, *lse, *lse_lo;
+  float *dq, *dk, *dv;
+  float* dq_acc;  // [G][B*H][S_pad][DP + 4] fp32 in device memory
   int B, S, H, D;
+  int G;  // key-tile groups, one block each per (b, h)
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long g_sb, g_ss, g_sh;
   float sm_scale, inv_keep;
@@ -200,238 +126,265 @@ struct Args {
   unsigned long long seed;
 };
 
-// Pass A: row statistics, Di and dQ for one 64-query tile.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) mha_bwd_dq_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  const int D = a.D, S = a.S;
-  float* qt = reinterpret_cast<float*>(smem4);  // [D][LD] queries
-  float* gt = qt + D * LD;                      // [D][LD] output grads
-  float* kt = gt + D * LD;                      // [D][LD] keys
-  float* vt = kt + D * LD;                      // [D][LD] values
-  float* ks = vt + D * LD;                      // [BT][D] keys as rows
-  float* pt = ks + BT * D;                      // [BT][LD] dS, transposed
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* gb = static_cast<const T*>(a.g) + b * a.g_sb + h * a.g_sh;
-  const float* biasb = a.bias + static_cast<long long>(b) * S;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-  const long long row0 = bh * S + q0 + 4 * ty;  // score row of query 4*ty
-
-  load_tile(qb, a.q_ss, q0, S, D, qt, static_cast<float*>(nullptr));
-  load_tile(gb, a.g_ss, q0, S, D, gt, static_cast<float*>(nullptr));
-
-  float m[4], l[4], dd[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    dd[i] = 0.f;
-  }
-  float s[4][4], dp[4][4];
-
-  // first walk: m, l and sum_k exp(s - m) * dPm, rescaled online
-  for (int k0 = 0; k0 < S; k0 += BT) {
-    __syncthreads();
-    load_tile(kb, a.k_ss, k0, S, D, kt, static_cast<float*>(nullptr));
-    load_tile(vb, a.v_ss, k0, S, D, vt, static_cast<float*>(nullptr));
-    __syncthreads();
-    dot2(qt, kt, gt, vt, D, ty, tx, s, dp);
-    bool live[4];
-    float bj[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      live[j] = k0 + 4 * tx + j < S;
-      bj[j] = live[j] ? biasb[k0 + 4 * tx + j] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (a.thr) w = uniter::mask_words(a.seed, row0 + i, (k0 >> 2) + tx);
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = live[j] ? s[i][j] * a.sm_scale + bj[j] : -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
-        if (a.thr) dp[i][j] = uniter::word(w, j) >= a.thr ? dp[i][j] * a.inv_keep : 0.f;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float mn = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - mn);
-      float ls = 0.f, lsd = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - mn);
-        ls += e;
-        lsd += e * dp[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        ls += __shfl_xor_sync(0xffffffffu, ls, off);
-        lsd += __shfl_xor_sync(0xffffffffu, lsd, off);
-      }
-      l[i] = l[i] * alpha + ls;
-      dd[i] = dd[i] * alpha + lsd;
-      m[i] = mn;
-    }
-  }
-  float di[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    di[i] = dd[i] / l[i];
-    const int qi = q0 + 4 * ty + i;
-    if (tx == 0 && qi < S) {
-      const long long plane = static_cast<long long>(a.B) * a.H * S;
-      a.stats[bh * S + qi] = m[i];
-      a.stats[plane + bh * S + qi] = l[i];
-      a.stats[2 * plane + bh * S + qi] = di[i];
-    }
-  }
-
-  // second walk: dS and dQ = dS K
-  float acc[4][4 * MAX_CG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * MAX_CG; ++c) acc[i][c] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += BT) {
-    __syncthreads();
-    load_tile(kb, a.k_ss, k0, S, D, kt, ks);
-    load_tile(vb, a.v_ss, k0, S, D, vt, static_cast<float*>(nullptr));
-    __syncthreads();
-    dot2(qt, kt, gt, vt, D, ty, tx, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (a.thr) w = uniter::mask_words(a.seed, row0 + i, (k0 >> 2) + tx);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + 4 * tx + j;
-        const float p = kj < S ? expf(s[i][j] * a.sm_scale + biasb[kj] - m[i]) / l[i] : 0.f;
-        float dpm = dp[i][j];
-        if (a.thr) dpm = uniter::word(w, j) >= a.thr ? dpm * a.inv_keep : 0.f;
-        s[i][j] = p * (dpm - di[i]) * a.sm_scale;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pt + (4 * tx + j) * LD + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-    accumulate(pt, ks, min(BT, S - k0), D, ty, tx, acc);
-  }
-  store_rows(static_cast<T*>(a.dq), acc, b, h, q0, S, a.H, D, ty, tx);
+// dynamic shared memory of mha_bwd_tf32_kernel<DP> (mirrored by
+// ops/attention.py `_bwd_smem`): 90,112 bytes at D = 64, S = 104, so two
+// blocks share an SM
+template <int DP>
+int tf32_smem(int S) {
+  const int s_pad = (S + 63) / 64 * 64;
+  return 4 * 64 * (DP + 4) * 4     // K, V, Q, g
+         + 64 * LDSF * 4           // dS
+         + 3 * s_pad * 4           // LSE, its remainder, Di
+         + 64 * 2 * 4;             // the tile's dropout bits
 }
 
-// Pass B: dK and dV for one 64-key tile, with the statistics of pass A.
-// Score tiles are transposed here: rows are keys (4*ty+i), columns queries.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) mha_bwd_dkv_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  const int D = a.D, S = a.S;
-  float* kt = reinterpret_cast<float*>(smem4);  // [D][LD] keys
-  float* vt = kt + D * LD;                      // [D][LD] values
-  float* qt = vt + D * LD;                      // [D][LD] queries
-  float* gt = qt + D * LD;                      // [D][LD] output grads
-  float* qs = gt + D * LD;                      // [BT][D] queries as rows
-  float* gs = qs + BT * D;                      // [BT][D] output grads as rows
-  float* pt = gs + BT * D;                      // [BT][LD] P_d, then dS: [query][key]
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int kb0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* gb = static_cast<const T*>(a.g) + b * a.g_sb + h * a.g_sh;
-  const float* biasb = a.bias + static_cast<long long>(b) * S;
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS, 2) mha_bwd_tf32_kernel(F32Args a) {
+  constexpr int LD = DP + 4;  // fp32 tile pitch; also the dQ pitch
+  constexpr int NDT = DP / 8;
+  const int S = a.S, D = a.D;
+  const int s_pad = (S + 63) / 64 * 64, ntile = s_pad / 64;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
   const long long bh = static_cast<long long>(b) * a.H + h;
-  const long long plane = static_cast<long long>(a.B) * a.H * S;
+  const int j0 = z * ntile / a.G, j1 = (z + 1) * ntile / a.G;  // key tiles
 
-  load_tile(kb, a.k_ss, kb0, S, D, kt, static_cast<float*>(nullptr));
-  load_tile(vb, a.v_ss, kb0, S, D, vt, static_cast<float*>(nullptr));
-  bool klive[4];
-  float bk[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    klive[i] = kb0 + 4 * ty + i < S;
-    bk[i] = klive[i] ? biasb[kb0 + 4 * ty + i] : 0.f;
+  extern __shared__ uint4 smem_f[];
+  // this group's dQ accumulator, [s_pad][LD]
+  float* dqa = a.dq_acc + (z * static_cast<long long>(a.B) * a.H + bh) * s_pad * LD;
+  float* lse_s = reinterpret_cast<float*>(smem_f);          // [s_pad]
+  float* lo_s = lse_s + s_pad;                              // [s_pad]
+  float* di_s = lo_s + s_pad;                               // [s_pad]
+  unsigned* mask_s = reinterpret_cast<unsigned*>(di_s + s_pad);  // [64][2]
+  float* ks = reinterpret_cast<float*>(mask_s + 128);       // [64][LD]
+  float* vs = ks + 64 * LD;                                 // [64][LD]
+  float* qt = vs + 64 * LD;                                 // [64][LD]
+  float* gt = qt + 64 * LD;                                 // [64][LD]
+  float* dss = gt + 64 * LD;                                // [64][LDSF] dS
+
+  const float* qb = a.q + b * a.q_sb + h * a.q_sh;
+  const float* kb = a.k + b * a.k_sb + h * a.k_sh;
+  const float* vb = a.v + b * a.v_sb + h * a.v_sh;
+  const float* gb = a.g + b * a.g_sb + h * a.g_sh;
+  const float* biasb = a.bias + static_cast<long long>(b) * S;
+
+  // the first Q/g tile streams in during the prologue
+  uniter::stage_rows_f32<DP>(qt, qb, a.q_ss, 0, S, D);
+  uniter::stage_rows_f32<DP>(gt, gb, a.g_ss, 0, S, D);
+  uniter::cp_async_commit();
+
+  // prologue: LSE, its remainder and Di = rowsum(g * out) in fp32 from K1's
+  // fp32 output (0 on rows past S, whose q and g tiles are zero, so they
+  // add nothing anywhere); dQ = 0
+  for (int r = tid; r < s_pad; r += TC_THREADS) {
+    float lse = 0.f, lo = 0.f, di = 0.f;
+    if (r < S) {
+      lse = a.lse[bh * S + r];
+      lo = a.lse_lo[bh * S + r];
+      const float* gr = gb + r * a.g_ss;
+      const float* orow = a.out + ((static_cast<long long>(b) * S + r) * a.H + h) * D;
+      for (int d = 0; d < D; d += 4) {
+        const float4 gv = *reinterpret_cast<const float4*>(gr + d);
+        const float4 ov = *reinterpret_cast<const float4*>(orow + d);
+        di = fmaf(gv.x, ov.x, di);
+        di = fmaf(gv.y, ov.y, di);
+        di = fmaf(gv.z, ov.z, di);
+        di = fmaf(gv.w, ov.w, di);
+      }
+    }
+    lse_s[r] = lse;
+    lo_s[r] = lo;
+    di_s[r] = di;
   }
+  for (int idx = tid; idx < s_pad * LD; idx += TC_THREADS) dqa[idx] = 0.f;
 
-  float dk[4][4 * MAX_CG], dv[4][4 * MAX_CG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * MAX_CG; ++c) dk[i][c] = dv[i][c] = 0.f;
-  float s[4][4], dp[4][4];
+  const int total = (j1 - j0) * ntile;
+  int n = 0;  // (key tile, query tile) step
+  for (int j = j0; j < j1; ++j) {
+    const int k0 = j * 64;
+    __syncthreads();  // K_{j-1}, V_{j-1} and dS are read; the prologue is done
+    uniter::stage_rows_f32<DP>(ks, kb, a.k_ss, k0, S, D);
+    uniter::stage_rows_f32<DP>(vs, vb, a.v_ss, k0, S, D);
+    uniter::cp_async_commit();
 
-  for (int q0 = 0; q0 < S; q0 += BT) {
-    __syncthreads();
-    load_tile(qb, a.q_ss, q0, S, D, qt, qs);
-    load_tile(gb, a.g_ss, q0, S, D, gt, gs);
-    __syncthreads();
-    dot2(kt, qt, vt, gt, D, ty, tx, s, dp);
+    // this warp's keys: rows kr0 and kr0 + 8 of the tile
+    const int kr0 = 16 * warp + (lane >> 2);
+    float bk[2];
+    bool lk[2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qj = q0 + 4 * tx + j;
-      const bool qlive = qj < S;
-      const long long st = bh * S + (qlive ? qj : 0);
-      const float mq = a.stats[st], lq = a.stats[plane + st];
-      const float dq = a.stats[2 * plane + st];
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (a.thr) w = uniter::mask_words(a.seed, bh * S + qj, (kb0 >> 2) + ty);
+    for (int u = 0; u < 2; ++u) {
+      const int kj = k0 + kr0 + 8 * u;
+      lk[u] = kj < S;
+      bk[u] = lk[u] ? biasb[kj] : 0.f;
+    }
+    float dk[NDT][4], dv[NDT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = (qlive && klive[i])
-                            ? expf(s[i][j] * a.sm_scale + bk[i] - mq) / lq : 0.f;
-        float pd = p, dpm = dp[i][j];
-        if (a.thr) {
-          const bool keep = uniter::word(w, i) >= a.thr;
-          pd = keep ? p * a.inv_keep : 0.f;
-          dpm = keep ? dpm * a.inv_keep : 0.f;
+    for (int t = 0; t < NDT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
+
+    for (int i = 0; i < ntile; ++i, ++n) {
+      const int q0 = i * 64;
+      // the bits' last readers passed the previous step's dS barrier
+      if (a.thr) {  // the tile's mask: thread t draws query t/2, keys 32 (t%2) ..
+        const int ql = tid >> 1, half = tid & 1;
+        const long long row = bh * S + q0 + ql;
+        unsigned bits = 0u;
+#pragma unroll
+        for (int gi = 0; gi < 8; ++gi) {
+          const uint4 w = uniter::mask_words(a.seed, row, ((k0 + 32 * half) >> 2) + gi);
+          bits |= (static_cast<unsigned>(w.x >= a.thr) << (4 * gi))
+                | (static_cast<unsigned>(w.y >= a.thr) << (4 * gi + 1))
+                | (static_cast<unsigned>(w.z >= a.thr) << (4 * gi + 2))
+                | (static_cast<unsigned>(w.w >= a.thr) << (4 * gi + 3));
         }
-        s[i][j] = pd;
-        dp[i][j] = p * (dpm - dq) * a.sm_scale;
+        mask_s[ql * 2 + half] = bits;
+      }
+      uniter::cp_async_wait<0>();  // Q_i, g_i (and at i = 0 K_j, V_j)
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V g^T: keys kr0 (+8), queries 8 t + 2c + {0,1}
+      float st[8][4], dpt[8][4];
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[t][e] = dpt[t][e] = 0.f;
+      uniter::add_rows_product<8, DP>(st, ks, 16 * warp, qt, LD, lane);
+      uniter::add_rows_product<8, DP>(dpt, vs, 16 * warp, gt, LD, lane);
+
+      // P = exp(s - LSE), P_d, dS = P (dPm - Di) sm_scale in registers;
+      // dS also to shared memory, query-major, for the dQ product
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ql = 8 * t + 2 * c + e;
+          const float lse = lse_s[q0 + ql], lo = lo_s[q0 + ql];
+          const float di = di_s[q0 + ql];
+          const unsigned bits = a.thr ? mask_s[ql * 2 + (warp >> 1)] : 0u;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {  // key rows kr0 + 8u
+            const float p =
+                lk[u] ? expf((fmaf(st[t][2 * u + e], a.sm_scale, bk[u]) - lse) - lo) : 0.f;
+            float pd = p, dpm = dpt[t][2 * u + e];
+            if (a.thr) {
+              const bool keep = (bits >> ((kr0 + 8 * u) & 31)) & 1u;
+              pd = keep ? p * a.inv_keep : 0.f;
+              dpm = keep ? dpm * a.inv_keep : 0.f;
+            }
+            st[t][2 * u + e] = pd;
+            const float ds = p * (dpm - di) * a.sm_scale;
+            dpt[t][2 * u + e] = ds;
+            dss[ql * LDSF + kr0 + 8 * u] = ds;
+          }
+        }
+      }
+
+      // dV += P_d^T g_i, then dK += dS^T Q_i: A from the accumulators
+      // (paired k-slots: queries), B down paired rows of g_i and Q_i
+      uniter::add_acc_product<NDT>(dv, st, gt, LD, lane);
+      uniter::add_acc_product<NDT>(dk, dpt, qt, LD, lane);
+      __syncthreads();  // dS of every warp is in shared memory; Q_i, g_i read
+      if (n + 1 < total) {  // the next step's Q/g (the next j wraps to 0)
+        const int qn = (i + 1 < ntile ? i + 1 : 0) * 64;
+        uniter::stage_rows_f32<DP>(qt, qb, a.q_ss, qn, S, D);
+        uniter::stage_rows_f32<DP>(gt, gb, a.g_ss, qn, S, D);
+        uniter::cp_async_commit();
+      }
+
+      // dQ rows q0 + 16 warp + g (+8) += dS K_j: A = dS (rows: queries,
+      // paired k-slots: keys), B = K_j down paired rows
+      float tq[NDT][4];
+#pragma unroll
+      for (int t = 0; t < NDT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tq[t][e] = 0.f;
+      uniter::add_paired_product<NDT>(tq, dss, LDSF, 16 * warp, ks, LD, lane);
+      const int qr = q0 + 16 * warp + (lane >> 2);
+#pragma unroll
+      for (int t = 0; t < NDT; ++t) {
+        const int col = 8 * t + 2 * c;
+        float2* r0 = reinterpret_cast<float2*>(dqa + qr * LD + col);
+        float2* r1 = reinterpret_cast<float2*>(dqa + (qr + 8) * LD + col);
+        float2 x0 = *r0, x1 = *r1;
+        x0.x += tq[t][0];
+        x0.y += tq[t][1];
+        x1.x += tq[t][2];
+        x1.y += tq[t][3];
+        *r0 = x0;
+        *r1 = x1;
       }
     }
-    const int nq = min(BT, S - q0);
+
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pt + (4 * tx + j) * LD + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-    accumulate(pt, gs, nq, D, ty, tx, dv);
-    __syncthreads();
+    for (int u = 0; u < 2; ++u) {
+      const int kj = k0 + kr0 + 8 * u;
+      if (kj >= S) continue;
+      const long long o = ((static_cast<long long>(b) * S + kj) * a.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pt + (4 * tx + j) * LD + 4 * ty) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
-    __syncthreads();
-    accumulate(pt, qs, nq, D, ty, tx, dk);
+      for (int t = 0; t < NDT; ++t) {
+        const int col = 8 * t + 2 * c;
+        if (col < D) {
+          *reinterpret_cast<float2*>(a.dk + o + col) =
+              make_float2(dk[t][2 * u], dk[t][2 * u + 1]);
+          *reinterpret_cast<float2*>(a.dv + o + col) =
+              make_float2(dv[t][2 * u], dv[t][2 * u + 1]);
+        }
+      }
+    }
   }
-  store_rows(static_cast<T*>(a.dk), dk, b, h, kb0, S, a.H, D, ty, tx);
-  store_rows(static_cast<T*>(a.dv), dv, b, h, kb0, S, a.H, D, ty, tx);
+  if (a.G > 1) return;  // dq_sum_kernel adds the groups' dQ
+  __syncthreads();  // every warp's dQ rows are summed
+  for (int idx = tid; idx < S * (D / 4); idx += TC_THREADS) {
+    const int r = idx / (D / 4), col = 4 * (idx - r * (D / 4));
+    *reinterpret_cast<float4*>(
+        a.dq + ((static_cast<long long>(b) * S + r) * a.H + h) * D + col) =
+        *reinterpret_cast<const float4*>(dqa + r * LD + col);
+  }
 }
 
-int launch_f32(const Args& a, cudaStream_t stream) {
-  const int smem_a = (4 * a.D * LD + BT * a.D + BT * LD) * static_cast<int>(sizeof(float));
-  const int smem_b = (4 * a.D * LD + 2 * BT * a.D + BT * LD) * static_cast<int>(sizeof(float));
+// dq = the sum of the G key groups' dQ accumulators, in group order (a
+// fixed order: a replay is bitwise equal); 4 floats a thread
+template <int DP>
+__global__ void __launch_bounds__(256) dq_sum_kernel(F32Args a) {
+  constexpr int LD = DP + 4;
+  const int D4 = a.D / 4, s_pad = (a.S + 63) / 64 * 64;
+  const long long n = static_cast<long long>(a.B) * a.S * a.H * D4;
+  const long long plane = static_cast<long long>(a.B) * a.H * s_pad * LD;
+  for (long long idx = blockIdx.x * 256ll + threadIdx.x; idx < n;
+       idx += static_cast<long long>(gridDim.x) * 256) {
+    const int col = 4 * static_cast<int>(idx % D4);
+    const long long row = idx / D4;  // (b, s, h)
+    const int h = static_cast<int>(row % a.H);
+    const long long bs = row / a.H;
+    const int r = static_cast<int>(bs % a.S), b = static_cast<int>(bs / a.S);
+    const float* p =
+        a.dq_acc + ((static_cast<long long>(b) * a.H + h) * s_pad + r) * LD + col;
+    float4 acc = *reinterpret_cast<const float4*>(p);
+    for (int z = 1; z < a.G; ++z) {
+      const float4 x = *reinterpret_cast<const float4*>(p + z * plane);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    *reinterpret_cast<float4*>(a.dq + row * a.D + col) = acc;
+  }
+}
+
+template <int DP>
+int launch_tf32(const F32Args& a, cudaStream_t stream) {
+  const int smem = tf32_smem<DP>(a.S);
   cudaError_t err = cudaFuncSetAttribute(
-      mha_bwd_dq_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
+      mha_bwd_tf32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(
-      mha_bwd_dkv_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.S + BT - 1) / BT, a.H, a.B);
-  mha_bwd_dq_kernel<float><<<grid, THREADS, smem_a, stream>>>(a);
+  mha_bwd_tf32_kernel<DP><<<dim3(a.H, a.B, a.G), TC_THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mha_bwd_dkv_kernel<float><<<grid, THREADS, smem_b, stream>>>(a);
+  if (err != cudaSuccess || a.G == 1) return static_cast<int>(err);
+  const long long n = static_cast<long long>(a.B) * a.S * a.H * (a.D / 4);
+  const int blocks = static_cast<int>(n / 256 < 4096 ? (n + 255) / 256 : 4096);
+  dq_sum_kernel<DP><<<blocks, 256, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -439,7 +392,6 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TC_THREADS = 128;  // 4 warps x 16 keys (dK, dV) or 16 queries (dQ)
 constexpr int LDS = 64 + 8;      // pitch of the dS^T tiles [64 keys][LDS] (bf16)
 
 struct TcArgs {
@@ -456,7 +408,7 @@ struct TcArgs {
 };
 
 // dynamic shared memory of mha_bwd_tc_kernel<DP> (mirrored by
-// ops/attention.py `_bwd_tc_smem`)
+// ops/attention.py `_bwd_smem`)
 template <int DP>
 int tc_smem(int S, bool dq_shared) {
   const int s_pad = (S + 63) / 64 * 64;
@@ -736,37 +688,49 @@ int launch_tc(const TcArgs& a, cudaStream_t stream) {
 
 // Plain C entry for ctypes. Strides are in elements (torch's convention);
 // dq/dk/dv are contiguous [B, S, H, D]; thr = floor(rate * 2^32) (0: no
-// dropout), inv_keep = 1 / (1 - rate). dtype 0 = float32: the two SIMT
-// passes, `out` and `lse` null, `scratch` a [3, B, H, S] fp32 buffer for the
-// row statistics. dtype 1 = bfloat16: the tensor-core pass, `out` and
-// `out_lo` the forward's contiguous [B, S, H, D] output and its bf16
-// remainder, `lse` its [B, H, S] fp32 row log-sum-exp, `scratch` null (dQ in shared memory) or a
-// [B * H, S_pad, DP + 8] fp32 buffer for dQ (ops/attention.py
-// `_bwd_tc_smem` says when). Returns the first launch error (0 = ok). The
-// caller validates shapes, dtypes, devices and strides (bf16: 16-byte
-// aligned bases and strides).
+// dropout), inv_keep = 1 / (1 - rate). Both dtypes run one pass on the
+// tensor cores from the forward's contiguous [B, S, H, D] output `out` and
+// its [B, H, S] fp32 row log-sum-exp `lse`. dtype 0 = float32: `lse_lo`
+// the LSE's fp32 remainder, `out_lo` null. dtype 1 = bfloat16: `out_lo`
+// the output's bf16 remainder, `lse_lo` null. `scratch` is a
+// [groups, B * H, S_pad, DP + 4] fp32 buffer for dQ in fp32, `groups` the
+// key-tile groups (blocks per (b, h), 1..S_pad / 64); in bf16 `groups` is 1
+// and `scratch` null (dQ in shared memory) or a [B * H, S_pad, DP + 8] one
+// (ops/attention.py `_bwd_smem` says when). Returns the first launch error (0 = ok). The caller validates
+// shapes, dtypes, devices and strides (16-byte aligned bases and strides).
 extern "C" int uniter_mha_bwd(
     const void* q, const void* k, const void* v, const void* g,
     const void* bias, const void* out, const void* out_lo, const void* lse,
-    void* dq, void* dk,
+    const void* lse_lo, void* dq, void* dk,
     void* dv, void* scratch, int B, int S, int H, int D, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long g_sb, long long g_ss, long long g_sh, float sm_scale,
     unsigned thr, float inv_keep, unsigned long long seed, int dtype,
-    void* stream) {
+    int groups, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && out == nullptr && out_lo == nullptr && lse == nullptr &&
-      scratch != nullptr) {
-    const Args a{q, k, v, g, static_cast<const float*>(bias), dq, dk, dv,
-                 static_cast<float*>(scratch), B, S, H, D, q_sb, q_ss, q_sh,
-                 k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh,
-                 sm_scale, inv_keep, thr, seed};
-    return launch_f32(a, st);
-  }
-  if (dtype != 1 || out == nullptr || out_lo == nullptr || lse == nullptr ||
-      D % 8 || D > 128)
+  if (out == nullptr || lse == nullptr || D % 8 || D > 128 || dtype < 0 ||
+      dtype > 1 || (dtype == 0) != (out_lo == nullptr) ||
+      (dtype == 0) != (lse_lo != nullptr) ||
+      (dtype == 0 && (scratch == nullptr || groups < 1 ||
+                      groups > (S + 63) / 64)) ||
+      (dtype == 1 && groups != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), static_cast<const float*>(g),
+                    static_cast<const float*>(out), static_cast<const float*>(bias),
+                    static_cast<const float*>(lse),
+                    static_cast<const float*>(lse_lo), static_cast<float*>(dq),
+                    static_cast<float*>(dk), static_cast<float*>(dv),
+                    static_cast<float*>(scratch), B, S, H, D, groups, q_sb,
+                    q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss,
+                    g_sh, sm_scale, inv_keep, thr, seed};
+    if (D <= 16) return launch_tf32<16>(a, st);
+    if (D <= 32) return launch_tf32<32>(a, st);
+    if (D <= 64) return launch_tf32<64>(a, st);
+    return launch_tf32<128>(a, st);
+  }
   const TcArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                  static_cast<const bf16*>(v), static_cast<const bf16*>(g),
                  static_cast<const bf16*>(out), static_cast<const bf16*>(out_lo),

@@ -9,20 +9,21 @@
 //
 // with dropout keeping P[b,h,i,j] iff its Philox word >= `thr` and scaling
 // kept values by `inv_keep` = 1 / (1 - rate) (philox.cuh states the bits).
-// When asked, the bf16 kernel also writes the row log-sum-exp
+// When asked, either kernel also writes the row log-sum-exp
 // LSE = m + log(l) of the scaled, biased scores as fp32 [B, H, S], and the
-// bf16 remainder of its output, out_lo = bf16(o - bf16(o)) with o the fp32
-// result: the bf16 backward (mha_bwd.cu) rebuilds P = exp(s - LSE) from the
-// first in one pass, and takes Di = rowsum(g * o) from out + out_lo, which
-// is o to ~2^-16 (the rounded output alone is too coarse for the backward's
-// tolerance; chip_smoke.py prints by how much).
+// bf16 kernel the bf16 remainder of its output, out_lo = bf16(o - bf16(o))
+// with o the fp32 result: the backward (mha_bwd.cu) rebuilds
+// P = exp(s - LSE) from the first in one pass, and takes Di = rowsum(g * o)
+// from the fp32 output, or in bf16 from out + out_lo, which is o to ~2^-16
+// (the rounded output alone is too coarse for the backward's tolerance;
+// chip_smoke.py prints by how much).
 //
 // q, k, v are read in their [B, S, H, D] layout through strides (the
 // innermost dimension contiguous), so the caller transposes nothing; the
 // output is a fresh contiguous [B, S, H, D] tensor. bias is the additive
 // fp32 padding bias [B, S] (0 for a valid key, -10000 for padding).
 //
-// Two kernels, picked by dtype:
+// Two kernels, picked by dtype, both on the tensor cores:
 //
 // * bf16 (training): `mha_fwd_tc_kernel<DP>` on the tensor cores. It moves
 //   q, k, v in and out back, 4 * B*S*H*D * 2 bytes (18.3 us at the flagship
@@ -51,18 +52,37 @@
 //   fp32 plain version on the same inputs (it is in fact within one bf16
 //   rounding of it), and out + out_lo within ~2^-16 of it.
 //
-// * fp32 (serving): `mha_fwd_kernel<float>`, SIMT. Inference runs fp32 and
-//   its contract (1e-5 against the plain version) rules out TF32 tensor
-//   cores, so the products run on the FP32 units (67 TFLOP/s at 700 W). At
-//   S=104, D=64 one (b, h) pair reads 80 KB and does 2.8 MFLOP, above the
-//   card's SIMT ridge: the FMA rate and the shared-memory bandwidth that
-//   feeds it are the limit. One block of 256 threads per (64-query tile,
-//   head, batch element) walks the keys in tiles of 64 with an fp32 online
-//   softmax; Q and K tiles are stored transposed in shared memory and each
-//   thread owns a 4x4 register tile of scores, so two 16-byte shared loads
-//   feed 16 FMAs; P.V reuses the same scheme with P transposed through
-//   shared memory. It keeps the unnormalised P in fp32 and divides at the
-//   end, which differs from the reference by rounding only.
+// * fp32 (serving): `mha_fwd_tf32_kernel<DP>`, the same structure on the
+//   TF32 tensor cores (mma.sync m16n8k8), with every product split three
+//   ways (mma.cuh `split_tf32`): x = hi + lo, hi = tf32(x) by
+//   cvt.rna.tf32.f32, lo = tf32(x - hi), and a b by the passes a_lo b_hi,
+//   a_hi b_lo, then a_hi b_hi into one partial. One TF32 pass keeps 10
+//   mantissa bits, 56x outside the contract of 1e-5 against the plain
+//   version; the split keeps fp32 accuracy (the lo lo term is below fp32's
+//   own rounding) at a third of the TF32 rate, 165 TFLOP/s, 2.5x the 67 of
+//   the FP32 units that the SIMT kernel it replaces ran on. The function
+//   moves 4 * B*S*H*D * 4 bytes (36.6 us at the flagship and 3.35 TB/s)
+//   and does 4 * B*H*S^2*D FLOP (19.3 us at 165 TFLOP/s): bytes bound it.
+//   Per block: 4 warps, 16 query rows each; Q and double-buffered K/V tiles
+//   of 64 rows staged as fp32 by cp.async on a pitch of DP + 4 floats (every
+//   fragment load conflict-free); operands are split as they are loaded,
+//   not whole tiles, to keep registers. The TF32 accumulator is not the A
+//   layout, so P V lets k-slot c stand for key 2c of a k-step and slot c + 4
+//   for key 2c + 1 (mma.cuh, "paired"): P goes from the score accumulators
+//   straight into the A fragments, and V is read down rows 2c, 2c + 1. Each
+//   tensor-core partial sums at most 64 products (64 keys, or 64 head dims
+//   of q.k; D = 128 takes two) and is added in IEEE fp32; the two small
+//   passes sum in partials of their own, so the tensor cores' truncating
+//   sums of hi hi run 8 steps a partial, not 24 (the worst error at the
+//   flagship fell from 6.0e-6 to 4.1e-6; 198 registers at D = 64, not 159). Scores stay in
+//   natural units with expf, as the plain version computes them; with
+//   `lse` it writes the row log-sum-exp m + log(l), and with `lse_lo` its
+//   fp32 remainder (TwoSum): a row whose keys are all padding has an LSE
+//   near -10000, where the fp32 grid is 2^-10, and P = exp(s - LSE) from
+//   the rounded LSE alone is off by up to 2^-11 relative on that row, which
+//   takes the backward's dq and dv past 1e-4 against the JAX kernel's
+//   formula; (s - lse) - lse_lo is exact to fp32 there. The division by
+//   the row sum comes at the end.
 //
 // Numerics common to both, as the reference computes them (`_attn_probs`):
 //   * scores in fp32, sm_scale applied to q.k before the bias is added;
@@ -93,215 +113,185 @@
 
 namespace {
 
-constexpr int BQ = 64;          // queries per block
-constexpr int BK = 64;          // keys per tile
-constexpr int LDQ = BQ + 4;     // pitch of the transposed Q tile [D][LDQ]
-constexpr int LDK = BK + 4;     // pitch of the transposed K tile [D][LDK]
-constexpr int LDP = BQ + 4;     // pitch of the transposed P tile [BK][LDP]
-constexpr int THREADS = 256;    // 16 x 16 threads
-constexpr int MAX_CG = 2;       // groups of 4 output columns per thread (D <= 128)
+constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+// ---- fp32: TF32 tensor cores, three passes -------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ bias,
-               T* __restrict__ out, int S, int H, int D,
-               long long q_sb, long long q_ss, long long q_sh,
-               long long k_sb, long long k_ss, long long k_sh,
-               long long v_sb, long long v_ss, long long v_sh,
-               float sm_scale, unsigned thr, float inv_keep,
-               unsigned long long seed) {
-  extern __shared__ float4 smem4[];  // float4: 16-byte aligned base
-  float* qt = reinterpret_cast<float*>(smem4);  // [D][LDQ]
-  float* kt = qt + D * LDQ;                     // [D][LDK]
-  float* vs = kt + D * LDK;                     // [BK][D]
-  float* pt = vs + BK * D;                      // [BK][LDP]
+struct F32Args {
+  const float *q, *k, *v, *bias;
+  float* out;
+  float* lse;     // [B, H, S] or null
+  float* lse_lo;  // [B, H, S]: LSE - lse in fp32, or null
+  int S, H, D;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float sm_scale, inv_keep;
+  unsigned thr;
+  unsigned long long seed;
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // key / output-column group
-  const int ty = tid >> 4;  // query-row group
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS) mha_fwd_tf32_kernel(F32Args a) {
+  constexpr int LD = DP + 4;  // fp32 tile pitch (mma.cuh: conflict-free)
+  extern __shared__ uint4 smem_f[];
+  float* qs = reinterpret_cast<float*>(smem_f);  // [64][LD]
+  float* ks = qs + 64 * LD;                      // [2][64][LD]
+  float* vs = ks + 2 * 64 * LD;                  // [2][64][LD]
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-  const float* biasb = bias + static_cast<long long>(b) * S;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane & 3;
+  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int S = a.S, D = a.D;
+  const float* qb = a.q + b * a.q_sb + h * a.q_sh;
+  const float* kb = a.k + b * a.k_sb + h * a.k_sh;
+  const float* vb = a.v + b * a.v_sb + h * a.v_sh;
+  const float* biasb = a.bias + static_cast<long long>(b) * S;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  const long long row0 = bh * S + q0 + 16 * warp + (lane >> 2);
+  const int nkt = (S + 63) / 64;
+  const bool odd = lane & 1;
 
-  // Q tile, transposed; rows past S are zero (computed, never stored).
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, d = idx - r * D;
-    const int qi = q0 + r;
-    qt[d * LDQ + r] = qi < S ? to_f32(qb[qi * q_ss + d]) : 0.f;
-  }
+  uniter::stage_rows_f32<DP>(qs, qb, a.q_ss, q0, S, D);
+  uniter::stage_rows_f32<DP>(ks, kb, a.k_ss, 0, S, D);
+  uniter::stage_rows_f32<DP>(vs, vb, a.v_ss, 0, S, D);
+  uniter::cp_async_commit();
 
-  float acc[4][4 * MAX_CG];  // out rows 4*ty+i, columns 4*tx + 64*g + e
-  float m[4], l[4];
+  float o[DP / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  for (int t = 0; t < DP / 8; ++t)
 #pragma unroll
-    for (int c = 0; c < 4 * MAX_CG; ++c) acc[i][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();  // the Q tile is in; the previous tile's readers are done
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int c = idx / D, d = idx - c * D;
-      const int kj = k0 + c;
-      float kv = 0.f, vv = 0.f;  // zero rows past S: 0 * garbage could be NaN
-      if (kj < S) {
-        kv = to_f32(kb[kj * k_ss + d]);
-        vv = to_f32(vb[kj * v_ss + d]);
-      }
-      kt[d * LDK + c] = kv;
-      vs[c * D + d] = vv;
+  for (int t = 0; t < nkt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nkt) {  // the next K/V tile streams in behind this one
+      uniter::stage_rows_f32<DP>(ks + (buf ^ 1) * 64 * LD, kb, a.k_ss, (t + 1) * 64, S, D);
+      uniter::stage_rows_f32<DP>(vs + (buf ^ 1) * 64 * LD, vb, a.v_ss, (t + 1) * 64, S, D);
+      uniter::cp_async_commit();
+      uniter::cp_async_wait<1>();
+    } else {
+      uniter::cp_async_wait<0>();
     }
     __syncthreads();
+    const float* kt = ks + buf * 64 * LD;
+    const float* vt = vs + buf * 64 * LD;
 
-    // scores of rows 4*ty+i against keys k0 + 4*tx + j
-    float s[4][4];
+    // S = Q K^T: rows g, g+8 of this warp, keys 8 nt + 2c + {0, 1}
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * LDQ + 4 * ty);
-      const float4 c = *reinterpret_cast<const float4*>(kt + d * LDK + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    uniter::add_rows_product<8, DP, true>(s, qs, 16 * warp, kt, LD, lane);
 
-    float bj[4];
-    bool live[4];
+    // the scaled, biased scores in natural units, expf as the reference
+    const int k0 = t * 64;
+    float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kj = k0 + 4 * tx + j;
-      live[j] = kj < S;
-      bj[j] = live[j] ? biasb[kj] : 0.f;
-    }
-
-    // online softmax: the 16 threads of a row group are 16 lanes of one warp
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = live[j] ? s[i][j] * sm_scale + bj[j] : -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + 8 * nt + 2 * c + e;
+        const bool live = kj < S;
+        const float bj = live ? biasb[kj] : 0.f;
+        s[nt][e] = live ? fmaf(s[nt][e], a.sm_scale, bj) : -INFINITY;
+        s[nt][2 + e] = live ? fmaf(s[nt][2 + e], a.sm_scale, bj) : -INFINITY;
+        mt[0] = fmaxf(mt[0], s[nt][e]);
+        mt[1] = fmaxf(mt[1], s[nt][2 + e]);
       }
+    float alpha[2], ls[2] = {0.f, 0.f};
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      // key k0 < S is always live, so mn is finite; on the first tile
-      // m[i] is -inf and alpha is exactly 0
-      const float mn = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - mn);
-      float ls = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mn);  // absent keys: expf(-inf) = 0
-        ls += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ls += __shfl_xor_sync(0xffffffffu, ls, off);
-      l[i] = l[i] * alpha + ls;
+    for (int i = 0; i < 2; ++i) {  // the 4 lanes of a quad share a row
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      // key k0 < S is live, so the new max is finite; on the first tile
+      // m is -inf and alpha exactly 0
+      const float mn = fmaxf(m[i], mt[i]);
+      alpha[i] = expf(m[i] - mn);
       m[i] = mn;
+    }
 #pragma unroll
-      for (int c = 0; c < 4 * MAX_CG; ++c) acc[i][c] *= alpha;
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m[e >> 1]);  // absent keys: expf(-inf) = 0
+        ls[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 1);
+      ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 2);
+      l[i] = l[i] * alpha[i] + ls[i];
+    }
+#pragma unroll
+    for (int t2 = 0; t2 < DP / 8; ++t2) {
+      o[t2][0] *= alpha[0];
+      o[t2][1] *= alpha[0];
+      o[t2][2] *= alpha[1];
+      o[t2][3] *= alpha[1];
     }
 
-    if (thr) {  // dropout on P, after the row sums took every exp()
-      const long long row0 = (static_cast<long long>(b) * H + h) * S + q0 + 4 * ty;
+    if (a.thr) {  // dropout on P, after the row sums took every exp()
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint4 w = uniter::mask_words(seed, row0 + i, (k0 >> 2) + tx);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] = uniter::word(w, j) >= thr ? s[i][j] * inv_keep : 0.f;
+      for (int nt = 0; nt < 8; ++nt) {
+        // as the bf16 kernel: the even lane draws row g's group, the odd
+        // lane row g+8's, and they swap halves
+        const uint4 w = uniter::mask_words(a.seed, row0 + (odd ? 8 : 0),
+                                           ((k0 + 8 * nt) >> 2) + (c >> 1));
+        const unsigned x0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+        const unsigned x1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+        const unsigned w0 = odd ? x0 : w.x, w1 = odd ? x1 : w.y;  // row g
+        const unsigned w2 = odd ? w.z : x0, w3 = odd ? w.w : x1;  // row g+8
+        s[nt][0] = w0 >= a.thr ? s[nt][0] * a.inv_keep : 0.f;
+        s[nt][1] = w1 >= a.thr ? s[nt][1] * a.inv_keep : 0.f;
+        s[nt][2] = w2 >= a.thr ? s[nt][2] * a.inv_keep : 0.f;
+        s[nt][3] = w3 >= a.thr ? s[nt][3] * a.inv_keep : 0.f;
       }
     }
 
-    // P tile, transposed: pt[key][row]
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pt + (4 * tx + j) * LDP + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    const int nk = min(BK, S - k0);
-    for (int kk = 0; kk < nk; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(pt + kk * LDP + 4 * ty);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int g = 0; g < MAX_CG; ++g) {
-        const int col = 4 * tx + 64 * g;
-        if (col < D) {
-          const float4 w = *reinterpret_cast<const float4*>(vs + kk * D + col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][4 * g + 0] = fmaf(pv[i], w.x, acc[i][4 * g + 0]);
-            acc[i][4 * g + 1] = fmaf(pv[i], w.y, acc[i][4 * g + 1]);
-            acc[i][4 * g + 2] = fmaf(pv[i], w.z, acc[i][4 * g + 2]);
-            acc[i][4 * g + 3] = fmaf(pv[i], w.w, acc[i][4 * g + 3]);
-          }
-        }
-      }
-    }
+    // O += P V: P from registers (paired k-slots, mma.cuh), V read down
+    // paired rows; one 64-key partial per output tile, added in fp32
+    uniter::add_acc_product<DP / 8, true>(o, s, vt, LD, lane);
+    __syncthreads();  // this tile's buffer is refilled two tiles on
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + 16 * warp + (lane >> 2) + 8 * i;
     if (qi >= S) continue;
-    T* ob = out + ((static_cast<long long>(b) * S + qi) * H + h) * D;
+    const long long ro = ((static_cast<long long>(b) * S + qi) * a.H + h) * D;
 #pragma unroll
-    for (int g = 0; g < MAX_CG; ++g) {
-      const int col = 4 * tx + 64 * g;
-      if (col < D) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) store(ob + col + e, acc[i][4 * g + e] / l[i]);
-      }
+    for (int t2 = 0; t2 < DP / 8; ++t2) {
+      const int col = 8 * t2 + 2 * c;
+      if (col < D)
+        *reinterpret_cast<float2*>(a.out + ro + col) =
+            make_float2(o[t2][2 * i] / l[i], o[t2][2 * i + 1] / l[i]);
+    }
+    if (a.lse && c == 0) {  // hi + lo = m + log(l) to ~2^-48 (TwoSum)
+      const float ll = logf(l[i]), hi = m[i] + ll, bb = hi - m[i];
+      a.lse[bh * S + qi] = hi;
+      if (a.lse_lo) a.lse_lo[bh * S + qi] = (m[i] - (hi - bb)) + (ll - bb);
     }
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, const void* bias,
-               void* out, int B, int S, int H, int D,
-               long long q_sb, long long q_ss, long long q_sh,
-               long long k_sb, long long k_ss, long long k_sh,
-               long long v_sb, long long v_ss, long long v_sh,
-               float sm_scale, unsigned thr, float inv_keep,
-               unsigned long long seed, cudaStream_t stream) {
-  const int smem = (D * LDQ + D * LDK + BK * D + BK * LDP) * static_cast<int>(sizeof(float));
+template <int DP>
+int fwd_tf32_smem() { return 5 * 64 * (DP + 4) * static_cast<int>(sizeof(float)); }
+
+template <int DP>
+int launch_tf32(const F32Args& a, int B, cudaStream_t stream) {
+  const int smem = fwd_tf32_smem<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      mha_fwd_tf32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  mha_fwd_kernel<float><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(out), S, H, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-      v_sb, v_ss, v_sh, sm_scale, thr, inv_keep, seed);
+  const dim3 grid((a.S + 63) / 64, a.H, B);
+  mha_fwd_tf32_kernel<DP><<<grid, TC_THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- bf16: tensor cores -------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-
-constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
 
 struct TcArgs {
   const bf16 *q, *k, *v;
@@ -501,17 +491,19 @@ int launch_tc(const TcArgs& a, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry for ctypes. dtype: 0 = float32 (SIMT kernel; out_lo and lse
-// must be null), 1 = bfloat16 (tensor-core kernel; out_lo a contiguous
-// [B, S, H, D] bf16 buffer for the output's remainder and lse [B, H, S]
-// fp32, each or both null).
+// Plain C entry for ctypes. dtype: 0 = float32 (the TF32 kernel; out_lo
+// must be null, lse and lse_lo [B, H, S] fp32 buffers for the row
+// log-sum-exp and its remainder, or null), 1 = bfloat16 (out_lo a
+// contiguous [B, S, H, D] bf16 buffer for the output's remainder and lse
+// [B, H, S] fp32, each or both null; lse_lo null). Both kernels stage rows by 16-byte
+// cp.async: bases and strides 16-byte aligned.
 // Strides are in elements (torch's convention). thr = floor(rate * 2^32)
 // (0: no dropout), inv_keep = 1 / (1 - rate). Returns the launch's
 // cudaError_t (0 = ok). The caller validates shapes, dtypes, devices and
-// strides (bf16: 16-byte aligned bases and strides).
+// strides.
 extern "C" int uniter_mha_fwd(const void* q, const void* k, const void* v,
                               const void* bias, void* out, void* out_lo,
-                              void* lse, int B,
+                              void* lse, void* lse_lo, int B,
                               int S, int H, int D, long long q_sb,
                               long long q_ss, long long q_sh, long long k_sb,
                               long long k_ss, long long k_sh, long long v_sb,
@@ -520,11 +512,22 @@ extern "C" int uniter_mha_fwd(const void* q, const void* k, const void* v,
                               unsigned long long seed, int dtype,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && lse == nullptr && out_lo == nullptr)
-    return launch_f32(q, k, v, bias, out, B, S, H, D, q_sb, q_ss, q_sh, k_sb,
-                      k_ss, k_sh, v_sb, v_ss, v_sh, sm_scale, thr, inv_keep,
-                      seed, st);
-  if (dtype != 1 || D % 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 8 || D > 128 || (dtype == 0 && out_lo != nullptr) ||
+      (dtype == 1 && lse_lo != nullptr) || (lse_lo && !lse) || dtype < 0 ||
+      dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), static_cast<const float*>(bias),
+                    static_cast<float*>(out), static_cast<float*>(lse),
+                    static_cast<float*>(lse_lo), S, H, D,
+                    q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                    sm_scale, inv_keep, thr, seed};
+    if (D <= 16) return launch_tf32<16>(a, B, st);
+    if (D <= 32) return launch_tf32<32>(a, B, st);
+    if (D <= 64) return launch_tf32<64>(a, B, st);
+    return launch_tf32<128>(a, B, st);
+  }
   const TcArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                  static_cast<const bf16*>(v), static_cast<const float*>(bias),
                  static_cast<bf16*>(out), static_cast<bf16*>(out_lo),

@@ -13,18 +13,23 @@ scaled, biased scores), ``_mha_bwd_torch`` the explicit formula of
 ``_mha_bwd_kernel`` and ``_mha_bwd_lse_torch`` the same gradients from the
 forward's output and LSE (one pass: no softmax over the keys first).
 ``mha_fwd`` and ``mha_bwd`` wrap the hand-written CUDA kernels
-(``csrc/mha_fwd.cu``, K1, and ``csrc/mha_bwd.cu``, K2), picked by dtype:
-bf16 runs the tensor-core kernels (K1 writes the LSE and the output's bf16
-remainder, K2 reads them and the output), fp32 the SIMT ones (K2 recomputes
-the row statistics). A CUDA
-tensor always goes to a kernel, a CPU tensor to the plain version.
+(``csrc/mha_fwd.cu``, K1, and ``csrc/mha_bwd.cu``, K2), both on the tensor
+cores: bf16 on the bf16 ``mma.sync`` (K1 writes the LSE and the output's
+bf16 remainder, K2 reads them and the output), fp32 on the TF32
+``mma.sync`` with every product split three ways (K1 writes the LSE, K2
+reads it and the fp32 output). ``_mha_tf32_torch`` and
+``_mha_bwd_tf32_torch`` repeat the fp32 kernels' order of operations (TF32
+rounding, the three passes, partials of at most 64 products) for the CPU
+tests. A CUDA tensor always goes to a kernel, a CPU tensor to the plain
+version.
 ``MhaFunction`` pairs them as the JAX package's custom VJP
-(``_mha_pallas``, :335-351) does. In bf16 it saves the output, its bf16
-remainder and the [B, H, S] fp32 LSE besides q, k, v, bias and the seed,
-which the JAX VJP does not: the LSE is what makes K2 one pass, and the
-output to fp32 precision gives Di = rowsum(g * out) as exactly as the JAX
-kernel's rowsum(dP * P). The output's storage costs nothing (the output
-projection saves it as its input); the remainder is 2 bytes an element.
+(``_mha_pallas``, :335-351) does. It saves the output and the [B, H, S]
+fp32 LSE besides q, k, v, bias and the seed (bf16 also the output's bf16
+remainder), which the JAX VJP does not: the LSE is what makes K2 one pass,
+and the output to fp32 precision gives Di = rowsum(g * out) as exactly as
+the JAX kernel's rowsum(dP * P). The output's storage costs nothing (the
+output projection saves it as its input); the LSE is 4 bytes a row, the
+bf16 remainder 2 bytes an element.
 
 Dropout on P draws its mask from ``ops.dropout.keep_mask`` over the
 ``[B, H, S, S]`` probabilities (row ``(b*H + h)*S + q``, column ``k``);
@@ -33,6 +38,7 @@ the kernels compute the same bits from the same seed.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -93,15 +99,18 @@ def _mha_bwd_torch(q, k, v, bias, g, rate: float = 0.0, seed: int = 0):
 
 
 def _mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate: float = 0.0,
-                       seed: int = 0):
+                       seed: int = 0, lse_lo=None):
     """The gradients of ``_mha_bwd_torch`` from the forward's ``out``
-    [B, S, H, D] and ``lse`` [B, H, S], as the bf16 K2 computes them:
-    P = exp(s - lse) with no pass over the keys first, and
-    Di = rowsum(g * out), which equals rowsum(dPm * P) (dropout included,
-    since out = P_d V). fp32 arithmetic, results in q's dtype, contiguous."""
+    [B, S, H, D] and ``lse`` [B, H, S], as K2 computes them:
+    P = exp(s - lse) with no pass over the keys first (with the LSE's
+    remainder ``lse_lo``, as the fp32 K2 takes it, P = exp((s - lse) -
+    lse_lo)), and Di = rowsum(g * out), which equals rowsum(dPm * P)
+    (dropout included, since out = P_d V). fp32 arithmetic, results in q's
+    dtype, contiguous."""
     scores = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(k))
-    p = torch.exp(scores * (1.0 / math.sqrt(q.shape[-1]))
-                  + _f32(bias)[:, None, None, :] - _f32(lse)[..., None])
+    z = (scores * (1.0 / math.sqrt(q.shape[-1]))
+         + _f32(bias)[:, None, None, :] - _f32(lse)[..., None])
+    p = torch.exp(z if lse_lo is None else z - _f32(lse_lo)[..., None])
     di = (_f32(g) * _f32(out)).sum(-1).transpose(1, 2)  # [B, H, S]
     return _grads_from_probs(q, k, g, v, p, rate, seed, di)
 
@@ -126,6 +135,123 @@ def _grads_from_probs(q, k, g, v, p, rate, seed, di=None):
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     return tuple(t.to(q.dtype).contiguous() for t in (dq, dk, dv))
+
+
+TILE = 64  # the fp32 kernels' key and query tiles, and the most products
+# one tensor-core partial sums
+
+
+def _tf32(x):
+    """fp32 ``x`` rounded to TF32 as the kernels round it (mma.cuh
+    ``tf32_rna``: half a TF32 step added to the bits, 13 low bits cleared;
+    to nearest, ties away from zero)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_mm(a, b, passes=3):
+    """a @ b ([..., M, K] @ [..., K, N], fp32) as the fp32 kernels form it:
+    with ``passes`` 3 each operand is split into hi = tf32(x) and
+    lo = tf32(x - hi) and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi; each
+    partial spans at most 64 of K (the TF32 products are exact in fp32),
+    and the partials add up in fp32. ``passes`` 1 is a single TF32 pass,
+    a_hi b_hi (what the fp32 contract rules out)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    out = None
+    for k0 in range(0, a.shape[-1], TILE):
+        ks = slice(k0, k0 + TILE)
+        part = ah[..., ks] @ bh[..., ks, :]
+        if passes == 3:
+            part = (al[..., ks] @ bh[..., ks, :] + ah[..., ks] @ bl[..., ks, :]
+                    + part)
+        out = part if out is None else out + part
+    return out
+
+
+def _mha_tf32_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
+                    return_lse: bool = False, passes: int = 3):
+    """``_mha_torch`` for fp32 inputs in the order of operations of the fp32
+    K1 (``mha_fwd_tf32_kernel``), for the CPU tests: scores by ``_split_mm``
+    (partials over at most 64 head dims), scaled and biased; keys in tiles
+    of 64 with the online softmax (row max, rescale of the sum and of the
+    output by exp(m_old - m_new)); the row sum takes every exp, the dropout
+    mask only P V; each tile's P V one ``_split_mm`` partial; the division
+    by the sum at the end. With ``return_lse`` returns (out, lse, lse_lo):
+    lse = fl(m + log l) and its remainder by TwoSum, as the kernel writes
+    them. Sums inside a partial keep torch's order: this repeats the
+    kernel's structure, not its bits."""
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))  # [B,H,S,D]
+    scores = _split_mm(qt, kt.transpose(-1, -2), passes) * scale \
+        + bias.float()[:, None, None, :]
+    keep = _probs_mask(q, rate, seed) if rate > 0.0 else None
+    m = l = o = None  # row max, row sum, unnormalised output
+    for k0 in range(0, s, TILE):
+        ks = slice(k0, k0 + TILE)
+        st = scores[..., ks]
+        mt = st.amax(-1)
+        mn = mt if m is None else torch.maximum(m, mt)
+        p = torch.exp(st - mn[..., None])
+        pd = p if keep is None else torch.where(
+            keep[..., ks], p * (1.0 / (1.0 - rate)), torch.zeros(()))
+        part = _split_mm(pd, vt[..., ks, :], passes)
+        if m is None:
+            l, o = p.sum(-1), part
+        else:
+            alpha = torch.exp(m - mn)
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + part
+        m = mn
+    out = (o / l[..., None]).transpose(1, 2).contiguous()
+    if return_lse:
+        ll = torch.log(l)
+        hi = m + ll
+        bb = hi - m
+        return out, hi, (m - (hi - bb)) + (ll - bb)
+    return out
+
+
+def _mha_bwd_tf32_torch(q, k, v, bias, g, out, lse, lse_lo,
+                        rate: float = 0.0, seed: int = 0, passes: int = 3):
+    """``_mha_bwd_lse_torch`` for fp32 inputs in the order of operations of
+    the fp32 K2 (``mha_bwd_tf32_kernel``), for the CPU tests: Di =
+    rowsum(g * out); per 64-key tile j and 64-query tile i, S^T = K_j Q_i^T
+    and dP^T = V_j g_i^T by ``_split_mm``, P = exp((s - lse) - lse_lo), P_d
+    and dS in fp32, then dV_j += P_d^T g_i, dK_j += dS^T Q_i and dQ_i +=
+    dS K_j, each one 64-product partial added in fp32. Results contiguous
+    [B, S, H, D]."""
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qt, kt, vt, gt = (t.float().transpose(1, 2) for t in (q, k, v, g))
+    bias_f = bias.float()
+    di = (g.float() * out.float()).sum(-1).transpose(1, 2)  # [B, H, S]
+    keep = _probs_mask(q, rate, seed) if rate > 0.0 else None
+    dq, dk, dv = (torch.zeros_like(qt) for _ in range(3))
+    for k0 in range(0, s, TILE):
+        kj = slice(k0, k0 + TILE)
+        for q0 in range(0, s, TILE):
+            qi = slice(q0, q0 + TILE)
+            st = _split_mm(kt[..., kj, :], qt[..., qi, :].transpose(-1, -2),
+                           passes)  # [B, H, keys, queries]
+            dpt = _split_mm(vt[..., kj, :], gt[..., qi, :].transpose(-1, -2),
+                            passes)
+            p = torch.exp((st * scale + bias_f[:, None, kj, None]
+                           - lse.float()[:, :, None, qi])
+                          - lse_lo.float()[:, :, None, qi])
+            pd, dpm = p, dpt
+            if keep is not None:
+                kp = keep[..., qi, kj].transpose(-1, -2)
+                zero = torch.zeros(())
+                pd = torch.where(kp, p * (1.0 / (1.0 - rate)), zero)
+                dpm = torch.where(kp, dpt * (1.0 / (1.0 - rate)), zero)
+            ds = p * (dpm - di[:, :, None, qi]) * scale
+            dv[..., kj, :] += _split_mm(pd, gt[..., qi, :], passes)
+            dk[..., kj, :] += _split_mm(ds, qt[..., qi, :], passes)
+            dq[..., qi, :] += _split_mm(ds.transpose(-1, -2),
+                                        kt[..., kj, :], passes)
+    return tuple(t.transpose(1, 2).to(q.dtype).contiguous()
+                 for t in (dq, dk, dv))
 
 
 def _check(q, k, v, bias, name="mha_fwd"):
@@ -166,19 +292,48 @@ def _dim_pad(d):
     return next(p for p in (16, 32, 64, 128) if d <= p)
 
 
-def _bwd_tc_smem(s, d, dq_shared=True):
-    """Dynamic shared memory of the bf16 K2 block (``tc_smem`` in
-    csrc/mha_bwd.cu): K, V and double-buffered Q, g tiles, dS^T hi and lo,
-    LSE, Di, the tile's dropout bits and, when it fits, dQ in fp32."""
+def _bwd_smem(s, d, dtype, dq_shared=True):
+    """Dynamic shared memory of the K2 block (``tf32_smem`` and ``tc_smem``
+    in csrc/mha_bwd.cu). fp32: K, V, Q and g tiles, the dS tile, LSE, its
+    remainder, Di and the tile's dropout bits (dQ always in device memory,
+    so two blocks share an SM). bf16: K, V and double-buffered Q, g tiles,
+    dS^T hi and lo, LSE, Di, the bits and, when it fits, dQ in fp32."""
     dp, s_pad = _dim_pad(d), -(-s // 64) * 64
+    if dtype == torch.float32:
+        return 4 * 64 * (dp + 4) * 4 + 64 * 72 * 4 + 3 * s_pad * 4 + 512
     return (6 * 64 * (dp + 8) * 2 + 2 * 64 * 72 * 2 + 2 * s_pad * 4 + 512
             + (s_pad * (dp + 8) * 4 if dq_shared else 0))
 
 
+def _dq_pitch(d, dtype):
+    """The row pitch (floats) of K2's fp32 dQ accumulator."""
+    return _dim_pad(d) + (4 if dtype == torch.float32 else 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _key_groups(bh, s, sms):
+    """Blocks per (b, h) of the fp32 K2: its key tiles split into equal
+    groups, the fewest that let B*H*groups fill the two block slots of
+    every SM (B=8, S=512, H=12 has 96 (b, h) pairs for 264 slots: 4 groups
+    of 2 key tiles); each group adds its own dQ, summed in group order
+    after. ``chip_smoke.py k2-groups`` times every split."""
+    tiles = -(-s // 64)
+    for groups in range(1, tiles + 1):
+        if tiles % groups == 0 and bh * groups >= 2 * sms:
+            return groups
+    return tiles
+
+
 def _tc_aligned(t):
-    """The bf16 kernels stage rows by 16-byte cp.async: the base pointer
-    and every stride must be a multiple of 8 elements."""
-    return not (t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]))
+    """The kernels stage rows by 16-byte cp.async: the base pointer and
+    every stride must be multiples of 16 bytes (8 bf16 or 4 fp32
+    elements)."""
+    n = 16 // t.element_size()
+    return not (t.data_ptr() % 16 or any(st % n for st in t.stride()[:3]))
 
 
 def _check_tc_layout(*ts, names="q/k/v"):
@@ -188,6 +343,12 @@ def _check_tc_layout(*ts, names="q/k/v"):
                 f"{names}: the bf16 kernels need 16-byte aligned bases and "
                 f"strides that are multiples of 8 elements, got strides "
                 f"{t.stride()} at offset {t.storage_offset()}")
+
+
+def _staged(t):
+    """An fp32 view the kernels can stage: ``t`` itself when its base and
+    strides are 16-byte aligned, else a contiguous copy."""
+    return t if _tc_aligned(t) else t.contiguous()
 
 
 def _check_lse(lse, q):
@@ -208,24 +369,33 @@ def _check_like(t, q, name, dtype=None):
 
 
 def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
-            out_lo=None):
+            out_lo=None, lse_lo=None):
     """K1: dropout(softmax(QK^T/sqrt(D) + bias)) V through the CUDA kernel.
 
-    Takes the layout of ``multi_head_attention``. bf16 runs the tensor-core
-    kernel (q/k/v 16-byte aligned with strides in multiples of 8), which
-    also fills ``lse`` (a float32 [B, H, S] buffer: the row log-sum-exp)
-    and ``out_lo`` (a contiguous bf16 [B, S, H, D] buffer: the output's
-    remainder, out + out_lo = the fp32 output to ~2**-16) when given; fp32
-    runs the SIMT kernel, which writes neither. A CPU input takes the plain
-    version; a CUDA input launches a kernel or raises — there is no
-    fallback. ``mha_fwd.launches`` counts the launches. Rate 0 draws no
-    bits."""
+    Takes the layout of ``multi_head_attention``. Both dtypes run a
+    tensor-core kernel, which fills ``lse`` (a float32 [B, H, S] buffer:
+    the row log-sum-exp) when given. bf16 (q/k/v 16-byte aligned with
+    strides in multiples of 8, else ``ValueError``) also fills ``out_lo``
+    (a contiguous bf16 [B, S, H, D] buffer: the output's remainder,
+    out + out_lo = the fp32 output to ~2**-16) when given; fp32 (the TF32
+    kernel, three passes a product) takes no ``out_lo`` but fills
+    ``lse_lo`` (a float32 [B, H, S] buffer: the LSE's remainder, lse +
+    lse_lo = the row log-sum-exp to ~2**-48, which the fp32 K2 needs on
+    rows whose keys are all padding) when given with ``lse``, and copies a
+    view whose base or strides are not multiples of 16 bytes. A CPU input
+    takes the plain version; a CUDA input launches a kernel or raises —
+    there is no fallback. ``mha_fwd.launches`` counts the launches. Rate 0
+    draws no bits."""
     _check(q, k, v, bias)
     _check_dropout(rate, seed)
     if lse is not None:
         _check_lse(lse, q)
     if out_lo is not None:
         _check_like(out_lo, q, "out_lo", torch.bfloat16)
+    if lse_lo is not None:
+        if lse is None:
+            raise ValueError("lse_lo comes with lse")
+        _check_lse(lse_lo, q)
     if q.device.type == "cpu":
         if lse is None and out_lo is None:
             return _mha_torch(q, k, v, bias, rate, seed)
@@ -233,6 +403,10 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
                                     return_lse=True)
         if lse is not None:
             lse.copy_(plain_lse)
+        if lse_lo is not None:
+            exact = _mha_torch(*(t.double() for t in (q, k, v, bias)),
+                               return_lse=True)[1]
+            lse_lo.copy_(exact - plain_lse.double())
         if out_lo is not None:
             full = _mha_torch(q.float(), k.float(), v.float(), bias, rate,
                               seed)
@@ -244,8 +418,12 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
         _check_tc_layout(q, k, v)
         if out_lo is not None and not out_lo.is_contiguous():
             raise ValueError("out_lo must be contiguous")
-    elif lse is not None or out_lo is not None:
-        raise ValueError("the fp32 kernel writes no LSE or remainder")
+        if lse_lo is not None:
+            raise ValueError("the bf16 kernel writes no LSE remainder")
+    elif out_lo is not None:
+        raise ValueError("the fp32 kernel writes no output remainder")
+    else:
+        q, k, v = _staged(q), _staged(k), _staged(v)
     b, s, h, d = q.shape
     fn = _kernels.load("mha_fwd").uniter_mha_fwd
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -253,8 +431,8 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), _ptr(out_lo), _ptr(lse), b, s, h, d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                out.data_ptr(), _ptr(out_lo), _ptr(lse), _ptr(lse_lo),
+                b, s, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 1.0 / math.sqrt(d), thr, 1.0 / (1.0 - rate), int(seed),
                 _DTYPE_CODE[q.dtype], stream)
     if rc:
@@ -272,14 +450,15 @@ def _ptr(t):
 
 
 def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
-            lse=None, out_lo=None):
+            lse=None, out_lo=None, lse_lo=None):
     """K2: dq, dk, dv of ``mha_fwd`` (same rate and seed) for the output
     gradient ``g`` [B, S, H, D]. Results are contiguous [B, S, H, D] in q's
-    dtype. bf16 runs the one-pass tensor-core kernel, which needs the
-    forward's ``out``, ``lse`` and ``out_lo``; fp32 runs the two SIMT
-    passes, which recompute the row statistics and take none of them. A CPU
-    input takes ``_mha_bwd_lse_torch`` when given out and lse (the output as
-    out + out_lo when out_lo is given), else ``_mha_bwd_torch``.
+    dtype. Both dtypes run a one-pass tensor-core kernel from the forward's
+    ``out`` and ``lse`` (bf16 also ``out_lo``, fp32 also ``lse_lo``), and
+    raise without them; the fp32 kernel (TF32, three passes a product)
+    copies a view it cannot stage. A CPU input takes ``_mha_bwd_lse_torch``
+    when given out and lse (the output as out + out_lo when out_lo is
+    given, with lse_lo when given), else ``_mha_bwd_torch``.
     ``mha_bwd.launches`` counts the kernel calls (one per call)."""
     _check(q, k, v, bias, "mha_bwd")
     _check_dropout(rate, seed)
@@ -291,6 +470,10 @@ def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
         _check_lse(lse, q)
     if out_lo is not None:
         _check_like(out_lo, q, "out_lo", torch.bfloat16)
+    if lse_lo is not None:
+        if lse is None:
+            raise ValueError("lse_lo comes with lse")
+        _check_lse(lse_lo, q)
     if g.stride(-1) != 1:
         g = g.contiguous()
     if q.device.type == "cpu":
@@ -298,29 +481,36 @@ def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
             return _mha_bwd_torch(q, k, v, bias, g, rate, seed)
         if out_lo is not None:
             out = out.float() + out_lo.float()
-        return _mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate, seed)
+        return _mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate, seed,
+                                  lse_lo)
     if q.device.type != "cuda":
         raise ValueError(f"mha_bwd runs on cuda or cpu, not {q.device}")
     b, s, h, d = q.shape
     if q.dtype == torch.bfloat16:
-        if out is None or out_lo is None:
+        if out is None or out_lo is None or lse_lo is not None:
             raise ValueError("the bf16 kernel needs the forward's out, lse "
-                             "and out_lo")
+                             "and out_lo, and no lse_lo")
         _check_tc_layout(q, k, v)
         if not _tc_aligned(g):
             g = g.contiguous()
         out, out_lo = out.contiguous(), out_lo.contiguous()
         _check_tc_layout(out, out_lo, names="out/out_lo")
-        scratch = None
-        if _bwd_tc_smem(s, d) > SMEM_LIMIT:  # dQ in device memory
-            scratch = torch.empty((b * h, -(-s // 64) * 64, _dim_pad(d) + 8),
-                                  dtype=torch.float32, device=q.device)
-    elif out is not None or out_lo is not None:
-        raise ValueError("the fp32 kernel recomputes the row statistics and "
-                         "takes no out, lse or out_lo")
+    elif out is None or lse_lo is None:
+        raise ValueError("the fp32 kernel needs the forward's out, lse and "
+                         "lse_lo")
+    elif out_lo is not None:
+        raise ValueError("the fp32 kernel takes no output remainder")
     else:
-        scratch = torch.empty((3, b, h, s), dtype=torch.float32,
-                              device=q.device)
+        q, k, v, g = (_staged(t) for t in (q, k, v, g))
+        out = out.contiguous()
+    scratch, groups = None, 1
+    if q.dtype == torch.float32:
+        groups = _key_groups(b * h, s, _sm_count(q.device.index))
+    if q.dtype == torch.float32 or _bwd_smem(s, d, q.dtype) > SMEM_LIMIT:
+        # dQ in device memory
+        scratch = torch.empty((groups, b * h, -(-s // 64) * 64,
+                               _dq_pitch(d, q.dtype)),
+                              dtype=torch.float32, device=q.device)
     fn = _kernels.load("mha_bwd").uniter_mha_bwd
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
@@ -329,10 +519,11 @@ def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 bias.data_ptr(), _ptr(out), _ptr(out_lo), _ptr(lse),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(scratch),
-                b, s, h, d, *q.stride()[:3], *k.stride()[:3],
+                _ptr(lse_lo), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _ptr(scratch), b, s, h, d, *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], *g.stride()[:3], 1.0 / math.sqrt(d), thr,
-                1.0 / (1.0 - rate), int(seed), _DTYPE_CODE[q.dtype], stream)
+                1.0 / (1.0 - rate), int(seed), _DTYPE_CODE[q.dtype], groups,
+                stream)
     if rc:
         raise RuntimeError(f"mha_bwd kernel launch failed: cudaError_t {rc} "
                            f"at q{tuple(q.shape)} {q.dtype}")
@@ -344,31 +535,35 @@ mha_bwd.launches = 0
 
 
 class MhaFunction(torch.autograd.Function):
-    """K1 forward, K2 backward. fp32 saves q, k, v, bias and the seed, as
-    the JAX package's ``_mha_pallas_fwd`` saves them, and K2 recomputes the
-    row statistics. bf16 also saves what the one-pass K2 reads: the output,
-    its bf16 remainder ``out_lo`` and K1's [B, H, S] fp32 LSE (at B=96,
-    S=104, H=12: 15.3 MB and 0.48 MB a layer; the output's own storage is
-    the one the output projection saves anyway). The bias gets no gradient
-    (it comes from ``attn_mask``)."""
+    """K1 forward, K2 backward. Saves q, k, v, bias and the seed, as the JAX
+    package's ``_mha_pallas_fwd`` saves them, and what the one-pass K2 reads
+    besides: the output, K1's [B, H, S] fp32 LSE and, in fp32, the LSE's
+    fp32 remainder ``lse_lo``, in bf16 the output's bf16 remainder
+    ``out_lo`` (at B=96, S=104, H=12: 0.48 MB a layer for each [B, H, S]
+    buffer, 15.3 MB for out_lo; the output's own storage is the one the
+    output projection saves anyway). The bias gets no gradient (it comes
+    from ``attn_mask``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, rate, seed):
         ctx.rate, ctx.seed = rate, seed
-        if q.dtype != torch.bfloat16:
-            ctx.save_for_backward(q, k, v, bias)
-            return mha_fwd(q, k, v, bias, rate, seed)
         b, s, h, _ = q.shape
         lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-        out_lo = torch.empty_like(q, memory_format=torch.contiguous_format)
-        out = mha_fwd(q, k, v, bias, rate, seed, lse=lse, out_lo=out_lo)
-        ctx.save_for_backward(q, k, v, bias, out, lse, out_lo)
+        if q.dtype == torch.bfloat16:
+            lo = torch.empty_like(q, memory_format=torch.contiguous_format)
+            out = mha_fwd(q, k, v, bias, rate, seed, lse=lse, out_lo=lo)
+        else:
+            lo = torch.empty_like(lse)
+            out = mha_fwd(q, k, v, bias, rate, seed, lse=lse, lse_lo=lo)
+        ctx.save_for_backward(q, k, v, bias, out, lse, lo)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        dq, dk, dv = mha_bwd(*ctx.saved_tensors[:4], g, ctx.rate, ctx.seed,
-                             *ctx.saved_tensors[4:])
+        q, k, v, bias, out, lse, lo = ctx.saved_tensors
+        key = "out_lo" if q.dtype == torch.bfloat16 else "lse_lo"
+        dq, dk, dv = mha_bwd(q, k, v, bias, g, ctx.rate, ctx.seed, out=out,
+                             lse=lse, **{key: lo})
         return dq, dk, dv, None, None, None
 
 
