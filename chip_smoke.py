@@ -22,8 +22,9 @@ Phases, each printing its own lines:
    count of tensor-core instructions in ``cuobjdump -sass`` of the
    attention libraries (HMMA; TF32 HMMA in each fp32 instantiation) and of
    K9's (HGMMA), which must not be 0; registers, stack and shared memory
-   of the fp32 attention instantiations and of every K9 instance
-   (``cuobjdump -res-usage``) and the dynamic shared memory of a launch.
+   of the fp32 attention instantiations, of every K9 instance and of K7's
+   (``cuobjdump -res-usage``; K7's register form must not spill) and the
+   dynamic shared memory of a launch.
 3. K1 (``csrc/mha_fwd.cu``) at rate 0 against its plain version
    ``_mha_torch`` on the card, at the serving path's attention shapes,
    fp32 (the TF32 kernel, three passes a product; its LSE and the LSE's
@@ -85,14 +86,15 @@ Phases, each printing its own lines:
    step, step 1's loss, pairs/s); then ``train_nlvr2.main`` on paired DBs
    written from a seed (20 steps, validate and save at 10 and 20, resume to
    25) and ``inf_nlvr2.main``, one ``results.csv`` row per example.
-10. K7 (``csrc/ipot.cu``: the whole IPOT loop of an example in one launch)
-   against its plain version ``ops.ot.ipot`` at (B, N, M) = (48, 64, 160)
-   (the pretrain-mix bucket), (96, 40, 64), (64, 100, 64), (8, 100, 512)
-   (T kept in device memory) and a ragged (5, 37, 23), random lengths, two
-   all-padding examples, k = 1 and 2: the plan, the distance, exact zeros
-   where the plan is masked, bitwise repeatability; times of both with
-   the two bounds; the launch alone on prepared inputs, device and call
-   time.
+10. K7 (``csrc/ipot.cu``: all of ``ipot_pallas``, preparation, loop and
+   re-mask, of an example in one launch) against its plain version
+   ``ops.ot.ipot`` at (B, N, M) = (48, 64, 160) (the pretrain-mix bucket),
+   (96, 40, 64), (64, 100, 64) (register form), (8, 100, 512) (Q in shared
+   memory, A in device memory) and a ragged (5, 37, 23), random lengths,
+   two all-padding examples, k = 1 and 2: the plan, the distance, exact
+   zeros where the plan is masked, bitwise repeatability; that one call
+   runs one device kernel; ``ipot_cuda``'s device and call times against
+   the plain loop's, the bound and the times before the redesign.
 11. K8 (``uniter_layer_norm_fwd`` in ``csrc/fused_tail.cu``) against the
    plain ``layer_norm`` at the tails' shapes, fp32 and bf16; device and
    call times in turns with ``F.layer_norm``, the plain call time.
@@ -215,7 +217,8 @@ STEP_LAUNCHES = {"mha_fwd": 12, "mha_bwd": 12, "drop_res_ln_fwd": 24,
                  "drop_res_ln_bwd": 24, "ln_drop_fwd": 2, "ln_drop_bwd": 2,
                  "ipot": 0, "layer_norm_fwd": 0, "ffn_fwd": 0}
 # (B, N, M): the pretrain-mix bucket, the flagship bucket, the full region
-# count, a plan too large for shared memory (T in device memory), ragged
+# count (all three in registers), a plan past the register form (form 1: Q
+# in shared memory, A in device memory), ragged
 K7_SHAPES = [(48, 64, 160), (96, 40, 64), (64, 100, 64), (8, 100, 512),
              (5, 37, 23)]
 
@@ -593,7 +596,29 @@ def sass_phase(torch):
               f"S {s}: {_bwd_smem(s, 64, torch.float32)}"
               for s in (104, 224, 512))
           + f" (dQ in device memory; at most {SMEM_LIMIT})")
+    k7_resources(tool)
     return counts
+
+
+def k7_resources(tool):
+    """``cuobjdump -res-usage`` of K7's instantiations: registers, stack and
+    local memory; the register form (A and Q in registers) must not spill."""
+    from uniter_tpu_torch.ops import _kernels
+
+    res = subprocess.run([tool, "-res-usage", _kernels._paths("ipot")[1]],
+                         capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
+    lines, usage = res.stdout.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Function ([^:\s]+):", line)
+        if m and "ipot" in m[1] and i + 1 < len(lines):
+            usage[_demangle(m[1])] = lines[i + 1].strip()
+    for name, use in usage.items():
+        print(f"[sass] K7 {name}: {use}")
+    reg = {n: u for n, u in usage.items() if "ipot_reg_kernel" in n}
+    check(len(reg) == 4 and all(
+        re.search(r"STACK:0\b", u) and re.search(r"LOCAL:0\b", u)
+        for u in reg.values()), f"K7's register form spills: {reg}")
 
 
 def k2_phase(torch):
@@ -1470,7 +1495,7 @@ def profile_steps(torch, state, step, batch, n, tag, label="train"):
     groups = {"K1": share("mha_fwd_"), "K2": share("mha_bwd_"),
               "fused tails (K3-K6)": share("tail_fwd", "tail_bwd",
                                            "sum_partials"),
-              "ipot (K7)": share("ipot_kernel"),
+              "ipot (K7)": share("ipot_reg_kernel", "ipot_mem_kernel"),
               "K8": share("layer_norm_fwd_kernel"),
               "K9": share("ffn_wgmma_kernel", "ffn_f32_kernel"),
               "GEMM": share("gemm", "cutlass", "xmma", "sm90_", "nvjet"),
@@ -2057,12 +2082,79 @@ def ipot_bound_ms(b, n, m, iteration=50, k=1):
                                    else "operations")
 
 
+def kernel_node_name(cu, node):
+    """The function name of a kernel node of a CUDA graph (libcuda ``cu``),
+    or None: CUDA_KERNEL_NODE_PARAMS_v2 holds the CUfunction first and the
+    CUkernel at its eighth pointer, whichever the launch left."""
+    import ctypes
+
+    params = (ctypes.c_void_p * 16)()
+    if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params):
+        return None
+    name = ctypes.c_char_p()
+    if params[0] and not cu.cuFuncGetName(ctypes.byref(name),
+                                          ctypes.c_void_p(params[0])):
+        return name.value.decode()
+    if params[7] and not cu.cuKernelGetName(ctypes.byref(name),
+                                            ctypes.c_void_p(params[7])):
+        return name.value.decode()
+    return None
+
+
+def graph_kernels(torch, fn):
+    """What one call of ``fn`` puts on its stream, read from a CUDA graph
+    captured from it (after a warm-up call), read through libcuda: the name of
+    each kernel node, and the type number of any other node
+    (``cuGraphNodeGetType``). A count, unlike a profile: nothing from
+    before or after the call can enter it."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t()
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    found = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            found.append(f"node type {kind.value}")
+            continue
+        name = kernel_node_name(cu, node)
+        found.append(_demangle(name) if name else "kernel")
+    del graph
+    return found
+
+
+# K7 before its redesign (one launch on inputs its wrapper prepared with
+# torch operations, then a torch re-mask) at K7_SHAPES, 50 steps, k = 1, in
+# us: that kernel launched alone on prepared inputs in a CUDA graph, and its
+# wrapper's call, as this script's K7 phase measured them on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (the call is host-paced: 215-456 us at the first
+# shape across runs)
+K7_BEFORE_US = {(48, 64, 160): (155.5, 395.6), (96, 40, 64): (96.4, 471.9),
+                (64, 100, 64): (207.7, 277.1), (8, 100, 512): (1079.2, 1147.1),
+                (5, 37, 23): (91.8, 319.5)}
+
+
 def k7_phase(torch):
-    """K7 against ``ipot`` at K7_SHAPES, k = 1 and 2; times at every shape
-    (k = 1). Returns (worst |T - ref|, {shape: (wrapper ms, plain ms, ms of
-    the launch alone)})."""
-    from uniter_tpu_torch.ops.ot import (
-        _ipot_inputs, _ipot_launch, ipot, ipot_cuda, ipot_form)
+    """K7 against ``ipot`` at K7_SHAPES, k = 1 and 2 (1e-5 + 1e-4 |ref|, the
+    distance to 1e-4, exact zeros at joint padding and in all-padding
+    examples, a bitwise repeat); one call runs one device kernel and
+    nothing else; at every shape (k = 1) ``ipot_cuda``'s device time (a
+    CUDA graph of calls) and call time in turns plain, kernel, kernel,
+    plain. Returns (worst |T - ref|, {shape: {"call", "dev", "plain"}})."""
+    from uniter_tpu_torch.ops.ot import ipot, ipot_cuda, ipot_form
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst, timing = 0.0, {}
@@ -2092,24 +2184,29 @@ def k7_phase(torch):
                   f"equal on a second run: {again} {'ok' if ok else 'FAIL'}")
             check(ok, f"K7 disagrees with ipot at {(b, n, m)} k={k}")
             worst = max(worst, diff.max().item())
-        t = [cuda_ms(torch, lambda: ipot(*args, 0.5, 50, 1), 5, 1),
-             cuda_ms(torch, lambda: ipot_cuda(*args, 0.5, 50, 1), 20, 3),
-             cuda_ms(torch, lambda: ipot_cuda(*args, 0.5, 50, 1), 20, 3),
-             cuda_ms(torch, lambda: ipot(*args, 0.5, 50, 1), 5, 1)]
-        prep = [x.contiguous() for x in _ipot_inputs(*args, 0.5)[:6]]
-        alone_dev, alone = both_ms(torch, lambda: _ipot_launch(*prep, 50, 1))
-        timing[(b, n, m)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, alone,
-                             alone_dev)
+        ops = graph_kernels(torch, lambda: ipot_cuda(*args, 0.5, 50, 1))
+        print(f"[K7] B={b} N={n} M={m}: one ipot_cuda call puts on its "
+              f"stream {ops}")
+        check(len(ops) == 1 and (ops[0] == "kernel" or "ipot_" in ops[0]),
+              f"one ipot_cuda call ran {ops}, not one K7 kernel")
+        plain = [cuda_ms(torch, lambda: ipot(*args, 0.5, 50, 1), 5, 1)]
+        dev, call = zip(*[both_ms(torch, lambda: ipot_cuda(*args, 0.5, 50, 1))
+                          for _ in range(2)])
+        plain.append(cuda_ms(torch, lambda: ipot(*args, 0.5, 50, 1), 5, 1))
+        t = timing[(b, n, m)] = {"dev": sum(dev) / 2, "call": sum(call) / 2,
+                                 "plain": sum(plain) / 2}
         bound, by = ipot_bound_ms(b, n, m)
-        print(f"[K7] time at B={b} N={n} M={m}, 50 steps, k=1, the wrapper "
-              f"with its elementwise preparation: kernel "
-              f"{timing[(b, n, m)][0] * 1e3:.1f} us, plain "
-              f"{timing[(b, n, m)][1] * 1e3:.1f} us per call (CUDA events; "
-              f"turns plain, kernel, kernel, plain: "
-              f"{', '.join(f'{x * 1e3:.1f}' for x in t)}); the launch alone "
-              f"on prepared inputs: device {alone_dev * 1e3:.1f} us (CUDA "
-              f"graph), call {alone * 1e3:.1f} us; bound "
-              f"{bound * 1e3:.2f} us ({by})")
+        p_dev, p_call = K7_BEFORE_US[(b, n, m)]
+        print(f"[K7] time at B={b} N={n} M={m}, 50 steps, k=1: ipot_cuda "
+              f"device {t['dev'] * 1e3:.1f} us (CUDA graph; turns "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in dev)}), call "
+              f"{t['call'] * 1e3:.1f} us "
+              f"({', '.join(f'{x * 1e3:.1f}' for x in call)}); plain "
+              f"{t['plain'] * 1e3:.1f} us per call (CUDA events; "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in plain)}); bound "
+              f"{bound * 1e3:.2f} us ({by}), {bound / t['dev'] * 100:.1f}% "
+              f"of it; before the redesign: launch alone {p_dev} us, "
+              f"call {p_call} us")
     return worst, timing
 
 
@@ -3349,10 +3446,10 @@ def main(argv):
         "source": "uniter_tpu_torch/csrc/ipot.cu",
         "replaces": "uniter_tpu/ops/ot.py:102",
         "launches": sum(c["ipot"] for c in pre["launches"].values()),
-        "max_abs_err": k7_err, "ms": k7_time[K7_SHAPES[0]][0],
-        "plain_ms": k7_time[K7_SHAPES[0]][1], "bound_ms": bound,
+        "max_abs_err": k7_err, "ms": k7_time[K7_SHAPES[0]]["call"],
+        "plain_ms": k7_time[K7_SHAPES[0]]["plain"], "bound_ms": bound,
         "bound_by": by, "library_ms": None,
-        "device_ms": k7_time[K7_SHAPES[0]][3], "library_device_ms": None})
+        "device_ms": k7_time[K7_SHAPES[0]]["dev"], "library_device_ms": None})
     rows, h = TAIL_SHAPES[0]
     kernels.append({
         "name": "layer_norm_fwd", "route": "cuda",
@@ -3408,9 +3505,9 @@ def main(argv):
           f"formula), of K3-K9 the worst fp32 difference; ms, plain_ms and "
           f"library_ms are call times (calls from Python between CUDA "
           f"events: 50 for K1/K2, 500 for K3-K6 and K8, 50 for the plain "
-          f"versions; K7: its wrapper), device_ms and library_device_ms "
+          f"versions; K7: ipot_cuda), device_ms and library_device_ms "
           f"device times (20 (K1/K2) or 50 calls captured in one CUDA graph "
-          f"and replayed; K7: the launch alone)")
+          f"and replayed; K7: ipot_cuda's calls)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

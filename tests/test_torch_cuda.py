@@ -39,10 +39,13 @@ is reached. A small VQA step through K1-K6 launches each fused tail once
 per tail and matches the plain tails.
 
 K7 (``csrc/ipot.cu``) is held against ``ops.ot.ipot`` at the pretraining
-shapes, in all three of its forms, with ragged and all-padding examples and
-k = 1 and 2: the plan to 1e-5 + 1e-4 |ref| (fp32 rounding of other
+shapes, in all three of its forms and at their edges, with ragged and
+all-padding examples, a joint padding that is not the outer OR of the
+pads, a bf16 and a strided cost, lengths of 0 that the clamp lifts to 1,
+and k = 1 and 2: the plan to 1e-5 + 1e-4 |ref| (fp32 rounding of other
 summation orders through 50 dependent steps), exactly zero where it is
-masked, bitwise equal from run to run. K8 (``uniter_layer_norm_fwd`` in
+masked, bitwise equal from run to run; one call on contiguous fp32 inputs
+runs one device kernel and nothing else. K8 (``uniter_layer_norm_fwd`` in
 ``csrc/fused_tail.cu``) against the plain ``layer_norm``: fp32 to 1e-5, bf16
 to half a bf16 step of the value + 1e-3; a small pretraining model takes an
 ITM step through K1-K8 with one K7 launch and matches the plain step.
@@ -670,6 +673,150 @@ def test_ipot_kernel_through_the_distance(gen):
     wx, wy = torch.autograd.grad(want.sum(), (x, y))
     torch.testing.assert_close(gx, wx, rtol=1e-3, atol=1e-6)
     torch.testing.assert_close(gy, wy, rtol=1e-3, atol=1e-6)
+
+
+def _hold_k7(args, k):
+    """K7 against ``ipot`` on the same inputs: 1e-5 + 1e-4 |ref|, exact
+    zeros at joint padding, a bitwise repeat. Returns the plan."""
+    got = ot.ipot_cuda(*args, 0.5, 50, k)
+    torch.cuda.synchronize()
+    want = ot.ipot(*args, 0.5, 50, k)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    excess = (got - want).abs() - (1e-5 + 1e-4 * want.abs())
+    assert excess.max().item() <= 0
+    assert (got[args[5].transpose(1, 2)] == 0).all()
+    assert torch.equal(got, ot.ipot_cuda(*args, 0.5, 50, k))
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("b,n,m,form", [
+    (6, 128, 160, 0), (6, 129, 160, 1), (6, 128, 161, 1), (3, 100, 544, 1),
+    (3, 100, 545, 2)])
+def test_ipot_kernel_at_the_forms_edges(gen, b, n, m, form, k):
+    """The largest register-form plan, plans one row or one column past it,
+    and the largest form-1 plan at N = 100 and one column past it."""
+    assert ot.ipot_form(n, m) == form
+    got = _hold_k7(_ot_inputs(gen, b, n, m, all_pad=(1,)), k)
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("b,n,m", [(48, 64, 160), (5, 37, 23),
+                                   (4, 100, 512)])
+def test_ipot_kernel_reads_joint_padding_as_given(gen, b, n, m, k):
+    """A joint padding wider than the outer OR of the pads (every valid row
+    and column keeps its first entry, so no valid sum is empty): the plan
+    is zero exactly there, and the kernel agrees with ``ipot``."""
+    cost, x_len, x_pad, y_len, y_pad, joint = _ot_inputs(gen, b, n, m,
+                                                         all_pad=(1,))
+    extra = torch.rand(b, m, n, generator=gen, device="cuda") < 0.3
+    extra[:, 0, :] = False
+    extra[:, :, 0] = False
+    args = (cost, x_len, x_pad, y_len, y_pad, joint | extra)
+    assert (args[5] != joint).any()
+    _hold_k7(args, k)
+
+
+@pytest.mark.parametrize("case", ["bf16", "strided", "zero_lengths"])
+def test_ipot_kernel_takes_what_the_wrapper_fixes(gen, case):
+    """A bf16 cost (cast to fp32 by the wrapper), a transposed view of the
+    cost (copied), lengths of 0 where one side of an example is all padding
+    and the other is not (the clamp lifts them to 1; inside the kernel the
+    example's sums are empty and its vectors not finite, and the plan is
+    still exactly zero there), at the pretraining bucket and in form 1."""
+    for b, n, m in ((48, 64, 160), (4, 100, 512)):
+        cost, x_len, x_pad, y_len, y_pad, joint = _ot_inputs(
+            gen, b, n, m, all_pad=(1,))
+        if case == "bf16":
+            cost = cost.bfloat16()
+        elif case == "strided":
+            cost = cost.transpose(1, 2).contiguous().transpose(1, 2)
+            assert not cost.is_contiguous()
+        else:
+            x_pad, y_pad = x_pad.clone(), y_pad.clone()
+            x_pad[0], y_pad[2] = True, True
+            x_len = (~x_pad).sum(1).float()
+            y_len = (~y_pad).sum(1).float()
+            joint = x_pad[:, :, None] | y_pad[:, None, :]
+            cost = cost.masked_fill(joint, 0.0)
+        got = _hold_k7((cost, x_len, x_pad, y_len, y_pad, joint), 1)
+        if case == "zero_lengths":
+            assert (got[0] == 0).all() and (got[2] == 0).all()
+
+
+def _graph_nodes(fn):
+    """The nodes one call of ``fn`` puts on its stream, from a CUDA graph
+    captured from it, read through libcuda: kernel nodes as their function's
+    name, any other node as its type number."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t()
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    found = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            found.append(kind.value)
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: the CUfunction first, the CUkernel
+        # at the eighth pointer, whichever the launch left
+        params = (ctypes.c_void_p * 16)()
+        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                params) == 0
+        name = ctypes.c_char_p()
+        if params[0]:
+            assert cu.cuFuncGetName(ctypes.byref(name),
+                                    ctypes.c_void_p(params[0])) == 0
+        else:
+            assert cu.cuKernelGetName(ctypes.byref(name),
+                                      ctypes.c_void_p(params[7])) == 0
+        found.append(name.value.decode())
+    return found
+
+
+@pytest.mark.parametrize("b,n,m", [(48, 64, 160), (8, 100, 512),
+                                   (4, 200, 512)])
+def test_ipot_kernel_is_one_device_kernel_a_call(gen, b, n, m):
+    """On contiguous fp32 inputs, as ``optimal_transport_dist`` makes them,
+    a call puts K7 on its stream and nothing else: no cast, copy or
+    re-mask (a count of the nodes of a CUDA graph captured from the call);
+    on the host it runs no torch operation but the allocations."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    args = _ot_inputs(gen, b, n, m)
+    before = ot.ipot_cuda.launches
+    nodes = _graph_nodes(lambda: ot.ipot_cuda(*args, 0.5, 50, 1))
+    assert ot.ipot_cuda.launches == before + 2
+    assert len(nodes) == 1, nodes
+    kernel = "ipot_reg_kernel" if ot.ipot_form(n, m) == 0 else "ipot_mem"
+    assert kernel in nodes[0], nodes
+    with Ops() as ops:
+        ot.ipot_cuda(*args, 0.5, 50, 1)
+    assert ops.seen and set(ops.seen) == {"aten.empty.memory_format"}, \
+        ops.seen
 
 
 def test_ipot_kernel_refuses_on_the_card(gen):

@@ -186,3 +186,156 @@ def test_ipot_form_and_argument_checks():
             torch.zeros(1, 2, 4), torch.zeros(1, 2, 4),
             torch.zeros(1, 2, dtype=torch.bool),
             torch.zeros(1, 2, dtype=torch.bool), impl="auto")
+
+
+@pytest.mark.parametrize("n,m,form", [
+    (1, 1, 0), (128, 160, 0), (129, 160, 1), (128, 161, 1), (16, 545, 1),
+    (100, 512, 1), (100, 544, 1), (100, 545, 2), (200, 512, 2),
+    (1000, 4000, 2)])
+def test_ipot_form_limits(n, m, form):
+    """The register form holds N <= 128, M <= 160; form 1 A in shared memory
+    (N rows of M rounded up to 32, and the 2 (N + M) vectors, within
+    232,448 bytes); form 2 the vectors alone."""
+    assert pot.ipot_form(n, m) == form
+    pm = -(-m // 32) * 32
+    smem = 4 * (n * pm + 2 * (n + m))
+    assert (form == 0) == (n <= 128 and m <= 160)
+    if form == 1:
+        assert smem <= 232448
+    if form == 2:
+        assert smem > 232448 >= 4 * 2 * (n + m)
+
+
+def _refused(case):
+    """``ipot_cuda``'s arguments broken one way (``case``), and the error
+    that must come of them."""
+    args = list(_plan_args(*_inputs(), pot)) + [0.5, 50, 1]
+    if case == "C not 3-D":
+        args[0] = args[0][0]
+        return args, ValueError, r"C must be \[B, M, N\]"
+    if case == "lengths shape":
+        args[1] = args[1][:-1]
+        return args, ValueError, "x_len must be"
+    if case == "joint_pad shape":
+        args[5] = args[5][:, :, :-1]
+        return args, ValueError, "joint_pad must be"
+    if case == "pad dtype":
+        args[4] = args[4].to(torch.uint8)
+        return args, TypeError, "y_pad must be bool"
+    if case == "C dtype":
+        args[0] = args[0].to(torch.int32)
+        return args, TypeError, "C must be floating point"
+    if case == "mixed devices":
+        args[3] = args[3].to("meta")
+        return args, ValueError, "y_len must be"
+    if case == "device":
+        args[:6] = [a.to("meta") for a in args[:6]]
+        return args, ValueError, "runs on cuda or cpu, not meta"
+    if case == "k < 1":
+        args[8] = 0
+        return args, ValueError, "k >= 1"
+    args[7] = -1
+    return args, ValueError, "iteration >= 0"
+
+
+@pytest.mark.parametrize("case", [
+    "C not 3-D", "lengths shape", "joint_pad shape", "pad dtype", "C dtype",
+    "mixed devices", "device", "k < 1", "iteration < 0"])
+def test_ipot_cuda_refuses_before_any_work(monkeypatch, case):
+    """Each refusal raises before the plan is computed: the plain loop that
+    a CPU input takes is never entered."""
+    args, err, match = _refused(case)
+
+    def no_work(*a):
+        raise AssertionError("ipot_cuda computed a plan before refusing")
+
+    monkeypatch.setattr(pot, "ipot", no_work)
+    with pytest.raises(err, match=match):
+        pot.ipot_cuda(*args)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_ipot_takes_joint_padding_as_given_like_jax(interpret, k):
+    """A joint padding wider than the outer OR of the pads (the kernel
+    reads it as given, not rebuilt from the pads): ``ipot`` and
+    ``ipot_cuda`` against JAX ``ipot`` and ``ipot_pallas`` in interpret
+    mode, exactly zero where it is masked."""
+    ins = _inputs(b=4, seed=6, all_pad_row=2)
+    jargs = list(_plan_args(*ins, jot))
+    args = list(_plan_args(*ins, pot))
+    extra = np.random.RandomState(7).rand(4, M, N) < 0.3
+    extra[:, 0, :] = extra[:, :, 0] = False  # no valid row or column empty
+    jargs[5] = jargs[5] | jnp.asarray(extra)
+    args[5] = args[5] | torch.from_numpy(extra)
+    for jax_fn in (jot.ipot, jot.ipot_pallas):
+        want = np.asarray(jax_fn(*jargs, 0.5, 50, k))
+        for fn in (pot.ipot, pot.ipot_cuda):
+            got = fn(*args, 0.5, 50, k)
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+            assert (got[args[5].transpose(1, 2)] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["bf16", "strided", "int lengths",
+                                  "zero lengths"])
+def test_ipot_cuda_on_the_cpu_fixes_what_the_card_fixes(case):
+    """What the card's wrapper casts or copies gives, on the CPU, the plan
+    of the fp32 contiguous inputs it becomes: a bf16 cost, a transposed
+    view, integer lengths. Lengths of 0 where one side of an example is all
+    padding and the other is not (the clamp lifts them to 1; the plan is
+    masked everywhere there): zero, as JAX ``ipot`` gives."""
+    x, y, x_pad, y_pad = _inputs(b=4, seed=8)
+    if case == "zero lengths":
+        x_pad[0] = True
+        y_pad[2] = True
+    args = list(_plan_args(x, y, x_pad, y_pad, pot))
+    same = list(args)
+    if case == "bf16":
+        args[0] = args[0].bfloat16()
+        same[0] = args[0].float()
+    elif case == "strided":
+        args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+        assert not args[0].is_contiguous()
+    elif case == "int lengths":
+        args[1], args[3] = args[1].long(), args[3].int()
+    else:
+        assert args[1][0] == 0 and args[3][2] == 0
+        want = np.asarray(jot.ipot(*_plan_args(x, y, x_pad, y_pad, jot),
+                                   0.5, 50, 1))
+        got = pot.ipot_cuda(*args, 0.5, 50, 1)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+        assert (got[0] == 0).all() and (got[2] == 0).all()
+    assert torch.equal(pot.ipot_cuda(*args, 0.5, 50, 1),
+                       pot.ipot(*same, 0.5, 50, 1))
+
+
+def test_one_look_check_sends_every_other_input_to_the_full_checks():
+    """``_fits`` takes exactly what a launch takes as it is (fp32
+    contiguous C and lengths, contiguous bool pads, k >= 1); every input it
+    refuses either raises in ``_check`` or becomes, through
+    ``_card_inputs``, one that it takes."""
+    base = list(_plan_args(*_inputs(), pot)) + [50, 1]
+    assert pot._fits(*base)
+    variants = {
+        "bf16 C": (0, base[0].bfloat16()),
+        "strided C": (0, base[0].transpose(1, 2).contiguous()
+                      .transpose(1, 2)),
+        "int lengths": (1, base[1].long()),
+        "strided lengths": (3, torch.stack([base[3], base[3]], 1)[:, 0]),
+        "strided pad": (2, torch.stack([base[2], base[2]], 2)[:, :, 0]),
+        "float pad": (4, base[4].float()),
+        "short joint_pad": (5, base[5][:, :, :-1]),
+        "int C": (0, base[0].int()),
+        "k 0": (7, 0),
+        "iteration -1": (6, -1),
+    }
+    for name, (i, value) in variants.items():
+        args = list(base)
+        args[i] = value
+        assert not pot._fits(*args), name
+        try:
+            pot._check(*args)
+        except (TypeError, ValueError):
+            continue
+        fixed = pot._card_inputs(*args[:6])
+        assert pot._fits(*fixed, *args[6:]), name
+        assert all(a.is_contiguous() for a in fixed), name

@@ -44,10 +44,10 @@ SIGNATURES = {
                                       "ln_drop_fwd", "ln_drop_bwd")},
     # the backward tails' grid: rows, H, dtype, K4 (1) or K6 (0), device
     "tail_bwd_grid": [_L, _I, _I, _I, _I],
-    # A sigma0 x_mask y_mask x_len y_len T, B N M, iteration, k, form, stream
-    "ipot": [_P] * 7 + [_I] * 6 + [_P],
-    # K8: the tails' packed block (TAIL_CALL); K9: its own (ops/ffn.py _CALL)
-    "layer_norm_fwd": [ctypes.c_char_p], "ffn_fwd": [ctypes.c_char_p],
+    # K7: its own packed block (IPOT_CALL); K8: the tails' (TAIL_CALL); K9:
+    # its own (ops/ffn.py _CALL)
+    "ipot": [ctypes.c_char_p], "layer_norm_fwd": [ctypes.c_char_p],
+    "ffn_fwd": [ctypes.c_char_p],
     # K9's dynamic shared memory at D_in, D_out, dtype (for the record)
     "ffn_smem_bytes": [_I, _I, _I],
 }
@@ -66,6 +66,10 @@ LINK = {"ffn": ["-lcuda"]}
 # kernel has none), rows, H, the dropout threshold, 1 / (1 - rate), the
 # blocks of part, seed, eps, dtype, device, stream
 TAIL_CALL = struct.Struct("<8Qqi I f i Q f i i 4x Q")
+# csrc/ipot.cu `IpotCall`, K7's one argument: 8 pointers (the cost C, x_len,
+# y_len, x_pad, y_pad, joint_pad, the plan T, the workspace or 0), B, N, M,
+# iteration, k, form, beta, device, stream
+IPOT_CALL = struct.Struct("<8Q6i f i Q")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, object] = {}  # kernel name -> its typed entry point

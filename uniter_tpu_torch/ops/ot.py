@@ -10,8 +10,9 @@ only. Everything runs in fp32 (reference model/pretrain.py:186-188).
 ``ipot`` is the plain version, a Python loop of ``iteration`` x ``k`` steps
 on [B, N, M] tensors, and K7's oracle. ``ipot_cuda`` takes the same
 arguments and gives the same plan through one launch of the hand-written
-kernel (``csrc/ipot.cu``, the counterpart of ``ipot_pallas``); a CPU input
-takes ``ipot``, a CUDA input launches the kernel or raises;
+kernel (``csrc/ipot.cu``, the counterpart of the whole of ``ipot_pallas``:
+the preparation, the loop and the final re-mask); a CPU input takes
+``ipot``, a CUDA input launches the kernel or raises;
 ``ipot_cuda.launches`` counts the launches. ``optimal_transport_dist(...,
 impl=)`` picks between them from its argument alone: ``"cuda"`` or
 ``"xla"`` (the drivers resolve it from ``--device``).
@@ -25,6 +26,10 @@ from uniter_tpu_torch.ops import _kernels
 
 # the most dynamic shared memory a block may opt into on an H100
 SMEM_LIMIT = 232448
+# the kernel's warps a block (its [16, M] column partials) and the largest
+# plan its register form holds (csrc/ipot.cu)
+WARPS = 16
+REG_MAX_N, REG_MAX_M = 128, 160
 
 
 def cost_matrix_cosine(x, y, eps: float = 1e-5):
@@ -71,26 +76,50 @@ def ipot(C, x_len, x_pad, y_len, y_pad, joint_pad, beta, iteration, k):
 
 
 def ipot_form(n: int, m: int) -> int:
-    """Which form of the kernel a [N, M] plan takes: 0 keeps A and T in
-    shared memory (8 N M + 8 (N + M) bytes within the block's limit: N M up
-    to about 28,000 elements), 1 keeps A there and T in its output buffer
-    in device memory (N M up to about 57,000), 2 reads A from device memory
-    as well. Raises for a shape whose vectors alone do not fit."""
+    """Which form of the kernel a [N, M] plan takes: 0 keeps A and Q in
+    registers (N up to 128 regions, M up to 160 text tokens: every bucket
+    of pretraining); 1 keeps Q in shared memory (4 (N M' + 2 (N + M))
+    bytes within the block's limit, M' = M rounded up to 32: N M up to
+    about 57,000 elements) and A in a workspace in device memory; 2 keeps Q
+    in the output buffer as well. Raises for a shape whose vectors alone do
+    not fit."""
+    if n <= REG_MAX_N and m <= REG_MAX_M:
+        return 0
     vecs = 2 * (n + m)
-    for form, tiles in ((0, 2), (1, 1), (2, 0)):
-        if 4 * (tiles * n * m + vecs) <= SMEM_LIMIT:
-            return form
+    if 4 * (n * -(-m // 32) * 32 + vecs) <= SMEM_LIMIT:
+        return 1
+    if 4 * vecs <= SMEM_LIMIT:
+        return 2
     raise ValueError(f"ipot_cuda: a [{n}, {m}] plan does not fit the kernel "
                      f"(its vectors alone exceed {SMEM_LIMIT} bytes of "
                      f"shared memory)")
 
 
-def ipot_cuda(C, x_len, x_pad, y_len, y_pad, joint_pad, beta, iteration=50,
-              k=1):
-    """K7: ``ipot`` through the CUDA kernel, the whole loop of an example in
-    one launch. Same arguments, same [B, N, M] plan. The elementwise
-    preparation and the final re-mask stay here in plain torch. A CPU input
-    takes ``ipot``; a CUDA input launches the kernel or raises."""
+def _fits(C, x_len, x_pad, y_len, y_pad, joint_pad, iteration, k):
+    """One look at each input: True when a launch takes them as they are
+    (C fp32 [B, M, N], the lengths fp32 [B], the pads bool, all contiguous
+    on C's device, k >= 1). False sends the wrapper to ``_check``, which
+    raises on what is wrong, and to ``_card_inputs``, which fixes the
+    rest."""
+    if C.dtype != torch.float32 or C.dim() != 3 or not C.is_contiguous():
+        return False
+    b, m, n = C.shape
+    dev = C.device
+    for t, shape, dtype in ((x_len, (b,), torch.float32),
+                            (y_len, (b,), torch.float32),
+                            (x_pad, (b, m), torch.bool),
+                            (y_pad, (b, n), torch.bool),
+                            (joint_pad, (b, m, n), torch.bool)):
+        if (t.device != dev or t.dtype != dtype or t.shape != shape
+                or not t.is_contiguous()):
+            return False
+    return b > 0 and m > 0 and n > 0 and iteration >= 0 and k >= 1
+
+
+def _check(C, x_len, x_pad, y_len, y_pad, joint_pad, iteration, k):
+    """The rules every input obeys, on any device: C floating [B, M, N],
+    the lengths [B], the pads bool [B, M], [B, N], [B, M, N], all on C's
+    device, iteration >= 0, k >= 1."""
     if C.dim() != 3:
         raise ValueError(f"ipot_cuda: C must be [B, M, N], got "
                          f"{tuple(C.shape)}")
@@ -112,33 +141,48 @@ def ipot_cuda(C, x_len, x_pad, y_len, y_pad, joint_pad, beta, iteration=50,
         raise ValueError(f"ipot_cuda: needs iteration >= 0, k >= 1 and a "
                          f"non-empty [B, M, N] cost, got iteration "
                          f"{iteration}, k {k}, C {tuple(C.shape)}")
-    if C.device.type == "cpu":
-        return ipot(C, x_len, x_pad, y_len, y_pad, joint_pad, beta,
-                    iteration, k)
-    if C.device.type != "cuda":
+    if C.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ipot_cuda runs on cuda or cpu, not {C.device}")
-    ipot_form(n, m)  # raises for a shape the kernel cannot run
-    A, sigma0, x_mask, y_mask, xl, yl, jp_t = (
-        t.contiguous() for t in _ipot_inputs(
-            C, x_len, x_pad, y_len, y_pad, joint_pad, beta))
-    T = _ipot_launch(A, sigma0, x_mask, y_mask, xl, yl, int(iteration),
-                     int(k))
-    return torch.where(jp_t, torch.zeros((), device=C.device), T)
 
 
-def _ipot_launch(A, sigma0, x_mask, y_mask, x_len, y_len, iteration, k):
-    """One launch of the kernel on its prepared inputs (contiguous fp32 on
-    one CUDA device: A [B, N, M], sigma0 and x_mask [B, M], y_mask [B, N],
-    the lengths [B]); returns T [B, N, M] before the final re-mask."""
-    b, n, m = A.shape
+def _card_inputs(C, x_len, x_pad, y_len, y_pad, joint_pad):
+    """What ``_check`` passed, as the kernel takes it: C and the lengths
+    cast to fp32, every input contiguous."""
+    return (C.float().contiguous(), x_len.float().contiguous(),
+            x_pad.contiguous(), y_len.float().contiguous(),
+            y_pad.contiguous(), joint_pad.contiguous())
+
+
+def ipot_cuda(C, x_len, x_pad, y_len, y_pad, joint_pad, beta, iteration=50,
+              k=1):
+    """K7: ``ipot`` through the CUDA kernel, all of it in one launch: the
+    lengths' clamp, A, sigma0 and the masks, the loop and the zeros at
+    joint padding. Same arguments, same [B, N, M] plan. A CPU input takes
+    ``ipot``; a CUDA input launches the kernel or raises. The launch path
+    is K8's: one look at each input (a non-fp32 C or length is cast and a
+    strided input copied, after the full checks), the entry point resolved
+    once, the raw handle of the card's current stream, one packed argument
+    block, the device switch in C."""
+    if not (C.is_cuda and _fits(C, x_len, x_pad, y_len, y_pad, joint_pad,
+                                iteration, k)):
+        _check(C, x_len, x_pad, y_len, y_pad, joint_pad, iteration, k)
+        if C.device.type == "cpu":
+            return ipot(C, x_len, x_pad, y_len, y_pad, joint_pad, beta,
+                        iteration, k)
+        C, x_len, x_pad, y_len, y_pad, joint_pad = _card_inputs(
+            C, x_len, x_pad, y_len, y_pad, joint_pad)
+    b, m, n = C.shape
     form = ipot_form(n, m)
-    T = torch.empty_like(A)
-    fn = _kernels.load("ipot").uniter_ipot
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = fn(A.data_ptr(), sigma0.data_ptr(), x_mask.data_ptr(),
-                y_mask.data_ptr(), x_len.data_ptr(), y_len.data_ptr(),
-                T.data_ptr(), b, n, m, iteration, k, form, stream)
+    T = torch.empty((b, n, m), dtype=torch.float32, device=C.device)
+    # forms 1 and 2: the warp partials of the column sums, and A
+    ws = None if form == 0 else torch.empty(
+        b * (WARPS + n) * m, dtype=torch.float32, device=C.device)
+    idx = C.device.index
+    rc = _kernels.entry("ipot")(_kernels.IPOT_CALL.pack(
+        C.data_ptr(), x_len.data_ptr(), y_len.data_ptr(), x_pad.data_ptr(),
+        y_pad.data_ptr(), joint_pad.data_ptr(), T.data_ptr(),
+        0 if ws is None else ws.data_ptr(), b, n, m, int(iteration), int(k),
+        form, float(beta), idx, torch._C._cuda_getCurrentRawStream(idx)))
     if rc:
         raise RuntimeError(f"ipot kernel launch failed: cudaError_t {rc} at "
                            f"B={b}, N={n}, M={m} (form {form})")
