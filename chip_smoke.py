@@ -44,7 +44,8 @@ Phases, each printing its own lines:
    medians, with the bounds (fp32 products at the three-pass TF32 rate,
    the FP32 units' 67 TFLOP/s printed beside); at (96, 104, 12, 64) also
    the plain versions at rates 0 and 0.1; the kernels SDPA launches in
-   fp32 and its error against ``_mha_torch``.
+   fp32 and its error against ``_mha_torch``. The last training shape,
+   (8, 352, 12, 64), is the largest bucket of the VCR config.
 5. K3-K6 (``csrc/fused_tail.cu``: dropout + residual + LayerNorm, and
    LayerNorm + dropout, forward and backward) against their plain versions
    in ``ops/fused_block.py`` at rates 0 and 0.1 (same seed), fp32 and bf16,
@@ -136,7 +137,32 @@ Phases, each printing its own lines:
    model config asking for ``"ffn_impl": "pallas"`` (20 steps, validate and
    save at 10 and 20, resume to 25), ``inf_itm.main`` on its run and
    ``train_itm_hard_negatives.main`` for 4 steps.
-20. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
+20. VCR (``vcr``): ``UniterForVisualCommonsenseReasoning`` at uniter-base
+   with 4 token-type rows and 28996 + 81 words, on batches of
+   ``train_vcr``'s loader (``VcrDataset`` qa and qar concatenated, the
+   config's bucket grid and 4000-token budget) over DBs written from a
+   seed (questions 8-30 tokens, answers 5-25, rationales 10-50, 2-20
+   ground-truth plus 10-100 detected regions), bf16, dropout 0.1, fused
+   AdamW with bf16 moments, under plain and K1-K6 in turns: launches per
+   step, step-1 agreement, rows/s, a profile at the epoch's largest bucket
+   (device busy ms a step), 2-layer fp32 runs of K1-K6 against plain.
+21. VCR serving (``vcr_serve``): ``inf_vcr``'s loop in fp32 over the val
+   (8 rows a question) and test (20) splits through K1 and through the
+   plain attention: K1 alone, 12 a batch; the same argmax in every qa and
+   qar group; scores within 1e-3.
+22. RE (``re``): ``UniterForReferringExpressionComprehension`` on a fixed
+   batch at ``configs/train-refcoco-base-tpu.json``'s shapes (128
+   expressions, T 64, up to 100 gt regions), the cls loss under plain and
+   K1-K6 (launches, step-1 agreement, 2-layer fp32), then 5 rank-loss
+   steps through K1-K6 with the negatives drawn on the card: finite
+   losses, the hard share, easy negatives never the target or padding, a
+   replay of each step's draw from its seed.
+23. the task CLIs (``task_cli``): ``train_ve`` (5 steps, resume to 7),
+   ``train_re`` validating every 2 steps (best export and sidecar) and
+   ``inf_re --ckpt best`` on two splits, ``train_vcr --tasks qa,qar`` and
+   ``inf_vcr`` val and test, ``pretrain_vcr`` (mlm / mrfr / mrc-kl, 6
+   steps, resume to 8), all at uniter-base on the card.
+24. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
    last line. Any failed check raises and the script exits non-zero.
 
 TF32 is off for matmuls and cuDNN (fp32 runs are full fp32; the fp32
@@ -168,9 +194,12 @@ K1_SHAPES = [  # (B, S, H, D): the bucketed eval shapes, uniter-base heads
 ]
 K1_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 TRAIN_SHAPES = [  # (B, S, H, D): flagship, pretrain mix, retrieval, long
-    # buckets, uniter-large heads
+    # buckets, uniter-large heads, and last the largest bucket of the VCR
+    # config (max_txt_len 220 -> text bucket 232, gt + detected regions up
+    # to 120; 4000 tokens -> 8 rows)
     (96, 104, 12, 64), (48, 224, 12, 64), (120, 128, 12, 64),
     (64, 172, 12, 64), (8, 512, 12, 64), (96, 104, 16, 64),
+    (8, 352, 12, 64),
 ]
 K2_TOL_FP32 = 1e-4  # another summation order over S and D
 # bf16 K2 against the fp32 formula on the same bf16 inputs, out and LSE:
@@ -1239,12 +1268,14 @@ def time_tails(torch, fb, x, res, w, b, g, dname):
 
 
 def jax_layout_params(cfg, num_answer, img_dim, seed, label_dim=None,
-                      itm=False):
+                      itm=False, head="vqa"):
     """A uniter-base parameter tree in the JAX package's layout (flax Dense
     kernels [in, out], layers stacked [L, ...]): normal(0, 0.02) for
     matrices and embeddings, ones and zeros for LayerNorm, zero biases. The
     VQA head by default; with ``label_dim`` the four pretraining heads; with
-    ``itm`` the retrieval heads (``itm_output``, ``rank_output``)."""
+    ``itm`` the retrieval heads (``itm_output``, ``rank_output``); with
+    ``head`` "vcr" VCR's, "re1" / "re2" RE's at mlp 1 / 2 (and no pooler:
+    RE reads none)."""
     rng = np.random.default_rng(seed)
     h, ff, nl = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
 
@@ -1286,6 +1317,15 @@ def jax_layout_params(cfg, num_answer, img_dim, seed, label_dim=None,
     if itm:
         return {"uniter": uniter, "itm_output": dense(h, 2),
                 "rank_output": dense(h, 1)}
+    if head == "vcr":
+        return {"uniter": uniter, "vcr_hidden": dense(h, 2 * h),
+                "vcr_ln": ln(n=2 * h), "vcr_out": dense(2 * h, 2)}
+    if head in ("re1", "re2"):
+        del uniter["pooler"]
+        tree = {"uniter": uniter, "re_output": dense(h, 1)}
+        if head == "re2":
+            tree.update(re_hidden=dense(h, h), re_ln=ln())
+        return tree
     if label_dim is not None:
         return {
             "uniter": uniter,
@@ -1542,40 +1582,45 @@ def policy_configs(base, device="cuda"):
     return cfgs
 
 
-def run_policies(torch, trainers, batch, n_steps):
-    """Warm-up, then turns of ``n_steps`` steps per policy, in the order
-    plain, K1/K2, K1-K6, K1-K6, K1/K2, plain; launch counts set to 0 just
-    before each K1-K6 turn and read just after. Returns (seconds per
-    policy, losses per policy, K1-K6 launches summed, K1-K6 steps)."""
+def run_policies(torch, trainers, batches, n_steps):
+    """Two steps of warm-up per policy, then turns of ``n_steps`` steps in
+    the order of ``trainers`` and back (plain, K1/K2, K1-K6, K1-K6, K1/K2,
+    plain), a trainer's step i on ``batches[i % len(batches)]``; launch
+    counts set to 0 just before each K1-K6 run and read just after. Returns
+    (seconds per policy, losses per policy, real rows per policy over the
+    turns, K1-K6 launches summed, K1-K6 steps)."""
     losses = {n: [] for n in trainers}
-
-    def run(name, n):
-        state, step = trainers[name]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ms = [step(state, batch, SEED)[1]["loss"] for _ in range(n)]
-        losses[name] += [float(x) for x in ms]  # the readback ends the turn
-        return time.perf_counter() - t0
-
+    rows = {n: 0 for n in trainers}
     total = {k: 0 for k in KERNELS}
     steps = 0
+
+    def run(name, n):
+        nonlocal total, steps
+        state, step = trainers[name]
+        if name == "K1-K6":
+            reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = []
+        for _ in range(n):
+            b = batches[state.step % len(batches)]
+            ms.append(step(state, b, SEED)[1]["loss"])
+            rows[name] += int(b["ex_weight"].sum())
+        losses[name] += [float(x) for x in ms]  # the readback ends the turn
+        dt = time.perf_counter() - t0
+        if name == "K1-K6":
+            total = {k: total[k] + v for k, v in read_launches().items()}
+            steps += n
+        return dt
+
     for name in trainers:  # warm-up: allocator, cuBLAS handles
-        if name == "K1-K6":
-            reset_launches()
         run(name, 2)
-        if name == "K1-K6":
-            total = {k: total[k] + v for k, v in read_launches().items()}
-            steps += 2
+    rows = {n: 0 for n in trainers}
     secs = {n: [] for n in trainers}
-    for name in ("plain", "K1/K2", "K1-K6", "K1-K6", "K1/K2", "plain"):
-        if name == "K1-K6":
-            reset_launches()
+    for name in list(trainers) + list(trainers)[::-1]:
         secs[name].append(run(name, n_steps))
-        if name == "K1-K6":
-            total = {k: total[k] + v for k, v in read_launches().items()}
-            steps += n_steps
     check(steps == trainers["K1-K6"][0].step, "K1-K6 step count")
-    return secs, losses, total, steps
+    return secs, losses, rows, total, steps
 
 
 def check_launches(total, steps, want_per_step, tag):
@@ -1621,7 +1666,8 @@ def train_phase(torch):
     trainers = {name: make_trainer(torch, cfg, sd, num_answer)
                 for name, cfg in policy_configs(base).items()}
     torch.cuda.reset_peak_memory_stats()
-    secs, losses, total, steps = run_policies(torch, trainers, batch, 10)
+    secs, losses, _, total, steps = run_policies(torch, trainers, [batch],
+                                                 10)
     eps = {n: 10 * b * len(v) / sum(v) for n, v in secs.items()}
     order = ("plain", "K1/K2", "K1-K6", "K1-K6", "K1/K2", "plain")
     turn_s = {n: list(v) for n, v in secs.items()}
@@ -1762,9 +1808,10 @@ def two_layer_runs(torch, num_answer):
     return out
 
 
-def write_vqa_dbs(root, n_img, n_q, seed):
+def write_vqa_dbs(root, n_img, n_q, seed, n_labels=3129):
     """txt/img DBs of ``n_q`` questions over ``n_img`` images (10-100
-    regions of fp16 2048-d features, conf, boxes) with the port's writers."""
+    regions of fp16 2048-d features, conf, boxes), answers of ``n_labels``
+    labels (SNLI-VE: 3), with the port's writers."""
     from uniter_tpu_torch.data.img_db import write_img_db
     from uniter_tpu_torch.data.txt_db import write_txt_db
 
@@ -1794,7 +1841,8 @@ def write_vqa_dbs(root, n_img, n_q, seed):
             input_ids=[int(x) for x in rng.integers(999, 28996,
                                                     int(rng.integers(4, 21)))],
             img_fname=name,
-            target={"labels": [int(rng.integers(0, 3129))], "scores": [1.0]})
+            target={"labels": [int(rng.integers(0, n_labels))],
+                    "scores": [1.0]})
         t2i[f"q{i}"] = name
     write_txt_db(os.path.join(root, "txt"), recs, meta, t2i)
 
@@ -1924,7 +1972,8 @@ def nlvr2_phase(torch):
         trainers[name] = (TrainState(step=0, model=model, opt=opt),
                           make_train_step(
                               lambda m, b, g: (nlvr2_loss(m, b, g), {})))
-    secs, losses, total, steps = run_policies(torch, trainers, batch, 10)
+    secs, losses, _, total, steps = run_policies(torch, trainers, [batch],
+                                                 10)
     pps = {n: 10 * n_pairs * len(v) / sum(v) for n, v in secs.items()}
     print(f"[nlvr2] paired-attn uniter-base step, {n_pairs} pairs (96 rows, "
           f"T=64, R=40), bf16 over fp32 parameters, dropout {RATE}, fused "
@@ -3342,6 +3391,699 @@ def itm_cli_phase(torch):
         shutil.rmtree(work, ignore_errors=True)
 
 
+VCR_OPTS = dict(  # configs/train-vcr-base-tpu.json
+    max_txt_len=220, train_batch_size=4000, conf_th=0.2, max_bb=100,
+    min_bb=10, num_bb=36, compressed_db=False)
+RE_SHAPE = (128, 64, 100)  # configs/train-refcoco-base-tpu.json: B, T, R
+_DBS = {}
+
+
+def scratch_dir(prefix):
+    """A directory under the checkout's tmp/, removed when the script
+    exits."""
+    import atexit
+
+    os.makedirs(os.path.join(REPO, "tmp"), exist_ok=True)
+    path = tempfile.mkdtemp(prefix=prefix, dir=os.path.join(REPO, "tmp"))
+    atexit.register(shutil.rmtree, path, True)
+    return path
+
+
+def feature_records(rng, names, lo, hi, pool, soft):
+    """(name, record) of fp16 2048-d features cut from ``pool``, ``lo``-``hi``
+    regions, boxes, confidences above every threshold, soft labels."""
+    for n in names:
+        nbb = int(rng.integers(lo, hi + 1))
+        o = int(rng.integers(0, len(pool) - nbb))
+        yield n, dict(
+            features=pool[o:o + nbb],
+            norm_bb=rng.random((nbb, 6), dtype=np.float32).astype(np.float16),
+            conf=np.linspace(1, 0.3, nbb).astype(np.float16),
+            soft_labels=soft[o % (len(soft) - nbb):][:nbb])
+
+
+def feature_pools(rng):
+    pool = rng.standard_normal((8192, 2048), dtype=np.float32).astype(
+        np.float16)
+    soft = rng.random((1024, 1601), dtype=np.float32)
+    soft /= soft.sum(1, keepdims=True)
+    return pool, soft.astype(np.float16)
+
+
+def write_vcr_txt(path, rng, n_q, gt_names, det_names):
+    """A VCR txt DB of ``n_q`` questions of 8-30 tokens, 4 answers of 5-25
+    and 4 rationales of 10-50, with ``id2len_qa.json`` and
+    ``id2len_qar.json`` (prepro's lengths: question + longest answer (+
+    longest rationale))."""
+    from uniter_tpu_torch.data.txt_db import write_txt_db
+
+    def ids(lo, hi):
+        return [int(x) for x in rng.integers(999, 28996,
+                                             int(rng.integers(lo, hi + 1)))]
+
+    recs, t2i, qa, qar = {}, {}, {}, {}
+    for i in range(n_q):
+        pair = [gt_names[i % len(gt_names)], det_names[i % len(det_names)]]
+        q, ans, rat = ids(8, 30), [ids(5, 25) for _ in range(4)], [
+            ids(10, 50) for _ in range(4)]
+        recs[f"vcr_{i}"] = dict(input_ids=q, input_ids_as=ans,
+                                input_ids_rs=rat,
+                                qa_target=int(rng.integers(0, 4)),
+                                qar_target=int(rng.integers(0, 4)),
+                                img_fname=pair)
+        t2i[f"vcr_{i}"] = pair
+        qa[f"vcr_{i}"] = len(q) + max(map(len, ans))
+        qar[f"vcr_{i}"] = qa[f"vcr_{i}"] + max(map(len, rat))
+    meta = {"CLS": 101, "SEP": 102, "MASK": 103, "v_range": [999, 28996]}
+    write_txt_db(path, recs, meta, t2i)
+    for name, obj in (("id2len_qa", qa), ("id2len_qar", qar)):
+        with open(os.path.join(path, f"{name}.json"), "w") as f:
+            json.dump(obj, f)
+
+
+def vcr_dbs():
+    """The VCR DBs of the vcr, vcr_serve and task_cli phases, written once
+    under tmp/ with the port's writers: 300 images of ground-truth regions
+    (2-20) and 300 of detected ones (10-100), a train txt DB of 600
+    questions and a val txt DB of 64."""
+    if "vcr" in _DBS:
+        return _DBS["vcr"]
+    from uniter_tpu_torch.data.img_db import write_img_db
+
+    root = scratch_dir("chip_smoke_vcr_")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    pool, soft = feature_pools(rng)
+    gt = [f"vcr_gt_{i:05d}.npz" for i in range(300)]
+    det = [f"vcr_det_{i:05d}.npz" for i in range(300)]
+    write_img_db(os.path.join(root, "img_gt"),
+                 feature_records(rng, gt, 2, 20, pool, soft), conf_th=-1,
+                 num_bb=100)
+    write_img_db(os.path.join(root, "img"),
+                 feature_records(rng, det, 10, 100, pool, soft),
+                 conf_th=0.2, max_bb=100, min_bb=10)
+    write_vcr_txt(os.path.join(root, "txt"), rng, 600, gt, det)
+    write_vcr_txt(os.path.join(root, "txt_val"), rng, 64, gt, det)
+    print(f"[vcr] DBs written in {time.perf_counter() - t0:.1f} s: 300 gt "
+          f"images (2-20 regions), 300 detected (10-100), 600 train and 64 "
+          f"val questions (8-30 tokens, answers 5-25, rationales 10-50)")
+    _DBS["vcr"] = root
+    return root
+
+
+def vcr_datasets(root, split=None):
+    """``train_vcr``'s training dataset (qa and qar concatenated) or, with
+    ``split``, its ``VcrEvalDataset`` over the val txt DB."""
+    from types import SimpleNamespace
+
+    from uniter_tpu_torch.data.datasets import ConcatDataset
+    from uniter_tpu_torch.data.vcr import (VcrDataset, VcrEvalDataset,
+                                           VcrTxtTokDb)
+    from uniter_tpu_torch.training.driver import open_img_db
+
+    opts = SimpleNamespace(**VCR_OPTS)
+    imgs = dict(img_db_gt=open_img_db(os.path.join(root, "img_gt"), opts,
+                                      gt=True),
+                img_db=open_img_db(os.path.join(root, "img"), opts))
+    if split is not None:
+        return VcrEvalDataset(split, VcrTxtTokDb(
+            os.path.join(root, "txt_val"), max_txt_len=-1, task="qa,qar"),
+            **imgs)
+    return ConcatDataset([VcrDataset(VcrTxtTokDb(
+        os.path.join(root, "txt"), max_txt_len=VCR_OPTS["max_txt_len"],
+        task=t), **imgs) for t in ("qa", "qar")]), opts
+
+
+def vcr_batches(torch, root, n, transfer_dtype):
+    """The first ``n`` batches of ``train_vcr``'s loader over the DB (the
+    bucket grid and 4000-token budget of its config) and the batch of its
+    largest bucket in one epoch, on the card."""
+    from uniter_tpu_torch.data.loader import BucketLoader
+    from uniter_tpu_torch.data.vcr import VcrDataset
+    from uniter_tpu_torch.training.driver import bucket_spec
+    from uniter_tpu_torch.training.loop import train_batch_to_device
+
+    ds, opts = vcr_datasets(root)
+    loader = BucketLoader(ds, bucket_spec(opts, ds), seed=SEED,
+                          collate=VcrDataset.collate, drop_last=False)
+    host, largest = [], None
+    for b in loader:
+        if len(host) < n:
+            host.append(b)
+        if largest is None or (b["attn_mask"].shape[1]
+                               > largest["attn_mask"].shape[1]):
+            largest = b
+    loader.close()
+    return [train_batch_to_device(b, torch.device("cuda"), transfer_dtype)
+            for b in host + [largest]]
+
+
+def make_task_trainer(torch, model, loss, lr, warmup, total,
+                      lr_mul_paths=(), loss_scale="sum"):
+    """Fused AdamW with bf16 moments (betas (0.9, 0.98), eps 1e-6, wd 0.01,
+    clip 2.0), the task's schedule, and its step."""
+    from uniter_tpu_torch.training.optim import build_optimizer
+    from uniter_tpu_torch.training.sched import get_lr_schedule
+    from uniter_tpu_torch.training.step import TrainState, make_train_step
+
+    model.to("cuda")
+    opt = build_optimizer(model, get_lr_schedule(lr, warmup, total),
+                          betas=(0.9, 0.98), eps=1e-6, weight_decay=0.01,
+                          grad_norm=2.0, fused=True, mu_dtype=torch.bfloat16,
+                          nu_dtype=torch.bfloat16,
+                          lr_mul_paths=lr_mul_paths)
+    return (TrainState(step=0, model=model, opt=opt),
+            make_train_step(lambda m, b, g: (loss(m, b, g), {}),
+                            loss_scale=loss_scale))
+
+
+def two_policy_configs(base):
+    cfgs = policy_configs(base)
+    cfgs.pop("K1/K2")
+    return cfgs
+
+
+def vcr_model(torch, cfg, sd):
+    from uniter_tpu_torch.models.vcr import UniterForVisualCommonsenseReasoning
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    model = UniterForVisualCommonsenseReasoning(cfg, IMG_DIM)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def vcr_config(**kw):
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models.vcr import NUM_SPECIAL_TOKENS
+
+    return base_config(type_vocab_size=4,
+                       vocab_size=28996 + NUM_SPECIAL_TOKENS, **kw)
+
+
+def task_state_dict(torch, cfg, head):
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    return {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+        jax_layout_params(cfg, 0, IMG_DIM, SEED, head=head)).items()}
+
+
+def vcr_phase(torch):
+    """The VCR fine-tune step at uniter-base (4 type rows, 28996 + 81
+    words) on batches of ``train_vcr``'s loader (qa and qar, 4000 tokens),
+    bf16, dropout 0.1, under plain and K1-K6 in turns; launches per step,
+    step-1 agreement, rows/s, a profile of the largest bucket, and 2-layer
+    fp32 runs of K1-K6 against plain."""
+    from uniter_tpu_torch.train_vcr import vcr_loss
+
+    root = vcr_dbs()
+    base = vcr_config(dtype="bfloat16", hidden_dropout_prob=RATE,
+                      attention_probs_dropout_prob=RATE)
+    sd = task_state_dict(torch, base, "vcr")
+    batches = vcr_batches(torch, root, 6, torch.bfloat16)
+    largest = batches.pop()
+    shapes = sorted({tuple(b["attn_mask"].shape) for b in batches})
+    b_l, s_l = largest["attn_mask"].shape
+    print(f"[vcr] {len(batches)} batches of rows x (T + R) {shapes}; the "
+          f"largest bucket of the epoch ({b_l}, {s_l}); K1/K2 at the "
+          f"config's largest bucket {TRAIN_SHAPES[-1]} are in the k2 phase")
+    trainers = {name: make_task_trainer(
+        torch, vcr_model(torch, cfg, sd), vcr_loss, 6e-5, 800, 8000)
+        for name, cfg in two_policy_configs(base).items()}
+    secs, losses, rows, total, steps = run_policies(torch, trainers, batches,
+                                                    len(batches))
+    rps = {n: rows[n] / sum(v) for n, v in secs.items()}
+    print(f"[vcr] uniter-base VCR step, bf16 over fp32 parameters, dropout "
+          f"{RATE}, fused AdamW bf16 moments: rows/s " + ", ".join(
+              f"{n} {v:.1f}" for n, v in rps.items())
+          + f" (turns of {len(batches)} steps: plain, K1-K6, K1-K6, plain; "
+          "host clock, each turn ends in the loss readback)")
+    check_launches(total, steps, STEP_LAUNCHES, "vcr")
+    rel1 = step1_agreement(losses, "vcr", int(batches[0]["ex_weight"].sum()),
+                           2)
+    busy = {}
+    for name in ("K1-K6", "plain"):
+        state, step = trainers[name]
+        busy[name] = profile_steps(torch, state, step, largest, 3,
+                                   "vcr_" + name.replace("/", "_"),
+                                   label="vcr")[1]
+    print(f"[vcr] largest bucket ({b_l}, {s_l}): device busy ms a step "
+          + ", ".join(f"{n} {v['busy_ms'] / 3:.2f}" for n, v in busy.items())
+          + "; wall ms a step " + ", ".join(
+              f"{n} {v['wall_ms'] / 3:.2f}" for n, v in busy.items()))
+    del trainers
+    torch.cuda.empty_cache()
+    small = task_two_layer(torch, "vcr", batches[0], vcr_loss,
+                           vcr_config(**TWO_LAYER), "vcr", vcr_model)
+    return {"launches": total, "steps": steps, "rows_per_s": rps,
+            "step1_rel": rel1, "two_layer": small, "largest": (b_l, s_l)}
+
+
+TWO_LAYER = dict(num_hidden_layers=2, dtype="float32",
+                 hidden_dropout_prob=RATE, attention_probs_dropout_prob=RATE)
+
+
+def task_two_layer(torch, tag, batch, loss, base, head, make_model):
+    """2 layers at base width in fp32 (``base``), dropout 0.1, 3 steps of
+    K1-K6 and of plain on one batch: losses within 1e-5 relative, the fused
+    tails launched on the K1-K6 path."""
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in batch.items()}
+    sd = task_state_dict(torch, base, head)
+    losses = {}
+    for name, cfg in two_policy_configs(base).items():
+        reset_launches()
+        state, step = make_task_trainer(torch, make_model(torch, cfg, sd),
+                                        loss, 1e-4, 10, 100)
+        losses[name] = [float(step(state, batch, SEED)[1]["loss"])
+                        for _ in range(3)]
+        tails = sum(v for k, v in read_launches().items()
+                    if not k.startswith("mha"))
+        check((tails > 0) == (name == "K1-K6"),
+              f"{tag} 2-layer {name}: {tails} tail launches")
+    rel = max(abs(a - c) / abs(c) for a, c in zip(losses["K1-K6"],
+                                                  losses["plain"]))
+    print(f"[{tag}] fp32, dropout {RATE}, 2 layers, 3 steps: losses "
+          + "; ".join(f"{n} {v}" for n, v in losses.items())
+          + f"; max relative diff {rel:.2e} (tol 1e-5)")
+    check(rel <= 1e-5, f"{tag}: fp32 losses differ from plain")
+    return rel
+
+
+def vcr_serve_phase(torch):
+    """``inf_vcr``'s loop in fp32 over the val and test splits of the VCR
+    DB, through K1 and through the plain attention: launches (K1 alone, 12
+    a batch), the same argmax in every qa and qar group, scores within
+    1e-3, examples/s."""
+    from uniter_tpu_torch.config import resolve_kernel_policies
+    from uniter_tpu_torch.data.buckets import spec_from_dataset
+    from uniter_tpu_torch.data.loader import BucketLoader
+    from uniter_tpu_torch.inf_vcr import score_examples
+    from uniter_tpu_torch.train_vcr import score_groups
+    from uniter_tpu_torch.training import infer
+
+    root = vcr_dbs()
+    base = vcr_config(dtype="float32")
+    sd = task_state_dict(torch, base, "vcr")
+    models = {impl: vcr_model(torch, resolve_kernel_policies(
+        base.replace(attention_impl=impl), "cuda"), sd).cuda().eval()
+        for impl in ("cuda", "xla")}
+    out = {}
+    for split in ("val", "test"):
+        ds = vcr_datasets(root, split)
+        loader = BucketLoader(ds, spec_from_dataset(ds, TOKEN_BUDGET),
+                              shuffle=False, drop_last=False,
+                              collate=ds.collate_fn)
+        n_batches = len(loader)
+        scores, secs = {}, {}
+        for impl in ("xla", "cuda", "cuda", "xla"):
+            if impl == "cuda":
+                reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            groups = []
+            for batch, o in infer.eval_batches(
+                    lambda b, m=models[impl]: m(b, False), loader, "cuda"):
+                s = o.float().cpu().numpy()[:, 0]
+                groups += [(qa, qar) for _, qa, qar in score_groups(batch, s)]
+            secs.setdefault(impl, []).append(time.perf_counter() - t0)
+            scores[impl] = groups
+            if impl == "cuda":
+                counts = read_launches()
+                want = {k: 12 * n_batches if k == "mha_fwd" else 0
+                        for k in KERNELS}
+                check(counts == want, f"vcr_serve {split}: launches {counts}"
+                      f", want {want}")
+        n_ex = len(scores["cuda"])
+        check(n_ex == len(ds) == len(scores["xla"]), "example count")
+        err, same = 0.0, True
+        for (qa_k, qar_k), (qa_x, qar_x) in zip(scores["cuda"],
+                                                scores["xla"]):
+            check(np.isfinite(qa_k).all() and np.isfinite(qar_k).all(),
+                  "non-finite scores")
+            err = max(err, float(np.abs(qa_k - qa_x).max()),
+                      float(np.abs(qar_k - qar_x).max()))
+            same &= int(qa_k.argmax()) == int(qa_x.argmax())
+            for g in range(0, len(qar_k), 4):
+                same &= (int(qar_k[g:g + 4].argmax())
+                         == int(qar_x[g:g + 4].argmax()))
+        logs, rows = score_examples(models["cuda"], loader, "cuda", split)
+        eps = {impl: n_ex * len(v) / sum(v) for impl, v in secs.items()}
+        print(f"[vcr_serve] {split}: {n_ex} questions ({ds.rows_per_example} "
+              f"rows each) in {n_batches} batches, fp32: K1 {12 * n_batches}"
+              f" launches, nothing else; scores max|diff| {err:.3e} (tol "
+              f"1e-3), same argmax in every qa/qar group: {same}; "
+              f"questions/s kernel {eps['cuda']:.1f}, plain {eps['xla']:.1f}"
+              f" (turns plain, kernel, kernel, plain); inf_vcr "
+              + (f"val {logs}" if split == "val" else
+                 f"test {len(rows)} submission rows"))
+        check(err <= 1e-3 and same, f"vcr_serve {split}: kernel and plain "
+              "scores differ")
+        check(split == "val" or len(rows) == n_ex, "submission rows")
+        out[split] = {"err": err, "n_batches": n_batches, "q_per_s": eps}
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def re_batch(torch, b, t, r, img_dim, transfer_dtype, seed):
+    """A fixed RE batch: expressions of 4-``t`` tokens, 10-``r`` gt
+    regions, the target one of them, non-objects masked."""
+    from uniter_tpu_torch.training.loop import train_batch_to_device
+
+    rng = np.random.RandomState(seed)
+    tl = rng.randint(4, t + 1, b)
+    nb = rng.randint(10, r + 1, b)
+    attn = np.concatenate([np.arange(t) < tl[:, None],
+                           np.arange(r) < nb[:, None]], 1).astype(np.int32)
+    batch = dict(
+        input_ids=(rng.randint(1000, 28996, (b, t))
+                   * (np.arange(t) < tl[:, None])).astype(np.int32),
+        position_ids=np.tile(np.arange(t, dtype=np.int32), (b, 1)),
+        img_feat=rng.randn(b, r, img_dim).astype(np.float32),
+        img_pos_feat=rng.rand(b, r, 7).astype(np.float32),
+        attn_mask=attn, obj_masks=(np.arange(r) >= nb[:, None]),
+        targets=(rng.rand(b) * nb).astype(np.int32),
+        ex_weight=np.ones(b, np.float32))
+    return train_batch_to_device(batch, torch.device("cuda"), transfer_dtype)
+
+
+def re_model(torch, cfg, sd, **kw):
+    from uniter_tpu_torch.models.re import (
+        UniterForReferringExpressionComprehension)
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    model = UniterForReferringExpressionComprehension(cfg, IMG_DIM, **kw)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def re_phase(torch):
+    """The RE fine-tune step at uniter-base on a fixed batch at
+    ``configs/train-refcoco-base-tpu.json``'s shapes (128 expressions,
+    ``max_txt_len`` 60, up to 100 gt regions), bf16, dropout 0.1: the cls
+    loss under plain and K1-K6 in turns (launches per step, step-1
+    agreement, examples/s), a 2-layer fp32 run; then 5 steps of the rank
+    loss through K1-K6 with its negatives drawn on the card: finite
+    losses, the hard share, easy negatives never the target or padding, a
+    replay from the same (seed, step) drawing the same indices."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models import re as re_mod
+    from uniter_tpu_torch.train_re import re_loss
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    b, t, r = RE_SHAPE
+    base = base_config(dtype="bfloat16", hidden_dropout_prob=RATE,
+                       attention_probs_dropout_prob=RATE)
+    sd = task_state_dict(torch, base, "re1")
+    batch = re_batch(torch, b, t, r, IMG_DIM, torch.bfloat16, SEED)
+    trainers = {name: make_task_trainer(
+        torch, re_model(torch, cfg, sd), re_loss, 1e-4, 1500, 24000,
+        loss_scale="mean") for name, cfg in two_policy_configs(base).items()}
+    secs, losses, rows, total, steps = run_policies(torch, trainers, [batch],
+                                                    5)
+    eps = {n: rows[n] / sum(v) for n, v in secs.items()}
+    print(f"[re] uniter-base RE step (cls), B={b}, T={t}, R={r}, bf16, "
+          f"dropout {RATE}: examples/s " + ", ".join(
+              f"{n} {v:.1f}" for n, v in eps.items())
+          + " (turns of 5 steps: plain, K1-K6, K1-K6, plain)")
+    check_launches(total, steps, STEP_LAUNCHES, "re")
+    rel1 = step1_agreement(losses, "re", b, r)
+    del trainers
+    torch.cuda.empty_cache()
+    small = task_two_layer(torch, "re", batch, re_loss,
+                           base_config(**TWO_LAYER), "re1", re_model)
+
+    # the rank loss: every draw recorded with its generator's seed
+    cfg = two_policy_configs(base)["K1-K6"]
+    state, step = make_task_trainer(
+        torch, re_model(torch, cfg, sd, loss_type="rank", hard_ratio=0.3),
+        re_loss, 1e-4, 1500, 24000, loss_scale="mean")
+    draws = []
+    sample_neg = re_mod.sample_neg
+
+    def recording(scores, targets, masks, ratio, generator):
+        seed = generator.initial_seed()
+        neg = sample_neg(scores, targets, masks, ratio, generator)
+        draws.append((scores.clone(), targets.clone(), masks.clone(), seed,
+                      neg.clone()))
+        return neg
+
+    re_mod.sample_neg = recording
+    try:
+        rank_losses = [float(step(state, batch, SEED)[1]["loss"])
+                       for _ in range(5)]
+    finally:
+        re_mod.sample_neg = sample_neg
+    check(len(draws) == 5 and all(np.isfinite(rank_losses)),
+          f"rank loss: {rank_losses}, {len(draws)} draws")
+    n_differ = n_hard = 0
+    for scores, targets, masks, seed, neg in draws:
+        def again(ratio):
+            return sample_neg(scores, targets, masks, ratio,
+                              torch.Generator("cuda").manual_seed(seed))
+
+        check(torch.equal(again(0.3), neg), "a replay drew other indices")
+        easy, hard = again(0.0), again(1.0)
+        check(not (easy == targets.long()).any()
+              and not masks.gather(1, easy[:, None]).any(),
+              "an easy negative is the target or padding")
+        check(((neg == hard) | (neg == easy)).all(), "a negative is neither")
+        differ = easy != hard
+        n_differ += int(differ.sum())
+        n_hard += int((neg[differ] == hard[differ]).sum())
+    share = n_hard / max(n_differ, 1)
+    print(f"[re] rank loss, 5 steps through K1-K6: losses "
+          f"{[round(x, 5) for x in rank_losses]}; hard share {share:.3f} "
+          f"over {n_differ} draws where the two differ (hard_ratio 0.3 "
+          f"+- 0.1); easy negatives never the target or padding; each "
+          f"step's draw replayed bit for bit from its seed")
+    check(abs(share - 0.3) <= 0.1, f"hard share {share}")
+    del state, step
+    torch.cuda.empty_cache()
+    return {"launches": total, "steps": steps, "ex_per_s": eps,
+            "step1_rel": rel1, "two_layer": small, "hard_share": share}
+
+
+def write_re_dbs(root, n_img, seed):
+    """A gt img DB of ``n_img`` images (3-60 regions) and two RE txt DBs
+    (``txt``: 2 refs an image, 2 expressions of 3-20 tokens each; ``txt2``:
+    the first half of the images), with the port's writers."""
+    from uniter_tpu_torch.data.img_db import write_img_db
+    from uniter_tpu_torch.data.re import gt_fname
+    from uniter_tpu_torch.data.txt_db import write_txt_db
+
+    rng = np.random.default_rng(seed)
+    pool, soft = feature_pools(rng)
+    ids = list(range(1000, 1000 + n_img))
+    recs = list(feature_records(rng, [gt_fname(i) for i in ids], 3, 60, pool,
+                                soft))
+    write_img_db(os.path.join(root, "img"), recs, conf_th=0.2, max_bb=100,
+                 min_bb=1)
+    images, anns, sents, refs = [], [], {}, []
+    for iid, (_, rec) in zip(ids, recs):
+        n = len(rec["features"])
+        bb = rec["norm_bb"].astype(np.float32)
+        ann_ids = [iid * 1000 + k for k in range(n)]
+        images.append(dict(id=iid, file_name=f"{iid}.jpg", ann_ids=ann_ids,
+                           height=480, width=640))
+        anns += [dict(id=a, area=100, image_id=iid, category_id=1,
+                      iscrowd=0, bbox=[float(bb[k, 0] * 640),
+                                       float(bb[k, 1] * 480),
+                                       float(bb[k, 4] * 640),
+                                       float(bb[k, 5] * 480)])
+                 for k, a in enumerate(ann_ids)]
+        for _ in range(2):
+            k = int(rng.integers(0, n))
+            sids = []
+            for _ in range(2):
+                sid = len(sents)
+                sents[str(sid)] = dict(
+                    sent_id=sid, ref_id=len(refs), ann_id=ann_ids[k],
+                    image_id=iid, bbox=anns[-n + k]["bbox"],
+                    input_ids=[int(x) for x in rng.integers(
+                        999, 28996, int(rng.integers(3, 21)))],
+                    img_fname=gt_fname(iid))
+                sids.append(sid)
+            refs.append(dict(ref_id=len(refs), ann_id=ann_ids[k],
+                             image_id=iid, split="train", sent_ids=sids))
+    meta = {"CLS": 101, "SEP": 102, "MASK": 103, "v_range": [999, 28996]}
+    for name, keep in (("txt", set(ids)), ("txt2", set(ids[:n_img // 2]))):
+        path = os.path.join(root, name)
+        part = {k: s for k, s in sents.items() if s["image_id"] in keep}
+        write_txt_db(path, part, meta,
+                     {k: s["img_fname"] for k, s in part.items()})
+        for fname, obj in (
+                ("refs", [x for x in refs if x["image_id"] in keep]),
+                ("annotations", [a for a in anns if a["image_id"] in keep]),
+                ("categories", [dict(id=1, name="object")]),
+                ("images", [i for i in images if i["id"] in keep])):
+            with open(os.path.join(path, f"{fname}.json"), "w") as f:
+                json.dump(obj, f)
+    return len(sents)
+
+
+def run_cli(module, conf, extra=()):
+    """``module.main`` on a config JSON (as ``python -m`` runs it); the
+    kernels' launches of the run."""
+    from uniter_tpu_torch.utils.misc import parse_with_config
+
+    path = conf.pop("_path")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    reset_launches()
+    state = module.main(parse_with_config(module.get_parser(),
+                                          ["--config", path, *extra]))
+    conf["_path"] = path
+    return state, read_launches()
+
+
+def task_cli_phase(torch):
+    """The new CLIs end to end at uniter-base on the card, on DBs written
+    with the port's writers: ``train_ve`` 5 steps and a resume to 7;
+    ``train_re`` validating every 2 steps (the best export and its
+    sidecar), then ``inf_re --ckpt best`` on two colon-separated splits;
+    ``train_vcr --tasks qa,qar`` 4 steps, then ``inf_vcr`` on val and test;
+    ``pretrain_vcr`` (mlm / mrfr / mrc-kl) 6 steps and a resume to 8."""
+    from uniter_tpu_torch import (inf_re, inf_vcr, pretrain_vcr, train_re,
+                                  train_ve, train_vcr)
+
+    work = scratch_dir("chip_smoke_tasks_")
+    model_config = os.path.join(REPO, "configs", "uniter-base.json")
+    common = dict(model_config=model_config, device="cuda", checkpoint="",
+                  n_workers=2, log_steps=2, moment_dtype="bfloat16")
+    times = {}
+
+    t0 = time.perf_counter()
+    ve = os.path.join(work, "ve")
+    write_vqa_dbs(ve, 100, 400, SEED, n_labels=3)
+    out = os.path.join(ve, "run")
+    conf = dict(common, _path=os.path.join(ve, "train.json"),
+                train_txt_db=os.path.join(ve, "txt"),
+                train_img_db=os.path.join(ve, "img"),
+                val_txt_db=os.path.join(ve, "txt"),
+                val_img_db=os.path.join(ve, "img"), output_dir=out,
+                num_train_steps=5, valid_steps=5, train_batch_size=5120,
+                val_batch_size=10240)
+    state, ve_counts = run_cli(train_ve, conf)
+    check(state.step == 5, f"train_ve stopped at {state.step}")
+    check(state.model.vqa_output[3].weight.shape[0] == 3, "VE head width")
+    del state
+    state, _ = run_cli(train_ve, conf, ["--num_train_steps", "7"])
+    check(state.step == 7, f"resumed train_ve stopped at {state.step}")
+    del state
+    with open(os.path.join(out, "log", "log.txt")) as f:
+        check("resumed from step 5" in f.read(), "train_ve did not resume")
+    times["train_ve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    re_root = os.path.join(work, "re")
+    n_sent = write_re_dbs(re_root, 80, SEED)
+    out = os.path.join(re_root, "run")
+    conf = dict(common, _path=os.path.join(re_root, "train.json"),
+                train_txt_db=os.path.join(re_root, "txt"),
+                train_img_db=os.path.join(re_root, "img"),
+                val_txt_db=os.path.join(re_root, "txt"),
+                val_img_db=os.path.join(re_root, "img"), output_dir=out,
+                num_train_steps=4, valid_steps=2, train_batch_size=128,
+                val_batch_size=8192, max_bb=100, min_bb=1, seed=24,
+                warmup_steps=1500)
+    state, re_counts = run_cli(train_re, conf)
+    check(state.step == 4, f"train_re stopped at {state.step}")
+    del state
+    ckpt = os.path.join(out, "ckpt")
+    with open(os.path.join(ckpt, "model_step_best.json")) as f:
+        best = json.load(f)
+    accs = [json.loads(line) for line in open(
+        os.path.join(out, "log", "scalars.jsonl")) if "valid/acc" in line]
+    check(os.path.exists(os.path.join(ckpt, "model_step_best.pt"))
+          and best["value"] == max(a["valid/acc"] for a in accs),
+          f"best export {best} vs validations {accs}")
+    pred = os.path.join(re_root, "pred")
+    acc = inf_re.main(inf_re.get_parser().parse_args([
+        "--txt_db", os.path.join(re_root, "txt") + ":"
+        + os.path.join(re_root, "txt2"),
+        "--img_db", os.path.join(re_root, "img"), "--train_dir", out,
+        "--output_dir", pred, "--use_gt_feat", "--ckpt", "best",
+        "--device", "cuda"]))
+    res = {n: json.load(open(os.path.join(pred, f"results_{n}_gt.json")))
+           for n in ("txt", "txt2")}
+    check(res["txt"]["n_ex"] == n_sent and len(res["txt"]["predictions"])
+          == n_sent and res["txt2"]["n_ex"] == n_sent // 2,
+          f"inf_re results {[(n, r['n_ex']) for n, r in res.items()]}")
+    times["train_re + inf_re"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    root = vcr_dbs()
+    out = os.path.join(work, "vcr_run")
+    conf = dict(common, _path=os.path.join(work, "vcr.json"),
+                train_txt_db=os.path.join(root, "txt"),
+                train_img_db=os.path.join(root, "img"),
+                train_img_db_gt=os.path.join(root, "img_gt"),
+                val_txt_db=os.path.join(root, "txt_val"),
+                val_img_db=os.path.join(root, "img"),
+                val_img_db_gt=os.path.join(root, "img_gt"), output_dir=out,
+                tasks="qa,qar", num_train_steps=4, valid_steps=4,
+                train_batch_size=4000, val_batch_size=8192,
+                **{k: VCR_OPTS[k] for k in ("max_txt_len", "conf_th",
+                                            "max_bb", "min_bb", "num_bb")})
+    state, vcr_counts = run_cli(train_vcr, conf)
+    check(state.step == 4, f"train_vcr stopped at {state.step}")
+    del state
+    args = ["--txt_db", os.path.join(root, "txt_val"), "--img_db",
+            os.path.join(root, "img"), "--img_db_gt",
+            os.path.join(root, "img_gt"), "--train_dir", out,
+            "--output_dir", os.path.join(work, "vcr_pred"), "--device",
+            "cuda"]
+    logs = inf_vcr.main(inf_vcr.get_parser().parse_args(args))
+    csv_path = inf_vcr.main(inf_vcr.get_parser().parse_args(
+        args + ["--split", "test"]))
+    with open(csv_path) as f:
+        sub = [line.strip().split(",") for line in f if line.strip()]
+    check(logs["n_ex"] == 64 and len(sub) == 65 and len(sub[0]) == 21,
+          f"inf_vcr: {logs}, {len(sub)} csv rows")
+    times["train_vcr + inf_vcr"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = os.path.join(work, "pretrain_vcr")
+    tasks = [{"name": "vcr", "db": os.path.join(root, "txt"),
+              "vcr_task": "qar", "tasks": ["mlm", "mrfr", "mrc-kl"],
+              "mix_ratio": [2, 1, 1]}]
+    conf = dict(common, _path=os.path.join(work, "pretrain_vcr.json"),
+                train_img_db=os.path.join(root, "img"),
+                train_img_db_gt=os.path.join(root, "img_gt"),
+                train_datasets=tasks, val_datasets=[], output_dir=out,
+                num_train_steps=6, valid_steps=6, train_batch_size=6144,
+                **{k: VCR_OPTS[k] for k in ("max_txt_len", "conf_th",
+                                            "max_bb", "min_bb", "num_bb")})
+    state, pre_counts = run_cli(pretrain_vcr, conf)
+    check(state.step == 6, f"pretrain_vcr stopped at {state.step}")
+    del state
+    state, _ = run_cli(pretrain_vcr, conf, ["--num_train_steps", "8"])
+    check(state.step == 8, f"resumed pretrain_vcr stopped at {state.step}")
+    del state
+    with open(os.path.join(out, "log", "log.txt")) as f:
+        log = f.read()
+    check("resumed from step 6" in log and "fast-forwarded task mix by 6"
+          in log, "pretrain_vcr did not resume")
+    times["pretrain_vcr"] = time.perf_counter() - t0
+    counts = {"train_ve": ve_counts, "train_re": re_counts,
+              "train_vcr": vcr_counts, "pretrain_vcr": pre_counts}
+    for name, c in counts.items():
+        check(all((v > 0) == (STEP_LAUNCHES[k] > 0) for k, v in c.items()),
+              f"{name}'s default flags did not run K1-K6 alone: {c}")
+    print(f"[task_cli] train_ve 5 steps + resume to 7, train_re 4 steps "
+          f"(validate every 2; best export at step {best['step']}, acc "
+          f"{best['value']:.4f}) + inf_re --ckpt best on 2 splits (acc "
+          f"{acc:.4f}), train_vcr qa,qar 4 steps + inf_vcr val ({logs}) and "
+          f"test ({len(sub) - 1} rows), pretrain_vcr mlm/mrfr/mrc-kl 6 steps "
+          f"+ resume to 8; seconds " + ", ".join(
+              f"{k} {v:.1f}" for k, v in times.items())
+          + f"; launches {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv):
     """No arguments: every phase, the kernels line and the last line. Phase
     names (``PHASES``): the device and build phases, then those phases
@@ -3396,6 +4138,10 @@ def main(argv):
     hn = hn_phase(torch)
     serve_itm = itm_serve_phase(torch)
     itm_cli_counts = itm_cli_phase(torch)
+    vcr = vcr_phase(torch)
+    vcr_serve = vcr_serve_phase(torch)
+    re_res = re_phase(torch)
+    task_counts = task_cli_phase(torch)
     t = k2_time[TRAIN_SHAPES[0] + ("bfloat16",)]
     t32 = k2_time[TRAIN_SHAPES[0] + ("float32",)]
     kernels = []
@@ -3508,6 +4254,12 @@ def main(argv):
           f"versions; K7: ipot_cuda), device_ms and library_device_ms "
           f"device times (20 (K1/K2) or 50 calls captured in one CUDA graph "
           f"and replayed; K7: ipot_cuda's calls)")
+    print(f"[smoke] K1-K6 on the RE/VCR/VE paths: VCR step "
+          f"{vcr['launches']} over {vcr['steps']} steps (rows/s "
+          f"{vcr['rows_per_s']}), RE step {re_res['launches']} over "
+          f"{re_res['steps']} steps, K1 in VCR serving "
+          f"{ {k: v['n_batches'] * 12 for k, v in vcr_serve.items()} }, the "
+          f"task CLIs {task_counts}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3522,7 +4274,9 @@ PHASES = {"sass": sass_phase, "k1": k1_phase, "k2": k2_phase,
           "train32": train32_phase, "serve": main_path_phase,
           "train": train_phase, "nlvr2": nlvr2_phase, "k7": k7_phase,
           "k8": k8_phase, "pretrain": pretrain_phase, "k9": k9_phase,
-          "itm": itm_train_phase}
+          "itm": itm_train_phase, "vcr": vcr_phase,
+          "vcr_serve": vcr_serve_phase, "re": re_phase,
+          "task_cli": task_cli_phase}
 
 
 if __name__ == "__main__":

@@ -198,7 +198,8 @@ def _bwd_inputs(gen, b, s, h, d, dtype):
                                      (3, 13, 12, 64), (4, 70, 4, 128),
                                      (2, 33, 3, 8), (48, 224, 12, 64),
                                      (120, 128, 12, 64), (64, 172, 12, 64),
-                                     (96, 104, 16, 64), (2, 512, 2, 128)])
+                                     (96, 104, 16, 64), (2, 512, 2, 128),
+                                     (8, 352, 12, 64)])
 def test_mha_bwd_kernel_matches_plain(gen, dtype, rate, b, s, h, d):
     """The one-pass K2 from K1's out and LSE (fp32: and the LSE's
     remainder; bf16: and the output's remainder) against
@@ -246,7 +247,8 @@ def test_mha_bwd_kernel_matches_plain(gen, dtype, rate, b, s, h, d):
 @pytest.mark.parametrize("b,s,h,d", [(96, 104, 12, 64), (48, 224, 12, 64),
                                      (120, 128, 12, 64), (64, 172, 12, 64),
                                      (8, 512, 12, 64), (96, 104, 16, 64),
-                                     (4, 70, 4, 128), (2, 33, 3, 8)])
+                                     (4, 70, 4, 128), (2, 33, 3, 8),
+                                     (8, 352, 12, 64)])
 def test_mha_tc_forward_matches_plain(gen, rate, b, s, h, d, dtype):
     """K1 at the training shapes against ``_mha_torch`` in fp32 on the same
     inputs, the LSE to 1e-5 + 2**-20 |ref|. bf16: the output to 1e-2 +
@@ -1103,3 +1105,63 @@ def test_retrieval_step_through_ffn_kernel(gen):
         assert ffn_fwd.launches - before == (6 if ffn_impl == "pallas" else 0)
     for a, c in zip(losses["pallas"], losses["xla"]):
         assert abs(a - c) <= 1e-5 * abs(c) + 1e-6
+
+
+def test_re_rank_sampler_on_the_card(gen):
+    """``sample_neg`` on CUDA tensors with a CUDA generator: the hard
+    negative is the argmax without the target, easy ones are never the
+    target or padding, the hard share is ``hard_ratio`` within 0.02 where
+    the two differ, one seed gives one draw; an RE model's rank loss
+    replays from the step's generator on the card."""
+    from uniter_tpu_torch.models.re import (
+        NEG_FILL, UniterForReferringExpressionComprehension, sample_neg)
+    from uniter_tpu_torch.training.step import step_generator
+
+    b, n = 20000, 100
+    targets = torch.randint(0, 10, (b,), generator=gen, device="cuda")
+    n_valid = torch.maximum(
+        torch.randint(2, n + 1, (b,), generator=gen, device="cuda"),
+        targets + 2)
+    masks = torch.arange(n, device="cuda")[None] >= n_valid[:, None]
+    scores = torch.randn(b, n, generator=gen, device="cuda").masked_fill(
+        masks, NEG_FILL)
+
+    def draw(ratio, seed):
+        return sample_neg(scores, targets, masks, ratio,
+                          torch.Generator("cuda").manual_seed(seed))
+
+    hard = scores.masked_fill(
+        torch.nn.functional.one_hot(targets, n).bool(),
+        float("-inf")).argmax(-1)
+    assert torch.equal(draw(1.0, 0), hard)
+    easy = draw(0.0, 0)
+    assert easy.is_cuda and not (easy == targets).any()
+    assert not masks.gather(1, easy[:, None]).any()
+    mixed = draw(0.3, 0)
+    assert torch.equal(draw(0.3, 0), mixed)
+    assert not torch.equal(draw(0.3, 1), mixed)
+    differ = easy != hard
+    share = float((mixed[differ] == hard[differ]).float().mean())
+    assert abs(share - 0.3) < 0.02, share
+
+    cfg = resolve_kernel_policies(tiny_config(hidden_dropout_prob=0.1,
+                                              attention_probs_dropout_prob=0.1),
+                                  "cuda", training=True)
+    torch.manual_seed(0)
+    model = UniterForReferringExpressionComprehension(
+        cfg, img_dim=32, loss_type="rank").cuda().train()
+    g = torch.Generator("cuda").manual_seed(1)
+    batch = {"input_ids": torch.randint(1, 500, (8, 16), generator=g,
+                                        device="cuda"),
+             "position_ids": torch.arange(16, device="cuda").expand(8, 16),
+             "img_feat": torch.randn(8, 24, 32, generator=g, device="cuda"),
+             "img_pos_feat": torch.rand(8, 24, 7, generator=g,
+                                        device="cuda"),
+             "attn_mask": torch.ones(8, 40, dtype=torch.int32,
+                                     device="cuda"),
+             "targets": torch.arange(8, device="cuda")}
+    a = model(batch, True, deterministic=False,
+              generator=step_generator(5, 2))
+    b2 = model(batch, True, deterministic=False,
+               generator=step_generator(5, 2))
+    assert torch.isfinite(a).all() and torch.equal(a, b2)

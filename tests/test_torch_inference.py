@@ -195,6 +195,14 @@ def test_port_imports_without_jax():
         "import uniter_tpu_torch.inf_itm, uniter_tpu_torch.utils.itm_fast\n"
         "import uniter_tpu_torch.train_itm_hard_negatives\n"
         "import uniter_tpu_torch.utils.itm_eval\n"
+        "import uniter_tpu_torch.train_ve, uniter_tpu_torch.data.ve\n"
+        "import uniter_tpu_torch.train_re, uniter_tpu_torch.inf_re\n"
+        "import uniter_tpu_torch.data.re, uniter_tpu_torch.models.re\n"
+        "import uniter_tpu_torch.train_vcr, uniter_tpu_torch.inf_vcr\n"
+        "import uniter_tpu_torch.data.vcr, uniter_tpu_torch.models.vcr\n"
+        "import uniter_tpu_torch.pretrain_vcr\n"
+        "import uniter_tpu_torch.data.pretrain_vcr\n"
+        "import uniter_tpu_torch.models.pretrain_vcr\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'uniter_tpu')]\n"
         "assert not bad, bad\n"

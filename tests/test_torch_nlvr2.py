@@ -232,8 +232,8 @@ def test_train_steps_match_jax():
 
 def test_type_row_widening_matches_jax_driver(tmp_path):
     """A 2-row reference checkpoint into a 3-row NLVR2 trunk, both drivers;
-    a trunk key of another shape raises, as does a word table of another
-    size."""
+    a trunk key of another shape raises ``ValueError``, a word table of
+    another size too."""
     from uniter_tpu.training.driver import load_trunk_checkpoint as jax_load
     from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
     from uniter_tpu_torch.training.driver import load_trunk_checkpoint
@@ -269,9 +269,11 @@ def test_type_row_widening_matches_jax_driver(tmp_path):
         load_trunk_checkpoint(model, opts)
     with pytest.raises(ValueError, match="token_type_embeddings"):
         jax_load(_jax_params(jmodel, batch), opts, jcfg)
+    # a word table of another size raises as any trunk key does (the
+    # word widening is asked for with n_special_words, VCR's surgery)
     sd["uniter.embeddings.word_embeddings.weight"] = torch.zeros(7, 64)
     torch.save(sd, path)
-    with pytest.raises(NotImplementedError, match="word"):
+    with pytest.raises(ValueError, match="word"):
         load_trunk_checkpoint(model, opts, n_type_rows=3)
 
 

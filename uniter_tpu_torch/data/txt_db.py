@@ -3,7 +3,8 @@
 Records are lz4-frame-compressed msgpack; sidecar JSONs: ``meta.json``
 (CLS/SEP/MASK ids + v_range), ``id2len.json`` (length filter),
 ``txt2img.json`` / ``img2txts.json`` (pairing). Format-compatible with
-released UNITER txt DBs.
+released UNITER txt DBs. ``msgpack`` is imported where a record is read or
+written, so the modules that subclass ``TxtTokDb`` import without it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from uniter_tpu_torch.data import lz4f
-from uniter_tpu_torch.data import msgpack_numpy as msgnp
 from uniter_tpu_torch.data.store import KVStore, open_store
 
 
@@ -29,6 +29,8 @@ class TxtDb:
         self.readonly = readonly
 
     def __getitem__(self, key: str):
+        from uniter_tpu_torch.data import msgpack_numpy as msgnp
+
         # view(): zero-copy value read on lmdbx stores (decompress consumes
         # the buffer immediately; the owned-bytes copy was pure overhead)
         return msgnp.unpackb(lz4f.decompress(self.store.view(key)))
@@ -36,6 +38,8 @@ class TxtDb:
     def __setitem__(self, key: str, value):
         if self.readonly:
             raise ValueError("readonly text DB")
+        from uniter_tpu_torch.data import msgpack_numpy as msgnp
+
         self.store.put(key, lz4f.compress(msgnp.packb(value)))
 
     def keys(self):
@@ -89,6 +93,8 @@ def write_txt_db(db_dir: str, records: Dict[str, dict], meta: dict,
     store="lmdb" bulk-writes a data.mdb via the native lmdbx engine (the
     reference's on-disk format); "dir" writes one file per key.
     """
+    from uniter_tpu_torch.data import msgpack_numpy as msgnp
+
     os.makedirs(db_dir, exist_ok=True)
     id2len = {}
     if store == "lmdb":

@@ -204,22 +204,29 @@ _WORD_KEY = "embeddings.word_embeddings.weight"
 
 
 def load_trunk_checkpoint(model, opts, *, n_type_rows: Optional[int] = None,
-                          type_copy_row: int = 1,
+                          type_copy_row: int = 1, n_special_words: int = 0,
                           extra: Optional[Callable] = None):
     """Load ``--checkpoint`` (a reference or exported ``.pt``) into the
-    ``uniter`` trunk, with the JAX package's token-type surgery
-    (``uniter_tpu/training/driver.py`` ``load_trunk_checkpoint``): with
-    ``n_type_rows`` the file's type rows fill the first rows of the
-    model's table and row ``type_copy_row`` of the file is copied into
-    every row past them (NLVR2: 2 rows -> 3, row 1 into row 2, reference
-    model/nlvr2.py:26-34). Keys the trunk does not have are skipped; a
-    trunk key the file lacks keeps its initial value, as the JAX merge
-    does. A trunk key whose shape differs (after the widening) raises
-    ``ValueError`` with the key and both shapes, as that merge does
-    (``strict_shapes=True``); a word table of another size (VCR's word
-    widening, not ported) raises with its own message. ``extra(model, sd)``
-    then loads what lies outside the trunk (the pretraining heads) from the
-    same normalized state dict."""
+    ``uniter`` trunk, with the JAX package's surgeries
+    (``uniter_tpu/training/driver.py`` ``load_trunk_checkpoint``):
+
+    * token-type widening: with ``n_type_rows`` the file's type rows fill
+      the first rows of the model's table and row ``type_copy_row`` of the
+      file is copied into every row past them (NLVR2: 2 rows -> 3, row 1
+      into row 2, reference model/nlvr2.py:26-34; VCR: 2 -> 4, row 0 into
+      rows 2 and 3, model/vcr.py:32-41);
+    * word widening: with ``n_special_words`` the file's word rows fill the
+      first rows of the model's table and the rows past them keep their
+      initial values (VCR's 81 special tokens, model/vcr.py:42-50); a file
+      that already has the model's rows (a VCR-pretrained one) loads as it
+      is.
+
+    Keys the trunk does not have are skipped; a trunk key the file lacks
+    keeps its initial value, as the JAX merge does. A trunk key whose shape
+    differs (after the widening) raises ``ValueError`` with the key and
+    both shapes, as that merge does (``strict_shapes=True``).
+    ``extra(model, sd)`` then loads what lies outside the trunk (the
+    pretraining heads) from the same normalized state dict."""
     if not opts.checkpoint:
         return model
     sd = load_torch_checkpoint(opts.checkpoint)
@@ -229,22 +236,20 @@ def load_trunk_checkpoint(model, opts, *, n_type_rows: Optional[int] = None,
         if k not in own:
             continue
         v = torch.from_numpy(np.ascontiguousarray(v))
-        if k == _TYPE_KEY and n_type_rows is not None:
-            if (own[k].shape[0] != n_type_rows
-                    or v.shape[1:] != own[k].shape[1:]):
+        widen = ((k == _TYPE_KEY and n_type_rows is not None)
+                 or (k == _WORD_KEY and n_special_words > 0))
+        if widen:
+            if (v.shape[1:] != own[k].shape[1:]
+                    or v.shape[0] > own[k].shape[0]
+                    or (k == _TYPE_KEY and own[k].shape[0] != n_type_rows)):
                 raise ValueError(f"{k}: cannot widen {tuple(v.shape)} to "
-                                 f"{n_type_rows} rows of "
                                  f"{tuple(own[k].shape)}")
             new = own[k].clone()
             new[:v.shape[0]] = v
-            new[v.shape[0]:] = v[type_copy_row]
+            if k == _TYPE_KEY:
+                new[v.shape[0]:] = v[type_copy_row]
             v = new
         if tuple(own[k].shape) != tuple(v.shape):
-            if k == _WORD_KEY:
-                raise NotImplementedError(
-                    f"{k}: the checkpoint has {tuple(v.shape)}, the model "
-                    f"{tuple(own[k].shape)}; the word-widening surgery (VCR) "
-                    "is not ported")
             raise ValueError(
                 f"shape mismatch for uniter.{k}: ckpt {tuple(v.shape)} vs "
                 f"model {tuple(own[k].shape)}")
@@ -295,7 +300,8 @@ def bucket_spec(opts, dataset, budget=None) -> BucketSpec:
 def check_token_range(model_cfg, dataset, n_samples: int = 32):
     """Fail fast on ids past the embedding tables (the lookup clamps them,
     as the JAX package's does, which would otherwise train silently on the
-    wrong rows)."""
+    wrong rows). A record that holds its rows (VCR's candidates, NLVR2's
+    image pairs) is checked row by row."""
     n = len(dataset)
     if n == 0:
         return
@@ -312,12 +318,13 @@ def check_token_range(model_cfg, dataset, n_samples: int = 32):
         rec = dataset.get_record(i, rng)
         if not isinstance(rec, dict):
             return
-        m = deep_max(rec.get("input_ids", ()))
+        rows = rec.get("rows", [rec])
+        m = deep_max([r.get("input_ids", ()) for r in rows])
         if m is not None and m >= model_cfg.vocab_size:
             raise ValueError(
                 f"token id {m} >= vocab_size {model_cfg.vocab_size} "
                 f"(record {i})")
-        m = deep_max(rec.get("txt_type_ids", ()))
+        m = deep_max([r.get("txt_type_ids", ()) for r in rows])
         if m is not None and m >= model_cfg.type_vocab_size:
             raise ValueError(
                 f"type id {m} >= type_vocab_size "
@@ -325,17 +332,30 @@ def check_token_range(model_cfg, dataset, n_samples: int = 32):
 
 
 def run_training(opts, *, model, loss_fn, train_loader, validate_fn=None,
-                 lr_mul_paths: Sequence[str] = (), loss_scale: str = "sum"):
+                 lr_mul_paths: Sequence[str] = (), loss_scale: str = "sum",
+                 best_metric: Optional[str] = None):
     """Optimizer, train state (resumed from ``output_dir`` when it holds
-    one), and the loop. ``model`` is on ``opts.device`` already."""
+    one), and the loop. ``model`` is on ``opts.device`` already.
+
+    With ``best_metric`` the loop keeps ``ckpt/model_step_best.pt`` at the
+    best validation value of that metric (reference train_re.py:259-263):
+    a resumed run starts from the saved best value, a fresh run in a reused
+    ``output_dir`` first removes a previous run's best export, so ``--ckpt
+    best`` never resolves to another run's weights."""
     sched = get_lr_schedule(opts.learning_rate, opts.warmup_steps,
                             opts.num_train_steps)
     opt = build_optimizer(model, sched, lr_mul=getattr(opts, "lr_mul", 1.0),
                           lr_mul_paths=lr_mul_paths, **optim_kwargs(opts))
     state = TrainState(step=0, model=model, opt=opt)
     saver = TrainStateSaver(opts.output_dir)
+    best_value = None
     if saver.restore(state, seed=opts.seed) is not None:
         LOGGER.info("resumed from step %d", state.step)
+        info = saver.best_info() if best_metric else None
+        if info is not None:
+            best_value = float(info["value"])
+    elif best_metric:
+        saver.clear_best()
     ds = getattr(train_loader, "dataset", None)
     if ds is not None:
         check_token_range(model.uniter.config, ds)
@@ -349,7 +369,8 @@ def run_training(opts, *, model, loss_fn, train_loader, validate_fn=None,
         validate_fn=validate_fn, saver=saver, seed=opts.seed,
         transfer_dtype=None if cdt == torch.float32 else cdt,
         steps_per_call=getattr(opts, "steps_per_call", 1),
-        lr_schedule=sched, loss_scale=loss_scale)
+        lr_schedule=sched, loss_scale=loss_scale, best_metric=best_metric,
+        best_value=best_value)
     state = loop.run()
     LOGGER.info("training finished at step %d", state.step)
     return state

@@ -6,9 +6,10 @@ Step-based loop over an infinite bucketed loader, each batch copied to the
 device by the ``DevicePrefetcher`` thread (pinned, non-blocking) while the
 previous step computes; EMA loss meter and the reference's scalar names
 (``loss``, ``lr``, ``grad_norm``, ``perf/ex_per_s``, ``valid/*``);
-validation and checkpoints at ``valid_steps``; resume with the loader
-fast-forwarded past the batches the interrupted run consumed; SIGTERM
-preemption (checkpoint and clean exit).
+validation and checkpoints at ``valid_steps``, with the best export of a
+validation metric (``best_metric``) written by the same save; resume with
+the loader fast-forwarded past the batches the interrupted run consumed;
+SIGTERM preemption (checkpoint and clean exit).
 
 Loss readback is deferred to the log boundaries: ``float(loss)`` every
 step would make the host wait for the card each step. ``bound_inflight``
@@ -134,6 +135,8 @@ class TrainLoop:
         steps_per_call: int = 1,
         preempt=True,
         lr_schedule=None,
+        best_metric: Optional[str] = None,
+        best_value: Optional[float] = None,
     ):
         self.state = state
         self.device = torch.device(device)
@@ -149,6 +152,11 @@ class TrainLoop:
         self.transfer_dtype = transfer_dtype
         self.k = steps_per_call
         self.lr_schedule = lr_schedule
+        # best-checkpoint tracking on a validation metric (reference
+        # train_re.py:259-263): best_value seeds the running max (a resumed
+        # run passes the saved value, a fresh one None)
+        self.best_metric = best_metric
+        self.best_value = best_value
         if self.k > 1 and num_train_steps % self.k:
             LOGGER.warning(
                 "steps_per_call=%d does not divide num_train_steps=%d: the "
@@ -240,14 +248,22 @@ class TrainLoop:
             if self.valid_steps and _crossed(global_step, self.k,
                                              self.valid_steps):
                 flush()
+                improved = None
                 if self.validate_fn is not None:
                     logs = self.validate_fn(state, global_step)
                     if logs:
                         TB_LOGGER.log_scalar_dict(
                             {f"valid/{k}": v for k, v in logs.items()},
                             step=global_step)
+                    if self.best_metric and logs and self.best_metric in logs:
+                        v = float(logs[self.best_metric])
+                        if self.best_value is None or v > self.best_value:
+                            self.best_value = improved = v
                 if self.saver is not None:
-                    self.saver.save(global_step, state, self.seed)
+                    # an improvement rides the same save as
+                    # model_step_best.pt
+                    self.saver.save(global_step, state, self.seed,
+                                    best_value=improved)
                     last_saved = global_step
             if self.preempt is not None and self.preempt.poll():
                 flush()
@@ -261,7 +277,6 @@ class TrainLoop:
             self.saver.save(global_step, state, self.seed)
         self.state = state
         return state
-
 
 
 def pretrain_loss_units(task: str, batch) -> int:

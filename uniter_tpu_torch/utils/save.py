@@ -7,7 +7,9 @@ weights as ``ckpt/model_step_N.pt`` (a torch state dict in the reference
 ``.pt`` key layout, what ``inf_vqa`` and the reference load) and the rest of
 the train state as ``ckpt/train_state_N.pt`` (step, AdamW moments by
 parameter name, update count, gradient norm, the run's dropout seed), and
-restores the latest pair. The JAX package keeps its train state with
+restores the latest pair. A save that improves a validation metric also
+writes ``ckpt/model_step_best.pt`` and its sidecar ``model_step_best.json``
+(``{"step", "value"}``). The JAX package keeps its train state with
 Orbax; the port uses ``torch.save`` only.
 
 Weights-only snapshots written by the JAX package
@@ -114,7 +116,13 @@ class TrainStateSaver:
                       for m in [re.fullmatch(r"train_state_(\d+)\.pt", f)]
                       if m)
 
-    def save(self, step: int, state, seed: int = 0):
+    def save(self, step: int, state, seed: int = 0,
+             best_value: Optional[float] = None):
+        """Write the weights and the train state of ``step``. With
+        ``best_value`` the same host copy of the weights is also written
+        as ``model_step_best.pt``, with the sidecar
+        ``model_step_best.json`` ``{"step", "value"}`` (the reference's
+        ``model_saver.save(model, 'best')``, train_re.py:259-263)."""
         import torch
 
         weights = {k: _host(v) for k, v in state.model.state_dict().items()}
@@ -128,8 +136,36 @@ class TrainStateSaver:
             path = os.path.join(self.dir, name)
             torch.save(obj, path + ".tmp")
             os.replace(path + ".tmp", path)  # never half a file
+        if best_value is not None:
+            path = os.path.join(self.dir, "model_step_best.pt")
+            torch.save(weights, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            path = os.path.join(self.dir, "model_step_best.json")
+            with open(path + ".tmp", "w") as f:
+                json.dump({"step": int(step), "value": float(best_value)}, f)
+            os.replace(path + ".tmp", path)
+            LOGGER.info("new best checkpoint at step %d (%.4f)", step,
+                        best_value)
         for old in self._steps()[:-self.max_to_keep]:
             os.remove(os.path.join(self.dir, f"train_state_{old}.pt"))
+
+    def best_info(self) -> Optional[dict]:
+        """``{"step", "value"}`` of the best export, or None."""
+        path = os.path.join(self.dir, "model_step_best.json")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
+    def clear_best(self):
+        """Remove a previous run's best export (a fresh run in a reused
+        ``output_dir`` starts its own maximum; until it first improves,
+        ``--ckpt best`` would otherwise resolve to the old weights)."""
+        for name in ("model_step_best.pt", "model_step_best.json"):
+            path = os.path.join(self.dir, name)
+            if os.path.exists(path):
+                os.remove(path)
+                LOGGER.info("cleared stale best export %s", path)
 
     def latest_step(self) -> Optional[int]:
         steps = self._steps()
