@@ -162,7 +162,26 @@ Phases, each printing its own lines:
    ``inf_re --ckpt best`` on two splits, ``train_vcr --tasks qa,qar`` and
    ``inf_vcr`` val and test, ``pretrain_vcr`` (mlm / mrfr / mrc-kl, 6
    steps, resume to 8), all at uniter-base on the card.
-24. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
+24. preprocessing and the flags chain (``prepro``): a 28,996-entry
+   ``vocab.txt``, 256 npz dumps (10-100 regions) and raw annotations of
+   the six tasks made from a seed (2,048 VQA questions of 6-20 words with
+   answers from the in-tree ``ans2label``) through ``python -m
+   uniter_tpu_torch.convert_imgdir`` and ``python -m
+   uniter_tpu_torch.prepro`` (seven processes at once; record counts and
+   meta checked), then ``train_vqa`` at uniter-base with ``--remat
+   --param_dtype bfloat16 --fused_adamw 1 --moment_dtype bfloat16
+   --wire_codec int8 --dropout_impl u16 --profile_dir`` for 20 steps
+   (async saves at 10 and 20; K1-K6 24/12/48/24/2/2 a step, validation's
+   K1 counted apart; a trace of the 6 profiled steps), a resume to 25 and
+   ``inf_vqa`` on the fp32 export.
+25. the flags (``flags``): the flagship step through K1-K6 under baseline,
+   remat, master and remat+master in turns (examples/s, busy ms a step,
+   peak memory, launches a step; step-1 losses: remat equal, master within
+   1e-3; the remat gradients against the baseline's: the whole
+   gradient within 1e-6 relative, beside a second baseline pass), the
+   u16/u8 keep fractions of the plain dropout on the card,
+   the int8 wire error on the card, adam/adamax 3 steps against float64.
+26. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
    last line. Any failed check raises and the script exits non-zero.
 
 TF32 is off for matmuls and cuDNN (fp32 runs are full fp32; the fp32
@@ -1461,10 +1480,12 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
     return counts, n_batches, qps, err
 
 
-def flagship_batch(torch, cfg, num_answer, img_dim, transfer_dtype):
+def flagship_batch(torch, cfg, num_answer, img_dim, transfer_dtype,
+                   wire_codec=None):
     """``bench.py``'s fixed batch: B=96, 64 text + 40 image tokens, full
     masks, targets with 0.3% positives; every row real (ex_weight 1), so
-    the loss is mean BCE x num_answer."""
+    the loss is mean BCE x num_answer. ``wire_codec`` as the loops take
+    it."""
     from uniter_tpu_torch.training.loop import train_batch_to_device
 
     b, t, r = 96, 64, 40
@@ -1477,13 +1498,15 @@ def flagship_batch(torch, cfg, num_answer, img_dim, transfer_dtype):
         attn_mask=np.ones((b, t + r), np.int32),
         targets=(rng.rand(b, num_answer) < 0.003).astype(np.float32),
         ex_weight=np.ones(b, np.float32))
-    return train_batch_to_device(batch, torch.device("cuda"), transfer_dtype)
+    return train_batch_to_device(batch, torch.device("cuda"), transfer_dtype,
+                                 wire_codec)
 
 
-def make_trainer(torch, cfg, sd, num_answer):
+def make_trainer(torch, cfg, sd, num_answer, master=False):
     """Model, fused AdamW (bf16 moments, betas (0.9, 0.98), eps 1e-6, wd
     0.01, clip 2.0, lr 8e-5 warmed up over 600 of 6000 steps) and the
-    step, as ``bench.py`` builds them; loss_scale "mean"."""
+    step, as ``bench.py`` builds them; loss_scale "mean". ``master``:
+    master-weight mode (``--param_dtype bfloat16``)."""
     from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
     from uniter_tpu_torch.train_vqa import vqa_loss
     from uniter_tpu_torch.training.optim import build_optimizer
@@ -1497,7 +1520,7 @@ def make_trainer(torch, cfg, sd, num_answer):
     opt = build_optimizer(model, get_lr_schedule(8e-5, 600, 6000),
                           betas=(0.9, 0.98), eps=1e-6, weight_decay=0.01,
                           grad_norm=2.0, fused=True, mu_dtype=torch.bfloat16,
-                          nu_dtype=torch.bfloat16)
+                          nu_dtype=torch.bfloat16, master=master)
     step = make_train_step(
         lambda m, b, g: (vqa_loss(m, b, g, num_answer), {}),
         loss_scale="mean")
@@ -4084,6 +4107,567 @@ def task_cli_phase(torch):
     return counts
 
 
+# ------------------------------------------------------------------ prepro
+
+PREPRO_VOCAB = 28996  # uniter-base's word table
+PREPRO_IMGS, PREPRO_QUESTIONS = 256, 2048
+# every single-card flag of the training drivers (master weights need the
+# fused AdamW); --profile_dir is given per run
+FLAG_ARGS = ["--remat", "--param_dtype", "bfloat16", "--fused_adamw", "1",
+             "--moment_dtype", "bfloat16", "--wire_codec", "int8",
+             "--dropout_impl", "u16"]
+# launches a step of the K1-K6 path under --remat: each layer's K1 and its
+# two K3 run again in the backward's recompute; the embedding tails (K5)
+# are not rematerialized, and no backward kernel runs twice
+REMAT_LAUNCHES = dict(STEP_LAUNCHES, mha_fwd=24, drop_res_ln_fwd=48)
+PREPRO_TASKS = ("vqa", "nlvr", "ve", "itm", "vcr", "re")
+
+
+def write_vocab(path, rng, size=PREPRO_VOCAB):
+    """A ``vocab.txt`` of ``size`` entries laid out as BERT's cased one
+    ([PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103, ``!`` 999, then
+    the rest of ASCII punctuation) and words of 2-8 letters made from a
+    seed, every third as a ``##`` piece. Returns the whole words."""
+    vocab = [f"[unused{i}]" for i in range(999)]
+    for i, tok in ((0, "[PAD]"), (100, "[UNK]"), (101, "[CLS]"),
+                   (102, "[SEP]"), (103, "[MASK]")):
+        vocab[i] = tok
+    vocab += [chr(c) for c in range(33, 127) if not chr(c).isalnum()]
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    cand = letters[rng.integers(0, 26, (3 * size, 8))]
+    lens = rng.integers(2, 9, 3 * size)
+    seen, words = set(vocab), []
+    for row, n in zip(cand, lens):
+        w = "".join(row[:n])
+        if len(words) % 3 == 2:
+            w = "##" + w
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+        if len(vocab) + len(words) == size:
+            break
+    vocab += words
+    check(len(vocab) == size and vocab[999] == "!", "vocab layout")
+    with open(path, "w") as f:
+        f.write("\n".join(vocab))
+    return [w for w in words if not w.startswith("##")]
+
+
+def write_npz_dir(path, rng, n_img):
+    """``n_img`` Faster R-CNN dumps ``coco_{id:012}.npz``: 10-100 regions,
+    2048-d fp32 features, 6-d boxes, descending confidences, 1601-way soft
+    labels."""
+    os.makedirs(path)
+    pool = rng.standard_normal((8192, 2048), dtype=np.float32)
+    for i in range(n_img):
+        nbb = int(rng.integers(10, 101))
+        o = int(rng.integers(0, 8192 - nbb))
+        soft = rng.random((nbb, 1601), dtype=np.float32)
+        np.savez(os.path.join(path, f"coco_{i:012}.npz"),
+                 features=pool[o:o + nbb],
+                 norm_bb=rng.random((nbb, 6), dtype=np.float32),
+                 conf=np.linspace(1, 0.05, nbb).astype(np.float32),
+                 soft_labels=soft / soft.sum(1, keepdims=True))
+
+
+def write_annotations(root, rng, words, n_img, n_q):
+    """Raw annotations of the six tasks: ``n_q`` VQA questions of 6-20
+    words over ``n_img`` images, 10 answers each from the in-tree
+    ``ans2label`` (3,129); 32 NLVR2 statements, 32 SNLI-VE hypotheses, 64
+    captions, 8 VCR questions, 8 referring expressions (json). Words are
+    capitalized or given a suffix now and then, so that WordPiece splits
+    and [UNK] show. Returns {task: (prepro args, records expected)}."""
+    from uniter_tpu_torch.utils.vqa_answers import load_ans2label
+
+    answers = sorted(load_ans2label(None))
+    words = np.array(words)
+
+    def sent(lo=6, hi=21):
+        out = []
+        for w in rng.choice(words, int(rng.integers(lo, hi))):
+            r = rng.random()
+            out.append(w.capitalize() if r < 0.1 else w + "s" if r < 0.2
+                       else w)
+        return " ".join(out) + rng.choice(["?", ".", "!"])
+
+    def dump(name, obj, lines=False):
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            if lines:
+                f.write("\n".join(json.dumps(o) for o in obj))
+            else:
+                json.dump(obj, f)
+        return path
+
+    qs = [{"question_id": i, "image_id": i % n_img, "question": sent()}
+          for i in range(n_q)]
+    anns = []
+    for i in range(n_q):
+        picks = rng.choice(answers, int(rng.integers(1, 4)))
+        anns.append({"question_id": i, "answers": [
+            {"answer": str(picks[int(j)])}
+            for j in rng.integers(0, len(picks), 10)]})
+    tasks = {"vqa": (["--annotation", dump("questions.json",
+                                           {"questions": qs}),
+                      "--vqa_annotations", dump("vqa_ann.json",
+                                                {"annotations": anns})],
+                     n_q)}
+    nlvr = [{"identifier": f"dev-{i:04d}-{k}-0.png", "sentence": sent(),
+             "label": "True" if (i + k) % 2 else "False"}
+            for i in range(16) for k in range(2)]
+    tasks["nlvr"] = (["--annotation", dump("nlvr.jsonl", nlvr, True)], 32)
+    ve = [{"pairID": f"p{i}", "Flickr30K_ID": str(i % 8),
+           "sentence2": sent(),
+           "gold_label": ["entailment", "neutral", "contradiction"][i % 3]}
+          for i in range(32)]
+    tasks["ve"] = (["--annotation", dump("ve.jsonl", ve, True)], 32)
+    caps = {"annotations": [{"id": i, "image_id": i % n_img,
+                             "caption": sent()} for i in range(64)]}
+    tasks["itm"] = (["--annotation", dump("caps.json", caps)], 64)
+    vcr = [{"annot_id": f"val-{i}", "objects": ["person", "dog"],
+            "img_fn": f"movie/{i:04d}.jpg",
+            "question": sent(3, 8).split() + [[0]],
+            "answer_choices": [sent(2, 6).split() + [[k % 2]]
+                               for k in range(4)],
+            "rationale_choices": [sent(3, 9).split() for _ in range(4)],
+            "answer_label": i % 4, "rationale_label": (i + 1) % 4}
+           for i in range(8)]
+    tasks["vcr"] = (["--annotation", dump("vcr.jsonl", vcr, True)], 8)
+    images = [{"id": i, "file_name": f"{i}.jpg", "height": 480,
+               "width": 640} for i in range(4)]
+    objs = [{"id": 100 + i, "area": 900.0, "bbox": [10.0, 20.0, 30.0, 30.0],
+             "image_id": i % 4, "category_id": 1} for i in range(8)]
+    refs = [{"ref_id": j, "ann_id": 100 + j, "image_id": j % 4,
+             "split": "train", "sentences": [
+                 {"sent_id": j, "sent": sent(2, 8)}]} for j in range(8)]
+    tasks["re"] = (["--annotation", dump("refs.json", refs),
+                    "--instances", dump("instances.json", {
+                        "images": images, "annotations": objs,
+                        "categories": [{"id": 1, "name": "thing"}]}),
+                    "--iid_to_ann_ids", dump("iid.json", {
+                        "iid_to_ann_ids": {str(i): [100 + i, 104 + i]
+                                           for i in range(4)}})], 8)
+    return tasks
+
+
+def run_procs(cmds, timeout=600):
+    """Start every command at once (each ``python -m`` entry point of the
+    port in its own process, from the checkout); wait for all; fail on
+    the first nonzero exit with its error's tail."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [(cmd, subprocess.Popen(
+        [sys.executable, "-m", *cmd], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in cmds]
+    for cmd, proc in procs:
+        try:
+            _, err = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        check(proc.returncode == 0, f"{' '.join(cmd[:1])} failed: "
+              f"{err[-2000:]}")
+
+
+def trace_summary(profile_dir):
+    """(bytes, ``train_step`` ranges on the host, kernel events) of the
+    one trace ``--profile_dir`` holds (each range also has its device
+    twin, category ``gpu_user_annotation``)."""
+    files = [f for f in os.listdir(profile_dir)
+             if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"profile_dir holds {files}")
+    path = os.path.join(profile_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return (os.path.getsize(path),
+            sum(e.get("name") == "train_step"
+                and e.get("cat") == "user_annotation" for e in events),
+            sum(e.get("cat") == "kernel" for e in events))
+
+
+def prepro_phase(torch):
+    """The preprocessing and flags chain of this slice at uniter-base: raw
+    annotations and npz dumps made from a seed through the port's
+    ``convert_imgdir`` and ``prepro`` (six tasks, seven processes at once),
+    then ``train_vqa`` with every single-card flag for 20 steps (async
+    saves and validation at 10 and 20, the profiler's window 10-15), a
+    resume to 25 and ``inf_vqa`` on the fp32 export. Launch counts are
+    set to 0 before each training run and read after; ``validate``'s K1
+    launches are counted apart, so the rest are the steps'."""
+    from uniter_tpu_torch import inf_vqa, train_vqa
+
+    work = scratch_dir("chip_smoke_prepro_")
+    rng = np.random.default_rng(SEED)
+    secs = {}
+    t0 = time.perf_counter()
+    vocab = os.path.join(work, "vocab.txt")
+    words = write_vocab(vocab, rng)
+    write_npz_dir(os.path.join(work, "npz"), rng, PREPRO_IMGS)
+    tasks = write_annotations(work, rng, words, PREPRO_IMGS,
+                              PREPRO_QUESTIONS)
+    secs["fixtures"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    img = os.path.join(work, "img")
+    cmds = [["uniter_tpu_torch.convert_imgdir", "--img_dir",
+             os.path.join(work, "npz"), "--output", img, "--nproc", "4"]]
+    for task, (args, _) in tasks.items():
+        cmds.append(["uniter_tpu_torch.prepro", "--task", task,
+                     "--output", os.path.join(work, f"txt_{task}"),
+                     "--toker", vocab, *args])
+    run_procs(cmds)
+    secs["convert_imgdir + prepro x6"] = time.perf_counter() - t0
+    with open(os.path.join(img, "nbb_th0.2_max100_min10.json")) as f:
+        nbb = json.load(f)
+    check(len(nbb) == PREPRO_IMGS and min(nbb.values()) >= 10,
+          f"img_db: {len(nbb)} images")
+    counts = {}
+    for task, (_, n) in tasks.items():
+        out = os.path.join(work, f"txt_{task}")
+        with open(os.path.join(out, "meta.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(out, "id2len.json")) as f:
+            counts[task] = len(json.load(f))
+        check((meta["UNK"], meta["CLS"], meta["SEP"], meta["MASK"],
+               meta["v_range"], meta["task"]) == (100, 101, 102, 103,
+                                                  [999, PREPRO_VOCAB], task),
+              f"{task} meta {meta}")
+        check(counts[task] == n, f"{task}: {counts[task]} records, want {n}")
+    from uniter_tpu_torch.data.txt_db import TxtTokDb
+
+    db = TxtTokDb(os.path.join(work, "txt_vqa"), max_txt_len=-1)
+    recs = [db[k] for k in list(db.id2len)[:64]]
+    check(all(r["target"]["labels"] and all(
+        i == 100 or 999 <= i < PREPRO_VOCAB for i in r["input_ids"])
+        for r in recs), "VQA records")
+    n_unk = sum(r["input_ids"].count(100) for r in recs)
+
+    out = os.path.join(work, "run")
+    prof = [os.path.join(work, "prof_1"), os.path.join(work, "prof_2")]
+    conf = dict(_path=os.path.join(work, "train.json"),
+                train_txt_db=os.path.join(work, "txt_vqa"),
+                train_img_db=img, val_txt_db=os.path.join(work, "txt_vqa"),
+                val_img_db=img, output_dir=out,
+                model_config=os.path.join(REPO, "configs",
+                                          "uniter-base.json"),
+                num_train_steps=20, valid_steps=10, log_steps=5,
+                train_batch_size=5120, val_batch_size=10240, n_workers=2,
+                device="cuda", checkpoint="")
+    val = {k: 0 for k in KERNELS}
+    real = train_vqa.validate
+
+    def counted(*a, **k):
+        before = read_launches()
+        try:
+            return real(*a, **k)
+        finally:
+            for name, v in read_launches().items():
+                val[name] += v - before[name]
+
+    train_vqa.validate = counted
+    try:
+        t0 = time.perf_counter()
+        state, total = run_cli(train_vqa, conf,
+                               FLAG_ARGS + ["--profile_dir", prof[0]])
+        secs["train_vqa 20 steps"] = time.perf_counter() - t0
+        check(state.step == 20, f"train_vqa stopped at {state.step}")
+        check(state.model.uniter.config.remat
+              and state.opt.masters()
+              and state.model.uniter.embeddings.word_embeddings.weight.dtype
+              == torch.bfloat16, "the run did not take the flags")
+        del state
+        steps = {k: total[k] - val[k] for k in KERNELS}
+        check_launches(steps, 20, REMAT_LAUNCHES, "prepro")
+        check(all(v == 0 for k, v in val.items() if k != "mha_fwd")
+              and val["mha_fwd"] > 0, f"validation launched {val}")
+        t0 = time.perf_counter()
+        state, _ = run_cli(train_vqa, conf,
+                           FLAG_ARGS + ["--profile_dir", prof[1],
+                                        "--num_train_steps", "25"])
+        secs["resume to 25"] = time.perf_counter() - t0
+        check(state.step == 25, f"resumed run stopped at {state.step}")
+        del state
+    finally:
+        train_vqa.validate = real
+    with open(os.path.join(out, "log", "log.txt")) as f:
+        check("resumed from step 20" in f.read(), "the rerun did not resume")
+    ckpts = sorted(os.listdir(os.path.join(out, "ckpt")))
+    check({"model_step_10.pt", "model_step_20.pt", "model_step_25.pt"}
+          <= set(ckpts), f"checkpoints {ckpts}")
+    w = torch.load(os.path.join(out, "ckpt", "model_step_25.pt"),
+                   weights_only=True)
+    check(all(v.dtype == torch.float32 for v in w.values()),
+          "the export is not the fp32 masters")
+    del w
+    traces = [trace_summary(p) for p in prof]
+    check(traces[0][1] == 6 and traces[1][1] == 3 and traces[0][2] > 0,
+          f"profiler traces (bytes, steps, kernels) {traces}")
+    t0 = time.perf_counter()
+    res = inf_vqa.main(inf_vqa.get_parser().parse_args([
+        "--txt_db", os.path.join(work, "txt_vqa"), "--img_db", img,
+        "--train_dir", out, "--output_dir", os.path.join(work, "ans"),
+        "--device", "cuda"]))
+    secs["inf_vqa"] = time.perf_counter() - t0
+    with open(res) as f:
+        answers = json.load(f)
+    check(len(answers) == PREPRO_QUESTIONS, f"{len(answers)} answers")
+    print(f"[prepro] vocab {PREPRO_VOCAB} entries; convert_imgdir "
+          f"{PREPRO_IMGS} npz dumps; prepro records {counts} (the first 64 "
+          f"VQA questions hold {n_unk} [UNK]); train_vqa at uniter-base "
+          f"with {' '.join(FLAG_ARGS)}: 20 steps (async saves at 10, 20), "
+          f"K1-K6 launches a step {steps['mha_fwd'] / 20:g} / "
+          f"{steps['mha_bwd'] / 20:g} / {steps['drop_res_ln_fwd'] / 20:g} / "
+          f"{steps['drop_res_ln_bwd'] / 20:g} / {steps['ln_drop_fwd'] / 20:g}"
+          f" / {steps['ln_drop_bwd'] / 20:g} (validation: K1 "
+          f"{val['mha_fwd']}); resume to 25; profiler traces "
+          + ", ".join(f"{b / 2**20:.1f} MiB ({n} steps, {k} kernel events)"
+                      for b, n, k in traces)
+          + f"; inf_vqa answered {len(answers)} questions; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    torch.cuda.empty_cache()
+    return {"launches": steps, "seconds": secs, "traces": traces}
+
+
+# ------------------------------------------------------------------- flags
+
+FLAG_POLICIES = ("baseline", "remat", "master", "remat+master")
+
+
+def optim_reference_check(torch, device="cuda"):
+    """``--optim adam`` and ``adamax`` for 3 steps (clip 0.5, lr 1e-3, the
+    head multiplier 10 on the last Linear) on the card against the optax
+    formulas in float64; max |difference| of the parameters."""
+    from uniter_tpu_torch.models.encoder import LayerNorm, Linear
+    from uniter_tpu_torch.training.optim import build_optimizer
+
+    errs = {}
+    for optim in ("adam", "adamax"):
+        torch.manual_seed(SEED)
+        model = torch.nn.Sequential(Linear(768, 3072), LayerNorm(3072),
+                                    Linear(3072, 768)).to(device)
+        opt = build_optimizer(model, 1e-3, grad_norm=0.5, lr_mul=10.0,
+                              lr_mul_paths=("2.",), optim=optim, fused=True)
+        ref = {n: p.detach().double().clone()
+               for n, p in model.named_parameters()}
+        mu = {n: torch.zeros_like(v) for n, v in ref.items()}
+        nu = {n: torch.zeros_like(v) for n, v in ref.items()}
+        gen = torch.Generator(device).manual_seed(SEED)
+        b1, b2, eps = 0.9, 0.98, 1e-6
+        for t in range(1, 4):
+            grads = {n: torch.randn(p.shape, generator=gen, device=device)
+                     for n, p in model.named_parameters()}
+            for n, p in model.named_parameters():
+                p.grad = grads[n].clone()
+            opt.step()
+            norm = torch.sqrt(sum(g.double().square().sum()
+                                  for g in grads.values()))
+            clip = min(1.0, 0.5 / max(float(norm), 0.5))
+            for n in ref:
+                g = grads[n].double() * clip
+                mu[n] = b1 * mu[n] + (1 - b1) * g
+                if optim == "adam":
+                    nu[n] = b2 * nu[n] + (1 - b2) * g * g
+                    u = (mu[n] / (1 - b1 ** t)) / (
+                        (nu[n] / (1 - b2 ** t)).sqrt() + eps)
+                else:
+                    nu[n] = torch.maximum(g.abs() + eps, b2 * nu[n])
+                    u = (mu[n] / (1 - b1 ** t)) / nu[n]
+                ref[n] -= 1e-3 * (10.0 if n.startswith("2.") else 1.0) * u
+        errs[optim] = max(float((p.detach().double() - ref[n]).abs().max())
+                          for n, p in model.named_parameters())
+    return errs
+
+
+def flags_phase(torch, n_steps=10):
+    """The flagship step (B=96, T=64, R=40, bf16, dropout 0.1, fused AdamW
+    with bf16 moments) through K1-K6 under four policies in turns
+    (baseline, remat, master, remat+master and back): step-1 losses, the
+    remat gradients against the baseline's from the same generator,
+    examples/s, launches a step, the step's peak memory above what the
+    trainers hold and each trainer's own, a profile of each; then the
+    u16/u8 keep fractions of the plain dropout on the card, the int8 wire
+    error on the card and adam/adamax against float64."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.ops import dropout as D
+    from uniter_tpu_torch.train_vqa import vqa_loss
+    from uniter_tpu_torch.training.step import step_generator
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    num_answer, b = 3129, 96
+    base = policy_configs(base_config(
+        dtype="bfloat16", hidden_dropout_prob=RATE,
+        attention_probs_dropout_prob=RATE))["K1-K6"]
+    sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+        jax_layout_params(base, num_answer, IMG_DIM, SEED)).items()}
+    batch = flagship_batch(torch, base, num_answer, IMG_DIM, torch.bfloat16)
+    resident, trainers = {}, {}
+    for name in FLAG_POLICIES:
+        m0 = torch.cuda.memory_allocated()
+        cfg = base.replace(remat="remat" in name)
+        trainers[name] = make_trainer(torch, cfg, sd, num_answer,
+                                      master="master" in name)
+        resident[name] = torch.cuda.memory_allocated() - m0
+    # the remat gradients against the baseline's, same generator and
+    # weights (before any step)
+    # (and a second baseline pass: the card's own run-to-run floor)
+    grads, loss0 = {}, {}
+    for name, trainer in (("baseline", "baseline"), ("remat", "remat"),
+                          ("replay", "baseline")):
+        model = trainers[trainer][0].model
+        model.train()
+        loss = vqa_loss(model, batch, step_generator(SEED, 0), num_answer)
+        loss.backward()
+        loss0[name] = float(loss.detach())
+        grads[name] = {k: p.grad for k, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+
+    def compare(other):
+        """Against the baseline's gradients: the relative difference of
+        the whole gradient (|diff| / |g| over every parameter), the worst
+        parameter's max |diff| / max |g| and its name, bit for bit."""
+        used = [(k, g.float(), grads[other][k].float())
+                for k, g in grads["baseline"].items() if g is not None]
+        diff2 = sum(float((b - a).square().sum()) for _, a, b in used)
+        norm2 = sum(float(a.square().sum()) for _, a, _ in used)
+        worst = max((float((b - a).abs().max())
+                     / max(float(a.abs().max()), 1e-30), k)
+                    for k, a, b in used)
+        return ((diff2 / norm2) ** 0.5, *worst,
+                all(g is None or torch.equal(g, grads[other][k])
+                    for k, g in grads["baseline"].items()))
+
+    rel, worst, worst_key, exact = compare("remat")
+    floor, floor_worst, floor_key, replay_exact = compare("replay")
+    del grads
+    check(loss0["remat"] == loss0["baseline"],
+          f"remat changed the step-1 loss: {loss0}")
+    # the whole gradient, not the worst parameter: a second pass of the
+    # baseline alone differs by up to ~1e-6 of max|g| in the 2-row
+    # token-type table (the card's embedding backward); drawing the masks
+    # anew in the recompute would move the whole gradient by O(1)
+    check(rel <= 1e-6, f"remat gradients differ by {rel:.2e} relative")
+    # and each parameter alone, against the card's own floor: a mask fault
+    # confined to a few small leaves (LayerNorm biases, one tail) hardly
+    # moves the whole gradient but moves those leaves by O(1)
+    worst_tol = min(1e-5, max(3 * floor_worst, 1e-6))
+    check(worst <= worst_tol,
+          f"remat gradients differ by {worst:.2e} of the max at {worst_key}"
+          f" (tol {worst_tol:.2e}, a second baseline pass {floor_worst:.2e})")
+
+    first, secs, launches, peak = {}, {n: [] for n in trainers}, {}, {}
+
+    def run(name, n):
+        state, step = trainers[name]
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        losses = [step(state, batch, SEED)[1]["loss"] for _ in range(n)]
+        losses = [float(x) for x in losses]  # the readback ends the turn
+        dt = time.perf_counter() - t0
+        launches[name] = {k: v / n for k, v in read_launches().items()}
+        peak[name] = max(peak.get(name, 0),
+                         torch.cuda.max_memory_allocated() - m0)
+        first.setdefault(name, losses[0])
+        check(all(np.isfinite(losses)), f"{name}: non-finite loss")
+        return dt
+
+    for name in trainers:  # warm-up, and step 1 of every policy
+        run(name, 2)
+    for name in FLAG_POLICIES + FLAG_POLICIES[::-1]:
+        secs[name].append(run(name, n_steps))
+    eps = {n: n_steps * b * len(v) / sum(v) for n, v in secs.items()}
+    for name in FLAG_POLICIES:
+        want = REMAT_LAUNCHES if "remat" in name else STEP_LAUNCHES
+        check(launches[name] == want,
+              f"{name}: launches per step {launches[name]}")
+    step1 = {n: abs(v - first["baseline"]) / abs(first["baseline"])
+             for n, v in first.items()}
+    check(first["remat"] == first["baseline"]
+          and first["remat+master"] == first["master"],
+          f"remat changed step 1: {first}")
+    check(max(step1.values()) <= 1e-3, f"master mode's step 1: {step1}")
+    busy = {}
+    for name in FLAG_POLICIES:
+        state, step = trainers[name]
+        busy[name] = profile_steps(torch, state, step, batch, 3,
+                                   "flags_" + name.replace("+", "_"),
+                                   label="flags")[1]["busy_ms"] / 3
+    del trainers, batch
+    torch.cuda.empty_cache()
+
+    # the plain dropout's u16/u8 rules on the card: keep fraction, scale,
+    # the CPU's bits
+    keep = {}
+    x = torch.randn(9984, 768, device="cuda")
+    for impl in ("u16", "u8"):
+        _, _, keep_q = D.mask_rule(RATE, impl)
+        y = D.drop(x, RATE, 4242, impl)
+        mask = D.keep_mask(4242, 0, x.shape, RATE, "cuda", impl)
+        frac = float(mask.float().mean())
+        sigma = (keep_q * (1 - keep_q) / mask.numel()) ** 0.5
+        check(abs(frac - keep_q) <= 4 * sigma
+              and torch.equal(y[mask], x[mask] * (1.0 / keep_q))
+              and not y[~mask].any()
+              and torch.equal(D.keep_mask(7, 0, (64, 768), RATE, "cuda",
+                                          impl).cpu(),
+                              D.keep_mask(7, 0, (64, 768), RATE, "cpu",
+                                          impl)),
+              f"{impl} dropout on the card: keep {frac} vs {keep_q}")
+        keep[impl] = (frac, keep_q, 4 * sigma)
+    del x, y, mask
+    # the int8 wire codec on the card, against the bf16 cast of the input
+    cast = flagship_batch(torch, base, num_answer, IMG_DIM, torch.float32)
+    wire = flagship_batch(torch, base, num_answer, IMG_DIM, torch.bfloat16,
+                          "int8")
+    ref = cast["img_feat"]
+    row = ref.abs().amax(-1, keepdim=True)
+    werr = float(((wire["img_feat"].float() - ref).abs() / row).max())
+    # the int8 step, then two bf16 roundings (the scale's, the product's)
+    # of at most 2^-8 of max|row| each
+    check(wire["img_feat"].dtype == torch.bfloat16
+          and werr <= 1 / 254 + 2 * 2 ** -8, f"int8 wire error {werr}")
+    del cast, wire, ref, row
+    oerr = optim_reference_check(torch)
+    check(max(oerr.values()) <= 1e-6, f"adam/adamax against float64 {oerr}")
+    gib = 2 ** 30
+    print(f"[flags] flagship step (B={b}, T=64, R=40, bf16, dropout {RATE}, "
+          f"fused AdamW bf16 moments) through K1-K6, turns of {n_steps} "
+          f"steps {', '.join(FLAG_POLICIES)} and back: examples/s "
+          + ", ".join(f"{n} {v:.1f}" for n, v in eps.items())
+          + "; device busy ms a step " + ", ".join(
+              f"{n} {v:.2f}" for n, v in busy.items())
+          + "; step peak above the resident trainers GiB " + ", ".join(
+              f"{n} {v / gib:.3f}" for n, v in peak.items())
+          + "; a trainer's own GiB (parameters, bf16 copies, moments) "
+          + ", ".join(f"{n} {v / gib:.3f}" for n, v in resident.items()))
+    print("[flags] launches a step " + "; ".join(
+        f"{n} " + "/".join(f"{launches[n][k]:g}" for k in KERNELS[:6])
+        for n in FLAG_POLICIES) + " (K1/K2/K3/K4/K5/K6)")
+    print(f"[flags] step-1 loss " + ", ".join(
+        f"{n} {v:.6f}" for n, v in first.items()) + "; relative to the "
+          f"baseline " + ", ".join(f"{n} {v:.2e}" for n, v in step1.items())
+          + f"; remat gradients against the baseline's (same generator): "
+          f"bit for bit {exact}, |diff| / |g| {rel:.2e} (tol 1e-6), the "
+          f"worst parameter {worst:.2e} of its max at {worst_key} (tol "
+          f"{worst_tol:.2e}); a "
+          f"second baseline pass: bit for bit {replay_exact}, {floor:.2e}, "
+          f"worst {floor_worst:.2e} at {floor_key}")
+    print("[flags] plain dropout on the card, keep fraction at rate "
+          f"{RATE} over 9984 x 768: " + ", ".join(
+              f"{k} {f:.6f} (quantized keep {q:.6f}, 4 sigma {s:.1e})"
+              for k, (f, q, s) in keep.items())
+          + f"; int8 wire error over max|row| {werr:.3e} (bound 1/254 + "
+          f"2 x 2^-8); adam/adamax 3 steps against float64 max |diff| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in oerr.items()))
+    torch.cuda.empty_cache()
+    return {"ex_per_s": eps, "busy_ms": busy, "peak": peak,
+            "resident": resident, "launches": launches, "remat_rel": rel,
+            "replay_rel": floor}
+
+
 def main(argv):
     """No arguments: every phase, the kernels line and the last line. Phase
     names (``PHASES``): the device and build phases, then those phases
@@ -4142,6 +4726,8 @@ def main(argv):
     vcr_serve = vcr_serve_phase(torch)
     re_res = re_phase(torch)
     task_counts = task_cli_phase(torch)
+    prepro = prepro_phase(torch)
+    flags = flags_phase(torch)
     t = k2_time[TRAIN_SHAPES[0] + ("bfloat16",)]
     t32 = k2_time[TRAIN_SHAPES[0] + ("float32",)]
     kernels = []
@@ -4260,6 +4846,9 @@ def main(argv):
           f"{re_res['steps']} steps, K1 in VCR serving "
           f"{ {k: v['n_batches'] * 12 for k, v in vcr_serve.items()} }, the "
           f"task CLIs {task_counts}")
+    print(f"[smoke] K1-K6 a step under --remat (the prepro chain's "
+          f"train_vqa): {prepro['launches']} over 20 steps; the flags "
+          f"phase's per policy: {flags['launches']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4276,7 +4865,8 @@ PHASES = {"sass": sass_phase, "k1": k1_phase, "k2": k2_phase,
           "k8": k8_phase, "pretrain": pretrain_phase, "k9": k9_phase,
           "itm": itm_train_phase, "vcr": vcr_phase,
           "vcr_serve": vcr_serve_phase, "re": re_phase,
-          "task_cli": task_cli_phase}
+          "task_cli": task_cli_phase, "prepro": prepro_phase,
+          "flags": flags_phase}
 
 
 if __name__ == "__main__":

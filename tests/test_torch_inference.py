@@ -203,8 +203,11 @@ def test_port_imports_without_jax():
         "import uniter_tpu_torch.pretrain_vcr\n"
         "import uniter_tpu_torch.data.pretrain_vcr\n"
         "import uniter_tpu_torch.models.pretrain_vcr\n"
+        "import uniter_tpu_torch.prepro, uniter_tpu_torch.convert_imgdir\n"
+        "import uniter_tpu_torch.data.tokenizer\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'uniter_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'uniter_tpu',\n"
+        "                              'transformers')]\n"
         "assert not bad, bad\n"
         "assert 'msgpack' not in sys.modules\n"
         "print('ok')\n")

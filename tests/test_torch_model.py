@@ -275,7 +275,8 @@ def test_resolve_kernel_policies_for_training(device):
     """Training: block fusion "auto" and "pallas" select the fused tail
     kernels K3-K6 ("cuda") on the card and the plain tails ("none") on the
     CPU; "none" stays "none" everywhere; inference never fuses; the 16/8-bit
-    dropout thresholds raise on every device."""
+    dropout thresholds pass through on every device and an unknown rule
+    raises."""
     cfg = pconfig.UniterConfig.from_dict(dict(jax_tiny().to_dict()))
     for bf in ("auto", "pallas", "cuda"):
         got = pconfig.resolve_kernel_policies(
@@ -290,8 +291,11 @@ def test_resolve_kernel_policies_for_training(device):
         pconfig.resolve_kernel_policies(cfg.replace(block_fusion="x"), device,
                                         training=True)
     for impl in ("u16", "u8"):
-        with pytest.raises(NotImplementedError, match=impl):
-            pconfig.resolve_kernel_policies(cfg.replace(dropout_impl=impl),
-                                            device, training=True)
+        assert pconfig.resolve_kernel_policies(
+            cfg.replace(dropout_impl=impl), device,
+            training=True).dropout_impl == impl
+    with pytest.raises(ValueError, match="u4"):
+        pconfig.resolve_kernel_policies(cfg.replace(dropout_impl="u4"),
+                                        device, training=True)
     assert pconfig.resolve_kernel_policies(
         cfg.replace(dropout_impl="u16"), device).dropout_impl == "u16"

@@ -337,9 +337,9 @@ def test_best_export_written_only_on_improvement(tmp_path):
     written = []
     save = saver.save
 
-    def spy(step, state, seed=0, best_value=None):
+    def spy(step, state, seed=0, best_value=None, block=True):
         written.append((step, best_value))
-        return save(step, state, seed, best_value=best_value)
+        return save(step, state, seed, best_value=best_value, block=block)
 
     saver.save = spy
     loop = TrainLoop(

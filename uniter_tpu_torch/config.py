@@ -3,8 +3,8 @@
 The hyperparameter surface of ``uniter_tpu.config.UniterConfig`` (the
 reference's ``UniterConfig``, loaded from config/uniter-{base,large}.json)
 plus the compute-policy knobs this package acts on. ``from_dict`` ignores
-the JAX package's other knobs (scan and remat settings), so a training
-run's ``log/model.json`` loads unchanged; ``resolve_kernel_policies`` maps
+the JAX package's other knobs (its scan settings), so a training run's
+``log/model.json`` loads unchanged; ``resolve_kernel_policies`` maps
 its attention, block-fusion, LayerNorm and FFN policies onto this package's
 kernels for an explicit device.
 """
@@ -15,6 +15,8 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
+
+from uniter_tpu_torch.ops.dropout import DROPOUT_IMPLS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,9 +44,10 @@ class UniterConfig:
     # torch version). The JAX package's "auto"/"pallas"/"pallas_nt" are
     # accepted and resolved by resolve_kernel_policies.
     attention_impl: str = "xla"
-    # Dropout masks: "xla" is the 32-bit rule (keep iff u32 >= rate * 2**32,
-    # Philox bits, ops/dropout.py). The JAX package's "u16"/"u8" are not
-    # ported and raise when training.
+    # Dropout masks of the plain tails: "xla" is the 32-bit rule (keep iff
+    # u32 >= rate * 2**32, Philox bits, ops/dropout.py); "u16"/"u8" the
+    # JAX package's reduced-bit rules on the top 16/8 bits of the same
+    # words. K1-K6 and the heads keep the 32-bit rule, as in JAX.
     dropout_impl: str = "xla"
     # "cuda" runs each live dropout + residual + LayerNorm tail as one fused
     # Function (K3-K6, csrc/fused_tail.cu on the card); "none" composes the
@@ -65,6 +68,9 @@ class UniterConfig:
     # One [3H, H] projection instead of three (weights stay query/key/value,
     # so checkpoints are unaffected).
     fused_qkv: bool = False
+    # Recompute each encoder layer's activations in the backward
+    # (--remat; torch.utils.checkpoint, models/encoder.py).
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -102,8 +108,9 @@ def resolve_kernel_policies(cfg: UniterConfig, device, *,
     runs only while a dropout mask is live (``uniter_tpu/models/encoder.py``
     :65,92), so inference, and every policy on a CPU device, resolve it to
     "none". For ``training`` on a CUDA device "auto", "pallas" and "cuda"
-    select the kernels ("cuda") and "none" stays "none". A ``dropout_impl``
-    other than "xla" raises when training.
+    select the kernels ("cuda") and "none" stays "none". For ``training``
+    ``dropout_impl`` must be "xla", "u16" or "u8" (inference draws no
+    mask).
 
     LayerNorm: "pallas" and "cuda" select K8 ("cuda") on a CUDA device and
     the plain version ("xla") on a CPU device, as
@@ -131,10 +138,8 @@ def resolve_kernel_policies(cfg: UniterConfig, device, *,
         ffn = "cuda" if on_cuda else "xla"
     elif ffn != "xla":
         raise ValueError(f"unknown ffn_impl {ffn!r}")
-    if training and cfg.dropout_impl != "xla":
-        raise NotImplementedError(
-            f"dropout_impl {cfg.dropout_impl!r} is not ported; use "
-            "'xla' (32-bit thresholds)")
+    if training and cfg.dropout_impl not in DROPOUT_IMPLS:
+        raise ValueError(f"unknown dropout_impl {cfg.dropout_impl!r}")
     return cfg.replace(attention_impl=att, block_fusion=bf,
                        layer_norm_impl=ln, ffn_impl=ffn)
 

@@ -20,7 +20,21 @@ that no fused tail takes (the image embeddings' two, each tail when no mask
 is live) follows ``layer_norm_impl``: "cuda" is K8, "xla" the plain one.
 With ``ffn_impl="cuda"`` and the gelu activation each layer's FFN runs as
 one ``ops.ffn.FfnFunction`` (K9 on the card) over the same
-``intermediate.dense`` and ``output.dense`` parameters.
+``intermediate.dense`` and ``output.dense`` parameters. The plain tails'
+masks follow ``dropout_impl`` (``ops/dropout.py``: the 32-bit rule, or
+the u16/u8 ones); K1-K6 keep the 32-bit rule.
+
+``remat`` (``--remat``; JAX ``nn.remat`` around each scanned layer,
+``uniter_tpu/models/encoder.py:425-426``) runs each BERT layer under
+``torch.utils.checkpoint`` while gradients are recorded: its activations
+are recomputed in the backward, the embeddings' are kept. A layer draws
+its three dropout seeds (K1's on P, then its two tails') from the step's
+explicit generator *before* the checkpointed call and passes them in:
+checkpoint restores torch's global generators for the recompute, never an
+explicit one, so seeds drawn inside would differ between the forward and
+the recompute and the gradient would silently belong to other masks.
+Drawn outside, the same generator gives the same masks with and without
+``remat``.
 
 ``BertLayerCLS`` computes only the CLS row of a layer (the retrieval
 scorer's last layer, ``utils/itm_fast.py``); it loads a ``BertLayer``'s
@@ -37,11 +51,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from uniter_tpu_torch.config import UniterConfig
 from uniter_tpu_torch.ops.activations import ACT2FN
 from uniter_tpu_torch.ops.attention import multi_head_attention
-from uniter_tpu_torch.ops.dropout import draw_seed, drop, live_seed
+from uniter_tpu_torch.ops.dropout import drop, live_seed
 from uniter_tpu_torch.ops.ffn import ffn
 from uniter_tpu_torch.ops.fused_block import drop_res_ln, ln_drop
 from uniter_tpu_torch.ops.layer_norm import layer_norm
@@ -71,43 +86,42 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps, self.impl)
 
 
-class DropResLN(LayerNorm):
+class _Tail(LayerNorm):
+    """A LayerNorm with the hidden dropout of ``cfg``: its rate, the fused
+    kernels when ``block_fusion`` is "cuda", else the plain dropout by
+    ``dropout_impl``."""
+
+    def __init__(self, cfg: UniterConfig):
+        super().__init__(cfg.hidden_size, cfg.layer_norm_eps,
+                         cfg.layer_norm_impl)
+        self.rate = cfg.hidden_dropout_prob
+        self.fused = cfg.block_fusion == "cuda"
+        self.drop_impl = cfg.dropout_impl
+
+
+class DropResLN(_Tail):
     """``LayerNorm(dropout(x) + res)``: the tail of both BERT sub-blocks
     (reference model/layer.py:104-127,158-170). Parameters are a plain
-    LayerNorm's. With ``fused`` (``block_fusion="cuda"``) and a live mask
-    the tail is one ``ops.fused_block.drop_res_ln`` (K3 forward, K4
-    backward on the card); otherwise, as in the JAX module (:65), the plain
-    composition."""
+    LayerNorm's. ``seed`` is the tail's dropout seed (``BertLayer.seeds``)
+    or None when no mask is live. With ``fused`` and a live mask the tail
+    is one ``ops.fused_block.drop_res_ln`` (K3 forward, K4 backward on the
+    card), on the same seed and Philox bits as the plain composition;
+    otherwise, as in the JAX module (:65), the plain composition."""
 
-    def __init__(self, features: int, rate: float, eps: float = 1e-12,
-                 fused: bool = False, impl: str = "xla"):
-        super().__init__(features, eps, impl)
-        self.rate = rate
-        self.fused = fused
-
-    def forward(self, x, res, deterministic: bool = True, generator=None):
-        # one seed per live tail, drawn where the plain dropout draws it,
-        # so the fused and the plain path use the same masks
-        seed = live_seed(self.rate, deterministic, generator)
+    def forward(self, x, res, seed=None):
         if seed is not None and self.fused:
             return drop_res_ln(x, res, self.weight, self.bias, rate=self.rate,
                                seed=seed, eps=self.eps)
         if seed is not None:
-            x = drop(x, self.rate, seed)
+            x = drop(x, self.rate, seed, self.drop_impl)
         return layer_norm(x + res, self.weight, self.bias, self.eps,
                           self.impl)
 
 
-class LNDrop(LayerNorm):
+class LNDrop(_Tail):
     """``dropout(LayerNorm(x))``: the embedding tails (reference
     model/model.py:241-244,269-271); with ``fused`` and a live mask one
     ``ops.fused_block.ln_drop`` (K5/K6 on the card)."""
-
-    def __init__(self, features: int, rate: float, eps: float = 1e-12,
-                 fused: bool = False, impl: str = "xla"):
-        super().__init__(features, eps, impl)
-        self.rate = rate
-        self.fused = fused
 
     def forward(self, x, deterministic: bool = True, generator=None):
         seed = live_seed(self.rate, deterministic, generator)
@@ -115,7 +129,8 @@ class LNDrop(LayerNorm):
             return ln_drop(x, self.weight, self.bias, rate=self.rate,
                            seed=seed, eps=self.eps)
         y = layer_norm(x, self.weight, self.bias, self.eps, self.impl)
-        return y if seed is None else drop(y, self.rate, seed)
+        return y if seed is None else drop(y, self.rate, seed,
+                                           self.drop_impl)
 
 
 class Embed(nn.Embedding):
@@ -145,9 +160,7 @@ class UniterTextEmbeddings(nn.Module):
                                          cfg.hidden_size, dt)
         self.token_type_embeddings = Embed(cfg.type_vocab_size,
                                            cfg.hidden_size, dt)
-        self.LayerNorm = LNDrop(cfg.hidden_size, cfg.hidden_dropout_prob,
-                                cfg.layer_norm_eps, cfg.block_fusion == "cuda",
-                                cfg.layer_norm_impl)
+        self.LayerNorm = LNDrop(cfg)
 
     def forward(self, input_ids, position_ids, token_type_ids=None, *,
                 deterministic: bool = True, generator=None):
@@ -173,9 +186,7 @@ class UniterImageEmbeddings(nn.Module):
         self.pos_linear = Linear(7, h)
         self.pos_layer_norm = LayerNorm(h, eps, cfg.layer_norm_impl)
         self.mask_embedding = nn.Embedding(2, img_dim)
-        self.LayerNorm = LNDrop(h, cfg.hidden_dropout_prob, eps,
-                                cfg.block_fusion == "cuda",
-                                cfg.layer_norm_impl)
+        self.LayerNorm = LNDrop(cfg)
 
     def forward(self, img_feat, img_pos_feat, type_embeddings,
                 img_masks=None, *, deterministic: bool = True,
@@ -206,10 +217,7 @@ class BertSelfOutput(nn.Module):
     def __init__(self, cfg: UniterConfig):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
-        self.LayerNorm = DropResLN(cfg.hidden_size, cfg.hidden_dropout_prob,
-                                   cfg.layer_norm_eps,
-                                   cfg.block_fusion == "cuda",
-                                   cfg.layer_norm_impl)
+        self.LayerNorm = DropResLN(cfg)
 
 
 class BertAttention(nn.Module):
@@ -222,8 +230,9 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(cfg)
         self.output = BertSelfOutput(cfg)
 
-    def forward(self, hidden, bias, deterministic: bool = True,
-                generator=None):
+    def forward(self, hidden, bias, attn_seed=None, tail_seed=None):
+        """``attn_seed``: K1's dropout seed on P; ``tail_seed``: the output
+        tail's (``BertLayer.seeds``); None where no mask is live."""
         cfg = self.cfg
         b, s, _ = hidden.shape
         nh, d, hs = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
@@ -240,16 +249,12 @@ class BertAttention(nn.Module):
         else:
             q, k, v = (m(hidden).view(b, s, nh, d)
                        for m in (sa.query, sa.key, sa.value))
-        rate = cfg.attention_probs_dropout_prob
-        live = not deterministic and rate > 0.0
-        if live and generator is None:
-            raise ValueError("live dropout needs a torch.Generator")
         ctx = multi_head_attention(
-            q, k, v, bias, impl=cfg.attention_impl, dropout_rate=rate,
-            deterministic=not live,
-            seed=draw_seed(generator) if live else None).reshape(b, s, hs)
+            q, k, v, bias, impl=cfg.attention_impl,
+            dropout_rate=cfg.attention_probs_dropout_prob,
+            deterministic=attn_seed is None, seed=attn_seed).reshape(b, s, hs)
         out = self.output.dense(ctx)
-        return self.output.LayerNorm(out, hidden, deterministic, generator)
+        return self.output.LayerNorm(out, hidden, tail_seed)
 
 
 class BertIntermediate(nn.Module):
@@ -266,10 +271,7 @@ class BertOutput(nn.Module):
     def __init__(self, cfg: UniterConfig):
         super().__init__()
         self.dense = Linear(cfg.intermediate_size, cfg.hidden_size)
-        self.LayerNorm = DropResLN(cfg.hidden_size, cfg.hidden_dropout_prob,
-                                   cfg.layer_norm_eps,
-                                   cfg.block_fusion == "cuda",
-                                   cfg.layer_norm_impl)
+        self.LayerNorm = DropResLN(cfg)
 
 
 class BertLayer(nn.Module):
@@ -280,6 +282,7 @@ class BertLayer(nn.Module):
 
     def __init__(self, cfg: UniterConfig):
         super().__init__()
+        self.cfg = cfg
         self.attention = BertAttention(cfg)
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
@@ -291,11 +294,24 @@ class BertLayer(nn.Module):
             return ffn(x, w1.weight, w1.bias, w2.weight, w2.bias, impl="cuda")
         return self.output.dense(self.intermediate(x))
 
+    def seeds(self, deterministic: bool = True, generator=None):
+        """The layer's three dropout seeds from ``generator``, in the order
+        its calls take them: K1's on P, the attention tail's, the FFN
+        tail's; None where no mask is live."""
+        rates = (self.cfg.attention_probs_dropout_prob,
+                 self.cfg.hidden_dropout_prob, self.cfg.hidden_dropout_prob)
+        return tuple(live_seed(r, deterministic, generator) for r in rates)
+
+    def seeded(self, hidden, bias, attn_seed, tail1_seed, tail2_seed):
+        """The layer on seeds drawn beforehand (``seeds``)."""
+        attn_out = self.attention(hidden, bias, attn_seed, tail1_seed)
+        out = self.feed_forward(attn_out)
+        return self.output.LayerNorm(out, attn_out, tail2_seed)
+
     def forward(self, hidden, bias, deterministic: bool = True,
                 generator=None):
-        attn_out = self.attention(hidden, bias, deterministic, generator)
-        out = self.feed_forward(attn_out)
-        return self.output.LayerNorm(out, attn_out, deterministic, generator)
+        return self.seeded(hidden, bias,
+                           *self.seeds(deterministic, generator))
 
 
 class BertAttentionCLS(BertAttention):
@@ -305,8 +321,7 @@ class BertAttentionCLS(BertAttention):
     then the output projection and LayerNorm on that row. Parameters are
     ``BertAttention``'s."""
 
-    def forward(self, hidden, bias, deterministic: bool = True,
-                generator=None):
+    def forward(self, hidden, bias, attn_seed=None, tail_seed=None):
         cfg = self.cfg
         b, s, _ = hidden.shape
         nh, d = cfg.num_attention_heads, cfg.head_dim
@@ -339,17 +354,28 @@ class BertLayerCLS(BertLayer):
 
 class UniterEncoder(nn.Module):
     """``num_hidden_layers`` BERT layers run in turn (reference
-    model/model.py:275-292); only the last layer's states are returned."""
+    model/model.py:275-292); only the last layer's states are returned.
+    With ``remat`` each layer is checkpointed on seeds drawn before it
+    (module docstring)."""
 
     def __init__(self, cfg: UniterConfig):
         super().__init__()
+        self.remat = cfg.remat
         self.layer = nn.ModuleList(BertLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, hidden, bias, deterministic: bool = True,
                 generator=None, n_layers=None):
         for layer in self.layer[:n_layers]:
-            hidden = layer(hidden, bias, deterministic, generator)
+            seeds = layer.seeds(deterministic, generator)
+            if self.remat and torch.is_grad_enabled():
+                # the masks come from the seeds passed in; no global
+                # generator is read, so none needs restoring
+                hidden = checkpoint(layer.seeded, hidden, bias, *seeds,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                hidden = layer.seeded(hidden, bias, *seeds)
         return hidden
 
 

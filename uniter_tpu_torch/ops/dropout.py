@@ -28,6 +28,21 @@ device (CPU or card).
 
 Masks are never stored by the kernels; ``dropout`` here is the plain
 composition (autograd keeps its boolean mask for the backward).
+
+``impl`` "u16" and "u8" are the JAX package's reduced-bit rules
+(``uniter_tpu/ops/dropout.py:29-57``): the threshold is
+``round(rate * 65536)`` (``round(rate * 256)``), an element is kept iff its
+bits are >= it, and kept values scale by ``1 / (1 - thr / 65536)``
+(``/ 256``), the quantized keep rate, so E[dropout(x)] = x exactly; a rate
+whose threshold rounds to 0 or to the maximum takes the 32-bit rule. The
+JAX package draws those bits with ``jax.random.bits`` of 16 (8) bits; here
+they are the top 16 (8) bits of the element's Philox word above, a choice
+of the port (no generator reproduces JAX's bits, as with the 32-bit rule).
+Only the plain dropouts of the encoder's tails follow ``impl``, as in the
+JAX package (``uniter_tpu/models/encoder.py:68,97``): the kernels K1-K6
+keep the 32-bit rule, as the Pallas kernels ignore ``dropout_impl``
+(:63-69,92-98), and the heads' dropouts are flax ``nn.Dropout`` there
+(32-bit, ``models/heads.py:104``, ``models/nlvr2.py:94``).
 """
 
 from __future__ import annotations
@@ -100,14 +115,33 @@ def threshold(rate: float) -> int:
     return int(rate * 2**32)
 
 
+DROPOUT_IMPLS = {"xla": 32, "u16": 16, "u8": 8}  # impl -> bits compared
+
+
+def mask_rule(rate: float, impl: str = "xla"):
+    """(bits, threshold, keep rate) of ``impl`` at ``rate`` (module
+    docstring): the top ``bits`` bits of each Philox word are compared
+    with the threshold, kept values scale by 1 / keep rate."""
+    if impl not in DROPOUT_IMPLS:
+        raise ValueError(f"unknown dropout_impl {impl!r}")
+    bits = DROPOUT_IMPLS[impl]
+    if bits < 32:
+        thr = int(round(rate * 2**bits))
+        if 0 < thr < 2**bits:
+            return bits, thr, 1.0 - thr / 2**bits
+    return 32, threshold(rate), 1.0 - rate
+
+
 def keep_mask(seed: int, offset: int, shape, rate: float,
-              device=None) -> torch.Tensor:
-    """Boolean keep-mask of ``shape``; True with probability 1 - rate.
-    (Each word is compared before the four are interleaved, so the
-    interleave moves bytes, not int64s.)"""
+              device=None, impl: str = "xla") -> torch.Tensor:
+    """Boolean keep-mask of ``shape``; True with probability 1 - rate
+    (the quantized keep rate under ``impl`` "u16"/"u8"). (Each word is
+    compared before the four are interleaved, so the interleave moves
+    bytes, not int64s.)"""
     words, rows, cols = _words(seed, offset, shape, device)
-    thr = threshold(rate)
-    return _interleave([w >= thr for w in words], tuple(shape), rows, cols)
+    bits, thr, _ = mask_rule(rate, impl)
+    return _interleave([(w >> (32 - bits) if bits < 32 else w) >= thr
+                        for w in words], tuple(shape), rows, cols)
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -127,11 +161,18 @@ def live_seed(rate: float, deterministic: bool,
     return draw_seed(generator)
 
 
-def drop(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    """Inverted dropout of ``x`` with the mask of ``seed`` (rate > 0)."""
-    keep = keep_mask(seed, 0, x.shape, rate, x.device)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
-                                                          device=x.device))
+def drop(x: torch.Tensor, rate: float, seed: int,
+         impl: str = "xla") -> torch.Tensor:
+    """Inverted dropout of ``x`` with the mask of ``seed`` (rate > 0) by
+    the rule of ``impl``."""
+    bits, _, keep_q = mask_rule(rate, impl)
+    keep = keep_mask(seed, 0, x.shape, rate, x.device, impl)
+    if bits == 32:
+        kept = x / (1.0 - rate)
+    else:  # x * (1 / keep_q) in x's dtype, as the JAX rule scales
+        kept = x * torch.tensor(1.0 / keep_q, dtype=x.dtype, device=x.device)
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
 
 
 def dropout(x: torch.Tensor, rate: float, *, deterministic: bool = True,

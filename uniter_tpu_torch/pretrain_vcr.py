@@ -137,7 +137,8 @@ def main(opts):
         log_steps=getattr(opts, "log_steps", 100), validate_fn=validate_fn,
         saver=saver, seed=opts.seed, loss_units_fn=pretrain_loss_units,
         transfer_dtype=None if cdt == torch.float32 else cdt,
-        lr_schedule=sched)
+        lr_schedule=sched, wire_codec=driver.wire_codec(opts),
+        profile_dir=getattr(opts, "profile_dir", None))
     try:
         state = loop.run()
     finally:

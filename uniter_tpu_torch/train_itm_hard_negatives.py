@@ -98,7 +98,8 @@ def main(opts):
     from uniter_tpu_torch.data.loader import DevicePrefetcher
     from uniter_tpu_torch.data.txt_db import TxtTokDb
     from uniter_tpu_torch.training.loop import (
-        NanGuard, bound_inflight, train_batch_to_device, warn_preempted)
+        NanGuard, bound_inflight, finish_saves, train_batch_to_device,
+        warn_preempted)
     from uniter_tpu_torch.training.preempt import PreemptionGuard
 
     driver.check_unported(opts)
@@ -148,7 +149,8 @@ def main(opts):
         stacked_batches(loader_i, loader_t, opts.train_batch_size,
                         n_consumed),
         lambda b: train_batch_to_device(
-            b, device, None if cdt == torch.float32 else cdt), depth=2)
+            b, device, None if cdt == torch.float32 else cdt,
+            driver.wire_codec(opts)), depth=2)
     guard = NanGuard()
     pending = []
     last_saved = -1
@@ -185,15 +187,14 @@ def main(opts):
                     TB_LOGGER.log_scalar_dict(
                         {f"valid/{k}": v for k, v in logs.items()},
                         step=state.step)
-                    saver.save(state.step, state, opts.seed)
+                    saver.save(state.step, state, opts.seed, block=False)
                     last_saved = state.step
                 if preempt.poll():
                     flush()
                     warn_preempted(state.step, opts.num_train_steps, True)
                     break
             flush()
-            if last_saved != state.step:
-                saver.save(state.step, state, opts.seed)
+            finish_saves(saver, state, opts.seed, last_saved)
     finally:
         it.close()
     LOGGER.info("training finished at step %d", state.step)

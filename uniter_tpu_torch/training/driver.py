@@ -18,10 +18,12 @@ and resolve for ``--device`` (K8, K9 on the card when set to
 ``pallas``/``cuda``). Flags that tune TPU machinery are
 accepted and do nothing here: ``--attn_batch_block`` (the TPU kernel's grid
 blocking), ``--warmup_compile`` (ahead-of-time XLA compiles), ``--fp16``
-and ``--pin_mem`` (batches are always pinned). Those whose feature is not
-ported raise: ``--fsdp``, ``--param_dtype bfloat16``, ``--wire_codec int8``,
-``--remat``, ``--profile_dir``, ``--optim adam``/``adamax`` and
-``--dropout_impl u16``/``u8``.
+and ``--pin_mem`` (batches are always pinned). ``--remat``,
+``--param_dtype bfloat16`` (master weights; needs ``--fused_adamw 1``),
+``--optim adam``/``adamax``, ``--dropout_impl u16``/``u8``, ``--wire_codec
+int8`` and ``--profile_dir`` act as in the JAX drivers
+(``uniter_tpu/training/driver.py:147-180,275-285,440-455``). ``--fsdp``
+raises: sharding needs several cards, which the port does not drive yet.
 """
 
 from __future__ import annotations
@@ -81,13 +83,21 @@ def add_common_args(parser: argparse.ArgumentParser):
                              "arithmetic either way; needs --fused_adamw)")
     parser.add_argument("--param_dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="bfloat16 (master-weight mode) is not ported")
+                        help="storage dtype for large parameters "
+                             "(embeddings, GEMM weights; LayerNorm and "
+                             "biases stay fp32): bfloat16 keeps fp32 "
+                             "master weights in the fused optimizer; "
+                             "needs --fused_adamw 1")
     parser.add_argument("--wire_codec", default="cast",
                         choices=["cast", "int8"],
-                        help="int8 is not ported")
+                        help="host->card format of img_feat: 'cast' "
+                             "(bit-exact) or 'int8' (per-row int8 + scale, "
+                             "dequantized on the card; ~0.4%% error)")
     parser.add_argument("--dropout_impl", default="xla",
                         choices=["xla", "u16", "u8"],
-                        help="u16/u8 are not ported")
+                        help="mask rule of the plain dropout tails: 32-bit "
+                             "thresholds, or 16/8-bit (keep rate quantized "
+                             "to 1/65536 or 1/256)")
     parser.add_argument("--betas", nargs=2, type=float, default=[0.9, 0.98])
     parser.add_argument("--dropout", type=float, default=0.1)
     parser.add_argument("--weight_decay", type=float, default=0.01)
@@ -114,10 +124,14 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--pin_mem", action="store_true",
                         help="accepted; batches are always pinned")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported (chip_smoke.py profiles the step)")
+                        help="write a torch.profiler trace of a few "
+                             "hot-loop steps here")
     parser.add_argument("--remat", action="store_true",
-                        help="not ported")
-    parser.add_argument("--fsdp", action="store_true", help="not ported")
+                        help="recompute each encoder layer's activations "
+                             "in the backward (less activation memory, "
+                             "about one more forward)")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="not ported (needs several cards)")
     parser.add_argument("--fsdp_min_size", type=int, default=2 ** 16)
     parser.add_argument("--warmup_compile", action="store_true",
                         help="XLA compile warm-up; no effect here")
@@ -125,14 +139,12 @@ def add_common_args(parser: argparse.ArgumentParser):
 
 
 def check_unported(opts):
-    """Raise for flags whose feature the port does not have yet."""
-    for flag, bad in (("fsdp", True), ("remat", True),
-                      ("param_dtype", "bfloat16"), ("wire_codec", "int8")):
-        if getattr(opts, flag, None) == bad:
-            raise NotImplementedError(
-                f"--{flag} {bad} is not ported (see ROADMAP.md)")
-    if getattr(opts, "profile_dir", None):
-        raise NotImplementedError("--profile_dir is not ported")
+    """Raise for the flag whose feature the port does not have yet:
+    ``--fsdp`` (multi-card)."""
+    if getattr(opts, "fsdp", False):
+        raise NotImplementedError(
+            "--fsdp is not ported: it shards over several cards "
+            "(see ROADMAP.md)")
 
 
 def optim_kwargs(opts) -> dict:
@@ -143,6 +155,8 @@ def optim_kwargs(opts) -> dict:
     if md is not None and not fused:
         raise ValueError("--moment_dtype bfloat16 requires --fused_adamw 1")
     master = getattr(opts, "param_dtype", "float32") == "bfloat16"
+    if master and not fused:
+        raise ValueError("--param_dtype bfloat16 requires --fused_adamw 1")
     return dict(
         betas=tuple(opts.betas), weight_decay=opts.weight_decay,
         grad_norm=opts.grad_norm, optim=opts.optim, fused=fused,
@@ -156,13 +170,20 @@ def model_config_from_opts(opts, **overrides) -> UniterConfig:
         raw, dtype=opts.dtype,
         attention_impl=getattr(opts, "attention_impl", "auto"),
         block_fusion=getattr(opts, "block_fusion", "auto"),
-        dropout_impl=getattr(opts, "dropout_impl", "xla"), **overrides)
+        dropout_impl=getattr(opts, "dropout_impl", "xla"),
+        remat=bool(getattr(opts, "remat", False)), **overrides)
     # --dropout overrides both dropout rates (reference utils/misc.py:57-63)
     drop = getattr(opts, "dropout", None)
     if drop is not None:
         cfg = cfg.replace(hidden_dropout_prob=drop,
                           attention_probs_dropout_prob=drop)
     return resolve_kernel_policies(cfg, opts.device, training=True)
+
+
+def wire_codec(opts) -> Optional[str]:
+    """``--wire_codec`` as the loops take it (None for ``cast``)."""
+    codec = getattr(opts, "wire_codec", "cast")
+    return None if codec == "cast" else codec
 
 
 def init_weights(model: nn.Module, std: float):
@@ -370,7 +391,8 @@ def run_training(opts, *, model, loss_fn, train_loader, validate_fn=None,
         transfer_dtype=None if cdt == torch.float32 else cdt,
         steps_per_call=getattr(opts, "steps_per_call", 1),
         lr_schedule=sched, loss_scale=loss_scale, best_metric=best_metric,
-        best_value=best_value)
+        best_value=best_value, wire_codec=wire_codec(opts),
+        profile_dir=getattr(opts, "profile_dir", None))
     state = loop.run()
     LOGGER.info("training finished at step %d", state.step)
     return state

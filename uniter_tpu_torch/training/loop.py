@@ -17,6 +17,14 @@ still caps how many unread steps pile up. The JAX loop's ahead-of-time
 compile of every bucket (``--warmup_compile``) and its mesh placement of
 batches have no counterpart on one eager device.
 
+Both loops take the JAX loops' ``wire_codec`` (``"int8"``: ``img_feat``
+crosses to the card as per-row int8 and an fp32 scale, dequantized there;
+JAX ``loop.py:95-180``) and ``profile_dir`` (a ``torch.profiler`` trace of
+one window of steps, ``ProfileWindow``; JAX ``loop.py:204-210``), and
+save asynchronously at their periodic saves (``TrainStateSaver.save(...,
+block=False)``: the host copy is taken before the call returns, the disk
+write runs in a thread); the final save blocks.
+
 ``MixedTaskLoop`` draws (task, batch) pairs from a ``MetaLoader``, runs one
 step function per task, keeps a loss meter per task and the reference's
 throughput scalars (``perf/{name}_ex_per_s``, ``_in_per_s``,
@@ -42,6 +50,24 @@ MAX_INFLIGHT_STEPS = int(os.environ.get("UNITER_MAX_INFLIGHT_STEPS", "16"))
 # embeddings): cast on the host when that shrinks the bytes copied to the
 # card (fp32 -> bf16); the stores' fp16 features already travel at 2 bytes.
 TRANSFER_CAST_KEYS = ("img_feat", "img_pos_feat")
+# Fields the int8 wire codec carries (the largest wire bytes).
+WIRE_INT8_KEYS = ("img_feat",)
+
+
+def quantize_wire_int8(v: np.ndarray):
+    """Per-row symmetric int8 of [..., D] features (JAX
+    ``_quantize_wire_int8``): ``q * scale`` reconstructs ``v`` within
+    max|row| / 254; the scales are fp32 [..., 1], floored at 1e-12."""
+    scale = np.abs(v).max(axis=-1, keepdims=True).astype(np.float32) / 127.0
+    scale = np.maximum(scale, 1e-12)
+    q = np.clip(np.rint(v / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def dequantize_wire_int8(q: torch.Tensor, scale: torch.Tensor, dtype):
+    """``q * scale`` in ``dtype``, on their device (JAX ``_dequant_q8``:
+    both cast to ``dtype`` first)."""
+    return q.to(dtype) * scale.to(dtype)
 
 
 def bound_inflight(pending):
@@ -92,14 +118,28 @@ class NanGuard:
                 f"step {step} — aborting (last good checkpoint is resumable)")
 
 
-def train_batch_to_device(batch, device, transfer_dtype=None):
+def train_batch_to_device(batch, device, transfer_dtype=None,
+                          wire_codec=None):
     """The numpy arrays of a (possibly stacked) batch as device tensors,
-    with the host cast of ``TRANSFER_CAST_KEYS`` to ``transfer_dtype``."""
+    with the host cast of ``TRANSFER_CAST_KEYS`` to ``transfer_dtype``.
+    ``wire_codec="int8"`` ships the float ``WIRE_INT8_KEYS`` as int8 and
+    scale instead and dequantizes them on the device to ``transfer_dtype``
+    (fp32 when None): lossy (~0.4% of a row's largest value), for hosts
+    whose copy to the card is the limit; the default path is bit-exact."""
     from uniter_tpu_torch.training.infer import to_device
 
-    host = {}
+    if wire_codec not in (None, "int8"):
+        raise ValueError(f"unknown wire_codec {wire_codec!r}")
+    host, quant = {}, []
     for k, v in batch.items():
         if not isinstance(v, np.ndarray):
+            continue
+        if (wire_codec == "int8" and k in WIRE_INT8_KEYS
+                and np.issubdtype(v.dtype, np.floating)):
+            q, scale = quantize_wire_int8(v)
+            host[k] = torch.from_numpy(q)
+            host[k + "/scale"] = torch.from_numpy(scale)
+            quant.append(k)
             continue
         t = torch.from_numpy(v)
         if (transfer_dtype is not None and k in TRANSFER_CAST_KEYS
@@ -107,7 +147,84 @@ def train_batch_to_device(batch, device, transfer_dtype=None):
                 and t.element_size() > transfer_dtype.itemsize):
             t = t.to(transfer_dtype)
         host[k] = t
-    return to_device(host, device)
+    out = to_device(host, device)
+    for k in quant:
+        out[k] = dequantize_wire_int8(out[k], out.pop(k + "/scale"),
+                                      transfer_dtype or torch.float32)
+    return out
+
+
+# The profiled steps (JAX ``loop.py`` ``profile_steps`` default).
+PROFILE_STEPS = (10, 15)
+
+
+def _clamp_profile(num_train_steps):
+    """Fit ``PROFILE_STEPS`` inside the run (JAX ``_clamp_profile``: a
+    short run would never reach 10-15)."""
+    start, stop = PROFILE_STEPS
+    stop = min(stop, max(num_train_steps - 2, 0))
+    start = min(start, max(stop - 1, 0))
+    return (start, stop)
+
+
+class ProfileWindow:
+    """``--profile_dir``: ``torch.profiler`` (CPU, and CUDA on the card)
+    over the steps from the first at or past ``PROFILE_STEPS[0]`` until
+    one past ``PROFILE_STEPS[1]``, clamped to the run;
+    ``tensorboard_trace_handler`` writes the trace (``*.pt.trace.json``)
+    into ``profile_dir`` when the window closes, once a run. A resumed run profiles from 2 steps after its
+    start, the same span (JAX ``loop.py:381-384``). Each profiled step
+    is a ``train_step`` range in the trace."""
+
+    def __init__(self, profile_dir: Optional[str], num_train_steps, device):
+        self.dir = profile_dir
+        self.steps = _clamp_profile(num_train_steps)
+        self.device = torch.device(device)
+        self.prof = None
+        self.mark = None
+
+    def resume(self, start_step: int):
+        span = self.steps[1] - self.steps[0]
+        self.steps = (start_step + 2, start_step + 2 + span)
+
+    def begin(self, step: int):
+        """Before the step that follows ``step`` steps."""
+        if self.dir is None:
+            return
+        from torch.profiler import (ProfilerActivity, profile,
+                                    record_function,
+                                    tensorboard_trace_handler)
+
+        if self.prof is None and step >= self.steps[0]:
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts,
+                                on_trace_ready=tensorboard_trace_handler(
+                                    self.dir))
+            self.prof.start()
+        if self.prof is not None:
+            self.mark = record_function("train_step")
+            self.mark.__enter__()
+
+    def end(self, step: int):
+        """After the step that brought the count to ``step``."""
+        if self.mark is not None:
+            self.mark.__exit__(None, None, None)
+            self.mark = None
+        if self.prof is not None and step > self.steps[1]:
+            self.close()
+
+    def close(self):
+        """Write the trace of an open window (the card's work finished
+        first) and profile no more."""
+        if self.prof is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.prof.stop()
+            LOGGER.info("profiler trace written to %s", self.dir)
+        self.prof = None
+        self.dir = None
 
 
 def host_weight(batch) -> int:
@@ -137,6 +254,8 @@ class TrainLoop:
         lr_schedule=None,
         best_metric: Optional[str] = None,
         best_value: Optional[float] = None,
+        wire_codec: Optional[str] = None,
+        profile_dir: Optional[str] = None,
     ):
         self.state = state
         self.device = torch.device(device)
@@ -150,6 +269,8 @@ class TrainLoop:
         self.saver = saver
         self.seed = seed
         self.transfer_dtype = transfer_dtype
+        self.wire_codec = wire_codec
+        self.window = ProfileWindow(profile_dir, num_train_steps, device)
         self.k = steps_per_call
         self.lr_schedule = lr_schedule
         # best-checkpoint tracking on a validation metric (reference
@@ -185,6 +306,7 @@ class TrainLoop:
                     return self._run()
             return self._run()
         finally:
+            self.window.close()
             if self._it is not None:
                 self._it.close()
             self._it = None
@@ -203,12 +325,13 @@ class TrainLoop:
                 self.train_loader.skip_batches(start_step // self.k)
                 LOGGER.info("fast-forwarded train loader to step %d",
                             start_step)
+            self.window.resume(start_step)
         n_examples = 0
         t_start = time.time()
 
         def put(batch):
             return host_weight(batch), train_batch_to_device(
-                batch, self.device, self.transfer_dtype)
+                batch, self.device, self.transfer_dtype, self.wire_codec)
 
         self._it = it = DevicePrefetcher(iter(self.train_loader), put,
                                          depth=2)
@@ -228,10 +351,12 @@ class TrainLoop:
         while global_step < self.num_train_steps:
             n_ex, batch = next(it)
             n_examples += n_ex
+            self.window.begin(global_step)
             state, metrics = self.step_fn(state, batch, self.seed)
             pending.append((global_step + 1, metrics["loss"]))
             bound_inflight(pending)
             global_step += self.k
+            self.window.end(global_step)
             if _crossed(global_step, self.k, self.log_steps):
                 flush()
                 ex_per_s = n_examples / (time.time() - t_start)
@@ -261,9 +386,9 @@ class TrainLoop:
                             self.best_value = improved = v
                 if self.saver is not None:
                     # an improvement rides the same save as
-                    # model_step_best.pt
+                    # model_step_best.pt; the write overlaps training
                     self.saver.save(global_step, state, self.seed,
-                                    best_value=improved)
+                                    best_value=improved, block=False)
                     last_saved = global_step
             if self.preempt is not None and self.preempt.poll():
                 flush()
@@ -273,10 +398,20 @@ class TrainLoop:
                 break
         flush()
         assert global_step == state.step
-        if self.saver is not None and last_saved != global_step:
-            self.saver.save(global_step, state, self.seed)
+        finish_saves(self.saver, state, self.seed, last_saved)
         self.state = state
         return state
+
+
+def finish_saves(saver, state, seed: int, last_saved: int):
+    """The run's last save, blocking: a new one unless the last periodic
+    save was of this step, which is then waited for."""
+    if saver is None:
+        return
+    if last_saved != state.step:
+        saver.save(state.step, state, seed)
+    else:
+        saver.wait()
 
 
 def pretrain_loss_units(task: str, batch) -> int:
@@ -314,6 +449,8 @@ class MixedTaskLoop:
         transfer_dtype=None,
         preempt=True,
         lr_schedule=None,
+        wire_codec: Optional[str] = None,
+        profile_dir: Optional[str] = None,
     ):
         self.meta = meta
         self.lr_schedule = lr_schedule
@@ -328,6 +465,8 @@ class MixedTaskLoop:
         self.seed = seed
         self.loss_units_fn = loss_units_fn
         self.transfer_dtype = transfer_dtype
+        self.wire_codec = wire_codec
+        self.window = ProfileWindow(profile_dir, num_train_steps, device)
         if preempt is True:
             from uniter_tpu_torch.training.preempt import PreemptionGuard
 
@@ -352,6 +491,7 @@ class MixedTaskLoop:
                     return self._run()
             return self._run()
         finally:
+            self.window.close()
             if self._it is not None:
                 self._it.close()
             self._it = None
@@ -376,12 +516,14 @@ class MixedTaskLoop:
                 self.meta.skip_steps(global_step)
                 LOGGER.info("fast-forwarded task mix by %d steps",
                             global_step)
+            self.window.resume(global_step)
 
         def put(item):
             name, batch = item
             return (name, self._counters(name, batch),
                     train_batch_to_device(batch, self.device,
-                                          self.transfer_dtype))
+                                          self.transfer_dtype,
+                                          self.wire_codec))
 
         self._it = it = DevicePrefetcher(iter(self.meta), put, depth=2)
         pending = []  # (step, name, loss device scalar)
@@ -400,8 +542,10 @@ class MixedTaskLoop:
             n_examples[name] = n_examples.get(name, 0) + n_ex
             n_in_units[name] = n_in_units.get(name, 0) + n_in
             n_loss_units[name] = n_loss_units.get(name, 0) + n_loss
+            self.window.begin(global_step)
             state, metrics = self.get_step(task)(state, batch, self.seed)
             global_step += 1
+            self.window.end(global_step)
             pending.append((global_step, name, metrics["loss"]))
             bound_inflight(pending)
             if global_step % self.log_steps == 0:
@@ -444,7 +588,8 @@ class MixedTaskLoop:
                             {f"valid/{k}": v for k, v in logs.items()},
                             step=global_step)
                 if self.saver is not None:
-                    self.saver.save(global_step, state, self.seed)
+                    self.saver.save(global_step, state, self.seed,
+                                    block=False)
                     last_saved = global_step
             if self.preempt is not None and self.preempt.poll():
                 flush()
@@ -454,7 +599,6 @@ class MixedTaskLoop:
                 break
         flush()
         assert global_step == state.step
-        if self.saver is not None and last_saved != global_step:
-            self.saver.save(global_step, state, self.seed)
+        finish_saves(self.saver, state, self.seed, last_saved)
         self.state = state
         return state

@@ -1,4 +1,4 @@
-"""AdamW as the JAX package computes it (counterpart of
+"""AdamW, Adam and Adamax as the JAX package computes them (counterpart of
 ``uniter_tpu/training/optim.py``: ``decay_mask``, ``head_mask``,
 ``fused_adamw``, ``build_optimizer``).
 
@@ -15,11 +15,32 @@ scaled by ``lr_mul`` with the rest (optim.py:131-160). Moments may be
 stored in bfloat16: their arithmetic is fp32 and each is rounded once on
 store.
 
+``optim="adam"`` is ``optax.adam`` in the JAX package's chain (clip, the
+core, the learning rate, the head multiplier; optim.py:233-249): the
+update above with no decay term. ``optim="adamax"`` is ``optax.adamax``,
+whose infinity moment takes eps inside the max and has no bias correction
+(optax ``tree_update_infinity_moment``):
+
+    nu = max(|g| + eps, b2 nu);   u = (mu / (1 - b1^t)) / nu
+
+Both keep fp32 moments, as the chain passes them no moment dtype.
+
 On the card the optimizer step is bound by memory traffic, so parameters
 live in a few flat fp32 buffers, one per (decay, lr_mul) group, and each
 ``nn.Parameter``'s data becomes a view into its group's buffer; the
 gradients are gathered into one flat buffer per group. A step is then a
 dozen elementwise passes over each group, not a dozen per parameter.
+
+Master-weight mode (``master=True``, ``--param_dtype bfloat16``; JAX
+``fused_adamw(master=True)``, ``driver.py`` ``maybe_cast_param_storage``,
+``step.py:48-56``): the flat fp32 buffers are the masters, initialised
+from the parameters' fp32 values; every parameter of at least 2**16
+elements (embeddings and GEMM weights) is then stored as a bf16 tensor of
+its own, while the smaller ones (LayerNorm weights and biases, the other
+biases) stay fp32 views into the masters. A step updates the masters in
+fp32 and re-casts each bf16 parameter from its master with one
+round-to-nearest-even; ``masters()`` gives the fp32 values that exports
+and resumes carry.
 """
 
 from __future__ import annotations
@@ -66,11 +87,18 @@ def head_mask(names: Iterable[str], head_paths: Sequence[str]) -> Dict[str, bool
     return {n: any(h in n for h in head_paths) for n in names}
 
 
+MASTER_MIN_SIZE = 2 ** 16  # smallest parameter stored bf16 in master mode
+OPTIMS = ("adamw", "adam", "adamax")
+
+
 class FusedAdamW:
-    """One-pass AdamW over flat per-group buffers (module docstring).
+    """One-pass AdamW (or Adam, Adamax) over flat per-group buffers, with
+    the optional bf16 parameter storage of master mode (module docstring).
 
     ``state()``/``load_state()`` give the moments per parameter name, the
-    update count and the last step's pre-clip gradient norm ``gnorm``."""
+    update count and the last step's pre-clip gradient norm ``gnorm``;
+    ``masters()``/``load_masters()`` the fp32 values of the bf16-stored
+    parameters."""
 
     def __init__(self, named_params, learning_rate: Callable | float, *,
                  b1: float = 0.9, b2: float = 0.98, eps: float = 1e-6,
@@ -78,13 +106,18 @@ class FusedAdamW:
                  decay: Optional[Dict[str, bool]] = None,
                  grad_norm: float = 0.0, lr_mul: float = 1.0,
                  lr_mul_mask: Optional[Dict[str, bool]] = None,
-                 mu_dtype=None, nu_dtype=None):
+                 mu_dtype=None, nu_dtype=None, optim: str = "adamw",
+                 master: bool = False):
+        if optim not in OPTIMS:
+            raise ValueError(f"invalid optimizer {optim}")
+        self.optim = optim
         self.lr_fn = (learning_rate if callable(learning_rate)
                       else (lambda _: learning_rate))
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.grad_norm = grad_norm or 0.0
         self.count = 0
+        self.low = []  # (name, bf16 parameter, its fp32 master view)
         named_params = list(named_params)
         device = named_params[0][1].device
         self.gnorm = torch.zeros((), dtype=torch.float32, device=device)
@@ -103,7 +136,11 @@ class FusedAdamW:
             for name, p in members:
                 view = flat[ofs:ofs + p.numel()].view_as(p)
                 view.copy_(p.data)
-                p.data = view
+                if master and p.numel() >= MASTER_MIN_SIZE:
+                    p.data = view.to(torch.bfloat16)
+                    self.low.append((name, p, view))
+                else:
+                    p.data = view
                 views.append((name, p, ofs))
                 ofs += p.numel()
             mu = torch.zeros(n, dtype=mu_dtype or torch.float32,
@@ -138,10 +175,15 @@ class FusedAdamW:
             if clip is not None:
                 g.mul_(clip)
             mu32 = group["mu"].float().mul_(self.b1).add_(g * (1.0 - self.b1))
-            nu32 = group["nu"].float().mul_(self.b2).add_(
-                g.square_().mul_(1.0 - self.b2))
-            u = (mu32 / float(bc1)).div_(
-                (nu32 / float(bc2)).sqrt_().add_(self.eps))
+            if self.optim == "adamax":
+                nu32 = torch.maximum(g.abs_().add_(self.eps),
+                                     group["nu"].float().mul_(self.b2))
+                u = (mu32 / float(bc1)).div_(nu32)
+            else:
+                nu32 = group["nu"].float().mul_(self.b2).add_(
+                    g.square_().mul_(1.0 - self.b2))
+                u = (mu32 / float(bc1)).div_(
+                    (nu32 / float(bc2)).sqrt_().add_(self.eps))
             if group["decay"]:
                 u.add_(group["flat"] * self.weight_decay)
             group["flat"].add_(u.mul_(float(f32(-lr) * f32(group["mul"]))))
@@ -149,7 +191,21 @@ class FusedAdamW:
             group["nu"].copy_(nu32)
             for _, p, _ in group["params"]:
                 p.grad = None
+        for _, p, view in self.low:
+            p.data.copy_(view)  # one round to nearest even
         self.gnorm = gnorm
+
+    def masters(self) -> Dict[str, torch.Tensor]:
+        """The fp32 masters of the bf16-stored parameters, by name (views:
+        the next step updates them in place)."""
+        return {name: view for name, _, view in self.low}
+
+    def load_masters(self, weights: Dict[str, torch.Tensor]):
+        """Set the masters from fp32 ``weights`` (an export's) and re-cast
+        their bf16 parameters."""
+        for name, p, view in self.low:
+            view.copy_(weights[name])
+            p.data.copy_(view)
 
     def state(self) -> dict:
         """Moments by parameter name (storage dtype), count and gnorm."""
@@ -176,23 +232,28 @@ def build_optimizer(model: nn.Module, learning_rate, *, betas=(0.9, 0.98),
                     lr_mul_paths: Sequence[str] = (), optim: str = "adamw",
                     mu_dtype=None, nu_dtype=None, fused: bool = False,
                     master: bool = False) -> FusedAdamW:
-    """Mirror of the JAX package's ``build_optimizer`` for ``adamw``. The
-    fused and the chained AdamW are leaf-exact there (optim.py:90-92), so
-    both are this one update; the chain stores only ``mu`` in ``mu_dtype``
-    (optax.adamw), as the JAX package's does. ``adam``, ``adamax`` and
-    ``master`` mode (bf16 parameter storage) are not ported."""
-    if optim != "adamw":
-        raise NotImplementedError(
-            f"optimizer {optim!r} is not ported; use adamw")
-    if master:
-        raise NotImplementedError(
-            "master-weight mode (--param_dtype bfloat16) is not ported")
+    """Mirror of the JAX package's ``build_optimizer``. The fused and the
+    chained AdamW are leaf-exact there (optim.py:90-92), so both are this
+    one update; the chain stores only ``mu`` in ``mu_dtype``
+    (optax.adamw), as the JAX package's does. ``adam`` and ``adamax`` are
+    that package's optax chains (no decay, fp32 moments). ``master`` (bf16
+    parameter storage) needs the fused AdamW, as there."""
+    if master and not (fused and optim == "adamw"):
+        raise ValueError("master-weight mode (--param_dtype bfloat16) "
+                         "requires the fused adamw optimizer")
     params = [(n, p) for n, p in model.named_parameters()]
     names = [n for n, _ in params]
+    if optim == "adamw":
+        decay = decay_mask(model)
+        if not fused:
+            nu_dtype = None
+    else:
+        decay = {n: False for n in names}
+        mu_dtype = nu_dtype = None
     return FusedAdamW(
         params, learning_rate, b1=betas[0], b2=betas[1], eps=eps,
-        weight_decay=weight_decay, decay=decay_mask(model),
+        weight_decay=weight_decay, decay=decay,
         grad_norm=grad_norm or 0.0, lr_mul=lr_mul,
         lr_mul_mask=(head_mask(names, lr_mul_paths)
                      if lr_mul != 1.0 and lr_mul_paths else None),
-        mu_dtype=mu_dtype, nu_dtype=nu_dtype if fused else None)
+        mu_dtype=mu_dtype, nu_dtype=nu_dtype, optim=optim, master=master)

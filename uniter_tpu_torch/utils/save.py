@@ -10,7 +10,16 @@ parameter name, update count, gradient norm, the run's dropout seed), and
 restores the latest pair. A save that improves a validation metric also
 writes ``ckpt/model_step_best.pt`` and its sidecar ``model_step_best.json``
 (``{"step", "value"}``). The JAX package keeps its train state with
-Orbax; the port uses ``torch.save`` only.
+Orbax; the port uses ``torch.save`` only. In master-weight mode the
+weights written are the optimizer's fp32 masters, and a restore sets the
+masters from them (JAX ``utils/save.py:103-125``).
+
+``save(..., block=False)`` (JAX ``utils/save.py:58-100``) copies every
+tensor to the host before it returns, since the optimizer updates the
+parameters and moments in place, and leaves only the disk writes (each
+``.tmp`` then ``os.replace``, the best export included) to a thread.
+``restore``, ``latest_step``, ``best_info``, ``clear_best`` and the next
+``save`` wait for it; ``wait`` raises what the write raised.
 
 Weights-only snapshots written by the JAX package
 (``ckpt/model_step_N.msgpack``, flax ``serialization.to_bytes``) are read
@@ -28,6 +37,7 @@ import json
 import os
 import re
 import subprocess
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -110,6 +120,18 @@ class TrainStateSaver:
         self.dir = os.path.abspath(os.path.join(output_dir, "ckpt"))
         os.makedirs(self.dir, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self._thread = None
+        self._error = None
+
+    def wait(self):
+        """Block until the pending asynchronous write is on disk; raise
+        what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
 
     def _steps(self):
         return sorted(int(m.group(1)) for f in os.listdir(self.dir)
@@ -117,20 +139,39 @@ class TrainStateSaver:
                       if m)
 
     def save(self, step: int, state, seed: int = 0,
-             best_value: Optional[float] = None):
+             best_value: Optional[float] = None, block: bool = True):
         """Write the weights and the train state of ``step``. With
         ``best_value`` the same host copy of the weights is also written
         as ``model_step_best.pt``, with the sidecar
         ``model_step_best.json`` ``{"step", "value"}`` (the reference's
-        ``model_saver.save(model, 'best')``, train_re.py:259-263)."""
-        import torch
-
-        weights = {k: _host(v) for k, v in state.model.state_dict().items()}
+        ``model_saver.save(model, 'best')``, train_re.py:259-263). With
+        ``block=False`` the host copy is complete when this returns and
+        the files are written by a thread (module docstring)."""
+        self.wait()
+        sd = state.model.state_dict()
+        sd.update(state.opt.masters())
+        weights = {k: _host(v) for k, v in sd.items()}
         opt = state.opt.state()
         rest = {"step": int(step), "seed": int(seed),
                 "count": opt["count"], "gnorm": _host(opt["gnorm"]),
                 "mu": {k: _host(v) for k, v in opt["mu"].items()},
                 "nu": {k: _host(v) for k, v in opt["nu"].items()}}
+        if block:
+            self._write(step, weights, rest, best_value)
+            return
+
+        def write():
+            try:
+                self._write(step, weights, rest, best_value)
+            except Exception as e:  # raised again by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, name="ckpt-write")
+        self._thread.start()
+
+    def _write(self, step, weights, rest, best_value):
+        import torch
+
         for name, obj in ((f"model_step_{step}.pt", weights),
                           (f"train_state_{step}.pt", rest)):
             path = os.path.join(self.dir, name)
@@ -151,6 +192,7 @@ class TrainStateSaver:
 
     def best_info(self) -> Optional[dict]:
         """``{"step", "value"}`` of the best export, or None."""
+        self.wait()
         path = os.path.join(self.dir, "model_step_best.json")
         if not os.path.exists(path):
             return None
@@ -161,6 +203,7 @@ class TrainStateSaver:
         """Remove a previous run's best export (a fresh run in a reused
         ``output_dir`` starts its own maximum; until it first improves,
         ``--ckpt best`` would otherwise resolve to the old weights)."""
+        self.wait()
         for name in ("model_step_best.pt", "model_step_best.json"):
             path = os.path.join(self.dir, name)
             if os.path.exists(path):
@@ -168,6 +211,7 @@ class TrainStateSaver:
                 LOGGER.info("cleared stale best export %s", path)
 
     def latest_step(self) -> Optional[int]:
+        self.wait()
         steps = self._steps()
         return steps[-1] if steps else None
 
@@ -179,6 +223,7 @@ class TrainStateSaver:
         then draw other dropout masks than the interrupted run would."""
         import torch
 
+        self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             return None
@@ -187,6 +232,7 @@ class TrainStateSaver:
         weights = torch.load(os.path.join(self.dir, f"model_step_{step}.pt"),
                              map_location="cpu", weights_only=True)
         state.model.load_state_dict(weights, strict=True)
+        state.opt.load_masters(weights)
         state.opt.load_state(rest)
         state.step = int(rest["step"])
         if seed is not None and int(seed) != int(rest["seed"]):
