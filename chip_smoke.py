@@ -181,7 +181,22 @@ Phases, each printing its own lines:
    gradient within 1e-6 relative, beside a second baseline pass), the
    u16/u8 keep fractions of the plain dropout on the card,
    the int8 wire error on the card, adam/adamax 3 steps against float64.
-26. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
+26. data parallelism (``dist``), each run a ``torchrun --standalone``
+   launch of this file's ``--dist-worker`` (which calls the entry point's
+   ``main``, as ``torchrun -m uniter_tpu_torch.train_vqa`` does) or one
+   process without a process group: ``train_vqa`` at uniter-base (bf16,
+   dropout 0.1, K1-K6, 20 steps, validate and save at 10 and 20) alone and
+   under NCCL at world size 1, replicated and with ``--fsdp
+   --fsdp_min_size 65536``, the losses bit for bit equal; examples/s and
+   device busy ms a step of each; K1-K6 launches a step; the --fsdp run
+   resumed to 25 without --fsdp; the flagship step with and without an
+   NCCL group of one in turns; then two ranks sharing the card over gloo:
+   5 fp32 steps at dropout 0 against one process (step 1 within 1e-6,
+   later 1e-4; --fsdp within 1e-6 of replicated), each rank's optimizer
+   state bytes, both ranks' K3 masks of a step at dropout 0.1 (they
+   differ), ``inf_vqa`` at world 2 writing world 1's answers; the same over
+   NCCL on two cards where the host has them.
+27. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
    last line. Any failed check raises and the script exits non-zero.
 
 TF32 is off for matmuls and cuDNN (fp32 runs are full fp32; the fp32
@@ -1571,9 +1586,11 @@ def profile_steps(torch, state, step, batch, n, tag, label="train"):
     with open(os.path.join(OUT_DIR, f"train_profile_{tag}.txt"), "w") as f:
         for name, ms, count in rows:
             f.write(f"{ms:10.3f} ms {count:6d}  {name}\n")
+    ops = sum(r[2] for r in rows) / n
     print(f"[{label}] profile, {tag}, {n} steps: wall "
           f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
-          f"{(1 - busy / 1e3 / wall) * 100:.1f}%; "
+          f"{(1 - busy / 1e3 / wall) * 100:.1f}%, device ops a step "
+          f"{ops:g}; "
           + ", ".join(f"{k} {v:.1f} ms ({v / busy * 100:.1f}%)"
                       for k, v in groups.items()))
     for name, ms, count in rows[:12]:
@@ -1583,7 +1600,8 @@ def profile_steps(torch, state, step, batch, n, tag, label="train"):
         print(f"[{label}] fused tails by kernel, us a call: " + "; ".join(
             f"{re.search(r'(tail_fwd|tail_bwd|sum_partials)(<[^>]*>)?', name)[0]}"
             f" x{count} {ms / count * 1e3:.1f}" for name, ms, count in tails))
-    return state, {"wall_ms": wall * 1e3, "busy_ms": busy, **groups}
+    return state, {"wall_ms": wall * 1e3, "busy_ms": busy, "ops": ops,
+                   **groups}
 
 
 POLICIES = {  # name -> (attention_impl, block_fusion) before resolution
@@ -4432,6 +4450,72 @@ def prepro_phase(torch):
 FLAG_POLICIES = ("baseline", "remat", "master", "remat+master")
 
 
+def embed_routes(torch):
+    """The flagship step's four lookups (word, position, and the token-type
+    table for the text and for the image rows) under three routes:
+    ``F.embedding`` (CUDA's own backward), ids one-hot times the table
+    (tables of up to 512 rows) and ``SortedLookup``. For each, forward and
+    backward (a bf16 gradient into the fp32 table, as ``Embed`` runs it):
+    the call time (ms, between CUDA events), the device time and device
+    operations a call (torch.profiler over 10 calls), and whether three
+    backward passes give the same table gradient bit for bit."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from uniter_tpu_torch.models.encoder import SortedLookup
+
+    b, t, r, h = 96, 64, 40, 768
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lookups = {
+        "word": (28996, torch.randint(1, 28000, (b, t), generator=gen,
+                                      device=dev)),
+        "position": (512, torch.arange(t, device=dev).repeat(b, 1)),
+        "type (text)": (2, torch.zeros(b, t, dtype=torch.long, device=dev)),
+        "type (image)": (2, torch.ones(b, r, dtype=torch.long, device=dev))}
+    routes = {"F.embedding": F.embedding,
+              "one-hot": lambda ids, w: F.one_hot(
+                  ids, w.shape[0]).to(w.dtype) @ w,
+              "SortedLookup": SortedLookup.apply}
+    res = {}
+    for name, (rows, ids) in lookups.items():
+        w = torch.randn(rows, h, device=dev, generator=gen,
+                        requires_grad=True)
+        g = torch.randn(*ids.shape, h, device=dev, generator=gen).to(
+            torch.bfloat16)
+        for route, fn in routes.items():
+            if route == "one-hot" and rows > 512:
+                continue
+
+            def call():
+                out = fn(ids, w).to(torch.bfloat16)
+                return torch.autograd.grad(out, w, g)[0]
+
+            dws = [call() for _ in range(3)]
+            same = all(torch.equal(dws[0], x) for x in dws[1:])
+            ms = cuda_ms(torch, call, iters=200, warmup=20)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    call()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+            dev_ms = sum(getattr(e, "self_device_time_total", 0)
+                         for e in ev) / 1e3 / 10
+            ops = sum(e.count for e in ev) / 10
+            res[name, route] = {"ms": ms, "device_ms": dev_ms, "ops": ops,
+                                "same": same}
+    print("[flags] the flagship's lookups (B=96, T=64, R=40, h=768), forward"
+          " + backward, call ms / device ms / device ops a call / three "
+          "backward passes bit for bit: " + "; ".join(
+              f"{n} {rt} {v['ms']:.4f} / {v['device_ms']:.4f} / "
+              f"{v['ops']:g} / {v['same']}" for (n, rt), v in res.items()))
+    return res
+
+
 def optim_reference_check(torch, device="cuda"):
     """``--optim adam`` and ``adamax`` for 3 steps (clip 0.5, lr 1e-3, the
     head multiplier 10 on the last Linear) on the card against the optax
@@ -4589,12 +4673,13 @@ def flags_phase(torch, n_steps=10):
           and first["remat+master"] == first["master"],
           f"remat changed step 1: {first}")
     check(max(step1.values()) <= 1e-3, f"master mode's step 1: {step1}")
-    busy = {}
+    busy, ops = {}, {}
     for name in FLAG_POLICIES:
         state, step = trainers[name]
-        busy[name] = profile_steps(torch, state, step, batch, 3,
-                                   "flags_" + name.replace("+", "_"),
-                                   label="flags")[1]["busy_ms"] / 3
+        prof = profile_steps(torch, state, step, batch, 3,
+                             "flags_" + name.replace("+", "_"),
+                             label="flags")[1]
+        busy[name], ops[name] = prof["busy_ms"] / 3, prof["ops"]
     del trainers, batch
     torch.cuda.empty_cache()
 
@@ -4632,6 +4717,10 @@ def flags_phase(torch, n_steps=10):
     del cast, wire, ref, row
     oerr = optim_reference_check(torch)
     check(max(oerr.values()) <= 1e-6, f"adam/adamax against float64 {oerr}")
+    lookups = embed_routes(torch)
+    check(all(v["same"] for (_, rt), v in lookups.items()
+              if rt != "F.embedding"),
+          f"a deterministic lookup route differs between passes {lookups}")
     gib = 2 ** 30
     print(f"[flags] flagship step (B={b}, T=64, R=40, bf16, dropout {RATE}, "
           f"fused AdamW bf16 moments) through K1-K6, turns of {n_steps} "
@@ -4639,6 +4728,8 @@ def flags_phase(torch, n_steps=10):
           + ", ".join(f"{n} {v:.1f}" for n, v in eps.items())
           + "; device busy ms a step " + ", ".join(
               f"{n} {v:.2f}" for n, v in busy.items())
+          + "; device ops a step " + ", ".join(
+              f"{n} {v:g}" for n, v in ops.items())
           + "; step peak above the resident trainers GiB " + ", ".join(
               f"{n} {v / gib:.3f}" for n, v in peak.items())
           + "; a trainer's own GiB (parameters, bf16 copies, moments) "
@@ -4663,9 +4754,453 @@ def flags_phase(torch, n_steps=10):
           f"2 x 2^-8); adam/adamax 3 steps against float64 max |diff| "
           + ", ".join(f"{k} {v:.2e}" for k, v in oerr.items()))
     torch.cuda.empty_cache()
-    return {"ex_per_s": eps, "busy_ms": busy, "peak": peak,
+    return {"ex_per_s": eps, "busy_ms": busy, "ops": ops, "peak": peak,
             "resident": resident, "launches": launches, "remat_rel": rel,
-            "replay_rel": floor}
+            "replay_rel": floor, "lookups": lookups}
+
+
+# ------------------------------------------------------------------- dist
+
+DIST_Q = 1000  # questions of the dist phase's DBs (over 400 images)
+DIST_STEPS = 20
+GLOO_STEPS = 5
+# two ranks against one process, and --fsdp against replicated, relative,
+# at every step: the runs read 0.0 on the H100 (PERF.md §5); a step moves
+# the loss by ~2e-3, so a dropped rank's gradient shows
+DIST_REL = 1e-6
+
+
+def dist_worker(spec_path):
+    """One rank of a ``dist`` run: ``python3 chip_smoke.py --dist-worker
+    SPEC`` under ``torchrun`` (or alone: no process group). It calls the
+    port's entry point ``SPEC["module"]``'s ``main`` on ``SPEC["args"]``,
+    as ``python -m uniter_tpu_torch.<module>`` does, and writes what the
+    phase reads to ``SPEC["out"]``-RANK.json: every step's loss as the
+    loop's NaN guard reads it back, the kernels' launches of the run and of
+    its validation, the optimizer state's bytes, and with
+    ``SPEC["masks"]`` the first K3 launch's keep mask (an .npy beside)."""
+    import importlib
+
+    import torch
+    from uniter_tpu_torch.ops import dropout, fused_block
+    from uniter_tpu_torch.parallel.collectives import process_index
+    from uniter_tpu_torch.training import loop
+    from uniter_tpu_torch.utils.misc import parse_with_config
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    module = importlib.import_module(f"uniter_tpu_torch.{spec['module']}")
+    losses, val, first_k3 = {}, {k: 0 for k in KERNELS}, []
+    guard = loop.NanGuard.check
+
+    def check_and_keep(self, value, step):
+        losses[int(step)] = float(value)
+        return guard(self, value, step)
+
+    loop.NanGuard.check = check_and_keep
+    if hasattr(module, "validate"):
+        real = module.validate
+
+        def counted(*a, **k):
+            before = read_launches()
+            try:
+                return real(*a, **k)
+            finally:
+                for name, v in read_launches().items():
+                    val[name] += v - before[name]
+
+        module.validate = counted
+    if spec.get("masks"):
+        k3 = fused_block.drop_res_ln_fwd
+
+        def first(x, res, weight, bias, rate=0.0, seed=0, eps=1e-12):
+            if not first_k3:
+                first_k3.append((tuple(x.shape), rate, seed, x.device))
+            return k3(x, res, weight, bias, rate, seed, eps)
+
+        first.launches = 0  # the kernel's count lands here (its name)
+        fused_block.drop_res_ln_fwd = first
+    reset_launches()
+    t0 = time.perf_counter()
+    if spec["module"].startswith("inf_"):
+        module.main(module.get_parser().parse_args(spec["args"]))
+        state = None
+    else:
+        state = module.main(parse_with_config(module.get_parser(),
+                                              spec["args"]))
+    secs = time.perf_counter() - t0
+    rank = process_index()
+    out = {"rank": rank, "losses": [losses[s] for s in sorted(losses)],
+           "launches": read_launches(), "validation": val, "seconds": secs,
+           "state_bytes": state.opt.state_bytes() if state else None,
+           "step": state.step if state else None}
+    if first_k3:
+        shape, rate, seed, device = first_k3[0]
+        keep = dropout.keep_mask(seed, 0, shape, rate, device)
+        np.save(f"{spec['out']}-{rank}-mask.npy",
+                np.packbits(keep.cpu().numpy().reshape(-1)))
+        out["k3"] = {"shape": shape, "rate": rate, "seed": seed,
+                     "keep": float(keep.float().mean())}
+    with open(f"{spec['out']}-{rank}.json", "w") as f:
+        json.dump(out, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+_DIST_PROCS = []  # every launch of dist_start, stopped by dist_stop
+
+
+def dist_start(work, name, module, args, nproc=0, backend=None,
+               masks=False):
+    """Start the entry point ``module`` on ``args`` in ``nproc`` processes
+    under ``torchrun --standalone`` (0: one process, no launcher, no
+    process group; ``backend``: its ``--dist_backend``), its output to
+    ``work/name.log``; ``dist_wait`` collects it."""
+    spec = os.path.join(work, f"{name}.json")
+    out = os.path.join(work, name)
+    if backend:
+        args = [*args, "--dist_backend", backend]
+    with open(spec, "w") as f:
+        json.dump({"module": module, "args": args, "out": out,
+                   "masks": masks}, f)
+    cmd = [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+           "--dist-worker", spec]
+    if nproc:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nproc), *cmd[1:]]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with open(out + ".log", "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    _DIST_PROCS.append(proc)
+    return proc, name, out, max(nproc, 1)
+
+
+def dist_wait(run):
+    """Every rank's worker record (``dist_worker``) of a ``dist_start``."""
+    proc, name, out, n = run
+    try:
+        proc.wait(timeout=600)
+    finally:
+        dist_stop([proc])
+    with open(out + ".log") as f:
+        log = f.read()
+    check(proc.returncode == 0, f"{name} failed: {log[-3000:]}")
+    return [json.load(open(f"{out}-{r}.json")) for r in range(n)]
+
+
+def dist_run(*args, **kw):
+    return dist_wait(dist_start(*args, **kw))
+
+
+def dist_stop(procs):
+    """Stop every rank a launch started that still runs."""
+    for proc in procs:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+
+
+def trace_busy(profile_dir):
+    """(profiled steps, device busy ms a step) of the one trace
+    ``--profile_dir`` holds: the union of its kernels' intervals over its
+    ``train_step`` ranges."""
+    files = [f for f in os.listdir(profile_dir)
+             if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"profile_dir holds {files}")
+    with open(os.path.join(profile_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sum(e.get("name") == "train_step"
+                and e.get("cat") == "user_annotation" for e in events)
+    busy, end = 0.0, -1.0
+    for s, d in sorted((e["ts"], e["dur"]) for e in events
+                       if e.get("cat") == "kernel"):
+        busy += max(0.0, s + d - max(s, end))
+        end = max(end, s + d)
+    check(steps > 0 and busy > 0, f"trace: {steps} steps, busy {busy}")
+    return steps, busy / 1e3 / steps
+
+
+def scalar(out, name, step):
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        vals = [json.loads(x) for x in f]
+    return [v[name] for v in vals if name in v and v["step"] == step][-1]
+
+
+def dist_launch_line(tag, rec, steps):
+    per = {k: (rec["launches"][k] - rec["validation"][k]) / steps
+           for k in KERNELS[:6]}
+    print(f"[dist] {tag}: K1-K6 launches a step "
+          + " / ".join(f"{v:g}" for v in per.values())
+          + f" (validation: K1 {rec['validation']['mha_fwd']})")
+    return per
+
+
+def flagship_nccl_cost(torch):
+    """The flagship step through K1-K6 (``train_phase``'s trainer) in one
+    process, in turns without a process group and inside an NCCL group of
+    world size 1 (``init_process_group`` on tcp://localhost, destroyed
+    after each turn): examples/s and device busy ms a step of each. At
+    world 1 the collectives change no number, so the losses are equal."""
+    import socket
+
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.utils.const import IMG_DIM
+
+    num_answer, b, n_steps = 3129, 96, 10
+    base = base_config(dtype="bfloat16", hidden_dropout_prob=RATE,
+                       attention_probs_dropout_prob=RATE)
+    sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(
+        jax_layout_params(base, num_answer, IMG_DIM, SEED)).items()}
+    batch = flagship_batch(torch, base, num_answer, IMG_DIM, torch.bfloat16)
+    cfg = policy_configs(base)["K1-K6"]
+    trainers = {g: make_trainer(torch, cfg, sd, num_answer)
+                for g in ("no group", "NCCL world 1")}
+    secs = {g: [] for g in trainers}
+    losses = {g: [] for g in trainers}
+    busy = {}
+
+    def group(on):
+        if on:
+            s = socket.socket()
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+            s.close()
+            torch.distributed.init_process_group(
+                "nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                world_size=1, device_id=torch.device("cuda", 0))
+        elif torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+    for g in list(trainers) + list(trainers)[::-1]:
+        state, step = trainers[g]
+        group(g != "no group")
+        for _ in range(2 if not secs[g] else 0):  # warm-up
+            step(state, batch, SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ls = [step(state, batch, SEED)[1]["loss"] for _ in range(n_steps)]
+        losses[g] += [float(x) for x in ls]
+        secs[g].append(time.perf_counter() - t0)
+        if g not in busy:
+            busy[g] = profile_steps(torch, state, step, batch, 3,
+                                    "dist_" + g.replace(" ", "_"),
+                                    label="dist")[1]["busy_ms"] / 3
+        group(False)
+    eps = {g: n_steps * b * len(v) / sum(v) for g, v in secs.items()}
+    check(losses["no group"] == losses["NCCL world 1"],
+          "the flagship losses differ inside an NCCL group of one")
+    print("[dist] flagship step (B=96, S=104, bf16, dropout 0.1, K1-K6), "
+          "turns of 10 steps no group / NCCL world 1 / NCCL world 1 / no "
+          "group: examples/s " + ", ".join(f"{g} {v:.1f}"
+                                          for g, v in eps.items())
+          + "; device busy ms a step " + ", ".join(
+              f"{g} {v:.2f}" for g, v in busy.items())
+          + "; losses bit-equal")
+    del trainers
+    torch.cuda.empty_cache()
+    return {"ex_per_s": eps, "busy_ms": busy}
+
+
+def dist_phase(torch):
+    """Data parallelism over ``torch.distributed`` through the entry points
+    (``torchrun -m``'s counterpart: ``chip_smoke.py --dist-worker`` calls
+    ``main``): (1) ``train_vqa`` at uniter-base (bf16, dropout 0.1,
+    K1-K6) 20 steps, validating and saving at 10 and 20, without a process
+    group and under ``torchrun --nproc_per_node 1`` (NCCL), replicated and
+    with ``--fsdp --fsdp_min_size 65536``: losses bit-equal; examples/s and
+    device busy ms a step (the replicated pair alone on the card, the rest
+    of the phase's runs in overlapping waves); the --fsdp run resumed to 25
+    without --fsdp; the flagship step with and without an NCCL group of
+    one; (2) two ranks sharing the card over gloo: 5 fp32 steps at dropout
+    0 against one process on the same global batches, replicated and
+    --fsdp (every step within ``DIST_REL`` of one process, --fsdp within
+    it of replicated), each rank's optimizer-state bytes, one step at
+    dropout 0.1 (K1-K6 launches, both ranks' K3 masks), ``inf_vqa`` at
+    world 2 against world 1; (3) the same over NCCL with a card a rank when there are two
+    cards."""
+    work = scratch_dir("chip_smoke_dist_")
+    t_phase = t0 = time.perf_counter()
+    write_vqa_dbs(work, 400, DIST_Q, SEED)
+    txt, img = os.path.join(work, "txt"), os.path.join(work, "img")
+    base = dict(train_txt_db=txt, train_img_db=img, val_txt_db=txt,
+                val_img_db=img, model_config=os.path.join(
+                    REPO, "configs", "uniter-base.json"),
+                train_batch_size=5120, val_batch_size=10240, n_workers=2,
+                moment_dtype="bfloat16", device="cuda", checkpoint="",
+                log_steps=1)
+
+    def conf(name, **kw):
+        path = os.path.join(work, f"{name}_conf.json")
+        with open(path, "w") as f:
+            json.dump(dict(base, output_dir=os.path.join(work, name), **kw),
+                      f)
+        return ["--config", path]
+
+    one = dict(num_train_steps=DIST_STEPS, valid_steps=10)
+    two = dict(num_train_steps=GLOO_STEPS, valid_steps=0, dtype="float32",
+               dropout=0.0)
+    fsdp = ["--fsdp", "--fsdp_min_size", "65536"]
+    backends = [("gloo", "gloo")]
+    if torch.cuda.device_count() >= 2:
+        backends.append(("nccl2", None))
+    res = {"seconds": {"dbs": time.perf_counter() - t0}}
+    try:
+        # (1) NCCL at world size 1: the timed pair alone on the card
+        runs = {}
+        for name, nproc in (("alone", 0), ("nccl1", 1)):
+            t0 = time.perf_counter()
+            prof = os.path.join(work, f"prof_{name}")
+            runs[name] = dist_run(work, name, "train_vqa",
+                                  conf(name, **one)
+                                  + ["--profile_dir", prof], nproc)[0]
+            res["seconds"][name] = time.perf_counter() - t0
+            runs[name]["ex_per_s"] = scalar(os.path.join(work, name),
+                                            "perf/ex_per_s", DIST_STEPS)
+            runs[name]["busy"] = trace_busy(prof)
+        # the rest in waves that share the card
+        t0 = time.perf_counter()
+        wave = {name: dist_start(work, name, "train_vqa",
+                                 conf(name, **one) + fsdp, nproc)
+                for name, nproc in (("alone_fsdp", 0), ("nccl1_fsdp", 1))}
+        wave["one_fp32"] = dist_start(work, "one_fp32", "train_vqa",
+                                      conf("one_fp32", **two))
+        got = {name: dist_wait(run) for name, run in wave.items()}
+        runs.update({n: got[n][0] for n in ("alone_fsdp", "nccl1_fsdp")})
+        ref = got["one_fp32"][0]
+        res["seconds"]["wave 1"] = time.perf_counter() - t0
+        for name, rec in runs.items():
+            check(rec["step"] == DIST_STEPS
+                  and len(rec["losses"]) == DIST_STEPS
+                  and np.isfinite(rec["losses"]).all(), f"{name}: {rec}")
+        for a, b in (("alone", "nccl1"), ("alone_fsdp", "nccl1_fsdp")):
+            check(runs[a]["losses"] == runs[b]["losses"],
+                  f"{b}'s losses are not {a}'s bit for bit")
+        t0 = time.perf_counter()
+        wave = {"resume": dist_start(
+            work, "nccl1_fsdp", "train_vqa", conf("nccl1_fsdp", **one)
+            + ["--num_train_steps", "25"], 1),
+            "inf1": dist_start(work, "inf1", "inf_vqa", [
+                "--txt_db", txt, "--img_db", img, "--train_dir",
+                os.path.join(work, "one_fp32"), "--output_dir",
+                os.path.join(work, "ans1")])}
+        for tag, backend in backends:
+            wave[f"{tag}_fsdp"] = dist_start(
+                work, f"{tag}_fsdp", "train_vqa",
+                conf(f"{tag}_fsdp", **two) + fsdp, 2, backend)
+            wave[f"{tag}_masks"] = dist_start(
+                work, f"{tag}_masks", "train_vqa",
+                conf(f"{tag}_masks", num_train_steps=1, valid_steps=0), 2,
+                backend, masks=True)
+            wave[f"{tag}_inf"] = dist_start(work, f"{tag}_inf", "inf_vqa", [
+                "--txt_db", txt, "--img_db", img, "--train_dir",
+                os.path.join(work, "one_fp32"), "--output_dir",
+                os.path.join(work, f"ans_{tag}")], 2,
+                backend)
+        got = {name: dist_wait(run) for name, run in wave.items()}
+        res["seconds"]["wave 2"] = time.perf_counter() - t0
+        rec = got["resume"][0]
+        with open(os.path.join(work, "nccl1_fsdp", "log", "log.txt")) as f:
+            check("resumed from step 20" in f.read(), "no resume")
+        check(rec["step"] == 25 and len(rec["losses"]) == 5, f"resume {rec}")
+        with open(os.path.join(work, "ans1", "results.json")) as f:
+            answers1 = json.load(f)
+        check(len(answers1) == DIST_Q, f"{len(answers1)} answers")
+        launches = dist_launch_line("NCCL world 1, replicated",
+                                    runs["nccl1"], DIST_STEPS)
+        check(launches == {k: STEP_LAUNCHES[k] for k in launches},
+              f"distributed launches a step {launches}")
+        print("[dist] train_vqa at uniter-base, 20 steps (validate + save "
+              "at 10, 20), losses bit-equal with and without the NCCL group "
+              "of one, replicated and --fsdp; perf/ex_per_s at step 20 (from "
+              "the loop's start, step 10's validation and save included) "
+              "and device busy ms a step over the profiled steps, alone on "
+              "the card: " + "; ".join(
+                  f"{n} {runs[n]['ex_per_s']:.1f} ex/s, "
+                  f"{runs[n]['busy'][1]:.2f} ms ({runs[n]['busy'][0]} steps)"
+                  for n in ("alone", "nccl1"))
+              + "; optimizer state at world 1 " + ", ".join(
+                  f"{n} {r['state_bytes'] / 2**20:.1f} MiB"
+                  for n, r in runs.items()))
+        print(f"[dist] the --fsdp run (NCCL world 1) resumed without --fsdp "
+              f"to 25: losses {[round(x, 4) for x in rec['losses']]}")
+        res["nccl1"], res["launches"] = runs, launches
+        # (2) two ranks on the one card over gloo; (3) NCCL on two cards
+        if len(backends) == 1:
+            print(f"[dist] NCCL at world size 2 not run: "
+                  f"{torch.cuda.device_count()} card(s), and NCCL takes one "
+                  "card a rank")
+        for tag, backend in backends:
+            t0 = time.perf_counter()
+            rep = dist_run(work, f"{tag}_replicated", "train_vqa",
+                           conf(f"{tag}_replicated", **two), 2, backend)
+            res["seconds"][f"{tag}_replicated"] = time.perf_counter() - t0
+            ex_s = scalar(os.path.join(work, f"{tag}_replicated"),
+                          "perf/ex_per_s", GLOO_STEPS)
+            with open(os.path.join(work, f"ans_{tag}", "results.json")) as f:
+                check(json.load(f) == answers1,
+                      f"{tag}: inf_vqa at world 2 differs from world 1")
+            fs = got[f"{tag}_fsdp"]
+            for recs in (rep, fs):
+                check(recs[0]["losses"] == recs[1]["losses"],
+                      f"{tag}: the ranks report different losses")
+            want = ref["losses"]
+            rel = [abs(x - y) / abs(y)
+                   for x, y in zip(rep[0]["losses"], want)]
+            rel_fsdp = max(abs(x - y) / abs(y) for x, y in zip(
+                fs[0]["losses"], rep[0]["losses"]))
+            check(len(rel) == GLOO_STEPS and max(rel) <= DIST_REL
+                  and rel_fsdp <= DIST_REL,
+                  f"{tag}: losses {rep[0]['losses']} / {fs[0]['losses']} "
+                  f"against one process {want}")
+            sb = {"replicated": [r["state_bytes"] for r in rep],
+                  "fsdp": [r["state_bytes"] for r in fs]}
+            check(all(0.4 < f / r < 0.6 for f, r in zip(sb["fsdp"],
+                                                          sb["replicated"])),
+                  f"{tag}: optimizer state bytes {sb}")
+            masks = got[f"{tag}_masks"]
+            bits = [np.unpackbits(np.load(os.path.join(
+                work, f"{tag}_masks-{r}-mask.npy"))) for r in range(2)]
+            same = float((bits[0] == bits[1]).mean())
+            k3 = [m["k3"] for m in masks]
+            check(k3[0]["seed"] != k3[1]["seed"] and same < 0.99
+                  and all(abs(k["keep"] - 0.9) < 0.01 for k in k3),
+                  f"{tag}: the ranks' K3 masks {k3}, agreement {same}")
+            per32 = dist_launch_line(f"{tag} world 2, rank 0, fp32 dropout 0",
+                                     rep[0], GLOO_STEPS)
+            per = dist_launch_line(f"{tag} world 2, rank 0, bf16 dropout 0.1",
+                                   masks[0], 1)
+            check(per == {k: STEP_LAUNCHES[k] for k in per},
+                  f"{tag}: launches a step {per}")
+            print(f"[dist] {tag}, 2 ranks, uniter-base fp32, dropout 0, "
+                  f"{GLOO_STEPS} steps: losses "
+                  f"{[f'{x:.6f}' for x in rep[0]['losses']]} against one "
+                  f"process {[f'{x:.6f}' for x in want]} (relative "
+                  f"{', '.join(f'{x:.1e}' for x in rel)}); --fsdp within "
+                  f"{rel_fsdp:.1e} of replicated; optimizer state bytes per "
+                  f"rank replicated {sb['replicated']}, --fsdp {sb['fsdp']} "
+                  f"(one process {ref['state_bytes']}); perf/ex_per_s at "
+                  f"step {GLOO_STEPS} (from the loop's start) {ex_s:.1f}; "
+                  f"K3 masks of step 1 at dropout 0.1: seeds "
+                  f"{k3[0]['seed']} / {k3[1]['seed']}, keep "
+                  f"{k3[0]['keep']:.4f} / {k3[1]['keep']:.4f}, the same bit "
+                  f"in {same * 100:.1f}% of {k3[0]['shape']}; inf_vqa at "
+                  f"world 2 wrote world 1's {len(answers1)} answers")
+            res[tag] = {"losses": rep[0]["losses"], "one": want, "rel": rel,
+                        "rel_fsdp": rel_fsdp, "state_bytes": sb,
+                        "ex_per_s": ex_s, "launches": per,
+                        "launches_fp32": per32, "k3_same": same}
+    finally:
+        dist_stop(_DIST_PROCS)
+    t0 = time.perf_counter()
+    res["flagship"] = flagship_nccl_cost(torch)
+    res["seconds"]["flagship"] = time.perf_counter() - t0
+    res["seconds"]["phase"] = time.perf_counter() - t_phase
+    print("[dist] seconds " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in res["seconds"].items()))
+    return res
 
 
 def main(argv):
@@ -4688,46 +5223,58 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    seconds = {}
+
+    def timed(phase, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args, **kw)
+        finally:
+            name = phase.__name__
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    t_start = time.perf_counter()
     device_phase(torch)
     build_phase()
     if argv:
         for name in argv:
             PHASES[name](torch)
         return 0
-    sass_phase(torch)
-    k1_err, k1_time = k1_phase(torch)
-    k2_err, k2_bf16, k2_time, _ = k2_phase(torch)
-    sdpa_fp32_probe(torch)
-    tail_err, tail_time = tail_phase(torch)
-    serve_counts, n_batches, qps, _ = main_path_phase(torch)
+    timed(sass_phase, torch)
+    k1_err, k1_time = timed(k1_phase, torch)
+    k2_err, k2_bf16, k2_time, _ = timed(k2_phase, torch)
+    timed(sdpa_fp32_probe, torch)
+    tail_err, tail_time = timed(tail_phase, torch)
+    serve_counts, n_batches, qps, _ = timed(main_path_phase, torch)
     launches = serve_counts["mha_fwd"]
-    train = train_phase(torch)
-    train32 = train32_phase(torch)
-    cli_phase(torch)
-    nlvr2 = nlvr2_phase(torch)
-    nlvr2_cli_phase(torch)
-    k7_err, k7_time = k7_phase(torch)
-    k8_err, k8_time = k8_phase(torch)
-    pre = pretrain_phase(torch)
+    train = timed(train_phase, torch)
+    train32 = timed(train32_phase, torch)
+    timed(cli_phase, torch)
+    nlvr2 = timed(nlvr2_phase, torch)
+    timed(nlvr2_cli_phase, torch)
+    k7_err, k7_time = timed(k7_phase, torch)
+    k8_err, k8_time = timed(k8_phase, torch)
+    pre = timed(pretrain_phase, torch)
     # K8 on a path: 29 LayerNorms per served VQA batch (the text tail,
     # img_layer_norm, pos_layer_norm, the image tail, 24 sub-block tails,
     # the answer head's vqa_output.2)
-    ln_counts, ln_batches, _, _ = main_path_phase(
-        torch, n_questions=N_QUESTIONS // 4, tag="serve-K8",
+    ln_counts, ln_batches, _, _ = timed(
+        main_path_phase, torch, n_questions=N_QUESTIONS // 4, tag="serve-K8",
         per_batch={"mha_fwd": 12, "layer_norm_fwd": 29},
         layer_norm_impl="pallas")
-    cli_counts = pretrain_cli_phase(torch)
-    k9_err, k9_time = k9_phase(torch)
-    itm = itm_train_phase(torch)
-    hn = hn_phase(torch)
-    serve_itm = itm_serve_phase(torch)
-    itm_cli_counts = itm_cli_phase(torch)
-    vcr = vcr_phase(torch)
-    vcr_serve = vcr_serve_phase(torch)
-    re_res = re_phase(torch)
-    task_counts = task_cli_phase(torch)
-    prepro = prepro_phase(torch)
-    flags = flags_phase(torch)
+    cli_counts = timed(pretrain_cli_phase, torch)
+    k9_err, k9_time = timed(k9_phase, torch)
+    itm = timed(itm_train_phase, torch)
+    hn = timed(hn_phase, torch)
+    serve_itm = timed(itm_serve_phase, torch)
+    itm_cli_counts = timed(itm_cli_phase, torch)
+    vcr = timed(vcr_phase, torch)
+    vcr_serve = timed(vcr_serve_phase, torch)
+    re_res = timed(re_phase, torch)
+    task_counts = timed(task_cli_phase, torch)
+    prepro = timed(prepro_phase, torch)
+    flags = timed(flags_phase, torch)
+    dist = timed(dist_phase, torch)
     t = k2_time[TRAIN_SHAPES[0] + ("bfloat16",)]
     t32 = k2_time[TRAIN_SHAPES[0] + ("float32",)]
     kernels = []
@@ -4756,7 +5303,9 @@ def main(argv):
             "fp32_plain_ms": t32[0.0][f"{key}_plain"],
             "fp32_bound_ms": b32, "fp32_bound_by": by32,
             "fp32_library_ms": t32[lib],
-            "fp32_library_device_ms": t32[f"{lib}_dev"]})
+            "fp32_library_device_ms": t32[f"{lib}_dev"],
+            "dist_launches_per_step": dist["launches"][name],
+            "gloo_launches_per_step": dist["gloo"]["launches"][name]})
     for name, line, rows in (("drop_res_ln_fwd", 64, 9984),
                              ("drop_res_ln_bwd", 71, 9984),
                              ("ln_drop_fwd", 200, 6144),
@@ -4771,7 +5320,9 @@ def main(argv):
             "max_abs_err": tail_err[name], "ms": tt["call"],
             "plain_ms": tt["plain"], "bound_ms": bound, "bound_by": by,
             "library_ms": tt["lib_call"], "device_ms": tt["dev"],
-            "library_device_ms": tt["lib_dev"]})
+            "library_device_ms": tt["lib_dev"],
+            "dist_launches_per_step": dist["launches"][name],
+            "gloo_launches_per_step": dist["gloo"]["launches"][name]})
     bound, by = ipot_bound_ms(*K7_SHAPES[0])
     kernels.append({
         "name": "ipot", "route": "cuda",
@@ -4849,6 +5400,18 @@ def main(argv):
     print(f"[smoke] K1-K6 a step under --remat (the prepro chain's "
           f"train_vqa): {prepro['launches']} over 20 steps; the flags "
           f"phase's per policy: {flags['launches']}")
+    print(f"[smoke] K1-K6 a step on the distributed path (the dist phase's "
+          f"train_vqa at uniter-base, bf16, dropout 0.1): under torchrun "
+          f"NCCL world 1 {dist['launches']} over 20 steps "
+          f"(dist_launches_per_step), each of 2 gloo ranks sharing the card "
+          f"{dist['gloo']['launches']} in its one step "
+          f"(gloo_launches_per_step; its fp32 dropout-0 steps "
+          f"{dist['gloo']['launches_fp32']}: the tails fuse only under a "
+          f"live mask)")
+    print("[smoke] seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; all, with the device and build phases, "
+        f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4866,8 +5429,10 @@ PHASES = {"sass": sass_phase, "k1": k1_phase, "k2": k2_phase,
           "itm": itm_train_phase, "vcr": vcr_phase,
           "vcr_serve": vcr_serve_phase, "re": re_phase,
           "task_cli": task_cli_phase, "prepro": prepro_phase,
-          "flags": flags_phase}
+          "flags": flags_phase, "dist": dist_phase}
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:  # one rank of a dist_phase run
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main(sys.argv[1:]))

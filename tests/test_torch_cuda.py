@@ -59,6 +59,14 @@ from run to run and through either launch path, a second stream or a CUDA
 graph; ``FfnFunction``'s backward is the plain formula; a small retrieval
 model trains the same with K9 as without. K8 through its one-look launch
 path equals K5 at rate 0 bit for bit.
+
+Several processes (``uniter_tpu_torch/parallel``): a process group of one
+NCCL rank, and of two gloo ranks sharing the card, runs the collectives on
+CUDA tensors, and two train steps of a small VQA model through K1-K6
+(dropout 0, the clip active), replicated and ``--fsdp``, give one
+process's losses and parameters (1e-6). Three backward passes of a small
+VQA model through K1-K6 give bit-equal gradients (the token-type table
+read as a one-hot product).
 """
 
 import pytest
@@ -1165,3 +1173,167 @@ def test_re_rank_sampler_on_the_card(gen):
     b2 = model(batch, True, deterministic=False,
                generator=step_generator(5, 2))
     assert torch.isfinite(a).all() and torch.equal(a, b2)
+
+
+# ---------------------------------------------------- several processes
+
+DIST_CODE = r"""
+import os, sys
+import numpy as np, torch
+from uniter_tpu_torch.parallel import collectives as C
+from uniter_tpu_torch.config import resolve_kernel_policies, tiny_config
+from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
+from uniter_tpu_torch.train_vqa import vqa_loss
+from uniter_tpu_torch.training.optim import build_optimizer
+from uniter_tpu_torch.training.step import TrainState, make_train_step
+
+device = C.init_distributed("cuda", sys.argv[1])
+world, rank = C.num_processes(), C.process_index()
+t = torch.full((3,), float(rank + 1), device=device)
+assert float(C.all_reduce_sum(t)[0]) == world * (world + 1) / 2
+part = C.reduce_scatter(torch.empty(2, device=device),
+                        torch.ones(2 * world, device=device))
+assert (part == world).all()
+bf16 = torch.bfloat16
+full = C.all_gather(torch.empty(2 * world, device=device, dtype=bf16),
+                    torch.full((2,), rank, device=device, dtype=bf16))
+assert full.tolist() == [float(r) for r in range(world) for _ in range(2)]
+assert C.all_gather_list(rank) == list(range(world))
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = resolve_kernel_policies(tiny_config(hidden_dropout_prob=0.0,
+                                          attention_probs_dropout_prob=0.0),
+                              "cuda", training=True)
+rng = np.random.RandomState(0)
+b, s = 8, 12
+batch = dict(input_ids=rng.randint(1, 500, (b, 8)),
+             position_ids=np.tile(np.arange(8), (b, 1)),
+             img_feat=rng.randn(b, 4, 32).astype(np.float32),
+             img_pos_feat=rng.rand(b, 4, 7).astype(np.float32),
+             attn_mask=np.ones((b, s), np.int32),
+             targets=rng.rand(b, 5).astype(np.float32),
+             ex_weight=np.array([1] * 6 + [0] * 2, np.float32))
+n = b // world
+mine = {k: torch.from_numpy(v[rank * n:(rank + 1) * n]).to(device)
+        for k, v in batch.items()}
+out = {}
+for fsdp in (False, True):
+    torch.manual_seed(0)
+    model = UniterForVisualQuestionAnswering(cfg, img_dim=32,
+                                             num_answer=5).to(device)
+    state = TrainState(step=0, model=model, opt=build_optimizer(
+        model, 1e-3, grad_norm=1e-3, fused=True, fsdp=fsdp,
+        fsdp_min_size=64))
+    step = make_train_step(lambda m, bt, g: (vqa_loss(m, bt, g, 5), {}))
+    losses = [float(step(state, mine, 0)[1]["loss"]) for _ in range(2)]
+    out[fsdp] = (losses, torch.cat([p.detach().reshape(-1).float().cpu()
+                                    for p in model.parameters()]))
+if rank == 0:
+    torch.save(out, sys.argv[2])
+"""
+
+
+def _dist_run(tmp_path, world, backend):
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / f"{backend}{world}.pt")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DIST_CODE, backend, out], cwd=root,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                 LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=port, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    for p in procs:
+        log = p.communicate(timeout=600)[0]
+        assert p.returncode == 0, log[-3000:]
+    return torch.load(out)
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_process_group_on_the_card(gen, tmp_path, world, backend):
+    """The collectives on CUDA tensors (NCCL at world 1; gloo with two
+    ranks sharing the card), and two train steps of a small VQA model
+    through K1-K6 (dropout 0, the clip active at every step), replicated
+    and with --fsdp: the same losses and parameters (1e-6) as one process
+    without a process group."""
+    if backend == "nccl" and world > torch.cuda.device_count():
+        pytest.skip("NCCL takes one card a rank")
+    got = _dist_run(tmp_path, world, backend)
+    no_drop = tiny_config(hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    cfg = resolve_kernel_policies(no_drop, "cuda", training=True)
+    import numpy as np
+    from uniter_tpu_torch.train_vqa import vqa_loss
+    from uniter_tpu_torch.training.optim import build_optimizer
+    from uniter_tpu_torch.training.step import TrainState, make_train_step
+
+    rng = np.random.RandomState(0)
+    b = 8
+    batch = dict(input_ids=rng.randint(1, 500, (b, 8)),
+                 position_ids=np.tile(np.arange(8), (b, 1)),
+                 img_feat=rng.randn(b, 4, 32).astype(np.float32),
+                 img_pos_feat=rng.rand(b, 4, 7).astype(np.float32),
+                 attn_mask=np.ones((b, 12), np.int32),
+                 targets=rng.rand(b, 5).astype(np.float32),
+                 ex_weight=np.array([1] * 6 + [0] * 2, np.float32))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    torch.manual_seed(0)
+    model = UniterForVisualQuestionAnswering(cfg, img_dim=32,
+                                             num_answer=5).cuda()
+    state = TrainState(step=0, model=model, opt=build_optimizer(
+        model, 1e-3, grad_norm=1e-3, fused=True))
+    step = make_train_step(lambda m, bt, g: (vqa_loss(m, bt, g, 5), {}))
+    losses = [float(step(state, batch, 0)[1]["loss"]) for _ in range(2)]
+    params = torch.cat([p.detach().reshape(-1).float().cpu()
+                        for p in model.parameters()])
+    for fsdp, (got_l, got_p) in got.items():
+        assert len(got_l) == len(losses), fsdp
+        for i, (x, want) in enumerate(zip(got_l, losses)):
+            assert abs(x - want) <= 1e-6 * abs(want), (fsdp, i, x, want)
+        assert torch.allclose(got_p, params, atol=1e-6, rtol=0), fsdp
+
+
+def test_backward_is_the_same_every_run(gen):
+    """Three forward + backward passes of a small VQA model through K1-K6
+    on the same batch and seeds give bit-equal gradients, the token-type
+    table's too (its rows take thousands of ids each, which CUDA's
+    embedding backward sums in a changing order; the port reads tables
+    of at most ``ONE_HOT_ROWS`` rows as a one-hot product)."""
+    from uniter_tpu_torch.train_vqa import vqa_loss
+    from uniter_tpu_torch.training.step import step_generator
+
+    cfg = resolve_kernel_policies(
+        tiny_config(dtype="bfloat16", hidden_dropout_prob=0.1,
+                    attention_probs_dropout_prob=0.1), "cuda",
+        training=True)
+    b, t, r = 96, 64, 40
+    batch = {"input_ids": torch.randint(1, 500, (b, t), generator=gen,
+                                        device="cuda"),
+             "position_ids": torch.arange(t, device="cuda").expand(b, t),
+             "img_feat": torch.randn(b, r, 32, generator=gen, device="cuda"),
+             "img_pos_feat": torch.rand(b, r, 7, generator=gen,
+                                        device="cuda"),
+             "attn_mask": torch.ones(b, t + r, dtype=torch.int32,
+                                     device="cuda"),
+             "targets": torch.rand(b, 9, generator=gen, device="cuda"),
+             "ex_weight": torch.ones(b, device="cuda")}
+    grads = []
+    for _ in range(3):
+        torch.manual_seed(0)
+        model = UniterForVisualQuestionAnswering(cfg, img_dim=32,
+                                                 num_answer=9).cuda().train()
+        vqa_loss(model, batch, step_generator(0, 0), 9).backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    assert "uniter.embeddings.token_type_embeddings.weight" in grads[0]
+    for other in grads[1:]:
+        for n, g in grads[0].items():
+            assert torch.equal(g, other[n]), n

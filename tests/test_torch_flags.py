@@ -22,7 +22,8 @@ the CPU.
   and within max|row| / 254 of the input.
 * An asynchronous save survives an in-place update made right after it,
   and a failed write raises at the next wait.
-* ``check_unported`` raises for ``--fsdp`` alone; every other flag runs:
+* ``--fsdp`` parses beside every other flag and a master-mode step with
+  sharded groups at world size 1 equals the step without it; every flag runs:
   the CLI chain ``prepro`` + ``convert_imgdir`` -> ``train_vqa --remat
   --param_dtype bfloat16 --fused_adamw 1 --wire_codec int8 --dropout_impl
   u16 --profile_dir`` 3 steps (a trace of exactly the profiled window),
@@ -581,14 +582,39 @@ def test_async_save_snapshot_survives_in_place_updates(tmp_path,
 
 # ---------------------------------------------------------------- CLIs
 
-def test_check_unported_raises_for_fsdp_alone():
+def test_check_unported_raises_for_fsdp_alone(jax_params):
+    """``--fsdp`` was the one flag the drivers refused; it is ported now
+    and no flag raises: with every other flag it parses into the optimizer
+    options, and at world size 1 (no process group) a master-mode step with
+    the state of every parameter of 64 elements or more in sharded groups
+    equals the step without ``--fsdp`` (the groups split the norm's sum,
+    1e-6)."""
     parser = driver.add_common_args(__import__("argparse").ArgumentParser())
     flags = ["--remat", "--param_dtype", "bfloat16", "--wire_codec", "int8",
              "--dropout_impl", "u8", "--optim", "adamax", "--profile_dir",
              "p"]
-    driver.check_unported(parser.parse_args(flags))
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        driver.check_unported(parser.parse_args(flags + ["--fsdp"]))
+    kw = driver.optim_kwargs(parser.parse_args(
+        flags + ["--fsdp", "--fsdp_min_size", "64"]))
+    assert kw["fsdp"] and kw["fsdp_min_size"] == 64
+    assert not driver.optim_kwargs(parser.parse_args(flags))["fsdp"]
+    runs = {}
+    for fsdp in ([], ["--fsdp", "--fsdp_min_size", "64"]):
+        opts = parser.parse_args(["--param_dtype", "bfloat16", *fsdp])
+        model = _port_model(jax_params, **NO_DROP)
+        opt = popt.build_optimizer(model, 1e-3, **driver.optim_kwargs(opts))
+        assert any(g["sharded"] for g in opt.groups) == bool(fsdp)
+        state = pstep.TrainState(step=0, model=model, opt=opt)
+        step = pstep.make_train_step(
+            lambda m, b, g: (vqa_loss(m, b, g, N_ANS), {}))
+        state, m = step(state, _tt(BATCHES[0]), 0)
+        runs[bool(fsdp)] = (float(m["loss"]), opt.masters(), {
+            k: v.float() for k, v in model.state_dict().items()})
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1].keys() == runs[False][1].keys()
+    for k, v in runs[False][1].items():
+        np.testing.assert_allclose(runs[True][1][k], v, atol=1e-6, err_msg=k)
+    for k, v in runs[False][2].items():
+        np.testing.assert_allclose(runs[True][2][k], v, atol=1e-6, err_msg=k)
 
 
 FLAGS = ["--remat", "--param_dtype", "bfloat16", "--fused_adamw", "1",

@@ -201,6 +201,8 @@ def test_port_imports_without_jax():
         "import uniter_tpu_torch.train_vcr, uniter_tpu_torch.inf_vcr\n"
         "import uniter_tpu_torch.data.vcr, uniter_tpu_torch.models.vcr\n"
         "import uniter_tpu_torch.pretrain_vcr\n"
+        "import uniter_tpu_torch.parallel.collectives\n"
+        "import uniter_tpu_torch.parallel.mesh\n"
         "import uniter_tpu_torch.data.pretrain_vcr\n"
         "import uniter_tpu_torch.models.pretrain_vcr\n"
         "import uniter_tpu_torch.prepro, uniter_tpu_torch.convert_imgdir\n"

@@ -23,6 +23,10 @@
   written with the JAX ``export_state_dict``, as the root ``inf_itm.py``
   does; ``train_itm_hard_negatives`` trains and resumes with its mining
   streams fast-forwarded.
+* Over two gloo processes: ``train_itm`` trains and validates; ``inf_itm``
+  at world 2 writes world 1's ``score_matrix.npz`` (1e-3, fp16 on disk)
+  and ``results.json``, fast and batched; ``train_itm_hard_negatives``
+  splits each step's candidate batches over the ranks and resumes.
 """
 
 import json
@@ -43,6 +47,7 @@ from uniter_tpu.models import itm as jitm
 from uniter_tpu_torch import config as pconfig
 from uniter_tpu_torch.models import itm as pitm
 from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+from test_torch_parallel import run_cli
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
@@ -427,8 +432,12 @@ def test_fast_score_matrix_matches_jax_and_batched(scorers):
         np.testing.assert_allclose(got, batched, atol=1e-5, rtol=0)
         assert itm_eval(got, ids, s["peval"].all_img_ids, s["peval"].txt2img,
                         s["peval"].img2txts) == recalls
-    with pytest.raises(NotImplementedError, match="several devices"):
-        fast_score_matrix(s["model"], s["peval"], t_b, r_b, shard_count=2)
+    # one process scores every text; the stride split over several
+    # (rows r::world) is held at world 2 in test_torch_parallel.py
+    from uniter_tpu_torch.utils.itm_fast import gather_rows, my_rows
+
+    np.testing.assert_array_equal(my_rows(N_TXT), np.arange(N_TXT))
+    assert gather_rows(want, N_TXT) is want
 
 
 def test_fast_windowed_scores_match_jax_and_batched(scorers):
@@ -571,3 +580,40 @@ def test_train_itm_hard_negatives_cli_trains_and_resumes(dbs):
     proc = _run(["-m", "uniter_tpu_torch.train_itm_hard_negatives",
                  "--config", path, "--negative_size", "6"])
     assert proc.returncode != 0 and "multiple of 8" in proc.stderr
+
+
+# ------------------------------------------------------ over two processes
+
+def test_train_itm_and_inf_itm_over_two_processes(dbs):
+    out = dbs / "run_two"
+    run_cli("train_itm", ["--config", _conf(dbs, out, train_batch_size=256,
+                                            num_train_steps=3)])
+    assert "model_step_3.pt" in os.listdir(out / "ckpt")
+    for impl in ("fast", "batched"):
+        got = []
+        for world in (1, 2):
+            ans = dbs / f"two_{impl}{world}"
+            run_cli("inf_itm", ["--txt_db", str(dbs / "txt"), "--img_db",
+                                str(dbs / "img"), "--train_dir", str(out),
+                                "--output_dir", str(ans), "--device", "cpu",
+                                "--batch_size", "5", "--eval_impl", impl],
+                    world)
+            got.append((np.load(ans / "score_matrix.npz"),
+                        json.load(open(ans / "results.json"))))
+        (m1, r1), (m2, r2) = got
+        assert (m1["txt_ids"] == m2["txt_ids"]).all() and r1 == r2
+        np.testing.assert_allclose(m2["score_matrix"].astype(np.float32),
+                                   m1["score_matrix"].astype(np.float32),
+                                   atol=1e-3)
+
+
+def test_train_itm_hard_negatives_over_two_processes(dbs):
+    out = dbs / "hn_two"
+    path = _conf(dbs, out, train_batch_size=2, num_train_steps=2,
+                 negative_size=7, hard_neg_size=3, txt_bucket=16,
+                 img_bucket=12)
+    run_cli("train_itm_hard_negatives", ["--config", path])
+    outs = run_cli("train_itm_hard_negatives", ["--config", path,
+                                                "--num_train_steps", "3"])
+    assert any("fast-forwarded mining streams by 4" in o for o in outs)
+    assert "model_step_3.pt" in os.listdir(out / "ckpt")

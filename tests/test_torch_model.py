@@ -6,7 +6,9 @@ weights and biases are not ones and zeros) feeds both packages through
 ``state_dict_from_jax_params``. Tolerances: max |diff| <= 1e-4 at
 ``tiny_config`` and <= 1e-3 at base width (768 hidden, 12 heads, 3072
 FFN, 28996-word vocabulary, 3129 answers; depth cut to 2 layers), the
-fp32 rounding of another summation order through the layers.
+fp32 rounding of another summation order through the layers. The card's
+deterministic lookup (``SortedLookup``) against ``F.embedding``'s
+gradient.
 """
 
 import numpy as np
@@ -299,3 +301,31 @@ def test_resolve_kernel_policies_for_training(device):
                                         device, training=True)
     assert pconfig.resolve_kernel_policies(
         cfg.replace(dropout_impl="u16"), device).dropout_impl == "u16"
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 2 ** -8)])
+def test_sorted_lookup_gradient_equals_embedding_backward(dtype, tol):
+    """``SortedLookup`` (the card's deterministic lookup) gives
+    ``F.embedding``'s values, and its gradient equals ``F.embedding``'s
+    fp32 gradient of the same values: rows hit by many ids, by one and by
+    none; fp32 to 1e-6 (another order of the sums), a bf16 table within one
+    bf16 rounding of the fp32 sums (it sums in fp32 and rounds once)."""
+    from uniter_tpu_torch.models.encoder import SortedLookup
+
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 40, (16, 24), generator=gen)
+    ids[:, :8] = 3  # one row hit 128 times
+    w = torch.randn(50, 32, generator=gen).to(dtype)
+    g = torch.randn(16, 24, 32, generator=gen).to(dtype)
+    ref_w = w.float().detach().clone().requires_grad_()
+    torch.nn.functional.embedding(ids, ref_w).backward(g.float())
+    got_w = w.detach().clone().requires_grad_()
+    out = SortedLookup.apply(ids, got_w)
+    out.backward(g)
+    assert torch.equal(out, torch.nn.functional.embedding(ids, w))
+    assert got_w.grad.dtype == dtype
+    scale = ref_w.grad.float().abs().max()
+    assert float((got_w.grad.float() - ref_w.grad.float()).abs().max()) \
+        <= tol * float(scale)
+    assert not got_w.grad[40:].any()

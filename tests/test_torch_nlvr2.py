@@ -19,6 +19,8 @@ package, on the CPU (tiny config, fp32, dropout off unless stated).
   ``results.csv`` row per example; on one JAX-written run directory the
   port's ``inf_nlvr2`` writes the same ``results.csv`` as the root
   ``inf_nlvr2.py``.
+* Over two gloo processes ``train_nlvr2`` validates on every example (13)
+  and ``inf_nlvr2`` at world 2 writes world 1's ``results.csv``.
 """
 
 import json
@@ -42,6 +44,7 @@ from uniter_tpu_torch import config as pconfig
 from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
 from uniter_tpu_torch.models.heads import CrossAttention
 from uniter_tpu_torch.models.nlvr2 import MODEL_REGISTRY
+from test_torch_parallel import run_cli
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
@@ -483,3 +486,31 @@ def test_port_inf_nlvr2_matches_jax(dbs, kind):
     got = _read_csv(os.path.join(port_out, "results.csv"))
     assert len(want) == 14 and {lab for _, lab in want} == {"True", "False"}
     assert got == want
+
+
+# ------------------------------------------------------ over two processes
+
+def test_train_nlvr2_and_inf_nlvr2_over_two_processes(dbs):
+    out = dbs / "run_two"
+    conf = dict(train_txt_db=str(dbs / "txt"), train_img_db=str(dbs / "img"),
+                val_txt_db=str(dbs / "txt_val"), val_img_db=str(dbs / "img"),
+                model_config=str(dbs / "model.json"), output_dir=str(out),
+                train_batch_size=128, val_batch_size=256, max_bb=10,
+                min_bb=3, n_workers=0, warmup_steps=2, valid_steps=2,
+                log_steps=1, num_train_steps=3, device="cpu")
+    path = str(dbs / "train_two.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    run_cli("train_nlvr2", ["--config", path])
+    scalars = [json.loads(line) for line in open(out / "log" /
+                                                 "scalars.jsonl")]
+    n_ex = [s["valid/n_ex"] for s in scalars if "valid/n_ex" in s]
+    assert n_ex == [13]  # step 2; the unlabeled example left out
+    csv = []
+    for world in (1, 2):
+        run_cli("inf_nlvr2", ["--txt_db", str(dbs / "txt_val"), "--img_db",
+                              str(dbs / "img"), "--train_dir", str(out),
+                              "--output_dir", str(dbs / f"two_ans{world}"),
+                              "--device", "cpu"], world)
+        csv.append(open(dbs / f"two_ans{world}" / "results.csv").read())
+    assert csv[0] and csv[1] == csv[0]

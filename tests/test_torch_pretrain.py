@@ -24,6 +24,8 @@ the JAX side through its ``lax.scan`` reference).
   module entry point trains, validates all four tasks and saves; the head
   checkpoint round trip, with a head tensor of another shape skipped and
   logged where a trunk tensor raises.
+* Over two gloo processes with ``--fsdp``, ``pretrain`` trains,
+  validates, and resumes without ``--fsdp``.
 """
 
 import json
@@ -46,6 +48,7 @@ from uniter_tpu.models.pretrain import UniterForPretraining as JaxPretrain
 from uniter_tpu_torch import config as pconfig
 from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
 from uniter_tpu_torch.models.pretrain import UniterForPretraining
+from test_torch_parallel import run_cli
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 torch.set_num_threads(2)
@@ -644,3 +647,16 @@ def test_head_checkpoint_round_trip_and_shape_rules(pair, tmp_path):
     with pytest.raises(ValueError, match=r"uniter\.pooler\.dense\.weight.*"
                                          r"\(5, 64\).*\(64, 64\)"):
         load_trunk_checkpoint(fresh(), opts, extra=load_pretrain_heads)
+
+
+# ------------------------------------------------------ over two processes
+
+def test_pretrain_over_two_processes_with_fsdp(dbs):
+    path, _ = _opts(dbs, "run_two", 4, valid_steps=2)
+    run_cli("pretrain", ["--config", path, "--fsdp", "--fsdp_min_size",
+                         "1000"])
+    outs = run_cli("pretrain", ["--config", path, "--num_train_steps", "6"])
+    assert any("resumed from step 4" in o for o in outs)
+    assert "model_step_6.pt" in os.listdir(dbs / "run_two" / "ckpt")
+    assert "valid/mlm_a_acc" in open(dbs / "run_two" / "log" /
+                                     "scalars.jsonl").read()

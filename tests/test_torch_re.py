@@ -23,6 +23,8 @@
 * ``train_re`` (rank loss) -> resume -> ``inf_re --ckpt best`` on two
   splits, on the CPU; on one JAX-written run directory the port's
   ``inf_re`` reports the root ``inf_re.py``'s accuracy and boxes.
+* Over two gloo processes ``train_re`` (rank loss) keeps its best export
+  and resumes; ``inf_re --ckpt best`` at world 2 writes world 1's files.
 """
 
 import json
@@ -47,6 +49,7 @@ from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
 from uniter_tpu_torch.models.re import (
     NEG_FILL, UniterForReferringExpressionComprehension, rank_loss,
     sample_neg)
+from test_torch_parallel import run_cli
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
@@ -647,3 +650,33 @@ def test_port_inf_re_matches_jax(dbs):
             np.testing.assert_allclose(g["pred_box"], w["pred_box"],
                                        rtol=1e-6)
             assert abs(g["iou"] - w["iou"]) < 1e-6
+
+
+# ------------------------------------------------------ over two processes
+
+def test_train_re_and_inf_re_over_two_processes(dbs):
+    out = dbs / "run_two"
+    conf = dict(train_txt_db=str(dbs / "txt"), train_img_db=str(dbs / "img"),
+                val_txt_db=str(dbs / "txt"), val_img_db=str(dbs / "img"),
+                model_config=str(dbs / "model.json"), output_dir=str(out),
+                train_batch_size=128, val_batch_size=256, max_bb=10,
+                min_bb=1, n_workers=0, warmup_steps=2, valid_steps=2,
+                log_steps=1, num_train_steps=4, device="cpu",
+                train_loss="rank", mlp=2)
+    path = str(dbs / "train_two.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    run_cli("train_re", ["--config", path])
+    assert "model_step_best.json" in os.listdir(out / "ckpt")
+    outs = run_cli("train_re", ["--config", path, "--num_train_steps", "6"])
+    assert any("resumed from step 4" in o for o in outs)
+    files = []
+    for world in (1, 2):
+        ans = dbs / f"two_ans{world}"
+        run_cli("inf_re", ["--txt_db", f"{dbs / 'txt'}:{dbs / 'txt'}",
+                           "--img_db", str(dbs / "img"), "--train_dir",
+                           str(out), "--ckpt", "best", "--use_gt_feat",
+                           "--output_dir", str(ans), "--device", "cpu"], world)
+        files.append({f: json.load(open(ans / f))
+                      for f in sorted(os.listdir(ans))})
+    assert len(files[0]) == 2 and files[1] == files[0]

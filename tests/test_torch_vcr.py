@@ -22,6 +22,9 @@ fp32, dropout off unless stated).
   package's from one ``RandomState``; ``UniterForPretrainingForVCR``'s
   per-task losses and gradients match JAX; it refuses ``itm``.
 * ``pretrain_vcr`` (mlm / mrfr / mrckl) trains, validates and resumes.
+* Over two gloo processes ``train_vcr`` validates on every question (10)
+  and ``inf_vcr`` at world 2 writes world 1's val and test files;
+  ``pretrain_vcr`` trains and resumes.
 """
 
 import csv
@@ -45,6 +48,7 @@ from uniter_tpu_torch import config as pconfig
 from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
 from uniter_tpu_torch.models.vcr import (
     NUM_SPECIAL_TOKENS, UniterForVisualCommonsenseReasoning)
+from test_torch_parallel import run_cli
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
@@ -703,4 +707,56 @@ def test_pretrain_vcr_cli_trains_and_resumes(dbs):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "resumed from step 3" in proc.stderr
     assert "fast-forwarded task mix by 3 steps" in proc.stderr
+    assert "model_step_5.pt" in os.listdir(out / "ckpt")
+
+
+# ------------------------------------------------------ over two processes
+
+def test_train_vcr_and_inf_vcr_over_two_processes(dbs):
+    out = dbs / "run_two"
+    conf = dict(_common(dbs, out), train_txt_db=str(dbs / "txt"),
+                train_img_db=str(dbs / "img_det"),
+                train_img_db_gt=str(dbs / "img_gt"),
+                val_txt_db=str(dbs / "txt"),
+                val_img_db=str(dbs / "img_det"),
+                val_img_db_gt=str(dbs / "img_gt"), tasks="qa,qar",
+                train_batch_size=256, val_batch_size=512, valid_steps=2,
+                num_train_steps=3)
+    path = str(dbs / "train_two.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    run_cli("train_vcr", ["--config", path])
+    scalars = [json.loads(line) for line in open(out / "log" /
+                                                 "scalars.jsonl")]
+    assert [s["valid/n_ex"] for s in scalars if "valid/n_ex" in s] == [10]
+    for split in ("val", "test"):
+        files = []
+        for world in (1, 2):
+            ans = dbs / f"two_{split}{world}"
+            run_cli("inf_vcr", ["--txt_db", str(dbs / "txt"), "--img_db",
+                                str(dbs / "img_det"), "--img_db_gt",
+                                str(dbs / "img_gt"), "--train_dir", str(out),
+                                "--output_dir", str(ans), "--split", split,
+                                "--device", "cpu"], world)
+            files.append({f: open(ans / f).read()
+                          for f in sorted(os.listdir(ans))})
+        assert len(files[0]) == 1 and files[1] == files[0]
+
+
+def test_pretrain_vcr_over_two_processes(dbs):
+    out = dbs / "pretrain_two"
+    task_cfg = [{"name": "vcr", "db": str(dbs / "txt"), "vcr_task": "qar",
+                 "tasks": ["mlm", "mrfr", "mrckl"], "mix_ratio": [2, 1, 1]}]
+    conf = dict(_common(dbs, out), train_img_db=str(dbs / "img_det"),
+                train_img_db_gt=str(dbs / "img_gt"),
+                train_datasets=task_cfg, val_datasets=task_cfg,
+                train_batch_size=256, val_batch_size=512, valid_steps=3,
+                num_train_steps=3, max_txt_len=60)
+    path = str(dbs / "pretrain_two.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    run_cli("pretrain_vcr", ["--config", path])
+    outs = run_cli("pretrain_vcr",
+                   ["--config", path, "--num_train_steps", "5"])
+    assert any("fast-forwarded task mix by 3 steps" in o for o in outs)
     assert "model_step_5.pt" in os.listdir(out / "ckpt")

@@ -35,11 +35,12 @@ def test_train_ve_parser_matches_root():
 
     want = {a.dest: a.default for a in train_ve.get_parser()._actions}
     got = {a.dest: a.default for a in port.get_parser()._actions}
-    assert set(got) - set(want) == {"device"} and set(want) <= set(got)
+    assert set(got) - set(want) == {"device", "dist_backend"}
+    assert set(want) <= set(got)
     assert {k: got[k] for k in want} == want
     assert (got["num_answer"], got["learning_rate"], got["num_train_steps"],
             got["warmup_steps"]) == (3, 8e-5, 4000, 400)
-    assert got["device"] == "cuda"
+    assert got["device"] == "cuda" and got["dist_backend"] is None
 
 
 @pytest.fixture(scope="module")

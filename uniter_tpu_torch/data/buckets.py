@@ -21,6 +21,7 @@ reused for the whole run.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,15 +60,27 @@ class BucketSpec:
         return max(b, self.size_mul, self.min_batch)
 
 
+def size_multiple(rows: int, world: int) -> int:
+    """Batch rows come in multiples of this: ``max(8, rows x world)``, the
+    JAX driver's rule, so that over ``world`` processes every rank takes
+    whole examples of ``rows`` rows; where that is not a multiple of rows
+    x world (3-row examples over 2 ranks), the least common multiple."""
+    m = rows * world
+    mul = max(8, m)
+    return mul if world == 1 or mul % m == 0 else math.lcm(8, m)
+
+
 def spec_from_dataset(dataset, token_budget: int,
                       size_mul: int = 0) -> BucketSpec:
     """BucketSpec whose grid covers the dataset's real (txt, region) sizes —
     nothing is ever truncated. The default size_mul accounts for the
-    dataset's rows_per_example; the port runs one process, so there is no
-    shard count to divide by."""
+    dataset's rows_per_example and the number of processes that share each
+    batch (``size_multiple``)."""
     if not size_mul:
-        rows = getattr(dataset, "rows_per_example", 1)
-        size_mul = max(8, rows)
+        from uniter_tpu_torch.parallel.collectives import num_processes
+
+        size_mul = size_multiple(getattr(dataset, "rows_per_example", 1),
+                                 num_processes())
     sizes = [dataset.size_of(i) for i in range(len(dataset))]
     max_t = max((s[0] for s in sizes), default=32)
     max_r = max((s[1] for s in sizes), default=4)

@@ -324,14 +324,14 @@ class BucketLoader:
         exactly on stack boundaries."""
         self.sampler.group = max(int(group), 1)
 
-    def _fetch(self, idxs, rng):
-        # per-record RNG streams: one seed draw per record from the loader
-        # stream, each record masked/sampled from its own RandomState. This
-        # makes results identical across num_workers settings (and worker
-        # types) AND lets skip_batches() fast-forward the stream without
-        # fetching (the draw count per batch is just len(idxs), not
-        # data-dependent).
-        seeds = rng.randint(2**31, size=len(idxs)).tolist()
+    def _fetch(self, idxs, seeds):
+        # per-record RNG streams: one seed draw per record of the global
+        # batch from the loader stream (drawn in _iter_once), each record
+        # masked/sampled from its own RandomState. This makes results
+        # identical across num_workers settings (and worker types) and
+        # process counts, AND lets skip_batches() fast-forward the stream
+        # without fetching (the draw count per batch is just the batch's
+        # record count, not data-dependent).
         if self._pool is not None:
             return list(self._pool.map(
                 lambda iv: self.dataset.get_record(iv[0], _record_rng(iv[1])),
@@ -339,11 +339,8 @@ class BucketLoader:
         return [self.dataset.get_record(i, _record_rng(s))
                 for i, s in zip(idxs, seeds)]
 
-    def _make_batch(self, idxs, rng, t_b, r_b, bs):
+    def _make_batch(self, idxs, seeds, t_b, r_b, bs):
         if self._proc_pool is not None:
-            # one seed draw per record, exactly like _fetch (keeps
-            # skip_batches' draw accounting valid across worker types)
-            seeds = rng.randint(2**31, size=len(idxs)).tolist()
             if self._shm_ring is not None:
                 return self._make_batch_shm(idxs, seeds, t_b, r_b, bs)
             if len(idxs) != bs:
@@ -359,7 +356,7 @@ class BucketLoader:
                      for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
             parts = self._proc_pool.map(_fork_collate_shard, tasks)
             return _assemble_shards(parts, bs, len(idxs))
-        return self.collate(self._fetch(idxs, rng), t_b, r_b, bs)
+        return self.collate(self._fetch(idxs, seeds), t_b, r_b, bs)
 
     def _make_batch_shm(self, idxs, seeds, t_b, r_b, bs):
         """Zero-copy assembly: workers collate contiguous shards directly
@@ -452,6 +449,15 @@ class BucketLoader:
         p, n_shards = self.shard_index, self.shard_count
         for (t_b, r_b), idxs in self.sampler:
             bs = self.sampler.batch_size((t_b, r_b))
+            if self._skip > 0:
+                # resume fast-forward: burn this batch's RNG draws (one per
+                # record, as below) and move on without fetching
+                self._skip -= 1
+                rng.randint(2**31, size=len(idxs))
+                continue
+            # one seed per record of the GLOBAL batch, so a record draws
+            # the same masks whatever the process count
+            seeds = rng.randint(2**31, size=len(idxs)).tolist()
             if n_shards == 1:
                 my, local_bs = idxs, bs
             else:
@@ -459,6 +465,7 @@ class BucketLoader:
                 assert bs % n_shards == 0, (bs, n_shards)
                 local_bs = bs // n_shards
                 my = idxs[p * local_bs:(p + 1) * local_bs]
+                seeds = seeds[p * local_bs:(p + 1) * local_bs]
                 if not my and self.loop:
                     raise ValueError(
                         f"dataset too small for {n_shards}-process training: "
@@ -466,13 +473,7 @@ class BucketLoader:
                         "empty")
                 if not my:
                     continue  # eval tail handled by this host's peers
-            if self._skip > 0:
-                # resume fast-forward: burn this batch's RNG draws (one per
-                # record, matching _fetch) and move on without fetching
-                self._skip -= 1
-                rng.randint(2**31, size=len(my))
-                continue
-            yield self._make_batch(my, rng, t_b, r_b, local_bs)
+            yield self._make_batch(my, seeds, t_b, r_b, local_bs)
 
     def __iter__(self):
         if not self.loop:

@@ -1,6 +1,6 @@
-"""Image-text retrieval inference on one device (counterpart of the root
-``inf_itm.py``, reference inf_itm.py): the full |txt| x |img| score matrix
-(fp16 on disk) and R@1/5/10 in both directions.
+"""Image-text retrieval inference on one device or several (counterpart of
+the root ``inf_itm.py``, reference inf_itm.py): the full |txt| x |img|
+score matrix (fp16 on disk) and R@1/5/10 in both directions.
 
     python -m uniter_tpu_torch.inf_itm --txt_db DB --img_db DB \\
         --train_dir RUN --output_dir OUT [--device cuda] [--dtype float32]
@@ -18,7 +18,8 @@ the ITM head's match row (reference inf_itm.py:60-61). Writes
 tiles (``utils/itm_fast.py``), ``batched`` the per-text minibatches.
 Attention takes K1 on the card when the run's policy says so; the model
 config's ``ffn_impl`` (``pallas``/``cuda``) runs the FFN through K9. TF32
-stays off.
+stays off. Under ``torchrun`` each rank scores a stride of the texts, the
+rows are gathered (``utils/itm_fast.py``) and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from uniter_tpu_torch.data.itm import ItmEvalDataset
 from uniter_tpu_torch.models.itm import UniterForImageTextRetrieval
+from uniter_tpu_torch.parallel.collectives import process_index
 from uniter_tpu_torch.training import infer
 from uniter_tpu_torch.utils.const import IMG_DIM
 from uniter_tpu_torch.utils.itm_eval import inference_score_matrix, itm_eval
@@ -79,9 +81,11 @@ def load_model(opts, device):
 def main(opts):
     from uniter_tpu_torch.data.img_db import DetectFeatDb
     from uniter_tpu_torch.data.txt_db import TxtTokDb
+    from uniter_tpu_torch.training.driver import init_process
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    init_process(opts)
     device = torch.device(opts.device)
     model, hps = load_model(opts, device)
     txt_db = TxtTokDb(opts.txt_db, max_txt_len=-1)
@@ -102,7 +106,8 @@ def main(opts):
         mat, txt_ids = inference_score_matrix(
             model.predict, ds, opts.txt_bucket, opts.img_bucket, device)
     logs = itm_eval(mat, txt_ids, ds.all_img_ids, ds.txt2img, ds.img2txts)
-
+    if process_index() > 0:
+        return logs
     os.makedirs(opts.output_dir, exist_ok=True)
     np.savez(
         os.path.join(opts.output_dir, "score_matrix.npz"),
@@ -144,6 +149,9 @@ def get_parser():
     parser.add_argument("--txt_tile", type=int, default=32)
     parser.add_argument("--img_tile", type=int, default=128)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="process group backend under torchrun")
     return parser
 
 

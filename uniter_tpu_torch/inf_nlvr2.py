@@ -1,5 +1,5 @@
-"""NLVR2 inference on one device (counterpart of the root ``inf_nlvr2.py``,
-reference inf_nlvr2.py).
+"""NLVR2 inference on one device or several (counterpart of the root
+``inf_nlvr2.py``, reference inf_nlvr2.py).
 
 Reads a training directory of this package or of the JAX package
 (``log/hps.json``, ``log/model.json``, ``ckpt/model_step_N.pt`` or
@@ -11,7 +11,8 @@ of the official eval script (scripts/eval_nlvr2.py):
         --train_dir RUN --output_dir OUT [--device cuda]
 
 Inference runs fp32 with dropout off, so the fused tails (K3-K6) never run;
-attention takes K1 on the card. TF32 stays off.
+attention takes K1 on the card. TF32 stays off. Under ``torchrun`` each rank
+takes its share and rank 0 writes the gathered results.
 """
 
 from __future__ import annotations
@@ -25,21 +26,24 @@ from uniter_tpu_torch.data.buckets import spec_from_dataset
 from uniter_tpu_torch.data.loader import BucketLoader
 from uniter_tpu_torch.data.nlvr2 import Nlvr2PairedDataset, Nlvr2TripletDataset
 from uniter_tpu_torch.models.nlvr2 import MODEL_REGISTRY
+from uniter_tpu_torch.parallel.collectives import process_index
 from uniter_tpu_torch.training import infer
+from uniter_tpu_torch.training.driver import init_process, shard_kw
 from uniter_tpu_torch.utils.const import IMG_DIM
 from uniter_tpu_torch.utils.logger import LOGGER
 
 
 def predict_labels(model, loader, device, paired: bool):
-    """``[(identifier, "True"/"False")]`` in loader order; the paired models
-    score rows (2i, 2i+1) as one example."""
-    results = []
+    """``[(identifier, "True"/"False")]`` in loader order (every rank's, in
+    the one-process order); the paired models score rows (2i, 2i+1) as one
+    example."""
+    per_batch = []
     for batch, out in infer.eval_batches(model.predict, loader, device,
                                          group=2 if paired else 1):
         preds = out.cpu().numpy().argmax(-1)[:len(batch["qids"])]
-        results.extend((qid, "True" if p == 1 else "False")
-                       for qid, p in zip(batch["qids"], preds))
-    return results
+        per_batch.append([(qid, "True" if p == 1 else "False")
+                          for qid, p in zip(batch["qids"], preds)])
+    return infer.gather_batches(loader, per_batch)
 
 
 def main(opts):
@@ -48,6 +52,7 @@ def main(opts):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    init_process(opts)
     device = torch.device(opts.device)
     hps, model_json = infer.load_train_meta(opts.train_dir)
     cfg = infer.model_config_from_meta(
@@ -69,11 +74,13 @@ def main(opts):
     cls = Nlvr2PairedDataset if paired else Nlvr2TripletDataset
     ds = cls(txt_db, img_db, use_img_type=hps.use_img_type)
     loader = BucketLoader(ds, spec_from_dataset(ds, opts.batch_size),
-                          shuffle=False, drop_last=False)
+                          shuffle=False, drop_last=False, **shard_kw())
     results = predict_labels(model, loader, device, paired)
 
-    os.makedirs(opts.output_dir, exist_ok=True)
     out_csv = os.path.join(opts.output_dir, "results.csv")
+    if process_index() > 0:
+        return out_csv
+    os.makedirs(opts.output_dir, exist_ok=True)
     with open(out_csv, "w") as f:
         for qid, label in results:
             f.write(f"{qid},{label}\n")
@@ -90,6 +97,9 @@ def get_parser():
     parser.add_argument("--output_dir", required=True)
     parser.add_argument("--batch_size", type=int, default=10240)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="process group backend under torchrun")
     return parser
 
 

@@ -1,6 +1,7 @@
-"""Referring-expression inference on one device (counterpart of the root
-``inf_re.py``, reference inf_re.py): IoU > 0.5 accuracy of the top-scoring
-box over gt or detected regions, and the per-sentence predictions:
+"""Referring-expression inference on one device or several (counterpart of
+the root ``inf_re.py``, reference inf_re.py): IoU > 0.5 accuracy of the
+top-scoring box over gt or detected regions, and the per-sentence
+predictions:
 
     python -m uniter_tpu_torch.inf_re --txt_db VAL.db[:TESTA.db:...] \\
         --img_db DB --train_dir RUN --output_dir OUT [--ckpt best] \\
@@ -11,7 +12,8 @@ Reads a training directory of this package or of the JAX package. Writes
 for each of several colon-separated splits, each ``{"acc", "n_ex",
 "predictions": [{"sent_id", "pred_box", "iou"}]}``, and returns the
 accuracy over all of them. Inference runs fp32 with dropout off (K1 on the
-card); TF32 stays off.
+card); TF32 stays off. Under ``torchrun`` each rank takes its share and
+rank 0 writes the gathered results.
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ from uniter_tpu_torch.data.loader import BucketLoader
 from uniter_tpu_torch.data.re import ReEvalDataset, compute_iou
 from uniter_tpu_torch.models.re import UniterForReferringExpressionComprehension
 from uniter_tpu_torch.train_re import predicted_boxes
+from uniter_tpu_torch.parallel.collectives import process_index
 from uniter_tpu_torch.training import infer
-from uniter_tpu_torch.training.driver import open_img_db
+from uniter_tpu_torch.training.driver import (
+    init_process, open_img_db, shard_kw)
 from uniter_tpu_torch.utils.const import IMG_DIM
 from uniter_tpu_torch.utils.logger import LOGGER
 
@@ -47,18 +51,20 @@ def split_names(paths):
 
 
 def evaluate_split(model, loader, device):
-    """(n_correct, n_ex, predictions) over one split."""
-    n_correct, n_ex, predictions = 0, 0, []
+    """(n_correct, n_ex, predictions) over one split (every rank's, the
+    predictions in the one-process order)."""
+    per_batch = []
     for batch, out in infer.eval_batches(model.predict, loader, device):
         scores = out.float().cpu().numpy()
+        part = []
         for i, box in predicted_boxes(batch, scores):
-            iou = compute_iou(box, batch["tgt_box"][i])
-            n_correct += int(iou > 0.5)
-            n_ex += 1
-            predictions.append({"sent_id": batch["sent_ids"][i],
-                                "pred_box": [float(x) for x in box],
-                                "iou": float(iou)})
-    return n_correct, n_ex, predictions
+            part.append({"sent_id": batch["sent_ids"][i],
+                         "pred_box": [float(x) for x in box],
+                         "iou": float(compute_iou(box, batch["tgt_box"][i]))})
+        per_batch.append(part)
+    predictions = infer.gather_batches(loader, per_batch)
+    n_correct = sum(int(p["iou"] > 0.5) for p in predictions)
+    return n_correct, len(predictions), predictions
 
 
 def main(opts):
@@ -66,6 +72,7 @@ def main(opts):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    init_process(opts)
     device = torch.device(opts.device)
     hps, model_json = infer.load_train_meta(opts.train_dir)
     cfg = infer.model_config_from_meta(
@@ -83,18 +90,21 @@ def main(opts):
     splits = [p for p in opts.txt_db.split(":") if p]
     feat = "gt" if opts.use_gt_feat else "det"
     tot_correct, tot_ex = 0, 0
-    os.makedirs(opts.output_dir, exist_ok=True)
+    if process_index() == 0:
+        os.makedirs(opts.output_dir, exist_ok=True)
     for txt_path, sname in zip(splits, split_names(splits)):
         ds = ReEvalDataset(ReTxtTokDb(txt_path, max_txt_len=-1), img_db,
                            use_gt_feat=opts.use_gt_feat)
         loader = BucketLoader(ds, spec_from_dataset(ds, opts.batch_size),
-                              shuffle=False, drop_last=False)
+                              shuffle=False, drop_last=False, **shard_kw())
         n_correct, n_ex, predictions = evaluate_split(model, loader, device)
         acc = n_correct / max(n_ex, 1)
         tot_correct += n_correct
         tot_ex += n_ex
         name = (f"results_{feat}.json" if len(splits) == 1
                 else f"results_{sname}_{feat}.json")
+        if process_index() > 0:
+            continue
         with open(os.path.join(opts.output_dir, name), "w") as f:
             json.dump({"acc": acc, "n_ex": n_ex,
                        "predictions": predictions}, f)
@@ -116,6 +126,9 @@ def get_parser():
     parser.add_argument("--use_gt_feat", action="store_true")
     parser.add_argument("--batch_size", type=int, default=8192)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="process group backend under torchrun")
     return parser
 
 

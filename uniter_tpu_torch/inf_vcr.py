@@ -1,5 +1,5 @@
-"""VCR inference on one device (counterpart of the root ``inf_vcr.py``,
-reference inf_vcr.py):
+"""VCR inference on one device or several (counterpart of the root
+``inf_vcr.py``, reference inf_vcr.py):
 
     python -m uniter_tpu_torch.inf_vcr --txt_db DB --img_db DB \\
         --img_db_gt DB --train_dir RUN --output_dir OUT \\
@@ -13,7 +13,8 @@ writes ``results_val.json`` (``qa_acc``, ``qar_joint_acc``, ``n_ex``);
 writes the leaderboard's ``test_submission.csv``: per question the softmax
 of its 4 answer scores, then of each answer's 4 rationale scores
 (inf_vcr.py:56-84). Inference runs fp32 with dropout off (K1 on the card);
-TF32 stays off.
+TF32 stays off. Under ``torchrun`` each rank takes its share and rank 0
+writes the gathered results.
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ from uniter_tpu_torch.data.loader import BucketLoader
 from uniter_tpu_torch.data.vcr import VcrEvalDataset
 from uniter_tpu_torch.models.vcr import UniterForVisualCommonsenseReasoning
 from uniter_tpu_torch.train_vcr import score_groups, vcr_config
+from uniter_tpu_torch.parallel.collectives import process_index
 from uniter_tpu_torch.training import infer
-from uniter_tpu_torch.training.driver import open_img_db
+from uniter_tpu_torch.training.driver import (
+    init_process, open_img_db, shard_kw)
 from uniter_tpu_torch.utils.const import IMG_DIM
 from uniter_tpu_torch.utils.logger import LOGGER
 
@@ -48,12 +51,15 @@ def softmax2(x):
 
 def score_examples(model, loader, device, split):
     """(logs, submission rows) over the loader: on ``val`` the qa and
-    joint accuracy, on ``test`` one row per question."""
+    joint accuracy, on ``test`` one row per question (every rank's, the
+    rows in the one-process order)."""
     n_qa, n_qar, n_ex = 0, 0, 0
-    rows_out = []
+    per_batch = []
     for batch, out in infer.eval_batches(
             lambda b: model(b, False), loader, device):
         scores = out.float().cpu().numpy()[:, 0]
+        rows_out = []
+        per_batch.append(rows_out)
         for i, qa, qar in score_groups(batch, scores):
             if split == "val":
                 qa_ok = int(qa.argmax()) == int(batch["qa_targets"][i])
@@ -69,6 +75,8 @@ def score_examples(model, loader, device, split):
                             else [0.25] * 4)
                 rows_out.append(row)
             n_ex += 1
+    rows_out = infer.gather_batches(loader, per_batch)
+    n_qa, n_qar, n_ex = infer.gather_sums(n_qa, n_qar, n_ex)
     logs = {"qa_acc": n_qa / max(n_ex, 1),
             "qar_joint_acc": n_qar / max(n_ex, 1), "n_ex": n_ex}
     return logs, rows_out
@@ -79,6 +87,7 @@ def main(opts):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    init_process(opts)
     device = torch.device(opts.device)
     hps, model_json = infer.load_train_meta(opts.train_dir)
     cfg = vcr_config(infer.model_config_from_meta(
@@ -96,8 +105,11 @@ def main(opts):
         img_db=open_img_db(opts.img_db, hps))
     loader = BucketLoader(ds, spec_from_dataset(ds, opts.batch_size),
                           shuffle=False, drop_last=False,
-                          collate=ds.collate_fn)
+                          collate=ds.collate_fn, **shard_kw())
     logs, rows_out = score_examples(model, loader, device, opts.split)
+    out_csv = os.path.join(opts.output_dir, f"{opts.split}_submission.csv")
+    if process_index() > 0:
+        return logs if opts.split == "val" else out_csv
     os.makedirs(opts.output_dir, exist_ok=True)
     if opts.split == "val":
         LOGGER.info("VCR val: %s", logs)
@@ -105,7 +117,6 @@ def main(opts):
                   "w") as f:
             json.dump(logs, f)
         return logs
-    out_csv = os.path.join(opts.output_dir, f"{opts.split}_submission.csv")
     with open(out_csv, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(HEADER)
@@ -125,6 +136,9 @@ def get_parser():
     parser.add_argument("--split", default="val", choices=["val", "test"])
     parser.add_argument("--batch_size", type=int, default=8192)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="process group backend under torchrun")
     return parser
 
 

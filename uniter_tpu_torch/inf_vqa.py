@@ -1,4 +1,5 @@
-"""VQA inference on one device (counterpart of the root ``inf_vqa.py``).
+"""VQA inference (counterpart of the root ``inf_vqa.py``), on one device
+or over N:
 
 Reads a JAX training directory (``log/hps.json``, ``log/model.json``,
 ``ckpt/model_step_N.msgpack``) and the same txt/img DBs, and writes the
@@ -7,6 +8,10 @@ same ``results.json`` ``[{question_id, answer}]`` and, with
 
     python -m uniter_tpu_torch.inf_vqa --txt_db DB --img_db DB \\
         --train_dir RUN --output_dir OUT [--device cuda]
+    torchrun --standalone --nproc_per_node N -m uniter_tpu_torch.inf_vqa ...
+
+Over N processes each rank answers its block of every batch, the answers
+are gathered into the one-process order and rank 0 writes the same files.
 
 Inference runs fp32. TF32 matmuls stay off (set here and stated), so the
 fp32 products keep full precision; turning TF32 on is a separate decision.
@@ -25,6 +30,7 @@ from uniter_tpu_torch.data.buckets import spec_from_dataset
 from uniter_tpu_torch.data.loader import BucketLoader
 from uniter_tpu_torch.data.vqa import VqaDataset
 from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
+from uniter_tpu_torch.parallel.collectives import process_index
 from uniter_tpu_torch.training import infer
 from uniter_tpu_torch.utils.const import IMG_DIM
 from uniter_tpu_torch.utils.logger import LOGGER
@@ -34,16 +40,20 @@ def answer_questions(model, loader, label2ans, device, *,
                      keep_logits: bool = False, prefetch: int = 2):
     """The loop over batches: ``(results, logits)`` where results is
     ``[{question_id, answer}]`` in loader order and logits maps each
-    question id to its fp32 row (filled only with ``keep_logits``)."""
-    results, logits = [], {}
+    question id to its fp32 row (filled only with ``keep_logits``); over
+    several processes every rank's, in the one-process order
+    (``infer.gather_batches``)."""
+    per_batch = []
     for batch, out in infer.eval_batches(model.predict, loader, device,
                                          prefetch):
         out = out.cpu().numpy()
-        for qid, row in zip(batch["qids"], out):
-            results.append(
-                {"question_id": qid, "answer": label2ans[int(row.argmax())]})
-            if keep_logits:
-                logits[str(qid)] = row
+        per_batch.append([
+            ({"question_id": qid, "answer": label2ans[int(row.argmax())]},
+             row if keep_logits else None)
+            for qid, row in zip(batch["qids"], out)])
+    rows = infer.gather_batches(loader, per_batch)
+    results = [r for r, _ in rows]
+    logits = {str(r["question_id"]): row for r, row in rows if keep_logits}
     return results, logits
 
 
@@ -78,8 +88,11 @@ def main(opts):
     from uniter_tpu_torch.data.img_db import DetectFeatDb
     from uniter_tpu_torch.data.txt_db import TxtTokDb
 
+    from uniter_tpu_torch.training.driver import init_process, shard_kw
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    init_process(opts)
     device = torch.device(opts.device)
     hps, model_json = infer.load_train_meta(opts.train_dir)
     cfg = infer.model_config_from_meta(
@@ -103,11 +116,13 @@ def main(opts):
     ds = VqaDataset(num_answer, txt_db, img_db)
     loader = BucketLoader(
         ds, spec_from_dataset(ds, opts.batch_size),
-        shuffle=False, drop_last=False)
+        shuffle=False, drop_last=False, **shard_kw())
     results, all_logits = answer_questions(
         model, loader, label2ans, device, keep_logits=opts.save_logits)
 
     out = os.path.join(opts.output_dir, "results.json")
+    if process_index() > 0:
+        return out
     os.makedirs(opts.output_dir, exist_ok=True)
     with open(out, "w") as f:
         json.dump(results, f)
@@ -129,6 +144,9 @@ def get_parser():
     parser.add_argument("--batch_size", type=int, default=8192)
     parser.add_argument("--save_logits", action="store_true")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="process group backend under torchrun")
     return parser
 
 

@@ -230,3 +230,30 @@ def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
         sd = sd["state_dict"]
     return normalize_state_dict(sd)
 
+
+def reference_leaf(name: str):
+    """Where this package's parameter ``name`` lives in the JAX parameter
+    tree: ``(flax path, kind, stacked)``; ``kind`` "linear_w" marks a
+    ``Dense`` kernel stored transposed here, ``stacked`` an encoder-layer
+    tensor that the tree holds as one ``[L, ...]`` stack. A name the bridge
+    does not map keeps its own path (dots as slashes), as it is."""
+    trunk = "uniter"
+    prefix = f"{trunk}."
+    if name.startswith(prefix):
+        rel = name[len(prefix):]
+        for path, (tkey, kind) in _STATIC_MAP.items():
+            if tkey == rel:
+                return f"{trunk}/{path}", kind, False
+        if rel.startswith("encoder.layer."):
+            sub = rel.split(".", 3)[3]
+            for path, (tsub, kind) in _LAYER_MAP.items():
+                if tsub == sub:
+                    return (f"{trunk}/encoder/layer/bert_layer/{path}", kind,
+                            True)
+    for path, (tkey, kind) in _PRETRAIN_HEAD_MAP.items():
+        if tkey == name:
+            return path, kind, False
+    for path, tkey, kind in _TASK_HEAD_MAP:
+        if tkey == name:
+            return path, kind, False
+    return name.replace(".", "/"), "raw", False

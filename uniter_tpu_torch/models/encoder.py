@@ -133,11 +133,47 @@ class LNDrop(_Tail):
                                            self.drop_impl)
 
 
+# On the card the lookup's gradient must be the same every run: CUDA's
+# embedding backward sums a row hit by many ids in an order that changes
+# from run to run. Tables of at most this many rows (the token types, each
+# row hit by thousands of ids) are read as a one-hot product, whose
+# backward is a GEMM; larger ones go through ``SortedLookup``.
+ONE_HOT_ROWS = 16
+
+
+class SortedLookup(torch.autograd.Function):
+    """``F.embedding`` whose backward sums each row's gradients in one
+    fixed order, in fp32: ids sorted (stable), then one pass a row
+    (``segment_reduce``). No host sync: the per-row counts come from an
+    integer scatter-add and the output has the table's size."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1).long()
+        g = g.reshape(flat.numel(), -1)
+        perm = torch.sort(flat, stable=True).indices
+        counts = torch.zeros(ctx.rows, dtype=torch.int64, device=flat.device)
+        counts.scatter_add_(0, flat, torch.ones_like(flat))
+        dw = torch.segment_reduce(g[perm].float(), "sum", lengths=counts,
+                                  axis=0, unsafe=True)
+        return None, dw.to(g.dtype)
+
+
 class Embed(nn.Embedding):
     """Embedding table with fp32 storage; the lookup returns the compute
     dtype. Ids out of range are clamped, as the JAX package's
     ``jnp.take(mode="clip")`` does (a plain lookup would raise on the CPU
-    and trip a device assert on the card)."""
+    and trip a device assert on the card). On the card the gradient is
+    the same every run: a table of at most ``ONE_HOT_ROWS`` rows is read
+    as one-hot ids times the table (the same values: one product by 1.0 a
+    row, sums of zeros), a larger one through ``SortedLookup``."""
 
     def __init__(self, num: int, features: int, dtype: torch.dtype):
         super().__init__(num, features)
@@ -145,7 +181,14 @@ class Embed(nn.Embedding):
 
     def forward(self, ids):
         ids = ids.clamp(0, self.num_embeddings - 1)
-        return F.embedding(ids, self.weight).to(self.compute_dtype)
+        w = self.weight
+        if not w.is_cuda:
+            out = F.embedding(ids, w)
+        elif self.num_embeddings <= ONE_HOT_ROWS:
+            out = F.one_hot(ids.long(), self.num_embeddings).to(w.dtype) @ w
+        else:
+            out = SortedLookup.apply(ids, w)
+        return out.to(self.compute_dtype)
 
 
 class UniterTextEmbeddings(nn.Module):

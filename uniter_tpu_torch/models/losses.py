@@ -10,6 +10,8 @@ Every function computes in fp32.
 import torch
 import torch.nn.functional as F
 
+from uniter_tpu_torch.parallel.collectives import global_sum
+
 
 def cross_entropy(logits, labels):
     """Per-example CE. logits [..., C]; labels int [...]."""
@@ -46,9 +48,12 @@ def kl_div(log_pred, target, eps=1e-12):
 
 def weighted_mean(loss, weight):
     """sum(loss * w) / max(sum(w), 1) — ``loss.mean()`` over the rows a
-    weight selects, at a static shape."""
+    weight selects, at a static shape; over several processes this rank's
+    share of the global batch's mean: the denominator sums over the ranks
+    (``global_sum``), as the JAX package's mean over its global batch.
+    Training losses only: the sum is a collective every rank joins."""
     w = weight.float()
-    return (loss * w).sum() / w.sum().clamp_min(1.0)
+    return (loss * w).sum() / global_sum(w.sum()).clamp_min(1.0)
 
 
 def margin_ranking(pos, neg, margin):

@@ -35,6 +35,7 @@ from uniter_tpu_torch.models.heads import (
     MLMHead, RegionClassification, RegionFeatureRegression)
 from uniter_tpu_torch.models.losses import (
     cross_entropy_ignore, kl_div, weighted_mean)
+from uniter_tpu_torch.parallel.collectives import global_sum
 from uniter_tpu_torch.ops.ot import optimal_transport_dist
 from uniter_tpu_torch.utils.const import IMG_DIM, IMG_LABEL_DIM
 
@@ -158,7 +159,7 @@ class UniterForPretraining(nn.Module):
                 targets = batch["targets"]
                 pos = (targets == 1).float()
                 neg = (targets == 0).float()
-                n = (pos.sum() + neg.sum()).clamp_min(1.0)
+                n = global_sum(pos.sum() + neg.sum()).clamp_min(1.0)
                 ot_loss = ((ot_dist * pos).sum() - (ot_dist * neg).sum()) / n
                 return itm_loss + ot_lambda * ot_loss, {
                     "itm_xe": itm_loss.detach(), "itm_ot": ot_loss.detach()}

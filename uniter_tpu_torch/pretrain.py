@@ -1,4 +1,4 @@
-"""UNITER pretraining on one device (counterpart of the root ``pretrain.py``,
+"""UNITER pretraining (counterpart of the root ``pretrain.py``,
 reference pretrain.py):
 
     python -m uniter_tpu_torch.pretrain --config CONFIG.json \\
@@ -18,6 +18,10 @@ On the card the default flags run attention through K1/K2, the dropout +
 residual + LayerNorm tails through K3-K6 and the OT plan of every ITM step
 through K7 (one launch); on the CPU their plain versions. The OT version
 follows ``--device`` alone.
+
+Data-parallel over N processes (``training/driver.py``):
+
+    torchrun --standalone --nproc_per_node N -m uniter_tpu_torch.pretrain ...
 """
 
 from __future__ import annotations
@@ -127,7 +131,8 @@ def create_dataloaders(datasets_cfg, opts, train=True) -> Dict[str, tuple]:
                 ds, spec, collate=type(parts[0]).collate, seed=opts.seed,
                 loop=train, shuffle=train, drop_last=train,
                 num_workers=opts.n_workers,
-                worker_type=getattr(opts, "worker_type", None))
+                worker_type=getattr(opts, "worker_type", None),
+                **driver.shard_kw())
             out[f"{task}_{name}"] = (loader, ratio)
     return out
 
@@ -136,7 +141,8 @@ def validate(model, val_loaders, device):
     """Per-task validation (reference pretrain.py:364-544): MLM accuracy,
     MRFR loss per feature, MRC(-kl) accuracy against the argmax of the soft
     label (background excluded), ITM accuracy (no OT). Reductions use the
-    batches' own masks, so the collate's padding rows never count."""
+    batches' own masks, so the collate's padding rows never count; each
+    rank takes its share and the counts are summed over the ranks."""
     model.eval()
     logs = {}
     for name, loader in val_loaders.items():
@@ -176,6 +182,8 @@ def validate(model, val_loaders, device):
                 valid = tgt != -1
                 n_correct += int((out.argmax(-1) == tgt)[valid].sum())
                 n_word += int(valid.sum())
+        n_correct, n_word, loss_sum = infer.gather_sums(n_correct, n_word,
+                                                        loss_sum)
         if task == "mrfr":
             logs[f"{name}_loss"] = loss_sum / max(n_word, 1)
         else:
@@ -189,7 +197,6 @@ def validate(model, val_loaders, device):
 
 
 def main(opts):
-    driver.check_unported(opts)
     cfg = driver.model_config_from_opts(opts)
     driver.setup_run(opts, cfg)
     model = build_model(opts, cfg)

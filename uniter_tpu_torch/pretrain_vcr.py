@@ -1,4 +1,4 @@
-"""VCR second-stage pretraining on one device (counterpart of the root
+"""VCR second-stage pretraining (counterpart of the root
 ``pretrain_vcr.py``, reference pretrain_vcr.py):
 
     python -m uniter_tpu_torch.pretrain_vcr --config CONFIG.json \\
@@ -15,6 +15,10 @@ tasks are mixed by the seeded ``MetaLoader`` under the pretraining loop
 (``MixedTaskLoop``): per-task losses, validation and checkpoints at
 ``valid_steps``, and a rerun resumes with the task mix fast-forwarded. On
 the card the default flags run K1/K2 and the fused tails K3-K6.
+
+Data-parallel over N processes (``training/driver.py``):
+
+    torchrun --standalone --nproc_per_node N -m uniter_tpu_torch.pretrain_vcr ...
 """
 
 from __future__ import annotations
@@ -79,13 +83,13 @@ def create_dataloaders(datasets_cfg, opts, img_db_gt, img_db, train=True):
                 BucketLoader(ds, spec, collate=type(ds).collate,
                              seed=opts.seed, loop=train, shuffle=train,
                              drop_last=train, num_workers=opts.n_workers,
-                             worker_type=getattr(opts, "worker_type", None)),
+                             worker_type=getattr(opts, "worker_type", None),
+                             **driver.shard_kw()),
                 ratio)
     return out
 
 
 def main(opts):
-    driver.check_unported(opts)
     cfg = driver.model_config_from_opts(opts, type_vocab_size=4)
     driver.setup_run(opts, cfg)
     cfg = cfg.replace(vocab_size=cfg.vocab_size + NUM_SPECIAL_TOKENS)

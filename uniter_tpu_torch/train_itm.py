@@ -1,4 +1,4 @@
-"""Image-text retrieval fine-tuning on one device (counterpart of the root
+"""Image-text retrieval fine-tuning (counterpart of the root
 ``train_itm.py``, reference train_itm.py):
 
     python -m uniter_tpu_torch.train_itm --config CONFIG.json \\
@@ -18,6 +18,10 @@ minibatches on the CPU. Writes ``log/`` and ``ckpt/`` under
 ``python -m uniter_tpu_torch.inf_itm --train_dir OUTPUT_DIR`` scores from
 it. On the card the default flags run K1/K2 and the fused tails K3-K6; a
 model config with ``"ffn_impl": "pallas"`` or ``"cuda"`` adds K9.
+
+Data-parallel over N processes (``training/driver.py``):
+
+    torchrun --standalone --nproc_per_node N -m uniter_tpu_torch.train_itm ...
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from uniter_tpu_torch.data.itm import (
 from uniter_tpu_torch.data.loader import BucketLoader
 from uniter_tpu_torch.models.itm import (
     UniterForImageTextRetrieval, seed_rank_head)
+from uniter_tpu_torch.parallel.collectives import global_sum
 from uniter_tpu_torch.training import driver
 from uniter_tpu_torch.utils.const import IMG_DIM
 from uniter_tpu_torch.utils.itm_eval import inference_score_matrix, itm_eval
@@ -48,13 +53,13 @@ def build_model(opts, cfg, cls=UniterForImageTextRetrieval, **kw):
 
 def rank_loss(model, batch, generator, sample_size: int):
     """Mean over the [G, sample_size - 1] triplet terms of the groups whose
-    positive row is real (``ex_weight``), no per-group rescale
-    (train_itm.py:164-172)."""
+    positive row is real (``ex_weight``) in the global batch, no per-group
+    rescale (train_itm.py:164-172): this rank's share (``global_sum``)."""
     per_group = model(batch, True, sample_size=sample_size,
                       deterministic=False, generator=generator)
     w = batch["ex_weight"].float().reshape(-1, sample_size)[:, :1]
     return ((per_group * w).sum()
-            / (w.sum() * (sample_size - 1)).clamp_min(1.0))
+            / (global_sum(w.sum()) * (sample_size - 1)).clamp_min(1.0))
 
 
 def _window_recall_logs(ranks):
@@ -138,7 +143,6 @@ def build_val_dataset(opts):
 
 
 def main(opts):
-    driver.check_unported(opts)
     cfg = driver.model_config_from_opts(opts)
     driver.setup_run(opts, cfg)
     model = build_model(opts, cfg)
@@ -147,7 +151,8 @@ def main(opts):
     train_loader = BucketLoader(
         train_ds, driver.bucket_spec(opts, train_ds), ItmRankDataset.collate,
         seed=opts.seed, loop=True, num_workers=opts.n_workers,
-        worker_type=getattr(opts, "worker_type", None))
+        worker_type=getattr(opts, "worker_type", None),
+        **driver.shard_kw())
     val_ds = build_val_dataset(opts)
 
     def validate_fn(state, step):

@@ -13,9 +13,13 @@ and trains on [pos + hard] (model/itm.py:58-139). One optimizer step sums
 the gradients of ``train_batch_size`` candidate batches
 (``make_train_step(loss_scale="mean", accum_steps=train_batch_size)``).
 A rerun resumes and fast-forwards both mining streams past the batches the
-interrupted run consumed. Logs ``perf/hn_per_s`` (mined negatives per
-second) every ``log_steps``; validates (windowed recall) and saves every
-``valid_steps``.
+interrupted run consumed. Over N processes (``torchrun``) every rank
+builds the same candidate batches and takes its block of
+``train_batch_size / N`` of each step's stack (mining needs a candidate
+batch whole, so the accumulation axis is what is split; the JAX driver's
+``local=False``, ``train_itm_hard_negatives.py:161-167``). Logs
+``perf/hn_per_s`` (mined negatives per second) every ``log_steps``;
+validates (windowed recall) and saves every ``valid_steps``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from uniter_tpu_torch.data.itm import (
     ItmRankDatasetHardNegFromImage, ItmRankDatasetHardNegFromText,
     hard_neg_collate)
 from uniter_tpu_torch.models.itm import UniterForImageTextRetrievalHardNeg
+from uniter_tpu_torch.parallel.collectives import num_processes
 from uniter_tpu_torch.training import driver
 from uniter_tpu_torch.training.optim import build_optimizer
 from uniter_tpu_torch.training.sched import get_lr_schedule
@@ -77,21 +82,35 @@ class HnLoader:
 
 
 def stacked_batches(loader_i, loader_t, accum: int, n_consumed: int):
-    """[accum, rows, ...] stacks of candidate batches, alternating image
-    side and text side (continuing the alternation after a resume)."""
+    """[accum / N, rows, ...] stacks of candidate batches: of each step's
+    ``accum``, alternating image side and text side (continuing the
+    alternation after a resume), this rank's block of the N processes'; a
+    block of one is the batch itself (the step's ``accum_steps=1``
+    layout)."""
+    from uniter_tpu_torch.parallel.collectives import (
+        num_processes, process_index)
+
     sources = itertools.cycle([loader_i, loader_t])
     if n_consumed % 2:
         next(sources)
+    local = accum // num_processes()
+    lo = process_index() * local
     while True:
-        batches = [next(next(sources)) for _ in range(accum)]
-        yield {k: np.stack([b[k] for b in batches])
+        batches = [next(next(sources)) for _ in range(accum)][lo:lo + local]
+        yield {k: (np.stack([b[k] for b in batches]) if local > 1
+                   else batches[0][k])
                for k in batches[0] if isinstance(batches[0][k], np.ndarray)}
 
 
 def hard_neg_loss(model, batch, generator):
-    """Mean triplet loss of one mined candidate batch (and no metrics)."""
-    return model(batch, True, deterministic=False,
-                 generator=generator).mean(), {}
+    """Mean triplet loss of one mined candidate batch (and no metrics);
+    over N processes its share 1/N, with the step's ``loss_scale="sum"``
+    restoring the gradient of each candidate batch."""
+    from uniter_tpu_torch.parallel.collectives import num_processes
+
+    loss = model(batch, True, deterministic=False, generator=generator).mean()
+    world = num_processes()
+    return (loss / world if world > 1 else loss), {}
 
 
 def main(opts):
@@ -102,12 +121,16 @@ def main(opts):
         warn_preempted)
     from uniter_tpu_torch.training.preempt import PreemptionGuard
 
-    driver.check_unported(opts)
     if (opts.negative_size + 1) % 8:
         raise ValueError("candidate count (negative_size + 1) must be a "
                          "multiple of 8 (reference :438 tensor-core rule)")
     cfg = driver.model_config_from_opts(opts)
     driver.setup_run(opts, cfg)
+    world = num_processes()
+    if opts.train_batch_size % world:
+        raise ValueError(f"train_batch_size {opts.train_batch_size} "
+                         f"candidate batches do not split over {world} "
+                         "processes")
     model = train_itm.build_model(opts, cfg,
                                   cls=UniterForImageTextRetrievalHardNeg,
                                   hard_size=opts.hard_neg_size)
@@ -142,8 +165,9 @@ def main(opts):
         LOGGER.info("resumed from step %d: fast-forwarded mining streams "
                     "by %d candidate batches", state.step, n_consumed)
 
-    step = make_train_step(hard_neg_loss, loss_scale="mean",
-                           accum_steps=opts.train_batch_size)
+    # loss_scale "sum" x the 1/N share = the one-process "mean" step
+    step = make_train_step(hard_neg_loss, loss_scale="sum",
+                           accum_steps=opts.train_batch_size // world)
     device, cdt = torch.device(opts.device), cfg.compute_dtype
     it = DevicePrefetcher(
         stacked_batches(loader_i, loader_t, opts.train_batch_size,

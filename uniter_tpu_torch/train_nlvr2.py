@@ -1,4 +1,4 @@
-"""NLVR2 fine-tuning on one device (counterpart of the root
+"""NLVR2 fine-tuning (counterpart of the root
 ``train_nlvr2.py``, reference train_nlvr2.py):
 
     python -m uniter_tpu_torch.train_nlvr2 --config CONFIG.json \\
@@ -15,6 +15,10 @@ rerunning resumes; ``python -m uniter_tpu_torch.inf_nlvr2 --train_dir
 OUTPUT_DIR`` predicts from it. On the card the default flags run the
 attention kernels (K1/K2) and the fused dropout + residual + LayerNorm
 tails (K3-K6).
+
+Data-parallel over N processes (``training/driver.py``):
+
+    torchrun --standalone --nproc_per_node N -m uniter_tpu_torch.train_nlvr2 ...
 """
 
 from __future__ import annotations
@@ -22,10 +26,12 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 from uniter_tpu_torch.data.loader import BucketLoader
 from uniter_tpu_torch.data.nlvr2 import Nlvr2PairedDataset, Nlvr2TripletDataset
 from uniter_tpu_torch.models.nlvr2 import MODEL_REGISTRY
+from uniter_tpu_torch.parallel.collectives import global_sum
 from uniter_tpu_torch.training import driver, infer
 from uniter_tpu_torch.utils.const import IMG_DIM
 from uniter_tpu_torch.utils.logger import LOGGER
@@ -45,19 +51,20 @@ def build_dataset(txt_path, img_path, opts):
 
 def nlvr2_loss(model, batch, generator):
     """Per-example cross-entropy, averaged over the examples ``ex_weight``
-    marks real (train_nlvr2.py:129-139)."""
+    marks real (train_nlvr2.py:129-139) in the global batch: this rank's
+    share (``global_sum``)."""
     per_ex = model(batch, True, deterministic=False, generator=generator)
     w = batch.get("ex_weight")
     if w is None:
-        return per_ex.mean()
+        w = torch.ones_like(per_ex)
     w = w[:per_ex.shape[0]].float()
-    return (per_ex * w).sum() / w.sum().clamp_min(1.0)
+    return (per_ex * w).sum() / global_sum(w.sum()).clamp_min(1.0)
 
 
 def validate(model, loader, paired: bool, device):
     """Accuracy over the labeled examples (train_nlvr2.py:71-96): outputs
     trimmed to the targets (one score row per pair), rows with weight 0 or
-    target < 0 left out."""
+    target < 0 left out; each rank its share, the counts summed."""
     model.eval()
     n_correct, n_ex = 0, 0
     for batch, out in infer.eval_batches(model.predict, loader, device,
@@ -69,6 +76,7 @@ def validate(model, loader, paired: bool, device):
         n_correct += int((preds[valid] == targets[valid]).sum())
         n_ex += int(valid.sum())
     model.train()
+    n_correct, n_ex = infer.gather_sums(n_correct, n_ex)
     return {"acc": n_correct / max(n_ex, 1), "n_ex": n_ex}
 
 
@@ -80,7 +88,6 @@ def build_model(opts, cfg):
 
 
 def main(opts):
-    driver.check_unported(opts)
     cfg = driver.model_config_from_opts(opts, type_vocab_size=3)
     driver.setup_run(opts, cfg)
     model = build_model(opts, cfg)
@@ -91,7 +98,8 @@ def main(opts):
     train_loader = BucketLoader(
         train_ds, driver.bucket_spec(opts, train_ds), seed=opts.seed,
         loop=True, num_workers=opts.n_workers,
-        worker_type=getattr(opts, "worker_type", None))
+        worker_type=getattr(opts, "worker_type", None),
+        **driver.shard_kw())
     evals = {}
     for split in ("val", "test"):
         txt, img = (getattr(opts, f"{split}_txt_db", None),
@@ -100,7 +108,7 @@ def main(opts):
             ds = build_dataset(txt, img, opts)
             evals[split] = BucketLoader(
                 ds, driver.bucket_spec(opts, ds, opts.val_batch_size),
-                shuffle=False, drop_last=False)
+                shuffle=False, drop_last=False, **driver.shard_kw())
     paired = opts.model in PAIRED
 
     def validate_fn(state, step):

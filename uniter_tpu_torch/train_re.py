@@ -1,4 +1,4 @@
-"""Referring-expression fine-tuning on one device (counterpart of the root
+"""Referring-expression fine-tuning (counterpart of the root
 ``train_re.py``, reference train_re.py):
 
     python -m uniter_tpu_torch.train_re --config CONFIG.json \\
@@ -15,6 +15,10 @@ the top-scoring gt box; the best accuracy's weights are kept as
 uniter_tpu_torch.inf_re --ckpt best`` loads. On the card the default flags
 run K1/K2 and the fused tails K3-K6; the rank loss samples its negatives
 on the card.
+
+Data-parallel over N processes (``training/driver.py``):
+
+    torchrun --standalone --nproc_per_node N -m uniter_tpu_torch.train_re ...
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ def predicted_boxes(batch, scores):
 
 
 def evaluate(model, loader, device):
-    """IoU > 0.5 accuracy of the predicted box over the real rows."""
+    """IoU > 0.5 accuracy of the predicted box over the real rows (each
+    rank its share, the counts summed over the ranks)."""
     model.eval()
     n_correct, n_ex = 0, 0
     for batch, out in infer.eval_batches(model.predict, loader, device):
@@ -60,6 +65,7 @@ def evaluate(model, loader, device):
             n_correct += int(compute_iou(box, batch["tgt_box"][i]) > 0.5)
             n_ex += 1
     model.train()
+    n_correct, n_ex = infer.gather_sums(n_correct, n_ex)
     return {"acc": n_correct / max(n_ex, 1), "n_ex": n_ex}
 
 
@@ -75,7 +81,6 @@ def build_model(opts, cfg):
 def main(opts):
     from uniter_tpu_torch.data.re import ReTxtTokDb
 
-    driver.check_unported(opts)
     cfg = driver.model_config_from_opts(opts)
     driver.setup_run(opts, cfg)
     model = build_model(opts, cfg)
@@ -86,14 +91,15 @@ def main(opts):
     train_loader = BucketLoader(
         train_ds, driver.bucket_spec(opts, train_ds), seed=opts.seed,
         loop=True, num_workers=opts.n_workers,
-        worker_type=getattr(opts, "worker_type", None))
+        worker_type=getattr(opts, "worker_type", None),
+        **driver.shard_kw())
     val_txt = ReTxtTokDb(opts.val_txt_db, max_txt_len=-1)
     val_img = driver.open_img_db(opts.val_img_db, opts)
     val_ds = ReEvalDataset(val_txt, val_img, use_gt_feat=True)
     # the grid from the val dataset itself: its texts are not truncated
     val_loader = BucketLoader(
         val_ds, spec_from_dataset(val_ds, opts.val_batch_size),
-        shuffle=False, drop_last=False)
+        shuffle=False, drop_last=False, **driver.shard_kw())
 
     def validate_fn(state, step):
         logs = evaluate(state.model, val_loader, opts.device)

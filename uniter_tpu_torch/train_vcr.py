@@ -1,4 +1,4 @@
-"""VCR fine-tuning on one device (counterpart of the root ``train_vcr.py``,
+"""VCR fine-tuning (counterpart of the root ``train_vcr.py``,
 reference train_vcr.py):
 
     python -m uniter_tpu_torch.train_vcr --config CONFIG.json \\
@@ -18,6 +18,10 @@ over the real candidate rows; the head (``vcr_output.*``) gets
 ``python -m uniter_tpu_torch.inf_vcr --train_dir OUTPUT_DIR`` scores val or
 writes the test submission. On the card the default flags run K1/K2 and the
 fused tails K3-K6.
+
+Data-parallel over N processes (``training/driver.py``):
+
+    torchrun --standalone --nproc_per_node N -m uniter_tpu_torch.train_vcr ...
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from uniter_tpu_torch.data.loader import BucketLoader
 from uniter_tpu_torch.data.vcr import VcrDataset, VcrEvalDataset
 from uniter_tpu_torch.models.vcr import (
     NUM_SPECIAL_TOKENS, UniterForVisualCommonsenseReasoning)
+from uniter_tpu_torch.parallel.collectives import global_sum
 from uniter_tpu_torch.training import driver, infer
 from uniter_tpu_torch.utils.const import IMG_DIM
 from uniter_tpu_torch.utils.logger import LOGGER
@@ -38,10 +43,11 @@ from uniter_tpu_torch.utils.misc import parse_with_config
 
 def vcr_loss(model, batch, generator):
     """Mean cross-entropy over the candidate rows ``ex_weight`` marks real
-    (reference model/vcr.py:72-75)."""
+    (reference model/vcr.py:72-75) in the global batch: this rank's share
+    (``global_sum``)."""
     per_row = model(batch, True, deterministic=False, generator=generator)
     w = batch["ex_weight"].float()
-    return (per_row * w).sum() / w.sum().clamp_min(1.0)
+    return (per_row * w).sum() / global_sum(w.sum()).clamp_min(1.0)
 
 
 def vcr_config(cfg):
@@ -62,7 +68,7 @@ def score_groups(batch, scores):
 
 def validate(model, loader, device):
     """qa accuracy and qa-then-qar joint accuracy (reference train_vcr.py
-    validate)."""
+    validate); each rank its share, the counts summed over the ranks."""
     model.eval()
     n_qa, n_qar, n_ex = 0, 0, 0
     for batch, out in infer.eval_batches(
@@ -76,6 +82,7 @@ def validate(model, loader, device):
             n_qar += int(qa_ok and qar_ok)
             n_ex += 1
     model.train()
+    n_qa, n_qar, n_ex = infer.gather_sums(n_qa, n_qar, n_ex)
     return {"qa_acc": n_qa / max(n_ex, 1),
             "qar_joint_acc": n_qar / max(n_ex, 1), "n_ex": n_ex}
 
@@ -103,7 +110,6 @@ def build_train_dataset(opts):
 def main(opts):
     from uniter_tpu_torch.data.vcr import VcrTxtTokDb
 
-    driver.check_unported(opts)
     cfg = driver.model_config_from_opts(opts, type_vocab_size=4)
     driver.setup_run(opts, cfg)
     model = build_model(opts, vcr_config(cfg))
@@ -112,7 +118,8 @@ def main(opts):
     train_loader = BucketLoader(
         train_ds, driver.bucket_spec(opts, train_ds), seed=opts.seed,
         loop=True, collate=VcrDataset.collate, num_workers=opts.n_workers,
-        worker_type=getattr(opts, "worker_type", None))
+        worker_type=getattr(opts, "worker_type", None),
+        **driver.shard_kw())
     val_ds = VcrEvalDataset(
         "val", VcrTxtTokDb(opts.val_txt_db, max_txt_len=-1, task="qa,qar"),
         img_db_gt=driver.open_img_db(opts.val_img_db_gt, opts, gt=True),
@@ -120,7 +127,8 @@ def main(opts):
     # the grid from the val dataset itself: its texts are not truncated
     val_loader = BucketLoader(
         val_ds, spec_from_dataset(val_ds, opts.val_batch_size),
-        shuffle=False, drop_last=False, collate=val_ds.collate_fn)
+        shuffle=False, drop_last=False, collate=val_ds.collate_fn,
+        **driver.shard_kw())
 
     def validate_fn(state, step):
         logs = validate(state.model, val_loader, opts.device)

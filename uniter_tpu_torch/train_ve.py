@@ -1,4 +1,4 @@
-"""SNLI-VE fine-tuning on one device (counterpart of the root
+"""SNLI-VE fine-tuning (counterpart of the root
 ``train_ve.py``, reference train_ve.py): the VQA driver with 3 answers and
 the recipe's defaults (lr 8e-5, 4000 steps, 400 warm-up):
 
@@ -8,6 +8,10 @@ the recipe's defaults (lr 8e-5, 4000 steps, 400 warm-up):
 The txt DBs hold SNLI-VE examples in the VQA layout (``target`` labels
 0-2); ``python -m uniter_tpu_torch.inf_vqa --train_dir OUTPUT_DIR``
 predicts from the run.
+
+Data-parallel over N processes (``training/driver.py``):
+
+    torchrun --standalone --nproc_per_node N -m uniter_tpu_torch.train_ve ...
 """
 
 from __future__ import annotations

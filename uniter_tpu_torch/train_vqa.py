@@ -1,8 +1,10 @@
-"""VQA fine-tuning on one device (counterpart of the root ``train_vqa.py``,
-reference train_vqa.py):
+"""VQA fine-tuning (counterpart of the root ``train_vqa.py``, reference
+train_vqa.py), on one device or data-parallel over N:
 
     python -m uniter_tpu_torch.train_vqa --config CONFIG.json \\
         [--device cuda] [--num_train_steps N] ...
+    torchrun --standalone --nproc_per_node N -m uniter_tpu_torch.train_vqa \\
+        --config CONFIG.json [--fsdp] [--dist_backend gloo] ...
 
 Same flags, txt/img DBs and ``--config`` JSON as the root driver. Loss =
 BCE.mean() * num_answers over the rows ``ex_weight`` selects
@@ -28,6 +30,7 @@ import torch
 from uniter_tpu_torch.data.loader import BucketLoader
 from uniter_tpu_torch.data.vqa import VqaDataset
 from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
+from uniter_tpu_torch.parallel.collectives import global_sum, process_index
 from uniter_tpu_torch.training import driver, infer
 from uniter_tpu_torch.utils.const import IMG_DIM
 from uniter_tpu_torch.utils.logger import LOGGER
@@ -36,15 +39,17 @@ from uniter_tpu_torch.utils.misc import parse_with_config
 
 def vqa_loss(model, batch, generator, num_answer: int):
     """The reference loss, bce.mean() * num_answers (train_vqa.py:188), over
-    the rows ``ex_weight`` marks real (the collate pads with weight 0)."""
+    the rows ``ex_weight`` marks real (the collate pads with weight 0) of
+    the global batch: this rank's share (``global_sum``)."""
     per_elem = model(batch, True, deterministic=False, generator=generator)
     w = batch["ex_weight"].float()[:, None]
     return ((per_elem * w).sum()
-            / (w.sum() * num_answer).clamp_min(1.0)) * num_answer
+            / (global_sum(w.sum()) * num_answer).clamp_min(1.0)) * num_answer
 
 
 def validate(model, loader, num_answer, device):
-    """VQA soft-score accuracy (reference train_vqa.py:312-341)."""
+    """VQA soft-score accuracy (reference train_vqa.py:312-341): each rank
+    scores its share of the loader, the counts summed over the ranks."""
     model.eval()
     score_sum, n_ex = 0.0, 0
     for batch, out in infer.eval_batches(model.predict, loader, device):
@@ -54,6 +59,7 @@ def validate(model, loader, num_answer, device):
         score_sum += float(targets[np.arange(len(preds)), preds][w].sum())
         n_ex += int(w.sum())
     model.train()
+    score_sum, n_ex = infer.gather_sums(score_sum, n_ex)
     return {"score": score_sum / max(n_ex, 1), "n_ex": n_ex}
 
 
@@ -69,7 +75,6 @@ def main(opts):
     from uniter_tpu_torch.data.txt_db import TxtTokDb
     from uniter_tpu_torch.utils.vqa_answers import load_ans2label
 
-    driver.check_unported(opts)
     ans2label = None
     if getattr(opts, "ans2label", None):
         ans2label = load_ans2label(opts.ans2label)
@@ -82,7 +87,7 @@ def main(opts):
             pass
     cfg = driver.model_config_from_opts(opts)
     driver.setup_run(opts, cfg)
-    if ans2label is not None:
+    if ans2label is not None and process_index() == 0:
         with open(os.path.join(opts.output_dir, "ckpt", "ans2label.json"),
                   "w") as f:
             json.dump(ans2label, f)
@@ -94,13 +99,14 @@ def main(opts):
     train_loader = BucketLoader(
         train_ds, driver.bucket_spec(opts, train_ds), seed=opts.seed,
         loop=True, num_workers=opts.n_workers,
-        worker_type=getattr(opts, "worker_type", None))
+        worker_type=getattr(opts, "worker_type", None),
+        **driver.shard_kw())
     val_txt = TxtTokDb(opts.val_txt_db, max_txt_len=opts.max_txt_len)
     val_img = driver.open_img_db(opts.val_img_db, opts)
     val_loader = BucketLoader(
         VqaDataset(opts.num_answer, val_txt, val_img),
         driver.bucket_spec(opts, train_ds, opts.val_batch_size),
-        shuffle=False, drop_last=False)
+        shuffle=False, drop_last=False, **driver.shard_kw())
     num_answer = opts.num_answer
 
     def loss_fn(m, batch, generator):

@@ -6,7 +6,13 @@ Each ``train_*.py`` entry point supplies a small adapter (datasets, model,
 loss, validation) and inherits the reference's driver behavior
 (train_nlvr2.py:55-276 skeleton): config-JSON CLI, provenance dump, scalar
 log, periodic validation, checkpoints with resume. One process drives one
-device (``--device``, the card by default).
+device (``--device``, the card by default); ``torchrun --nproc_per_node N
+-m uniter_tpu_torch.<cli>`` runs N of them as one data-parallel job
+(``setup_run`` joins the process group: NCCL on the card, or gloo with
+``--dist_backend gloo``, which lets ranks share a card). Every rank runs
+the same global batch plan and trains on its contiguous block of each
+batch; evaluation sets are sharded by rank (``shard_kw``) and gathered;
+rank 0 alone logs and writes.
 
 The flags are the JAX drivers'. ``--attention_impl`` and
 ``--block_fusion`` default to ``auto``: on the card the hand-written
@@ -21,15 +27,17 @@ blocking), ``--warmup_compile`` (ahead-of-time XLA compiles), ``--fp16``
 and ``--pin_mem`` (batches are always pinned). ``--remat``,
 ``--param_dtype bfloat16`` (master weights; needs ``--fused_adamw 1``),
 ``--optim adam``/``adamax``, ``--dropout_impl u16``/``u8``, ``--wire_codec
-int8`` and ``--profile_dir`` act as in the JAX drivers
-(``uniter_tpu/training/driver.py:147-180,275-285,440-455``). ``--fsdp``
-raises: sharding needs several cards, which the port does not drive yet.
+int8``, ``--profile_dir`` and ``--fsdp`` (the optimizer state of the
+parameters of ``--fsdp_min_size`` elements or more sharded over the ranks)
+act as in the JAX drivers
+(``uniter_tpu/training/driver.py:147-180,275-285,440-455``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 from typing import Callable, Optional, Sequence
 
@@ -38,8 +46,11 @@ import torch
 from torch import nn
 
 from uniter_tpu_torch.config import UniterConfig, resolve_kernel_policies
-from uniter_tpu_torch.data.buckets import BucketSpec
+from uniter_tpu_torch.data.buckets import BucketSpec, size_multiple
 from uniter_tpu_torch.models.checkpoint import load_torch_checkpoint
+from uniter_tpu_torch.parallel.collectives import (
+    all_gather_list, barrier, init_distributed, is_distributed,
+    num_processes, process_index)
 from uniter_tpu_torch.training.loop import TrainLoop
 from uniter_tpu_torch.training.optim import build_optimizer
 from uniter_tpu_torch.training.sched import get_lr_schedule
@@ -131,20 +142,20 @@ def add_common_args(parser: argparse.ArgumentParser):
                              "in the backward (less activation memory, "
                              "about one more forward)")
     parser.add_argument("--fsdp", action="store_true",
-                        help="not ported (needs several cards)")
-    parser.add_argument("--fsdp_min_size", type=int, default=2 ** 16)
+                        help="ZeRO: shard the optimizer state (moments, "
+                             "and the masters of --param_dtype bfloat16) "
+                             "over the processes")
+    parser.add_argument("--fsdp_min_size", type=int, default=2 ** 16,
+                        help="smallest parameter (elements) to shard; "
+                             "smaller ones stay replicated")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="process group backend under torchrun "
+                             "(default: nccl on the card, gloo on the "
+                             "CPU); gloo lets several ranks share a card")
     parser.add_argument("--warmup_compile", action="store_true",
                         help="XLA compile warm-up; no effect here")
     return parser
-
-
-def check_unported(opts):
-    """Raise for the flag whose feature the port does not have yet:
-    ``--fsdp`` (multi-card)."""
-    if getattr(opts, "fsdp", False):
-        raise NotImplementedError(
-            "--fsdp is not ported: it shards over several cards "
-            "(see ROADMAP.md)")
 
 
 def optim_kwargs(opts) -> dict:
@@ -160,7 +171,9 @@ def optim_kwargs(opts) -> dict:
     return dict(
         betas=tuple(opts.betas), weight_decay=opts.weight_decay,
         grad_norm=opts.grad_norm, optim=opts.optim, fused=fused,
-        mu_dtype=md, nu_dtype=md, master=master)
+        mu_dtype=md, nu_dtype=md, master=master,
+        fsdp=bool(getattr(opts, "fsdp", False)),
+        fsdp_min_size=getattr(opts, "fsdp_min_size", 2 ** 16))
 
 
 def model_config_from_opts(opts, **overrides) -> UniterConfig:
@@ -284,20 +297,49 @@ def load_trunk_checkpoint(model, opts, *, n_type_rows: Optional[int] = None,
     return model
 
 
+def init_process(opts):
+    """Join the launcher's process group (``parallel.collectives
+    .init_distributed``) and set ``opts.device`` to this rank's device; on
+    ranks past 0 the log says warnings only. Nothing happens outside a
+    launcher."""
+    opts.device = init_distributed(opts.device,
+                                   getattr(opts, "dist_backend", None))
+    if process_index() > 0:
+        LOGGER.setLevel(logging.WARNING)
+
+
 def setup_run(opts, model_cfg):
+    """The process group (``init_process``), the seed, and on rank 0 the
+    run's provenance (``log/hps.json``, ``model.json``), scalars and log
+    file. Call it before building anything on ``opts.device``."""
+    init_process(opts)
     set_random_seed(opts.seed)
     os.makedirs(opts.output_dir, exist_ok=True)
-    save_training_meta(opts.output_dir, opts, model_cfg.to_dict())
-    TB_LOGGER.create(os.path.join(opts.output_dir, "log"))
-    add_log_to_file(os.path.join(opts.output_dir, "log", "log.txt"))
+    if process_index() == 0:
+        save_training_meta(opts.output_dir, opts, model_cfg.to_dict())
+        TB_LOGGER.create(os.path.join(opts.output_dir, "log"))
+        add_log_to_file(os.path.join(opts.output_dir, "log", "log.txt"))
+    barrier()  # the run's directories exist before any rank writes
     LOGGER.info("device: %s (attention %s, block_fusion %s, layer_norm %s, "
-                "ffn %s, dtype %s)", opts.device, model_cfg.attention_impl,
-                model_cfg.block_fusion, model_cfg.layer_norm_impl,
-                model_cfg.ffn_impl, model_cfg.dtype)
+                "ffn %s, dtype %s), %d process(es)%s", opts.device,
+                model_cfg.attention_impl, model_cfg.block_fusion,
+                model_cfg.layer_norm_impl, model_cfg.ffn_impl,
+                model_cfg.dtype, num_processes(),
+                f" over {torch.distributed.get_backend()}"
+                if is_distributed() else "")
+
+
+def shard_kw() -> dict:
+    """This rank's share of an evaluation set (the ``BucketLoader``'s
+    ``shard_index``/``shard_count``; the reference's
+    ``ids[rank::size]``, data/data.py:218-225)."""
+    return dict(shard_index=process_index(), shard_count=num_processes())
 
 
 def bucket_spec(opts, dataset, budget=None) -> BucketSpec:
-    """The JAX driver's bucket grid at data-parallel size 1."""
+    """The JAX driver's bucket grid: batch sizes in multiples of
+    ``rows_per_example`` x the number of processes (at least 8), so every
+    rank takes whole examples."""
     rows = getattr(dataset, "rows_per_example", 1)
     cap = getattr(opts, "max_txt_len", 60)
     if cap == -1:
@@ -315,7 +357,7 @@ def bucket_spec(opts, dataset, budget=None) -> BucketSpec:
     return BucketSpec(
         txt_buckets=txt_buckets, img_buckets=img_buckets,
         token_budget=budget or opts.train_batch_size,
-        size_mul=max(8, rows))
+        size_mul=size_multiple(rows, num_processes()))
 
 
 def check_token_range(model_cfg, dataset, n_samples: int = 32):
@@ -375,6 +417,8 @@ def run_training(opts, *, model, loss_fn, train_loader, validate_fn=None,
         info = saver.best_info() if best_metric else None
         if info is not None:
             best_value = float(info["value"])
+        # the sidecar may lie on rank 0's disk alone: its value for all
+        best_value = all_gather_list(best_value)[0]
     elif best_metric:
         saver.clear_best()
     ds = getattr(train_loader, "dataset", None)

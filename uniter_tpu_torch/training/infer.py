@@ -7,7 +7,10 @@ on one device.
 Parameters go to the device once (the caller moves the model); each batch
 is copied host -> device by a pinned, non-blocking put on the
 ``DevicePrefetcher`` thread while the previous batch computes. One process
-drives one device, so there is no mesh and no zero-row padding.
+drives one device. Over several processes each rank runs its block of
+every batch of the shared plan (the loader's ``shard_index`` /
+``shard_count``, ``driver.shard_kw``) and ``gather_batches`` puts every
+rank's results back in the order one process gives them.
 """
 
 from __future__ import annotations
@@ -154,3 +157,38 @@ def eval_batches(predict_fn, loader, device, prefetch: int = 2,
             yield batch, out
     finally:
         it.close()
+
+
+def gather_batches(loader, per_batch: list) -> list:
+    """Every rank's results, in the order one process would have produced
+    them: ``per_batch`` holds this rank's results a batch, one list for
+    each batch it ran of ``loader`` (a ``BucketLoader`` sharded over the
+    processes); the loader's plan says which ranks ran a block of which
+    batch, and each batch's blocks go in rank order. Every rank calls it
+    and gets the whole list. One process: the lists joined."""
+    from uniter_tpu_torch.parallel.collectives import (
+        all_gather_list, num_processes)
+
+    if num_processes() == 1:
+        return [r for part in per_batch for r in part]
+    parts = [iter(p) for p in all_gather_list(per_batch)]
+    n = len(parts)
+    sampler = loader.sampler
+    epoch = sampler.epoch  # walking the plan again must not advance it
+    out = []
+    for bucket, idxs in sampler:
+        local = sampler.batch_size(bucket) // n
+        for p in range(n):
+            if idxs[p * local:(p + 1) * local]:
+                out.extend(next(parts[p]))
+    sampler.epoch = epoch
+    return out
+
+
+def gather_sums(*values):
+    """Each value summed over the ranks (host numbers: evaluation
+    counters); the values themselves in one process."""
+    from uniter_tpu_torch.parallel.collectives import all_gather_list
+
+    parts = all_gather_list(values)
+    return tuple(sum(p[i] for p in parts) for i in range(len(values)))

@@ -11,6 +11,14 @@ validation metric (``best_metric``) written by the same save; resume with
 the loader fast-forwarded past the batches the interrupted run consumed;
 SIGTERM preemption (checkpoint and clean exit).
 
+Over several processes (``torchrun``) every rank runs the loop in
+lockstep on its block of each global batch: the step sums the gradients
+and reports the global loss (``training/step.py``), every rank validates
+its share of the evaluation set and ``validate_fn`` gathers the result, so
+the best-checkpoint decision is one value on every rank; each rank joins
+the saves' gathers and rank 0 writes, logs and profiles; the preemption
+guard agrees on the stop step (``training/preempt.py``).
+
 Loss readback is deferred to the log boundaries: ``float(loss)`` every
 step would make the host wait for the card each step. ``bound_inflight``
 still caps how many unread steps pile up. The JAX loop's ahead-of-time
@@ -174,10 +182,13 @@ class ProfileWindow:
     ``tensorboard_trace_handler`` writes the trace (``*.pt.trace.json``)
     into ``profile_dir`` when the window closes, once a run. A resumed run profiles from 2 steps after its
     start, the same span (JAX ``loop.py:381-384``). Each profiled step
-    is a ``train_step`` range in the trace."""
+    is a ``train_step`` range in the trace. Over several processes rank 0
+    alone profiles."""
 
     def __init__(self, profile_dir: Optional[str], num_train_steps, device):
-        self.dir = profile_dir
+        from uniter_tpu_torch.parallel.collectives import process_index
+
+        self.dir = profile_dir if process_index() == 0 else None
         self.steps = _clamp_profile(num_train_steps)
         self.device = torch.device(device)
         self.prof = None
@@ -230,6 +241,17 @@ class ProfileWindow:
 def host_weight(batch) -> int:
     return int(batch.get(
         "ex_weight", np.ones(batch["input_ids"].shape[:-1])).sum())
+
+
+def summed(counts: dict) -> dict:
+    """Host counts summed key by key over the ranks (one host gather, at a
+    log boundary): the global batch's examples, whatever share of its
+    padding each rank's block holds. ``counts`` as it is in one
+    process."""
+    from uniter_tpu_torch.parallel.collectives import all_gather_list
+
+    ranks = all_gather_list(counts)
+    return {k: sum(r[k] for r in ranks) for k in counts}
 
 
 class TrainLoop:
@@ -359,7 +381,8 @@ class TrainLoop:
             self.window.end(global_step)
             if _crossed(global_step, self.k, self.log_steps):
                 flush()
-                ex_per_s = n_examples / (time.time() - t_start)
+                ex_per_s = (summed({"ex": n_examples})["ex"]
+                            / (time.time() - t_start))
                 TB_LOGGER.add_scalar("loss", meter.val, global_step)
                 TB_LOGGER.add_scalar("grad_norm", float(metrics["grad_norm"]),
                                      global_step)
@@ -405,13 +428,17 @@ class TrainLoop:
 
 def finish_saves(saver, state, seed: int, last_saved: int):
     """The run's last save, blocking: a new one unless the last periodic
-    save was of this step, which is then waited for."""
+    save was of this step, which is then waited for. Every rank returns
+    once the files are on disk."""
+    from uniter_tpu_torch.parallel.collectives import barrier
+
     if saver is None:
         return
     if last_saved != state.step:
         saver.save(state.step, state, seed)
     else:
         saver.wait()
+    barrier()
 
 
 def pretrain_loss_units(task: str, batch) -> int:
@@ -561,16 +588,20 @@ class MixedTaskLoop:
                 # reference logs grad_norm every window (pretrain.py:330-332)
                 TB_LOGGER.add_scalar(
                     "grad_norm", float(metrics["grad_norm"]), global_step)
-                tot_ex = sum(n_examples.values())
+                # the global batch's counts (a host gather over ranks)
+                got = summed({(kind, t): c[t] for kind, c in (
+                    ("ex", n_examples), ("in", n_in_units),
+                    ("loss", n_loss_units)) for t in n_examples})
+                tot_ex = sum(got["ex", t] for t in n_examples)
                 TB_LOGGER.add_scalar("perf/ex_per_s", tot_ex / dt,
                                      global_step)
                 for t_name in n_examples:
                     TB_LOGGER.add_scalar(f"perf/{t_name}_ex_per_s",
-                                         n_examples[t_name] / dt, global_step)
+                                         got["ex", t_name] / dt, global_step)
                     TB_LOGGER.add_scalar(f"perf/{t_name}_in_per_s",
-                                         n_in_units[t_name] / dt, global_step)
+                                         got["in", t_name] / dt, global_step)
                     TB_LOGGER.add_scalar(f"perf/{t_name}_loss_per_s",
-                                         n_loss_units[t_name] / dt,
+                                         got["loss", t_name] / dt,
                                          global_step)
                 LOGGER.info(
                     "step %d/%d (%.0f ex/s) %s", global_step,

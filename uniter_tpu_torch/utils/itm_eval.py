@@ -4,8 +4,9 @@
 ``itm_eval``: R@1/5/10 in both directions and their means from the full
 score matrix (reference :19-66), the JAX module's numpy code.
 ``inference_score_matrix`` builds the [n_txt, n_img] score matrix one text
-at a time over the eval dataset's minibatches (reference :93-114), on one
-device.
+at a time over the eval dataset's minibatches (reference :93-114); over
+several processes each rank scores a stride of the texts and the rows are
+gathered (``utils.itm_fast.gather_rows``).
 """
 
 from __future__ import annotations
@@ -61,12 +62,14 @@ def inference_score_matrix(predict_fn: Callable, eval_dataset, t_bucket,
 
     ``predict_fn(batch)`` maps a batch of device tensors to [B, 1] rank
     scores (the model on ``device`` already). Each window's padding rows
-    (``ex_weight`` 0) are trimmed."""
+    (``ex_weight`` 0) are trimmed. Each rank scores ``my_rows`` of the
+    texts; every rank gets the whole matrix."""
     from uniter_tpu_torch.training.infer import to_device
+    from uniter_tpu_torch.utils.itm_fast import gather_rows, my_rows
 
     device = torch.device(device)
     rows = []
-    for i in range(len(eval_dataset)):
+    for i in my_rows(len(eval_dataset)):
         scores = []
         for batch in eval_dataset.get_batches(i, t_bucket, r_bucket):
             n_real = (int(batch["ex_weight"].sum()) if "ex_weight" in batch
@@ -75,5 +78,13 @@ def inference_score_matrix(predict_fn: Callable, eval_dataset, t_bucket,
                 out = predict_fn(to_device(batch, device))
             scores.append(out[:n_real, 0].float().cpu().numpy())
         rows.append(np.concatenate(scores))
-    return (np.stack(rows) if rows else np.zeros((0, 0)),
-            list(eval_dataset.ids))
+    if rows:
+        mine = np.stack(rows)
+    else:  # no text here (fewer than ranks): an empty block of the width
+        from uniter_tpu_torch.data.itm import ItmEvalDataset
+
+        width = (len(eval_dataset.all_img_ids)
+                 if isinstance(eval_dataset, ItmEvalDataset)
+                 else eval_dataset.bs)
+        mine = np.zeros((0, width), np.float32)
+    return gather_rows(mine, len(eval_dataset)), list(eval_dataset.ids)

@@ -18,8 +18,11 @@ Two cuts over the training forward, both exact rewrites of its arithmetic
     ``BertLayerCLS``: a [1, S] query and the FFN on one row.
     ``cls_path=False`` runs the whole model instead.
 
-One device: ``mesh=`` and ``shard_count > 1`` raise (scoring on several
-cards is not ported). Everything runs eagerly under ``inference_mode``.
+Over several processes the texts are sharded by stride (rank r scores
+texts r, r + world, ...; reference utils/itm_eval.py:99) and the rows are
+gathered with ``all_gather_array`` into the one-process order, so every
+rank returns the whole matrix; every rank calls these functions together.
+Everything runs eagerly under ``inference_mode``.
 """
 
 from __future__ import annotations
@@ -67,11 +70,31 @@ def _pad_rows(a, mult):
     return np.concatenate([a, np.repeat(a[:1], pad, 0)]) if pad else a
 
 
-def _one_device(mesh, shard_count):
-    if mesh is not None or shard_count > 1:
-        raise NotImplementedError(
-            "retrieval scoring on several devices is not ported (one "
-            "process drives one device; see ROADMAP.md)")
+def my_rows(n: int) -> np.ndarray:
+    """This rank's rows of ``n``: a stride over the processes."""
+    from uniter_tpu_torch.parallel.collectives import (
+        num_processes, process_index)
+
+    return np.arange(process_index(), n, num_processes())
+
+
+def gather_rows(mine: np.ndarray, n: int) -> np.ndarray:
+    """The [n, ...] array whose rows ``my_rows(n)`` each rank holds in
+    ``mine``, assembled on every rank (``all_gather_array`` over blocks
+    padded to the longest)."""
+    from uniter_tpu_torch.parallel.collectives import (
+        all_gather_array, num_processes)
+
+    world = num_processes()
+    if world == 1:
+        return mine
+    block = np.zeros((-(-n // world),) + mine.shape[1:], mine.dtype)
+    block[:len(mine)] = mine
+    blocks = all_gather_array(block)
+    out = np.empty((n,) + mine.shape[1:], mine.dtype)
+    for r in range(world):
+        out[r::world] = blocks[r][:len(range(r, n, world))]
+    return out
 
 
 class _Scorer:
@@ -160,18 +183,21 @@ def _masks(scorer, lens, width):
 
 def fast_score_matrix(model, eval_ds, t_bucket, r_bucket, *,
                       txt_tile: int = 32, img_tile: int = 128,
-                      shard_count: int = 1, dtype="bfloat16", mesh=None,
-                      cls_path: bool = True):
+                      dtype="bfloat16", cls_path: bool = True):
     """[n_txt, n_img] rank-score matrix and the text ids (rows in
     ``eval_ds.ids`` order, columns in ``eval_ds.all_img_ids`` order).
     ``dtype`` is the dtype the image features travel to the device in;
-    ``model`` lies on its device and computes in its config's dtype."""
-    _one_device(mesh, shard_count)
+    ``model`` lies on its device and computes in its config's dtype. Each
+    rank scores ``my_rows`` of the texts (module docstring)."""
     txt_ids, txt_len, img_feat, img_pos, img_nbb = build_eval_arrays(
         eval_ds, t_bucket, r_bucket)
-    n_txt, n_img = len(txt_ids), img_feat.shape[0]
+    n_all, n_img = len(txt_ids), img_feat.shape[0]
+    mine = my_rows(n_all)
+    txt_ids, txt_len = txt_ids[mine], txt_len[mine]
+    n_txt = len(txt_ids)
     if n_txt == 0:
-        return np.zeros((0, n_img), np.float32), []
+        return (gather_rows(np.zeros((0, n_img), np.float32), n_all),
+                list(eval_ds.ids))
     # pad to tile multiples (extra rows repeat row 0; trimmed at the end)
     t_sel = _pad_rows(txt_ids, txt_tile)
     tlen_sel = _pad_rows(txt_len, txt_tile)
@@ -195,26 +221,31 @@ def fast_score_matrix(model, eval_ds, t_bucket, r_bucket, *,
                     t_emb, d_tmask[ti:ti + txt_tile],
                     d_img_emb[ij:ij + img_tile], d_imask[ij:ij + img_tile])
         mat = out[:n_txt, :n_img].cpu().numpy()
-    return mat, list(eval_ds.ids)
+    return gather_rows(mat, n_all), list(eval_ds.ids)
 
 
 def fast_windowed_scores(model, val_ds, t_bucket, r_bucket, *,
-                         txt_chunk: int = 8, dtype="bfloat16", mesh=None,
-                         shard_count: int = 1, cls_path: bool = True):
+                         txt_chunk: int = 8, dtype="bfloat16",
+                         cls_path: bool = True):
     """[n_txt, bs] window score rows (the gt image at column 0) and the text
     ids: the device-resident form of ItmValDataset's windowed validation
     (data/itm.py ``_window``). Only each text's bs window pairs are scored:
     the embedded image corpus stays on the device and each call gathers
-    ``txt_chunk`` texts' circular windows from it by index."""
-    _one_device(mesh, shard_count)
+    ``txt_chunk`` texts' circular windows from it by index. Each rank
+    scores ``my_rows`` of the texts (module docstring)."""
     txt_ids, txt_len, img_feat, img_pos, img_nbb = build_eval_arrays(
         val_ds, t_bucket, r_bucket)
-    n_txt, n_img, bs = len(txt_ids), img_feat.shape[0], val_ds.bs
-    if n_txt == 0:
-        return np.zeros((0, bs), np.float32), []
+    n_all, n_img, bs = len(txt_ids), img_feat.shape[0], val_ds.bs
     # circular window positions per text (gt first — data/itm.py _window)
-    js = np.asarray([val_ds._img_pos[val_ds.txt2img[t]] for t in val_ds.ids])
-    win = (js[:, None] + np.arange(bs)[None, :]) % n_img  # [n_txt, bs]
+    js = np.asarray([val_ds._img_pos[val_ds.txt2img[t]] for t in val_ds.ids],
+                    np.int64).reshape(-1)
+    win = (js[:, None] + np.arange(bs)[None, :]) % max(n_img, 1)
+    mine = my_rows(n_all)
+    txt_ids, txt_len, win = txt_ids[mine], txt_len[mine], win[mine]
+    n_txt = len(txt_ids)
+    if n_txt == 0:
+        return (gather_rows(np.zeros((0, bs), np.float32), n_all),
+                list(val_ds.ids))
     t_sel = _pad_rows(txt_ids, txt_chunk)
     tlen_sel = _pad_rows(txt_len, txt_chunk)
     win_p = _pad_rows(win, txt_chunk)
@@ -236,4 +267,4 @@ def fast_windowed_scores(model, val_ds, t_bucket, r_bucket, *,
                 t_emb, d_tmask[ci:ci + txt_chunk], d_win[ci:ci + txt_chunk],
                 d_img_emb, d_imask)
         mat = out[:n_txt].cpu().numpy()
-    return mat, list(val_ds.ids)
+    return gather_rows(mat, n_all), list(val_ds.ids)

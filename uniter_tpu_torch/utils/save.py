@@ -21,6 +21,11 @@ parameters and moments in place, and leaves only the disk writes (each
 ``restore``, ``latest_step``, ``best_info``, ``clear_best`` and the next
 ``save`` wait for it; ``wait`` raises what the write raised.
 
+Over several processes every rank calls ``save`` (the optimizer gathers
+its sharded state by parameter name, a collective) and rank 0 alone
+writes, removes and clears (JAX ``utils/save.py:91,148``); every rank
+restores from the same files, whatever the world size that wrote them.
+
 Weights-only snapshots written by the JAX package
 (``ckpt/model_step_N.msgpack``, flax ``serialization.to_bytes``) are read
 with ``msgpack`` and numpy alone.
@@ -147,11 +152,15 @@ class TrainStateSaver:
         ``model_saver.save(model, 'best')``, train_re.py:259-263). With
         ``block=False`` the host copy is complete when this returns and
         the files are written by a thread (module docstring)."""
+        from uniter_tpu_torch.parallel.collectives import process_index
+
         self.wait()
         sd = state.model.state_dict()
         sd.update(state.opt.masters())
-        weights = {k: _host(v) for k, v in sd.items()}
         opt = state.opt.state()
+        if process_index() > 0:
+            return  # the gathers above are all a rank past 0 takes part in
+        weights = {k: _host(v) for k, v in sd.items()}
         rest = {"step": int(step), "seed": int(seed),
                 "count": opt["count"], "gnorm": _host(opt["gnorm"]),
                 "mu": {k: _host(v) for k, v in opt["mu"].items()},
@@ -202,8 +211,13 @@ class TrainStateSaver:
     def clear_best(self):
         """Remove a previous run's best export (a fresh run in a reused
         ``output_dir`` starts its own maximum; until it first improves,
-        ``--ckpt best`` would otherwise resolve to the old weights)."""
+        ``--ckpt best`` would otherwise resolve to the old weights). Rank 0
+        alone removes."""
+        from uniter_tpu_torch.parallel.collectives import process_index
+
         self.wait()
+        if process_index() > 0:
+            return
         for name in ("model_step_best.pt", "model_step_best.json"):
             path = os.path.join(self.dir, name)
             if os.path.exists(path):
