@@ -191,11 +191,16 @@ Phases, each printing its own lines:
    device busy ms a step of each; K1-K6 launches a step; the --fsdp run
    resumed to 25 without --fsdp; the flagship step with and without an
    NCCL group of one in turns; then two ranks sharing the card over gloo:
-   5 fp32 steps at dropout 0 against one process (step 1 within 1e-6,
-   later 1e-4; --fsdp within 1e-6 of replicated), each rank's optimizer
-   state bytes, both ranks' K3 masks of a step at dropout 0.1 (they
-   differ), ``inf_vqa`` at world 2 writing world 1's answers; the same over
-   NCCL on two cards where the host has them.
+   5 fp32 steps at dropout 0.1 against one process, replicated and with
+   --fsdp (the parameters sharded at rest; every step within 1e-6), each
+   rank's parameter and optimizer-state bytes at rest and its peak of
+   allocated memory, each rank's K3 mask of a bf16 step bit-equal to its
+   block of the one process's, the --fsdp pair resumed at world 1 without
+   --fsdp against the one process resumed (1e-5), ``inf_vqa`` at world 2
+   writing world 1's answers; the same over NCCL on two cards where the
+   host has them. The k2 and tails phases also hold K1-K6 to their plain
+   versions at a row base past 2**32, and K1's and K3's masks to
+   ``keep_mask`` there bit for bit.
 27. the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
    last line. Any failed check raises and the script exits non-zero.
 
@@ -843,7 +848,61 @@ def k2_phase(torch):
           f"{worst_bf16['mha_bwd_jax']:.3e} (with Di from the bf16 output "
           f"alone {worst_bf16['coarse_di']:.3e}), LSE "
           f"{worst_bf16['lse']:.3e}")
+    attention_row_base(torch, gen)
     return worst, worst_bf16, timing, frac
+
+
+def attention_row_base(torch, gen):
+    """K1 and K2 at ``ROW_BASE`` (a rank's b0 * H * S): at the flagship
+    shape, both dtypes, rate RATE, against the plain versions at that
+    base; and K1's mask itself against ``keep_mask`` at that base, bit for
+    bit: with q = k = 0 and no padding P is uniform, and with v one-hot
+    over the head dim (D = S = 64) output (b, q, h, k) is positive exactly
+    where score (b, h, q, k) was kept."""
+    from uniter_tpu_torch.ops.attention import (
+        _mha_bwd_lse_torch, _mha_torch, mha_bwd, mha_fwd)
+    from uniter_tpu_torch.ops.dropout import keep_mask
+
+    b, s, h, d = TRAIN_SHAPES[0]
+    rb = dict(row_base=ROW_BASE)
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        q, k, v, bias, g = train_inputs(torch, b, s, h, d, dtype, gen)
+        qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+        lse = torch.empty(b, h, s, device="cuda")
+        lo = (torch.empty_like(lse) if name == "float32"
+              else torch.empty_like(q))
+        key = "lse_lo" if name == "float32" else "out_lo"
+        out = mha_fwd(q, k, v, bias, RATE, 99, lse=lse, **{key: lo}, **rb)
+        ref = _mha_torch(qf, kf, vf, bias, RATE, 99, **rb)
+        got = mha_bwd(q, k, v, bias, g, RATE, 99, out=out, lse=lse,
+                      **{key: lo}, **rb)
+        full = out.float() + (lo.float() if name == "bfloat16" else 0.0)
+        want = _mha_bwd_lse_torch(
+            qf, kf, vf, bias, gf, full, lse, RATE, 99,
+            lse_lo=lo if name == "float32" else None, **rb)
+        if name == "float32":
+            e1 = (out - ref).abs().max().item()
+            e2 = max((x - w).abs().max().item() for x, w in zip(got, want))
+            ok = e1 <= K1_TOL[name] and e2 <= K2_TOL_FP32
+        else:
+            e1 = excess(out, ref, 2.0**-8)
+            e2 = max(excess(x, w, 2.0**-8) for x, w in zip(got, want))
+            ok = e1 <= K1_TOL[name] and e2 <= K2_TOL_BF16
+        print(f"[K2] B={b} S={s} H={h} D={d} {name} rate {RATE} at row base "
+              f"{ROW_BASE}: K1 {e1:.3e}, K2 {e2:.3e} against the plain "
+              f"versions at that base {'ok' if ok else 'FAIL'}")
+        check(ok, f"K1/K2 at row base {ROW_BASE} ({name})")
+        z = torch.zeros(2, 64, 2, 64, device="cuda", dtype=dtype)
+        onehot = torch.eye(64, device="cuda", dtype=dtype)[None, :, None, :]
+        kept = mha_fwd(z, z, onehot.expand(2, 64, 2, 64).contiguous(),
+                       torch.zeros(2, 64, device="cuda"), RATE, 4242,
+                       **rb).permute(0, 2, 1, 3) > 0
+        mask = keep_mask(4242, 0, (2, 2, 64, 64), RATE, "cuda", **rb)
+        same = torch.equal(kept, mask)
+        print(f"[K2] K1's mask ({name}) at row base {ROW_BASE} equal to "
+              f"keep_mask at that base bit for bit: {same}")
+        check(same, f"K1's mask at a row base ({name})")
 
 
 def time_attention(torch, F, q, k, v, bias, g, mha_fwd, mha_bwd, _mha_torch,
@@ -1038,11 +1097,12 @@ def tail_bound_ms(name, rows, h, dtype):
                                    else "operations")
 
 
-def tail_errors(torch, fb, x, res, w, b, g, rate, seed):
+def tail_errors(torch, fb, x, res, w, b, g, rate, seed, row_base=0):
     """Each kernel's outputs against its plain version on the fp32 copies
-    of the same inputs. Returns {kernel: (worst abs err over its outputs,
-    worst excess over its bound, worst dw/db err / max|ref|, worst abs err
-    of its activations)}."""
+    of the same inputs, masks drawn at ``row_base``. Returns {kernel:
+    (worst abs err over its outputs, worst excess over its bound, worst
+    dw/db err / max|ref|, worst abs err of its activations)}."""
+    kw = dict(row_base=row_base)
     bf16 = x.dtype == torch.bfloat16
     xf, rf, gf = x.float(), res.float(), g.float()
 
@@ -1056,18 +1116,20 @@ def tail_errors(torch, fb, x, res, w, b, g, rate, seed):
         return d, d / max(want.abs().max().item(), 1e-30)
 
     out = {}
-    y = fb.drop_res_ln_fwd(x, res, w, b, rate, seed)
-    e = act(y, fb._drop_res_ln_torch(xf, rf, w, b, rate, seed),
+    y = fb.drop_res_ln_fwd(x, res, w, b, rate, seed, **kw)
+    e = act(y, fb._drop_res_ln_torch(xf, rf, w, b, rate, seed, **kw),
             TAIL_FWD_TOL_FP32)
     out["drop_res_ln_fwd"] = (*e, 0.0, e[0])
-    y = fb.ln_drop_fwd(x, w, b, rate, seed)
-    e = act(y, fb._ln_drop_torch(xf, w, b, rate, seed), TAIL_FWD_TOL_FP32)
+    y = fb.ln_drop_fwd(x, w, b, rate, seed, **kw)
+    e = act(y, fb._ln_drop_torch(xf, w, b, rate, seed, **kw),
+            TAIL_FWD_TOL_FP32)
     out["ln_drop_fwd"] = (*e, 0.0, e[0])
     for name, got, want, n_act in (
-            ("drop_res_ln_bwd", fb.drop_res_ln_bwd(x, res, w, g, rate, seed),
-             fb._drop_res_ln_bwd_torch(xf, rf, w, gf, rate, seed), 2),
-            ("ln_drop_bwd", fb.ln_drop_bwd(x, w, g, rate, seed),
-             fb._ln_drop_bwd_torch(xf, w, gf, rate, seed), 1)):
+            ("drop_res_ln_bwd",
+             fb.drop_res_ln_bwd(x, res, w, g, rate, seed, **kw),
+             fb._drop_res_ln_bwd_torch(xf, rf, w, gf, rate, seed, **kw), 2),
+            ("ln_drop_bwd", fb.ln_drop_bwd(x, w, g, rate, seed, **kw),
+             fb._ln_drop_bwd_torch(xf, w, gf, rate, seed, **kw), 1)):
         errs = [act(a, r, TAIL_BWD_TOL_FP32)
                 for a, r in zip(got[:n_act], want[:n_act])]
         vecs = [vec(a, r) for a, r in zip(got[n_act:], want[n_act:])]
@@ -1226,8 +1288,48 @@ def tail_phase(torch):
           f"{4 * sigma:.1e}); mask equal to keep_mask bit for bit: {same}")
     check(same, "K3's mask differs from ops.dropout.keep_mask")
     check(abs(frac - (1 - RATE)) <= 4 * sigma, "keep fraction through K3")
+    tail_row_base(torch, fb, keep_mask, gen)
     timing["launch_path"] = launch_path(torch, fb)
     return worst, timing
+
+
+# a rank's row base in the checks of K1-K6 at one: past 2**32 rows, so the
+# counter's high word is live (data parallelism passes b0 * S to the tails
+# and b0 * H * S to the attention kernels)
+ROW_BASE = 2**33 + 4099
+
+
+def tail_row_base(torch, fb, keep_mask, gen):
+    """K3-K6 at ``ROW_BASE``: each against its plain version at that base
+    (both dtypes, the first tail shape, rate RATE), and K3's mask against
+    ``keep_mask`` at that base bit for bit, which is not the mask at 0."""
+    rows, h = TAIL_SHAPES[0]
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        x, res, g = (torch.randn(rows, h, generator=gen, device="cuda")
+                     .to(dtype) for _ in range(3))
+        w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+        e = tail_errors(torch, fb, x, res, w, b, g, RATE, 31, ROW_BASE)
+        ok = (all(v[1] <= 0 for v in e.values())
+              and all(v[2] <= TAIL_DWDB_REL for v in e.values()))
+        print(f"[K3-K6] ({rows}, {h}) {dname} rate {RATE} at row base "
+              f"{ROW_BASE}: max|diff| against the plain versions at that "
+              "base " + ", ".join(f"{n} {v[0]:.2e}" for n, v in e.items())
+              + f" {'ok' if ok else 'FAIL'}")
+        check(ok, f"K3-K6 at row base {ROW_BASE} disagree with their plain "
+                  f"versions ({dname})")
+    ones = torch.ones(rows, h, device="cuda")
+    w, b = torch.ones(h, device="cuda"), torch.zeros(h, device="cuda")
+    kept = fb.drop_res_ln_fwd(ones, torch.zeros_like(ones), w, b, RATE,
+                              4242, row_base=ROW_BASE) > 0
+    want = keep_mask(4242, 0, (rows, h), RATE, "cuda", row_base=ROW_BASE)
+    same = torch.equal(kept, want)
+    other = not torch.equal(want, keep_mask(4242, 0, (rows, h), RATE,
+                                            "cuda"))
+    print(f"[K3-K6] K3's mask at row base {ROW_BASE} equal to keep_mask at "
+          f"that base bit for bit: {same} (and not the mask at 0: {other})")
+    check(same and other, "K3's mask at a row base")
 
 
 def time_tails(torch, fb, x, res, w, b, g, dname):
@@ -3863,9 +3965,9 @@ def re_phase(torch):
     draws = []
     sample_neg = re_mod.sample_neg
 
-    def recording(scores, targets, masks, ratio, generator):
+    def recording(scores, targets, masks, ratio, generator, *block):
         seed = generator.initial_seed()
-        neg = sample_neg(scores, targets, masks, ratio, generator)
+        neg = sample_neg(scores, targets, masks, ratio, generator, *block)
         draws.append((scores.clone(), targets.clone(), masks.clone(), seed,
                       neg.clone()))
         return neg
@@ -4764,10 +4866,15 @@ def flags_phase(torch, n_steps=10):
 DIST_Q = 1000  # questions of the dist phase's DBs (over 400 images)
 DIST_STEPS = 20
 GLOO_STEPS = 5
-# two ranks against one process, and --fsdp against replicated, relative,
-# at every step: the runs read 0.0 on the H100 (PERF.md §5); a step moves
-# the loss by ~2e-3, so a dropped rank's gradient shows
+RESUME_STEPS = 8  # the gloo runs resumed at world 1 to this step
+# two ranks against one process, replicated and --fsdp, relative, at every
+# step and dropout 0.1 (each rank draws its block of the one process's
+# masks): a step moves the loss by ~2e-3, so a dropped rank's gradient or
+# another rank's masks show
 DIST_REL = 1e-6
+# a run resumed at world 1 from world 2 (--fsdp) against the one resumed
+# from world 1, relative, at every resumed step
+RESUME_REL = 1e-5
 
 
 def dist_worker(spec_path):
@@ -4777,8 +4884,10 @@ def dist_worker(spec_path):
     as ``python -m uniter_tpu_torch.<module>`` does, and writes what the
     phase reads to ``SPEC["out"]``-RANK.json: every step's loss as the
     loop's NaN guard reads it back, the kernels' launches of the run and of
-    its validation, the optimizer state's bytes, and with
-    ``SPEC["masks"]`` the first K3 launch's keep mask (an .npy beside)."""
+    its validation, the bytes of optimizer state and of parameters the
+    rank holds at rest, its peak of allocated device memory, and with
+    ``SPEC["masks"]`` the first K3 launch's keep mask, drawn at the row
+    base that launch was given (an .npy beside)."""
     import importlib
 
     import torch
@@ -4813,10 +4922,12 @@ def dist_worker(spec_path):
     if spec.get("masks"):
         k3 = fused_block.drop_res_ln_fwd
 
-        def first(x, res, weight, bias, rate=0.0, seed=0, eps=1e-12):
+        def first(x, res, weight, bias, rate=0.0, seed=0, eps=1e-12,
+                  row_base=0):
             if not first_k3:
-                first_k3.append((tuple(x.shape), rate, seed, x.device))
-            return k3(x, res, weight, bias, rate, seed, eps)
+                first_k3.append((tuple(x.shape), rate, seed, x.device,
+                                 row_base))
+            return k3(x, res, weight, bias, rate, seed, eps, row_base)
 
         first.launches = 0  # the kernel's count lands here (its name)
         fused_block.drop_res_ln_fwd = first
@@ -4833,13 +4944,17 @@ def dist_worker(spec_path):
     out = {"rank": rank, "losses": [losses[s] for s in sorted(losses)],
            "launches": read_launches(), "validation": val, "seconds": secs,
            "state_bytes": state.opt.state_bytes() if state else None,
+           "param_bytes": state.opt.param_bytes() if state else None,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
            "step": state.step if state else None}
     if first_k3:
-        shape, rate, seed, device = first_k3[0]
-        keep = dropout.keep_mask(seed, 0, shape, rate, device)
+        shape, rate, seed, device, row_base = first_k3[0]
+        keep = dropout.keep_mask(seed, 0, shape, rate, device,
+                                 row_base=row_base)
         np.save(f"{spec['out']}-{rank}-mask.npy",
                 np.packbits(keep.cpu().numpy().reshape(-1)))
         out["k3"] = {"shape": shape, "rate": rate, "seed": seed,
+                     "row_base": row_base,
                      "keep": float(keep.float().mean())}
     with open(f"{spec['out']}-{rank}.json", "w") as f:
         json.dump(out, f)
@@ -5015,12 +5130,14 @@ def dist_phase(torch):
     of the phase's runs in overlapping waves); the --fsdp run resumed to 25
     without --fsdp; the flagship step with and without an NCCL group of
     one; (2) two ranks sharing the card over gloo: 5 fp32 steps at dropout
-    0 against one process on the same global batches, replicated and
-    --fsdp (every step within ``DIST_REL`` of one process, --fsdp within
-    it of replicated), each rank's optimizer-state bytes, one step at
-    dropout 0.1 (K1-K6 launches, both ranks' K3 masks), ``inf_vqa`` at
-    world 2 against world 1; (3) the same over NCCL with a card a rank when there are two
-    cards."""
+    0.1 against one process on the same global batches, replicated and
+    --fsdp (every step of both within ``DIST_REL`` of one process), each
+    rank's parameter and optimizer-state bytes at rest and peak allocated
+    memory, one bf16 step (K1-K6 launches, each rank's K3 mask against its
+    block of the one process's, bit for bit), ``inf_vqa`` at world 2
+    against world 1, the --fsdp pair resumed at world 1 without --fsdp
+    against the one process resumed (``RESUME_REL``); (3) the same over
+    NCCL with a card a rank when there are two cards."""
     work = scratch_dir("chip_smoke_dist_")
     t_phase = t0 = time.perf_counter()
     write_vqa_dbs(work, 400, DIST_Q, SEED)
@@ -5041,7 +5158,9 @@ def dist_phase(torch):
 
     one = dict(num_train_steps=DIST_STEPS, valid_steps=10)
     two = dict(num_train_steps=GLOO_STEPS, valid_steps=0, dtype="float32",
-               dropout=0.0)
+               dropout=RATE)
+    resume = ["--num_train_steps", str(RESUME_STEPS)]
+    back = {}  # the runs resumed at world 1
     fsdp = ["--fsdp", "--fsdp_min_size", "65536"]
     backends = [("gloo", "gloo")]
     if torch.cuda.device_count() >= 2:
@@ -5067,9 +5186,15 @@ def dist_phase(torch):
                 for name, nproc in (("alone_fsdp", 0), ("nccl1_fsdp", 1))}
         wave["one_fp32"] = dist_start(work, "one_fp32", "train_vqa",
                                       conf("one_fp32", **two))
+        wave["one_masks"] = dist_start(
+            work, "one_masks", "train_vqa",
+            conf("one_masks", num_train_steps=1, valid_steps=0), masks=True)
         got = {name: dist_wait(run) for name, run in wave.items()}
         runs.update({n: got[n][0] for n in ("alone_fsdp", "nccl1_fsdp")})
         ref = got["one_fp32"][0]
+        one_mask = np.unpackbits(np.load(os.path.join(
+            work, "one_masks-0-mask.npy")))
+        one_k3 = got["one_masks"][0]["k3"]
         res["seconds"]["wave 1"] = time.perf_counter() - t0
         for name, rec in runs.items():
             check(rec["step"] == DIST_STEPS
@@ -5149,49 +5274,94 @@ def dist_phase(torch):
             want = ref["losses"]
             rel = [abs(x - y) / abs(y)
                    for x, y in zip(rep[0]["losses"], want)]
-            rel_fsdp = max(abs(x - y) / abs(y) for x, y in zip(
-                fs[0]["losses"], rep[0]["losses"]))
-            check(len(rel) == GLOO_STEPS and max(rel) <= DIST_REL
-                  and rel_fsdp <= DIST_REL,
+            rel_fsdp = [abs(x - y) / abs(y)
+                        for x, y in zip(fs[0]["losses"], want)]
+            check(len(rel) == len(rel_fsdp) == GLOO_STEPS
+                  and max(rel + rel_fsdp) <= DIST_REL,
                   f"{tag}: losses {rep[0]['losses']} / {fs[0]['losses']} "
                   f"against one process {want}")
-            sb = {"replicated": [r["state_bytes"] for r in rep],
-                  "fsdp": [r["state_bytes"] for r in fs]}
-            check(all(0.4 < f / r < 0.6 for f, r in zip(sb["fsdp"],
-                                                          sb["replicated"])),
-                  f"{tag}: optimizer state bytes {sb}")
+            mem = {k: {"param_bytes": [r["param_bytes"] for r in recs],
+                       "state_bytes": [r["state_bytes"] for r in recs],
+                       "peak_bytes": [r["peak_bytes"] for r in recs]}
+                   for k, recs in (("replicated", rep), ("fsdp", fs))}
+            ratio = {k: [f / r for f, r in zip(mem["fsdp"][k],
+                                               mem["replicated"][k])]
+                     for k in ("param_bytes", "state_bytes")}
+            check(all(x <= 0.52 for x in ratio["param_bytes"])
+                  and all(0.4 < x < 0.6 for x in ratio["state_bytes"]),
+                  f"{tag}: bytes a rank {mem}")
+            # (5) each rank's K3 mask is its block of the one process's
             masks = got[f"{tag}_masks"]
             bits = [np.unpackbits(np.load(os.path.join(
                 work, f"{tag}_masks-{r}-mask.npy"))) for r in range(2)]
-            same = float((bits[0] == bits[1]).mean())
             k3 = [m["k3"] for m in masks]
-            check(k3[0]["seed"] != k3[1]["seed"] and same < 0.99
-                  and all(abs(k["keep"] - 0.9) < 0.01 for k in k3),
-                  f"{tag}: the ranks' K3 masks {k3}, agreement {same}")
-            per32 = dist_launch_line(f"{tag} world 2, rank 0, fp32 dropout 0",
-                                     rep[0], GLOO_STEPS)
-            per = dist_launch_line(f"{tag} world 2, rank 0, bf16 dropout 0.1",
-                                   masks[0], 1)
-            check(per == {k: STEP_LAUNCHES[k] for k in per},
-                  f"{tag}: launches a step {per}")
-            print(f"[dist] {tag}, 2 ranks, uniter-base fp32, dropout 0, "
+            n_bits = bits[0].size
+            blocks = all(np.array_equal(
+                bits[r], one_mask[r * n_bits:(r + 1) * n_bits])
+                for r in range(2))
+            check(blocks and one_mask.size == 2 * n_bits
+                  and all(k["seed"] == one_k3["seed"] for k in k3)
+                  and [k["row_base"] for k in k3]
+                  == [0, int(np.prod(k3[0]["shape"][:-1]))],
+                  f"{tag}: the ranks' K3 masks {k3} against one process "
+                  f"{one_k3}")
+            per32 = dist_launch_line(
+                f"{tag} world 2, rank 0, fp32 dropout {RATE}", rep[0],
+                GLOO_STEPS)
+            per = dist_launch_line(f"{tag} world 2, rank 0, bf16 dropout "
+                                   f"{RATE}", masks[0], 1)
+            check(per == {k: STEP_LAUNCHES[k] for k in per}
+                  and per32 == per, f"{tag}: launches a step {per} / {per32}")
+            print(f"[dist] {tag}, 2 ranks, uniter-base fp32, dropout {RATE}, "
                   f"{GLOO_STEPS} steps: losses "
                   f"{[f'{x:.6f}' for x in rep[0]['losses']]} against one "
                   f"process {[f'{x:.6f}' for x in want]} (relative "
-                  f"{', '.join(f'{x:.1e}' for x in rel)}); --fsdp within "
-                  f"{rel_fsdp:.1e} of replicated; optimizer state bytes per "
-                  f"rank replicated {sb['replicated']}, --fsdp {sb['fsdp']} "
-                  f"(one process {ref['state_bytes']}); perf/ex_per_s at "
-                  f"step {GLOO_STEPS} (from the loop's start) {ex_s:.1f}; "
-                  f"K3 masks of step 1 at dropout 0.1: seeds "
-                  f"{k3[0]['seed']} / {k3[1]['seed']}, keep "
-                  f"{k3[0]['keep']:.4f} / {k3[1]['keep']:.4f}, the same bit "
-                  f"in {same * 100:.1f}% of {k3[0]['shape']}; inf_vqa at "
-                  f"world 2 wrote world 1's {len(answers1)} answers")
+                  f"{', '.join(f'{x:.1e}' for x in rel)}); --fsdp relative "
+                  f"{', '.join(f'{x:.1e}' for x in rel_fsdp)}; a rank holds "
+                  f"at rest parameters {mem['fsdp']['param_bytes']} B with "
+                  f"--fsdp, {mem['replicated']['param_bytes']} replicated "
+                  f"({max(ratio['param_bytes']):.4f}x), optimizer state "
+                  f"{mem['fsdp']['state_bytes']} / "
+                  f"{mem['replicated']['state_bytes']} "
+                  f"({max(ratio['state_bytes']):.4f}x; one process "
+                  f"{ref['state_bytes']}); peak allocated a rank "
+                  f"{[round(x / 2**20, 1) for x in mem['fsdp']['peak_bytes']]}"
+                  f" MiB --fsdp, "
+                  f"{[round(x / 2**20, 1) for x in mem['replicated']['peak_bytes']]}"
+                  f" MiB replicated (one process "
+                  f"{ref['peak_bytes'] / 2**20:.1f}); perf/ex_per_s at step "
+                  f"{GLOO_STEPS} (from the loop's start, replicated) "
+                  f"{ex_s:.1f}; K3 masks of step 1: seed {k3[0]['seed']} on "
+                  f"both ranks and one process, row bases "
+                  f"{[k['row_base'] for k in k3]}, keep "
+                  f"{k3[0]['keep']:.4f} / {k3[1]['keep']:.4f}, each rank's "
+                  f"{n_bits} bits equal to its block of the one process's "
+                  f"mask: {blocks}; inf_vqa at world 2 wrote world 1's "
+                  f"{len(answers1)} answers")
             res[tag] = {"losses": rep[0]["losses"], "one": want, "rel": rel,
-                        "rel_fsdp": rel_fsdp, "state_bytes": sb,
+                        "rel_fsdp": rel_fsdp, "bytes": mem, "ratio": ratio,
                         "ex_per_s": ex_s, "launches": per,
-                        "launches_fp32": per32, "k3_same": same}
+                        "launches_fp32": per32, "k3_blocks": blocks}
+            # (6) the --fsdp world-2 run resumed at world 1 without --fsdp,
+            # against one process's run resumed at world 1
+            t0 = time.perf_counter()
+            names = [f"{tag}_fsdp"] + (["one_fp32"] if tag == "gloo" else [])
+            wave = {n: dist_start(work, n, "train_vqa", conf(n, **two)
+                                  + resume) for n in names}
+            back.update({n: dist_wait(run)[0] for n, run in wave.items()})
+            res["seconds"][f"{tag} resume"] = time.perf_counter() - t0
+            a, b = back[f"{tag}_fsdp"]["losses"], back["one_fp32"]["losses"]
+            rel_back = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+            check(len(a) == len(b) == RESUME_STEPS - GLOO_STEPS
+                  and max(rel_back) <= RESUME_REL,
+                  f"{tag}: resumed at world 1 {a} against {b}")
+            print(f"[dist] {tag}: the --fsdp world-2 run resumed at world 1 "
+                  f"without --fsdp to {RESUME_STEPS}: losses "
+                  f"{[f'{x:.6f}' for x in a]} against the world-1 run "
+                  f"resumed {[f'{x:.6f}' for x in b]} (relative "
+                  f"{', '.join(f'{x:.1e}' for x in rel_back)}, tol "
+                  f"{RESUME_REL:g})")
+            res[tag]["resume_rel"] = rel_back
     finally:
         dist_stop(_DIST_PROCS)
     t0 = time.perf_counter()
@@ -5404,10 +5574,10 @@ def main(argv):
           f"train_vqa at uniter-base, bf16, dropout 0.1): under torchrun "
           f"NCCL world 1 {dist['launches']} over 20 steps "
           f"(dist_launches_per_step), each of 2 gloo ranks sharing the card "
-          f"{dist['gloo']['launches']} in its one step "
-          f"(gloo_launches_per_step; its fp32 dropout-0 steps "
-          f"{dist['gloo']['launches_fp32']}: the tails fuse only under a "
-          f"live mask)")
+          f"{dist['gloo']['launches']} in its one bf16 step at dropout "
+          f"{RATE} (gloo_launches_per_step) and "
+          f"{dist['gloo']['launches_fp32']} a step in its {GLOO_STEPS} fp32 "
+          f"steps at dropout {RATE}")
     print("[smoke] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; all, with the device and build phases, "

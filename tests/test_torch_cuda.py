@@ -1200,8 +1200,8 @@ full = C.all_gather(torch.empty(2 * world, device=device, dtype=bf16),
 assert full.tolist() == [float(r) for r in range(world) for _ in range(2)]
 assert C.all_gather_list(rank) == list(range(world))
 torch.backends.cuda.matmul.allow_tf32 = False
-cfg = resolve_kernel_policies(tiny_config(hidden_dropout_prob=0.0,
-                                          attention_probs_dropout_prob=0.0),
+cfg = resolve_kernel_policies(tiny_config(hidden_dropout_prob=0.1,
+                                          attention_probs_dropout_prob=0.1),
                               "cuda", training=True)
 rng = np.random.RandomState(0)
 b, s = 8, 12
@@ -1225,8 +1225,8 @@ for fsdp in (False, True):
         fsdp_min_size=64))
     step = make_train_step(lambda m, bt, g: (vqa_loss(m, bt, g, 5), {}))
     losses = [float(step(state, mine, 0)[1]["loss"]) for _ in range(2)]
-    out[fsdp] = (losses, torch.cat([p.detach().reshape(-1).float().cpu()
-                                    for p in model.parameters()]))
+    out[fsdp] = (losses, torch.cat([v.reshape(-1).float().cpu()
+                                    for v in model.state_dict().values()]))
 if rank == 0:
     torch.save(out, sys.argv[2])
 """
@@ -1257,19 +1257,89 @@ def _dist_run(tmp_path, world, backend):
     return torch.load(out)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_a_row_base_match_plain(gen, dtype):
+    """K1/K2 and K3-K6 at a row base past 2**32 (a rank's b0*H*S, b0*S)
+    against their plain versions at that base, and K1's and K3's masks
+    against ``keep_mask`` there, bit for bit."""
+    from uniter_tpu_torch.ops.dropout import keep_mask
+
+    base, rate = 2**33 + 4099, 0.1
+    b, s, h, d = 4, 104, 12, 64
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                  .to(dtype) for _ in range(4))
+    bias = torch.zeros(b, s, device="cuda")
+    bias[:, -9:] = -10000.0
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    lse = torch.empty(b, h, s, device="cuda")
+    if dtype == torch.float32:
+        lo, key = torch.empty_like(lse), "lse_lo"
+    else:
+        lo, key = torch.empty_like(q), "out_lo"
+    out = mha_fwd(q, k, v, bias, rate, 9, lse=lse, row_base=base,
+                  **{key: lo})
+    ref = _mha_torch(qf, kf, vf, bias, rate, 9, row_base=base)
+    assert _close(out, ref, dtype, 1e-5)
+    got = mha_bwd(q, k, v, bias, g, rate, 9, out=out, lse=lse, row_base=base,
+                  **{key: lo})
+    full = out.float() + (lo.float() if dtype == torch.bfloat16 else 0.0)
+    want = _mha_bwd_lse_torch(qf, kf, vf, bias, gf, full, lse, rate, 9,
+                              lse_lo=lo if dtype == torch.float32 else None,
+                              row_base=base)
+    for x, w in zip(got, want):
+        assert _close(x, w, dtype, 1e-4)
+    z = torch.zeros(2, 64, 2, 64, device="cuda", dtype=dtype)
+    onehot = torch.eye(64, device="cuda", dtype=dtype)[None, :, None, :]
+    kept = mha_fwd(z, z, onehot.expand(2, 64, 2, 64).contiguous(),
+                   torch.zeros(2, 64, device="cuda"), rate, 4242,
+                   row_base=base).permute(0, 2, 1, 3) > 0
+    assert torch.equal(kept, keep_mask(4242, 0, (2, 2, 64, 64), rate,
+                                       "cuda", row_base=base))
+    rows, hid = 91, 768
+    x, res, gy = (torch.randn(rows, hid, generator=gen, device="cuda")
+                  .to(dtype) for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(hid, generator=gen, device="cuda")
+    bb = 0.1 * torch.randn(hid, generator=gen, device="cuda")
+    xf, rf, gyf = x.float(), res.float(), gy.float()
+    kw = dict(row_base=base)
+    assert _close(fb.drop_res_ln_fwd(x, res, w, bb, rate, 21, **kw),
+                  fb._drop_res_ln_torch(xf, rf, w, bb, rate, 21, **kw),
+                  dtype, 1e-5)
+    assert _close(fb.ln_drop_fwd(x, w, bb, rate, 21, **kw),
+                  fb._ln_drop_torch(xf, w, bb, rate, 21, **kw), dtype, 1e-5)
+    for got, want in ((fb.drop_res_ln_bwd(x, res, w, gy, rate, 21, **kw),
+                       fb._drop_res_ln_bwd_torch(xf, rf, w, gyf, rate, 21,
+                                                 **kw)),
+                      (fb.ln_drop_bwd(x, w, gy, rate, 21, **kw),
+                       fb._ln_drop_bwd_torch(xf, w, gyf, rate, 21, **kw))):
+        n_act = len(got) - 2
+        for x_, ref in zip(got[:n_act], want[:n_act]):
+            assert _close(x_, ref, dtype, 1e-4)
+        for x_, ref in zip(got[n_act:], want[n_act:]):
+            assert (x_ - ref).abs().max().item() <= 1e-4 * ref.abs().max()
+    ones = torch.ones(rows, hid, device="cuda")
+    kept = fb.drop_res_ln_fwd(ones, torch.zeros_like(ones),
+                              torch.ones(hid, device="cuda"),
+                              torch.zeros(hid, device="cuda"), rate, 4242,
+                              **kw) > 0
+    assert torch.equal(kept, keep_mask(4242, 0, (rows, hid), rate, "cuda",
+                                       **kw))
+
+
 @pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
 def test_process_group_on_the_card(gen, tmp_path, world, backend):
     """The collectives on CUDA tensors (NCCL at world 1; gloo with two
     ranks sharing the card), and two train steps of a small VQA model
-    through K1-K6 (dropout 0, the clip active at every step), replicated
-    and with --fsdp: the same losses and parameters (1e-6) as one process
-    without a process group."""
+    through K1-K6 (dropout 0.1: each rank applies its block of the one
+    process's masks; the clip active at every step), replicated and with
+    --fsdp (the parameters sharded at rest): the same losses and
+    parameters (1e-6) as one process without a process group."""
     if backend == "nccl" and world > torch.cuda.device_count():
         pytest.skip("NCCL takes one card a rank")
     got = _dist_run(tmp_path, world, backend)
-    no_drop = tiny_config(hidden_dropout_prob=0.0,
-                          attention_probs_dropout_prob=0.0)
-    cfg = resolve_kernel_policies(no_drop, "cuda", training=True)
+    drop = tiny_config(hidden_dropout_prob=0.1,
+                       attention_probs_dropout_prob=0.1)
+    cfg = resolve_kernel_policies(drop, "cuda", training=True)
     import numpy as np
     from uniter_tpu_torch.train_vqa import vqa_loss
     from uniter_tpu_torch.training.optim import build_optimizer
@@ -1292,8 +1362,8 @@ def test_process_group_on_the_card(gen, tmp_path, world, backend):
         model, 1e-3, grad_norm=1e-3, fused=True))
     step = make_train_step(lambda m, bt, g: (vqa_loss(m, bt, g, 5), {}))
     losses = [float(step(state, batch, 0)[1]["loss"]) for _ in range(2)]
-    params = torch.cat([p.detach().reshape(-1).float().cpu()
-                        for p in model.parameters()])
+    params = torch.cat([v.reshape(-1).float().cpu()
+                        for v in model.state_dict().values()])
     for fsdp, (got_l, got_p) in got.items():
         assert len(got_l) == len(losses), fsdp
         for i, (x, want) in enumerate(zip(got_l, losses)):

@@ -8,6 +8,13 @@ draws lies within 4 sigma of 0.9; dropout scales kept values by 1/(1-rate)
 and zeroes the rest, and rate 0 or a deterministic call is the identity.
 The rule matches the JAX package's (keep iff u32 >= rate * 2**32); its
 bits do not, as ROADMAP.md ("Dropout") records.
+
+The row base: a tensor drawn at row base p * rows is, bit for bit, block p
+of the tensor of all blocks drawn at 0 (``keep_mask``, ``drop``,
+``random_bits``, both bit rules; past 2**32 rows the counter's high word
+against numpy), and so are the plain attention (forward, both backward
+formulas, the TF32 twins) and the plain fused tails (forward and backward)
+of a rank's block of a batch.
 """
 
 import numpy as np
@@ -108,3 +115,126 @@ def test_dropout_scales_kept_values():
     assert D.dropout(x, 0.0, deterministic=False) is x
     with pytest.raises(ValueError):
         D.dropout(x, 0.25, deterministic=False)
+
+
+# ---------------------------------------------------------------- row base
+
+@pytest.mark.parametrize("impl", ["xla", "u16"])
+@pytest.mark.parametrize("shape", [(3, 7), (2, 5, 9), (2, 3, 4, 6)])
+def test_row_base_draws_the_global_block(shape, impl):
+    """Block p of N drawn at row base p * rows equals rows p * rows... of
+    the N blocks drawn together at 0: the masks, the bits, the dropout."""
+    n_blocks, rate, seed = 4, 0.3, (5 << 32) + 77
+    glob = (n_blocks * shape[0],) + shape[1:]
+    rows = int(np.prod(shape[:-1]))
+    mask = D.keep_mask(seed, 0, glob, rate, impl=impl)
+    bits = D.random_bits(seed, 3, glob)
+    x = torch.randn(glob, dtype=torch.float64)
+    y = D.drop(x, rate, seed, impl)
+    for p in range(n_blocks):
+        blk = slice(p * shape[0], (p + 1) * shape[0])
+        base = D.rows_before(p, shape)
+        assert base == p * rows
+        assert torch.equal(D.keep_mask(seed, 0, shape, rate, impl=impl,
+                                       row_base=base), mask[blk])
+        assert torch.equal(D.random_bits(seed, 3, shape, row_base=base),
+                           bits[blk])
+        assert torch.equal(D.drop(x[blk], rate, seed, impl, base), y[blk])
+
+
+def test_row_base_past_32_bits_follows_the_counter_rule():
+    """A row base above 2**32 (a rank's base in a long run) puts the high
+    word of the row into the counter, as the kernels read it."""
+    seed, base, shape = 99, (3 << 32) + 2**31 + 17, (5, 11)
+    bits = D.random_bits(seed, 0, shape, row_base=base).numpy()
+    r, c = np.meshgrid(np.arange(5, dtype=np.uint64) + np.uint64(base),
+                       np.arange(11, dtype=np.uint64), indexing="ij")
+    words = _np_philox((c // np.uint64(4), r & U32, r >> np.uint64(32),
+                        np.zeros_like(r)), (seed, 0))
+    want = np.choose((c % np.uint64(4)).astype(np.int64), words)
+    assert np.array_equal(bits.astype(np.uint64), want)
+
+
+def test_step_generator_names_the_block():
+    """``batch_block`` reads a step generator's block; any other generator
+    (or none) is block 0 of 1. The row base of a draw is the block times
+    the draw's rows."""
+    gen = D.StepGenerator()
+    gen.block, gen.blocks = 2, 4
+    assert D.batch_block(gen) == (2, 4)
+    assert D.batch_block(torch.Generator()) == (0, 1)
+    assert D.batch_block(None) == (0, 1)
+    assert D.rows_before(3, (4, 5, 6)) == 3 * 4 * 5
+    assert D.rows_before(0, (4, 5, 6)) == 0
+
+
+@pytest.mark.parametrize("n_blocks", [2, 4])
+def test_plain_kernels_at_a_row_base_are_the_global_block(n_blocks):
+    """The plain attention and the plain fused tails of rank p's block of
+    a batch, drawn at the rank's row base (b0*H*S, b0*S), equal block p of
+    the whole batch's call at 0: forward, both backward formulas, the
+    TF32 twins of the fp32 kernels, and the four tails (float64)."""
+    from uniter_tpu_torch.ops import attention as A
+    from uniter_tpu_torch.ops import fused_block as F
+
+    rng = np.random.RandomState(n_blocks)
+    b, s, h, d, rate, seed = 2, 6, 3, 8, 0.2, 41
+    B = n_blocks * b
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape))
+
+    q, k, v, g = t(B, s, h, d), t(B, s, h, d), t(B, s, h, d), t(B, s, h, d)
+    bias = torch.zeros(B, s, dtype=torch.float64)
+    bias[:, -2:] = -10000.0
+    out, lse = A._mha_torch(q, k, v, bias, rate, seed, return_lse=True)
+    bwd = A._mha_bwd_torch(q, k, v, bias, g, rate, seed)
+    bwd_lse = A._mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate, seed)
+    q32, k32, v32, g32 = (x.float() for x in (q, k, v, g))
+    out32 = A._mha_tf32_torch(q32, k32, v32, bias.float(), rate, seed)
+    x, res, gy = t(B, s, 16), t(B, s, 16), t(B, s, 16)
+    w, bb = 1.0 + 0.1 * t(16), 0.1 * t(16)
+    tails = (F._drop_res_ln_torch(x, res, w, bb, rate, seed),
+             F._ln_drop_torch(x, w, bb, rate, seed),
+             *F._drop_res_ln_bwd_torch(x, res, w, gy, rate, seed)[:2],
+             F._ln_drop_bwd_torch(x, w, gy, rate, seed)[0])
+    for p in range(n_blocks):
+        blk = slice(p * b, (p + 1) * b)
+        qa, ka, va, ga, ba = q[blk], k[blk], v[blk], g[blk], bias[blk]
+        base = D.rows_before(p, (b, h, s, s))
+        assert base == p * b * h * s
+        got, got_lse = A._mha_torch(qa, ka, va, ba, rate, seed,
+                                    return_lse=True, row_base=base)
+        torch.testing.assert_close(got, out[blk], rtol=0, atol=1e-12)
+        for a_, w_ in zip(A._mha_bwd_torch(qa, ka, va, ba, ga, rate, seed,
+                                           base), (x_[blk] for x_ in bwd)):
+            torch.testing.assert_close(a_, w_, rtol=0, atol=1e-12)
+        for a_, w_ in zip(A._mha_bwd_lse_torch(
+                qa, ka, va, ba, ga, got, got_lse, rate, seed,
+                row_base=base), (x_[blk] for x_ in bwd_lse)):
+            torch.testing.assert_close(a_, w_, rtol=0, atol=1e-12)
+        torch.testing.assert_close(
+            A._mha_tf32_torch(q32[blk], k32[blk], v32[blk],
+                              bias[blk].float(), rate, seed, row_base=base),
+            out32[blk], rtol=0, atol=1e-6)
+        torch.testing.assert_close(
+            A.multi_head_attention(qa, ka, va, ba, dropout_rate=rate,
+                                   deterministic=False, seed=seed,
+                                   row_base=base), out[blk], rtol=0,
+            atol=1e-12)
+        tb = D.rows_before(p, (b, s, 16))
+        assert tb == p * b * s
+        got_tails = (
+            F._drop_res_ln_torch(x[blk], res[blk], w, bb, rate, seed,
+                                 row_base=tb),
+            F._ln_drop_torch(x[blk], w, bb, rate, seed, row_base=tb),
+            *F._drop_res_ln_bwd_torch(x[blk], res[blk], w, gy[blk], rate,
+                                      seed, row_base=tb)[:2],
+            F._ln_drop_bwd_torch(x[blk], w, gy[blk], rate, seed,
+                                 row_base=tb)[0])
+        for a_, w_ in zip(got_tails, tails):
+            torch.testing.assert_close(a_, w_[blk], rtol=0, atol=1e-12)
+    # the base matters: block 1 at base 0 is another mask
+    assert not torch.equal(
+        A._mha_torch(q[b:2 * b], k[b:2 * b], v[b:2 * b], bias[b:2 * b],
+                     rate, seed), out[b:2 * b])

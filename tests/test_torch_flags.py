@@ -139,9 +139,9 @@ def test_dropout_impl_trains(impl):
     calls = []
     real = D.drop
 
-    def spy(x, rate, seed, impl="xla"):
+    def spy(x, rate, seed, impl="xla", row_base=0):
         calls.append(impl)
-        return real(x, rate, seed, impl)
+        return real(x, rate, seed, impl, row_base)
 
     mp = pytest.MonkeyPatch()
     from uniter_tpu_torch.models import encoder

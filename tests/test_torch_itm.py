@@ -617,3 +617,29 @@ def test_train_itm_hard_negatives_over_two_processes(dbs):
                                                 "--num_train_steps", "3"])
     assert any("fast-forwarded mining streams by 4" in o for o in outs)
     assert "model_step_3.pt" in os.listdir(out / "ckpt")
+
+
+def test_train_itm_hard_negatives_under_fsdp_is_the_one_process_run(dbs):
+    """``train_itm_hard_negatives`` at dropout 0.1, 2 steps of 2 candidate
+    batches, validating and saving at step 2: at world 2 with ``--fsdp``
+    (each rank mines and trains one candidate batch a step and draws the
+    dropout stream of the one process's same candidate batch; the
+    parameters sharded at rest, the validation gathered once) the saved
+    weights equal world 1's (1e-5)."""
+    weights = {}
+    for name, world, extra in (("hn_w1", 1, []),
+                               ("hn_w2_fsdp", 2,
+                                ["--fsdp", "--fsdp_min_size", "64"])):
+        out = dbs / name
+        path = _conf(dbs, out, train_batch_size=2, num_train_steps=2,
+                     negative_size=7, hard_neg_size=3, txt_bucket=16,
+                     img_bucket=12, dropout=0.1)
+        run_cli("train_itm_hard_negatives", ["--config", path, *extra],
+                world)
+        weights[name] = torch.load(out / "ckpt" / "model_step_2.pt",
+                                   weights_only=True)
+    want, got = weights["hn_w1"], weights["hn_w2_fsdp"]
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   atol=1e-5, rtol=0, err_msg=k)

@@ -15,17 +15,31 @@ on the CPU: processes joined over gloo, each started with the variables
   its block of the same global batches, against the port in one process
   and the JAX package's ``make_train_step`` on a 2-device CPU mesh with
   ``loss_scale="sum"``: losses to 1e-5 relative, parameters to 1e-5.
-  ``--fsdp`` (every parameter of 64 elements or more sharded), also in
-  master mode with bf16 moments, against the replicated ranks: losses and
-  parameters to 1e-6. A batch whose padding rows all fall in rank 1's
-  block passes with the global denominators and misses with per-rank means
-  (the control).
-* Rank 0's dropout stream is a single process's; other ranks draw others.
+  ``--fsdp`` (every parameter of 64 elements or more sharded at rest),
+  also in master mode with bf16 moments and at dropout 0.1, against the
+  replicated ranks: losses and parameters to 1e-6. A batch whose padding
+  rows all fall in rank 1's block passes with the global denominators and
+  misses with per-rank means (the control).
+* Dropout 0.1 at any world size: 2 and 4 ranks against one process at
+  every step, replicated, ``--fsdp``, ``--fsdp`` in master mode with bf16
+  moments and ``--fsdp --remat``: losses to 1e-6 relative, parameters to
+  1e-6 of their largest (master mode against the one process's master
+  run). The JAX package has the property the port is held to: its step on
+  a 2-device mesh at dropout 0.1 equals its 1-device step (1e-5).
+* ``--fsdp`` at rest: a rank's parameter bytes are at most its share of
+  the sharded ones plus padding plus the replicated ones, at 2 and 4
+  ranks, and after a step no sharded parameter holds more than its one
+  placeholder element; validation gathers once (``local_params``) and
+  matches the replicated model with ranks running different numbers of
+  batches; a pretraining mix (MLM, ITM + OT, MRFR, MRC-kl) at 2 ranks with
+  ``--fsdp``, other heads idle each step, equals one process.
+* Every rank draws rank 0's (one process's) dropout stream, knowing its
+  block of the batch; RE's negatives at world 2 are world 1's block.
 * SIGTERM to one rank: both stop at the same agreed step with a save that
   restores.
-* The CLI: ``train_vqa`` at world 2 with ``--fsdp`` resumed at world 1, and
-  at world 1 resumed at world 2 with ``--fsdp``, both equal the run resumed
-  at world 1 from world 1 (1e-5); ``inf_vqa`` at world 2 writes world 1's
+* The CLI: ``train_vqa`` at dropout 0.1, at world 2 with ``--fsdp``
+  resumed at world 1, and at world 1 resumed at world 2 with ``--fsdp``,
+  both equal the run resumed at world 1 from world 1 (1e-5); ``inf_vqa`` at world 2 writes world 1's
   files;
   ``fast_score_matrix`` / ``fast_windowed_scores`` /
   ``inference_score_matrix`` at world 2 equal world 1 (1e-6).
@@ -91,12 +105,16 @@ def _tt(batch):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
 
 
-def port_model(init_path):
+DROP = dict(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+
+
+def port_model(init_path, **cfg):
     from uniter_tpu_torch import config as pconfig
     from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
 
     model = UniterForVisualQuestionAnswering(
-        pconfig.tiny_config(**NO_DROP), img_dim=IMG_DIM, num_answer=N_ANS)
+        pconfig.tiny_config(**{**NO_DROP, **cfg}), img_dim=IMG_DIM,
+        num_answer=N_ANS)
     model.load_state_dict(torch.load(init_path, weights_only=True))
     return model
 
@@ -109,15 +127,18 @@ def local_vqa_loss(model, batch, generator):
     return (per * w).sum() / (w.sum() * N_ANS).clamp_min(1.0) * N_ANS
 
 
-def train_run(init_path, batches, rank=0, world=1, loss="global", **opt_kw):
-    """(losses, grad norms, final fp32 parameters) of ``len(batches)``
-    steps on this rank's blocks."""
+def train_run(init_path, batches, rank=0, world=1, loss="global", cfg=None,
+              extra=None, **opt_kw):
+    """(losses, grad norms, final fp32 parameters, optimizer state bytes)
+    of ``len(batches)`` steps on this rank's blocks (model config
+    overrides ``cfg``); ``extra`` (a dict) also gets what ``--fsdp``
+    leaves at rest and the trained model."""
     from uniter_tpu_torch.train_vqa import vqa_loss
     from uniter_tpu_torch.training import optim as popt
     from uniter_tpu_torch.training import sched as psched
     from uniter_tpu_torch.training import step as pstep
 
-    model = port_model(init_path)
+    model = port_model(init_path, **(cfg or {}))
     opt = popt.build_optimizer(model, psched.get_lr_schedule(*SCHED),
                                grad_norm=1.0, lr_mul=10.0,
                                lr_mul_paths=("vqa_",), fused=True, **opt_kw)
@@ -131,10 +152,35 @@ def train_run(init_path, batches, rank=0, world=1, loss="global", **opt_kw):
         state, m = step(state, _tt(block(batch, rank, world)), 0)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    if extra is not None:
+        extra.update(at_rest(model, opt), model=model)
     params = {k: v.detach().float().clone()
               for k, v in model.state_dict().items()}
     params.update({k: v.clone() for k, v in opt.masters().items()})
     return losses, norms, params, opt.state_bytes()
+
+
+def at_rest(model, opt):
+    """What a rank holds at rest: its parameter bytes, the bound on them
+    (the sharded bytes over the world size, a world's worth of padding a
+    group, the replicated bytes), and whether any sharded parameter holds
+    more than its one placeholder element."""
+    from uniter_tpu_torch.parallel.collectives import num_processes
+    from uniter_tpu_torch.parallel.fsdp import sharding_of
+
+    world = num_processes()
+    sharding = sharding_of(model)
+    where = sharding.where if sharding else {}
+    sizes = {n: p.numel() * p.element_size()
+             for n, p in model.named_parameters()}
+    sharded = sum(v for n, v in sizes.items() if n in where)
+    groups = len(sharding.groups) if sharding else 0
+    bound = (sharded / world + groups * world * 4
+             + sum(v for n, v in sizes.items() if n not in where))
+    full = [n for n, p in model.named_parameters()
+            if n in where and p.untyped_storage().nbytes() > p.element_size()]
+    return {"param_bytes": opt.param_bytes(), "bound": bound,
+            "sharded_bytes": sharded, "full": full}
 
 
 # ------------------------------------------------------------ the workers
@@ -205,7 +251,127 @@ def job_train(out, init_path):
         "uneven_local": train_run(init_path, [UNEVEN] * 2, rank, world,
                                   loss="local"),
     }
+    runs.update(dropout_runs(init_path, rank, world))
     torch.save(runs, os.path.join(out, f"train{rank}.pt"))
+
+
+DROP_MODES = {  # name -> (model config, optimizer options) at dropout 0.1
+    "replicated": ({}, {}),
+    "fsdp": ({}, dict(fsdp=True, fsdp_min_size=64)),
+    "fsdp_master": ({}, dict(fsdp=True, fsdp_min_size=64, master=True,
+                             mu_dtype=torch.bfloat16,
+                             nu_dtype=torch.bfloat16)),
+    "fsdp_remat": (dict(remat=True), dict(fsdp=True, fsdp_min_size=64)),
+}
+
+
+def dropout_runs(init_path, rank, world):
+    """Every ``DROP_MODES`` run at dropout 0.1 ("drop_<mode>"), with what
+    it leaves at rest, and the validation outputs of the --fsdp model."""
+    out = {}
+    for mode, (cfg, kw) in DROP_MODES.items():
+        extra = {}
+        out[f"drop_{mode}"] = train_run(init_path, BATCHES, rank, world,
+                                        cfg={**DROP, **cfg}, extra=extra,
+                                        **kw)
+        model = extra.pop("model")
+        out[f"rest_{mode}"] = extra
+        if mode == "fsdp":
+            out["valid"] = validation(model, rank, world)
+    return out
+
+
+def validation(model, rank, world):
+    """Predictions of the ranks' shares of 3 evaluation batches (rank 0
+    gets two, rank 1 one: the counts differ), under ``local_params``, and
+    once more through the per-unit gathers on one batch every rank runs."""
+    from uniter_tpu_torch.parallel.fsdp import local_params
+
+    model.eval()
+    mine = [i for i in range(3) if i % world == rank]
+    got = {}
+    with torch.no_grad():
+        with local_params(model):
+            for i in mine:
+                got[i] = model(_tt(BATCHES[i]), False).float()
+        got["lockstep"] = model(_tt(BATCHES[0]), False).float()
+    return got
+
+
+def job_train_drop(out, init_path):
+    from uniter_tpu_torch.parallel.collectives import (
+        num_processes, process_index)
+
+    rank = process_index()
+    torch.save(dropout_runs(init_path, rank, num_processes()),
+               os.path.join(out, f"drop{rank}.pt"))
+
+
+PRE_TASKS = ("mlm", "itm", "mrfr", "mrc-kl")
+PRE_LABELS = 11
+
+
+def pretrain_batch(seed, b=8, t=8, r=6):
+    """A global pretraining batch with every task's fields (3 MLM and 2
+    MRM slots, ITM targets 1/0)."""
+    rng = np.random.RandomState(seed)
+    attn = np.ones((b, t + r), np.int32)
+    attn[0, t - 3:t] = 0
+    attn[5, t + r - 2:] = 0
+    soft = rng.rand(b, 2, PRE_LABELS).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    mlm_tgt = rng.randint(1, 500, (b, 3)).astype(np.int32)
+    mlm_tgt[:, 2] = -1
+    valid = np.ones((b, 2), np.float32)
+    valid[0, 1] = 0
+    img_masks = np.zeros((b, r), np.int32)
+    img_masks[:, 0] = 1
+    return dict(
+        input_ids=rng.randint(1, 500, (b, t)).astype(np.int32),
+        position_ids=np.tile(np.arange(t, dtype=np.int32), (b, 1)),
+        img_feat=rng.randn(b, r, IMG_DIM).astype(np.float32),
+        img_pos_feat=rng.rand(b, r, 7).astype(np.float32),
+        attn_mask=attn, img_masks=img_masks, ex_weight=np.ones(b, np.float32),
+        mlm_pos=rng.randint(0, t, (b, 3)).astype(np.int32), mlm_tgt=mlm_tgt,
+        mrm_pos=np.tile(np.array([0, 2], np.int32), (b, 1)), mrm_valid=valid,
+        feat_targets=rng.randn(b, 2, IMG_DIM).astype(np.float32),
+        label_targets=soft, targets=np.array([1, 0] * (b // 2), np.int32))
+
+
+def pretrain_run(rank=0, world=1, fsdp=False):
+    """(losses, final parameters) of one pretraining step a task of
+    ``PRE_TASKS`` (ITM with the OT loss) at dropout 0.1 on this rank's
+    blocks; each step leaves the other tasks' heads idle, which under
+    --fsdp run nothing and take a zero gradient."""
+    from uniter_tpu_torch import config as pconfig
+    from uniter_tpu_torch.models.pretrain import UniterForPretraining
+    from uniter_tpu_torch.training import optim as popt
+    from uniter_tpu_torch.training import step as pstep
+
+    torch.manual_seed(0)
+    model = UniterForPretraining(pconfig.tiny_config(**DROP),
+                                 img_dim=IMG_DIM, img_label_dim=PRE_LABELS)
+    opt = popt.build_optimizer(model, 1e-3, grad_norm=1.0, fused=True,
+                               fsdp=fsdp, fsdp_min_size=64)
+    state = pstep.TrainState(step=0, model=model, opt=opt)
+    losses = []
+    for i, task in enumerate(PRE_TASKS):
+        step = pstep.make_train_step(
+            lambda m, b, g, _t=task: m.scalar_loss(b, _t, ot_lambda=0.1,
+                                                   generator=g))
+        state, m = step(state, _tt(block(pretrain_batch(i), rank, world)), 7)
+        losses.append(float(m["loss"]))
+    return losses, {k: v.float().clone()
+                    for k, v in model.state_dict().items()}
+
+
+def job_pretrain(out):
+    from uniter_tpu_torch.parallel.collectives import (
+        num_processes, process_index)
+
+    rank = process_index()
+    torch.save({fsdp: pretrain_run(rank, num_processes(), fsdp=fsdp)
+                for fsdp in (False, True)}, os.path.join(out, f"pre{rank}.pt"))
 
 
 class ToyLoader:
@@ -294,17 +460,28 @@ def job_scoring(out, dbs):
 
 
 JOBS = {"collectives": job_collectives, "train": job_train,
+        "train_drop": job_train_drop, "pretrain": job_pretrain,
         "sigterm": job_sigterm, "scoring": job_scoring}
 
 
 # ------------------------------------------------------------ launching
 
 def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """A free port below the kernel's ephemeral range (32768 and up on
+    Linux): the gloo ranks of the other launches open many connections
+    whose source ports come from that range, and one of them could take
+    an ephemeral port between this check and rank 0's bind."""
+    rng = np.random.default_rng()
+    while True:
+        port = int(rng.integers(20000, 32000))
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            continue
+        finally:
+            s.close()
+        return port
 
 
 def launch(argv, world, timeout=300):
@@ -317,10 +494,13 @@ def launch(argv, world, timeout=300):
         # Without it MKL may pick another path from run to run, and on some
         # paths a row's product depends on the batch's row count, so a
         # rank's block stops matching the same rows in one process.
+        # MKL_DYNAMIC off: the 2 threads asked for, even on a busy host
+        # (MKL may otherwise take fewer, and split a sum another way).
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
                    LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
-                   OMP_NUM_THREADS="2", PYTHONPATH=ROOT, MKL_CBWR="AUTO")
+                   OMP_NUM_THREADS="2", PYTHONPATH=ROOT, MKL_CBWR="AUTO",
+                   MKL_DYNAMIC="FALSE")
         env.pop("XLA_FLAGS", None)
         procs.append(subprocess.Popen(
             [sys.executable, *argv], cwd=ROOT, env=env,
@@ -387,7 +567,19 @@ def two_ranks(init_path, tmp_path_factory):
 def one_rank(init_path):
     path = init_path[0]
     return {"replicated": train_run(path, BATCHES),
-            "uneven": train_run(path, [UNEVEN] * 2)}
+            "uneven": train_run(path, [UNEVEN] * 2),
+            "drop_replicated": train_run(path, BATCHES, cfg=DROP),
+            "drop_master": train_run(path, BATCHES, cfg=DROP, master=True,
+                                     mu_dtype=torch.bfloat16,
+                                     nu_dtype=torch.bfloat16)}
+
+
+@pytest.fixture(scope="module")
+def four_ranks(init_path, tmp_path_factory):
+    out = tmp_path_factory.mktemp("train4")
+    run_job("train_drop", 4, out, init_path[0])
+    return [torch.load(out / f"drop{r}.pt", weights_only=False)
+            for r in range(4)]
 
 
 def _close(got, want, tol, tag):
@@ -523,6 +715,55 @@ def test_two_ranks_match_jax_two_device_mesh(two_ranks, init_path):
         _close(got_p, want, 1e-5, f"rank {rank} vs jax")
 
 
+def test_jax_two_device_mesh_at_dropout_matches_one_device(init_path):
+    """The reference's property the port is held to: the JAX package's
+    ``make_train_step`` at dropout 0.1 on a 2-device data mesh equals the
+    same step on one device (losses 1e-5 relative, parameters 1e-5): its
+    masks are drawn over the global batch, whatever the sharding."""
+    import jax
+    import jax.numpy as jnp
+    from uniter_tpu.config import tiny_config as jax_tiny
+    from uniter_tpu.models.vqa import UniterForVisualQuestionAnswering
+    from uniter_tpu.parallel.mesh import (
+        MeshConfig, batch_sharding, make_mesh, replicate)
+    from uniter_tpu.training import optim as jopt
+    from uniter_tpu.training import sched as jsched
+    from uniter_tpu.training.step import TrainState, make_train_step
+
+    jmodel = UniterForVisualQuestionAnswering(
+        jax_tiny(**DROP), img_dim=IMG_DIM, num_answer=N_ANS)
+
+    def loss(p, batch, rng):
+        per = jmodel.apply({"params": p}, batch, True, deterministic=False,
+                           rngs={"dropout": rng})
+        w = batch["ex_weight"][:, None]
+        return (jnp.sum(per * w)
+                / jnp.maximum(jnp.sum(w) * N_ANS, 1.0)) * N_ANS, {}
+
+    runs = {}
+    for n_dev in (1, 2):
+        mesh = make_mesh(MeshConfig(data=n_dev), devices=jax.devices()[:n_dev])
+        params = jax.tree.map(jnp.asarray, init_path[1])
+        tx = jopt.build_optimizer(params, jsched.get_lr_schedule(*SCHED),
+                                  grad_norm=1.0, lr_mul=10.0,
+                                  lr_mul_paths=("vqa_",), fused=True)
+        state = jax.device_put(TrainState.create(params, tx),
+                               replicate(mesh))
+        step = make_train_step(loss, mesh=mesh, loss_scale="mean",
+                               donate=False)
+        bsh = batch_sharding(mesh)
+        losses = []
+        for batch in BATCHES:
+            state, m = step(state, jax.device_put(
+                {k: jnp.asarray(v) for k, v in batch.items()},
+                jax.tree.map(lambda _: bsh, batch)), jax.random.PRNGKey(3))
+            losses.append(float(m["loss"]))
+        runs[n_dev] = (losses, jax.tree.map(np.asarray, state.params))
+    np.testing.assert_allclose(runs[2][0], runs[1][0], rtol=1e-5)
+    for a, b in zip(jax.tree.leaves(runs[2][1]), jax.tree.leaves(runs[1][1])):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+
+
 def test_uneven_padding_needs_global_denominators(two_ranks, one_rank):
     """Padding rows 4-6 all in rank 1's block: the global denominators
     give the one-process run; per-rank means (the control) do not."""
@@ -536,27 +777,34 @@ def test_uneven_padding_needs_global_denominators(two_ranks, one_rank):
                for k in want_p) > 1e-4
 
 
-@pytest.mark.parametrize("mode", ["fsdp", "master_fsdp"])
+@pytest.mark.parametrize("mode", ["fsdp", "master_fsdp", "drop_fsdp"])
 def test_fsdp_matches_replicated(two_ranks, mode):
     """``--fsdp`` at 2 ranks (every parameter of 64 elements or more
-    sharded) against the replicated ranks, plain and in master mode with
-    bf16 moments; each rank keeps about half of the moments. (No parameter
-    of the tiny model reaches master mode's 2**16 elements, so there its
-    fp32 masters are the parameters themselves, and the sharded run keeps
-    a block of masters besides: no saving to check.)"""
-    base = "replicated" if mode == "fsdp" else "master"
+    sharded) against the replicated ranks, plain, in master mode with
+    bf16 moments, and at dropout 0.1; each rank keeps about half of the
+    moments. (No parameter of the tiny model reaches master mode's 2**16
+    elements, so there its fp32 masters are the parameters themselves,
+    and the sharded run keeps a block of masters besides: no saving to
+    check.)"""
+    base = {"fsdp": "replicated", "master_fsdp": "master",
+            "drop_fsdp": "drop_replicated"}[mode]
     for rank in range(2):
         want_l, want_n, want_p, want_bytes = two_ranks[rank][base]
         losses, norms, params, n_bytes = two_ranks[rank][mode]
         np.testing.assert_allclose(losses, want_l, rtol=1e-6)
         np.testing.assert_allclose(norms, want_n, rtol=1e-6)
         _close(params, want_p, 1e-6, f"{mode} rank {rank}")
-        if mode == "fsdp":
+        if mode != "master_fsdp":
             assert 0.45 * want_bytes < n_bytes < 0.6 * want_bytes, (
                 n_bytes, want_bytes)
 
 
 def test_rank0_dropout_stream_is_unchanged():
+    """Every rank draws the one process's stream (rank 0's, a function of
+    the seed and the step alone, as JAX's ``fold_in(rng, step)``); the
+    generator names the rank's block of the batch, which sets the masks'
+    row base. A micro-batch of a split accumulation has its own stream."""
+    from uniter_tpu_torch.ops.dropout import batch_block
     from uniter_tpu_torch.training.step import step_generator
 
     def draws(gen):
@@ -566,10 +814,212 @@ def test_rank0_dropout_stream_is_unchanged():
         mixed = np.random.SeedSequence([seed, step]).generate_state(1)
         single = torch.Generator().manual_seed(int(mixed[0]))
         assert draws(step_generator(seed, step)) == draws(single)
-        assert draws(step_generator(seed, step, 0)) == draws(
-            step_generator(seed, step))
-        ranks = [draws(step_generator(seed, step, r)) for r in range(4)]
-        assert len({tuple(r) for r in ranks}) == 4
+        for world in (2, 4):
+            gens = [step_generator(seed, step, block=r, blocks=world)
+                    for r in range(world)]
+            assert [batch_block(g) for g in gens] == [
+                (r, world) for r in range(world)]
+            assert all(draws(g) == draws(step_generator(seed, step))
+                       for g in gens)
+        micro = [draws(step_generator(seed, step, i)) for i in range(4)]
+        assert len({tuple(m) for m in micro}) == 4
+
+
+@pytest.mark.parametrize("mode", list(DROP_MODES))
+@pytest.mark.parametrize("world", [2, 4])
+def test_ranks_at_dropout_match_one_process(two_ranks, four_ranks, one_rank,
+                                            world, mode):
+    """Dropout 0.1: every rank of 2 and 4 applies its block of the one
+    process's masks, so each step's loss is the one process's (1e-6
+    relative) and so are the parameters after the last step (1e-6 of
+    their largest), replicated, ``--fsdp``, ``--fsdp --remat`` (against
+    the one process without remat: remat replays the masks) and
+    ``--fsdp`` in master mode with bf16 moments (against the one
+    process's master run)."""
+    ranks = two_ranks if world == 2 else four_ranks
+    ref = one_rank["drop_master" if mode == "fsdp_master"
+                   else "drop_replicated"]
+    want_l, _, want_p, _ = ref
+    scale = max(float(v.abs().max()) for v in want_p.values())
+    for rank in range(world):
+        losses, _, params, _ = ranks[rank][f"drop_{mode}"]
+        np.testing.assert_allclose(losses, want_l, rtol=1e-6)
+        if mode == "fsdp_master":
+            _close_bf16_moments(params, want_p, 1e-6 * scale,
+                                f"{mode} rank {rank}/{world}")
+        else:
+            _close(params, want_p, 1e-6 * scale,
+                   f"{mode} rank {rank}/{world}")
+
+
+# one bf16 step of a moment in every update: the learning rates of SCHED
+# summed over the 3 steps, times the head multiplier, times 2**-8
+BF16_MOMENT_STEP = 2.0**-8 * 3 * SCHED[0] * 10.0
+
+
+def _close_bf16_moments(got, want, tol, tag):
+    """bf16 moments round each moment once a step: a gradient summed in
+    another order (the ranks' blocks against one batch, ~1e-7 relative)
+    now and then lands a moment on the next bf16 value, and that
+    parameter's update moves by up to one bf16 step of its moment.
+    Every parameter within ``tol`` but at most 0.1% of the elements,
+    and those within ``tol`` plus that step."""
+    off = total = 0
+    for k in want:
+        d = (got[k] - want[k]).abs()
+        off += int((d > tol).sum())
+        total += d.numel()
+        assert float(d.max()) <= tol + BF16_MOMENT_STEP, (tag, k)
+    assert off <= 1e-3 * total, (tag, off, total)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_fsdp_holds_a_block_at_rest(two_ranks, four_ranks, world):
+    """After the steps a rank's parameter bytes are at most the sharded
+    bytes over the world size, plus a world's padding a group, plus the
+    replicated parameters; no sharded parameter holds more than its one
+    placeholder element; replicated, a rank holds every parameter."""
+    ranks = two_ranks if world == 2 else four_ranks
+    for rank in range(world):
+        for mode in ("fsdp", "fsdp_master", "fsdp_remat"):
+            rest = ranks[rank][f"rest_{mode}"]
+            assert rest["full"] == [], (mode, rest["full"])
+            assert rest["sharded_bytes"] > 0
+            assert rest["param_bytes"] <= rest["bound"], (mode, rest)
+        full = ranks[rank]["rest_replicated"]
+        fsdp = ranks[rank]["rest_fsdp"]
+        assert fsdp["param_bytes"] < (1 / world + 0.1) * full["param_bytes"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fsdp_frees_each_units_gather_after_its_forward(init_path, dtype):
+    """Under ``--fsdp`` (one process; fp32 compute, or bf16 over fp32
+    parameters) every buffer a unit's forward gathers is freed once the
+    forward is done: what autograd saved of it (the weight, its transpose,
+    a view of its bf16 cast) is a marker. The backward gathers again, and
+    the gradients arrive as the blocks' ``.grad``; without the saving
+    hooks the forward's buffers would live until the backward."""
+    import gc
+    import weakref
+
+    from uniter_tpu_torch.parallel import fsdp
+    from uniter_tpu_torch.train_vqa import vqa_loss
+    from uniter_tpu_torch.training import optim as popt
+    from uniter_tpu_torch.training.step import step_generator
+
+    model = port_model(init_path[0], dtype=dtype, **DROP)
+    opt = popt.build_optimizer(model, 1e-3, fused=True, fsdp=True,
+                               fsdp_min_size=64)
+    bases = []
+    real = fsdp._Unit.gather_fulls
+
+    def spy(self):
+        fulls = real(self)
+        bases.extend(weakref.ref(f) for f in fulls)
+        return fulls
+
+    casts = []
+    real_pack = fsdp._pack
+
+    def pack(t):
+        out = real_pack(t)
+        if isinstance(out, fsdp._Marker) and out.dtype is not None:
+            casts.append(out.dtype)
+        return out
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(fsdp._Unit, "gather_fulls", spy)
+    mp.setattr(fsdp, "_pack", pack)
+    try:
+        model.train()
+        with fsdp.saving(model):
+            loss = vqa_loss(model, _tt(BATCHES[0]), step_generator(0, 0),
+                            N_ANS)
+        gc.collect()
+        n_forward = len(bases)
+        assert n_forward > 0
+        assert [r for r in bases if r() is not None] == []
+        loss.backward()
+    finally:
+        mp.undo()
+    assert len(bases) > n_forward  # gathered again for the backward
+    # bf16 compute saves the weights' bf16 casts: markers, not copies
+    assert bool(casts) == (dtype == "bfloat16")
+    blocks = [g["shard"].block for g in opt.groups if g["sharded"]]
+    assert blocks and all(b.grad is not None for b in blocks)
+
+
+def test_validation_under_fsdp_matches_replicated(two_ranks):
+    """The --fsdp model's predictions on evaluation batches that the ranks
+    split unevenly (``local_params``: one gather for the whole pass) and
+    on one batch through the per-unit gathers equal the replicated model's
+    (1e-5): both trained 3 steps at dropout 0.1 at world 2."""
+    from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
+    from uniter_tpu_torch import config as pconfig
+
+    _, _, params, _ = two_ranks[0]["drop_replicated"]
+    model = UniterForVisualQuestionAnswering(
+        pconfig.tiny_config(**DROP), img_dim=IMG_DIM, num_answer=N_ANS)
+    model.load_state_dict(params)
+    model.eval()
+    with torch.no_grad():
+        want = {i: model(_tt(b), False) for i, b in enumerate(BATCHES)}
+    seen = set()
+    for rank in range(2):
+        got = two_ranks[rank]["valid"]
+        for key, v in got.items():
+            i = 0 if key == "lockstep" else key
+            seen.add(key)
+            np.testing.assert_allclose(v.numpy(), want[i].numpy(),
+                                       atol=1e-5, err_msg=f"{rank} {key}")
+    assert seen == {0, 1, 2, "lockstep"}
+
+
+def test_pretrain_mix_under_fsdp_matches_one_process(tmp_path):
+    """MLM, ITM with OT, MRFR and MRC-kl steps at 2 ranks with --fsdp
+    (every head its own unit: in each step the other heads run nothing
+    and their blocks take a zero gradient), dropout 0.1: every step's loss
+    is one process's (1e-6 relative), and the parameters are the
+    replicated ranks' (1e-6 of their largest). (Against one process the
+    parameters move apart by up to ~2e-4 at lr 1e-3: MRC-kl's trunk
+    gradients are ~1e-6, Adam's eps, where a sum in another order changes
+    the first update's size.)"""
+    run_job("pretrain", 2, tmp_path)
+    want_l, _ = pretrain_run()
+    for rank in range(2):
+        runs = torch.load(tmp_path / f"pre{rank}.pt", weights_only=False)
+        (rep_l, rep_p), (losses, params) = runs[False], runs[True]
+        scale = max(float(v.abs().max()) for v in rep_p.values())
+        np.testing.assert_allclose(losses, want_l, rtol=1e-6)
+        np.testing.assert_allclose(rep_l, want_l, rtol=1e-6)
+        _close(params, rep_p, 1e-6 * scale, f"pretrain rank {rank}")
+
+
+def test_re_negatives_at_world_two_are_world_ones_block():
+    """``sample_neg`` on rank p's rows of a global batch (its block of
+    blocks) draws the negatives one process draws for those rows, from
+    the same step generator."""
+    from uniter_tpu_torch.models.re import sample_neg, sampling_generator
+    from uniter_tpu_torch.training.step import step_generator
+
+    rng = np.random.RandomState(0)
+    b, n = 6, 9
+    scores = torch.from_numpy(rng.randn(2 * b, n).astype(np.float32))
+    targets = torch.from_numpy(rng.randint(0, n, 2 * b))
+    masks = torch.from_numpy(rng.rand(2 * b, n) < 0.3)
+    masks[torch.arange(2 * b), targets] = False
+
+    def gen():
+        return sampling_generator(step_generator(3, 1), "cpu")
+
+    whole = sample_neg(scores, targets, masks, 0.5, gen())
+    for p in range(2):
+        rows = slice(p * b, (p + 1) * b)
+        mine = sample_neg(scores[rows], targets[rows], masks[rows], 0.5,
+                          gen(), p, 2)
+        assert torch.equal(mine, whole[rows]), p
+    assert not torch.equal(
+        sample_neg(scores[b:], targets[b:], masks[b:], 0.5, gen()), whole[b:])
 
 
 def test_sigterm_to_one_rank_stops_both_at_one_step(tmp_path, init_path):
@@ -635,7 +1085,7 @@ def train_config(root, out):
                num_answer=N_CLI_ANS, train_batch_size=256,
                val_batch_size=512, max_bb=10, min_bb=3, num_bb=36,
                n_workers=0, warmup_steps=2, valid_steps=2, log_steps=1,
-               num_train_steps=3, device="cpu", dropout=0.0, grad_norm=1e-3,
+               num_train_steps=3, device="cpu", dropout=0.1, grad_norm=1e-3,
                dtype="float32")
     path = str(out) + ".json"
     with open(path, "w") as f:
@@ -656,7 +1106,7 @@ def run_cli(module, args, world=2):
 
 @pytest.fixture(scope="module")
 def cli_runs(tmp_path_factory):
-    """``train_vqa`` in fp32 at dropout 0, 3 steps then resumed to 5 (the
+    """``train_vqa`` in fp32 at dropout 0.1, 3 steps then resumed to 5 (the
     schedule decays over 3 steps, then over 5): at world 1 both times; at
     world 2 with --fsdp, then at world 1; at world 1, then at world 2 with
     --fsdp; ``inf_vqa`` of the first run's step 3 at worlds 1 and 2 (the
@@ -664,7 +1114,8 @@ def cli_runs(tmp_path_factory):
     ``loss_scale="sum"`` (the reference's sum of
     the ranks' mean gradients) makes world 2's gradient twice world 1's;
     the clip at ``grad_norm`` 1e-3, below every step's norm, takes both to
-    the same update, so the runs agree to the order of the sums."""
+    the same update, and every rank applies its block of the one process's
+    masks, so the runs agree to the order of the sums."""
     root = db_root = tmp_path_factory.mktemp("parallel_cli")
     vqa_dbs(db_root)
     runs = {name: train_config(root, root / name)

@@ -760,3 +760,29 @@ def test_pretrain_vcr_over_two_processes(dbs):
                    ["--config", path, "--num_train_steps", "5"])
     assert any("fast-forwarded task mix by 3 steps" in o for o in outs)
     assert "model_step_5.pt" in os.listdir(out / "ckpt")
+
+
+def test_pretrain_vcr_under_fsdp_over_two_processes(dbs):
+    """``pretrain_vcr`` at world 2 with ``--fsdp`` (the MLM decoder reads
+    the word table gathered outside its module; MRC-kl and MRFR heads idle
+    in MLM steps) trains, validates and saves; resumed at world 1 without
+    ``--fsdp`` it continues from that save."""
+    out = dbs / "pretrain_fsdp"
+    task_cfg = [{"name": "vcr", "db": str(dbs / "txt"), "vcr_task": "qar",
+                 "tasks": ["mlm", "mrfr", "mrckl"], "mix_ratio": [2, 1, 1]}]
+    conf = dict(_common(dbs, out), train_img_db=str(dbs / "img_det"),
+                train_img_db_gt=str(dbs / "img_gt"),
+                train_datasets=task_cfg, val_datasets=task_cfg,
+                train_batch_size=256, val_batch_size=512, valid_steps=3,
+                num_train_steps=3, max_txt_len=60)
+    path = str(dbs / "pretrain_fsdp.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    run_cli("pretrain_vcr", ["--config", path, "--fsdp", "--fsdp_min_size",
+                             "64"])
+    outs = run_cli("pretrain_vcr",
+                   ["--config", path, "--num_train_steps", "4"], 1)
+    assert any("resumed from step 3" in o for o in outs)
+    assert "model_step_4.pt" in os.listdir(out / "ckpt")
+    scalars = [json.loads(x) for x in open(out / "log" / "scalars.jsonl")]
+    assert any(k.startswith("valid/") for s in scalars for k in s)

@@ -15,11 +15,14 @@
 // of squared deviations, as `_ln_stats` computes them), eps as given.
 //
 // Dropout: element (r, c) is kept iff word (c % 4) of
-//   philox4x32_10(counter = (c / 4, lo32(r), hi32(r), 0), key = seed)
-// is >= thr = floor(rate * 2^32), and kept values scale by inv_keep =
-// 1 / (1 - rate). That is uniter_tpu_torch/ops/dropout.py `keep_mask(seed, 0,
-// shape, rate)` (philox.cuh), so these kernels, their plain versions and the
-// plain composition of the trunk drop the same elements from one seed.
+//   philox4x32_10(counter = (c / 4, lo32(r0 + r), hi32(r0 + r), 0),
+//                 key = seed)
+// is >= thr = floor(rate * 2^32), r0 the call's row base, and kept values
+// scale by inv_keep = 1 / (1 - rate). That is uniter_tpu_torch/ops/dropout.py
+// `keep_mask(seed, 0, shape, rate, row_base=r0)` (philox.cuh), so these
+// kernels, their plain versions and the plain composition of the trunk drop
+// the same elements from one seed, and a rank's block of a batch drawn at
+// its row base drops what one process drops in those rows.
 // thr == 0 (rate 0) draws no bits.
 //
 // What bounds them on an H100: bytes. K3 reads x and res and writes y, about
@@ -189,7 +192,7 @@ __device__ __forceinline__ void fwd_rows(
     const T* __restrict__ x, const T* __restrict__ res,
     const float* __restrict__ w, const float* __restrict__ b,
     T* __restrict__ y, long long rows, int H, unsigned thr, float inv_keep,
-    unsigned long long seed, float eps) {
+    unsigned long long seed, long long row_base, float eps) {
   __shared__ __align__(16) float sw[32 * VEC * NV];
   __shared__ __align__(16) float sb[32 * VEC * NV];
   const int lane = threadIdx.x & 31;
@@ -210,7 +213,7 @@ __device__ __forceinline__ void fwd_rows(
   for (; row < rows; row += step) {
     unsigned keep = 0u;
     if constexpr (kDrop) {
-      if (thr) keep = row_keep<VEC, NV>(seed, row, H, lane, thr);
+      if (thr) keep = row_keep<VEC, NV>(seed, row_base + row, H, lane, thr);
     }
     float t[NV][VEC];
     float s = 0.f;
@@ -277,9 +280,10 @@ __global__ void __launch_bounds__(32 * FWD_WARPS)
 tail_fwd(const T* __restrict__ x, const T* __restrict__ res,
          const float* __restrict__ w, const float* __restrict__ b,
          T* __restrict__ y, long long rows, int H, unsigned thr,
-         float inv_keep, unsigned long long seed, float eps) {
+         float inv_keep, unsigned long long seed, long long row_base,
+         float eps) {
   fwd_rows<T, VEC, NV, kRes, true>(x, res, w, b, y, rows, H, thr, inv_keep,
-                                   seed, eps);
+                                   seed, row_base, eps);
 }
 
 // K8: y = LN(x) * w + b; draws no random bits.
@@ -289,7 +293,7 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                       const float* __restrict__ b, T* __restrict__ y,
                       long long rows, int H, float eps) {
   fwd_rows<T, VEC, NV, false, false>(x, nullptr, w, b, y, rows, H, 0u, 1.f,
-                                     0ull, eps);
+                                     0ull, 0ll, eps);
 }
 
 // dx (and dres when kRes) per row; the block's dw/db partials into
@@ -300,7 +304,7 @@ tail_bwd(const T* __restrict__ x, const T* __restrict__ res,
          const float* __restrict__ w, const T* __restrict__ g,
          T* __restrict__ dx, T* __restrict__ dres, float* __restrict__ part,
          long long rows, int H, unsigned thr, float inv_keep,
-         unsigned long long seed, float eps) {
+         unsigned long long seed, long long row_base, float eps) {
   __shared__ float red[2][32 * VEC * NV];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -325,7 +329,8 @@ tail_bwd(const T* __restrict__ x, const T* __restrict__ res,
   const float fh = static_cast<float>(H);
 
   for (; row < rows; row += step) {
-    const unsigned keep = thr ? row_keep<VEC, NV>(seed, row, H, lane, thr) : 0u;
+    const unsigned keep =
+        thr ? row_keep<VEC, NV>(seed, row_base + row, H, lane, thr) : 0u;
     // g of vector i, masked and rescaled for K6 (its dropout follows the LN)
     auto grad = [&](const Raw<T, VEC>& raw, int i, float (&gv)[VEC]) {
       unpack<T, VEC>(raw, gv);
@@ -528,8 +533,9 @@ struct TailCall {
   int device;
   int pad;
   unsigned long long stream;
+  long long row_base;  // the mask row of row 0 (0 for K8)
 };
-static_assert(sizeof(TailCall) == 120, "TailCall is the caller's 120 bytes");
+static_assert(sizeof(TailCall) == 128, "TailCall is the caller's 128 bytes");
 
 template <typename P>
 P* ptr(unsigned long long p) {
@@ -548,7 +554,7 @@ struct FwdOp {
            0, stream_of(a)>>>(
             ptr<const T>(a.x), ptr<const T>(a.res), ptr<const float>(a.w),
             ptr<const float>(a.b_or_g), ptr<T>(a.y_or_dx), a.rows, a.H, a.thr,
-            a.inv_keep, a.seed, a.eps);
+            a.inv_keep, a.seed, a.row_base, a.eps);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -561,7 +567,8 @@ struct BwdOp {
     tail_bwd<T, VEC, NV, kRes><<<nblk, 32 * BWD_WARPS, 0, stream_of(a)>>>(
         ptr<const T>(a.x), ptr<const T>(a.res), ptr<const float>(a.w),
         ptr<const T>(a.b_or_g), ptr<T>(a.y_or_dx), ptr<T>(a.dres),
-        ptr<float>(a.part), a.rows, a.H, a.thr, a.inv_keep, a.seed, a.eps);
+        ptr<float>(a.part), a.rows, a.H, a.thr, a.inv_keep, a.seed,
+        a.row_base, a.eps);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     sum_partials<<<(2 * a.H + 31) / 32, 32 * SUM_WARPS, 0, stream_of(a)>>>(

@@ -124,6 +124,7 @@ struct F32Args {
   float sm_scale, inv_keep;
   unsigned thr;
   unsigned long long seed;
+  unsigned long long row_base;  // the mask row of score row 0 (philox.cuh)
 };
 
 // dynamic shared memory of mha_bwd_tf32_kernel<DP> (mirrored by
@@ -229,7 +230,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2) mha_bwd_tf32_kernel(F32Args a) 
       // the bits' last readers passed the previous step's dS barrier
       if (a.thr) {  // the tile's mask: thread t draws query t/2, keys 32 (t%2) ..
         const int ql = tid >> 1, half = tid & 1;
-        const long long row = bh * S + q0 + ql;
+        const long long row = static_cast<long long>(a.row_base) + bh * S + q0 + ql;
         unsigned bits = 0u;
 #pragma unroll
         for (int gi = 0; gi < 8; ++gi) {
@@ -405,6 +406,7 @@ struct TcArgs {
   float sm_scale, inv_keep;
   unsigned thr;
   unsigned long long seed;
+  unsigned long long row_base;  // the mask row of score row 0 (philox.cuh)
 };
 
 // dynamic shared memory of mha_bwd_tc_kernel<DP> (mirrored by
@@ -521,7 +523,7 @@ __global__ void __launch_bounds__(TC_THREADS) mha_bwd_tc_kernel(TcArgs a) {
       }
       if (a.thr) {  // the tile's mask: thread t draws query t/2, keys 32 (t%2) ..
         const int ql = tid >> 1, half = tid & 1;
-        const long long row = bh * S + q0 + ql;
+        const long long row = static_cast<long long>(a.row_base) + bh * S + q0 + ql;
         unsigned bits = 0u;
 #pragma unroll
         for (int gi = 0; gi < 8; ++gi) {
@@ -706,8 +708,8 @@ extern "C" int uniter_mha_bwd(
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long g_sb, long long g_ss, long long g_sh, float sm_scale,
-    unsigned thr, float inv_keep, unsigned long long seed, int dtype,
-    int groups, void* stream) {
+    unsigned thr, float inv_keep, unsigned long long seed,
+    unsigned long long row_base, int dtype, int groups, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out == nullptr || lse == nullptr || D % 8 || D > 128 || dtype < 0 ||
       dtype > 1 || (dtype == 0) != (out_lo == nullptr) ||
@@ -725,7 +727,7 @@ extern "C" int uniter_mha_bwd(
                     static_cast<float*>(dk), static_cast<float*>(dv),
                     static_cast<float*>(scratch), B, S, H, D, groups, q_sb,
                     q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss,
-                    g_sh, sm_scale, inv_keep, thr, seed};
+                    g_sh, sm_scale, inv_keep, thr, seed, row_base};
     if (D <= 16) return launch_tf32<16>(a, st);
     if (D <= 32) return launch_tf32<32>(a, st);
     if (D <= 64) return launch_tf32<64>(a, st);
@@ -739,7 +741,7 @@ extern "C" int uniter_mha_bwd(
                  static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                  static_cast<float*>(scratch), B, S, H, D, q_sb, q_ss, q_sh,
                  k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh,
-                 sm_scale, inv_keep, thr, seed};
+                 sm_scale, inv_keep, thr, seed, row_base};
   if (D <= 16) return launch_tc<16>(a, st);
   if (D <= 32) return launch_tc<32>(a, st);
   if (D <= 64) return launch_tc<64>(a, st);

@@ -2,12 +2,16 @@
 //
 // The mask bit of score (b, h, q, k) is word (k % 4) of
 //   philox4x32_10(counter = (k / 4, lo32(row), hi32(row), 0),
-//                 key     = (lo32(seed), hi32(seed))),   row = (b*H + h)*S + q,
+//                 key     = (lo32(seed), hi32(seed))),
+//   row = row_base + (b*H + h)*S + q,
 // kept iff that word >= threshold = floor(rate * 2^32). This is the rule of
-// uniter_tpu_torch/ops/dropout.py (`keep_mask` over a [B, H, S, S] tensor),
-// so the plain versions, K1 and K2 draw the same bits whatever their tiling.
-// The fused tails (fused_tail.cu) take element (r, c) of a [rows, H] tensor
-// as row r, key c of the same rule.
+// uniter_tpu_torch/ops/dropout.py (`keep_mask` over a [B, H, S, S] tensor at
+// `row_base`), so the plain versions, K1 and K2 draw the same bits whatever
+// their tiling. The fused tails (fused_tail.cu) take element (r, c) of a
+// [rows, H] tensor as row row_base + r, key c of the same rule. The row base
+// (passed by value beside the seed) places a rank's block of the batch in the
+// global one: b0*H*S for attention, b0*S for a tail, b0 the rank's first
+// example row.
 
 #pragma once
 

@@ -13,6 +13,11 @@ sub-block tails and the attention probabilities when ``deterministic`` is
 False. Each such call draws its own seed from the ``generator`` argument, a
 ``torch.Generator`` the train step makes per step (never torch's global
 one), so a step's masks are a function of that generator's seed alone.
+Every rank of a data-parallel run draws the same seeds; a step's
+``ops.dropout.StepGenerator`` also names the rank's block of the global
+batch, and each call draws its mask at that block's row base
+(``ops.dropout.rows_before``), so a rank's masks are its rows of the one
+process's.
 With ``block_fusion="cuda"`` each live tail runs as one fused Function
 (K3/K4 at the sub-block tails, K5/K6 at the embedding tails) on the same
 seed and the same Philox bits as the plain composition. Every LayerNorm
@@ -56,7 +61,8 @@ from torch.utils.checkpoint import checkpoint
 from uniter_tpu_torch.config import UniterConfig
 from uniter_tpu_torch.ops.activations import ACT2FN
 from uniter_tpu_torch.ops.attention import multi_head_attention
-from uniter_tpu_torch.ops.dropout import drop, live_seed
+from uniter_tpu_torch.ops.dropout import (
+    batch_block, drop, live_seed, rows_before)
 from uniter_tpu_torch.ops.ffn import ffn
 from uniter_tpu_torch.ops.fused_block import drop_res_ln, ln_drop
 from uniter_tpu_torch.ops.layer_norm import layer_norm
@@ -106,14 +112,16 @@ class DropResLN(_Tail):
     or None when no mask is live. With ``fused`` and a live mask the tail
     is one ``ops.fused_block.drop_res_ln`` (K3 forward, K4 backward on the
     card), on the same seed and Philox bits as the plain composition;
-    otherwise, as in the JAX module (:65), the plain composition."""
+    otherwise, as in the JAX module (:65), the plain composition. ``block``
+    is the rank's block of the batch (the mask's row base)."""
 
-    def forward(self, x, res, seed=None):
+    def forward(self, x, res, seed=None, block: int = 0):
+        base = rows_before(block, x.shape)
         if seed is not None and self.fused:
             return drop_res_ln(x, res, self.weight, self.bias, rate=self.rate,
-                               seed=seed, eps=self.eps)
+                               seed=seed, eps=self.eps, row_base=base)
         if seed is not None:
-            x = drop(x, self.rate, seed, self.drop_impl)
+            x = drop(x, self.rate, seed, self.drop_impl, base)
         return layer_norm(x + res, self.weight, self.bias, self.eps,
                           self.impl)
 
@@ -125,12 +133,13 @@ class LNDrop(_Tail):
 
     def forward(self, x, deterministic: bool = True, generator=None):
         seed = live_seed(self.rate, deterministic, generator)
+        base = rows_before(batch_block(generator)[0], x.shape)
         if seed is not None and self.fused:
             return ln_drop(x, self.weight, self.bias, rate=self.rate,
-                           seed=seed, eps=self.eps)
+                           seed=seed, eps=self.eps, row_base=base)
         y = layer_norm(x, self.weight, self.bias, self.eps, self.impl)
         return y if seed is None else drop(y, self.rate, seed,
-                                           self.drop_impl)
+                                           self.drop_impl, base)
 
 
 # On the card the lookup's gradient must be the same every run: CUDA's
@@ -273,9 +282,11 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(cfg)
         self.output = BertSelfOutput(cfg)
 
-    def forward(self, hidden, bias, attn_seed=None, tail_seed=None):
+    def forward(self, hidden, bias, attn_seed=None, tail_seed=None,
+                block: int = 0):
         """``attn_seed``: K1's dropout seed on P; ``tail_seed``: the output
-        tail's (``BertLayer.seeds``); None where no mask is live."""
+        tail's (``BertLayer.seeds``); None where no mask is live. ``block``:
+        the rank's block of the batch (the masks' row base)."""
         cfg = self.cfg
         b, s, _ = hidden.shape
         nh, d, hs = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
@@ -295,9 +306,10 @@ class BertAttention(nn.Module):
         ctx = multi_head_attention(
             q, k, v, bias, impl=cfg.attention_impl,
             dropout_rate=cfg.attention_probs_dropout_prob,
-            deterministic=attn_seed is None, seed=attn_seed).reshape(b, s, hs)
+            deterministic=attn_seed is None, seed=attn_seed,
+            row_base=rows_before(block, (b, nh, s, s))).reshape(b, s, hs)
         out = self.output.dense(ctx)
-        return self.output.LayerNorm(out, hidden, tail_seed)
+        return self.output.LayerNorm(out, hidden, tail_seed, block)
 
 
 class BertIntermediate(nn.Module):
@@ -345,16 +357,23 @@ class BertLayer(nn.Module):
                  self.cfg.hidden_dropout_prob, self.cfg.hidden_dropout_prob)
         return tuple(live_seed(r, deterministic, generator) for r in rates)
 
-    def seeded(self, hidden, bias, attn_seed, tail1_seed, tail2_seed):
-        """The layer on seeds drawn beforehand (``seeds``)."""
-        attn_out = self.attention(hidden, bias, attn_seed, tail1_seed)
+    def seeded(self, hidden, bias, attn_seed, tail1_seed, tail2_seed,
+               block: int = 0):
+        """The layer on seeds drawn beforehand (``seeds``), its masks at the
+        row base of the batch's ``block``."""
+        attn_out = self.attention(hidden, bias, attn_seed, tail1_seed, block)
         out = self.feed_forward(attn_out)
-        return self.output.LayerNorm(out, attn_out, tail2_seed)
+        return self.output.LayerNorm(out, attn_out, tail2_seed, block)
 
     def forward(self, hidden, bias, deterministic: bool = True,
-                generator=None):
-        return self.seeded(hidden, bias,
-                           *self.seeds(deterministic, generator))
+                generator=None, seeds=None, block: int = 0):
+        """The layer, its seeds drawn here from ``generator`` or, with
+        ``seeds``, drawn beforehand (``seeds()``) for the batch's
+        ``block``."""
+        if seeds is None:
+            seeds = self.seeds(deterministic, generator)
+            block = batch_block(generator)[0]
+        return self.seeded(hidden, bias, *seeds, block=block)
 
 
 class BertAttentionCLS(BertAttention):
@@ -409,16 +428,19 @@ class UniterEncoder(nn.Module):
 
     def forward(self, hidden, bias, deterministic: bool = True,
                 generator=None, n_layers=None):
+        block = batch_block(generator)[0]
         for layer in self.layer[:n_layers]:
             seeds = layer.seeds(deterministic, generator)
             if self.remat and torch.is_grad_enabled():
                 # the masks come from the seeds passed in; no global
-                # generator is read, so none needs restoring
-                hidden = checkpoint(layer.seeded, hidden, bias, *seeds,
-                                    use_reentrant=False,
+                # generator is read, so none needs restoring. The layer is
+                # called as a module, so its hooks (parallel/fsdp.py) run
+                # in the forward and again in the recompute
+                hidden = checkpoint(layer, hidden, bias, True, None, seeds,
+                                    block, use_reentrant=False,
                                     preserve_rng_state=False)
             else:
-                hidden = layer.seeded(hidden, bias, *seeds)
+                hidden = layer(hidden, bias, seeds=seeds, block=block)
         return hidden
 
 

@@ -26,7 +26,8 @@ from uniter_tpu_torch.config import UniterConfig
 from uniter_tpu_torch.models.encoder import MASK_VALUE, LayerNorm, Linear
 from uniter_tpu_torch.ops.activations import ACT2FN, gelu
 from uniter_tpu_torch.ops.attention import multi_head_attention
-from uniter_tpu_torch.ops.dropout import dropout, live_seed
+from uniter_tpu_torch.ops.dropout import (
+    batch_block, dropout, live_seed, rows_before)
 
 
 class GELU(nn.Module):
@@ -127,8 +128,11 @@ class AttentionPool(nn.Module):
         score = self.fc(x).squeeze(-1).float()
         if pad_mask is not None:
             score = score + pad_mask.float() * -1e4
-        w = dropout(torch.softmax(score, dim=1), self.drop,
-                    deterministic=deterministic, generator=generator)
+        probs = torch.softmax(score, dim=1)
+        w = dropout(probs, self.drop, deterministic=deterministic,
+                    generator=generator,
+                    row_base=rows_before(batch_block(generator)[0],
+                                         probs.shape))
         return torch.einsum("bt,btd->bd", w.to(x.dtype), x)
 
 
@@ -171,5 +175,7 @@ class CrossAttention(nn.Module):
         ctx = multi_head_attention(
             q.view(b, tq, nh, d), k.view(b, tk, nh, d), v.view(b, tk, nh, d),
             attn_bias, impl=cfg.attention_impl, dropout_rate=rate,
-            deterministic=seed is None, seed=seed).reshape(b, tq, hid)
+            deterministic=seed is None, seed=seed,
+            row_base=rows_before(batch_block(generator)[0],
+                                 (b, nh, tq, tk))).reshape(b, tq, hid)
         return self.out_proj(ctx)

@@ -22,7 +22,7 @@ from uniter_tpu_torch.models.common import encode_batch
 from uniter_tpu_torch.models.encoder import Linear, UniterModel
 from uniter_tpu_torch.models.heads import AttentionPool, CrossAttention
 from uniter_tpu_torch.models.losses import cross_entropy
-from uniter_tpu_torch.ops.dropout import dropout
+from uniter_tpu_torch.ops.dropout import batch_block, dropout, rows_before
 
 
 class _Nlvr2(nn.Module):
@@ -83,8 +83,11 @@ class UniterForNlvr2PairedAttn(_Nlvr2):
         self.nlvr2_output = Linear(2 * h, 2)
 
     def _fc(self, x, deterministic, generator):
-        return dropout(self.fc(x), self.config.hidden_dropout_prob,
-                       deterministic=deterministic, generator=generator)
+        y = self.fc(x)
+        return dropout(y, self.config.hidden_dropout_prob,
+                       deterministic=deterministic, generator=generator,
+                       row_base=rows_before(batch_block(generator)[0],
+                                            y.shape))
 
     def predict(self, batch, *, deterministic: bool = True, generator=None):
         kw = dict(deterministic=deterministic, generator=generator)

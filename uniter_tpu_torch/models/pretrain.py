@@ -17,8 +17,10 @@ Submodules are named after the reference ``.pt`` keys
 (``cls.predictions.*``, ``feat_regress.*``, ``region_classifier.*``,
 ``itm_output.*``). The MLM decoder and the MRFR projection read
 ``uniter.embeddings.word_embeddings.weight`` and
-``uniter.img_embeddings.img_linear.weight`` at call time, so the state dict
-has exactly the keys the weight bridge emits. Logits and losses are fp32.
+``uniter.img_embeddings.img_linear.weight`` at call time (through
+``parallel.fsdp.unit_param``, which gathers them under ``--fsdp``), so the
+state dict has exactly the keys the weight bridge emits. Logits and losses
+are fp32.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from uniter_tpu_torch.models.heads import (
 from uniter_tpu_torch.models.losses import (
     cross_entropy_ignore, kl_div, weighted_mean)
 from uniter_tpu_torch.parallel.collectives import global_sum
+from uniter_tpu_torch.parallel.fsdp import unit_param
 from uniter_tpu_torch.ops.ot import optimal_transport_dist
 from uniter_tpu_torch.utils.const import IMG_DIM, IMG_LABEL_DIM
 
@@ -69,7 +72,7 @@ class UniterForPretraining(nn.Module):
         t = batch["input_ids"].shape[1]
         hidden = gather_slots(seq[:, :t], batch["mlm_pos"])  # [B, M, H]
         logits = self.cls(
-            hidden, self.uniter.embeddings.word_embeddings.weight).float()
+            hidden, unit_param(self.uniter.embeddings.word_embeddings)).float()
         if compute_loss:
             return cross_entropy_ignore(logits, batch["mlm_tgt"], -1)
         return logits
@@ -81,7 +84,7 @@ class UniterForPretraining(nn.Module):
         t = batch["input_ids"].shape[1]
         hidden = gather_slots(seq[:, t:], batch["mrm_pos"])  # [B, Mr, H]
         pred = self.feat_regress(
-            hidden, self.uniter.img_embeddings.img_linear.weight).float()
+            hidden, unit_param(self.uniter.img_embeddings.img_linear)).float()
         if compute_loss:
             tgt = batch["feat_targets"].float()
             w = batch["mrm_valid"].float()[..., None].expand_as(pred)

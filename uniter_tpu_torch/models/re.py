@@ -15,7 +15,10 @@ negatives are sampled on the device (``sample_neg``): the hard negative is
 the top-scoring region other than the target, the easy one uniform over
 the valid non-target regions, and bernoulli(``hard_ratio``) picks between
 them. The draws come from a generator on the scores' device seeded from
-the step's generator, so a resumed run replays the same negatives.
+the step's generator, so a resumed run replays the same negatives. Over
+several processes every rank seeds that generator alike, draws the noise
+of the global batch and takes its block's rows, so each rank samples the
+negatives one process samples for those rows.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from uniter_tpu_torch.models.common import encode_batch
 from uniter_tpu_torch.models.encoder import LayerNorm, Linear, UniterModel
 from uniter_tpu_torch.models.heads import GELU
 from uniter_tpu_torch.models.losses import cross_entropy, margin_ranking
+from uniter_tpu_torch.ops.dropout import batch_block
 
 NEG_FILL = -1e4
 
@@ -49,20 +53,24 @@ def sampling_generator(generator: torch.Generator, device) -> torch.Generator:
 
 
 def sample_neg(scores, targets, obj_masks, hard_ratio: float,
-               generator: torch.Generator):
+               generator: torch.Generator, block: int = 0, blocks: int = 1):
     """One negative region per example [B] (int64), drawn on the scores'
     device: the hard negative (argmax over scores, the target excluded) with
     probability ``hard_ratio``, else the easy one, uniform over the regions
     that are neither the target nor padding (the argmax of uniform noise
-    over them)."""
+    over them). The rows are ``block`` of ``blocks`` equal blocks of the
+    global batch: the noise is drawn for all ``blocks * B`` rows and this
+    block's taken."""
     b, n = scores.shape
+    rows = slice(block * b, (block + 1) * b)
     is_target = torch.zeros((b, n), dtype=torch.bool, device=scores.device)
     is_target[torch.arange(b, device=scores.device), targets.long()] = True
     hard_ix = scores.masked_fill(is_target, float("-inf")).argmax(-1)
-    noise = torch.rand((b, n), generator=generator, device=scores.device)
+    noise = torch.rand((blocks * b, n), generator=generator,
+                       device=scores.device)[rows]
     easy_ix = noise.masked_fill(is_target | obj_masks, -1.0).argmax(-1)
-    use_hard = torch.rand((b,), generator=generator,
-                          device=scores.device) < hard_ratio
+    use_hard = torch.rand((blocks * b,), generator=generator,
+                          device=scores.device)[rows] < hard_ratio
     return torch.where(use_hard, hard_ix, easy_ix)
 
 
@@ -121,5 +129,6 @@ class UniterForReferringExpressionComprehension(nn.Module):
                              "step's generator; pass one")
         neg_ix = sample_neg(scores.detach(), targets, obj_masks_of(batch),
                             self.hard_ratio,
-                            sampling_generator(generator, scores.device))
+                            sampling_generator(generator, scores.device),
+                            *batch_block(generator))
         return rank_loss(scores, targets, neg_ix, self.margin)

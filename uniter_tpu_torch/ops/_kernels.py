@@ -33,12 +33,13 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _U, _UL = ctypes.c_uint, ctypes.c_ulonglong
 SIGNATURES = {
     # q k v bias out out_lo lse lse_lo, B S H D, q/k/v strides, sm_scale,
-    # dropout threshold, 1/(1-rate), seed, dtype, stream
-    "mha_fwd": [_P] * 8 + [_I] * 4 + [_L] * 9 + [_F, _U, _F, _UL, _I, _P],
+    # dropout threshold, 1/(1-rate), seed, row base, dtype, stream
+    "mha_fwd": [_P] * 8 + [_I] * 4 + [_L] * 9 + [_F, _U, _F, _UL, _UL, _I,
+                                                 _P],
     # q k v g bias out out_lo lse lse_lo dq dk dv scratch, B S H D, q/k/v/g
     # strides, then as mha_fwd with the key-tile groups before the stream
-    "mha_bwd": [_P] * 13 + [_I] * 4 + [_L] * 12 + [_F, _U, _F, _UL, _I, _I,
-                                                   _P],
+    "mha_bwd": [_P] * 13 + [_I] * 4 + [_L] * 12 + [_F, _U, _F, _UL, _UL, _I,
+                                                   _I, _P],
     # the fused tails: one packed argument block (TAIL_CALL)
     **{k: [ctypes.c_char_p] for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
                                       "ln_drop_fwd", "ln_drop_bwd")},
@@ -64,8 +65,8 @@ LINK = {"ffn": ["-lcuda"]}
 # csrc/fused_tail.cu `TailCall`, the one argument of the tail entries and of
 # K8: 8 pointers (x, res, w, b or g, y or dx, dres, part, dwdb; 0 where a
 # kernel has none), rows, H, the dropout threshold, 1 / (1 - rate), the
-# blocks of part, seed, eps, dtype, device, stream
-TAIL_CALL = struct.Struct("<8Qqi I f i Q f i i 4x Q")
+# blocks of part, seed, eps, dtype, device, stream, the dropout row base
+TAIL_CALL = struct.Struct("<8Qqi I f i Q f i i 4x Q q")
 # csrc/ipot.cu `IpotCall`, K7's one argument: 8 pointers (the cost C, x_len,
 # y_len, x_pad, y_pad, joint_pad, the plan T, the workspace or 0), B, N, M,
 # iteration, k, form, beta, device, stream

@@ -32,8 +32,11 @@ output projection saves it as its input); the LSE is 4 bytes a row, the
 bf16 remainder 2 bytes an element.
 
 Dropout on P draws its mask from ``ops.dropout.keep_mask`` over the
-``[B, H, S, S]`` probabilities (row ``(b*H + h)*S + q``, column ``k``);
-the kernels compute the same bits from the same seed.
+``[B, H, S, S]`` probabilities (row ``row_base + (b*H + h)*S + q``,
+column ``k``); the kernels compute the same bits from the same seed and
+row base. Every function here takes the row base (default 0) beside the
+seed: a rank holding examples b0... of the global batch passes
+``b0*H*S``, and its mask is the global mask's block.
 """
 
 from __future__ import annotations
@@ -58,13 +61,14 @@ def _f32(t):
     return t if t.dtype == torch.float64 else t.float()
 
 
-def _probs_mask(q, rate, seed):
+def _probs_mask(q, rate, seed, row_base=0):
     b, s, h, _ = q.shape
-    return keep_mask(seed, 0, (b, h, s, s), rate, q.device)
+    return keep_mask(seed, 0, (b, h, s, s), rate, q.device,
+                     row_base=row_base)
 
 
 def _mha_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
-               return_lse: bool = False):
+               return_lse: bool = False, row_base: int = 0):
     """q, k, v: [B, S, H, D]; bias: [B, S_k] additive fp32.
 
     Scores in fp32 (q and k upcast, as ``preferred_element_type`` does in
@@ -78,7 +82,8 @@ def _mha_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
     scores = scores * scale + _f32(bias)[:, None, None, :]
     probs = torch.softmax(scores, dim=-1)
     if rate > 0.0:
-        probs = torch.where(_probs_mask(q, rate, seed), probs / (1.0 - rate),
+        probs = torch.where(_probs_mask(q, rate, seed, row_base),
+                            probs / (1.0 - rate),
                             torch.zeros((), device=probs.device))
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     if return_lse:
@@ -86,7 +91,8 @@ def _mha_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
     return out
 
 
-def _mha_bwd_torch(q, k, v, bias, g, rate: float = 0.0, seed: int = 0):
+def _mha_bwd_torch(q, k, v, bias, g, rate: float = 0.0, seed: int = 0,
+                   row_base: int = 0):
     """dq, dk, dv of ``_mha_torch`` by the formula of ``_mha_bwd_kernel``
     (not autograd): recompute P, replay the mask, dV = P_d^T g,
     dP = g V^T masked and rescaled, dS = P * (dP - rowsum(dP * P)) / sqrt(D),
@@ -95,11 +101,11 @@ def _mha_bwd_torch(q, k, v, bias, g, rate: float = 0.0, seed: int = 0):
     scores = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(k))
     p = torch.softmax(scores * (1.0 / math.sqrt(q.shape[-1]))
                       + _f32(bias)[:, None, None, :], dim=-1)
-    return _grads_from_probs(q, k, g, v, p, rate, seed)
+    return _grads_from_probs(q, k, g, v, p, rate, seed, row_base=row_base)
 
 
 def _mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate: float = 0.0,
-                       seed: int = 0, lse_lo=None):
+                       seed: int = 0, lse_lo=None, row_base: int = 0):
     """The gradients of ``_mha_bwd_torch`` from the forward's ``out``
     [B, S, H, D] and ``lse`` [B, H, S], as K2 computes them:
     P = exp(s - lse) with no pass over the keys first (with the LSE's
@@ -112,10 +118,10 @@ def _mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate: float = 0.0,
          + _f32(bias)[:, None, None, :] - _f32(lse)[..., None])
     p = torch.exp(z if lse_lo is None else z - _f32(lse_lo)[..., None])
     di = (_f32(g) * _f32(out)).sum(-1).transpose(1, 2)  # [B, H, S]
-    return _grads_from_probs(q, k, g, v, p, rate, seed, di)
+    return _grads_from_probs(q, k, g, v, p, rate, seed, di, row_base)
 
 
-def _grads_from_probs(q, k, g, v, p, rate, seed, di=None):
+def _grads_from_probs(q, k, g, v, p, rate, seed, di=None, row_base=0):
     """dq, dk, dv from the probabilities P [B, H, S, S]: the mask of
     ``seed`` replayed, dV = P_d^T g, dP = g V^T masked and rescaled,
     dS = P (dP - Di) / sqrt(D) with Di = rowsum(dP * P) unless given,
@@ -124,7 +130,7 @@ def _grads_from_probs(q, k, g, v, p, rate, seed, di=None):
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
     pd = p
     if rate > 0.0:
-        keep = _probs_mask(q, rate, seed)
+        keep = _probs_mask(q, rate, seed, row_base)
         zero = torch.zeros((), device=p.device)
         pd = torch.where(keep, p / (1.0 - rate), zero)
         dp = torch.where(keep, dp / (1.0 - rate), zero)
@@ -169,7 +175,8 @@ def _split_mm(a, b, passes=3):
 
 
 def _mha_tf32_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
-                    return_lse: bool = False, passes: int = 3):
+                    return_lse: bool = False, passes: int = 3,
+                    row_base: int = 0):
     """``_mha_torch`` for fp32 inputs in the order of operations of the fp32
     K1 (``mha_fwd_tf32_kernel``), for the CPU tests: scores by ``_split_mm``
     (partials over at most 64 head dims), scaled and biased; keys in tiles
@@ -185,7 +192,7 @@ def _mha_tf32_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
     qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))  # [B,H,S,D]
     scores = _split_mm(qt, kt.transpose(-1, -2), passes) * scale \
         + bias.float()[:, None, None, :]
-    keep = _probs_mask(q, rate, seed) if rate > 0.0 else None
+    keep = _probs_mask(q, rate, seed, row_base) if rate > 0.0 else None
     m = l = o = None  # row max, row sum, unnormalised output
     for k0 in range(0, s, TILE):
         ks = slice(k0, k0 + TILE)
@@ -213,7 +220,8 @@ def _mha_tf32_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
 
 
 def _mha_bwd_tf32_torch(q, k, v, bias, g, out, lse, lse_lo,
-                        rate: float = 0.0, seed: int = 0, passes: int = 3):
+                        rate: float = 0.0, seed: int = 0, passes: int = 3,
+                        row_base: int = 0):
     """``_mha_bwd_lse_torch`` for fp32 inputs in the order of operations of
     the fp32 K2 (``mha_bwd_tf32_kernel``), for the CPU tests: Di =
     rowsum(g * out); per 64-key tile j and 64-query tile i, S^T = K_j Q_i^T
@@ -226,7 +234,7 @@ def _mha_bwd_tf32_torch(q, k, v, bias, g, out, lse, lse_lo,
     qt, kt, vt, gt = (t.float().transpose(1, 2) for t in (q, k, v, g))
     bias_f = bias.float()
     di = (g.float() * out.float()).sum(-1).transpose(1, 2)  # [B, H, S]
-    keep = _probs_mask(q, rate, seed) if rate > 0.0 else None
+    keep = _probs_mask(q, rate, seed, row_base) if rate > 0.0 else None
     dq, dk, dv = (torch.zeros_like(qt) for _ in range(3))
     for k0 in range(0, s, TILE):
         kj = slice(k0, k0 + TILE)
@@ -280,11 +288,14 @@ def _check(q, k, v, bias, name="mha_fwd"):
                          f"{tuple(bias.shape)}")
 
 
-def _check_dropout(rate, seed):
+def _check_dropout(rate, seed, row_base=0):
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
     if not 0 <= int(seed) < 2**63:
         raise ValueError(f"seed must be a non-negative 64-bit int, got {seed}")
+    if not 0 <= int(row_base) < 2**62:
+        raise ValueError(f"row base must be a non-negative 62-bit int, got "
+                         f"{row_base}")
 
 
 def _dim_pad(d):
@@ -369,7 +380,7 @@ def _check_like(t, q, name, dtype=None):
 
 
 def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
-            out_lo=None, lse_lo=None):
+            out_lo=None, lse_lo=None, row_base: int = 0):
     """K1: dropout(softmax(QK^T/sqrt(D) + bias)) V through the CUDA kernel.
 
     Takes the layout of ``multi_head_attention``. Both dtypes run a
@@ -385,9 +396,9 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
     view whose base or strides are not multiples of 16 bytes. A CPU input
     takes the plain version; a CUDA input launches a kernel or raises —
     there is no fallback. ``mha_fwd.launches`` counts the launches. Rate 0
-    draws no bits."""
+    draws no bits; the mask is drawn at ``row_base`` (module docstring)."""
     _check(q, k, v, bias)
-    _check_dropout(rate, seed)
+    _check_dropout(rate, seed, row_base)
     if lse is not None:
         _check_lse(lse, q)
     if out_lo is not None:
@@ -398,9 +409,9 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
         _check_lse(lse_lo, q)
     if q.device.type == "cpu":
         if lse is None and out_lo is None:
-            return _mha_torch(q, k, v, bias, rate, seed)
+            return _mha_torch(q, k, v, bias, rate, seed, row_base=row_base)
         out, plain_lse = _mha_torch(q, k, v, bias, rate, seed,
-                                    return_lse=True)
+                                    return_lse=True, row_base=row_base)
         if lse is not None:
             lse.copy_(plain_lse)
         if lse_lo is not None:
@@ -409,7 +420,7 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
             lse_lo.copy_(exact - plain_lse.double())
         if out_lo is not None:
             full = _mha_torch(q.float(), k.float(), v.float(), bias, rate,
-                              seed)
+                              seed, row_base=row_base)
             out_lo.copy_(full - out.float())
         return out
     if q.device.type != "cuda":
@@ -434,7 +445,7 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
                 out.data_ptr(), _ptr(out_lo), _ptr(lse), _ptr(lse_lo),
                 b, s, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 1.0 / math.sqrt(d), thr, 1.0 / (1.0 - rate), int(seed),
-                _DTYPE_CODE[q.dtype], stream)
+                int(row_base), _DTYPE_CODE[q.dtype], stream)
     if rc:
         raise RuntimeError(f"mha_fwd kernel launch failed: cudaError_t {rc} "
                            f"at q{tuple(q.shape)} {q.dtype}")
@@ -450,7 +461,7 @@ def _ptr(t):
 
 
 def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
-            lse=None, out_lo=None, lse_lo=None):
+            lse=None, out_lo=None, lse_lo=None, row_base: int = 0):
     """K2: dq, dk, dv of ``mha_fwd`` (same rate and seed) for the output
     gradient ``g`` [B, S, H, D]. Results are contiguous [B, S, H, D] in q's
     dtype. Both dtypes run a one-pass tensor-core kernel from the forward's
@@ -459,9 +470,10 @@ def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
     copies a view it cannot stage. A CPU input takes ``_mha_bwd_lse_torch``
     when given out and lse (the output as out + out_lo when out_lo is
     given, with lse_lo when given), else ``_mha_bwd_torch``.
-    ``mha_bwd.launches`` counts the kernel calls (one per call)."""
+    ``mha_bwd.launches`` counts the kernel calls (one per call). The mask is
+    replayed at ``row_base``, as ``mha_fwd`` drew it."""
     _check(q, k, v, bias, "mha_bwd")
-    _check_dropout(rate, seed)
+    _check_dropout(rate, seed, row_base)
     _check_like(g, q, "g")
     if (out is None) != (lse is None):
         raise ValueError("mha_bwd takes the forward's out and lse together")
@@ -478,11 +490,11 @@ def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
         g = g.contiguous()
     if q.device.type == "cpu":
         if out is None:
-            return _mha_bwd_torch(q, k, v, bias, g, rate, seed)
+            return _mha_bwd_torch(q, k, v, bias, g, rate, seed, row_base)
         if out_lo is not None:
             out = out.float() + out_lo.float()
         return _mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate, seed,
-                                  lse_lo)
+                                  lse_lo, row_base)
     if q.device.type != "cuda":
         raise ValueError(f"mha_bwd runs on cuda or cpu, not {q.device}")
     b, s, h, d = q.shape
@@ -522,8 +534,8 @@ def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
                 _ptr(lse_lo), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 _ptr(scratch), b, s, h, d, *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], *g.stride()[:3], 1.0 / math.sqrt(d), thr,
-                1.0 / (1.0 - rate), int(seed), _DTYPE_CODE[q.dtype], groups,
-                stream)
+                1.0 / (1.0 - rate), int(seed), int(row_base),
+                _DTYPE_CODE[q.dtype], groups, stream)
     if rc:
         raise RuntimeError(f"mha_bwd kernel launch failed: cudaError_t {rc} "
                            f"at q{tuple(q.shape)} {q.dtype}")
@@ -545,16 +557,18 @@ class MhaFunction(torch.autograd.Function):
     from ``attn_mask``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, rate, seed):
-        ctx.rate, ctx.seed = rate, seed
+    def forward(ctx, q, k, v, bias, rate, seed, row_base=0):
+        ctx.rate, ctx.seed, ctx.row_base = rate, seed, row_base
         b, s, h, _ = q.shape
         lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         if q.dtype == torch.bfloat16:
             lo = torch.empty_like(q, memory_format=torch.contiguous_format)
-            out = mha_fwd(q, k, v, bias, rate, seed, lse=lse, out_lo=lo)
+            out = mha_fwd(q, k, v, bias, rate, seed, lse=lse, out_lo=lo,
+                          row_base=row_base)
         else:
             lo = torch.empty_like(lse)
-            out = mha_fwd(q, k, v, bias, rate, seed, lse=lse, lse_lo=lo)
+            out = mha_fwd(q, k, v, bias, rate, seed, lse=lse, lse_lo=lo,
+                          row_base=row_base)
         ctx.save_for_backward(q, k, v, bias, out, lse, lo)
         return out
 
@@ -563,21 +577,21 @@ class MhaFunction(torch.autograd.Function):
         q, k, v, bias, out, lse, lo = ctx.saved_tensors
         key = "out_lo" if q.dtype == torch.bfloat16 else "lse_lo"
         dq, dk, dv = mha_bwd(q, k, v, bias, g, ctx.rate, ctx.seed, out=out,
-                             lse=lse, **{key: lo})
-        return dq, dk, dv, None, None, None
+                             lse=lse, row_base=ctx.row_base, **{key: lo})
+        return dq, dk, dv, None, None, None, None
 
 
 def multi_head_attention(q, k, v, bias, *, impl: str = "xla",
                          dropout_rate: float = 0.0,
                          deterministic: bool = True,
-                         seed: int = None):
+                         seed: int = None, row_base: int = 0):
     """Fused MHA. q, k, v: [B, S, H, D]; bias: [B, S] additive (0 / -10000).
 
     ``impl="cuda"`` takes the kernels (``MhaFunction``: K1 forward, K2
     backward), ``"xla"`` the plain version under autograd. Dropout on P is
     live when ``deterministic`` is False and the rate positive; it then
-    needs the call's ``seed`` (``ops.dropout.draw_seed``). Returns
-    [B, S, H, D]."""
+    needs the call's ``seed`` (``ops.dropout.draw_seed``) and draws its
+    mask at ``row_base`` (module docstring). Returns [B, S, H, D]."""
     rate = 0.0 if deterministic else float(dropout_rate)
     if rate > 0.0 and seed is None:
         raise ValueError("live attention dropout needs a seed")
@@ -585,9 +599,10 @@ def multi_head_attention(q, k, v, bias, *, impl: str = "xla",
     if impl == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
-            return MhaFunction.apply(q, k, v, bias.float(), rate, seed)
+            return MhaFunction.apply(q, k, v, bias.float(), rate, seed,
+                                     row_base)
         # no backward to feed: K1 alone, writing no LSE or remainder
-        return mha_fwd(q, k, v, bias.float(), rate, seed)
+        return mha_fwd(q, k, v, bias.float(), rate, seed, row_base=row_base)
     if impl == "xla":
-        return _mha_torch(q, k, v, bias, rate, seed)
+        return _mha_torch(q, k, v, bias, rate, seed, row_base=row_base)
     raise ValueError(f"unknown attention impl {impl!r}")

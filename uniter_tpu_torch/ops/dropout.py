@@ -9,16 +9,24 @@ which a GPU reproduces, so masks here come from Philox4x32-10 and match
 the JAX package in rate and rule, not bit for bit.
 
 The bit of an element is a function of its coordinates and the call's seed
-alone. View the tensor as ``[rows, cols]`` (``cols`` the last dimension):
-element (r, c) takes word ``c % 4`` of Philox4x32-10 with
+alone. View the tensor as ``[rows, cols]`` (``cols`` the last dimension);
+drawn at row base ``r0`` (a 64-bit int, 0 by default), element (r, c)
+takes word ``c % 4`` of Philox4x32-10 with
 
     key     = (lo32(seed), hi32(seed))
-    counter = (c // 4, lo32(r), hi32(r), offset)
+    counter = (c // 4, lo32(r0 + r), hi32(r0 + r), offset)
 
-The attention kernels (``csrc/mha_fwd.cu``, ``csrc/mha_bwd.cu``) draw the
-mask of score (b, h, q, k) as element (k) of row ((b*H + h)*S + q) of a
-``[B, H, S, S]`` tensor by the same formula, so the plain versions, the
-forward and the backward all see the same bits, whatever their tiling.
+so a tensor drawn at ``r0`` gets, bit for bit, rows ``r0...`` of the mask
+of a larger tensor drawn at 0. That is how data parallelism keeps one
+process's masks: rank p holds the p-th of N equal blocks of the global
+batch (``data/loader.py``), so each of its tensors is block p of the
+global tensor along the batch axis, and it draws at the row base
+``p * rows`` (``rows_before``) from the one process's seeds. The
+attention kernels (``csrc/mha_fwd.cu``, ``csrc/mha_bwd.cu``) draw the
+mask of score (b, h, q, k) as element (k) of row r0 + ((b*H + h)*S + q)
+of a ``[B, H, S, S]`` tensor by the same formula, so the plain versions,
+the forward and the backward all see the same bits, whatever their
+tiling.
 
 Plain torch has no unsigned 32-bit multiply, and a 32x32 -> 64-bit product
 overflows int64; ``_mulhilo`` splits the constant factor into 16-bit limbs
@@ -80,16 +88,18 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def _words(seed: int, offset: int, shape, device):
-    """The four Philox words of every counter of ``shape`` (module
-    docstring), each [rows, ceil(cols / 4)], and the shape's cols."""
+def _words(seed: int, offset: int, shape, device, row_base: int = 0):
+    """The four Philox words of every counter of ``shape`` drawn at
+    ``row_base`` (module docstring), each [rows, ceil(cols / 4)], and the
+    shape's cols."""
     shape = tuple(int(n) for n in shape)
     cols = shape[-1] if shape else 1
     rows = 1
     for n in shape[:-1]:
         rows *= n
     seed, offset = int(seed), int(offset) & _MASK32
-    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    r = torch.arange(int(row_base), int(row_base) + rows, dtype=torch.int64,
+                     device=device)[:, None]
     c4 = torch.arange((cols + 3) // 4, dtype=torch.int64, device=device)
     words = philox4x32_10(c4[None, :], r & _MASK32, r >> 32,
                           torch.full((), offset, dtype=torch.int64,
@@ -103,10 +113,11 @@ def _interleave(words, shape, rows, cols):
         shape)
 
 
-def random_bits(seed: int, offset: int, shape, device=None) -> torch.Tensor:
-    """u32 draws (as int64) for every element of ``shape`` by the rule in
-    the module docstring."""
-    words, rows, cols = _words(seed, offset, shape, device)
+def random_bits(seed: int, offset: int, shape, device=None,
+                row_base: int = 0) -> torch.Tensor:
+    """u32 draws (as int64) for every element of ``shape`` drawn at
+    ``row_base`` by the rule in the module docstring."""
+    words, rows, cols = _words(seed, offset, shape, device, row_base)
     return _interleave(words, tuple(shape), rows, cols)
 
 
@@ -133,15 +144,43 @@ def mask_rule(rate: float, impl: str = "xla"):
 
 
 def keep_mask(seed: int, offset: int, shape, rate: float,
-              device=None, impl: str = "xla") -> torch.Tensor:
-    """Boolean keep-mask of ``shape``; True with probability 1 - rate
-    (the quantized keep rate under ``impl`` "u16"/"u8"). (Each word is
-    compared before the four are interleaved, so the interleave moves
-    bytes, not int64s.)"""
-    words, rows, cols = _words(seed, offset, shape, device)
+              device=None, impl: str = "xla",
+              row_base: int = 0) -> torch.Tensor:
+    """Boolean keep-mask of ``shape`` drawn at ``row_base``; True with
+    probability 1 - rate (the quantized keep rate under ``impl``
+    "u16"/"u8"). (Each word is compared before the four are interleaved,
+    so the interleave moves bytes, not int64s.)"""
+    words, rows, cols = _words(seed, offset, shape, device, row_base)
     bits, thr, _ = mask_rule(rate, impl)
     return _interleave([(w >> (32 - bits) if bits < 32 else w) >= thr
                         for w in words], tuple(shape), rows, cols)
+
+
+class StepGenerator(torch.Generator):
+    """The CPU generator of one train step's draws (``training/step.py``),
+    which also knows this rank's place in the global batch: ``block`` p of
+    ``blocks`` N equal blocks along the batch axis (0 of 1 in one
+    process). Every rank draws the same seeds; the row base of a draw is
+    what makes its masks its block of the global ones."""
+
+    block: int = 0
+    blocks: int = 1
+
+
+def batch_block(generator) -> tuple:
+    """(block, blocks) of a step's ``generator``: (0, 1) for any other
+    generator or None."""
+    return (getattr(generator, "block", 0), getattr(generator, "blocks", 1))
+
+
+def rows_before(block: int, shape) -> int:
+    """The row base of a draw over this rank's ``shape`` when it is block
+    ``block`` of equal blocks along its first axis: ``block`` times its
+    rows (every axis but the last)."""
+    rows = 1
+    for n in tuple(shape)[:-1]:
+        rows *= int(n)
+    return int(block) * rows
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -162,11 +201,11 @@ def live_seed(rate: float, deterministic: bool,
 
 
 def drop(x: torch.Tensor, rate: float, seed: int,
-         impl: str = "xla") -> torch.Tensor:
-    """Inverted dropout of ``x`` with the mask of ``seed`` (rate > 0) by
-    the rule of ``impl``."""
+         impl: str = "xla", row_base: int = 0) -> torch.Tensor:
+    """Inverted dropout of ``x`` with the mask of ``seed`` drawn at
+    ``row_base`` (rate > 0) by the rule of ``impl``."""
     bits, _, keep_q = mask_rule(rate, impl)
-    keep = keep_mask(seed, 0, x.shape, rate, x.device, impl)
+    keep = keep_mask(seed, 0, x.shape, rate, x.device, impl, row_base)
     if bits == 32:
         kept = x / (1.0 - rate)
     else:  # x * (1 / keep_q) in x's dtype, as the JAX rule scales
@@ -176,8 +215,9 @@ def drop(x: torch.Tensor, rate: float, seed: int,
 
 
 def dropout(x: torch.Tensor, rate: float, *, deterministic: bool = True,
-            generator: torch.Generator = None) -> torch.Tensor:
+            generator: torch.Generator = None,
+            row_base: int = 0) -> torch.Tensor:
     """Inverted dropout. Identity when deterministic or rate == 0; a live
-    call draws its seed from ``generator``."""
+    call draws its seed from ``generator`` and its mask at ``row_base``."""
     seed = live_seed(rate, deterministic, generator)
-    return x if seed is None else drop(x, rate, seed)
+    return x if seed is None else drop(x, rate, seed, row_base=row_base)

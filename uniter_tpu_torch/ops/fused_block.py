@@ -17,9 +17,12 @@ mean and the mean of squared deviations (``ops.layer_norm._ln_stats``), eps
 1e-12 by default; results come back in x's dtype, dw and db in fp32.
 Dropout keeps an
 element iff its Philox word of ``ops.dropout.keep_mask(seed, 0, x.shape,
-rate)`` is >= floor(rate * 2**32) and scales it by 1 / (1 - rate): the bits
-of the trunk's plain composition, so the kernels and both plain paths drop
-the same elements from one seed.
+rate, row_base=row_base)`` is >= floor(rate * 2**32) and scales it by
+1 / (1 - rate): the bits of the trunk's plain composition, so the kernels
+and both plain paths drop the same elements from one seed. Every function
+takes the row base (default 0) beside the seed; a rank holding examples
+b0... of a [B, S, H] batch passes ``b0*S``, and its mask is the global
+mask's block.
 
 ``_drop_res_ln_torch`` and ``_ln_drop_torch`` are the plain forwards,
 ``_drop_res_ln_bwd_torch`` and ``_ln_drop_bwd_torch`` the explicit backward
@@ -54,8 +57,8 @@ MAX_HIDDEN = 1024  # csrc/fused_tail.cu keeps a row in one warp's registers
 SUM_SLICES = 16  # csrc/fused_tail.cu SUM_WARPS: the slices of the dw/db tree
 
 
-def _keep(x, rate, seed):
-    return keep_mask(seed, 0, x.shape, rate, x.device)
+def _keep(x, rate, seed, row_base=0):
+    return keep_mask(seed, 0, x.shape, rate, x.device, row_base=row_base)
 
 
 def _dropped(t, keep, rate):
@@ -63,28 +66,29 @@ def _dropped(t, keep, rate):
                        torch.zeros((), dtype=t.dtype, device=t.device))
 
 
-def _drop_res_ln_t(x, res, rate, seed):
+def _drop_res_ln_t(x, res, rate, seed, row_base=0):
     t = _f32(x)
-    keep = _keep(x, rate, seed) if rate > 0.0 else None
+    keep = _keep(x, rate, seed, row_base) if rate > 0.0 else None
     if keep is not None:
         t = _dropped(t, keep, rate)
     return t + _f32(res), keep
 
 
 def _drop_res_ln_torch(x, res, weight, bias, rate: float = 0.0,
-                       seed: int = 0, eps: float = 1e-12):
+                       seed: int = 0, eps: float = 1e-12, row_base: int = 0):
     """LN(dropout(x) + res) * w + b in fp32, in x's dtype."""
-    t, _ = _drop_res_ln_t(x, res, rate, seed)
+    t, _ = _drop_res_ln_t(x, res, rate, seed, row_base)
     that, _ = _ln_stats(t, eps)
     return (that * _f32(weight) + _f32(bias)).to(x.dtype)
 
 
 def _drop_res_ln_bwd_torch(x, res, weight, g, rate: float = 0.0,
-                           seed: int = 0, eps: float = 1e-12):
+                           seed: int = 0, eps: float = 1e-12,
+                           row_base: int = 0):
     """(dx, dres, dw, db) by the formula of ``_bwd_kernel``: replay the
     mask, recompute the statistics, dres = dt, dx = mask(dt) / (1 - rate),
     dw = sum(g * x_hat), db = sum(g)."""
-    t, keep = _drop_res_ln_t(x, res, rate, seed)
+    t, keep = _drop_res_ln_t(x, res, rate, seed, row_base)
     that, inv = _ln_stats(t, eps)
     gf = _f32(g)
     dt = _ln_bwd(that, inv, gf * _f32(weight))
@@ -94,23 +98,23 @@ def _drop_res_ln_bwd_torch(x, res, weight, g, rate: float = 0.0,
 
 
 def _ln_drop_torch(x, weight, bias, rate: float = 0.0, seed: int = 0,
-                   eps: float = 1e-12):
+                   eps: float = 1e-12, row_base: int = 0):
     """dropout(LN(x) * w + b) in fp32, in x's dtype."""
     that, _ = _ln_stats(_f32(x), eps)
     y = that * _f32(weight) + _f32(bias)
     if rate > 0.0:
-        y = _dropped(y, _keep(x, rate, seed), rate)
+        y = _dropped(y, _keep(x, rate, seed, row_base), rate)
     return y.to(x.dtype)
 
 
 def _ln_drop_bwd_torch(x, weight, g, rate: float = 0.0, seed: int = 0,
-                       eps: float = 1e-12):
+                       eps: float = 1e-12, row_base: int = 0):
     """(dx, dw, db) by the formula of ``_ln_drop_bwd_kernel``: g masked and
     rescaled, then the LayerNorm backward."""
     that, inv = _ln_stats(_f32(x), eps)
     gf = _f32(g)
     if rate > 0.0:
-        gf = _dropped(gf, _keep(x, rate, seed), rate)
+        gf = _dropped(gf, _keep(x, rate, seed, row_base), rate)
     dx = _ln_bwd(that, inv, gf * _f32(weight))
     return dx.to(x.dtype), _col_sum(gf * that), _col_sum(gf)
 
@@ -132,12 +136,13 @@ def _sum_partials_torch(part):
     return s[:, 0]
 
 
-def _launchable(rows_like, vecs, rate, seed):
+def _launchable(rows_like, vecs, rate, seed, row_base=0):
     """True when every tensor is as a launch wants it: the common CUDA
     case, which this checks with one look at each tensor. False sends the
     caller to ``_check``, which raises on what is wrong."""
     x = rows_like[0]
-    if not (x.is_cuda and 0.0 <= rate < 1.0 and 0 <= seed < 2**63):
+    if not (x.is_cuda and 0.0 <= rate < 1.0 and 0 <= seed < 2**63
+            and 0 <= row_base < 2**62):
         return False
     dt, shape = x.dtype, x.shape
     h = shape[-1] if shape else 0
@@ -156,7 +161,7 @@ def _launchable(rows_like, vecs, rate, seed):
     return True
 
 
-def _check(name, rows_like, vecs, rate, seed):
+def _check(name, rows_like, vecs, rate, seed, row_base=0):
     """Devices, dtypes, shapes, contiguity, alignment, rate and seed; the
     CPU also takes float64 (the plain versions keep it). Every wrapper
     comes here unless ``_launchable`` passed."""
@@ -185,6 +190,9 @@ def _check(name, rows_like, vecs, rate, seed):
         raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
     if not 0 <= int(seed) < 2**63:
         raise ValueError(f"seed must be a non-negative 64-bit int, got {seed}")
+    if not 0 <= int(row_base) < 2**62:
+        raise ValueError(f"row base must be a non-negative 62-bit int, got "
+                         f"{row_base}")
     if dev.type == "cpu":
         return
     if dev.type != "cuda":
@@ -202,7 +210,7 @@ def _check(name, rows_like, vecs, rate, seed):
 _grids = {}  # (kernel, device, dtype, rows, H) -> the backward's blocks
 
 
-def _launch(name, x, ptrs, rate, seed, eps, n_part=0):
+def _launch(name, x, ptrs, rate, seed, eps, n_part=0, row_base=0):
     """One launch of ``uniter_<name>`` on x's card and its current stream
     (the library switches to that card and back when it is not the
     current one). ``ptrs``: the 8 pointer slots of ``_kernels.TAIL_CALL``.
@@ -215,7 +223,8 @@ def _launch(name, x, ptrs, rate, seed, eps, n_part=0):
     rc = _kernels.entry(name)(_kernels.TAIL_CALL.pack(
         *ptrs, x.numel() // h, h, threshold(rate) if rate > 0.0 else 0,
         1.0 / (1.0 - rate), n_part, int(seed), float(eps),
-        _DTYPE_CODE[x.dtype], idx, torch._C._cuda_getCurrentRawStream(idx)))
+        _DTYPE_CODE[x.dtype], idx, torch._C._cuda_getCurrentRawStream(idx),
+        int(row_base)))
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc} "
                            f"at {tuple(x.shape)} {x.dtype}")
@@ -240,7 +249,7 @@ def _bwd_blocks(name, x):
     return n
 
 
-def _tail_bwd(x, res, weight, g, rate, seed, eps):
+def _tail_bwd(x, res, weight, g, rate, seed, eps, row_base=0):
     """K4 (``res`` given) or K6 (``res`` None) on checked CUDA inputs, not
     counted: (dx, dres or None, the per-block dw/db partials [2, blocks,
     H], dw/db [2, H])."""
@@ -253,28 +262,32 @@ def _tail_bwd(x, res, weight, g, rate, seed, eps):
     if res is None:
         _launch(name, x, (x.data_ptr(), 0, weight.data_ptr(), g.data_ptr(),
                           dx.data_ptr(), 0, part.data_ptr(), dwdb.data_ptr()),
-                rate, seed, eps, n)
+                rate, seed, eps, n, row_base)
         return dx, None, part, dwdb
     dres = torch.empty_like(x)
     _launch(name, x, (x.data_ptr(), res.data_ptr(), weight.data_ptr(),
                       g.data_ptr(), dx.data_ptr(), dres.data_ptr(),
-                      part.data_ptr(), dwdb.data_ptr()), rate, seed, eps, n)
+                      part.data_ptr(), dwdb.data_ptr()), rate, seed, eps, n,
+            row_base)
     return dx, dres, part, dwdb
 
 
 def drop_res_ln_fwd(x, res, weight, bias, rate: float = 0.0, seed: int = 0,
-                    eps: float = 1e-12):
-    """K3: LN(dropout(x) + res) * w + b over the last axis. A CPU input
-    takes ``_drop_res_ln_torch``; a CUDA input launches the kernel or
-    raises. Rate 0 draws no bits."""
-    if not _launchable((x, res), (weight, bias), rate, seed):
-        _check("drop_res_ln_fwd", (x, res), (weight, bias), rate, seed)
+                    eps: float = 1e-12, row_base: int = 0):
+    """K3: LN(dropout(x) + res) * w + b over the last axis, the mask drawn
+    at ``row_base``. A CPU input takes ``_drop_res_ln_torch``; a CUDA input
+    launches the kernel or raises. Rate 0 draws no bits."""
+    if not _launchable((x, res), (weight, bias), rate, seed, row_base):
+        _check("drop_res_ln_fwd", (x, res), (weight, bias), rate, seed,
+               row_base)
         if x.device.type == "cpu":
-            return _drop_res_ln_torch(x, res, weight, bias, rate, seed, eps)
+            return _drop_res_ln_torch(x, res, weight, bias, rate, seed, eps,
+                                      row_base)
     y = torch.empty_like(x)
     _launch("drop_res_ln_fwd", x, (x.data_ptr(), res.data_ptr(),
                                    weight.data_ptr(), bias.data_ptr(),
-                                   y.data_ptr(), 0, 0, 0), rate, seed, eps)
+                                   y.data_ptr(), 0, 0, 0), rate, seed, eps,
+            row_base=row_base)
     drop_res_ln_fwd.launches += 1
     return y
 
@@ -283,17 +296,20 @@ drop_res_ln_fwd.launches = 0
 
 
 def drop_res_ln_bwd(x, res, weight, g, rate: float = 0.0, seed: int = 0,
-                    eps: float = 1e-12):
+                    eps: float = 1e-12, row_base: int = 0):
     """K4: (dx, dres, dw, db) of ``drop_res_ln_fwd`` (same rate and seed)
     for the output gradient ``g``; dx and dres in x's dtype, dw and db fp32.
     A CPU input takes ``_drop_res_ln_bwd_torch``. One launch per call (the
     kernel and its fixed-order sum of the per-block dw/db partials run back
     to back on the stream)."""
-    if not _launchable((x, res, g), (weight,), rate, seed):
-        _check("drop_res_ln_bwd", (x, res, g), (weight,), rate, seed)
+    if not _launchable((x, res, g), (weight,), rate, seed, row_base):
+        _check("drop_res_ln_bwd", (x, res, g), (weight,), rate, seed,
+               row_base)
         if x.device.type == "cpu":
-            return _drop_res_ln_bwd_torch(x, res, weight, g, rate, seed, eps)
-    dx, dres, _, dwdb = _tail_bwd(x, res, weight, g, rate, seed, eps)
+            return _drop_res_ln_bwd_torch(x, res, weight, g, rate, seed, eps,
+                                          row_base)
+    dx, dres, _, dwdb = _tail_bwd(x, res, weight, g, rate, seed, eps,
+                                  row_base)
     drop_res_ln_bwd.launches += 1
     return (dx, dres, *dwdb.unbind(0))
 
@@ -302,17 +318,17 @@ drop_res_ln_bwd.launches = 0
 
 
 def ln_drop_fwd(x, weight, bias, rate: float = 0.0, seed: int = 0,
-                eps: float = 1e-12):
-    """K5: dropout(LN(x) * w + b) over the last axis; a CPU input takes
-    ``_ln_drop_torch``."""
-    if not _launchable((x,), (weight, bias), rate, seed):
-        _check("ln_drop_fwd", (x,), (weight, bias), rate, seed)
+                eps: float = 1e-12, row_base: int = 0):
+    """K5: dropout(LN(x) * w + b) over the last axis, the mask drawn at
+    ``row_base``; a CPU input takes ``_ln_drop_torch``."""
+    if not _launchable((x,), (weight, bias), rate, seed, row_base):
+        _check("ln_drop_fwd", (x,), (weight, bias), rate, seed, row_base)
         if x.device.type == "cpu":
-            return _ln_drop_torch(x, weight, bias, rate, seed, eps)
+            return _ln_drop_torch(x, weight, bias, rate, seed, eps, row_base)
     y = torch.empty_like(x)
     _launch("ln_drop_fwd", x, (x.data_ptr(), 0, weight.data_ptr(),
                                bias.data_ptr(), y.data_ptr(), 0, 0, 0),
-            rate, seed, eps)
+            rate, seed, eps, row_base=row_base)
     ln_drop_fwd.launches += 1
     return y
 
@@ -321,14 +337,15 @@ ln_drop_fwd.launches = 0
 
 
 def ln_drop_bwd(x, weight, g, rate: float = 0.0, seed: int = 0,
-                eps: float = 1e-12):
+                eps: float = 1e-12, row_base: int = 0):
     """K6: (dx, dw, db) of ``ln_drop_fwd``; a CPU input takes
     ``_ln_drop_bwd_torch``."""
-    if not _launchable((x, g), (weight,), rate, seed):
-        _check("ln_drop_bwd", (x, g), (weight,), rate, seed)
+    if not _launchable((x, g), (weight,), rate, seed, row_base):
+        _check("ln_drop_bwd", (x, g), (weight,), rate, seed, row_base)
         if x.device.type == "cpu":
-            return _ln_drop_bwd_torch(x, weight, g, rate, seed, eps)
-    dx, _, _, dwdb = _tail_bwd(x, None, weight, g, rate, seed, eps)
+            return _ln_drop_bwd_torch(x, weight, g, rate, seed, eps,
+                                      row_base)
+    dx, _, _, dwdb = _tail_bwd(x, None, weight, g, rate, seed, eps, row_base)
     ln_drop_bwd.launches += 1
     return (dx, *dwdb.unbind(0))
 
@@ -341,18 +358,19 @@ class DropResLNFunction(torch.autograd.Function):
     JAX package's ``_drop_res_ln_fwd`` does."""
 
     @staticmethod
-    def forward(ctx, x, res, weight, bias, rate, seed, eps):
+    def forward(ctx, x, res, weight, bias, rate, seed, eps, row_base=0):
         x, res = _prep(x), _prep(res)
         ctx.save_for_backward(x, res, weight)
-        ctx.rate, ctx.seed, ctx.eps = rate, seed, eps
-        return drop_res_ln_fwd(x, res, weight, bias, rate, seed, eps)
+        ctx.rate, ctx.seed, ctx.eps, ctx.row_base = rate, seed, eps, row_base
+        return drop_res_ln_fwd(x, res, weight, bias, rate, seed, eps,
+                               row_base)
 
     @staticmethod
     def backward(ctx, g):
         x, res, weight = ctx.saved_tensors
         dx, dres, dw, db = drop_res_ln_bwd(x, res, weight, _prep(g), ctx.rate,
-                                           ctx.seed, ctx.eps)
-        return dx, dres, dw, db, None, None, None
+                                           ctx.seed, ctx.eps, ctx.row_base)
+        return dx, dres, dw, db, None, None, None, None
 
 
 class LNDropFunction(torch.autograd.Function):
@@ -360,38 +378,42 @@ class LNDropFunction(torch.autograd.Function):
     (``_ln_drop_vjp_fwd``)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, rate, seed, eps):
+    def forward(ctx, x, weight, bias, rate, seed, eps, row_base=0):
         x = _prep(x)
         ctx.save_for_backward(x, weight)
-        ctx.rate, ctx.seed, ctx.eps = rate, seed, eps
-        return ln_drop_fwd(x, weight, bias, rate, seed, eps)
+        ctx.rate, ctx.seed, ctx.eps, ctx.row_base = rate, seed, eps, row_base
+        return ln_drop_fwd(x, weight, bias, rate, seed, eps, row_base)
 
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         dx, dw, db = ln_drop_bwd(x, weight, _prep(g), ctx.rate, ctx.seed,
-                                 ctx.eps)
-        return dx, dw, db, None, None, None
+                                 ctx.eps, ctx.row_base)
+        return dx, dw, db, None, None, None, None
 
 
 def drop_res_ln(x, res, weight, bias, *, rate: float = 0.0, seed: int = 0,
-                eps: float = 1e-12, impl: str = "cuda"):
+                eps: float = 1e-12, impl: str = "cuda", row_base: int = 0):
     """``LayerNorm(dropout(x) + res)``: ``impl="cuda"`` through
     ``DropResLNFunction`` (the kernels on the card), ``"xla"`` the plain
-    forward under autograd."""
+    forward under autograd; the mask drawn at ``row_base``."""
     if impl == "cuda":
-        return DropResLNFunction.apply(x, res, weight, bias, rate, seed, eps)
+        return DropResLNFunction.apply(x, res, weight, bias, rate, seed, eps,
+                                       row_base)
     if impl == "xla":
-        return _drop_res_ln_torch(x, res, weight, bias, rate, seed, eps)
+        return _drop_res_ln_torch(x, res, weight, bias, rate, seed, eps,
+                                  row_base)
     raise ValueError(f"unknown drop_res_ln impl {impl!r}")
 
 
 def ln_drop(x, weight, bias, *, rate: float = 0.0, seed: int = 0,
-            eps: float = 1e-12, impl: str = "cuda"):
+            eps: float = 1e-12, impl: str = "cuda", row_base: int = 0):
     """``dropout(LayerNorm(x))``: ``impl="cuda"`` through ``LNDropFunction``,
-    ``"xla"`` the plain forward under autograd."""
+    ``"xla"`` the plain forward under autograd; the mask drawn at
+    ``row_base``."""
     if impl == "cuda":
-        return LNDropFunction.apply(x, weight, bias, rate, seed, eps)
+        return LNDropFunction.apply(x, weight, bias, rate, seed, eps,
+                                    row_base)
     if impl == "xla":
-        return _ln_drop_torch(x, weight, bias, rate, seed, eps)
+        return _ln_drop_torch(x, weight, bias, rate, seed, eps, row_base)
     raise ValueError(f"unknown ln_drop impl {impl!r}")

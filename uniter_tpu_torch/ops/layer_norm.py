@@ -153,7 +153,8 @@ def layer_norm_fwd(x, weight, bias, eps: float = 1e-12):
     rc = _kernels.entry("layer_norm_fwd")(_kernels.TAIL_CALL.pack(
         x.data_ptr(), 0, weight.data_ptr(), bias.data_ptr(), y.data_ptr(), 0,
         0, 0, x.numel() // h, h, 0, 1.0, 0, 0, float(eps),
-        _DTYPE_CODE[x.dtype], idx, torch._C._cuda_getCurrentRawStream(idx)))
+        _DTYPE_CODE[x.dtype], idx, torch._C._cuda_getCurrentRawStream(idx),
+        0))
     if rc:
         raise RuntimeError(f"layer_norm_fwd kernel launch failed: "
                            f"cudaError_t {rc} at {tuple(x.shape)} {x.dtype}")

@@ -15,8 +15,11 @@ sharding of its jitted step; here they are explicit calls:
 
   * ``all_reduce_sum``: the gradient sum of data parallelism, the loss
     denominators of the global batch and the reported metrics;
-  * ``reduce_scatter`` / ``all_gather`` on flat buffers: the sharded
-    optimizer (``--fsdp``);
+  * ``reduce_scatter`` / ``all_gather`` on flat buffers, any dtype for the
+    gather (bytes), fp32 for the sum: ``--fsdp``'s parameter gathers in
+    the forward and the backward and its gradient reduce-scatters
+    (``parallel/fsdp.py``), and the gathers of the sharded optimizer
+    state;
   * ``all_gather_list`` / ``all_gather_array`` / ``barrier``: the host
     collectives of evaluation, checkpoints and preemption.
 """

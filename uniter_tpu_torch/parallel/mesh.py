@@ -3,11 +3,11 @@
 
 The JAX package shards its batch over a ``data`` axis of a device mesh and
 lets ``jit`` insert the collectives; its parameters are replicated or,
-with ``--fsdp``, sharded over ``data`` (ZeRO-3), and its ``model`` axis
-(Megatron tensor parallelism) has rules but no driver that builds it. Here
-one process drives one device, the ``data`` axis is the process group
-(``parallel/collectives.py``) and the rules are plain functions of a
-parameter's name and shape:
+with ``--fsdp``, sharded over ``data`` (ZeRO-3), and it runs a forward
+under a ``model`` axis (Megatron tensor parallelism) in its tests, with no
+driver that builds one. Here one process drives one device, the ``data``
+axis is the process group (``parallel/collectives.py``) and the rules are
+plain functions of a parameter's name and shape:
 
   * ``_tp_spec``: column-sharded QKV and FFN-in kernels, row-sharded output
     projections, over ``model``;
@@ -19,11 +19,12 @@ parameter's name and shape:
 A rule sees each parameter as the JAX tree holds it (``models.checkpoint
 .reference_leaf``): a ``Dense`` kernel [in, out] where the tensor here is
 [out, in], and each encoder tensor as the stack of all its layers, so the
-specs are the JAX package's, carried through the weight bridge. The
-sharded optimizer (``training/optim.py``) shards the parameters whose spec
-names ``data``.
+specs are the JAX package's, carried through the weight bridge. Under
+``--fsdp`` the parameters whose spec names ``data`` are sharded at rest,
+with their optimizer state (``parallel/fsdp.py``, ``training/optim.py``).
 
-Executing a ``model`` axis is not ported: ``make_mesh`` refuses it.
+Executing a ``model`` axis is not ported yet: ``make_mesh`` refuses it
+(ROADMAP.md, "tensor-parallel model axis").
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ Spec = Tuple[Optional[str], ...]
 class MeshConfig:
     data: int = -1  # -1: every process
     model: int = 1
-    # shard parameters and optimizer state over data (ZeRO-3)
+    # shard parameters and their optimizer state over data at rest (ZeRO-3,
+    # parallel/fsdp.py)
     fsdp: bool = False
     # smallest parameter (elements) to shard; smaller ones stay replicated
     fsdp_min_size: int = 2 ** 16
@@ -60,13 +62,14 @@ class Mesh:
 
 def make_mesh(config: MeshConfig = MeshConfig()) -> Mesh:
     """The mesh of the running process group (``data`` = every process).
-    A ``model`` axis raises: tensor parallelism is not executed here
-    (ROADMAP.md lists it as still to port)."""
+    A ``model`` axis raises: tensor parallelism is not executed here yet
+    (ROADMAP.md, Queue 1: the tensor-parallel model axis)."""
     from uniter_tpu_torch.parallel.collectives import num_processes
 
     if config.model > 1:
         raise NotImplementedError(
-            "a model (tensor-parallel) axis is not ported; see ROADMAP.md")
+            "a model (tensor-parallel) axis is not ported yet; see "
+            "ROADMAP.md, Queue 1: the tensor-parallel model axis")
     n = num_processes()
     data = config.data if config.data > 0 else n
     if data != n:
@@ -144,7 +147,7 @@ def param_sharding_full(named_shapes: Iterable[Tuple[str, tuple]],
 
 
 def sharded_names(named_shapes, mesh: Mesh, config: MeshConfig):
-    """The parameters whose spec names ``data``: the sharded optimizer's
-    groups."""
+    """The parameters whose spec names ``data``: those ``--fsdp`` shards
+    at rest (``parallel/fsdp.py``)."""
     specs = param_sharding_full(named_shapes, mesh, config)
     return {n for n, s in specs.items() if "data" in s}

@@ -17,7 +17,9 @@ interrupted run consumed. Over N processes (``torchrun``) every rank
 builds the same candidate batches and takes its block of
 ``train_batch_size / N`` of each step's stack (mining needs a candidate
 batch whole, so the accumulation axis is what is split; the JAX driver's
-``local=False``, ``train_itm_hard_negatives.py:161-167``). Logs
+``local=False``, ``train_itm_hard_negatives.py:161-167``); its j-th
+candidate batch draws the dropout stream of the one process's
+``p * train_batch_size / N + j``-th (``make_train_step(accum_split=True)``). Logs
 ``perf/hn_per_s`` (mined negatives per second) every ``log_steps``;
 validates (windowed recall) and saves every ``valid_steps``.
 """
@@ -36,7 +38,9 @@ from uniter_tpu_torch.data.itm import (
     ItmRankDatasetHardNegFromImage, ItmRankDatasetHardNegFromText,
     hard_neg_collate)
 from uniter_tpu_torch.models.itm import UniterForImageTextRetrievalHardNeg
+from uniter_tpu_torch.parallel.fsdp import local_params
 from uniter_tpu_torch.parallel.collectives import num_processes
+from uniter_tpu_torch.parallel.fsdp import local_params
 from uniter_tpu_torch.training import driver
 from uniter_tpu_torch.training.optim import build_optimizer
 from uniter_tpu_torch.training.sched import get_lr_schedule
@@ -167,7 +171,8 @@ def main(opts):
 
     # loss_scale "sum" x the 1/N share = the one-process "mean" step
     step = make_train_step(hard_neg_loss, loss_scale="sum",
-                           accum_steps=opts.train_batch_size // world)
+                           accum_steps=opts.train_batch_size // world,
+                           accum_split=True)
     device, cdt = torch.device(opts.device), cfg.compute_dtype
     it = DevicePrefetcher(
         stacked_batches(loader_i, loader_t, opts.train_batch_size,
@@ -205,7 +210,9 @@ def main(opts):
                     t_window, window_start = time.time(), state.step
                 if opts.valid_steps and state.step % opts.valid_steps == 0:
                     flush()
-                    logs = train_itm.validate_retrieval(state.model, val_ds)
+                    with local_params(state.model):
+                        logs = train_itm.validate_retrieval(state.model,
+                                                            val_ds)
                     LOGGER.info("step %d: r_mean %.4f", state.step,
                                 logs["r_mean"])
                     TB_LOGGER.log_scalar_dict(

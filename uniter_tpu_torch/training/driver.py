@@ -27,9 +27,10 @@ blocking), ``--warmup_compile`` (ahead-of-time XLA compiles), ``--fp16``
 and ``--pin_mem`` (batches are always pinned). ``--remat``,
 ``--param_dtype bfloat16`` (master weights; needs ``--fused_adamw 1``),
 ``--optim adam``/``adamax``, ``--dropout_impl u16``/``u8``, ``--wire_codec
-int8``, ``--profile_dir`` and ``--fsdp`` (the optimizer state of the
-parameters of ``--fsdp_min_size`` elements or more sharded over the ranks)
-act as in the JAX drivers
+int8``, ``--profile_dir`` and ``--fsdp`` (the parameters of
+``--fsdp_min_size`` elements or more, and their optimizer state, sharded
+over the ranks at rest and gathered a unit at a time in the forward and
+the backward: ``parallel/fsdp.py``) act as in the JAX drivers
 (``uniter_tpu/training/driver.py:147-180,275-285,440-455``).
 """
 
@@ -142,9 +143,9 @@ def add_common_args(parser: argparse.ArgumentParser):
                              "in the backward (less activation memory, "
                              "about one more forward)")
     parser.add_argument("--fsdp", action="store_true",
-                        help="ZeRO: shard the optimizer state (moments, "
-                             "and the masters of --param_dtype bfloat16) "
-                             "over the processes")
+                        help="ZeRO-3: shard the parameters and their "
+                             "optimizer state (moments, and the masters of "
+                             "--param_dtype bfloat16) over the processes")
     parser.add_argument("--fsdp_min_size", type=int, default=2 ** 16,
                         help="smallest parameter (elements) to shard; "
                              "smaller ones stay replicated")

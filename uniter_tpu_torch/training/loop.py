@@ -15,7 +15,9 @@ Over several processes (``torchrun``) every rank runs the loop in
 lockstep on its block of each global batch: the step sums the gradients
 and reports the global loss (``training/step.py``), every rank validates
 its share of the evaluation set and ``validate_fn`` gathers the result, so
-the best-checkpoint decision is one value on every rank; each rank joins
+the best-checkpoint decision is one value on every rank (under ``--fsdp``
+with the parameters gathered once around it, ``parallel.fsdp
+.local_params``); each rank joins
 the saves' gathers and rank 0 writes, logs and profiles; the preemption
 guard agrees on the stop step (``training/preempt.py``).
 
@@ -49,6 +51,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from uniter_tpu_torch.parallel.fsdp import local_params
 from uniter_tpu_torch.training.step import TrainState, make_train_step
 from uniter_tpu_torch.utils.logger import LOGGER, RunningMeter, TB_LOGGER
 
@@ -398,7 +401,8 @@ class TrainLoop:
                 flush()
                 improved = None
                 if self.validate_fn is not None:
-                    logs = self.validate_fn(state, global_step)
+                    with local_params(state.model):
+                        logs = self.validate_fn(state, global_step)
                     if logs:
                         TB_LOGGER.log_scalar_dict(
                             {f"valid/{k}": v for k, v in logs.items()},
@@ -611,7 +615,8 @@ class MixedTaskLoop:
             if self.valid_steps and global_step % self.valid_steps == 0:
                 flush()
                 if self.validate_fn is not None:
-                    logs = self.validate_fn(state, global_step)
+                    with local_params(state.model):
+                        logs = self.validate_fn(state, global_step)
                     if logs:
                         LOGGER.info("step %d validation: %s", global_step,
                                     logs)

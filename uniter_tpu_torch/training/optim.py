@@ -94,30 +94,32 @@ OPTIMS = ("adamw", "adam", "adamax")
 class FusedAdamW:
     """One-pass AdamW (or Adam, Adamax) over flat per-group buffers, with
     the optional bf16 parameter storage of master mode (module docstring)
-    and, over a process group, data parallelism and the sharded state of
-    ``--fsdp`` (below).
+    and, over a process group, data parallelism and the sharded
+    parameters of ``--fsdp`` (below).
 
     ``state()``/``load_state()`` give the moments per parameter name, the
     update count and the last step's pre-clip gradient norm ``gnorm``;
     ``masters()``/``load_masters()`` the fp32 values of the bf16-stored
-    parameters.
+    parameters; ``state_bytes()`` and ``param_bytes()`` what a rank keeps
+    of each.
 
     Over several processes (``parallel/collectives.py``) each rank holds
-    its own gradients; a step first sums each group's flat gradient over
-    the ranks (one all-reduce a group: the sum, not the mean, is the
-    contract, reference utils/distributed.py:16-43), so the norm, the clip
-    and the update are the same on every rank. The parameters named in
-    ``shard`` (``--fsdp``: those whose placement spec names ``data``,
-    ``parallel/mesh.py``) form groups of their own whose flat buffer is
-    padded to a multiple of the world size; each rank keeps only its block
-    of both moments (and, in master mode, of the fp32 masters), takes its
-    block of the summed gradient by a reduce-scatter, updates it and
-    all-gathers the parameters (JAX ``place_state(fsdp=True)`` and
-    ``opt_state_sharding``). The norm adds the blocks' sums of squares
-    over the ranks. The full parameters stay on every rank. ``state()``,
-    ``masters()`` and their loads gather and take blocks by parameter
-    name, so a checkpoint does not depend on the world size; every rank
-    calls them together."""
+    its own gradients of the replicated parameters; a step first sums each
+    replicated group's flat gradient over the ranks (one all-reduce a
+    group: the sum, not the mean, is the contract, reference
+    utils/distributed.py:16-43). The parameters ``shard`` holds
+    (``parallel/fsdp.py``: ``--fsdp``, those whose placement spec names
+    ``data``, ``parallel/mesh.py``) are not in ``named_params``: each of
+    its groups is held at rest as this rank's block of a padded flat
+    buffer, both moments too, and its gradient arrives as that block, from
+    the backward's reduce-scatter (JAX ``place_state(fsdp=True)`` and
+    ``opt_state_sharding``). A step updates the block in place, in master
+    mode the fp32 masters and then their bf16 copy; nothing is gathered
+    after it. The norm adds the blocks' sums of squares over the ranks, so
+    the norm, the clip and every update are the one-process ones.
+    ``state()``, ``masters()`` and their loads gather and take blocks by
+    parameter name, so a checkpoint does not depend on the world size;
+    every rank calls them together."""
 
     def __init__(self, named_params, learning_rate: Callable | float, *,
                  b1: float = 0.9, b2: float = 0.98, eps: float = 1e-6,
@@ -126,10 +128,7 @@ class FusedAdamW:
                  grad_norm: float = 0.0, lr_mul: float = 1.0,
                  lr_mul_mask: Optional[Dict[str, bool]] = None,
                  mu_dtype=None, nu_dtype=None, optim: str = "adamw",
-                 master: bool = False, shard: Iterable[str] = ()):
-        from uniter_tpu_torch.parallel.collectives import (
-            num_processes, process_index)
-
+                 master: bool = False, shard=None):
         if optim not in OPTIMS:
             raise ValueError(f"invalid optimizer {optim}")
         self.optim = optim
@@ -141,95 +140,78 @@ class FusedAdamW:
         self.count = 0
         self.low = []  # (name, bf16 parameter, its fp32 master view)
         named_params = list(named_params)
-        device = named_params[0][1].device
+        device = (named_params[0][1] if named_params
+                  else shard.groups[0].block).device
         self.gnorm = torch.zeros((), dtype=torch.float32, device=device)
-        world, rank = num_processes(), process_index()
-        shard = set(shard)
         groups: Dict[tuple, list] = {}
         for name, p in named_params:
             if p.dtype != torch.float32:
                 raise TypeError(f"{name}: parameters are stored fp32")
-            key = ((decay or {}).get(name, True),
-                   lr_mul if (lr_mul_mask or {}).get(name, False) else 1.0,
-                   name in shard)
-            groups.setdefault(key, []).append((name, p))
+            groups.setdefault(self.key(name, decay, lr_mul, lr_mul_mask),
+                              []).append((name, p))
         self.groups = []
-        for (dec, mul, sharded), members in groups.items():
+        for (dec, mul), members in groups.items():
             n = sum(p.numel() for _, p in members)
-            size = -(-n // world) * world if sharded else n
-            lo, hi = (rank * size // world, (rank + 1) * size // world) \
-                if sharded else (0, n)
-            full = torch.zeros(size, dtype=torch.float32, device=device)
+            flat = torch.zeros(n, dtype=torch.float32, device=device)
             views, ofs = [], 0
             for name, p in members:
-                view = full[ofs:ofs + p.numel()].view_as(p)
+                view = flat[ofs:ofs + p.numel()].view_as(p)
                 view.copy_(p.data)
                 if master and p.numel() >= MASTER_MIN_SIZE:
                     p.data = view.to(torch.bfloat16)
-                    if not sharded:
-                        self.low.append((name, p, view))
-                elif master and sharded:
-                    p.data = view.clone()  # the masters are a block only
+                    self.low.append((name, p, view))
                 else:
                     p.data = view
                 views.append((name, p, ofs))
                 ofs += p.numel()
-            # ``flat``: the fp32 values this rank updates (all of them, or
-            # its block, which in master mode is all it keeps)
-            flat = full[lo:hi].clone() if (master and sharded) else full
-            mu = torch.zeros(hi - lo, dtype=mu_dtype or torch.float32,
-                             device=device)
-            nu = torch.zeros(hi - lo, dtype=nu_dtype or torch.float32,
-                             device=device)
-            self.groups.append(dict(decay=dec, mul=mul, flat=flat, mu=mu,
-                                    nu=nu, params=views, sharded=sharded,
-                                    size=size, lo=lo, hi=hi,
-                                    master=master and sharded))
+            self.groups.append(self._moments(dict(
+                decay=dec, mul=mul, flat=flat, params=views, sharded=False,
+                size=n, lo=0, hi=n), mu_dtype, nu_dtype))
+        for g in (shard.groups if shard else []):
+            dec, mul = g.key
+            self.groups.append(self._moments(dict(
+                decay=dec, mul=mul, flat=g.block.data, shard=g,
+                params=[(name, mod._parameters[attr], ofs)
+                        for name, (mod, attr), _, ofs, _ in g.members],
+                sharded=True, size=g.size, lo=g.lo, hi=g.hi), mu_dtype,
+                nu_dtype))
+
+    @staticmethod
+    def key(name, decay, lr_mul, lr_mul_mask) -> tuple:
+        """A parameter's group: (weight decay applies, lr multiplier)."""
+        return ((decay or {}).get(name, True),
+                lr_mul if (lr_mul_mask or {}).get(name, False) else 1.0)
+
+    @staticmethod
+    def _moments(group, mu_dtype, nu_dtype):
+        n, dev = group["hi"] - group["lo"], group["flat"].device
+        group["mu"] = torch.zeros(n, dtype=mu_dtype or torch.float32,
+                                  device=dev)
+        group["nu"] = torch.zeros(n, dtype=nu_dtype or torch.float32,
+                                  device=dev)
+        return group
 
     @staticmethod
     def _flat_grad(group):
-        grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
-                 .reshape(-1).float() for _, p, _ in group["params"]]
-        pad = group["size"] - sum(p.numel() for _, p, _ in group["params"])
-        if pad:
-            grads.append(grads[0].new_zeros(pad))
-        return torch.cat(grads)
-
-    def _own(self, group):
-        """The fp32 values this rank updates: ``flat`` or its block."""
-        if group["sharded"] and not group["master"]:
-            return group["flat"][group["lo"]:group["hi"]]
-        return group["flat"]
-
-    def _gather_params(self, group):
-        """After an update of a sharded group, every rank's parameters
-        from the blocks of all."""
-        from uniter_tpu_torch.parallel.collectives import all_gather
-
-        if not group["master"]:
-            all_gather(group["flat"], self._own(group).clone())
-            return
-        full = all_gather(torch.empty(group["size"], dtype=torch.float32,
-                                      device=group["flat"].device),
-                          group["flat"])
-        for _, p, ofs in group["params"]:
-            # bf16 parameters: one round to nearest even
-            p.data.copy_(full[ofs:ofs + p.numel()].view_as(p))
+        return torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1).float()
+                          for _, p, _ in group["params"]])
 
     @torch.no_grad()
     def step(self):
-        """Apply one update from the parameters' ``.grad`` and clear them."""
-        from uniter_tpu_torch.parallel.collectives import (
-            all_reduce_sum, reduce_scatter)
+        """Apply one update from the parameters' ``.grad`` (a sharded
+        group's: its block's) and clear them."""
+        from uniter_tpu_torch.parallel.collectives import all_reduce_sum
 
         grads = []
         for group in self.groups:
-            g = self._flat_grad(group)
             if group["sharded"]:
-                g = reduce_scatter(torch.empty_like(group["mu"],
-                                                    dtype=torch.float32), g)
+                block = group["shard"].block
+                g = block.grad if block.grad is not None else \
+                    torch.zeros_like(block)
+                block.grad = None
             else:
-                g = all_reduce_sum(g)
+                g = all_reduce_sum(self._flat_grad(group))
             grads.append(g)
         squares = [g.square().sum() for g in grads]
         blocks = [i for i, group in enumerate(self.groups)
@@ -253,7 +235,7 @@ class FusedAdamW:
         for group, g in zip(self.groups, grads):
             if clip is not None:
                 g.mul_(clip)
-            own = self._own(group)
+            own = group["flat"]
             mu32 = group["mu"].float().mul_(self.b1).add_(g * (1.0 - self.b1))
             if self.optim == "adamax":
                 nu32 = torch.maximum(g.abs_().add_(self.eps),
@@ -269,8 +251,8 @@ class FusedAdamW:
             own.add_(u.mul_(float(f32(-lr) * f32(group["mul"]))))
             group["mu"].copy_(mu32)
             group["nu"].copy_(nu32)
-            if group["sharded"]:
-                self._gather_params(group)
+            if group["sharded"] and group["shard"].low:
+                group["shard"].block16.copy_(own)  # one round to nearest
             for _, p, _ in group["params"]:
                 p.grad = None
         for _, p, view in self.low:
@@ -297,10 +279,9 @@ class FusedAdamW:
         place; gathered copies for a sharded group)."""
         out = {name: view for name, _, view in self.low}
         for group in self.groups:
-            if group["master"]:
-                full = self._by_name(group, self._full(group, group["flat"]))
-                out.update({name: full[name] for name, p, _ in
-                            group["params"] if p.dtype == torch.bfloat16})
+            if group["sharded"] and group["shard"].low:
+                out.update(self._by_name(group, self._full(group,
+                                                           group["flat"])))
         return out
 
     def load_masters(self, weights: Dict[str, torch.Tensor]):
@@ -310,11 +291,9 @@ class FusedAdamW:
             view.copy_(weights[name])
             p.data.copy_(view)
         for group in self.groups:
-            if group["master"]:
-                full = self._assemble(group, weights, torch.float32)
-                group["flat"].copy_(full[group["lo"]:group["hi"]])
-                for name, p, ofs in group["params"]:
-                    p.data.copy_(full[ofs:ofs + p.numel()].view_as(p))
+            if group["sharded"] and group["shard"].low:
+                group["shard"].load(self._assemble(group, weights,
+                                                   torch.float32))
 
     def _assemble(self, group, by_name, dtype):
         full = torch.zeros(group["size"], dtype=dtype,
@@ -348,7 +327,22 @@ class FusedAdamW:
                 + g["nu"].numel() * g["nu"].element_size()
                 for g in self.groups)
         n += sum(view.numel() * 4 for _, _, view in self.low)
-        n += sum(g["flat"].numel() * 4 for g in self.groups if g["master"])
+        n += sum(g["flat"].numel() * 4 for g in self.groups
+                 if g["sharded"] and g["shard"].low)
+        return n
+
+    def param_bytes(self) -> int:
+        """Bytes of parameters this rank holds at rest: every replicated
+        parameter's storage, and of a sharded group its block as the
+        parameters are stored (bf16 in master mode, else fp32), padding
+        included."""
+        n = 0
+        for g in self.groups:
+            if g["sharded"]:
+                n += g["shard"].stored_bytes()
+            else:
+                n += sum(p.numel() * p.element_size()
+                         for _, p, _ in g["params"])
         return n
 
 
@@ -365,9 +359,9 @@ def build_optimizer(model: nn.Module, learning_rate, *, betas=(0.9, 0.98),
     (optax.adamw), as the JAX package's does. ``adam`` and ``adamax`` are
     that package's optax chains (no decay, fp32 moments). ``master`` (bf16
     parameter storage) needs the fused AdamW, as there. ``fsdp`` shards
-    the state of the parameters that ``parallel/mesh.py``'s placement
-    shards over the process group's ``data`` axis (``fsdp_min_size``
-    elements or more)."""
+    the parameters that ``parallel/mesh.py``'s placement shards over the
+    process group's ``data`` axis (``fsdp_min_size`` elements or more),
+    with their state, at rest (``parallel/fsdp.py``: ZeRO-3)."""
     if master and not (fused and optim == "adamw"):
         raise ValueError("master-weight mode (--param_dtype bfloat16) "
                          "requires the fused adamw optimizer")
@@ -380,19 +374,26 @@ def build_optimizer(model: nn.Module, learning_rate, *, betas=(0.9, 0.98),
     else:
         decay = {n: False for n in names}
         mu_dtype = nu_dtype = None
-    shard = ()
+    mul_mask = (head_mask(names, lr_mul_paths)
+                if lr_mul != 1.0 and lr_mul_paths else None)
+    replicated, sharding = params, None
     if fsdp:
+        from uniter_tpu_torch.parallel.fsdp import shard
         from uniter_tpu_torch.parallel.mesh import (
             MeshConfig, make_mesh, sharded_names)
 
-        shard = sharded_names([(n, p.shape) for n, p in params], make_mesh(),
-                              MeshConfig(fsdp=True,
-                                         fsdp_min_size=fsdp_min_size))
+        sizes = {n: p.numel() for n, p in params}
+        on = sharded_names([(n, p.shape) for n, p in params], make_mesh(),
+                           MeshConfig(fsdp=True, fsdp_min_size=fsdp_min_size))
+        if on:
+            sharding = shard(
+                model, on, lambda n: FusedAdamW.key(n, decay, lr_mul,
+                                                    mul_mask),
+                lambda n: master and sizes[n] >= MASTER_MIN_SIZE)
+            replicated = [(n, p) for n, p in params if n not in on]
     return FusedAdamW(
-        params, learning_rate, b1=betas[0], b2=betas[1], eps=eps,
+        replicated, learning_rate, b1=betas[0], b2=betas[1], eps=eps,
         weight_decay=weight_decay, decay=decay,
-        grad_norm=grad_norm or 0.0, lr_mul=lr_mul,
-        lr_mul_mask=(head_mask(names, lr_mul_paths)
-                     if lr_mul != 1.0 and lr_mul_paths else None),
+        grad_norm=grad_norm or 0.0, lr_mul=lr_mul, lr_mul_mask=mul_mask,
         mu_dtype=mu_dtype, nu_dtype=nu_dtype, optim=optim, master=master,
-        shard=shard)
+        shard=sharding)
