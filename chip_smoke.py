@@ -858,51 +858,68 @@ def attention_row_base(torch, gen):
     base; and K1's mask itself against ``keep_mask`` at that base, bit for
     bit: with q = k = 0 and no padding P is uniform, and with v one-hot
     over the head dim (D = S = 64) output (b, q, h, k) is positive exactly
-    where score (b, h, q, k) was kept."""
+    where score (b, h, q, k) was kept. Then the same at a tensor-parallel
+    rank's heads (``HEAD_OFFSETS``: heads ``head0``... of ``heads_total``,
+    as views of the whole q/k/v) at that base, and K1's mask there
+    against ``keep_mask``'s head block of the whole [B, heads_total, S, S]
+    mask."""
     from uniter_tpu_torch.ops.attention import (
         _mha_bwd_lse_torch, _mha_torch, mha_bwd, mha_fwd)
     from uniter_tpu_torch.ops.dropout import keep_mask
 
     b, s, h, d = TRAIN_SHAPES[0]
-    rb = dict(row_base=ROW_BASE)
-    for name, dtype in (("float32", torch.float32),
-                        ("bfloat16", torch.bfloat16)):
-        q, k, v, bias, g = train_inputs(torch, b, s, h, d, dtype, gen)
-        qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
-        lse = torch.empty(b, h, s, device="cuda")
-        lo = (torch.empty_like(lse) if name == "float32"
-              else torch.empty_like(q))
-        key = "lse_lo" if name == "float32" else "out_lo"
-        out = mha_fwd(q, k, v, bias, RATE, 99, lse=lse, **{key: lo}, **rb)
-        ref = _mha_torch(qf, kf, vf, bias, RATE, 99, **rb)
-        got = mha_bwd(q, k, v, bias, g, RATE, 99, out=out, lse=lse,
-                      **{key: lo}, **rb)
-        full = out.float() + (lo.float() if name == "bfloat16" else 0.0)
-        want = _mha_bwd_lse_torch(
-            qf, kf, vf, bias, gf, full, lse, RATE, 99,
-            lse_lo=lo if name == "float32" else None, **rb)
-        if name == "float32":
-            e1 = (out - ref).abs().max().item()
-            e2 = max((x - w).abs().max().item() for x, w in zip(got, want))
-            ok = e1 <= K1_TOL[name] and e2 <= K2_TOL_FP32
-        else:
-            e1 = excess(out, ref, 2.0**-8)
-            e2 = max(excess(x, w, 2.0**-8) for x, w in zip(got, want))
-            ok = e1 <= K1_TOL[name] and e2 <= K2_TOL_BF16
-        print(f"[K2] B={b} S={s} H={h} D={d} {name} rate {RATE} at row base "
-              f"{ROW_BASE}: K1 {e1:.3e}, K2 {e2:.3e} against the plain "
-              f"versions at that base {'ok' if ok else 'FAIL'}")
-        check(ok, f"K1/K2 at row base {ROW_BASE} ({name})")
-        z = torch.zeros(2, 64, 2, 64, device="cuda", dtype=dtype)
-        onehot = torch.eye(64, device="cuda", dtype=dtype)[None, :, None, :]
-        kept = mha_fwd(z, z, onehot.expand(2, 64, 2, 64).contiguous(),
-                       torch.zeros(2, 64, device="cuda"), RATE, 4242,
-                       **rb).permute(0, 2, 1, 3) > 0
-        mask = keep_mask(4242, 0, (2, 2, 64, 64), RATE, "cuda", **rb)
-        same = torch.equal(kept, mask)
-        print(f"[K2] K1's mask ({name}) at row base {ROW_BASE} equal to "
-              f"keep_mask at that base bit for bit: {same}")
-        check(same, f"K1's mask at a row base ({name})")
+    for heads_total, head0, n in [(h, 0, h)] + HEAD_OFFSETS:
+        rb = dict(row_base=ROW_BASE)
+        if n != heads_total:
+            rb.update(heads_total=heads_total, head0=head0)
+        where = (f"heads {head0}..{head0 + n - 1} of {heads_total}"
+                 if n != heads_total else "")
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            q, k, v, bias, g = train_inputs(torch, b, s, heads_total, d,
+                                            dtype, gen)
+            blk = (slice(None), slice(None), slice(head0, head0 + n))
+            q, k, v, g = (x[blk] for x in (q, k, v, g))
+            qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+            lse = torch.empty(b, n, s, device="cuda")
+            lo = (torch.empty_like(lse) if name == "float32"
+                  else torch.empty(b, s, n, d, device="cuda", dtype=dtype))
+            key = "lse_lo" if name == "float32" else "out_lo"
+            out = mha_fwd(q, k, v, bias, RATE, 99, lse=lse, **{key: lo},
+                          **rb)
+            ref = _mha_torch(qf, kf, vf, bias, RATE, 99, **rb)
+            got = mha_bwd(q, k, v, bias, g, RATE, 99, out=out, lse=lse,
+                          **{key: lo}, **rb)
+            full = out.float() + (lo.float() if name == "bfloat16" else 0.0)
+            want = _mha_bwd_lse_torch(
+                qf, kf, vf, bias, gf, full, lse, RATE, 99,
+                lse_lo=lo if name == "float32" else None, **rb)
+            if name == "float32":
+                e1 = (out - ref).abs().max().item()
+                e2 = max((x - w).abs().max().item()
+                         for x, w in zip(got, want))
+                ok = e1 <= K1_TOL[name] and e2 <= K2_TOL_FP32
+            else:
+                e1 = excess(out, ref, 2.0**-8)
+                e2 = max(excess(x, w, 2.0**-8) for x, w in zip(got, want))
+                ok = e1 <= K1_TOL[name] and e2 <= K2_TOL_BF16
+            print(f"[K2] B={b} S={s} H={n} D={d} {name} rate {RATE} at row "
+                  f"base {ROW_BASE} {where}: K1 {e1:.3e}, K2 {e2:.3e} "
+                  f"against the plain versions at those arguments "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"K1/K2 at row base {ROW_BASE} {where} ({name})")
+            z = torch.zeros(2, 64, n, 64, device="cuda", dtype=dtype)
+            onehot = torch.eye(64, device="cuda", dtype=dtype)[
+                None, :, None, :]
+            kept = mha_fwd(z, z, onehot.expand(2, 64, n, 64).contiguous(),
+                           torch.zeros(2, 64, device="cuda"), RATE, 4242,
+                           **rb).permute(0, 2, 1, 3) > 0
+            mask = keep_mask(4242, 0, (2, heads_total, 64, 64), RATE,
+                             "cuda", row_base=ROW_BASE)[:, head0:head0 + n]
+            same = torch.equal(kept, mask)
+            print(f"[K2] K1's mask ({name}) at row base {ROW_BASE} {where} "
+                  f"equal to keep_mask's at that base bit for bit: {same}")
+            check(same, f"K1's mask at a row base {where} ({name})")
 
 
 def time_attention(torch, F, q, k, v, bias, g, mha_fwd, mha_bwd, _mha_torch,
@@ -1297,6 +1314,10 @@ def tail_phase(torch):
 # counter's high word is live (data parallelism passes b0 * S to the tails
 # and b0 * H * S to the attention kernels)
 ROW_BASE = 2**33 + 4099
+# (heads_total, head0, heads of the launch): a rank's heads under a model
+# axis of 2 (uniter-base's second half), and an uneven place (3 of 16 from
+# head 5: an offset that is not a multiple of the launch's heads)
+HEAD_OFFSETS = [(12, 6, 6), (16, 5, 3)]
 
 
 def tail_row_base(torch, fb, keep_mask, gen):
@@ -4898,6 +4919,13 @@ def dist_worker(spec_path):
 
     with open(spec_path) as f:
         spec = json.load(f)
+    if spec["module"] == "tp":
+        out = tp_worker(spec)
+        with open(f"{spec['out']}-{out['rank']}.json", "w") as f:
+            json.dump(out, f)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        return 0
     module = importlib.import_module(f"uniter_tpu_torch.{spec['module']}")
     losses, val, first_k3 = {}, {k: 0 for k in KERNELS}, []
     guard = loop.NanGuard.check
@@ -4962,22 +4990,240 @@ def dist_worker(spec_path):
         torch.distributed.destroy_process_group()
 
 
+TP_STEPS = 3  # fp32 steps of the 2x2 grid and its one process
+TP_RESUME = 5  # both resumed at world 1 to this step
+TP_B, TP_T, TP_R = 16, 40, 36  # the grid's global batch (S = 76)
+TP_ANSWERS = 3129
+
+
+def tp_batch(torch, step, dtype, device="cuda"):
+    """Global batch ``step`` of the tensor-parallel runs: TP_B examples
+    with random text and region lengths (padding in both segments),
+    targets with 0.3% positives, every row real; made from (SEED, step),
+    so every rank and the one process see the same batches."""
+    rng = np.random.RandomState(SEED + 1000 + step)
+    b, t, r = TP_B, TP_T, TP_R
+    attn = np.zeros((b, t + r), np.int32)
+    for i, (tl, nr) in enumerate(zip(rng.randint(8, t + 1, b),
+                                     rng.randint(10, r + 1, b))):
+        attn[i, :tl] = 1
+        attn[i, t:t + nr] = 1
+    batch = dict(
+        input_ids=rng.randint(1, 28000, (b, t)) * attn[:, :t],
+        position_ids=np.tile(np.arange(t), (b, 1)),
+        img_feat=rng.randn(b, r, 2048).astype(np.float32),
+        img_pos_feat=rng.rand(b, r, 7).astype(np.float32),
+        attn_mask=attn,
+        targets=(rng.rand(b, TP_ANSWERS) < 0.003).astype(np.float32),
+        ex_weight=np.ones(b, np.float32))
+    out = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in
+           batch.items()}
+    out["img_feat"] = out["img_feat"].to(dtype)
+    out["img_pos_feat"] = out["img_pos_feat"].to(dtype)
+    return out
+
+
+def tp_worker(spec):
+    """One rank of the tensor-parallel runs (``dist_phase``), or the one
+    process they are held to: the VQA train step at uniter-base through
+    ``make_mesh`` (``spec["model"]`` ranks a model axis), ``place_state``
+    (``--fsdp`` at 65536 with ``spec["fsdp"]``) and ``make_train_step``,
+    K1-K6 and K9 (``ffn_impl`` cuda), dropout RATE, in ``spec["dtype"]``,
+    fused AdamW with bf16 moments (the CLI runs' ``moment_dtype``),
+    ``loss_scale`` "mean" (the data ranks' gradients sum to the global
+    batch's). Steps ``spec["first"]`` to
+    ``spec["last"]`` on ``tp_batch``; ``resume``/``save``: a
+    ``TrainStateSaver`` directory to restore from first, to save to
+    after. The weights are ``jax_layout_params``'s with seeded biases in
+    the layers' projections. With ``spec["probe"]`` it also keeps the
+    first K1 launch's arguments and shape (after the steps K1 is replayed
+    there and its mask goes to an .npy beside, held against the plain
+    mask at those arguments) and layer 0's FFN input, weights and output,
+    and after the steps holds that output against K9 on the whole FFN on
+    the same input (the one process's kernel), with two planted faults
+    (b2 on every rank, a wrong W2 block) that the tolerance must refuse
+    (``tp_checks``). Returns the record ``dist_worker`` writes."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models.checkpoint import state_dict_from_jax_params
+    from uniter_tpu_torch.models.vqa import UniterForVisualQuestionAnswering
+    from uniter_tpu_torch.ops import attention
+    from uniter_tpu_torch.ops.attention import _probs_mask
+    from uniter_tpu_torch.ops.ffn import ffn_fwd
+    from uniter_tpu_torch.parallel import collectives as C
+    from uniter_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from uniter_tpu_torch.train_vqa import vqa_loss
+    from uniter_tpu_torch.training.driver import place_state
+    from uniter_tpu_torch.training.sched import get_lr_schedule
+    from uniter_tpu_torch.training.step import make_train_step
+    from uniter_tpu_torch.utils.const import IMG_DIM
+    from uniter_tpu_torch.utils.save import TrainStateSaver
+
+    import torch
+
+    dev = torch.device("cuda")
+    if C.launched():
+        dev = torch.device(C.init_distributed("cuda", "gloo"))
+    make_mesh(MeshConfig(model=spec["model"]))
+    dtype = getattr(torch, spec["dtype"])
+    cfg = base_config(dtype=spec["dtype"], hidden_dropout_prob=RATE,
+                      attention_probs_dropout_prob=RATE,
+                      attention_impl="cuda", block_fusion="cuda",
+                      ffn_impl="cuda")
+    model = UniterForVisualQuestionAnswering(cfg, IMG_DIM, TP_ANSWERS)
+    sd = state_dict_from_jax_params(jax_layout_params(
+        base_config(), TP_ANSWERS, IMG_DIM, SEED))
+    # seeded biases in the layers' projections (normal(0, 0.02), not the
+    # init's zeros), so that a row-parallel bias added on every model rank,
+    # or not at all, moves the losses from step 1 and K9's comparison
+    rng = np.random.default_rng(SEED + 17)
+    for k in sorted(sd):
+        if ".encoder.layer." in k and k.endswith(".bias") \
+                and "LayerNorm" not in k:
+            sd[k] = (0.02 * rng.standard_normal(sd[k].shape)).astype(
+                np.float32)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    state = place_state(model.to(dev), get_lr_schedule(8e-5, 2, 100),
+                        grad_norm=2.0, lr_mul=10.0, lr_mul_paths=("vqa_",),
+                        fused=True, mu_dtype=torch.bfloat16,
+                        nu_dtype=torch.bfloat16, fsdp=spec["fsdp"],
+                        fsdp_min_size=65536)
+    if spec.get("resume"):
+        check(TrainStateSaver(spec["resume"]).restore(state) is not None,
+              "nothing to resume")
+    step = make_train_step(
+        lambda m, b, g: (vqa_loss(m, b, g, TP_ANSWERS), {}),
+        loss_scale="mean")
+    probe = {}
+    if spec.get("probe"):
+        real_k1 = attention.mha_fwd
+
+        def first_k1(q, *a, **kw):
+            if "k1" not in probe:
+                probe["k1"] = (tuple(q.shape), q.dtype, kw.get("row_base", 0),
+                               kw.get("heads_total"), kw.get("head0", 0),
+                               a[3] if len(a) > 3 else kw.get("rate"),
+                               a[4] if len(a) > 4 else kw.get("seed"))
+            return real_k1(q, *a, **kw)
+
+        first_k1.launches = 0  # the kernel's count lands here (its name)
+        attention.mha_fwd = first_k1
+        layer = model.uniter.encoder.layer[0]
+        real_ffn = layer.feed_forward
+
+        def kept_ffn(x):
+            y = real_ffn(x)
+            if "ffn" not in probe:
+                w1, w2 = layer.intermediate.dense, layer.output.dense
+                probe["ffn"] = [t.detach().clone() for t in (
+                    x, w1.weight.to(dtype), w1.bias, w2.weight.to(dtype),
+                    w2.bias, y)]
+            return y
+
+        layer.feed_forward = kept_ffn
+    d, dp = C.data_index(), C.data_size()
+    losses = []
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(spec["first"], spec["last"]):
+        glob = tp_batch(torch, i, dtype, dev)
+        n = TP_B // dp
+        _, m = step(state, {k: v[d * n:(d + 1) * n] for k, v in
+                            glob.items()}, SEED)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if spec.get("save"):
+        TrainStateSaver(spec["save"]).save(state.step, state)
+    rank = C.process_index()
+    out = {"rank": rank, "grid": [d, C.model_index()], "losses": losses,
+           "launches": launches, "validation": {k: 0 for k in KERNELS},
+           "seconds": secs, "state_bytes": state.opt.state_bytes(),
+           "param_bytes": state.opt.param_bytes(), "peak_bytes": peak,
+           "step": state.step}
+    if "k1" in probe:
+        # K1 replayed on the card at the first launch's arguments and shape:
+        # q = k = 0 and no padding make P uniform, and with v one-hot over
+        # a head dim of 128 (>= S) output (b, q, h, k) is positive exactly
+        # where score (b, h, q, k) was kept. Its bits go to the .npy; the
+        # plain mask at the same arguments is held against them here.
+        attention.mha_fwd = real_k1
+        shape, dt, base, total, head0, rate, seed = probe["k1"]
+        b, s, h, _ = shape
+        check(s <= 128, f"tp: S {s} exceeds the one-hot head dim")
+        z = torch.zeros(b, s, h, 128, device=dev, dtype=dt)
+        hot = torch.eye(s, 128, device=dev, dtype=dt)[None, :, None, :]
+        keep = real_k1(z, z, hot.expand(b, s, h, 128).contiguous(),
+                       torch.zeros(b, s, device=dev), rate, seed,
+                       row_base=base, heads_total=total, head0=head0
+                       )[..., :s].permute(0, 2, 1, 3) > 0
+        plain = _probs_mask(torch.empty(shape, device=dev), rate, seed, base,
+                            total, head0)
+        np.save(f"{spec['out']}-{rank}-mask.npy",
+                np.packbits(keep.cpu().numpy().reshape(-1)))
+        out["k1"] = {"shape": shape, "dtype": str(dt), "row_base": base,
+                     "heads_total": total, "head0": head0, "seed": seed,
+                     "keep": float(keep.float().mean()),
+                     "plain_equal": bool(torch.equal(keep, plain))}
+    if "ffn" in probe:
+        x, w1, b1, w2, b2, y = probe["ffn"]
+        x2, y2 = x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])
+        d_mid = w1.shape[0]
+        # |p_0| + |p_1|: this rank's K9 partial (its blocks, zero b2), and
+        # the other rank's, summed over the model group
+        mine = ffn_fwd(x2, w1, b1, w2, torch.zeros_like(b2)).float()
+        part = mine.abs()
+        n, mg = C.model_size(), C.model_group()
+        faults = {"b2 on every rank": y2.float() + b2.float()}
+        if n > 1:
+            def whole(t, axis):
+                flat = C.all_gather(torch.empty(n * t.numel(), dtype=t.dtype,
+                                                device=t.device),
+                                    t.contiguous().reshape(-1), mg)
+                return torch.cat(list(flat.view(n, *t.shape)), axis)
+
+            w1_m, b1_m = w1, b1
+            w1, b1, w2 = whole(w1, 0), whole(b1, 0), whole(w2, 1)
+            C.all_reduce_sum(part, mg)
+            # this rank's partial with the next rank's W2 block
+            o = (C.model_index() + 1) % n
+            wrong = ffn_fwd(x2, w1_m, b1_m,
+                            w2[:, o * d_mid:(o + 1) * d_mid].contiguous(),
+                            torch.zeros_like(b2)).float()
+            faults["a wrong W2 block"] = y2.float() - mine + wrong
+        want = ffn_fwd(x2, w1, b1, w2, b2).float()
+        bound = 2.0**-6 * (part + want.abs()) + 1e-3
+        diff = (y2.float() - want).abs()
+        out["k9"] = {"excess": (diff - bound).max().item(),
+                     "ratio": (diff / bound).max().item(),
+                     "max_abs_err": diff.max().item(), "d_mid": d_mid,
+                     "faults": {k: {"excess": ((f - want).abs() - bound)
+                                    .max().item(),
+                                    "ratio": ((f - want).abs() / bound)
+                                    .max().item()}
+                                for k, f in faults.items()}}
+    return out
+
+
 _DIST_PROCS = []  # every launch of dist_start, stopped by dist_stop
 
 
 def dist_start(work, name, module, args, nproc=0, backend=None,
-               masks=False):
+               masks=False, **extra):
     """Start the entry point ``module`` on ``args`` in ``nproc`` processes
     under ``torchrun --standalone`` (0: one process, no launcher, no
     process group; ``backend``: its ``--dist_backend``), its output to
-    ``work/name.log``; ``dist_wait`` collects it."""
+    ``work/name.log``; ``dist_wait`` collects it. ``module`` "tp" is
+    ``tp_worker`` on the spec's ``extra`` keys."""
     spec = os.path.join(work, f"{name}.json")
     out = os.path.join(work, name)
     if backend:
         args = [*args, "--dist_backend", backend]
     with open(spec, "w") as f:
         json.dump({"module": module, "args": args, "out": out,
-                   "masks": masks}, f)
+                   "masks": masks, **extra}, f)
     cmd = [sys.executable, os.path.join(REPO, "chip_smoke.py"),
            "--dist-worker", spec]
     if nproc:
@@ -5119,6 +5365,128 @@ def flagship_nccl_cost(torch):
     return {"ex_per_s": eps, "busy_ms": busy}
 
 
+# launches a step a rank of the tensor-parallel runs: K1-K6 as a step of
+# one process (the model ranks run every layer on their heads and every
+# tail replicated), K9 once a layer forward
+TP_LAUNCHES = dict(STEP_LAUNCHES, ffn_fwd=12)
+
+
+def tp_checks(work, tp, back, pair, one_fp32):
+    """The tensor-parallel records of ``dist_phase`` (``tp_worker``): the
+    2x2 grid's fp32 losses against its one process at every step
+    (``DIST_REL``), the ranks' launches a step, each rank's K1 mask of the
+    bf16 step (K1 replayed at its launch) against its head block of the
+    one process's and the plain mask (bit for bit), K9 on D_mid / 2 within
+    its bf16 tolerance (``tp_worker``: 2^-6 (|p_0| + |p_1| + |ref|) +
+    1e-3, the fp32 all-reduce of bf16 partials) and past it with each
+    planted fault, each
+    rank's bytes at rest and at peak against the replicated gloo pair
+    ``pair``, and the grid's save resumed at world 1 against the one
+    process's (``RESUME_REL``)."""
+    one, grid, probe = tp["tp_one"][0], tp["tp_grid"], tp["tp_probe"]
+    want = one["losses"]
+    check(all(r["losses"] == grid[0]["losses"] for r in grid),
+          "tp: the grid's ranks report different losses")
+    rel = [abs(x - y) / abs(y) for x, y in zip(grid[0]["losses"], want)]
+    check(len(rel) == TP_STEPS and max(rel) <= DIST_REL,
+          f"tp: 2x2 losses {grid[0]['losses']} against one process {want}")
+    per32 = [{k: r["launches"][k] / TP_STEPS for k in KERNELS}
+             for r in grid]
+    per16 = [dict(r["launches"]) for r in probe]
+    check(all(p == TP_LAUNCHES for p in per32 + per16),
+          f"tp: launches a step a rank {per32} / {per16}")
+    ref = tp["tp_one_probe"][0]["k1"]
+    b1, s1, h1 = ref["shape"][:3]
+    one_mask = np.unpackbits(np.load(os.path.join(
+        work, "tp_one_probe-0-mask.npy")))[:b1 * h1 * s1 * s1].reshape(
+        b1, h1, s1, s1)
+    blocks = []
+    for r in probe:
+        k1, (d, m) = r["k1"], r["grid"]
+        b, s_, h = k1["shape"][:3]
+        bits = np.unpackbits(np.load(os.path.join(
+            work, f"tp_probe-{r['rank']}-mask.npy")))[:b * h * s_ * s_]
+        blocks.append(bool(
+            np.array_equal(bits.reshape(b, h, s_, s_),
+                           one_mask[d * b:(d + 1) * b, m * h:(m + 1) * h])
+            and k1["seed"] == ref["seed"] and k1["heads_total"] == h1
+            and k1["head0"] == m * h and k1["row_base"] == d * b * h1 * s_
+            and k1["plain_equal"] and ref["plain_equal"]))
+    check(all(blocks), f"tp: the ranks' K1 masks {[r['k1'] for r in probe]}"
+          f" against one process {ref}")
+    k9 = [r["k9"] for r in probe]
+    d_mid = tp["tp_one_probe"][0]["k9"]["d_mid"]
+    check(all(x["excess"] <= 0 and 2 * x["d_mid"] == d_mid for x in k9),
+          f"tp: K9 on D_mid / 2 against the whole FFN {k9}")
+    fault = {f: min(x["faults"][f]["ratio"] for x in k9)
+             for f in k9[0]["faults"]}
+    check(all(v > 1 for v in fault.values()),
+          f"tp: K9's bound does not refuse a planted fault {fault}")
+    mem = {k: [r[k] for r in grid] for k in ("param_bytes", "state_bytes",
+                                             "peak_bytes")}
+    ratio = {k: [x / pair[0][k] for x in v] for k, v in mem.items()}
+    check(all(x <= 0.36 for x in ratio["param_bytes"])
+          and all(x <= 0.36 for x in ratio["state_bytes"]),
+          f"tp: bytes a rank {mem} against the pair {pair[0]}")
+    a, b = back["tp_grid_back"]["losses"], back["tp_one_back"]["losses"]
+    rel_back = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    check(len(a) == len(b) == TP_RESUME - TP_STEPS
+          and max(rel_back) <= RESUME_REL,
+          f"tp: the 2x2 save resumed at world 1 {a} against {b}")
+    print(f"[dist] tp: 2x2 grid (data x model, 4 gloo ranks on the card, "
+          f"--fsdp at 65536) at uniter-base (12 layers, H 768, 6 of 12 heads "
+          f"and D_mid 1536 of 3072 a rank), fp32, dropout {RATE}, K1-K6 and "
+          f"K9, {TP_STEPS} steps of a {TP_B}-example batch (S "
+          f"{TP_T + TP_R}): losses {[f'{x:.6f}' for x in grid[0]['losses']]} "
+          f"against one process {[f'{x:.6f}' for x in want]} (relative "
+          f"{', '.join(f'{x:.1e}' for x in rel)}, tol {DIST_REL:g}); "
+          f"{grid[0]['seconds'] / TP_STEPS:.2f} s a step on rank 0")
+    for r, p32, p16 in zip(grid, per32, per16):
+        print(f"[dist] tp rank {r['rank']} at {tuple(r['grid'])}: "
+              "K1-K6 and K9 launches a step fp32 " + " / ".join(
+                  f"{p32[k]:g}" for k in KERNELS if k in TP_LAUNCHES
+                  and TP_LAUNCHES[k]) + ", bf16 " + " / ".join(
+                  f"{p16[k]:g}" for k in KERNELS if TP_LAUNCHES[k])
+              + f"; parameters at rest {r['param_bytes']} B, optimizer "
+              f"state {r['state_bytes']} B, peak allocated "
+              f"{r['peak_bytes'] / 2**20:.1f} MiB")
+    print(f"[dist] tp: a rank against the replicated gloo pair's rank 0 "
+          f"({pair[0]['param_bytes']} B parameters, {pair[0]['state_bytes']}"
+          f" B state, {pair[0]['peak_bytes'] / 2**20:.1f} MiB peak; one "
+          f"process {one_fp32['peak_bytes'] / 2**20:.1f} MiB): parameters "
+          f"{max(ratio['param_bytes']):.4f}x, state "
+          f"{max(ratio['state_bytes']):.4f}x, peak "
+          f"{min(ratio['peak_bytes']):.3f}-{max(ratio['peak_bytes']):.3f}x "
+          f"(the pair ran {GLOO_STEPS} CLI steps of its own batches)")
+    print(f"[dist] tp: the bf16 step's K1 masks, K1 replayed on the card "
+          f"at each rank's first launch's arguments and shape "
+          f"{[r['k1']['shape'] for r in probe][0]} (heads_total {h1}, "
+          f"head0 {[r['k1']['head0'] for r in probe]}, row bases "
+          f"{[r['k1']['row_base'] for r in probe]}; q = k = 0, v one-hot): "
+          f"equal to its block of K1's mask replayed at the one process's "
+          f"{ref['shape']} launch, and to the plain mask at its arguments, "
+          f"bit for bit: {all(blocks)}")
+    print(f"[dist] tp: K9 at D_mid {d_mid // 2} with b2 after the fp32 "
+          f"all-reduce against K9 on the whole FFN on the same input: "
+          f"max|diff| {max(x['max_abs_err'] for x in k9):.3e}, against "
+          f"2^-6 (|p_0| + |p_1| + |ref|) + 1e-3: worst excess "
+          f"{max(x['excess'] for x in k9):.3e}, worst |diff| / bound "
+          f"{max(x['ratio'] for x in k9):.3f}; planted faults, least "
+          f"|diff| / bound over the ranks (> 1 refused): " + ", ".join(
+              f"{f} {v:.3f} (excess "
+              f"{min(x['faults'][f]['excess'] for x in k9):.3e})"
+              for f, v in fault.items()))
+    print(f"[dist] tp: the 2x2 --fsdp save at step {TP_STEPS} resumed at "
+          f"world 1 to {TP_RESUME}: losses {[f'{x:.6f}' for x in a]} "
+          f"against the one process resumed {[f'{x:.6f}' for x in b]} "
+          f"(relative {', '.join(f'{x:.1e}' for x in rel_back)}, tol "
+          f"{RESUME_REL:g})")
+    return {"losses": grid[0]["losses"], "one": want, "rel": rel,
+            "launches": per16[0], "launches_fp32": per32[0],
+            "k1_blocks": blocks, "k9": k9, "bytes": mem, "ratio": ratio,
+            "resume_rel": rel_back}
+
+
 def dist_phase(torch):
     """Data parallelism over ``torch.distributed`` through the entry points
     (``torchrun -m``'s counterpart: ``chip_smoke.py --dist-worker`` calls
@@ -5189,7 +5557,19 @@ def dist_phase(torch):
         wave["one_masks"] = dist_start(
             work, "one_masks", "train_vqa",
             conf("one_masks", num_train_steps=1, valid_steps=0), masks=True)
+        # the tensor-parallel runs: the 2x2 grid and its one process
+        tp_ckpt = {n: os.path.join(work, f"{n}_ckpt")
+                   for n in ("tp_one", "tp_grid")}
+        for name, nproc in (("tp_one", 0), ("tp_grid", 4)):
+            wave[name] = dist_start(
+                work, name, "tp", [], nproc, model=2 if nproc else 1,
+                fsdp=bool(nproc), dtype="float32", first=0, last=TP_STEPS,
+                save=tp_ckpt[name])
+        wave["tp_one_probe"] = dist_start(
+            work, "tp_one_probe", "tp", [], model=1, fsdp=False,
+            dtype="bfloat16", first=0, last=1, probe=True)
         got = {name: dist_wait(run) for name, run in wave.items()}
+        tp = {n: got[n] for n in ("tp_one", "tp_grid", "tp_one_probe")}
         runs.update({n: got[n][0] for n in ("alone_fsdp", "nccl1_fsdp")})
         ref = got["one_fp32"][0]
         one_mask = np.unpackbits(np.load(os.path.join(
@@ -5210,7 +5590,10 @@ def dist_phase(torch):
             "inf1": dist_start(work, "inf1", "inf_vqa", [
                 "--txt_db", txt, "--img_db", img, "--train_dir",
                 os.path.join(work, "one_fp32"), "--output_dir",
-                os.path.join(work, "ans1")])}
+                os.path.join(work, "ans1")]),
+            "tp_probe": dist_start(
+                work, "tp_probe", "tp", [], 4, model=2, fsdp=True,
+                dtype="bfloat16", first=0, last=1, probe=True)}
         for tag, backend in backends:
             wave[f"{tag}_fsdp"] = dist_start(
                 work, f"{tag}_fsdp", "train_vqa",
@@ -5226,6 +5609,7 @@ def dist_phase(torch):
                 backend)
         got = {name: dist_wait(run) for name, run in wave.items()}
         res["seconds"]["wave 2"] = time.perf_counter() - t0
+        tp["tp_probe"] = got["tp_probe"]
         rec = got["resume"][0]
         with open(os.path.join(work, "nccl1_fsdp", "log", "log.txt")) as f:
             check("resumed from step 20" in f.read(), "no resume")
@@ -5348,6 +5732,11 @@ def dist_phase(torch):
             names = [f"{tag}_fsdp"] + (["one_fp32"] if tag == "gloo" else [])
             wave = {n: dist_start(work, n, "train_vqa", conf(n, **two)
                                   + resume) for n in names}
+            if tag == "gloo":  # the TP runs resumed at world 1
+                wave.update({f"{n}_back": dist_start(
+                    work, f"{n}_back", "tp", [], model=1, fsdp=False,
+                    dtype="float32", first=TP_STEPS, last=TP_RESUME,
+                    resume=tp_ckpt[n]) for n in tp_ckpt})
             back.update({n: dist_wait(run)[0] for n, run in wave.items()})
             res["seconds"][f"{tag} resume"] = time.perf_counter() - t0
             a, b = back[f"{tag}_fsdp"]["losses"], back["one_fp32"]["losses"]
@@ -5362,6 +5751,7 @@ def dist_phase(torch):
                   f"{', '.join(f'{x:.1e}' for x in rel_back)}, tol "
                   f"{RESUME_REL:g})")
             res[tag]["resume_rel"] = rel_back
+        res["tp"] = tp_checks(work, tp, back, rep, ref)
     finally:
         dist_stop(_DIST_PROCS)
     t0 = time.perf_counter()
@@ -5475,7 +5865,8 @@ def main(argv):
             "fp32_library_ms": t32[lib],
             "fp32_library_device_ms": t32[f"{lib}_dev"],
             "dist_launches_per_step": dist["launches"][name],
-            "gloo_launches_per_step": dist["gloo"]["launches"][name]})
+            "gloo_launches_per_step": dist["gloo"]["launches"][name],
+            "tp_launches_per_step": dist["tp"]["launches"][name]})
     for name, line, rows in (("drop_res_ln_fwd", 64, 9984),
                              ("drop_res_ln_bwd", 71, 9984),
                              ("ln_drop_fwd", 200, 6144),
@@ -5492,7 +5883,8 @@ def main(argv):
             "library_ms": tt["lib_call"], "device_ms": tt["dev"],
             "library_device_ms": tt["lib_dev"],
             "dist_launches_per_step": dist["launches"][name],
-            "gloo_launches_per_step": dist["gloo"]["launches"][name]})
+            "gloo_launches_per_step": dist["gloo"]["launches"][name],
+            "tp_launches_per_step": dist["tp"]["launches"][name]})
     bound, by = ipot_bound_ms(*K7_SHAPES[0])
     kernels.append({
         "name": "ipot", "route": "cuda",
@@ -5525,7 +5917,8 @@ def main(argv):
         "launches": itm["k9_launches"], "max_abs_err": k9_err,
         "ms": kt["call"], "plain_ms": kt["plain"], "bound_ms": bound,
         "bound_by": by, "library_ms": None, "device_ms": kt["dev"],
-        "library_device_ms": None})
+        "library_device_ms": None,
+        "tp_launches_per_step": dist["tp"]["launches"]["ffn_fwd"]})
     print(f"[smoke] K9 at ({rows}, {h}) bf16: the cuBLAS composition "
           f"F.linear -> F.gelu -> F.linear (no one PyTorch call computes the "
           f"fused FFN, so library_ms is null) took {kt['lib_dev'] * 1e3:.1f} "

@@ -352,3 +352,34 @@ def test_mha_function_bf16_saves_out_and_lse():
     saved32 = f32.grad_fn.saved_tensors
     assert len(saved32) == 7 and saved32[6].dtype == torch.float32
     assert saved32[6].shape == (3, 4, 24)
+
+
+@pytest.mark.parametrize("heads_total,h,head0", [(4, 2, 0), (4, 2, 2),
+                                                 (12, 6, 6), (12, 3, 9)])
+def test_head_offset_mask_is_the_head_block(heads_total, h, head0):
+    """The mask of heads head0... of ``heads_total`` at a row base is, bit
+    for bit, that head block of the whole call's mask at the same base;
+    and ``mha_fwd`` / ``mha_bwd`` (the CPU wrappers, which check the
+    heads) at that offset give that block of the whole call."""
+    b, s, d, rate, seed, base = 3, 10, 8, 0.3, 5, 7 * 4 * 10
+    rng = np.random.RandomState(heads_total + head0)
+    qf, kf, vf, gf = (torch.from_numpy(rng.randn(b, s, heads_total, d)
+                                       .astype(np.float32))
+                      for _ in range(4))
+    bias = torch.zeros(b, s)
+    whole = port._probs_mask(qf, rate, seed, base)
+    blk = (slice(None), slice(None), slice(head0, head0 + h))
+    q, k, v, g = (x[blk] for x in (qf, kf, vf, gf))
+    hk = dict(row_base=base, heads_total=heads_total, head0=head0)
+    assert torch.equal(port._probs_mask(q, rate, seed, **hk),
+                       whole[:, head0:head0 + h])
+    out = port.mha_fwd(q, k, v, bias, rate, seed, **hk)
+    want = port._mha_torch(qf, kf, vf, bias, rate, seed, row_base=base)
+    torch.testing.assert_close(out, want[blk], rtol=0, atol=1e-6)
+    for got, ref in zip(port.mha_bwd(q, k, v, bias, g, rate, seed, **hk),
+                        port._mha_bwd_torch(qf, kf, vf, bias, gf, rate,
+                                            seed, row_base=base)):
+        torch.testing.assert_close(got, ref[blk], rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="do not lie in"):
+        port.mha_fwd(q, k, v, bias, rate, seed, row_base=base,
+                     heads_total=heads_total, head0=heads_total - h + 1)

@@ -60,6 +60,15 @@ graph; ``FfnFunction``'s backward is the plain formula; a small retrieval
 model trains the same with K9 as without. K8 through its one-look launch
 path equals K5 at rate 0 bit for bit.
 
+Tensor parallelism: K1/K2 on a rank's head block (``heads_total``,
+``head0``, a row base) against the plain versions at the same arguments
+(the tolerances above) and K1's mask there against ``keep_mask``'s head
+block bit for bit; K9 on a column block of W1 and a row block of W2 with
+a zero b2, the two partials summed in fp32 with b2 added once, against
+``ffn_plain`` of the whole FFN: fp32 to 1e-5 of max(1, max|ref|), bf16
+within two bf16 steps of |p0| + |p1| + |ref| + 1e-3 (each bf16 partial is
+rounded once, and each may re-round the intermediate as K9 alone does).
+
 Several processes (``uniter_tpu_torch/parallel``): a process group of one
 NCCL rank, and of two gloo ranks sharing the card, runs the collectives on
 CUDA tensors, and two train steps of a small VQA model through K1-K6
@@ -997,6 +1006,83 @@ def test_ffn_kernel_matches_plain(gen, dtype, rows, d_in, d_mid, d_out):
         assert (diff - (2.0**-6 * want.abs() + 1e-3)).max().item() <= 0
     assert got.dtype == dtype and got.shape == (rows, d_out)
     assert torch.equal(got, ffn_fwd(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_kernel_on_tp_blocks_with_b2_outside(gen, dtype):
+    """K9 at D_mid / 2 (uniter-base's 1536 a rank of two) on each rank's
+    blocks with a zero b2; the partials summed in fp32, b2 added once, as
+    ``parallel/tp.py`` ``row_parallel`` does (module docstring). The bf16
+    bound also refuses two planted faults: b2 added on both ranks, and
+    rank 0's partial taken with rank 1's W2 block."""
+    from uniter_tpu_torch.ops.ffn import ffn_fwd, ffn_plain
+
+    x, w1, b1, w2, b2 = _ffn_inputs(gen, 1664, 768, 3072, 768, dtype)
+    want = ffn_plain(x, w1, b1, w2, b2).float()
+    half = 1536
+    parts = [ffn_fwd(x, w1[m * half:(m + 1) * half].contiguous(),
+                     b1[m * half:(m + 1) * half].contiguous(),
+                     w2[:, m * half:(m + 1) * half].contiguous(),
+                     torch.zeros_like(b2)) for m in range(2)]
+    got = (parts[0].float() + parts[1].float() + b2).to(dtype).float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    else:
+        bound = 2.0**-6 * (parts[0].float().abs() + parts[1].float().abs()
+                           + want.abs()) + 1e-3
+        assert (diff - bound).max().item() <= 0
+        wrong = ffn_fwd(x, w1[:half].contiguous(), b1[:half].contiguous(),
+                        w2[:, half:].contiguous(), torch.zeros_like(b2))
+        for fault in (got + b2, got - parts[0].float() + wrong.float()):
+            assert ((fault - want).abs() - bound).max().item() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_kernels_at_a_head_offset(gen, dtype):
+    """K1/K2 on heads 6..11 of 12 at a row base (a rank of a 2x2 grid)
+    against the plain versions at the same arguments, at rate 0.1; and
+    K1's mask at heads 3, 4 of 5 (q = k = 0, v one-hot: output (b, q, h,
+    k) > 0 exactly where score (b, h, q, k) was kept) equal to that head
+    block of ``keep_mask``'s, bit for bit."""
+    from uniter_tpu_torch.ops.dropout import keep_mask
+
+    b, s, hh, d, base = 8, 104, 12, 64, 3 * 8 * 12 * 104
+    q, k, v, bias, g = _bwd_inputs(gen, b, s, hh, d, dtype)
+    blk = (slice(None), slice(None), slice(6, 12))
+    q, k, v, g = (t[blk] for t in (q, k, v, g))
+    hk = dict(row_base=base, heads_total=hh, head0=6)
+    lse = torch.empty(b, 6, s, device="cuda")
+    key = "out_lo" if dtype == torch.bfloat16 else "lse_lo"
+    lo = (torch.empty(b, s, 6, d, device="cuda", dtype=dtype)
+          if dtype == torch.bfloat16 else torch.empty_like(lse))
+    out = mha_fwd(q, k, v, bias, 0.1, 77, lse=lse, **{key: lo}, **hk)
+    got = mha_bwd(q, k, v, bias, g, 0.1, 77, out=out, lse=lse, **{key: lo},
+                  **hk)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    ref = _mha_torch(qf, kf, vf, bias, 0.1, 77, **hk)
+    full = out.float() + (lo.float() if dtype == torch.bfloat16 else 0.0)
+    want = _mha_bwd_lse_torch(qf, kf, vf, bias, gf, full, lse, 0.1, 77,
+                              lse_lo=lo if dtype == torch.float32 else None,
+                              **hk)
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-5
+        for x, r in zip(got, want):
+            assert (x - r).abs().max().item() <= 1e-4
+    else:
+        assert ((out.float() - ref).abs()
+                <= 2.0**-8 * ref.abs() + 1e-2).all()
+        for x, r in zip(got, want):
+            assert ((x.float() - r).abs() <= 2.0**-8 * r.abs() + 1e-3).all()
+    z = torch.zeros(2, 64, 2, 64, device="cuda", dtype=dtype)
+    onehot = torch.eye(64, device="cuda", dtype=dtype)[None, :, None, :]
+    kept = mha_fwd(z, z, onehot.expand(2, 64, 2, 64).contiguous(),
+                   torch.zeros(2, 64, device="cuda"), 0.1, 4242,
+                   row_base=2 * 5 * 64, heads_total=5, head0=3
+                   ).permute(0, 2, 1, 3) > 0
+    mask = keep_mask(4242, 0, (2, 5, 64, 64), 0.1, "cuda",
+                     row_base=2 * 5 * 64)[:, 3:5]
+    assert torch.equal(kept, mask)
 
 
 def test_ffn_function_on_the_card(gen):

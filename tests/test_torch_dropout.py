@@ -14,7 +14,11 @@ of the tensor of all blocks drawn at 0 (``keep_mask``, ``drop``,
 ``random_bits``, both bit rules; past 2**32 rows the counter's high word
 against numpy), and so are the plain attention (forward, both backward
 formulas, the TF32 twins) and the plain fused tails (forward and backward)
-of a rank's block of a batch.
+of a rank's block of a batch. A tensor-parallel rank's heads: mask rows
+named one by one (``rows_at``) are those rows of the whole mask, and the
+plain attention of heads h0... of a rank's block (``heads_total``,
+``head0``) is that block of the whole call, forward and both backward
+formulas.
 """
 
 import numpy as np
@@ -238,3 +242,68 @@ def test_plain_kernels_at_a_row_base_are_the_global_block(n_blocks):
     assert not torch.equal(
         A._mha_torch(q[b:2 * b], k[b:2 * b], v[b:2 * b], bias[b:2 * b],
                      rate, seed), out[b:2 * b])
+
+
+def test_rows_at_draws_the_named_rows():
+    """Rows named one by one are, bit for bit, those rows of the mask
+    drawn at 0 (both bit rules), whatever their order."""
+    whole = D.keep_mask(7, 0, (40, 9), 0.3)
+    rows = torch.tensor([33, 2, 17, 17, 39])
+    got = D.keep_mask(7, 0, (5, 9), 0.3, rows_at=rows)
+    assert torch.equal(got, whole[rows])
+    u16 = D.keep_mask(7, 0, (5, 9), 0.3, impl="u16", rows_at=rows)
+    assert torch.equal(u16, D.keep_mask(7, 0, (40, 9), 0.3,
+                                        impl="u16")[rows])
+
+
+@pytest.mark.parametrize("n_heads,n_blocks", [(2, 1), (2, 2), (4, 2)])
+def test_plain_attention_at_a_head_offset_is_the_head_block(n_heads,
+                                                            n_blocks):
+    """Heads h0... of rank (p, m)'s block, drawn at (row base b0*H*S,
+    heads_total H, head0 h0), equal that block of the whole call: forward,
+    both backward formulas, the TF32 forward twin (float64; fp32 for the
+    twin)."""
+    from uniter_tpu_torch.ops import attention as A
+
+    rng = np.random.RandomState(n_heads * 10 + n_blocks)
+    b, s, hh, d, rate, seed = 2, 6, 4, 8, 0.2, 43
+    B, h = n_blocks * b, hh // n_heads
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape))
+
+    q, k, v, g = (t(B, s, hh, d) for _ in range(4))
+    bias = torch.zeros(B, s, dtype=torch.float64)
+    bias[:, -2:] = -10000.0
+    out, lse = A._mha_torch(q, k, v, bias, rate, seed, return_lse=True)
+    bwd = A._mha_bwd_torch(q, k, v, bias, g, rate, seed)
+    bwd_lse = A._mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate, seed)
+    out32 = A._mha_tf32_torch(*(x.float() for x in (q, k, v, bias)), rate,
+                              seed)
+    for p in range(n_blocks):
+        for m in range(n_heads):
+            blk = (slice(p * b, (p + 1) * b), slice(None),
+                   slice(m * h, (m + 1) * h))
+            hk = dict(row_base=D.rows_before(p, (b, hh, s, s)),
+                      heads_total=hh, head0=m * h)
+            qa, ka, va, ga = (x[blk] for x in (q, k, v, g))
+            ba = bias[blk[0]]
+            got, got_lse = A._mha_torch(qa, ka, va, ba, rate, seed,
+                                        return_lse=True, **hk)
+            torch.testing.assert_close(got, out[blk], rtol=0, atol=1e-12)
+            for a_, w_ in zip(A._mha_bwd_torch(qa, ka, va, ba, ga, rate,
+                                               seed, **hk),
+                              (x_[blk] for x_ in bwd)):
+                torch.testing.assert_close(a_, w_, rtol=0, atol=1e-12)
+            for a_, w_ in zip(A._mha_bwd_lse_torch(
+                    qa, ka, va, ba, ga, got, got_lse, rate, seed, **hk),
+                    (x_[blk] for x_ in bwd_lse)):
+                torch.testing.assert_close(a_, w_, rtol=0, atol=1e-12)
+            torch.testing.assert_close(
+                A._mha_tf32_torch(qa.float(), ka.float(), va.float(),
+                                  ba.float(), rate, seed, **hk),
+                out32[blk], rtol=0, atol=1e-6)
+            torch.testing.assert_close(
+                A.multi_head_attention(qa, ka, va, ba, dropout_rate=rate,
+                                       deterministic=False, seed=seed,
+                                       **hk), out[blk], rtol=0, atol=1e-12)

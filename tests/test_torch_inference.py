@@ -203,6 +203,8 @@ def test_port_imports_without_jax():
         "import uniter_tpu_torch.pretrain_vcr\n"
         "import uniter_tpu_torch.parallel.collectives\n"
         "import uniter_tpu_torch.parallel.mesh\n"
+        "import uniter_tpu_torch.parallel.tp, uniter_tpu_torch.parallel.fsdp\n"
+        "import uniter_tpu_torch.dryrun, uniter_tpu_torch.bucket_stats\n"
         "import uniter_tpu_torch.data.pretrain_vcr\n"
         "import uniter_tpu_torch.models.pretrain_vcr\n"
         "import uniter_tpu_torch.prepro, uniter_tpu_torch.convert_imgdir\n"

@@ -10,7 +10,8 @@ on the CPU: processes joined over gloo, each started with the variables
 * Placement rules: ``param_sharding_full`` of the port (TP over ``model``,
   FSDP over ``data``, both) equal the JAX package's ``PartitionSpec``s
   leaf by leaf through the weight bridge (a ``Dense`` kernel transposed, an
-  encoder stack per layer). A ``model`` axis is refused for execution.
+  encoder stack per layer). A ``model`` axis that does not divide the
+  processes is refused (``test_torch_tp.py`` runs the grids).
 * Training: 3 steps of the tiny VQA model at dropout 0 on 2 ranks, each on
   its block of the same global batches, against the port in one process
   and the JAX package's ``make_train_step`` on a 2-device CPU mesh with
@@ -649,10 +650,13 @@ def test_placement_rules_match_jax(init_path, model_axis, fsdp):
 
 
 def test_make_mesh_refuses_a_model_axis():
+    """One process has no room for a model axis of 2: ``make_mesh``
+    refuses it and says why (a grid of processes runs it,
+    ``test_torch_tp.py``)."""
     from uniter_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
     assert make_mesh().shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="does not divide 1 processes"):
         make_mesh(MeshConfig(model=2))
 
 

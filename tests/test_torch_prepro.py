@@ -16,6 +16,10 @@
 * ``python -m uniter_tpu_torch.convert_imgdir`` against
   ``scripts/convert_imgdir.py`` on one npz dir: both img DBs read back the
   same features, boxes and nbb json.
+* ``python -m uniter_tpu_torch.bucket_stats`` against
+  ``scripts/bucket_stats.py`` on one DB pair written by the port's
+  writers (with and without the img DB, two token budgets): the printed
+  report is the same JSON.
 """
 
 import importlib.util
@@ -330,3 +334,27 @@ def test_convert_imgdir_matches_root(tmp_path, conf_th):
             np.testing.assert_array_equal(
                 g["features"], z["features"][:len(g["features"])]
                 .astype(np.float16))
+
+
+@pytest.mark.parametrize("budget,with_img", [(256, True), (10240, True),
+                                             (512, False)])
+def test_bucket_stats_matches_root(tmp_path, budget, with_img):
+    import subprocess
+
+    from test_torch_parallel import vqa_dbs
+    from uniter_tpu_torch import bucket_stats as pstats
+
+    vqa_dbs(tmp_path)
+    args = ["--txt_db", str(tmp_path / "txt"), "--train_batch_size",
+            str(budget), "--max_txt_len", "8"]
+    if with_img:
+        args += ["--img_db", str(tmp_path / "img"), "--max_bb", "10",
+                 "--min_bb", "3"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    root = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "bucket_stats.py"),
+         *args], capture_output=True, text=True, env=env, check=True)
+    want = json.loads(root.stdout)
+    got = pstats.main(pstats.get_parser().parse_args(args))
+    assert got == want
+    assert want["n_batches"] > 0 and want["buckets"]

@@ -125,6 +125,7 @@ struct F32Args {
   unsigned thr;
   unsigned long long seed;
   unsigned long long row_base;  // the mask row of score row 0 (philox.cuh)
+  int heads_total, head0;  // head h of the launch is head0 + h of these
 };
 
 // dynamic shared memory of mha_bwd_tf32_kernel<DP> (mirrored by
@@ -149,6 +150,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2) mha_bwd_tf32_kernel(F32Args a) 
   const int c = lane & 3;
   const int h = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
   const long long bh = static_cast<long long>(b) * a.H + h;
+  // the mask row's head: head h of the launch is head0 + h of heads_total
+  const long long mbh = static_cast<long long>(b) * a.heads_total + a.head0 + h;
   const int j0 = z * ntile / a.G, j1 = (z + 1) * ntile / a.G;  // key tiles
 
   extern __shared__ uint4 smem_f[];
@@ -230,7 +233,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2) mha_bwd_tf32_kernel(F32Args a) 
       // the bits' last readers passed the previous step's dS barrier
       if (a.thr) {  // the tile's mask: thread t draws query t/2, keys 32 (t%2) ..
         const int ql = tid >> 1, half = tid & 1;
-        const long long row = static_cast<long long>(a.row_base) + bh * S + q0 + ql;
+        const long long row = static_cast<long long>(a.row_base) + mbh * S + q0 + ql;
         unsigned bits = 0u;
 #pragma unroll
         for (int gi = 0; gi < 8; ++gi) {
@@ -407,6 +410,7 @@ struct TcArgs {
   unsigned thr;
   unsigned long long seed;
   unsigned long long row_base;  // the mask row of score row 0 (philox.cuh)
+  int heads_total, head0;  // head h of the launch is head0 + h of these
 };
 
 // dynamic shared memory of mha_bwd_tc_kernel<DP> (mirrored by
@@ -431,6 +435,8 @@ __global__ void __launch_bounds__(TC_THREADS) mha_bwd_tc_kernel(TcArgs a) {
   const int g = lane >> 2, c = lane & 3;
   const int h = blockIdx.x, b = blockIdx.y;
   const long long bh = static_cast<long long>(b) * a.H + h;
+  // the mask row's head: head h of the launch is head0 + h of heads_total
+  const long long mbh = static_cast<long long>(b) * a.heads_total + a.head0 + h;
 
   extern __shared__ uint4 smem_tc[];
   float* fs = reinterpret_cast<float*>(smem_tc);
@@ -523,7 +529,7 @@ __global__ void __launch_bounds__(TC_THREADS) mha_bwd_tc_kernel(TcArgs a) {
       }
       if (a.thr) {  // the tile's mask: thread t draws query t/2, keys 32 (t%2) ..
         const int ql = tid >> 1, half = tid & 1;
-        const long long row = static_cast<long long>(a.row_base) + bh * S + q0 + ql;
+        const long long row = static_cast<long long>(a.row_base) + mbh * S + q0 + ql;
         unsigned bits = 0u;
 #pragma unroll
         for (int gi = 0; gi < 8; ++gi) {
@@ -709,7 +715,8 @@ extern "C" int uniter_mha_bwd(
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long g_sb, long long g_ss, long long g_sh, float sm_scale,
     unsigned thr, float inv_keep, unsigned long long seed,
-    unsigned long long row_base, int dtype, int groups, void* stream) {
+    unsigned long long row_base, int heads_total, int head0, int dtype,
+    int groups, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out == nullptr || lse == nullptr || D % 8 || D > 128 || dtype < 0 ||
       dtype > 1 || (dtype == 0) != (out_lo == nullptr) ||
@@ -727,7 +734,8 @@ extern "C" int uniter_mha_bwd(
                     static_cast<float*>(dk), static_cast<float*>(dv),
                     static_cast<float*>(scratch), B, S, H, D, groups, q_sb,
                     q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss,
-                    g_sh, sm_scale, inv_keep, thr, seed, row_base};
+                    g_sh, sm_scale, inv_keep, thr, seed, row_base, heads_total,
+                    head0};
     if (D <= 16) return launch_tf32<16>(a, st);
     if (D <= 32) return launch_tf32<32>(a, st);
     if (D <= 64) return launch_tf32<64>(a, st);
@@ -741,7 +749,7 @@ extern "C" int uniter_mha_bwd(
                  static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                  static_cast<float*>(scratch), B, S, H, D, q_sb, q_ss, q_sh,
                  k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh,
-                 sm_scale, inv_keep, thr, seed, row_base};
+                 sm_scale, inv_keep, thr, seed, row_base, heads_total, head0};
   if (D <= 16) return launch_tc<16>(a, st);
   if (D <= 32) return launch_tc<32>(a, st);
   if (D <= 64) return launch_tc<64>(a, st);

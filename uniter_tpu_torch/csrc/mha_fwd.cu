@@ -128,6 +128,7 @@ struct F32Args {
   unsigned thr;
   unsigned long long seed;
   unsigned long long row_base;  // the mask row of score row 0 (philox.cuh)
+  int heads_total, head0;  // head h of the launch is head0 + h of these
 };
 
 template <int DP>
@@ -147,8 +148,10 @@ __global__ void __launch_bounds__(TC_THREADS) mha_fwd_tf32_kernel(F32Args a) {
   const float* vb = a.v + b * a.v_sb + h * a.v_sh;
   const float* biasb = a.bias + static_cast<long long>(b) * S;
   const long long bh = static_cast<long long>(b) * a.H + h;
+  // the mask row: head h of the launch is head head0 + h of heads_total
+  const long long mbh = static_cast<long long>(b) * a.heads_total + a.head0 + h;
   const long long row0 =
-      static_cast<long long>(a.row_base) + bh * S + q0 + 16 * warp + (lane >> 2);
+      static_cast<long long>(a.row_base) + mbh * S + q0 + 16 * warp + (lane >> 2);
   const int nkt = (S + 63) / 64;
   const bool odd = lane & 1;
 
@@ -307,6 +310,7 @@ struct TcArgs {
   unsigned thr;
   unsigned long long seed;
   unsigned long long row_base;  // the mask row of score row 0 (philox.cuh)
+  int heads_total, head0;  // head h of the launch is head0 + h of these
 };
 
 template <int DP>
@@ -327,9 +331,11 @@ __global__ void __launch_bounds__(TC_THREADS) mha_fwd_tc_kernel(TcArgs a) {
   const bf16* vb = a.v + b * a.v_sb + h * a.v_sh;
   const float* biasb = a.bias + static_cast<long long>(b) * S;
   const long long bh = static_cast<long long>(b) * a.H + h;
-  // the mask row of row g: the score row past the row base
+  // the mask row of row g: the score row past the row base, head h of the
+  // launch being head head0 + h of heads_total
+  const long long mbh = static_cast<long long>(b) * a.heads_total + a.head0 + h;
   const long long row0 =
-      static_cast<long long>(a.row_base) + bh * S + q0 + 16 * warp + g;
+      static_cast<long long>(a.row_base) + mbh * S + q0 + 16 * warp + g;
   const int nkt = (S + 63) / 64;
   const bool odd = lane & 1;
 
@@ -515,8 +521,8 @@ extern "C" int uniter_mha_fwd(const void* q, const void* k, const void* v,
                               long long v_ss, long long v_sh, float sm_scale,
                               unsigned thr, float inv_keep,
                               unsigned long long seed,
-                              unsigned long long row_base, int dtype,
-                              void* stream) {
+                              unsigned long long row_base, int heads_total,
+                              int head0, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D % 8 || D > 128 || (dtype == 0 && out_lo != nullptr) ||
       (dtype == 1 && lse_lo != nullptr) || (lse_lo && !lse) || dtype < 0 ||
@@ -528,7 +534,8 @@ extern "C" int uniter_mha_fwd(const void* q, const void* k, const void* v,
                     static_cast<float*>(out), static_cast<float*>(lse),
                     static_cast<float*>(lse_lo), S, H, D,
                     q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                    sm_scale, inv_keep, thr, seed, row_base};
+                    sm_scale, inv_keep, thr, seed, row_base, heads_total,
+                    head0};
     if (D <= 16) return launch_tf32<16>(a, B, st);
     if (D <= 32) return launch_tf32<32>(a, B, st);
     if (D <= 64) return launch_tf32<64>(a, B, st);
@@ -539,7 +546,7 @@ extern "C" int uniter_mha_fwd(const void* q, const void* k, const void* v,
                  static_cast<bf16*>(out), static_cast<bf16*>(out_lo),
                  static_cast<float*>(lse), S, H, D,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                 sm_scale, inv_keep, thr, seed, row_base};
+                 sm_scale, inv_keep, thr, seed, row_base, heads_total, head0};
   if (D <= 16) return launch_tc<16>(a, B, st);
   if (D <= 32) return launch_tc<32>(a, B, st);
   if (D <= 64) return launch_tc<64>(a, B, st);

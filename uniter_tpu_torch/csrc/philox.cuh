@@ -3,15 +3,17 @@
 // The mask bit of score (b, h, q, k) is word (k % 4) of
 //   philox4x32_10(counter = (k / 4, lo32(row), hi32(row), 0),
 //                 key     = (lo32(seed), hi32(seed))),
-//   row = row_base + (b*H + h)*S + q,
-// kept iff that word >= threshold = floor(rate * 2^32). This is the rule of
-// uniter_tpu_torch/ops/dropout.py (`keep_mask` over a [B, H, S, S] tensor at
-// `row_base`), so the plain versions, K1 and K2 draw the same bits whatever
-// their tiling. The fused tails (fused_tail.cu) take element (r, c) of a
+//   row = row_base + (b*H_total + h0 + h)*S + q,
+// kept iff that word >= threshold = floor(rate * 2^32), with H_total the
+// model's heads and h0 the first head of the launch (H_total = H, h0 = 0
+// but under tensor parallelism). This is the rule of
+// uniter_tpu_torch/ops/dropout.py (`keep_mask` over a [B, H_total, S, S]
+// tensor at `row_base`, heads h0... of it), so the plain versions, K1 and K2
+// draw the same bits whatever their tiling and head split. The fused tails (fused_tail.cu) take element (r, c) of a
 // [rows, H] tensor as row row_base + r, key c of the same rule. The row base
 // (passed by value beside the seed) places a rank's block of the batch in the
-// global one: b0*H*S for attention, b0*S for a tail, b0 the rank's first
-// example row.
+// global one: b0*H_total*S for attention, b0*S for a tail, b0 the rank's
+// first example row.
 
 #pragma once
 

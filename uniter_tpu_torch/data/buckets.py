@@ -77,10 +77,10 @@ def spec_from_dataset(dataset, token_budget: int,
     dataset's rows_per_example and the number of processes that share each
     batch (``size_multiple``)."""
     if not size_mul:
-        from uniter_tpu_torch.parallel.collectives import num_processes
+        from uniter_tpu_torch.parallel.collectives import data_size
 
         size_mul = size_multiple(getattr(dataset, "rows_per_example", 1),
-                                 num_processes())
+                                 data_size())
     sizes = [dataset.size_of(i) for i in range(len(dataset))]
     max_t = max((s[0] for s in sizes), default=32)
     max_r = max((s[1] for s in sizes), default=4)

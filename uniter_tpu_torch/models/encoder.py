@@ -66,6 +66,7 @@ from uniter_tpu_torch.ops.dropout import (
 from uniter_tpu_torch.ops.ffn import ffn
 from uniter_tpu_torch.ops.fused_block import drop_res_ln, ln_drop
 from uniter_tpu_torch.ops.layer_norm import layer_norm
+from uniter_tpu_torch.parallel.tp import copy_to_region, row_parallel
 
 MASK_VALUE = -10000.0  # additive padding bias, reference model/model.py:345
 
@@ -274,13 +275,55 @@ class BertSelfOutput(nn.Module):
 
 class BertAttention(nn.Module):
     """Self-attention + output projection + residual LN (reference
-    model/layer.py:53-127)."""
+    model/layer.py:53-127).
+
+    With ``tp`` (a ``parallel.tp.TpRank``, set by ``parallel.tp
+    .shard_model``) the Q/K/V projections hold this rank's heads (column
+    blocks) and the output projection its rows of the contract axis: the
+    attention runs on the local heads, drawing their masks as heads
+    ``head0``... of all ``num_attention_heads``, and the output dense's
+    partial product is summed over the model group before its bias is
+    added, once. Without it every head is local."""
+
+    tp = None
 
     def __init__(self, cfg: UniterConfig):
         super().__init__()
         self.cfg = cfg
         self.self = BertSelfAttention(cfg)
         self.output = BertSelfOutput(cfg)
+
+    def _qkv(self, hidden):
+        """(q, k, v) [B, S, heads here, D] of ``hidden`` (the input of the
+        model region under ``tp``)."""
+        cfg, sa, tp = self.cfg, self.self, self.tp
+        if tp is not None:
+            hidden = copy_to_region(hidden, tp.group)
+        b, s, _ = hidden.shape
+        d = cfg.head_dim
+        nh = sa.query.weight.shape[0] // d  # the heads this rank holds
+        hs = nh * d
+        if cfg.fused_qkv:
+            # one [3H, H] GEMM; q/k/v are strided views of its output, which
+            # the kernels read through strides (K2's contiguous gradients
+            # flow back into the projection's gradient through autograd)
+            w = torch.cat([sa.query.weight, sa.key.weight, sa.value.weight])
+            bvec = torch.cat([sa.query.bias, sa.key.bias, sa.value.bias])
+            qkv = F.linear(hidden, w.to(hidden.dtype), bvec.to(hidden.dtype))
+            return tuple(qkv[..., i * hs:(i + 1) * hs].view(b, s, nh, d)
+                         for i in range(3))
+        return tuple(m(hidden).view(b, s, nh, d)
+                     for m in (sa.query, sa.key, sa.value))
+
+    def _project(self, ctx):
+        """The output dense of the context [B, S_q, heads here * D]: under
+        ``tp`` the partial product summed over the model group, plus the
+        bias once."""
+        dense = self.output.dense
+        if self.tp is None:
+            return dense(ctx)
+        return row_parallel(F.linear(ctx, dense.weight.to(ctx.dtype)),
+                            dense.bias, self.tp)
 
     def forward(self, hidden, bias, attn_seed=None, tail_seed=None,
                 block: int = 0):
@@ -289,27 +332,18 @@ class BertAttention(nn.Module):
         the rank's block of the batch (the masks' row base)."""
         cfg = self.cfg
         b, s, _ = hidden.shape
-        nh, d, hs = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
-        sa = self.self
-        if cfg.fused_qkv:
-            # one [3H, H] GEMM; q/k/v are strided views of its output, which
-            # the kernels read through strides (K2's contiguous gradients
-            # flow back into the projection's gradient through autograd)
-            w = torch.cat([sa.query.weight, sa.key.weight, sa.value.weight])
-            bvec = torch.cat([sa.query.bias, sa.key.bias, sa.value.bias])
-            qkv = F.linear(hidden, w.to(hidden.dtype), bvec.to(hidden.dtype))
-            q, k, v = (qkv[..., i * hs:(i + 1) * hs].view(b, s, nh, d)
-                       for i in range(3))
-        else:
-            q, k, v = (m(hidden).view(b, s, nh, d)
-                       for m in (sa.query, sa.key, sa.value))
+        heads = cfg.num_attention_heads
+        q, k, v = self._qkv(hidden)
+        nh = q.shape[2]
+        head0 = self.tp.index * nh if self.tp is not None else 0
         ctx = multi_head_attention(
             q, k, v, bias, impl=cfg.attention_impl,
             dropout_rate=cfg.attention_probs_dropout_prob,
             deterministic=attn_seed is None, seed=attn_seed,
-            row_base=rows_before(block, (b, nh, s, s))).reshape(b, s, hs)
-        out = self.output.dense(ctx)
-        return self.output.LayerNorm(out, hidden, tail_seed, block)
+            row_base=rows_before(block, (b, heads, s, s)),
+            heads_total=heads, head0=head0).reshape(b, s, nh * q.shape[3])
+        return self.output.LayerNorm(self._project(ctx), hidden, tail_seed,
+                                     block)
 
 
 class BertIntermediate(nn.Module):
@@ -333,7 +367,13 @@ class BertLayer(nn.Module):
     """Post-LN BERT layer: attention -> FFN(gelu) -> residual LN (reference
     model/layer.py:130-170). The FFN is one ``ops.ffn.ffn(impl="cuda")``
     when ``ffn_impl`` is "cuda" and the activation gelu, as the JAX layer
-    takes its kernel (:329-332)."""
+    takes its kernel (:329-332). Under ``tp`` (``BertAttention``) the
+    intermediate dense holds this rank's D_mid / n columns and the output
+    dense its rows of the contract axis: the FFN (K9 on those blocks,
+    given a zero ``b2``) gives a partial product, summed over the model
+    group in fp32 before ``b2`` is added, once."""
+
+    tp = None
 
     def __init__(self, cfg: UniterConfig):
         super().__init__()
@@ -344,10 +384,19 @@ class BertLayer(nn.Module):
         self.fused_ffn = cfg.ffn_impl == "cuda" and cfg.hidden_act == "gelu"
 
     def feed_forward(self, x):
+        w1, w2 = self.intermediate.dense, self.output.dense
+        if self.tp is None:
+            if self.fused_ffn:
+                return ffn(x, w1.weight, w1.bias, w2.weight, w2.bias,
+                           impl="cuda")
+            return w2(self.intermediate(x))
+        x = copy_to_region(x, self.tp.group)
         if self.fused_ffn:
-            w1, w2 = self.intermediate.dense, self.output.dense
-            return ffn(x, w1.weight, w1.bias, w2.weight, w2.bias, impl="cuda")
-        return self.output.dense(self.intermediate(x))
+            part = ffn(x, w1.weight, w1.bias, w2.weight,
+                       torch.zeros_like(w2.bias), impl="cuda")
+        else:
+            part = F.linear(self.intermediate(x), w2.weight.to(x.dtype))
+        return row_parallel(part, w2.bias, self.tp)
 
     def seeds(self, deterministic: bool = True, generator=None):
         """The layer's three dropout seeds from ``generator``, in the order
@@ -384,15 +433,18 @@ class BertAttentionCLS(BertAttention):
     ``BertAttention``'s."""
 
     def forward(self, hidden, bias, attn_seed=None, tail_seed=None):
-        cfg = self.cfg
+        sa, tp = self.self, self.tp
+        res = hidden[:, :1]
+        if tp is not None:
+            hidden = copy_to_region(hidden, tp.group)
         b, s, _ = hidden.shape
-        nh, d = cfg.num_attention_heads, cfg.head_dim
-        sa = self.self
+        d = self.cfg.head_dim
+        nh = sa.query.weight.shape[0] // d  # the heads this rank holds
         q = sa.query(hidden[:, :1]).view(b, 1, nh, d)
         k, v = (m(hidden).view(b, s, nh, d) for m in (sa.key, sa.value))
         ctx = multi_head_attention(q, k, v, bias, impl="xla").reshape(
-            b, 1, cfg.hidden_size)
-        return self.output.LayerNorm(self.output.dense(ctx), hidden[:, :1])
+            b, 1, nh * d)
+        return self.output.LayerNorm(self._project(ctx), res)
 
 
 class BertLayerCLS(BertLayer):

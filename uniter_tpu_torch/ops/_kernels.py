@@ -33,13 +33,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _U, _UL = ctypes.c_uint, ctypes.c_ulonglong
 SIGNATURES = {
     # q k v bias out out_lo lse lse_lo, B S H D, q/k/v strides, sm_scale,
-    # dropout threshold, 1/(1-rate), seed, row base, dtype, stream
+    # dropout threshold, 1/(1-rate), seed, row base, total heads, first
+    # head, dtype, stream
     "mha_fwd": [_P] * 8 + [_I] * 4 + [_L] * 9 + [_F, _U, _F, _UL, _UL, _I,
-                                                 _P],
+                                                 _I, _I, _P],
     # q k v g bias out out_lo lse lse_lo dq dk dv scratch, B S H D, q/k/v/g
     # strides, then as mha_fwd with the key-tile groups before the stream
     "mha_bwd": [_P] * 13 + [_I] * 4 + [_L] * 12 + [_F, _U, _F, _UL, _UL, _I,
-                                                   _I, _P],
+                                                   _I, _I, _I, _P],
     # the fused tails: one packed argument block (TAIL_CALL)
     **{k: [ctypes.c_char_p] for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
                                       "ln_drop_fwd", "ln_drop_bwd")},

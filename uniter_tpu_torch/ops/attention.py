@@ -32,11 +32,14 @@ output projection saves it as its input); the LSE is 4 bytes a row, the
 bf16 remainder 2 bytes an element.
 
 Dropout on P draws its mask from ``ops.dropout.keep_mask`` over the
-``[B, H, S, S]`` probabilities (row ``row_base + (b*H + h)*S + q``,
-column ``k``); the kernels compute the same bits from the same seed and
-row base. Every function here takes the row base (default 0) beside the
-seed: a rank holding examples b0... of the global batch passes
-``b0*H*S``, and its mask is the global mask's block.
+``[B, H, S, S]`` probabilities, score (b, h, q, k) at row
+``row_base + (b*heads_total + head0 + h)*S + q``, column ``k``; the
+kernels compute the same bits from the same seed, row base, total heads
+and first head. Every function here takes the three (defaults 0, H and
+0) beside the seed: a rank holding examples b0... of the global batch
+passes ``row_base = b0*heads_total*S``, a tensor-parallel rank holding
+heads h0... of ``heads_total`` passes those, and its mask is the global
+mask's block.
 """
 
 from __future__ import annotations
@@ -61,14 +64,30 @@ def _f32(t):
     return t if t.dtype == torch.float64 else t.float()
 
 
-def _probs_mask(q, rate, seed, row_base=0):
+def head_rows(b, s, h, heads_total, head0, row_base=0, device=None):
+    """The mask rows [B, h, S] of heads head0... of ``heads_total`` (module
+    docstring)."""
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
+    return (int(row_base) + ((ar(b)[:, None, None] * int(heads_total)
+                              + int(head0) + ar(h)[None, :, None]) * s
+                             + ar(s)[None, None, :]))
+
+
+def _probs_mask(q, rate, seed, row_base=0, heads_total=None, head0=0):
+    """The keep mask [B, H, S, S] of the launch's heads (module
+    docstring)."""
     b, s, h, _ = q.shape
+    if heads_total is None or (int(heads_total) == h and not head0):
+        return keep_mask(seed, 0, (b, h, s, s), rate, q.device,
+                         row_base=row_base)
     return keep_mask(seed, 0, (b, h, s, s), rate, q.device,
-                     row_base=row_base)
+                     rows_at=head_rows(b, s, h, heads_total, head0,
+                                       row_base, q.device))
 
 
 def _mha_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
-               return_lse: bool = False, row_base: int = 0):
+               return_lse: bool = False, row_base: int = 0,
+               heads_total=None, head0: int = 0):
     """q, k, v: [B, S, H, D]; bias: [B, S_k] additive fp32.
 
     Scores in fp32 (q and k upcast, as ``preferred_element_type`` does in
@@ -82,7 +101,8 @@ def _mha_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
     scores = scores * scale + _f32(bias)[:, None, None, :]
     probs = torch.softmax(scores, dim=-1)
     if rate > 0.0:
-        probs = torch.where(_probs_mask(q, rate, seed, row_base),
+        probs = torch.where(_probs_mask(q, rate, seed, row_base,
+                                        heads_total, head0),
                             probs / (1.0 - rate),
                             torch.zeros((), device=probs.device))
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
@@ -92,7 +112,7 @@ def _mha_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
 
 
 def _mha_bwd_torch(q, k, v, bias, g, rate: float = 0.0, seed: int = 0,
-                   row_base: int = 0):
+                   row_base: int = 0, heads_total=None, head0: int = 0):
     """dq, dk, dv of ``_mha_torch`` by the formula of ``_mha_bwd_kernel``
     (not autograd): recompute P, replay the mask, dV = P_d^T g,
     dP = g V^T masked and rescaled, dS = P * (dP - rowsum(dP * P)) / sqrt(D),
@@ -101,11 +121,13 @@ def _mha_bwd_torch(q, k, v, bias, g, rate: float = 0.0, seed: int = 0,
     scores = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(k))
     p = torch.softmax(scores * (1.0 / math.sqrt(q.shape[-1]))
                       + _f32(bias)[:, None, None, :], dim=-1)
-    return _grads_from_probs(q, k, g, v, p, rate, seed, row_base=row_base)
+    return _grads_from_probs(q, k, g, v, p, rate, seed, row_base=row_base,
+                             heads_total=heads_total, head0=head0)
 
 
 def _mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate: float = 0.0,
-                       seed: int = 0, lse_lo=None, row_base: int = 0):
+                       seed: int = 0, lse_lo=None, row_base: int = 0,
+                       heads_total=None, head0: int = 0):
     """The gradients of ``_mha_bwd_torch`` from the forward's ``out``
     [B, S, H, D] and ``lse`` [B, H, S], as K2 computes them:
     P = exp(s - lse) with no pass over the keys first (with the LSE's
@@ -118,10 +140,12 @@ def _mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate: float = 0.0,
          + _f32(bias)[:, None, None, :] - _f32(lse)[..., None])
     p = torch.exp(z if lse_lo is None else z - _f32(lse_lo)[..., None])
     di = (_f32(g) * _f32(out)).sum(-1).transpose(1, 2)  # [B, H, S]
-    return _grads_from_probs(q, k, g, v, p, rate, seed, di, row_base)
+    return _grads_from_probs(q, k, g, v, p, rate, seed, di, row_base,
+                             heads_total, head0)
 
 
-def _grads_from_probs(q, k, g, v, p, rate, seed, di=None, row_base=0):
+def _grads_from_probs(q, k, g, v, p, rate, seed, di=None, row_base=0,
+                      heads_total=None, head0=0):
     """dq, dk, dv from the probabilities P [B, H, S, S]: the mask of
     ``seed`` replayed, dV = P_d^T g, dP = g V^T masked and rescaled,
     dS = P (dP - Di) / sqrt(D) with Di = rowsum(dP * P) unless given,
@@ -130,7 +154,7 @@ def _grads_from_probs(q, k, g, v, p, rate, seed, di=None, row_base=0):
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
     pd = p
     if rate > 0.0:
-        keep = _probs_mask(q, rate, seed, row_base)
+        keep = _probs_mask(q, rate, seed, row_base, heads_total, head0)
         zero = torch.zeros((), device=p.device)
         pd = torch.where(keep, p / (1.0 - rate), zero)
         dp = torch.where(keep, dp / (1.0 - rate), zero)
@@ -176,7 +200,7 @@ def _split_mm(a, b, passes=3):
 
 def _mha_tf32_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
                     return_lse: bool = False, passes: int = 3,
-                    row_base: int = 0):
+                    row_base: int = 0, heads_total=None, head0: int = 0):
     """``_mha_torch`` for fp32 inputs in the order of operations of the fp32
     K1 (``mha_fwd_tf32_kernel``), for the CPU tests: scores by ``_split_mm``
     (partials over at most 64 head dims), scaled and biased; keys in tiles
@@ -192,7 +216,8 @@ def _mha_tf32_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
     qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))  # [B,H,S,D]
     scores = _split_mm(qt, kt.transpose(-1, -2), passes) * scale \
         + bias.float()[:, None, None, :]
-    keep = _probs_mask(q, rate, seed, row_base) if rate > 0.0 else None
+    keep = (_probs_mask(q, rate, seed, row_base, heads_total, head0)
+            if rate > 0.0 else None)
     m = l = o = None  # row max, row sum, unnormalised output
     for k0 in range(0, s, TILE):
         ks = slice(k0, k0 + TILE)
@@ -221,7 +246,8 @@ def _mha_tf32_torch(q, k, v, bias, rate: float = 0.0, seed: int = 0,
 
 def _mha_bwd_tf32_torch(q, k, v, bias, g, out, lse, lse_lo,
                         rate: float = 0.0, seed: int = 0, passes: int = 3,
-                        row_base: int = 0):
+                        row_base: int = 0, heads_total=None,
+                        head0: int = 0):
     """``_mha_bwd_lse_torch`` for fp32 inputs in the order of operations of
     the fp32 K2 (``mha_bwd_tf32_kernel``), for the CPU tests: Di =
     rowsum(g * out); per 64-key tile j and 64-query tile i, S^T = K_j Q_i^T
@@ -234,7 +260,8 @@ def _mha_bwd_tf32_torch(q, k, v, bias, g, out, lse, lse_lo,
     qt, kt, vt, gt = (t.float().transpose(1, 2) for t in (q, k, v, g))
     bias_f = bias.float()
     di = (g.float() * out.float()).sum(-1).transpose(1, 2)  # [B, H, S]
-    keep = _probs_mask(q, rate, seed, row_base) if rate > 0.0 else None
+    keep = (_probs_mask(q, rate, seed, row_base, heads_total, head0)
+            if rate > 0.0 else None)
     dq, dk, dv = (torch.zeros_like(qt) for _ in range(3))
     for k0 in range(0, s, TILE):
         kj = slice(k0, k0 + TILE)
@@ -288,7 +315,8 @@ def _check(q, k, v, bias, name="mha_fwd"):
                          f"{tuple(bias.shape)}")
 
 
-def _check_dropout(rate, seed, row_base=0):
+def _check_dropout(rate, seed, row_base=0, h=1, heads_total=None, head0=0):
+    """The mask's arguments; returns ``heads_total`` (H when None)."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
     if not 0 <= int(seed) < 2**63:
@@ -296,6 +324,11 @@ def _check_dropout(rate, seed, row_base=0):
     if not 0 <= int(row_base) < 2**62:
         raise ValueError(f"row base must be a non-negative 62-bit int, got "
                          f"{row_base}")
+    heads_total = h if heads_total is None else int(heads_total)
+    if not (0 <= int(head0) and int(head0) + h <= heads_total <= 65535):
+        raise ValueError(f"heads {head0}..{int(head0) + h} do not lie in "
+                         f"the {heads_total} heads")
+    return heads_total
 
 
 def _dim_pad(d):
@@ -380,7 +413,8 @@ def _check_like(t, q, name, dtype=None):
 
 
 def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
-            out_lo=None, lse_lo=None, row_base: int = 0):
+            out_lo=None, lse_lo=None, row_base: int = 0, heads_total=None,
+            head0: int = 0):
     """K1: dropout(softmax(QK^T/sqrt(D) + bias)) V through the CUDA kernel.
 
     Takes the layout of ``multi_head_attention``. Both dtypes run a
@@ -396,9 +430,12 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
     view whose base or strides are not multiples of 16 bytes. A CPU input
     takes the plain version; a CUDA input launches a kernel or raises —
     there is no fallback. ``mha_fwd.launches`` counts the launches. Rate 0
-    draws no bits; the mask is drawn at ``row_base`` (module docstring)."""
+    draws no bits; the mask is drawn at ``row_base`` for heads ``head0``...
+    of ``heads_total`` (module docstring)."""
     _check(q, k, v, bias)
-    _check_dropout(rate, seed, row_base)
+    heads_total = _check_dropout(rate, seed, row_base, q.shape[2],
+                                 heads_total, head0)
+    hk = dict(row_base=row_base, heads_total=heads_total, head0=head0)
     if lse is not None:
         _check_lse(lse, q)
     if out_lo is not None:
@@ -409,9 +446,9 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
         _check_lse(lse_lo, q)
     if q.device.type == "cpu":
         if lse is None and out_lo is None:
-            return _mha_torch(q, k, v, bias, rate, seed, row_base=row_base)
+            return _mha_torch(q, k, v, bias, rate, seed, **hk)
         out, plain_lse = _mha_torch(q, k, v, bias, rate, seed,
-                                    return_lse=True, row_base=row_base)
+                                    return_lse=True, **hk)
         if lse is not None:
             lse.copy_(plain_lse)
         if lse_lo is not None:
@@ -420,7 +457,7 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
             lse_lo.copy_(exact - plain_lse.double())
         if out_lo is not None:
             full = _mha_torch(q.float(), k.float(), v.float(), bias, rate,
-                              seed, row_base=row_base)
+                              seed, **hk)
             out_lo.copy_(full - out.float())
         return out
     if q.device.type != "cuda":
@@ -445,7 +482,8 @@ def mha_fwd(q, k, v, bias, rate: float = 0.0, seed: int = 0, lse=None,
                 out.data_ptr(), _ptr(out_lo), _ptr(lse), _ptr(lse_lo),
                 b, s, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 1.0 / math.sqrt(d), thr, 1.0 / (1.0 - rate), int(seed),
-                int(row_base), _DTYPE_CODE[q.dtype], stream)
+                int(row_base), heads_total, int(head0), _DTYPE_CODE[q.dtype],
+                stream)
     if rc:
         raise RuntimeError(f"mha_fwd kernel launch failed: cudaError_t {rc} "
                            f"at q{tuple(q.shape)} {q.dtype}")
@@ -461,7 +499,8 @@ def _ptr(t):
 
 
 def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
-            lse=None, out_lo=None, lse_lo=None, row_base: int = 0):
+            lse=None, out_lo=None, lse_lo=None, row_base: int = 0,
+            heads_total=None, head0: int = 0):
     """K2: dq, dk, dv of ``mha_fwd`` (same rate and seed) for the output
     gradient ``g`` [B, S, H, D]. Results are contiguous [B, S, H, D] in q's
     dtype. Both dtypes run a one-pass tensor-core kernel from the forward's
@@ -471,9 +510,12 @@ def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
     when given out and lse (the output as out + out_lo when out_lo is
     given, with lse_lo when given), else ``_mha_bwd_torch``.
     ``mha_bwd.launches`` counts the kernel calls (one per call). The mask is
-    replayed at ``row_base``, as ``mha_fwd`` drew it."""
+    replayed at ``row_base``, ``heads_total`` and ``head0``, as ``mha_fwd``
+    drew it."""
     _check(q, k, v, bias, "mha_bwd")
-    _check_dropout(rate, seed, row_base)
+    heads_total = _check_dropout(rate, seed, row_base, q.shape[2],
+                                 heads_total, head0)
+    hk = dict(row_base=row_base, heads_total=heads_total, head0=head0)
     _check_like(g, q, "g")
     if (out is None) != (lse is None):
         raise ValueError("mha_bwd takes the forward's out and lse together")
@@ -490,11 +532,11 @@ def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
         g = g.contiguous()
     if q.device.type == "cpu":
         if out is None:
-            return _mha_bwd_torch(q, k, v, bias, g, rate, seed, row_base)
+            return _mha_bwd_torch(q, k, v, bias, g, rate, seed, **hk)
         if out_lo is not None:
             out = out.float() + out_lo.float()
         return _mha_bwd_lse_torch(q, k, v, bias, g, out, lse, rate, seed,
-                                  lse_lo, row_base)
+                                  lse_lo, **hk)
     if q.device.type != "cuda":
         raise ValueError(f"mha_bwd runs on cuda or cpu, not {q.device}")
     b, s, h, d = q.shape
@@ -534,8 +576,8 @@ def mha_bwd(q, k, v, bias, g, rate: float = 0.0, seed: int = 0, out=None,
                 _ptr(lse_lo), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 _ptr(scratch), b, s, h, d, *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], *g.stride()[:3], 1.0 / math.sqrt(d), thr,
-                1.0 / (1.0 - rate), int(seed), int(row_base),
-                _DTYPE_CODE[q.dtype], groups, stream)
+                1.0 / (1.0 - rate), int(seed), int(row_base), heads_total,
+                int(head0), _DTYPE_CODE[q.dtype], groups, stream)
     if rc:
         raise RuntimeError(f"mha_bwd kernel launch failed: cudaError_t {rc} "
                            f"at q{tuple(q.shape)} {q.dtype}")
@@ -557,18 +599,21 @@ class MhaFunction(torch.autograd.Function):
     from ``attn_mask``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, rate, seed, row_base=0):
-        ctx.rate, ctx.seed, ctx.row_base = rate, seed, row_base
+    def forward(ctx, q, k, v, bias, rate, seed, row_base=0, heads_total=None,
+                head0=0):
+        ctx.rate, ctx.seed = rate, seed
+        ctx.hk = dict(row_base=row_base, heads_total=heads_total,
+                      head0=head0)
         b, s, h, _ = q.shape
         lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         if q.dtype == torch.bfloat16:
             lo = torch.empty_like(q, memory_format=torch.contiguous_format)
             out = mha_fwd(q, k, v, bias, rate, seed, lse=lse, out_lo=lo,
-                          row_base=row_base)
+                          **ctx.hk)
         else:
             lo = torch.empty_like(lse)
             out = mha_fwd(q, k, v, bias, rate, seed, lse=lse, lse_lo=lo,
-                          row_base=row_base)
+                          **ctx.hk)
         ctx.save_for_backward(q, k, v, bias, out, lse, lo)
         return out
 
@@ -577,21 +622,24 @@ class MhaFunction(torch.autograd.Function):
         q, k, v, bias, out, lse, lo = ctx.saved_tensors
         key = "out_lo" if q.dtype == torch.bfloat16 else "lse_lo"
         dq, dk, dv = mha_bwd(q, k, v, bias, g, ctx.rate, ctx.seed, out=out,
-                             lse=lse, row_base=ctx.row_base, **{key: lo})
-        return dq, dk, dv, None, None, None, None
+                             lse=lse, **ctx.hk, **{key: lo})
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def multi_head_attention(q, k, v, bias, *, impl: str = "xla",
                          dropout_rate: float = 0.0,
                          deterministic: bool = True,
-                         seed: int = None, row_base: int = 0):
+                         seed: int = None, row_base: int = 0,
+                         heads_total=None, head0: int = 0):
     """Fused MHA. q, k, v: [B, S, H, D]; bias: [B, S] additive (0 / -10000).
 
     ``impl="cuda"`` takes the kernels (``MhaFunction``: K1 forward, K2
     backward), ``"xla"`` the plain version under autograd. Dropout on P is
     live when ``deterministic`` is False and the rate positive; it then
     needs the call's ``seed`` (``ops.dropout.draw_seed``) and draws its
-    mask at ``row_base`` (module docstring). Returns [B, S, H, D]."""
+    mask at ``row_base`` for heads ``head0``... of ``heads_total`` (module
+    docstring). Returns [B, S, H, D]."""
+    hk = dict(row_base=row_base, heads_total=heads_total, head0=head0)
     rate = 0.0 if deterministic else float(dropout_rate)
     if rate > 0.0 and seed is None:
         raise ValueError("live attention dropout needs a seed")
@@ -600,9 +648,9 @@ def multi_head_attention(q, k, v, bias, *, impl: str = "xla",
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
             return MhaFunction.apply(q, k, v, bias.float(), rate, seed,
-                                     row_base)
+                                     row_base, heads_total, head0)
         # no backward to feed: K1 alone, writing no LSE or remainder
-        return mha_fwd(q, k, v, bias.float(), rate, seed, row_base=row_base)
+        return mha_fwd(q, k, v, bias.float(), rate, seed, **hk)
     if impl == "xla":
-        return _mha_torch(q, k, v, bias, rate, seed, row_base=row_base)
+        return _mha_torch(q, k, v, bias, rate, seed, **hk)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -23,10 +23,12 @@ batch (``data/loader.py``), so each of its tensors is block p of the
 global tensor along the batch axis, and it draws at the row base
 ``p * rows`` (``rows_before``) from the one process's seeds. The
 attention kernels (``csrc/mha_fwd.cu``, ``csrc/mha_bwd.cu``) draw the
-mask of score (b, h, q, k) as element (k) of row r0 + ((b*H + h)*S + q)
-of a ``[B, H, S, S]`` tensor by the same formula, so the plain versions,
-the forward and the backward all see the same bits, whatever their
-tiling.
+mask of score (b, h, q, k) as element (k) of row
+r0 + ((b*H_total + h0 + h)*S + q) of a ``[B, H_total, S, S]`` tensor by
+the same formula (``H_total`` the model's heads, ``h0`` the first of the
+launch's: a tensor-parallel rank holds heads h0... of each example, rows
+that are not one block), so the plain versions, the forward and the
+backward all see the same bits, whatever their tiling.
 
 Plain torch has no unsigned 32-bit multiply, and a 32x32 -> 64-bit product
 overflows int64; ``_mulhilo`` splits the constant factor into 16-bit limbs
@@ -88,18 +90,23 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def _words(seed: int, offset: int, shape, device, row_base: int = 0):
+def _words(seed: int, offset: int, shape, device, row_base: int = 0,
+           rows_at=None):
     """The four Philox words of every counter of ``shape`` drawn at
     ``row_base`` (module docstring), each [rows, ceil(cols / 4)], and the
-    shape's cols."""
+    shape's cols. ``rows_at`` (int64, one entry per row of ``shape``)
+    names each row's mask row instead: rows that are not one block."""
     shape = tuple(int(n) for n in shape)
     cols = shape[-1] if shape else 1
     rows = 1
     for n in shape[:-1]:
         rows *= n
     seed, offset = int(seed), int(offset) & _MASK32
-    r = torch.arange(int(row_base), int(row_base) + rows, dtype=torch.int64,
-                     device=device)[:, None]
+    if rows_at is None:
+        r = torch.arange(int(row_base), int(row_base) + rows,
+                         dtype=torch.int64, device=device)[:, None]
+    else:
+        r = rows_at.to(device=device, dtype=torch.int64).reshape(rows, 1)
     c4 = torch.arange((cols + 3) // 4, dtype=torch.int64, device=device)
     words = philox4x32_10(c4[None, :], r & _MASK32, r >> 32,
                           torch.full((), offset, dtype=torch.int64,
@@ -145,12 +152,14 @@ def mask_rule(rate: float, impl: str = "xla"):
 
 def keep_mask(seed: int, offset: int, shape, rate: float,
               device=None, impl: str = "xla",
-              row_base: int = 0) -> torch.Tensor:
-    """Boolean keep-mask of ``shape`` drawn at ``row_base``; True with
-    probability 1 - rate (the quantized keep rate under ``impl``
-    "u16"/"u8"). (Each word is compared before the four are interleaved,
-    so the interleave moves bytes, not int64s.)"""
-    words, rows, cols = _words(seed, offset, shape, device, row_base)
+              row_base: int = 0, rows_at=None) -> torch.Tensor:
+    """Boolean keep-mask of ``shape`` drawn at ``row_base`` (or with the
+    mask rows ``rows_at``, ``_words``); True with probability 1 - rate
+    (the quantized keep rate under ``impl`` "u16"/"u8"). (Each word is
+    compared before the four are interleaved, so the interleave moves
+    bytes, not int64s.)"""
+    words, rows, cols = _words(seed, offset, shape, device, row_base,
+                               rows_at)
     bits, thr, _ = mask_rule(rate, impl)
     return _interleave([(w >> (32 - bits) if bits < 32 else w) >= thr
                         for w in words], tuple(shape), rows, cols)

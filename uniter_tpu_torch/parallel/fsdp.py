@@ -1,5 +1,14 @@
 """``--fsdp``: the parameters sharded at rest over the ``data`` axis (ZeRO-3).
 
+Every collective here runs over this rank's data group
+(``parallel/collectives.py`` ``data_group``: the world without a model
+axis). Under a data x model grid the parameters it shards are the rank's
+tensor-parallel blocks (``parallel/tp.py`` cuts them first), as the JAX
+placement puts ``data`` on an axis that ``model`` left free
+(``parallel/mesh.py`` ``_compose_fsdp``): the model ranks of a data group
+each shard their own blocks, and a replicated parameter's block is the
+same on every model rank.
+
 Counterpart of ``uniter_tpu/training/loop.py`` ``place_state(fsdp=True)``
 with ``parallel/mesh.py`` ``param_sharding_full``: there ``jit`` keeps the
 parameters and the Adam moments of every leaf whose spec names ``data``
@@ -11,8 +20,8 @@ they are explicit:
     and one per other child of the model that owns any (the pooler, each
     task head). Within a unit, the parameters of one optimizer key
     (decay, learning-rate multiplier, and in master mode the bf16 storage)
-    form one flat buffer, padded to a multiple of the world size; rank p
-    keeps block p of it (``_Group``). The block is cut along the flat
+    form one flat buffer, padded to a multiple of the data size; the rank
+    at data index p keeps block p of it (``_Group``). The block is cut along the flat
     buffer, across parameter boundaries: a layout choice, which changes no
     result. Smaller parameters stay whole on every rank.
   * **At rest** a sharded ``nn.Parameter`` holds no data: it is a
@@ -35,7 +44,7 @@ they are explicit:
     the layer's forward again under its own hooks). Then ``_Gather``'s
     backward takes the gradients of the unit's parameters, flattens them
     per group in fp32 and reduce-scatters them: each rank's block
-    gradient, summed over the ranks, accumulates on ``block.grad``, and
+    gradient, summed over the data group, accumulates on ``block.grad``, and
     the unit's full weights and gradient are freed.
   * So between steps no rank holds a full copy of a sharded parameter, and
     during a step only the units whose backward is pending do (and any
@@ -45,7 +54,8 @@ they are explicit:
   * ``model.state_dict()`` gathers the sharded parameters (a collective:
     every rank calls it together), and ``model.load_state_dict`` scatters
     full tensors into the blocks, so a checkpoint holds full tensors and
-    does not depend on the world size.
+    does not depend on the world size (``parallel/tp.py`` then gathers the
+    model axis).
   * ``unit_param`` gives a sharded parameter's value outside its unit's
     call (the tied decoders of pretraining read the word table and the
     image projection), gathered with its gradient path.
@@ -55,7 +65,7 @@ they are explicit:
 
 ``training/optim.py`` ``FusedAdamW`` updates the blocks in place from
 their reduce-scattered gradients; nothing gathers after an update. At
-world size 1 a block is the whole buffer, a gather and a reduce-scatter
+data size 1 a block is the whole buffer, a gather and a reduce-scatter
 are copies, and a run is the replicated run to the order of its sums.
 """
 
@@ -94,7 +104,7 @@ def _at_rest(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class _Group:
     """One flat buffer of a unit: parameters of one optimizer key and one
     storage dtype (bf16 when ``low``), ``size`` elements padded to a
-    multiple of the world size, this rank's block ``[lo, hi)``."""
+    multiple of the data size ``world``, this rank's block ``[lo, hi)``."""
 
     def __init__(self, key, members, world: int, rank: int, low: bool):
         self.key = key
@@ -172,15 +182,18 @@ class _Gather(torch.autograd.Function):
                 if grads[i] is not None:
                     flat[ofs:ofs + numel].copy_(grads[i].reshape(-1))
                 i += 1
-            out.append(reduce_scatter(torch.empty_like(group.block), flat))
+            out.append(reduce_scatter(torch.empty_like(group.block), flat,
+                                      ctx.unit.comm))
         return (None, *out)
 
 
 class _Unit:
     """The sharded parameters under one module (module docstring)."""
 
-    def __init__(self, name: str, root: nn.Module, groups: List[_Group]):
+    def __init__(self, name: str, root: nn.Module, groups: List[_Group],
+                 comm=None):
         self.name, self.root, self.groups = name, root, groups
+        self.comm = comm  # the data group
         self.slots: List[SLOT] = [m[1] for g in groups for m in g.members]
         self.rest = [mod._parameters[attr] for mod, attr in self.slots]
         # slot -> (group, offset, shape) in the gathered buffers
@@ -194,7 +207,8 @@ class _Unit:
         from uniter_tpu_torch.parallel.collectives import all_gather
 
         return [all_gather(torch.empty(g.size, dtype=g.dtype,
-                                       device=g.block.device), g.stored())
+                                       device=g.block.device), g.stored(),
+                           self.comm)
                 for g in self.groups]
 
     def views(self, fulls) -> List[torch.Tensor]:
@@ -270,13 +284,14 @@ class Sharding:
 def shard(model: nn.Module, names: Sequence[str],
           key_of: Callable[[str], tuple], low_of: Callable[[str], bool]
           ) -> Sharding:
-    """Shard the parameters ``names`` of ``model`` at rest (module
-    docstring) and install the hooks; ``key_of(name)`` is the optimizer
-    group key, ``low_of(name)`` True for a bf16-stored parameter."""
+    """Shard the parameters ``names`` of ``model`` at rest over the data
+    group (module docstring) and install the hooks; ``key_of(name)`` is
+    the optimizer group key, ``low_of(name)`` True for a bf16-stored
+    parameter."""
     from uniter_tpu_torch.parallel.collectives import (
-        num_processes, process_index)
+        data_group, data_index, data_size)
 
-    world, rank = num_processes(), process_index()
+    world, rank, comm = data_size(), data_index(), data_group()
     modules = dict(model.named_modules())
     by_unit: Dict[str, Dict[tuple, list]] = {}
     for name, p in model.named_parameters():
@@ -296,7 +311,7 @@ def shard(model: nn.Module, names: Sequence[str],
                 placed.append((name, slot, shape, ofs, numel))
                 ofs += numel
             groups.append(_Group(key, placed, world, rank, low))
-        unit = _Unit(root, modules[root], groups)
+        unit = _Unit(root, modules[root], groups, comm)
         i = 0
         for g in groups:
             for m in g.members:

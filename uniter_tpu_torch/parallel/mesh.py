@@ -1,16 +1,18 @@
 """The process mesh and the placement rules (counterpart of
 ``uniter_tpu/parallel/mesh.py``).
 
-The JAX package shards its batch over a ``data`` axis of a device mesh and
-lets ``jit`` insert the collectives; its parameters are replicated or,
-with ``--fsdp``, sharded over ``data`` (ZeRO-3), and it runs a forward
-under a ``model`` axis (Megatron tensor parallelism) in its tests, with no
-driver that builds one. Here one process drives one device, the ``data``
-axis is the process group (``parallel/collectives.py``) and the rules are
-plain functions of a parameter's name and shape:
+The JAX package lays its devices out as a ``(data, model)`` mesh: the
+batch is sharded over ``data``, the encoder's projections over ``model``
+(Megatron tensor parallelism), and with ``--fsdp`` the parameters over
+``data`` too (ZeRO-3); ``jit`` inserts the collectives. Here one process
+drives one device and ``make_mesh`` lays the processes out the same way:
+rank r sits at (r // model, r % model), as JAX's ``reshape(data, model)``
+places its devices, and the two axes are process groups
+(``parallel/collectives.py`` ``set_grid``). The rules are plain functions
+of a parameter's name and shape:
 
-  * ``_tp_spec``: column-sharded QKV and FFN-in kernels, row-sharded output
-    projections, over ``model``;
+  * ``_tp_spec``: column-sharded QKV and FFN-in kernels and their biases,
+    row-sharded output projections, over ``model``;
   * ``_compose_fsdp``: ``data`` on the largest free axis it divides, for
     parameters of at least ``fsdp_min_size`` elements;
   * ``param_sharding_full``: both, for every parameter, as a tuple of axis
@@ -19,12 +21,11 @@ plain functions of a parameter's name and shape:
 A rule sees each parameter as the JAX tree holds it (``models.checkpoint
 .reference_leaf``): a ``Dense`` kernel [in, out] where the tensor here is
 [out, in], and each encoder tensor as the stack of all its layers, so the
-specs are the JAX package's, carried through the weight bridge. Under
-``--fsdp`` the parameters whose spec names ``data`` are sharded at rest,
-with their optimizer state (``parallel/fsdp.py``, ``training/optim.py``).
-
-Executing a ``model`` axis is not ported yet: ``make_mesh`` refuses it
-(ROADMAP.md, "tensor-parallel model axis").
+specs are the JAX package's, carried through the weight bridge. The
+parameters whose spec names ``model`` are cut into the rank's block
+(``parallel/tp.py``); under ``--fsdp`` those whose spec names ``data`` are
+sharded at rest over the data group, with their optimizer state
+(``parallel/fsdp.py``, ``training/optim.py``).
 """
 
 from __future__ import annotations
@@ -61,20 +62,31 @@ class Mesh:
 
 
 def make_mesh(config: MeshConfig = MeshConfig()) -> Mesh:
-    """The mesh of the running process group (``data`` = every process).
-    A ``model`` axis raises: tensor parallelism is not executed here yet
-    (ROADMAP.md, Queue 1: the tensor-parallel model axis)."""
-    from uniter_tpu_torch.parallel.collectives import num_processes
+    """The ``data`` x ``model`` grid of the running process group
+    (``data`` -1: every process over ``model``). With ``model`` > 1 it
+    builds the grid's process groups (a collective: every rank calls it
+    before building the model's placement, loaders and train step; the
+    same grid again is a no-op, another one raises);
+    ``model`` 1 is the world along ``data``. Returns the mesh, also kept
+    as ``current_mesh()``."""
+    from uniter_tpu_torch.parallel.collectives import num_processes, set_grid
 
-    if config.model > 1:
-        raise NotImplementedError(
-            "a model (tensor-parallel) axis is not ported yet; see "
-            "ROADMAP.md, Queue 1: the tensor-parallel model axis")
     n = num_processes()
-    data = config.data if config.data > 0 else n
-    if data != n:
-        raise ValueError(f"mesh data={data} != {n} processes")
-    return Mesh(data=data, model=1)
+    if config.model < 1 or n % config.model:
+        raise ValueError(f"mesh model={config.model} does not divide {n} "
+                         "processes")
+    data = config.data if config.data > 0 else n // config.model
+    if data * config.model != n:
+        raise ValueError(f"mesh {data}x{config.model} != {n} processes")
+    set_grid(data, config.model)
+    return current_mesh()
+
+
+def current_mesh() -> Mesh:
+    """The grid ``make_mesh`` built, or every process along ``data``."""
+    from uniter_tpu_torch.parallel.collectives import data_size, model_size
+
+    return Mesh(data=data_size(), model=model_size())
 
 
 # Megatron-style rules on the JAX tree's paths (the JAX package's lists)

@@ -38,8 +38,7 @@ from uniter_tpu_torch.data.itm import (
     ItmRankDatasetHardNegFromImage, ItmRankDatasetHardNegFromText,
     hard_neg_collate)
 from uniter_tpu_torch.models.itm import UniterForImageTextRetrievalHardNeg
-from uniter_tpu_torch.parallel.fsdp import local_params
-from uniter_tpu_torch.parallel.collectives import num_processes
+from uniter_tpu_torch.parallel.collectives import data_size
 from uniter_tpu_torch.parallel.fsdp import local_params
 from uniter_tpu_torch.training import driver
 from uniter_tpu_torch.training.optim import build_optimizer
@@ -91,14 +90,13 @@ def stacked_batches(loader_i, loader_t, accum: int, n_consumed: int):
     alternation after a resume), this rank's block of the N processes'; a
     block of one is the batch itself (the step's ``accum_steps=1``
     layout)."""
-    from uniter_tpu_torch.parallel.collectives import (
-        num_processes, process_index)
+    from uniter_tpu_torch.parallel.collectives import data_index
 
     sources = itertools.cycle([loader_i, loader_t])
     if n_consumed % 2:
         next(sources)
-    local = accum // num_processes()
-    lo = process_index() * local
+    local = accum // data_size()
+    lo = data_index() * local
     while True:
         batches = [next(next(sources)) for _ in range(accum)][lo:lo + local]
         yield {k: (np.stack([b[k] for b in batches]) if local > 1
@@ -108,12 +106,10 @@ def stacked_batches(loader_i, loader_t, accum: int, n_consumed: int):
 
 def hard_neg_loss(model, batch, generator):
     """Mean triplet loss of one mined candidate batch (and no metrics);
-    over N processes its share 1/N, with the step's ``loss_scale="sum"``
+    over N data ranks its share 1/N, with the step's ``loss_scale="sum"``
     restoring the gradient of each candidate batch."""
-    from uniter_tpu_torch.parallel.collectives import num_processes
-
     loss = model(batch, True, deterministic=False, generator=generator).mean()
-    world = num_processes()
+    world = data_size()
     return (loss / world if world > 1 else loss), {}
 
 
@@ -130,7 +126,7 @@ def main(opts):
                          "multiple of 8 (reference :438 tensor-core rule)")
     cfg = driver.model_config_from_opts(opts)
     driver.setup_run(opts, cfg)
-    world = num_processes()
+    world = data_size()
     if opts.train_batch_size % world:
         raise ValueError(f"train_batch_size {opts.train_batch_size} "
                          f"candidate batches do not split over {world} "

@@ -12,7 +12,11 @@ device (``--device``, the card by default); ``torchrun --nproc_per_node N
 ``--dist_backend gloo``, which lets ranks share a card). Every rank runs
 the same global batch plan and trains on its contiguous block of each
 batch; evaluation sets are sharded by rank (``shard_kw``) and gathered;
-rank 0 alone logs and writes.
+rank 0 alone logs and writes. Blocks and shards follow the data axis:
+under a data x model grid (``parallel/mesh.py`` ``make_mesh``, built
+through the API as in the JAX package) ``place_state`` also cuts the
+model's tensor-parallel blocks, and the model ranks of a data group read
+the same batches.
 
 The flags are the JAX drivers'. ``--attention_impl`` and
 ``--block_fusion`` default to ``auto``: on the card the hand-written
@@ -50,8 +54,8 @@ from uniter_tpu_torch.config import UniterConfig, resolve_kernel_policies
 from uniter_tpu_torch.data.buckets import BucketSpec, size_multiple
 from uniter_tpu_torch.models.checkpoint import load_torch_checkpoint
 from uniter_tpu_torch.parallel.collectives import (
-    all_gather_list, barrier, init_distributed, is_distributed,
-    num_processes, process_index)
+    all_gather_list, barrier, data_index, data_size, init_distributed,
+    is_distributed, num_processes, process_index)
 from uniter_tpu_torch.training.loop import TrainLoop
 from uniter_tpu_torch.training.optim import build_optimizer
 from uniter_tpu_torch.training.sched import get_lr_schedule
@@ -331,10 +335,11 @@ def setup_run(opts, model_cfg):
 
 
 def shard_kw() -> dict:
-    """This rank's share of an evaluation set (the ``BucketLoader``'s
+    """This rank's share of a data set (the ``BucketLoader``'s
     ``shard_index``/``shard_count``; the reference's
-    ``ids[rank::size]``, data/data.py:218-225)."""
-    return dict(shard_index=process_index(), shard_count=num_processes())
+    ``ids[rank::size]``, data/data.py:218-225): its place on the data
+    axis, so the model ranks of a data group read the same batches."""
+    return dict(shard_index=data_index(), shard_count=data_size())
 
 
 def bucket_spec(opts, dataset, budget=None) -> BucketSpec:
@@ -358,7 +363,7 @@ def bucket_spec(opts, dataset, budget=None) -> BucketSpec:
     return BucketSpec(
         txt_buckets=txt_buckets, img_buckets=img_buckets,
         token_budget=budget or opts.train_batch_size,
-        size_mul=size_multiple(rows, num_processes()))
+        size_mul=size_multiple(rows, data_size()))
 
 
 def check_token_range(model_cfg, dataset, n_samples: int = 32):
@@ -395,6 +400,25 @@ def check_token_range(model_cfg, dataset, n_samples: int = 32):
                 f"{model_cfg.type_vocab_size} (record {i})")
 
 
+def place_state(model: nn.Module, learning_rate, *, fsdp: bool = False,
+                fsdp_min_size: int = 2 ** 16, **opt_kw) -> TrainState:
+    """The train state placed on the grid ``parallel/mesh.py``
+    ``make_mesh`` built (counterpart of JAX ``place_state``,
+    ``uniter_tpu/training/loop.py:61-80``): the model's tensor-parallel
+    blocks over the model axis first (``parallel/tp.py``
+    ``shard_model``), then the optimizer
+    (``build_optimizer``'s keywords), with ``--fsdp`` sharding the
+    parameters and their state over the data group. ``model`` holds full
+    parameters (a checkpoint loaded); a resume loads full tensors into the
+    placed state (``TrainStateSaver.restore``)."""
+    from uniter_tpu_torch.parallel.tp import shard_model
+
+    shard_model(model)
+    opt = build_optimizer(model, learning_rate, fsdp=fsdp,
+                          fsdp_min_size=fsdp_min_size, **opt_kw)
+    return TrainState(step=0, model=model, opt=opt)
+
+
 def run_training(opts, *, model, loss_fn, train_loader, validate_fn=None,
                  lr_mul_paths: Sequence[str] = (), loss_scale: str = "sum",
                  best_metric: Optional[str] = None):
@@ -408,9 +432,8 @@ def run_training(opts, *, model, loss_fn, train_loader, validate_fn=None,
     best`` never resolves to another run's weights."""
     sched = get_lr_schedule(opts.learning_rate, opts.warmup_steps,
                             opts.num_train_steps)
-    opt = build_optimizer(model, sched, lr_mul=getattr(opts, "lr_mul", 1.0),
-                          lr_mul_paths=lr_mul_paths, **optim_kwargs(opts))
-    state = TrainState(step=0, model=model, opt=opt)
+    state = place_state(model, sched, lr_mul=getattr(opts, "lr_mul", 1.0),
+                        lr_mul_paths=lr_mul_paths, **optim_kwargs(opts))
     saver = TrainStateSaver(opts.output_dir)
     best_value = None
     if saver.restore(state, seed=opts.seed) is not None:

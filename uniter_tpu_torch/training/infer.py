@@ -167,11 +167,11 @@ def gather_batches(loader, per_batch: list) -> list:
     batch, and each batch's blocks go in rank order. Every rank calls it
     and gets the whole list. One process: the lists joined."""
     from uniter_tpu_torch.parallel.collectives import (
-        all_gather_list, num_processes)
+        all_gather_list, data_group, data_size)
 
-    if num_processes() == 1:
+    if data_size() == 1:
         return [r for part in per_batch for r in part]
-    parts = [iter(p) for p in all_gather_list(per_batch)]
+    parts = [iter(p) for p in all_gather_list(per_batch, data_group())]
     n = len(parts)
     sampler = loader.sampler
     epoch = sampler.epoch  # walking the plan again must not advance it
@@ -186,9 +186,10 @@ def gather_batches(loader, per_batch: list) -> list:
 
 
 def gather_sums(*values):
-    """Each value summed over the ranks (host numbers: evaluation
+    """Each value summed over the data axis (host numbers: evaluation
     counters); the values themselves in one process."""
-    from uniter_tpu_torch.parallel.collectives import all_gather_list
+    from uniter_tpu_torch.parallel.collectives import (
+        all_gather_list, data_group)
 
-    parts = all_gather_list(values)
+    parts = all_gather_list(values, data_group())
     return tuple(sum(p[i] for p in parts) for i in range(len(values)))

@@ -251,9 +251,10 @@ def summed(counts: dict) -> dict:
     log boundary): the global batch's examples, whatever share of its
     padding each rank's block holds. ``counts`` as it is in one
     process."""
-    from uniter_tpu_torch.parallel.collectives import all_gather_list
+    from uniter_tpu_torch.parallel.collectives import (
+        all_gather_list, data_group)
 
-    ranks = all_gather_list(counts)
+    ranks = all_gather_list(counts, data_group())
     return {k: sum(r[k] for r in ranks) for k in counts}
 
 

@@ -105,9 +105,10 @@ class FusedAdamW:
 
     Over several processes (``parallel/collectives.py``) each rank holds
     its own gradients of the replicated parameters; a step first sums each
-    replicated group's flat gradient over the ranks (one all-reduce a
+    replicated group's flat gradient over the data group (one all-reduce a
     group: the sum, not the mean, is the contract, reference
-    utils/distributed.py:16-43). The parameters ``shard`` holds
+    utils/distributed.py:16-43; the data group is the world without a
+    model axis). The parameters ``shard`` holds
     (``parallel/fsdp.py``: ``--fsdp``, those whose placement spec names
     ``data``, ``parallel/mesh.py``) are not in ``named_params``: each of
     its groups is held at rest as this rank's block of a padded flat
@@ -115,11 +116,19 @@ class FusedAdamW:
     the backward's reduce-scatter (JAX ``place_state(fsdp=True)`` and
     ``opt_state_sharding``). A step updates the block in place, in master
     mode the fp32 masters and then their bf16 copy; nothing is gathered
-    after it. The norm adds the blocks' sums of squares over the ranks, so
-    the norm, the clip and every update are the one-process ones.
+    after it. The norm adds the blocks' sums of squares over the data
+    group, so the norm, the clip and every update are the one-process
+    ones.
+
+    Under a tensor-parallel model axis (``tp``, the model's
+    ``parallel/tp.py`` layout) the parameters are the rank's blocks, each
+    a group of its own kind: the sums of squares of the TP-sharded groups
+    are also added over the model group, while a replicated parameter,
+    whose gradient every model rank holds whole and equal, counts once.
     ``state()``, ``masters()`` and their loads gather and take blocks by
-    parameter name, so a checkpoint does not depend on the world size;
-    every rank calls them together."""
+    parameter name over both axes, so a checkpoint does not depend on the
+    grid; every rank calls them together. ``state_bytes()`` and
+    ``param_bytes()`` stay what this rank keeps."""
 
     def __init__(self, named_params, learning_rate: Callable | float, *,
                  b1: float = 0.9, b2: float = 0.98, eps: float = 1e-6,
@@ -128,7 +137,10 @@ class FusedAdamW:
                  grad_norm: float = 0.0, lr_mul: float = 1.0,
                  lr_mul_mask: Optional[Dict[str, bool]] = None,
                  mu_dtype=None, nu_dtype=None, optim: str = "adamw",
-                 master: bool = False, shard=None):
+                 master: bool = False, shard=None, tp=None):
+        from uniter_tpu_torch.parallel.collectives import (
+            data_group, model_group)
+
         if optim not in OPTIMS:
             raise ValueError(f"invalid optimizer {optim}")
         self.optim = optim
@@ -138,6 +150,8 @@ class FusedAdamW:
         self.weight_decay = weight_decay
         self.grad_norm = grad_norm or 0.0
         self.count = 0
+        self.tp = tp
+        self.data_group, self.model_group = data_group(), model_group()
         self.low = []  # (name, bf16 parameter, its fp32 master view)
         named_params = list(named_params)
         device = (named_params[0][1] if named_params
@@ -147,10 +161,10 @@ class FusedAdamW:
         for name, p in named_params:
             if p.dtype != torch.float32:
                 raise TypeError(f"{name}: parameters are stored fp32")
-            groups.setdefault(self.key(name, decay, lr_mul, lr_mul_mask),
+            groups.setdefault(self.key(name, decay, lr_mul, lr_mul_mask, tp),
                               []).append((name, p))
         self.groups = []
-        for (dec, mul), members in groups.items():
+        for (dec, mul, split), members in groups.items():
             n = sum(p.numel() for _, p in members)
             flat = torch.zeros(n, dtype=torch.float32, device=device)
             views, ofs = [], 0
@@ -166,21 +180,23 @@ class FusedAdamW:
                 ofs += p.numel()
             self.groups.append(self._moments(dict(
                 decay=dec, mul=mul, flat=flat, params=views, sharded=False,
-                size=n, lo=0, hi=n), mu_dtype, nu_dtype))
+                split=split, size=n, lo=0, hi=n), mu_dtype, nu_dtype))
         for g in (shard.groups if shard else []):
-            dec, mul = g.key
+            dec, mul, split = g.key
             self.groups.append(self._moments(dict(
-                decay=dec, mul=mul, flat=g.block.data, shard=g,
+                decay=dec, mul=mul, flat=g.block.data, shard=g, split=split,
                 params=[(name, mod._parameters[attr], ofs)
                         for name, (mod, attr), _, ofs, _ in g.members],
                 sharded=True, size=g.size, lo=g.lo, hi=g.hi), mu_dtype,
                 nu_dtype))
 
     @staticmethod
-    def key(name, decay, lr_mul, lr_mul_mask) -> tuple:
-        """A parameter's group: (weight decay applies, lr multiplier)."""
+    def key(name, decay, lr_mul, lr_mul_mask, tp=None) -> tuple:
+        """A parameter's group: (weight decay applies, lr multiplier,
+        TP-sharded)."""
         return ((decay or {}).get(name, True),
-                lr_mul if (lr_mul_mask or {}).get(name, False) else 1.0)
+                lr_mul if (lr_mul_mask or {}).get(name, False) else 1.0,
+                tp is not None and name in tp)
 
     @staticmethod
     def _moments(group, mu_dtype, nu_dtype):
@@ -211,16 +227,19 @@ class FusedAdamW:
                     torch.zeros_like(block)
                 block.grad = None
             else:
-                g = all_reduce_sum(self._flat_grad(group))
+                g = all_reduce_sum(self._flat_grad(group), self.data_group)
             grads.append(g)
         squares = [g.square().sum() for g in grads]
-        blocks = [i for i, group in enumerate(self.groups)
-                  if group["sharded"]]
-        if blocks:
-            summed = all_reduce_sum(torch.stack([squares[i]
-                                                 for i in blocks]))
-            for j, i in enumerate(blocks):
-                squares[i] = summed[j]
+        # the blocks' sums over the data group, then the TP-sharded groups'
+        # over the model group; a replicated group's counts once
+        for kind, comm in (("sharded", self.data_group),
+                           ("split", self.model_group)):
+            idx = [i for i, group in enumerate(self.groups) if group[kind]]
+            if idx:
+                summed = all_reduce_sum(torch.stack([squares[i]
+                                                     for i in idx]), comm)
+                for j, i in enumerate(idx):
+                    squares[i] = summed[j]
         gnorm = torch.stack(squares).sum().sqrt()
         if self.grad_norm > 0:
             clip = torch.clamp(self.grad_norm / torch.clamp(
@@ -267,7 +286,8 @@ class FusedAdamW:
         if not group["sharded"]:
             return buf
         return all_gather(torch.empty(group["size"], dtype=buf.dtype,
-                                      device=buf.device), buf)
+                                      device=buf.device), buf,
+                          self.data_group)
 
     def _by_name(self, group, full):
         return {name: full[ofs:ofs + p.numel()].view_as(p)
@@ -276,17 +296,22 @@ class FusedAdamW:
     def masters(self) -> Dict[str, torch.Tensor]:
         """The fp32 masters of the bf16-stored parameters, by name (views
         of a replicated group's masters, which the next step updates in
-        place; gathered copies for a sharded group)."""
+        place; gathered copies for a sharded group or a TP block)."""
+        from uniter_tpu_torch.parallel.tp import gather_state
+
         out = {name: view for name, _, view in self.low}
         for group in self.groups:
             if group["sharded"] and group["shard"].low:
                 out.update(self._by_name(group, self._full(group,
                                                            group["flat"])))
-        return out
+        return gather_state(out, self.tp)
 
     def load_masters(self, weights: Dict[str, torch.Tensor]):
         """Set the masters from fp32 ``weights`` (an export's, every
-        parameter's) and re-cast their bf16 parameters."""
+        parameter's, full tensors) and re-cast their bf16 parameters."""
+        from uniter_tpu_torch.parallel.tp import shard_state
+
+        weights = shard_state(weights, self.tp)
         for name, p, view in self.low:
             view.copy_(weights[name])
             p.data.copy_(view)
@@ -303,19 +328,26 @@ class FusedAdamW:
         return full
 
     def state(self) -> dict:
-        """Moments by parameter name (storage dtype), count and gnorm."""
+        """Moments by parameter name (storage dtype, full tensors), count
+        and gnorm."""
+        from uniter_tpu_torch.parallel.tp import gather_state
+
         mu, nu = {}, {}
         for group in self.groups:
             mu.update(self._by_name(group, self._full(group, group["mu"])))
             nu.update(self._by_name(group, self._full(group, group["nu"])))
-        return {"count": self.count, "mu": mu, "nu": nu, "gnorm": self.gnorm}
+        return {"count": self.count, "mu": gather_state(mu, self.tp),
+                "nu": gather_state(nu, self.tp), "gnorm": self.gnorm}
 
     def load_state(self, state: dict):
+        from uniter_tpu_torch.parallel.tp import shard_state
+
         self.count = int(state["count"])
         self.gnorm = state["gnorm"].to(self.gnorm.device, torch.float32)
+        moments = {w: shard_state(state[w], self.tp) for w in ("mu", "nu")}
         for group in self.groups:
             for which in ("mu", "nu"):
-                full = self._assemble(group, state[which],
+                full = self._assemble(group, moments[which],
                                       group[which].dtype)
                 group[which].copy_(full[group["lo"]:group["hi"]])
 
@@ -361,7 +393,13 @@ def build_optimizer(model: nn.Module, learning_rate, *, betas=(0.9, 0.98),
     parameter storage) needs the fused AdamW, as there. ``fsdp`` shards
     the parameters that ``parallel/mesh.py``'s placement shards over the
     process group's ``data`` axis (``fsdp_min_size`` elements or more),
-    with their state, at rest (``parallel/fsdp.py``: ZeRO-3)."""
+    with their state, at rest (``parallel/fsdp.py``: ZeRO-3). A model
+    that ``parallel/tp.py`` ``shard_model`` has cut into TP blocks keeps
+    them: the specs are read on its full shapes and the running grid
+    (``parallel/mesh.py`` ``current_mesh``), and ``--fsdp`` shards the
+    blocks over the data group."""
+    from uniter_tpu_torch.parallel.tp import tp_of
+
     if master and not (fused and optim == "adamw"):
         raise ValueError("master-weight mode (--param_dtype bfloat16) "
                          "requires the fused adamw optimizer")
@@ -376,19 +414,21 @@ def build_optimizer(model: nn.Module, learning_rate, *, betas=(0.9, 0.98),
         mu_dtype = nu_dtype = None
     mul_mask = (head_mask(names, lr_mul_paths)
                 if lr_mul != 1.0 and lr_mul_paths else None)
-    replicated, sharding = params, None
+    replicated, sharding, tp = params, None, tp_of(model)
     if fsdp:
         from uniter_tpu_torch.parallel.fsdp import shard
         from uniter_tpu_torch.parallel.mesh import (
-            MeshConfig, make_mesh, sharded_names)
+            MeshConfig, current_mesh, sharded_names)
 
         sizes = {n: p.numel() for n, p in params}
-        on = sharded_names([(n, p.shape) for n, p in params], make_mesh(),
+        full = [(n, tp.full_shape(n, p.shape) if tp else p.shape)
+                for n, p in params]
+        on = sharded_names(full, current_mesh(),
                            MeshConfig(fsdp=True, fsdp_min_size=fsdp_min_size))
         if on:
             sharding = shard(
                 model, on, lambda n: FusedAdamW.key(n, decay, lr_mul,
-                                                    mul_mask),
+                                                    mul_mask, tp),
                 lambda n: master and sizes[n] >= MASTER_MIN_SIZE)
             replicated = [(n, p) for n, p in params if n not in on]
     return FusedAdamW(
@@ -396,4 +436,4 @@ def build_optimizer(model: nn.Module, learning_rate, *, betas=(0.9, 0.98),
         weight_decay=weight_decay, decay=decay,
         grad_norm=grad_norm or 0.0, lr_mul=lr_mul, lr_mul_mask=mul_mask,
         mu_dtype=mu_dtype, nu_dtype=nu_dtype, optim=optim, master=master,
-        shard=sharding)
+        shard=sharding, tp=tp)

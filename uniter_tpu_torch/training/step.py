@@ -4,20 +4,25 @@ forward -> per-example loss -> reduction -> backward -> [accumulation] ->
 [gradient sum over the ranks] -> grad-norm clip -> AdamW -> schedule,
 eagerly, one device a process.
 
-  * ``loss_scale="sum"`` multiplies each rank's loss by the number of
-    processes, the reference's sum of per-rank mean-loss gradients
-    (utils/distributed.py:16-43), and ``"mean"`` leaves it. Each rank's
-    loss is its share of the global batch's: its numerator over the global
-    denominator (``parallel.collectives.global_sum``), so the optimizer's
-    gradient sum over the ranks is the one-process gradient of the whole
-    batch, times the world size under "sum" (JAX ``make_train_step``).
-    The reported ``loss`` and metrics are the sums of the ranks' shares:
-    the global values, the same on every rank (one all-reduce a step).
+  * The batch is split over the data axis (``parallel/collectives.py``
+    ``data_size``/``data_index``: every process without a model axis);
+    the model ranks of a data group run the same block, each on its
+    tensor-parallel blocks of the weights (``parallel/tp.py``).
+  * ``loss_scale="sum"`` multiplies each rank's loss by the data size dp,
+    the reference's sum of per-rank mean-loss gradients
+    (utils/distributed.py:16-43; JAX ``make_train_step``'s ``dp``), and
+    ``"mean"`` leaves it. Each rank's loss is its share of the global
+    batch's: its numerator over the global denominator
+    (``parallel.collectives.global_sum``, over the data group), so the
+    optimizer's gradient sum over the data group is the one-process
+    gradient of the whole batch, times dp under "sum". The reported
+    ``loss`` and metrics are the sums of the data ranks' shares: the
+    global values, the same on every rank (one all-reduce a step).
   * Gradient accumulation sums the micro-batch gradients (the reference
     calls backward() without dividing, train_nlvr2.py:159-170); the batch
-    is then ``[accum, B, ...]``. With ``accum_split`` the ranks split the
-    accumulation axis instead of the rows: rank p's micro-batches are
-    ``p * accum ...`` of the ``world * accum`` of a global step (the
+    is then ``[accum, B, ...]``. With ``accum_split`` the data ranks split
+    the accumulation axis instead of the rows: data rank p's micro-batches
+    are ``p * accum ...`` of the ``dp * accum`` of a global step (the
     hard-negative driver, whose candidate batches cannot be cut).
   * ``steps_per_call`` k > 1 runs k full optimizer steps on a ``[k, B,
     ...]`` batch and returns the k losses stacked.
@@ -30,10 +35,11 @@ eagerly, one device a process.
     others'. A resumed run replays the masks of the run it continues. No
     rank enters the seed: every rank draws the one process's stream, and
     the generator (``ops.dropout.StepGenerator``) tells the model which
-    block of the global batch's rows the rank holds, so each mask is
-    drawn at that block's row base. A rank's masks are its rows of the one
-    process's, and a run is the same run at any world size, as a JAX run
-    is at any device count.
+    block of the global batch's rows the rank holds (its data index), so
+    each mask is drawn at that block's row base (and an attention mask at
+    the rank's heads, ``parallel/tp.py``). A rank's masks are its rows of
+    the one process's, and a run is the same run at any grid, as a JAX
+    run is at any mesh.
 Parameters and moments are fp32 (moments optionally bf16 storage); compute
 runs in the model config's dtype. No loss scaling: bf16 needs none.
 """
@@ -99,13 +105,13 @@ def make_train_step(loss_fn: Callable, *, loss_scale: str = "sum",
     ``accum_split`` each rank holds whole micro-batches of the global
     step's accumulation (module docstring), and draws their streams."""
     from uniter_tpu_torch.parallel.collectives import (
-        all_reduce_sum, is_distributed, num_processes, process_index)
+        all_reduce_sum, data_group, data_index, data_size)
 
     if loss_scale not in ("sum", "mean"):
         raise ValueError(f"loss_scale {loss_scale!r}")
     if steps_per_call > 1 and accum_steps > 1:
         raise ValueError("combine accumulation inside loss batches")
-    world, rank = num_processes(), process_index()
+    world, rank, comm = data_size(), data_index(), data_group()
     scale = world if loss_scale == "sum" else 1
     if accum_split:  # whole micro-batches: rank p's come after p's peers'
         n_micro, micro0, block, blocks = accum_steps * world, \
@@ -146,12 +152,13 @@ def make_train_step(loss_fn: Callable, *, loss_scale: str = "sum",
             metrics = {k: torch.stack([m[k].detach().float()
                                        for m in stack]).mean(0)
                        for k in stack[0]}
-        if is_distributed():
-            # the ranks' shares summed: the global values, one all-reduce
+        if world > 1:
+            # the data ranks' shares summed: the global values, one
+            # all-reduce
             keys = sorted(metrics)
             flat = all_reduce_sum(torch.stack(
                 [loss.float()] + [metrics[k].float().reshape(())
-                                  for k in keys]))
+                                  for k in keys]), comm)
             loss = flat[0].to(loss.dtype)
             metrics = {k: flat[j + 1] for j, k in enumerate(keys)}
         state.opt.step()

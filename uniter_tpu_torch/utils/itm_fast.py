@@ -71,11 +71,11 @@ def _pad_rows(a, mult):
 
 
 def my_rows(n: int) -> np.ndarray:
-    """This rank's rows of ``n``: a stride over the processes."""
-    from uniter_tpu_torch.parallel.collectives import (
-        num_processes, process_index)
+    """This rank's rows of ``n``: a stride over the data axis (the model
+    ranks of a data group score the same rows)."""
+    from uniter_tpu_torch.parallel.collectives import data_index, data_size
 
-    return np.arange(process_index(), n, num_processes())
+    return np.arange(data_index(), n, data_size())
 
 
 def gather_rows(mine: np.ndarray, n: int) -> np.ndarray:
@@ -83,14 +83,14 @@ def gather_rows(mine: np.ndarray, n: int) -> np.ndarray:
     ``mine``, assembled on every rank (``all_gather_array`` over blocks
     padded to the longest)."""
     from uniter_tpu_torch.parallel.collectives import (
-        all_gather_array, num_processes)
+        all_gather_array, data_group, data_size)
 
-    world = num_processes()
+    world = data_size()
     if world == 1:
         return mine
     block = np.zeros((-(-n // world),) + mine.shape[1:], mine.dtype)
     block[:len(mine)] = mine
-    blocks = all_gather_array(block)
+    blocks = all_gather_array(block, data_group())
     out = np.empty((n,) + mine.shape[1:], mine.dtype)
     for r in range(world):
         out[r::world] = blocks[r][:len(range(r, n, world))]
@@ -105,6 +105,7 @@ class _Scorer:
 
     def __init__(self, model, cls_path: bool = True):
         from uniter_tpu_torch.models.encoder import BertLayerCLS
+        from uniter_tpu_torch.parallel.tp import follow
 
         self.model = model
         self.uniter = model.uniter
@@ -115,7 +116,8 @@ class _Scorer:
         self.cls_layer = None
         if self.split:
             last = self.uniter.encoder.layer[self.n_layers - 1]
-            self.cls_layer = BertLayerCLS(cfg).to(self.device)
+            # the last layer's tensor-parallel blocks, when it holds some
+            self.cls_layer = follow(BertLayerCLS(cfg), last).to(self.device)
             self.cls_layer.load_state_dict(last.state_dict(), strict=True)
             self.cls_layer.eval()
 
