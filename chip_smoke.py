@@ -4411,7 +4411,7 @@ def run_procs(cmds, timeout=600):
 
 
 def trace_summary(profile_dir):
-    """(bytes, ``train_step`` ranges on the host, kernel events) of the
+    """(bytes, ``loop.step`` ranges on the host, kernel events) of the
     one trace ``--profile_dir`` holds (each range also has its device
     twin, category ``gpu_user_annotation``)."""
     files = [f for f in os.listdir(profile_dir)
@@ -4421,7 +4421,7 @@ def trace_summary(profile_dir):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     return (os.path.getsize(path),
-            sum(e.get("name") == "train_step"
+            sum(e.get("name") == "loop.step"
                 and e.get("cat") == "user_annotation" for e in events),
             sum(e.get("cat") == "kernel" for e in events))
 
@@ -5266,13 +5266,13 @@ def dist_stop(procs):
 def trace_busy(profile_dir):
     """(profiled steps, device busy ms a step) of the one trace
     ``--profile_dir`` holds: the union of its kernels' intervals over its
-    ``train_step`` ranges."""
+    ``loop.step`` ranges."""
     files = [f for f in os.listdir(profile_dir)
              if f.endswith(".pt.trace.json")]
     check(len(files) == 1, f"profile_dir holds {files}")
     with open(os.path.join(profile_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]
-    steps = sum(e.get("name") == "train_step"
+    steps = sum(e.get("name") == "loop.step"
                 and e.get("cat") == "user_annotation" for e in events)
     busy, end = 0.0, -1.0
     for s, d in sorted((e["ts"], e["dur"]) for e in events

@@ -636,7 +636,7 @@ def _trace_steps(profile_dir):
     assert len(files) == 1, files
     with open(os.path.join(profile_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]
-    return sum(e.get("name") == "train_step"
+    return sum(e.get("name") == "loop.step"
                and e.get("cat") == "user_annotation" for e in events)
 
 
@@ -697,6 +697,7 @@ def test_cli_prepro_to_train_with_every_flag_to_inference(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "profiler trace written" in proc.stderr
     assert _trace_steps(tmp_path / "prof") == 2
+    assert "span loop.step: 2," in proc.stderr
     hps = json.load(open(out / "log" / "hps.json"))
     assert (hps["remat"], hps["param_dtype"], hps["wire_codec"],
             hps["dropout_impl"]) == (True, "bfloat16", "int8", "u16")

@@ -620,15 +620,20 @@ class DevicePrefetcher:
         self.device_put = device_put
         self.q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
         self._stop = False
-        self.thread = threading.Thread(target=self._work, daemon=True)
+        self.thread = threading.Thread(target=self._work, daemon=True,
+                                       name="prefetch")
         self.thread.start()
 
     def _work(self):
+        from uniter_tpu_torch.utils import trace
+
         try:
             for item in self.it:
                 if self._stop:
                     return
-                self.q.put(self.device_put(item))
+                with trace.span("prefetch.put"):
+                    out = self.device_put(item)
+                self.q.put(out)
                 if self._stop:
                     return
         except Exception as e:  # surface in consumer

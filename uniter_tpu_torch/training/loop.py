@@ -53,6 +53,7 @@ import torch
 
 from uniter_tpu_torch.parallel.fsdp import local_params
 from uniter_tpu_torch.training.step import TrainState, make_train_step
+from uniter_tpu_torch.utils import trace
 from uniter_tpu_torch.utils.logger import LOGGER, RunningMeter, TB_LOGGER
 
 MAX_INFLIGHT_STEPS = int(os.environ.get("UNITER_MAX_INFLIGHT_STEPS", "16"))
@@ -87,7 +88,8 @@ def bound_inflight(pending):
     if MAX_INFLIGHT_STEPS and len(pending) >= MAX_INFLIGHT_STEPS:
         e = pending[0]
         if isinstance(e[-1], torch.Tensor):
-            pending[0] = (*e[:-1], e[-1].cpu().numpy())
+            with trace.span("loop.readback"):
+                pending[0] = (*e[:-1], e[-1].cpu().numpy())
 
 
 def _crossed(step: int, k: int, every: int) -> bool:
@@ -184,9 +186,11 @@ class ProfileWindow:
     one past ``PROFILE_STEPS[1]``, clamped to the run;
     ``tensorboard_trace_handler`` writes the trace (``*.pt.trace.json``)
     into ``profile_dir`` when the window closes, once a run. A resumed run profiles from 2 steps after its
-    start, the same span (JAX ``loop.py:381-384``). Each profiled step
-    is a ``train_step`` range in the trace. Over several processes rank 0
-    alone profiles."""
+    start, the same span (JAX ``loop.py:381-384``). The session turns on
+    the port's spans (``utils/trace.py``): each profiled step is a
+    ``loop.step`` range in the trace, and closing the window logs each
+    span name's count, total and self milliseconds, the prefetch thread's
+    too. Over several processes rank 0 alone profiles."""
 
     def __init__(self, profile_dir: Optional[str], num_train_steps, device):
         from uniter_tpu_torch.parallel.collectives import process_index
@@ -195,7 +199,6 @@ class ProfileWindow:
         self.steps = _clamp_profile(num_train_steps)
         self.device = torch.device(device)
         self.prof = None
-        self.mark = None
 
     def resume(self, start_step: int):
         span = self.steps[1] - self.steps[0]
@@ -206,7 +209,6 @@ class ProfileWindow:
         if self.dir is None:
             return
         from torch.profiler import (ProfilerActivity, profile,
-                                    record_function,
                                     tensorboard_trace_handler)
 
         if self.prof is None and step >= self.steps[0]:
@@ -217,15 +219,9 @@ class ProfileWindow:
                                 on_trace_ready=tensorboard_trace_handler(
                                     self.dir))
             self.prof.start()
-        if self.prof is not None:
-            self.mark = record_function("train_step")
-            self.mark.__enter__()
 
     def end(self, step: int):
         """After the step that brought the count to ``step``."""
-        if self.mark is not None:
-            self.mark.__exit__(None, None, None)
-            self.mark = None
         if self.prof is not None and step > self.steps[1]:
             self.close()
 
@@ -237,6 +233,9 @@ class ProfileWindow:
                 torch.cuda.synchronize(self.device)
             self.prof.stop()
             LOGGER.info("profiler trace written to %s", self.dir)
+            for name, t in sorted(trace.snapshot()["totals"].items()):
+                LOGGER.info("span %s: %d, %.3f ms, self %.3f ms", name,
+                            t["n"], t["ms"], t["self_ms"])
         self.prof = None
         self.dir = None
 
@@ -366,19 +365,22 @@ class TrainLoop:
         pending = []  # (first step, loss tensor or [k])
 
         def flush():
-            for s0, dev_loss in pending:
-                vals = np.asarray(dev_loss.cpu() if isinstance(
-                    dev_loss, torch.Tensor) else dev_loss).reshape(-1)
-                for j, v in enumerate(vals):
-                    guard.check(float(v), s0 + j)
-                    meter(float(v))
+            with trace.span("loop.readback"):
+                for s0, dev_loss in pending:
+                    vals = np.asarray(dev_loss.cpu() if isinstance(
+                        dev_loss, torch.Tensor) else dev_loss).reshape(-1)
+                    for j, v in enumerate(vals):
+                        guard.check(float(v), s0 + j)
+                        meter(float(v))
             pending.clear()
 
         while global_step < self.num_train_steps:
-            n_ex, batch = next(it)
+            with trace.span("loop.feed_wait", request=global_step):
+                n_ex, batch = next(it)
             n_examples += n_ex
             self.window.begin(global_step)
-            state, metrics = self.step_fn(state, batch, self.seed)
+            with trace.span("loop.step", request=global_step):
+                state, metrics = self.step_fn(state, batch, self.seed)
             pending.append((global_step + 1, metrics["loss"]))
             bound_inflight(pending)
             global_step += self.k
@@ -561,21 +563,25 @@ class MixedTaskLoop:
         pending = []  # (step, name, loss device scalar)
 
         def flush():
-            for s, name, dev_loss in pending:
-                val = float(dev_loss)
-                guard.check(val, s)
-                task2loss.setdefault(
-                    name, RunningMeter(f"loss/{name}"))(val)
+            with trace.span("loop.readback"):
+                for s, name, dev_loss in pending:
+                    val = float(dev_loss)
+                    guard.check(val, s)
+                    task2loss.setdefault(
+                        name, RunningMeter(f"loss/{name}"))(val)
             pending.clear()
 
         while global_step < self.num_train_steps:
-            name, (n_ex, n_in, n_loss), batch = next(it)
+            with trace.span("loop.feed_wait", request=global_step):
+                name, (n_ex, n_in, n_loss), batch = next(it)
             task = name.split("_")[0]
             n_examples[name] = n_examples.get(name, 0) + n_ex
             n_in_units[name] = n_in_units.get(name, 0) + n_in
             n_loss_units[name] = n_loss_units.get(name, 0) + n_loss
             self.window.begin(global_step)
-            state, metrics = self.get_step(task)(state, batch, self.seed)
+            with trace.span("loop.step", request=global_step):
+                state, metrics = self.get_step(task)(state, batch,
+                                                     self.seed)
             global_step += 1
             self.window.end(global_step)
             pending.append((global_step, name, metrics["loss"]))

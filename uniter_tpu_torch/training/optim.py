@@ -52,6 +52,7 @@ import torch
 from torch import nn
 
 from uniter_tpu_torch.models.encoder import LayerNorm
+from uniter_tpu_torch.utils import trace
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -213,6 +214,7 @@ class FusedAdamW:
                            else torch.zeros_like(p)).reshape(-1).float()
                           for _, p, _ in group["params"]])
 
+    @trace.span("optim.step")
     @torch.no_grad()
     def step(self):
         """Apply one update from the parameters' ``.grad`` (a sharded

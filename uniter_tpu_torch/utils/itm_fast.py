@@ -27,10 +27,18 @@ Everything runs eagerly under ``inference_mode``.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
+from uniter_tpu_torch.utils import trace
 
+# scoring calls of this process: the request id of their spans
+_CALLS = itertools.count(1)
+
+
+@trace.span("itm.build_arrays")
 def build_eval_arrays(eval_ds, t_bucket: int, r_bucket: int):
     """Materialize the dataset as dense arrays.
 
@@ -88,13 +96,24 @@ def gather_rows(mine: np.ndarray, n: int) -> np.ndarray:
     world = data_size()
     if world == 1:
         return mine
-    block = np.zeros((-(-n // world),) + mine.shape[1:], mine.dtype)
-    block[:len(mine)] = mine
-    blocks = all_gather_array(block, data_group())
-    out = np.empty((n,) + mine.shape[1:], mine.dtype)
-    for r in range(world):
-        out[r::world] = blocks[r][:len(range(r, n, world))]
+    with trace.span("itm.gather"):
+        block = np.zeros((-(-n // world),) + mine.shape[1:], mine.dtype)
+        block[:len(mine)] = mine
+        blocks = all_gather_array(block, data_group())
+        out = np.empty((n,) + mine.shape[1:], mine.dtype)
+        for r in range(world):
+            out[r::world] = blocks[r][:len(range(r, n, world))]
     return out
+
+
+def _count_slots(pair_len, real, width: int):
+    """The counters of one tile of pairs: ``itm.slots``, the token slots it
+    computes (``width`` = T + R a pair, rows repeated to fill the tile
+    included), and ``itm.valid_slots``, the real pairs' text lengths plus
+    region counts (``pair_len`` [ct, ci], ``real`` [ct, ci] bool; host
+    arrays)."""
+    trace.count("itm.slots", real.size * width)
+    trace.count("itm.valid_slots", int(pair_len[real].sum()))
 
 
 class _Scorer:
@@ -142,6 +161,7 @@ class _Scorer:
         pooled = torch.tanh(self.uniter.pooler.dense(cls))
         return self.model.rank_output(pooled).float()[:, 0]
 
+    @trace.span("itm.tile")
     def tile(self, t_emb, t_mask, i_emb, i_mask):
         """(txt_emb [ct, T, H], t_mask [ct, T], img_emb [ci, R, H], i_mask
         [ci, R]) -> [ct, ci] scores: the full ct x ci cross product."""
@@ -152,6 +172,7 @@ class _Scorer:
                           i_mask.repeat(ct, 1)], 1)
         return self.score_rows(emb, mask).reshape(ct, ci)
 
+    @trace.span("itm.tile")
     def window(self, t_emb, t_mask, w_idx, i_emb_all, imask_all):
         """Each of ct texts against its gathered window ``w_idx`` [ct, bs]
         -> [ct, bs]."""
@@ -190,40 +211,53 @@ def fast_score_matrix(model, eval_ds, t_bucket, r_bucket, *,
     ``eval_ds.ids`` order, columns in ``eval_ds.all_img_ids`` order).
     ``dtype`` is the dtype the image features travel to the device in;
     ``model`` lies on its device and computes in its config's dtype. Each
-    rank scores ``my_rows`` of the texts (module docstring)."""
-    txt_ids, txt_len, img_feat, img_pos, img_nbb = build_eval_arrays(
-        eval_ds, t_bucket, r_bucket)
-    n_all, n_img = len(txt_ids), img_feat.shape[0]
-    mine = my_rows(n_all)
-    txt_ids, txt_len = txt_ids[mine], txt_len[mine]
-    n_txt = len(txt_ids)
-    if n_txt == 0:
-        return (gather_rows(np.zeros((0, n_img), np.float32), n_all),
-                list(eval_ds.ids))
-    # pad to tile multiples (extra rows repeat row 0; trimmed at the end)
-    t_sel = _pad_rows(txt_ids, txt_tile)
-    tlen_sel = _pad_rows(txt_len, txt_tile)
-    nbb_p = _pad_rows(img_nbb, img_tile)
-    cdt = getattr(torch, dtype)
-    model.eval()
-    scorer = _Scorer(model, cls_path)
-    with torch.inference_mode():
-        d_txt = scorer.put(t_sel)
-        d_tmask = _masks(scorer, tlen_sel, t_bucket)
-        d_imask = _masks(scorer, nbb_p, r_bucket)
-        # the image corpus embedded once, H-wide, on the device
-        d_img_emb = scorer.embed_img_corpus(img_feat, img_pos, img_tile, cdt)
-        out = torch.empty((t_sel.shape[0], nbb_p.shape[0]),
-                          dtype=torch.float32, device=scorer.device)
-        for ti in range(0, t_sel.shape[0], txt_tile):
-            # each text tile embedded once, reused across the image tiles
-            t_emb = scorer.embed_txt(d_txt[ti:ti + txt_tile])
-            for ij in range(0, nbb_p.shape[0], img_tile):
-                out[ti:ti + txt_tile, ij:ij + img_tile] = scorer.tile(
-                    t_emb, d_tmask[ti:ti + txt_tile],
-                    d_img_emb[ij:ij + img_tile], d_imask[ij:ij + img_tile])
-        mat = out[:n_txt, :n_img].cpu().numpy()
-    return gather_rows(mat, n_all), list(eval_ds.ids)
+    rank scores ``my_rows`` of the texts (module docstring). One call is
+    the span ``itm.score`` (the call number its request)."""
+    with trace.span("itm.score", request=next(_CALLS)):
+        txt_ids, txt_len, img_feat, img_pos, img_nbb = build_eval_arrays(
+            eval_ds, t_bucket, r_bucket)
+        n_all, n_img = len(txt_ids), img_feat.shape[0]
+        mine = my_rows(n_all)
+        txt_ids, txt_len = txt_ids[mine], txt_len[mine]
+        n_txt = len(txt_ids)
+        if n_txt == 0:
+            return (gather_rows(np.zeros((0, n_img), np.float32), n_all),
+                    list(eval_ds.ids))
+        # pad to tile multiples (extra rows repeat row 0; trimmed at the end)
+        t_sel = _pad_rows(txt_ids, txt_tile)
+        tlen_sel = _pad_rows(txt_len, txt_tile)
+        nbb_p = _pad_rows(img_nbb, img_tile)
+        cdt = getattr(torch, dtype)
+        model.eval()
+        scorer = _Scorer(model, cls_path)
+        with torch.inference_mode():
+            with trace.span("itm.upload"):
+                d_txt = scorer.put(t_sel)
+                d_tmask = _masks(scorer, tlen_sel, t_bucket)
+                d_imask = _masks(scorer, nbb_p, r_bucket)
+                # the image corpus embedded once, H-wide, on the device
+                d_img_emb = scorer.embed_img_corpus(img_feat, img_pos,
+                                                    img_tile, cdt)
+            out = torch.empty((t_sel.shape[0], nbb_p.shape[0]),
+                              dtype=torch.float32, device=scorer.device)
+            for ti in range(0, t_sel.shape[0], txt_tile):
+                # each text tile embedded once, reused across the image
+                # tiles
+                t_emb = scorer.embed_txt(d_txt[ti:ti + txt_tile])
+                for ij in range(0, nbb_p.shape[0], img_tile):
+                    out[ti:ti + txt_tile, ij:ij + img_tile] = scorer.tile(
+                        t_emb, d_tmask[ti:ti + txt_tile],
+                        d_img_emb[ij:ij + img_tile],
+                        d_imask[ij:ij + img_tile])
+                    if trace.on():
+                        rows = np.arange(ti, ti + txt_tile)[:, None]
+                        cols = np.arange(ij, ij + img_tile)[None]
+                        _count_slots(tlen_sel[rows] + nbb_p[cols],
+                                     (rows < n_txt) & (cols < n_img),
+                                     t_bucket + r_bucket)
+            with trace.span("itm.readback"):
+                mat = out[:n_txt, :n_img].cpu().numpy()
+        return gather_rows(mat, n_all), list(eval_ds.ids)
 
 
 def fast_windowed_scores(model, val_ds, t_bucket, r_bucket, *,
@@ -234,39 +268,51 @@ def fast_windowed_scores(model, val_ds, t_bucket, r_bucket, *,
     (data/itm.py ``_window``). Only each text's bs window pairs are scored:
     the embedded image corpus stays on the device and each call gathers
     ``txt_chunk`` texts' circular windows from it by index. Each rank
-    scores ``my_rows`` of the texts (module docstring)."""
-    txt_ids, txt_len, img_feat, img_pos, img_nbb = build_eval_arrays(
-        val_ds, t_bucket, r_bucket)
-    n_all, n_img, bs = len(txt_ids), img_feat.shape[0], val_ds.bs
-    # circular window positions per text (gt first — data/itm.py _window)
-    js = np.asarray([val_ds._img_pos[val_ds.txt2img[t]] for t in val_ds.ids],
-                    np.int64).reshape(-1)
-    win = (js[:, None] + np.arange(bs)[None, :]) % max(n_img, 1)
-    mine = my_rows(n_all)
-    txt_ids, txt_len, win = txt_ids[mine], txt_len[mine], win[mine]
-    n_txt = len(txt_ids)
-    if n_txt == 0:
-        return (gather_rows(np.zeros((0, bs), np.float32), n_all),
-                list(val_ds.ids))
-    t_sel = _pad_rows(txt_ids, txt_chunk)
-    tlen_sel = _pad_rows(txt_len, txt_chunk)
-    win_p = _pad_rows(win, txt_chunk)
-    cdt = getattr(torch, dtype)
-    model.eval()
-    scorer = _Scorer(model, cls_path)
-    with torch.inference_mode():
-        d_txt = scorer.put(t_sel)
-        d_tmask = _masks(scorer, tlen_sel, t_bucket)
-        d_win = scorer.put(win_p.astype(np.int64))
-        d_imask = _masks(scorer, img_nbb, r_bucket)
-        d_img_emb = scorer.embed_img_corpus(img_feat, img_pos, max(n_img, 1),
-                                            cdt)[:n_img]
-        out = torch.empty((t_sel.shape[0], bs), dtype=torch.float32,
-                          device=scorer.device)
-        for ci in range(0, t_sel.shape[0], txt_chunk):
-            t_emb = scorer.embed_txt(d_txt[ci:ci + txt_chunk])
-            out[ci:ci + txt_chunk] = scorer.window(
-                t_emb, d_tmask[ci:ci + txt_chunk], d_win[ci:ci + txt_chunk],
-                d_img_emb, d_imask)
-        mat = out[:n_txt].cpu().numpy()
-    return gather_rows(mat, n_all), list(val_ds.ids)
+    scores ``my_rows`` of the texts (module docstring). One call is the
+    span ``itm.score`` (the call number its request)."""
+    with trace.span("itm.score", request=next(_CALLS)):
+        txt_ids, txt_len, img_feat, img_pos, img_nbb = build_eval_arrays(
+            val_ds, t_bucket, r_bucket)
+        n_all, n_img, bs = len(txt_ids), img_feat.shape[0], val_ds.bs
+        # circular window positions per text (gt first — data/itm.py
+        # _window)
+        js = np.asarray([val_ds._img_pos[val_ds.txt2img[t]]
+                         for t in val_ds.ids], np.int64).reshape(-1)
+        win = (js[:, None] + np.arange(bs)[None, :]) % max(n_img, 1)
+        mine = my_rows(n_all)
+        txt_ids, txt_len, win = txt_ids[mine], txt_len[mine], win[mine]
+        n_txt = len(txt_ids)
+        if n_txt == 0:
+            return (gather_rows(np.zeros((0, bs), np.float32), n_all),
+                    list(val_ds.ids))
+        t_sel = _pad_rows(txt_ids, txt_chunk)
+        tlen_sel = _pad_rows(txt_len, txt_chunk)
+        win_p = _pad_rows(win, txt_chunk)
+        cdt = getattr(torch, dtype)
+        model.eval()
+        scorer = _Scorer(model, cls_path)
+        with torch.inference_mode():
+            with trace.span("itm.upload"):
+                d_txt = scorer.put(t_sel)
+                d_tmask = _masks(scorer, tlen_sel, t_bucket)
+                d_win = scorer.put(win_p.astype(np.int64))
+                d_imask = _masks(scorer, img_nbb, r_bucket)
+                d_img_emb = scorer.embed_img_corpus(
+                    img_feat, img_pos, max(n_img, 1), cdt)[:n_img]
+            out = torch.empty((t_sel.shape[0], bs), dtype=torch.float32,
+                              device=scorer.device)
+            for ci in range(0, t_sel.shape[0], txt_chunk):
+                t_emb = scorer.embed_txt(d_txt[ci:ci + txt_chunk])
+                out[ci:ci + txt_chunk] = scorer.window(
+                    t_emb, d_tmask[ci:ci + txt_chunk],
+                    d_win[ci:ci + txt_chunk], d_img_emb, d_imask)
+                if trace.on():
+                    rows = np.arange(ci, ci + txt_chunk)[:, None]
+                    _count_slots(tlen_sel[rows] + img_nbb[win_p[ci:ci
+                                                              + txt_chunk]],
+                                 np.broadcast_to(rows < n_txt,
+                                                 (txt_chunk, bs)),
+                                 t_bucket + r_bucket)
+            with trace.span("itm.readback"):
+                mat = out[:n_txt].cpu().numpy()
+        return gather_rows(mat, n_all), list(val_ds.ids)
