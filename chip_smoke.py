@@ -54,10 +54,12 @@ Phases, each printing its own lines:
    rows, and a width that takes the 4-wide path in bf16 (33, 772); the
    keep fraction and the mask, bit for bit, through K3; dw/db bit for bit
    on replay and equal to the fixed-order sum of the kernel's own
-   per-block partials (``_sum_partials_torch``); device and call times of
-   K3/K4 at (9984, 768) and K5/K6 at (6144, 768) and (3840, 768), rates 0
-   and 0.1, in turns with ``F.layer_norm`` and its backward (a library
-   yardstick, never on a path); the plain versions' call times; the host
+   per-block partials (``_sum_partials_torch``); K3 and K5 forward at rate
+   0 through ``inference_tail`` in bf16 at a retrieval scoring tile
+   (671,744, 768); device and call times of K3/K4 at (9984, 768) and
+   K5/K6 at (6144, 768) and (3840, 768), rates 0 and 0.1, in turns with
+   ``F.layer_norm`` and its backward (a library yardstick, never on a
+   path); the plain versions' call times; the host
    time of a launch of K5, K8 and K9, piece by piece (``launch_path``).
 6. serving path: uniter-base VQA inference (12 layers, 768 hidden, 12
    heads, 3129 answers; random weights from a seed in the JAX package's
@@ -65,8 +67,10 @@ Phases, each printing its own lines:
    questions fed through the port's ``BucketLoader`` at ``inf_vqa``'s
    default 8192-token budget, into the loop over batches ``inf_vqa`` runs.
    Once through the kernel (launch counts reset just before and read just
-   after; K2-K8 must not launch), once through the plain attention; logits
-   and answers agree.
+   after: K1 12 a batch, K3 at the 24 residual tails and K5 at the 2
+   embedding tails at rate 0; K2, K4 and K6-K8 must not launch), once
+   through the plain attention, LayerNorms and tails (``plain_tails``: no
+   kernel at all); logits and answers agree.
 7. training path: the uniter-base VQA fine-tune step at the JAX package's
    flagship shapes (``bench.py``: B=96, 64 text + 40 image tokens, bf16
    over fp32 parameters, dropout 0.1, fused AdamW with bf16 moments,
@@ -107,7 +111,8 @@ Phases, each printing its own lines:
    (median over turns); the ITM step with and without OT; a profile of the
    K1-K7 ITM step; 2-layer fp32 runs with ``layer_norm_impl="cuda"``.
 13. K8 on a path: the serving pass on a quarter of the questions with
-   ``layer_norm_impl="cuda"`` (launches per batch, logits, answers).
+   ``layer_norm_impl="cuda"`` (launches per batch: K8 at the 3 LayerNorms
+   no tail takes; logits, answers).
 14. the pretraining CLI: ``pretrain.main`` on two corpora written from a
    seed (12 layers, four tasks mixed 2:2:1:1, validate and save at 10 and
    20 steps, resume to 25 with the task mix fast-forwarded).
@@ -131,7 +136,8 @@ Phases, each printing its own lines:
    of both FFN policies at fp32, the losses at bf16, K9 launches.
 18. retrieval serving: ``fast_score_matrix`` (pre-embedded corpus, CLS-only
    last layer) over 32 texts x 64 images in memory, fp32 and bf16, through
-   K1 + K9 and the plain path in turns (launches, scores, recalls,
+   K1 + K9 with the tails' K3/K5 at rate 0, and through the plain
+   attention, FFN and tails, in turns (launches, scores, recalls,
    pairs/s).
 19. the retrieval CLIs: ``train_itm.main`` on DBs written from a seed with a
    model config asking for ``"ffn_impl": "pallas"`` (20 steps, validate and
@@ -147,9 +153,10 @@ Phases, each printing its own lines:
    step, step-1 agreement, rows/s, a profile at the epoch's largest bucket
    (device busy ms a step), 2-layer fp32 runs of K1-K6 against plain.
 21. VCR serving (``vcr_serve``): ``inf_vcr``'s loop in fp32 over the val
-   (8 rows a question) and test (20) splits through K1 and through the
-   plain attention: K1 alone, 12 a batch; the same argmax in every qa and
-   qar group; scores within 1e-3.
+   (8 rows a question) and test (20) splits through K1 and the tails'
+   K3/K5 at rate 0, and through the plain attention and tails: K1 12 a
+   batch, K3 24 and K5 2; the same argmax in every qa and qar group;
+   scores within 1e-3.
 22. RE (``re``): ``UniterForReferringExpressionComprehension`` on a fixed
    batch at ``configs/train-refcoco-base-tpu.json``'s shapes (128
    expressions, T 64, up to 100 gt regions), the cls loss under plain and
@@ -172,8 +179,8 @@ Phases, each printing its own lines:
    --param_dtype bfloat16 --fused_adamw 1 --moment_dtype bfloat16
    --wire_codec int8 --dropout_impl u16 --profile_dir`` for 20 steps
    (async saves at 10 and 20; K1-K6 24/12/48/24/2/2 a step, validation's
-   K1 counted apart; a trace of the 6 profiled steps), a resume to 25 and
-   ``inf_vqa`` on the fp32 export.
+   K1, K3 and K5 counted apart; a trace of the 6 profiled steps), a resume
+   to 25 and ``inf_vqa`` on the fp32 export.
 25. the flags (``flags``): the flagship step through K1-K6 under baseline,
    remat, master and remat+master in turns (examples/s, busy ms a step,
    peak memory, launches a step; step-1 losses: remat equal, master within
@@ -212,6 +219,7 @@ cores, which keeps fp32 accuracy). Files go under the checkout's ``tmp/``
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -257,6 +265,10 @@ TAIL_SHAPES = [(9984, 768), (6144, 768), (3840, 768), (9984, 1024),
 TAIL_TIMED = {(9984, 768): ("drop_res_ln_fwd", "drop_res_ln_bwd"),
               (6144, 768): ("ln_drop_fwd", "ln_drop_bwd"),
               (3840, 768): ("ln_drop_fwd", "ln_drop_bwd")}
+# (rows, H) of a retrieval scoring tile at inf_itm's defaults (32 x 128
+# pairs of 64 text + 100 image tokens): the inference route's K3/K5
+# launches there, forward only at rate 0
+SCORE_TILE = (32 * 128 * (64 + 100), 768)
 TAIL_FWD_TOL_FP32 = 1e-5
 TAIL_BWD_TOL_FP32 = 1e-4  # dx/dres, as K2's
 TAIL_DWDB_REL = 1e-4  # dw/db: sums over rows in another order, of max|ref|
@@ -1240,7 +1252,8 @@ def launch_path(torch, fb):
 
 def tail_phase(torch):
     """K3-K6 against their plain versions at TAIL_SHAPES, fp32 and bf16,
-    rates 0 and RATE; the mask and keep fraction through K3; times.
+    rates 0 and RATE; the mask and keep fraction through K3; K3 and K5
+    forward at rate 0 at ``SCORE_TILE``; times.
     Returns (worst fp32 abs err per kernel, timing dict)."""
     from uniter_tpu_torch.ops import fused_block as fb
     from uniter_tpu_torch.ops.dropout import keep_mask
@@ -1306,8 +1319,38 @@ def tail_phase(torch):
     check(same, "K3's mask differs from ops.dropout.keep_mask")
     check(abs(frac - (1 - RATE)) <= 4 * sigma, "keep fraction through K3")
     tail_row_base(torch, fb, keep_mask, gen)
+    tail_score_tile(torch, fb, gen)
     timing["launch_path"] = launch_path(torch, fb)
     return worst, timing
+
+
+def tail_score_tile(torch, fb, gen):
+    """The inference route's K3 and K5 (``inference_tail``, rate 0) in bf16
+    at ``SCORE_TILE``, forward only, against their plain versions on the
+    fp32 copies of the same inputs: within 2^-8 |ref| + 1e-3."""
+    rows, h = SCORE_TILE
+    x, res = (torch.randn(rows, h, generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+    errs = {}
+    for name, r in (("drop_res_ln_fwd", res), ("ln_drop_fwd", None)):
+        before = getattr(fb, name).launches
+        y = fb.inference_tail(x, r, w, b).float()
+        want = (fb._ln_drop_torch(x.float(), w, b) if r is None else
+                fb._drop_res_ln_torch(x.float(), r.float(), w, b))
+        d = (y - want).abs_()
+        excess = (d - 2.0**-8 * want.abs_() - 1e-3).max().item()
+        errs[name] = (d.max().item(), excess,
+                      getattr(fb, name).launches - before)
+        del y, want, d
+    ok = all(e[1] <= 0 and e[2] == 1 for e in errs.values())
+    print(f"[K3-K6] {SCORE_TILE} bfloat16 rate 0, forward only through "
+          f"inference_tail (a scoring tile): y max|diff| " + ", ".join(
+              f"{n} {e[0]:.2e} ({e[2]} launch)" for n, e in errs.items())
+          + f" (bf16: 2^-8 |ref| + 1e-3) {'ok' if ok else 'FAIL'}")
+    check(ok, f"K3/K5 at rate 0 disagree with their plain versions at "
+              f"{SCORE_TILE}")
 
 
 # a rank's row base in the checks of K1-K6 at one: past 2**32 rows, so the
@@ -1531,12 +1574,38 @@ class InMemoryVqa:
                     qid=f"q{i}")
 
 
+def serve_tails(cfg):
+    """Launches per served batch of the inference tails: K3 at rate 0 at
+    both sub-block tails of every layer, K5 at the 2 embedding tails."""
+    return {"drop_res_ln_fwd": 2 * cfg.num_hidden_layers, "ln_drop_fwd": 2}
+
+
+@contextlib.contextmanager
+def plain_tails(on=True):
+    """With ``on``, the inference tails' plain path (the plain add and
+    LayerNorm): ``ops.fused_block._launchable`` refuses every tensor, so
+    ``inference_tail`` gives None and no tail launches K3/K5. The serving
+    checks' plain side runs under it, so their kernel side holds the
+    inference route against the plain tails at the path's own shapes."""
+    from uniter_tpu_torch.ops import fused_block as fb
+
+    launchable = fb._launchable
+    if on:
+        fb._launchable = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        fb._launchable = launchable
+
+
 def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
                     per_batch=None, tag="main", **cfg_overrides):
     """uniter-base VQA inference through the kernels and through the plain
-    path. ``per_batch`` is the launches per served batch the kernel pass
-    must show (K1 alone by default; every other kernel 0). Returns (launch
-    counts, batches, questions/s per path, logits max|diff|)."""
+    path (the plain attention, LayerNorms and tails: no kernel at all).
+    ``per_batch`` is the launches per served batch the kernel pass must
+    show (K1 and the inference tails, ``serve_tails``, by default; every
+    other kernel 0). Returns (launch counts, batches, questions/s per
+    path, logits max|diff|)."""
     from uniter_tpu_torch.config import base_config, resolve_kernel_policies
     from uniter_tpu_torch.data.buckets import spec_from_dataset
     from uniter_tpu_torch.data.loader import BucketLoader
@@ -1578,15 +1647,18 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         t = time.perf_counter()
-        results, logits = answer_questions(models[impl], loader, label2ans,
-                                           device, keep_logits=True)
+        with plain_tails(impl == "xla"):
+            results, logits = answer_questions(models[impl], loader,
+                                               label2ans, device,
+                                               keep_logits=True)
         return results, logits, time.perf_counter() - t
 
     run("xla")  # warm-up: cuBLAS handles, allocator, host pools
     reset_launches()
     res_k, logits_k, _ = run("cuda")
     counts = read_launches()
-    per_batch = per_batch or {"mha_fwd": base.num_hidden_layers}
+    per_batch = per_batch or {"mha_fwd": base.num_hidden_layers,
+                              **serve_tails(base)}
     want = {k: per_batch.get(k, 0) * n_batches for k in KERNELS}
     check(counts == want, f"{tag}: serving launched {counts}, want {want} "
           f"({per_batch} per batch, {n_batches} batches)")
@@ -1606,8 +1678,9 @@ def main_path_phase(torch, device="cuda", n_questions=N_QUESTIONS,
     check([r["question_id"] for r in res_k] == [r["question_id"]
                                                  for r in res_x],
           "question order differs")
-    print(f"[{tag}] kernels vs plain path: logits max|diff| {err:.3e} "
-          f"(tol 1e-3), argmax agreement {agree * 100:.2f}% (>= 99.9%)")
+    print(f"[{tag}] kernels (K1, the tails' K3/K5 at rate 0) vs plain "
+          f"path (no kernel): logits max|diff| {err:.3e} (tol 1e-3), argmax "
+          f"agreement {agree * 100:.2f}% (>= 99.9%)")
     print(f"[{tag}] launches {counts}: {per_batch} per batch x {n_batches} "
           f"batches, every other kernel 0")
     print(f"[{tag}] questions/s: kernels {qps['cuda']:.1f}, plain "
@@ -3342,7 +3415,9 @@ class InMemoryItmEval:
 def itm_serve_phase(torch, n_txt=32, n_img=64):
     """``fast_score_matrix`` (the default ``inf_itm`` path: pre-embedded
     corpus, CLS-only last layer) at uniter-base over an in-memory corpus,
-    fp32 and bf16, through K1 + K9 and through the plain path in turns."""
+    fp32 and bf16, through K1 + K9 and the tails' K3/K5 at rate 0, and
+    through the plain attention, FFN and tails (``plain_tails``), in
+    turns."""
     from uniter_tpu_torch.config import base_config, resolve_kernel_policies
     from uniter_tpu_torch.models.itm import UniterForImageTextRetrieval
     from uniter_tpu_torch.utils.const import IMG_DIM
@@ -3368,17 +3443,25 @@ def itm_serve_phase(torch, n_txt=32, n_img=64):
         def run(name):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            mat, ids = fast_score_matrix(models[name], ds, 64, 64,
-                                         dtype=dname, **tile)
+            with plain_tails(name == "plain"):
+                mat, ids = fast_score_matrix(models[name], ds, 64, 64,
+                                             dtype=dname, **tile)
             return mat, ids, time.perf_counter() - t0
 
         run("plain")  # warm-up
         reset_launches()
         mat_k, ids, _ = run("K1+K9")
         counts = read_launches()
+        reset_launches()
         mat_x = run("plain")[0]
+        check(all(v == 0 for v in read_launches().values()),
+              f"retrieval serving {dname}: the plain path launched a kernel")
         want = {k: 0 for k in KERNELS}
-        want.update(mha_fwd=11 * n_calls, ffn_fwd=11 * n_calls)
+        # K3 at the 22 residual tails of a tile and the CLS layer's 2, K5
+        # at each text tile's and each image chunk's embedding tail
+        want.update(mha_fwd=11 * n_calls, ffn_fwd=11 * n_calls,
+                    drop_res_ln_fwd=24 * n_calls,
+                    ln_drop_fwd=-(-n_txt // 32) + -(-n_img // 64))
         check(counts == want, f"retrieval serving {dname} launched {counts}, "
               f"want {want}")
         secs = {"plain": [], "K1+K9": []}
@@ -3391,14 +3474,16 @@ def itm_serve_phase(torch, n_txt=32, n_img=64):
         tol = 1e-4 if dname == "float32" else 5e-2
         print(f"[itm-serve] {dname}: {n_txt} texts x {n_img} images "
               f"({n_calls} tile call(s) of 32 x 64 pairs, 64 text + 64 image "
-              f"tokens), scores max|diff| K1+K9 vs plain {err:.3e} (tol "
+              f"tokens), scores max|diff| K1+K9+K3/K5 vs plain (no kernel) "
+              f"{err:.3e} (tol "
               f"{tol:g}); r_mean K1+K9 {rec['K1+K9']['r_mean']:.4f}, plain "
               f"{rec['plain']['r_mean']:.4f} (equal: "
               f"{rec['K1+K9'] == rec['plain']}); pairs/s K1+K9 "
               f"{pps['K1+K9']:.1f}, plain {pps['plain']:.1f} (turns plain, "
               f"kernel, kernel, plain; host clock, each call ends in the "
               f"matrix's readback); launches {counts} (11 K1 and 11 K9 per "
-              f"tile call: the CLS-only last layer takes neither)")
+              f"tile call: the CLS-only last layer takes neither; K3 at its "
+              f"24 tails, K5 at the text tile's and the image chunk's)")
         check(np.isfinite(mat_k).all() and mat_k.shape == (n_txt, n_img),
               "retrieval scores not finite or misshapen")
         check(err <= tol, f"retrieval serving {dname} scores differ by {err}")
@@ -3836,9 +3921,10 @@ def task_two_layer(torch, tag, batch, loss, base, head, make_model):
 
 def vcr_serve_phase(torch):
     """``inf_vcr``'s loop in fp32 over the val and test splits of the VCR
-    DB, through K1 and through the plain attention: launches (K1 alone, 12
-    a batch), the same argmax in every qa and qar group, scores within
-    1e-3, examples/s."""
+    DB, through K1 and the tails' K3/K5 at rate 0, and through the plain
+    attention and tails (``plain_tails``): launches (K1 12 a batch, K3 24
+    and K5 2, nothing else), the same argmax in every qa and qar group,
+    scores within 1e-3, examples/s."""
     from uniter_tpu_torch.config import resolve_kernel_policies
     from uniter_tpu_torch.data.buckets import spec_from_dataset
     from uniter_tpu_torch.data.loader import BucketLoader
@@ -3866,16 +3952,19 @@ def vcr_serve_phase(torch):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             groups = []
-            for batch, o in infer.eval_batches(
-                    lambda b, m=models[impl]: m(b, False), loader, "cuda"):
-                s = o.float().cpu().numpy()[:, 0]
-                groups += [(qa, qar) for _, qa, qar in score_groups(batch, s)]
+            with plain_tails(impl == "xla"):
+                for batch, o in infer.eval_batches(
+                        lambda b, m=models[impl]: m(b, False), loader,
+                        "cuda"):
+                    s = o.float().cpu().numpy()[:, 0]
+                    groups += [(qa, qar)
+                               for _, qa, qar in score_groups(batch, s)]
             secs.setdefault(impl, []).append(time.perf_counter() - t0)
             scores[impl] = groups
             if impl == "cuda":
                 counts = read_launches()
-                want = {k: 12 * n_batches if k == "mha_fwd" else 0
-                        for k in KERNELS}
+                per = {"mha_fwd": 12, **serve_tails(base)}
+                want = {k: per.get(k, 0) * n_batches for k in KERNELS}
                 check(counts == want, f"vcr_serve {split}: launches {counts}"
                       f", want {want}")
         n_ex = len(scores["cuda"])
@@ -3895,8 +3984,10 @@ def vcr_serve_phase(torch):
         eps = {impl: n_ex * len(v) / sum(v) for impl, v in secs.items()}
         print(f"[vcr_serve] {split}: {n_ex} questions ({ds.rows_per_example} "
               f"rows each) in {n_batches} batches, fp32: K1 {12 * n_batches}"
-              f" launches, nothing else; scores max|diff| {err:.3e} (tol "
-              f"1e-3), same argmax in every qa/qar group: {same}; "
+              f", K3 {24 * n_batches}, K5 {2 * n_batches} launches, nothing "
+              f"else; scores max|diff| against the plain attention and "
+              f"tails {err:.3e} (tol 1e-3), same argmax in every qa/qar "
+              f"group: {same}; "
               f"questions/s kernel {eps['cuda']:.1f}, plain {eps['xla']:.1f}"
               f" (turns plain, kernel, kernel, plain); inf_vcr "
               + (f"val {logs}" if split == "val" else
@@ -4518,8 +4609,14 @@ def prepro_phase(torch):
         del state
         steps = {k: total[k] - val[k] for k in KERNELS}
         check_launches(steps, 20, REMAT_LAUNCHES, "prepro")
-        check(all(v == 0 for k, v in val.items() if k != "mha_fwd")
-              and val["mha_fwd"] > 0, f"validation launched {val}")
+        # validation: a batch's 12 K1, 24 K3 and 2 K5 (its tails at rate
+        # 0), nothing else
+        fwd = ("mha_fwd", "drop_res_ln_fwd", "ln_drop_fwd")
+        check(all(v == 0 for k, v in val.items() if k not in fwd)
+              and val["mha_fwd"] > 0
+              and val["drop_res_ln_fwd"] == 2 * val["mha_fwd"]
+              and 6 * val["ln_drop_fwd"] == val["mha_fwd"],
+              f"validation launched {val}")
         t0 = time.perf_counter()
         state, _ = run_cli(train_vqa, conf,
                            FLAG_ARGS + ["--profile_dir", prof[1],
@@ -4559,7 +4656,8 @@ def prepro_phase(torch):
           f"{steps['mha_bwd'] / 20:g} / {steps['drop_res_ln_fwd'] / 20:g} / "
           f"{steps['drop_res_ln_bwd'] / 20:g} / {steps['ln_drop_fwd'] / 20:g}"
           f" / {steps['ln_drop_bwd'] / 20:g} (validation: K1 "
-          f"{val['mha_fwd']}); resume to 25; profiler traces "
+          f"{val['mha_fwd']}, K3 {val['drop_res_ln_fwd']}, K5 "
+          f"{val['ln_drop_fwd']}); resume to 25; profiler traces "
           + ", ".join(f"{b / 2**20:.1f} MiB ({n} steps, {k} kernel events)"
                       for b, n, k in traces)
           + f"; inf_vqa answered {len(answers)} questions; seconds "
@@ -5815,12 +5913,13 @@ def main(argv):
     k7_err, k7_time = timed(k7_phase, torch)
     k8_err, k8_time = timed(k8_phase, torch)
     pre = timed(pretrain_phase, torch)
-    # K8 on a path: 29 LayerNorms per served VQA batch (the text tail,
-    # img_layer_norm, pos_layer_norm, the image tail, 24 sub-block tails,
-    # the answer head's vqa_output.2)
+    # K8 on a path: the 3 LayerNorms per served VQA batch that no tail
+    # takes (img_layer_norm, pos_layer_norm, the answer head's
+    # vqa_output.2); the 26 tails take K3/K5
     ln_counts, ln_batches, _, _ = timed(
         main_path_phase, torch, n_questions=N_QUESTIONS // 4, tag="serve-K8",
-        per_batch={"mha_fwd": 12, "layer_norm_fwd": 29},
+        per_batch={"mha_fwd": 12, "layer_norm_fwd": 3, "drop_res_ln_fwd": 24,
+                   "ln_drop_fwd": 2},
         layer_norm_impl="pallas")
     cli_counts = timed(pretrain_cli_phase, torch)
     k9_err, k9_time = timed(k9_phase, torch)
@@ -5942,8 +6041,10 @@ def main(argv):
           f"pretraining path through K1-K7 (2 steps of each of mlm, mrfr, "
           f"itm, mrc-kl: 1 per ITM step, 0 otherwise), of K8 from the "
           f"serving pass with layer_norm_impl cuda ({ln_batches} batches x "
-          f"29); the default serving path launched K1 {launches} times and "
-          f"nothing else; NLVR2 launches {nlvr2['launches']} over "
+          f"3); the default serving path launched K1 {launches} times, K3 "
+          f"{serve_counts['drop_res_ln_fwd']} and K5 "
+          f"{serve_counts['ln_drop_fwd']} (its tails at rate 0) and nothing "
+          f"else; NLVR2 launches {nlvr2['launches']} over "
           f"{nlvr2['steps']} steps; the pretraining CLI {cli_counts}; "
           f"max_abs_err of K1/K2 the worst bf16 difference from the plain "
           f"version over the training shapes (fp32_max_abs_err: the fp32 "

@@ -36,7 +36,12 @@ block partials; at the embedding tails' shapes and at a width bf16 rows
 take 4 at a time (772). The four wrappers captured in a CUDA graph replay
 their eager results bit for bit; every refusal of ``_check`` on the card
 is reached. A small VQA step through K1-K6 launches each fused tail once
-per tail and matches the plain tails.
+per tail and matches the plain tails. At rate 0, the inference route,
+K3 and K5 hold to the plain forwards at a scoring tile's row count, and
+the retrieval scorer at uniter-base launches them at every tail and
+scores within 1.0 standard deviation of its plain tails and of fp32,
+with the tails' LayerNorm weights and biases drawn away from 1 and 0 (a
+dropped or swapped weight and bias reads 2.2 or more).
 
 K7 (``csrc/ipot.cu``) is held against ``ops.ot.ipot`` at the pretraining
 shapes, in all three of its forms and at their edges, with ragged and
@@ -585,6 +590,133 @@ def test_fused_tails_refuse_on_the_card(gen):
     before = fb.ln_drop_fwd.launches
     fb.ln_drop_fwd(x, w, b)  # what is right still launches
     assert fb.ln_drop_fwd.launches == before + 1
+
+
+# a tile of the retrieval scorer at inf_itm's defaults: 32 x 128 pairs of
+# 64 text + 100 image tokens
+SCORE_TILE_ROWS = 32 * 128 * (64 + 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_tails_at_rate_0_at_a_scoring_tile(gen, dtype):
+    """``inference_tail`` (K3 and K5 at rate 0, the inference route of
+    ``models/encoder.py``) at a scoring tile's 671,744 rows of 768 against
+    ``_drop_res_ln_torch`` and ``_ln_drop_torch`` at rate 0 on the same
+    inputs: fp32 to 1e-5, bf16 to half a bf16 step of the value + 1e-3;
+    one launch each. A strided residual, a float64 input and a width past
+    ``MAX_HIDDEN`` give None and launch nothing."""
+    rows, h = SCORE_TILE_ROWS, 768
+    x, res = (torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    w = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+    before = fb.drop_res_ln_fwd.launches, fb.ln_drop_fwd.launches
+    y3 = fb.inference_tail(x, res, w, b)
+    assert _close(y3, fb._drop_res_ln_torch(x.float(), res.float(), w, b),
+                  dtype, 1e-5)
+    del y3
+    y5 = fb.inference_tail(x, None, w, b)
+    assert _close(y5, fb._ln_drop_torch(x.float(), w, b), dtype, 1e-5)
+    del y5
+    wide = torch.ones(8, 1028, device="cuda")
+    assert fb.inference_tail(x[:64], res[:128:2], w, b) is None
+    assert fb.inference_tail(x[:64].double(), None, w.double(),
+                             b.double()) is None
+    assert fb.inference_tail(wide, wide, wide[0], wide[0]) is None
+    assert (fb.drop_res_ln_fwd.launches, fb.ln_drop_fwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def _score_corpus(n_txt, n_img, seed=0):
+    """What ``fast_score_matrix`` reads of an eval dataset: ``n_txt``
+    captions of 8-40 words, ``n_img`` images of 10-100 regions of 2048-d
+    features."""
+    import types
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = [rng.integers(1000, 28996, int(n)).astype(np.int32)
+             for n in rng.integers(8, 41, n_txt)]
+    feats = {f"i{j}": (rng.standard_normal((int(n), 2048), np.float32),
+                       rng.random((int(n), 7), np.float32), int(n))
+             for j, n in enumerate(rng.integers(10, 101, n_img))}
+    return types.SimpleNamespace(
+        ids=[f"t{i}" for i in range(n_txt)], all_img_ids=list(feats),
+        txt_db=types.SimpleNamespace(combine_inputs=lambda ids: np.concatenate(
+            [[101], ids, [102]]).astype(np.int32)),
+        img_db=types.SimpleNamespace(get_img_feat=feats.__getitem__),
+        example=lambda i: {"input_ids": words[i]})
+
+
+def _scorer_model(cfg, seed=0):
+    """uniter-base retrieval at ``cfg`` on the card, eval mode: Linear and
+    Embedding weights N(0, 0.02), Linear biases 0, and every tail's
+    LayerNorm weight 1 + 0.1 N(0, 1) and bias 0.1 N(0, 1), so a route
+    that loses or swaps them scores otherwise."""
+    from uniter_tpu_torch.models.encoder import _Tail
+    from uniter_tpu_torch.models.itm import UniterForImageTextRetrieval
+
+    torch.manual_seed(seed)
+    model = UniterForImageTextRetrieval(cfg, img_dim=2048)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Linear, torch.nn.Embedding)):
+                m.weight.normal_(0.0, 0.02)
+            if isinstance(m, torch.nn.Linear):
+                m.bias.zero_()
+            if isinstance(m, _Tail):
+                m.weight.normal_(1.0, 0.1)
+                m.bias.normal_(0.0, 0.1)
+    return model.cuda().eval()
+
+
+def _score(model, ds, dtype="bfloat16"):
+    """``fast_score_matrix`` over ``ds`` in one 32 x 128 tile, T 64, R
+    100."""
+    from uniter_tpu_torch.utils.itm_fast import fast_score_matrix
+
+    return fast_score_matrix(model, ds, 64, 100, txt_tile=32, img_tile=128,
+                             dtype=dtype)[0]
+
+
+def test_scorer_through_the_fused_tails(gen, monkeypatch):
+    """``fast_score_matrix`` at uniter-base in bf16 on one 32 x 128 tile
+    (``_scorer_model``'s weights): the inference route launches K3 at the
+    tile's 22 + 2 residual tails and K5 at its 2 embedding tails, and its
+    scores lie within 1.0 of the plain tails' (``_launchable`` refusing),
+    gaps measured as the widest difference over the standard deviation of
+    the fp32 model's scores; both paths lie within 1.0 of those fp32
+    scores. On an H100 this seed reads route-to-plain 0.54, route-to-fp32
+    0.33, plain-to-fp32 0.42 (seeds 1-3 at most 0.63). Faults planted in
+    the route's launch read, on this seed, 11.3 (weight and bias dropped),
+    8.1 (swapped), 11.5 (bias dropped), 5.7 (eps 1e-2 for 1e-12); over
+    seeds 0-3 the least of them 1.70. An eps of 1e-5 is not seen here
+    (0.33): the CPU route test holds the eps passed."""
+    from uniter_tpu_torch.config import base_config
+
+    ds = _score_corpus(32, 128)
+    cfg = resolve_kernel_policies(base_config(dtype="bfloat16"), "cuda")
+    model = _scorer_model(cfg)
+    before = fb.drop_res_ln_fwd.launches, fb.ln_drop_fwd.launches
+    fused = _score(model, ds)
+    assert (fb.drop_res_ln_fwd.launches - before[0],
+            fb.ln_drop_fwd.launches - before[1]) == (24, 2)
+    with monkeypatch.context() as mp:
+        mp.setattr(fb, "_launchable", lambda *a, **k: False)
+        before = fb.drop_res_ln_fwd.launches
+        plain = _score(model, ds)
+        assert fb.drop_res_ln_fwd.launches == before
+    f32 = _scorer_model(cfg.replace(dtype="float32"))
+    f32.load_state_dict(model.state_dict())
+    ref = _score(f32, ds, "float32")
+    spread = float(ref.std())
+    gaps = {name: float(abs(got - want).max()) / spread
+            for name, got, want in (("fused-plain", fused, plain),
+                                    ("fused-fp32", fused, ref),
+                                    ("plain-fp32", plain, ref))}
+    print(f"score gaps {gaps}")
+    assert all(g <= 1.0 for g in gaps.values()), gaps
 
 
 def test_vqa_train_step_through_fused_tails(gen):

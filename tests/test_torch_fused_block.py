@@ -22,6 +22,15 @@ JAX package, on the CPU.
   forced to "cuda" (the Functions, with their plain bodies on the CPU)
   matches "none" (the trunk's plain composition) to fp32 rounding: the two
   paths draw the same seeds in the same order, so the same masks.
+* The inference route (``ops.fused_block.inference_tail``), with
+  ``_launchable`` and the forward launch stood in for (the kernels run
+  only on the card): a forward that records no gradient and draws no mask
+  calls K3 at every residual tail (the retrieval scorer's
+  ``BertLayerCLS`` too) and K5 at every embedding tail, at rate 0 with
+  the tail's own weight, bias and eps, and scores as the plain path does; a recorded gradient, a live mask or a tensor
+  ``_launchable`` refuses keeps the plain path; the counters ``tail.fused``
+  and ``tail.plain`` add one a tail inside a trace session and nothing
+  outside one.
 """
 
 import numpy as np
@@ -321,3 +330,145 @@ def test_fused_tails_train_as_the_plain_composition(monkeypatch):
         np.testing.assert_allclose(fused_params[k].detach().numpy(),
                                    p.detach().numpy(), atol=1e-5, rtol=0,
                                    err_msg=k)
+
+
+def _scorer_inputs():
+    """A tiny retrieval model's scorer (layer 0 through the trunk, layer 1
+    as ``BertLayerCLS``) and a 3-pair batch: 2 embedding tails and 4
+    residual tails a forward."""
+    from uniter_tpu_torch.models.itm import UniterForImageTextRetrieval
+    from uniter_tpu_torch.utils.itm_fast import _Scorer
+
+    torch.manual_seed(0)
+    model = UniterForImageTextRetrieval(pconfig.tiny_config(), img_dim=16)
+    model.eval()
+    scorer = _Scorer(model)
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(1, 500, (3, 6)))
+    feat = torch.from_numpy(rng.randn(3, 4, 16).astype(np.float32))
+    pos = torch.from_numpy(rng.rand(3, 4, 7).astype(np.float32))
+    mask = torch.ones(3, 10, dtype=torch.int32)
+    mask[0, 4:6] = 0
+
+    def score():
+        emb = torch.cat([scorer.embed_txt(ids), scorer.embed_img(feat, pos)],
+                        1)
+        return scorer.score_rows(emb, mask)
+
+    return scorer, score
+
+
+def _tails(scorer):
+    """The tails a scoring forward runs: the embeddings', layers 0..L-2's
+    and ``BertLayerCLS``'s (not the trunk's last layer)."""
+    from uniter_tpu_torch.models.encoder import _Tail
+
+    u = scorer.uniter
+    return [m for mod in (u.embeddings, u.img_embeddings,
+                          *u.encoder.layer[:-1], scorer.cls_layer)
+            for m in mod.modules() if isinstance(m, _Tail)]
+
+
+def _stand_in(monkeypatch, launchable=True):
+    """``_launchable`` answering ``launchable``, and the forward launch
+    (``_tail_fwd``) recording its calls and computing the plain forwards."""
+    calls = []
+    monkeypatch.setattr(fb, "_launchable", lambda *a, **k: launchable)
+
+    def launch(x, res, weight, bias, rate, seed, eps, row_base=0):
+        name = "ln_drop_fwd" if res is None else "drop_res_ln_fwd"
+        calls.append((name, weight, bias, rate, seed, eps))
+        if res is None:
+            return fb._ln_drop_torch(x, weight, bias, rate, seed, eps,
+                                     row_base)
+        return fb._drop_res_ln_torch(x, res, weight, bias, rate, seed, eps,
+                                     row_base)
+
+    monkeypatch.setattr(fb, "_tail_fwd", launch)
+    return calls
+
+
+def test_inference_tails_launch_the_fused_kernels_at_rate_0(monkeypatch):
+    """Under ``inference_mode`` every tail calls its forward kernel once, at
+    rate 0 and seed 0 with its own weight, bias and eps: K5 at the text
+    and image embedding tails, K3 at layer 0's two tails and at the
+    ``BertLayerCLS`` tails (its residual a contiguous copy of the CLS
+    row); the scores equal the plain path's (the same fp32 arithmetic on
+    the CPU)."""
+    from uniter_tpu_torch.models.encoder import LNDrop
+
+    scorer, score = _scorer_inputs()
+    with torch.inference_mode():
+        plain = score()
+    calls = _stand_in(monkeypatch)
+    with torch.inference_mode():
+        fused = score()
+    tails = _tails(scorer)
+    assert len(calls) == len(tails) == 6
+    assert sorted(c[0] for c in calls) == ["drop_res_ln_fwd"] * 4 + [
+        "ln_drop_fwd"] * 2
+    for name, weight, bias, rate, seed, eps in calls:
+        (tail,) = [t for t in tails if t.weight is weight]
+        assert bias is tail.bias and eps == tail.eps
+        assert (rate, seed) == (0.0, 0)
+        assert (name == "ln_drop_fwd") == isinstance(tail, LNDrop)
+    assert any(w is scorer.cls_layer.attention.output.LayerNorm.weight
+               for _, w, *_ in calls)
+    torch.testing.assert_close(fused, plain, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["grad", "mask", "refused"])
+def test_tails_keep_the_plain_path_off_the_route(monkeypatch, case):
+    """A forward that records gradients, one with live masks and
+    ``block_fusion`` "none", and tensors ``_launchable`` refuses (the CPU's,
+    as they are) call neither kernel and raise nothing; the refused
+    forward scores as before."""
+    scorer, score = _scorer_inputs()
+    with torch.inference_mode():
+        before = score()
+    calls = _stand_in(monkeypatch, launchable=case != "refused")
+    if case == "grad":
+        out = score()
+        assert out.requires_grad
+    elif case == "mask":
+        model = scorer.model
+        model.train()
+        with torch.no_grad():
+            out = model.predict(dict(
+                input_ids=torch.ones(2, 5, dtype=torch.int64),
+                position_ids=torch.arange(5).repeat(2, 1),
+                img_feat=torch.randn(2, 3, 16),
+                img_pos_feat=torch.rand(2, 3, 7),
+                attn_mask=torch.ones(2, 8, dtype=torch.int64)),
+                deterministic=False,
+                generator=torch.Generator().manual_seed(1))
+        assert model.uniter.config.block_fusion == "none"
+    else:
+        with torch.inference_mode():
+            out = score()
+        torch.testing.assert_close(out, before, rtol=0, atol=0)
+    assert calls == [] and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("launchable", [True, False])
+def test_tails_count_their_route_in_a_trace_session(monkeypatch,
+                                                    launchable):
+    """Inside a profiler session each tail adds one ``tail.fused`` (the
+    route launched) or one ``tail.plain`` (it did not); outside one the
+    store does not change."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uniter_tpu_torch.utils import trace
+
+    scorer, score = _scorer_inputs()
+    _stand_in(monkeypatch, launchable)
+    trace.count("off")
+    with profile(activities=[ProfilerActivity.CPU]):
+        with torch.inference_mode():
+            score()
+    counts = trace.snapshot()["counts"]
+    key = "tail.fused" if launchable else "tail.plain"
+    assert counts == {key: len(_tails(scorer))}
+    with torch.inference_mode():
+        score()
+    assert trace.snapshot()["counts"] == counts

@@ -11,7 +11,7 @@ and its sites, on the CPU:
 * a new session starts a fresh store, and past ``CAP`` spans are counted in
   ``trace.dropped``;
 * ``itm.slots`` and ``itm.valid_slots`` equal a hand count on a tiny
-  corpus whose tiles repeat rows;
+  corpus whose tiles repeat rows, and ``tail.plain`` counts its tails;
 * threads recording at once lose no span or count.
 """
 
@@ -252,7 +252,11 @@ def test_scorer_spans_nest_and_count_the_slots(scorer_model, tmp_path):
     first = _score_spans(snap, 4)
     assert snap["counts"] == {"itm.slots": 8 * 4 * 14,
                               # 3 x (5+7+3+6+4) + 5 x (2+6+6)
-                              "itm.valid_slots": 3 * 25 + 5 * 14}
+                              "itm.valid_slots": 3 * 25 + 5 * 14,
+                              # 4 residual tails a tile (layer 0 and the
+                              # CLS layer), an embedding tail a text tile
+                              # and an image chunk: all plain on the CPU
+                              "tail.plain": 4 * 4 + 2 + 2}
     path = str(tmp_path / "trace.json")
     p.export_chrome_trace(path)
     with open(path) as f:
@@ -285,7 +289,10 @@ def test_windowed_scorer_counts_the_slots(scorer_model):
     nbb = [2, 6, 6]
     windows = sum(nbb[i % 3] + nbb[(i + 1) % 3] for i in range(5))
     assert snap["counts"] == {"itm.slots": 8 * 2 * 14,
-                              "itm.valid_slots": 2 * 25 + windows}
+                              "itm.valid_slots": 2 * 25 + windows,
+                              # a chunk: its text tail and 4 residual tails;
+                              # the image corpus in one chunk
+                              "tail.plain": 2 * (1 + 4) + 1}
 
 
 def test_threads_lose_no_span_or_count():

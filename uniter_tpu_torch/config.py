@@ -105,10 +105,13 @@ def resolve_kernel_policies(cfg: UniterConfig, device, *,
     select the plain torch version.
 
     Block fusion (the fused dropout + residual + LayerNorm tails, K3-K6)
-    runs only while a dropout mask is live (``uniter_tpu/models/encoder.py``
-    :65,92), so inference, and every policy on a CPU device, resolve it to
-    "none". For ``training`` on a CUDA device "auto", "pallas" and "cuda"
-    select the kernels ("cuda") and "none" stays "none". For ``training``
+    decides only the tails whose dropout mask is live
+    (``uniter_tpu/models/encoder.py`` :65,92), so inference, and every
+    policy on a CPU device, resolve it to "none" (a tail with no live mask
+    in a forward that records no gradient takes K3/K5 at rate 0 on the card
+    whatever it says: ``models/encoder.py``). For ``training`` on a CUDA
+    device "auto", "pallas" and "cuda" select the kernels ("cuda") and
+    "none" stays "none". For ``training``
     ``dropout_impl`` must be "xla", "u16" or "u8" (inference draws no
     mask).
 

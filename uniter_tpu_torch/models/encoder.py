@@ -20,9 +20,16 @@ batch, and each call draws its mask at that block's row base
 process's.
 With ``block_fusion="cuda"`` each live tail runs as one fused Function
 (K3/K4 at the sub-block tails, K5/K6 at the embedding tails) on the same
-seed and the same Philox bits as the plain composition. Every LayerNorm
-that no fused tail takes (the image embeddings' two, each tail when no mask
-is live) follows ``layer_norm_impl``: "cuda" is K8, "xla" the plain one.
+seed and the same Philox bits as the plain composition. A tail with no
+live mask in a forward that records no gradient (every inference forward)
+runs on the card as one launch of K3 (K5 at the embedding tails) at rate
+0, whatever ``block_fusion`` says, where ``ops.fused_block.inference_tail``
+takes its tensors: the JAX package's fused-tail arithmetic (``x + res`` in
+fp32, rounded once after the affine). Every LayerNorm that no fused tail
+takes (the image embeddings' two, each tail that neither fused route
+takes) follows ``layer_norm_impl``: "cuda" is K8, "xla" the plain one.
+Each tail counts the route it took in ``utils.trace``: ``tail.fused``
+(a fused route) or ``tail.plain``.
 With ``ffn_impl="cuda"`` and the gelu activation each layer's FFN runs as
 one ``ops.ffn.FfnFunction`` (K9 on the card) over the same
 ``intermediate.dense`` and ``output.dense`` parameters. The plain tails'
@@ -64,9 +71,11 @@ from uniter_tpu_torch.ops.attention import multi_head_attention
 from uniter_tpu_torch.ops.dropout import (
     batch_block, drop, live_seed, rows_before)
 from uniter_tpu_torch.ops.ffn import ffn
-from uniter_tpu_torch.ops.fused_block import drop_res_ln, ln_drop
+from uniter_tpu_torch.ops.fused_block import (
+    drop_res_ln, inference_tail, ln_drop)
 from uniter_tpu_torch.ops.layer_norm import layer_norm
 from uniter_tpu_torch.parallel.tp import copy_to_region, row_parallel
+from uniter_tpu_torch.utils import trace
 
 MASK_VALUE = -10000.0  # additive padding bias, reference model/model.py:345
 
@@ -105,6 +114,18 @@ class _Tail(LayerNorm):
         self.fused = cfg.block_fusion == "cuda"
         self.drop_impl = cfg.dropout_impl
 
+    def _inference(self, seed, x, res=None):
+        """With no mask live and no gradient recorded, the tail in one
+        launch at rate 0 (``ops.fused_block.inference_tail``), else None.
+        Counts the route in ``utils.trace``: ``tail.fused`` for that launch
+        or a live mask under ``fused``, else ``tail.plain``."""
+        y = None
+        if seed is None and not torch.is_grad_enabled():
+            y = inference_tail(x, res, self.weight, self.bias, self.eps)
+        fused = y is not None or (seed is not None and self.fused)
+        trace.count("tail.fused" if fused else "tail.plain")
+        return y
+
 
 class DropResLN(_Tail):
     """``LayerNorm(dropout(x) + res)``: the tail of both BERT sub-blocks
@@ -112,11 +133,16 @@ class DropResLN(_Tail):
     LayerNorm's. ``seed`` is the tail's dropout seed (``BertLayer.seeds``)
     or None when no mask is live. With ``fused`` and a live mask the tail
     is one ``ops.fused_block.drop_res_ln`` (K3 forward, K4 backward on the
-    card), on the same seed and Philox bits as the plain composition;
-    otherwise, as in the JAX module (:65), the plain composition. ``block``
-    is the rank's block of the batch (the mask's row base)."""
+    card), on the same seed and Philox bits as the plain composition; with
+    no mask live and no gradient recorded, one K3 launch at rate 0 where
+    ``ops.fused_block.inference_tail`` takes the tensors; otherwise, as in
+    the JAX module (:65), the plain composition. ``block`` is the rank's
+    block of the batch (the mask's row base)."""
 
     def forward(self, x, res, seed=None, block: int = 0):
+        y = self._inference(seed, x, res)
+        if y is not None:
+            return y
         base = rows_before(block, x.shape)
         if seed is not None and self.fused:
             return drop_res_ln(x, res, self.weight, self.bias, rate=self.rate,
@@ -130,10 +156,15 @@ class DropResLN(_Tail):
 class LNDrop(_Tail):
     """``dropout(LayerNorm(x))``: the embedding tails (reference
     model/model.py:241-244,269-271); with ``fused`` and a live mask one
-    ``ops.fused_block.ln_drop`` (K5/K6 on the card)."""
+    ``ops.fused_block.ln_drop`` (K5/K6 on the card), with no mask live and
+    no gradient recorded one K5 launch at rate 0 where
+    ``ops.fused_block.inference_tail`` takes the tensors."""
 
     def forward(self, x, deterministic: bool = True, generator=None):
         seed = live_seed(self.rate, deterministic, generator)
+        y = self._inference(seed, x)
+        if y is not None:
+            return y
         base = rows_before(batch_block(generator)[0], x.shape)
         if seed is not None and self.fused:
             return ln_drop(x, self.weight, self.bias, rate=self.rate,
@@ -434,7 +465,7 @@ class BertAttentionCLS(BertAttention):
 
     def forward(self, hidden, bias, attn_seed=None, tail_seed=None):
         sa, tp = self.self, self.tp
-        res = hidden[:, :1]
+        res = hidden[:, :1].contiguous()  # a fused tail reads it whole
         if tp is not None:
             hidden = copy_to_region(hidden, tp.group)
         b, s, _ = hidden.shape

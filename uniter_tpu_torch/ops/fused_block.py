@@ -30,9 +30,11 @@ formulas of the kernel bodies (the LayerNorm backward of
 ``uniter_tpu/ops/layer_norm.py`` ``_ln_bwd``), not autograd. The wrappers
 ``drop_res_ln_fwd/bwd`` and ``ln_drop_fwd/bwd`` launch the CUDA kernels
 (``csrc/fused_tail.cu``) for CUDA tensors and take the plain versions for CPU
-tensors; each counts its launches in ``.launches``. ``DropResLNFunction``
-and ``LNDropFunction`` pair them as the JAX package's custom VJPs do,
-saving only the inputs and the seed (no mask, no statistics).
+tensors; each counts its launches in ``.launches``. ``inference_tail`` is
+the unmasked forward of either tail at rate 0 where a launch takes the
+tensors, and None elsewhere. ``DropResLNFunction`` and ``LNDropFunction``
+pair them as the JAX package's custom VJPs do, saving only the inputs and
+the seed (no mask, no statistics).
 
 The backward kernels sum dw/db over their blocks in a fixed order;
 ``_sum_partials_torch`` is that sum in torch, which the card run holds the
@@ -249,6 +251,24 @@ def _bwd_blocks(name, x):
     return n
 
 
+def _tail_fwd(x, res, weight, bias, rate, seed, eps, row_base=0):
+    """K3 (``res`` given) or K5 (``res`` None) on checked CUDA inputs,
+    counted in its wrapper's ``.launches``: y."""
+    y = torch.empty_like(x)
+    if res is None:
+        _launch("ln_drop_fwd", x, (x.data_ptr(), 0, weight.data_ptr(),
+                                   bias.data_ptr(), y.data_ptr(), 0, 0, 0),
+                rate, seed, eps, row_base=row_base)
+        ln_drop_fwd.launches += 1
+        return y
+    _launch("drop_res_ln_fwd", x, (x.data_ptr(), res.data_ptr(),
+                                   weight.data_ptr(), bias.data_ptr(),
+                                   y.data_ptr(), 0, 0, 0), rate, seed, eps,
+            row_base=row_base)
+    drop_res_ln_fwd.launches += 1
+    return y
+
+
 def _tail_bwd(x, res, weight, g, rate, seed, eps, row_base=0):
     """K4 (``res`` given) or K6 (``res`` None) on checked CUDA inputs, not
     counted: (dx, dres or None, the per-block dw/db partials [2, blocks,
@@ -283,13 +303,7 @@ def drop_res_ln_fwd(x, res, weight, bias, rate: float = 0.0, seed: int = 0,
         if x.device.type == "cpu":
             return _drop_res_ln_torch(x, res, weight, bias, rate, seed, eps,
                                       row_base)
-    y = torch.empty_like(x)
-    _launch("drop_res_ln_fwd", x, (x.data_ptr(), res.data_ptr(),
-                                   weight.data_ptr(), bias.data_ptr(),
-                                   y.data_ptr(), 0, 0, 0), rate, seed, eps,
-            row_base=row_base)
-    drop_res_ln_fwd.launches += 1
-    return y
+    return _tail_fwd(x, res, weight, bias, rate, seed, eps, row_base)
 
 
 drop_res_ln_fwd.launches = 0
@@ -325,12 +339,7 @@ def ln_drop_fwd(x, weight, bias, rate: float = 0.0, seed: int = 0,
         _check("ln_drop_fwd", (x,), (weight, bias), rate, seed, row_base)
         if x.device.type == "cpu":
             return _ln_drop_torch(x, weight, bias, rate, seed, eps, row_base)
-    y = torch.empty_like(x)
-    _launch("ln_drop_fwd", x, (x.data_ptr(), 0, weight.data_ptr(),
-                               bias.data_ptr(), y.data_ptr(), 0, 0, 0),
-            rate, seed, eps, row_base=row_base)
-    ln_drop_fwd.launches += 1
-    return y
+    return _tail_fwd(x, None, weight, bias, rate, seed, eps, row_base)
 
 
 ln_drop_fwd.launches = 0
@@ -351,6 +360,19 @@ def ln_drop_bwd(x, weight, g, rate: float = 0.0, seed: int = 0,
 
 
 ln_drop_bwd.launches = 0
+
+
+def inference_tail(x, res, weight, bias, eps: float = 1e-12):
+    """A tail with no mask, in one forward launch outside autograd:
+    ``LN(x + res) * w + b`` (K3 at rate 0) or, with ``res`` None,
+    ``LN(x) * w + b`` (K5 at rate 0); None where a launch does not take
+    the tensors (``_launchable``: the CPU, float64, H past ``MAX_HIDDEN``
+    or not a multiple of 4, strided or misaligned), for the caller's own
+    path: a tensor ``_launchable`` refuses raises nothing."""
+    rows_like = (x,) if res is None else (x, res)
+    if not _launchable(rows_like, (weight, bias), 0.0, 0):
+        return None
+    return _tail_fwd(x, res, weight, bias, 0.0, 0, eps)
 
 
 class DropResLNFunction(torch.autograd.Function):

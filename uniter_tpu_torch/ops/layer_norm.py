@@ -16,9 +16,11 @@ deviations) and the result is cast back to it.
   plain torch. The JAX package computes that backward outside any Pallas
   kernel, so it is no kernel here either.
 
-The training tails fuse the LayerNorm with dropout and the residual in
-``ops/fused_block.py`` (K3-K6) while a mask is live; every other LayerNorm
-(the image embeddings' two, the heads', every tail at inference) comes here.
+The tails fuse the LayerNorm with dropout and the residual in
+``ops/fused_block.py``: K3-K6 while a mask is live and ``block_fusion``
+asks, K3/K5 at rate 0 on the card in a forward that records no gradient
+(``models/encoder.py``); every other LayerNorm (the image embeddings' two,
+the heads', every tail neither route takes) comes here.
 """
 
 from __future__ import annotations
