@@ -5861,6 +5861,217 @@ def dist_phase(torch):
     return res
 
 
+# BEiT-3-large VQA at 480 px: 256 pairs of 901 vision rows and up to 24
+# text rows a call (S = 909-925)
+BEIT3_K1 = (256, 925, 16, 64)
+BEIT3_SPLIT = 901
+
+
+def beit3_k1(torch, F):
+    """K1 at ``BEIT3_K1`` (past the old 512 limit): rate 0 against the plain
+    version (fp32 products, 32 pairs at a time) and SDPA forward, bf16 and
+    fp32; rate RATE against the plain version under the same mask rule on
+    the first 4 pairs (rows 0.. of the launch's mask); device / call times
+    of K1 and SDPA. Returns {dtype: (err, times)}."""
+    from uniter_tpu_torch.ops.attention import _mha_torch, mha_fwd
+
+    b, s, h, d = BEIT3_K1
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out_t = {}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        lens = torch.randint(BEIT3_SPLIT + 8, s + 1, (b,), generator=gen,
+                             device="cuda")
+        bias = (1.0 - (torch.arange(s, device="cuda")[None, :]
+                       < lens[:, None]).float()) * -10000.0
+        before = mha_fwd.launches
+        out = mha_fwd(q, k, v, bias)
+        launches = mha_fwd.launches - before
+        err = 0.0
+        for i in range(0, b, 32):
+            ref = _mha_torch(q[i:i + 32].float(), k[i:i + 32].float(),
+                             v[i:i + 32].float(), bias[i:i + 32])
+            err = max(err, (out[i:i + 32].float() - ref).abs().max().item())
+            del ref
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        with torch.no_grad():
+            sd = F.scaled_dot_product_attention(
+                qt, kt, vt, bias[:, None, None, :].to(dtype)).transpose(1, 2)
+        e_sdpa = (out.float() - sd.float()).abs().max().item()
+        del sd
+        drop = mha_fwd(q, k, v, bias, RATE, 4242)
+        ref = _mha_torch(q[:4].float(), k[:4].float(), v[:4].float(),
+                         bias[:4], RATE, 4242)
+        e_drop = (drop[:4].float() - ref).abs().max().item()
+        del drop, ref
+        tol = K1_TOL[name]
+        ok = (err <= tol and e_drop <= tol and launches == 1
+              and bool(torch.isfinite(out).all()))
+        print(f"[beit3 K1] B={b} S={s} H={h} D={d} {name} (keys "
+              f"{BEIT3_SPLIT + 8}-{s} valid): rate 0 max|diff| against the "
+              f"plain version {err:.3e} (tol {tol:g}), against SDPA "
+              f"{e_sdpa:.3e}; rate {RATE} on pairs 0-3 against the plain "
+              f"version under the same mask {e_drop:.3e}; {launches} launch "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"K1 disagrees with the plain version at {BEIT3_K1} {name}")
+        del out
+        t = time_k1(torch, F, q, k, v, bias, mha_fwd, _mha_torch)
+        out_t[name] = (err, t)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out_t
+
+
+def beit3_tails(torch, F):
+    """The multiway K3 (``multiway_tail_fwd`` with res: the sum and LN_m of
+    the sum) and K5 (LN_m) at (256, 925, 1024), split 901, bf16 and fp32,
+    against ``_multiway_tail_torch`` on the fp32 copies (bf16: 2^-8 |ref| +
+    1e-3; fp32: 1e-5), the sum bit for bit against x + res rounded once;
+    device / call times against the plain version and against an add and
+    ``F.layer_norm`` with one weight set (the least a library does);
+    launches; the bytes bound. Returns {(name, dtype): times}."""
+    from uniter_tpu_torch.ops import fused_block as fb
+
+    b, s, h = BEIT3_K1[0], BEIT3_K1[1], 1024
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        x, res = (torch.randn(b, s, h, generator=gen, device="cuda")
+                  .to(dtype) for _ in range(2))
+        vecs = [1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+                if i % 2 == 0 else
+                0.1 * torch.randn(h, generator=gen, device="cuda")
+                for i in range(4)]
+        for name, r in (("k3", res), ("k5", None)):
+            before = fb.multiway_tail_fwd.launches
+            got = fb.multiway_tail_fwd(x, r, *vecs, BEIT3_SPLIT)
+            launches = fb.multiway_tail_fwd.launches - before
+            want = fb._multiway_tail_torch(
+                x.float(), None if r is None else r.float(), *vecs,
+                BEIT3_SPLIT)
+            y, wy = (got, want) if r is None else (got[1], want[1])
+            d = (y.float() - wy).abs_()
+            rel, ab = (2.0**-8, 1e-3) if dname == "bfloat16" else (0.0, 1e-5)
+            exc = (d - rel * wy.abs() - ab).max().item()
+            sum_ok = True
+            if r is not None:
+                sum_ok = torch.equal(got[0], (x.float() + r.float()).to(dtype))
+            ok = exc <= 0 and sum_ok and launches == 1
+            print(f"[beit3 tails] multiway {name.upper()} ({b}, {s}, {h}) "
+                  f"split {BEIT3_SPLIT} {dname}: y max|diff| "
+                  f"{d.max().item():.2e} (excess over the tolerance "
+                  f"{exc:.2e}); sum bit for bit {sum_ok}; {launches} launch "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"the multiway {name} disagrees with its plain version")
+            del got, want, y, wy, d
+            w0, b0 = vecs[0], vecs[1]
+
+            def lib(r=r):
+                t = x if r is None else x + r
+                return F.layer_norm(t, (h,), w0.to(dtype), b0.to(dtype), 1e-5)
+
+            fns = {"kernel": lambda r=r: fb.multiway_tail_fwd(
+                       x, r, *vecs, BEIT3_SPLIT),
+                   "plain": lambda r=r: fb._multiway_tail_torch(
+                       x, r, *vecs, BEIT3_SPLIT),
+                   "lib": lib}
+            t = {k: both_ms(torch, f, n_graph=10, n_call=20)
+                 for k, f in fns.items()}
+            acts = 4 if r is not None else 2
+            elem = 2 if dname == "bfloat16" else 4
+            bound = (acts * b * s * h * elem + 4 * h * 4) / HBM_BYTES_PER_S \
+                * 1e3
+            print(f"[beit3 tails] multiway {name.upper()} times {dname}, us "
+                  f"device / call: kernel {t['kernel'][0] * 1e3:.1f} / "
+                  f"{t['kernel'][1] * 1e3:.1f}, plain "
+                  f"{t['plain'][0] * 1e3:.1f} / {t['plain'][1] * 1e3:.1f}, "
+                  f"{'add + ' if r is not None else ''}F.layer_norm "
+                  f"{t['lib'][0] * 1e3:.1f} / {t['lib'][1] * 1e3:.1f}; bound "
+                  f"{bound * 1e3:.1f} (bytes: {acts} activations), kernel "
+                  f"{bound / t['kernel'][0] * 100:.1f}% of it")
+            out[(name, dname)] = {**t, "bound": bound, "launches": launches}
+        del x, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def beit3_serve(torch, n_pairs=256, t_len=24):
+    """One BEiT-3-large VQA call (bf16, seeded weights, ``n_pairs`` pairs
+    over n_pairs / 5 images, text padded to ``t_len``) through
+    ``Beit3ForVisualQuestionAnswering.predict``: launches of K1, the
+    multiway tails and K5 (the pooler), the tail counters under a profiler
+    session, the call time."""
+    from torch.profiler import profile
+
+    from uniter_tpu_torch.models.beit3 import (
+        Beit3Config, Beit3ForVisualQuestionAnswering, resolve_beit3_policies)
+    from uniter_tpu_torch.ops import attention, fused_block as fb
+    from uniter_tpu_torch.utils import trace
+
+    cfg = resolve_beit3_policies(Beit3Config(
+        normalize_output=False, attention_impl="auto"), "cuda")
+    with torch.device("meta"):
+        model = Beit3ForVisualQuestionAnswering(cfg)
+    model = model.to_empty(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("weight") and p.dim() == 1:
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen,
+                                                device="cuda"))
+            else:
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen,
+                                           device="cuda"))
+    n_img = -(-n_pairs // 5)
+    batch = {
+        "pixel_values": torch.randint(0, 256, (n_img, 3, 480, 480),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.uint8),
+        "img_index": torch.arange(n_pairs, device="cuda") // 5,
+        "input_ids": torch.randint(3, 64000, (n_pairs, t_len), generator=gen,
+                                   device="cuda"),
+        "text_mask": torch.ones(n_pairs, t_len, dtype=torch.long,
+                                device="cuda")}
+    with torch.inference_mode():
+        model.predict(batch)
+        torch.cuda.synchronize()
+        names = ("mha_fwd", "multiway", "ln_drop_fwd")
+        fns = (attention.mha_fwd, fb.multiway_tail_fwd, fb.ln_drop_fwd)
+        before = [f.launches for f in fns]
+        with profile():
+            logits = model.predict(batch)
+            counts = dict(trace.snapshot()["counts"])
+        torch.cuda.synchronize()
+        launches = {n: f.launches - b0 for n, f, b0 in zip(names, fns,
+                                                            before)}
+        ms = cuda_ms(torch, lambda: model.predict(batch), iters=5, warmup=1)
+    want = {"mha_fwd": 24, "multiway": 72, "ln_drop_fwd": 1}
+    ok = (launches == want and counts.get("tail.fused") == 73
+          and counts.get("tail.plain") == 25
+          and bool(torch.isfinite(logits).all()))
+    print(f"[beit3 serve] BEiT-3-large, {n_pairs} pairs over {n_img} images, "
+          f"S = {BEIT3_SPLIT + t_len}, bf16: launches {launches} (want "
+          f"{want}), counters {counts}; call {ms:.1f} ms "
+          f"({n_pairs / ms * 1e3:.1f} pairs/s), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the BEiT-3 serving call launched other kernels than expected")
+    del model, batch, logits
+    torch.cuda.empty_cache()
+    return {"launches": launches, "counts": counts, "ms": ms}
+
+
+def beit3_phase(torch):
+    """K1 past 512 positions, the multiway tails and one BEiT-3-large VQA
+    call (``beit3_k1``, ``beit3_tails``, ``beit3_serve``)."""
+    import torch.nn.functional as F
+
+    return beit3_k1(torch, F), beit3_tails(torch, F), beit3_serve(torch)
+
+
 def main(argv):
     """No arguments: every phase, the kernels line and the last line. Phase
     names (``PHASES``): the device and build phases, then those phases
@@ -5934,6 +6145,7 @@ def main(argv):
     prepro = timed(prepro_phase, torch)
     flags = timed(flags_phase, torch)
     dist = timed(dist_phase, torch)
+    beit3_k1_res, beit3_tail_res, beit3_serve_res = timed(beit3_phase, torch)
     t = k2_time[TRAIN_SHAPES[0] + ("bfloat16",)]
     t32 = k2_time[TRAIN_SHAPES[0] + ("float32",)]
     kernels = []
@@ -6018,6 +6230,27 @@ def main(argv):
         "bound_by": by, "library_ms": None, "device_ms": kt["dev"],
         "library_device_ms": None,
         "tp_launches_per_step": dist["tp"]["launches"]["ffn_fwd"]})
+    for dname in ("bfloat16", "float32"):
+        err, kt = beit3_k1_res[dname]
+        bound, by = bound_ms(*BEIT3_K1, dname, False)
+        kernels.append({
+            "name": "mha_fwd", "route": "cuda", "shape": list(BEIT3_K1),
+            "dtype": dname, "source": "uniter_tpu_torch/csrc/mha_fwd.cu",
+            "launches": beit3_serve_res["launches"]["mha_fwd"],
+            "max_abs_err": err, "ms": kt["fwd"][1], "device_ms": kt["fwd"][0],
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": kt["sdpa_fwd"][1],
+            "library_device_ms": kt["sdpa_fwd"][0]})
+    for (name, dname), tt in beit3_tail_res.items():
+        kernels.append({
+            "name": f"multiway_tail_fwd ({name})", "route": "cuda",
+            "shape": [BEIT3_K1[0] * BEIT3_K1[1], 1024], "dtype": dname,
+            "source": "uniter_tpu_torch/csrc/fused_tail.cu",
+            "launches": beit3_serve_res["launches"]["multiway"],
+            "ms": tt["kernel"][1], "device_ms": tt["kernel"][0],
+            "plain_ms": tt["plain"][1], "bound_ms": tt["bound"],
+            "bound_by": "bytes", "library_ms": tt["lib"][1],
+            "library_device_ms": tt["lib"][0]})
     print(f"[smoke] K9 at ({rows}, {h}) bf16: the cuBLAS composition "
           f"F.linear -> F.gelu -> F.linear (no one PyTorch call computes the "
           f"fused FFN, so library_ms is null) took {kt['lib_dev'] * 1e3:.1f} "
@@ -6093,7 +6326,7 @@ PHASES = {"sass": sass_phase, "k1": k1_phase, "k2": k2_phase,
           "itm": itm_train_phase, "vcr": vcr_phase,
           "vcr_serve": vcr_serve_phase, "re": re_phase,
           "task_cli": task_cli_phase, "prepro": prepro_phase,
-          "flags": flags_phase, "dist": dist_phase}
+          "flags": flags_phase, "dist": dist_phase, "beit3": beit3_phase}
 
 
 if __name__ == "__main__":

@@ -100,9 +100,9 @@ def test_mha_fwd_rejects_what_the_kernel_does_not_take(bad):
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "head_dim":
         q, k, v = (t[..., :6] for t in (q, k, v))
-    elif bad == "seq":
-        q, k, v = (t.repeat(1, 33, 1, 1) for t in (q, k, v))
-        bias = bias.repeat(1, 33)
+    elif bad == "seq":  # 1,040 positions: past the forward's 1,024
+        q, k, v = (t.repeat(1, 65, 1, 1) for t in (q, k, v))
+        bias = bias.repeat(1, 65)
     elif bad == "bias_shape":
         bias = bias[:, :8]
     else:

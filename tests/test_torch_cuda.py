@@ -1625,3 +1625,83 @@ def test_backward_is_the_same_every_run(gen):
     for other in grads[1:]:
         for n, g in grads[0].items():
             assert torch.equal(g, other[n]), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,split,h", [(4, 925, 901, 1024),
+                                         (3, 21, 17, 64), (2, 9, 9, 772)])
+def test_multiway_tails_match_plain(gen, dtype, b, s, split, h):
+    """The multiway K3 (the sum and LN_m of it) and K5 (LN_m) against
+    ``_multiway_tail_torch`` on the fp32 copies (the tolerances of K3/K5);
+    the sum equal to x + res rounded once; one launch each; a rank-2 input
+    and a split past S refused on the card."""
+    x, res = (torch.randn(b, s, h, generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    w = [1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+         if i % 2 == 0 else 0.1 * torch.randn(h, generator=gen, device="cuda")
+         for i in range(4)]
+    before = fb.multiway_tail_fwd.launches
+    hsum, y = fb.multiway_tail_fwd(x, res, *w, split)
+    want = fb._multiway_tail_torch(x.float(), res.float(), *w, split)
+    assert torch.equal(hsum, (x.float() + res.float()).to(dtype))
+    assert _close(y, want[1], dtype, 1e-5)
+    y5 = fb.multiway_tail_fwd(x, None, *w, split)
+    assert _close(y5, fb._multiway_tail_torch(x.float(), None, *w, split),
+                  dtype, 1e-5)
+    assert fb.multiway_tail_fwd(x, res, *w, split, keep_sum=False)[0] is None
+    assert fb.multiway_tail_fwd.launches == before + 3
+    with pytest.raises(ValueError):
+        fb.multiway_tail_fwd(x[0], res[0], *w, split)
+    with pytest.raises(ValueError):
+        fb.multiway_tail_fwd(x, res, *w, s + 1)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_mha_kernel_past_512(gen, dtype, tol):
+    """K1 at S 925 (a BEiT-3 VQA pair at 480 px) against the plain
+    version, rates 0 and 0.1 on the same mask."""
+    q, k, v = (torch.randn(3, 925, 4, 64, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    bias = torch.zeros(3, 925, device="cuda")
+    bias[1, 910:] = -10000.0
+    for rate in (0.0, 0.1):
+        out = mha_fwd(q, k, v, bias, rate, 77)
+        ref = _mha_torch(q.float(), k.float(), v.float(), bias, rate, 77)
+        assert (out.float() - ref).abs().max().item() <= tol
+
+
+def test_beit3_through_the_kernels(gen):
+    """A 2-layer BEiT-3 at width 64 on the card (K1, the multiway K3/K5,
+    the pooler's K5) answers as its plain path on the CPU (fp32, 1e-4:
+    TF32-free sums in other orders), with 2 K1, 6 multiway and 1 K5
+    launches a forward."""
+    from uniter_tpu_torch.models.beit3 import (
+        Beit3Config, Beit3ForVisualQuestionAnswering, resolve_beit3_policies)
+
+    cfg = Beit3Config(encoder_embed_dim=64, encoder_attention_heads=4,
+                      encoder_ffn_embed_dim=256, encoder_layers=2,
+                      vocab_size=101, img_size=64, dtype="float32",
+                      normalize_output=False, attention_impl="auto")
+    cpu = Beit3ForVisualQuestionAnswering(
+        resolve_beit3_policies(cfg, "cpu"), 10).eval()
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            p.copy_(1.0 + 0.1 * torch.randn_like(p) if n.endswith("weight")
+                    and p.dim() == 1 else 0.05 * torch.randn_like(p))
+    card = Beit3ForVisualQuestionAnswering(
+        resolve_beit3_policies(cfg, "cuda"), 10).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    b = {"pixel_values": torch.randint(0, 256, (2, 3, 64, 64),
+                                       dtype=torch.uint8),
+         "img_index": torch.tensor([0, 1, 1]),
+         "input_ids": torch.randint(3, 101, (3, 8)),
+         "text_mask": torch.ones(3, 8, dtype=torch.long)}
+    b["text_mask"][1, 5:] = 0
+    fns = (mha_fwd, fb.multiway_tail_fwd, fb.ln_drop_fwd)
+    before = [f.launches for f in fns]
+    with torch.inference_mode():
+        got = card.predict({k: v.cuda() for k, v in b.items()}).cpu()
+        want = cpu.predict(b)
+    assert [f.launches - n for f, n in zip(fns, before)] == [2, 6, 1]
+    assert (got - want).abs().max().item() <= 1e-4

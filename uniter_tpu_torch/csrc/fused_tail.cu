@@ -61,6 +61,13 @@
 //
 // K8 is K5's row code with no dropout; it also takes the wider rows of the
 // task heads (H up to 2048).
+//
+// The multiway tails (`uniter_multiway_tail_fwd`, BEiT-3's pre-LN layers at
+// inference) are K3's and K5's row code with two weight sets, chosen per
+// row by its position in its sequence (vision rows before the split, text
+// rows after), and, for K3, the sum x + res stored beside the LayerNorm: a
+// pre-LN layer carries the sum on as its residual stream. K3/K5's own
+// instantiations are unchanged (the flag is a template parameter).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,15 +193,25 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ p,
   }
 }
 
-// The forward row walk: K3 (kRes), K5 (!kRes, kDrop), K8 (neither).
-template <typename T, int VEC, int NV, bool kRes, bool kDrop>
+// The forward row walk: K3 (kRes), K5 (!kRes, kDrop), K8 (neither). With
+// kMulti (the multiway tails, no dropout) row r takes (w, b) when
+// (r mod seg) < split and (w2, b2) otherwise, and K3 also stores the sum
+// x + res in `sum` when it is not null.
+template <typename T, int VEC, int NV, bool kRes, bool kDrop,
+          bool kMulti = false>
 __device__ __forceinline__ void fwd_rows(
     const T* __restrict__ x, const T* __restrict__ res,
     const float* __restrict__ w, const float* __restrict__ b,
     T* __restrict__ y, long long rows, int H, unsigned thr, float inv_keep,
-    unsigned long long seed, long long row_base, float eps) {
-  __shared__ __align__(16) float sw[32 * VEC * NV];
-  __shared__ __align__(16) float sb[32 * VEC * NV];
+    unsigned long long seed, long long row_base, float eps,
+    const float* __restrict__ w2 = nullptr,
+    const float* __restrict__ b2 = nullptr, T* __restrict__ sum = nullptr,
+    long long seg = 1, long long split = 1) {
+  constexpr int kCols = 32 * VEC * NV;
+  __shared__ __align__(16) float sw[kCols];
+  __shared__ __align__(16) float sb[kCols];
+  __shared__ __align__(16) float sw2[kMulti ? kCols : 1];
+  __shared__ __align__(16) float sb2[kMulti ? kCols : 1];
   const int lane = threadIdx.x & 31;
   const long long step = static_cast<long long>(gridDim.x) * FWD_WARPS;
   long long row =
@@ -208,9 +225,21 @@ __device__ __forceinline__ void fwd_rows(
   for (int c = threadIdx.x; c < H; c += blockDim.x) {
     sw[c] = __ldg(w + c);
     sb[c] = __ldg(b + c);
+    if constexpr (kMulti) {
+      sw2[c] = __ldg(w2 + c);
+      sb2[c] = __ldg(b2 + c);
+    }
   }
   __syncthreads();
   for (; row < rows; row += step) {
+    const float* rw = sw;
+    const float* rb = sb;
+    if constexpr (kMulti) {
+      if (row % seg >= split) {  // the row's segment, warp-uniform
+        rw = sw2;
+        rb = sb2;
+      }
+    }
     unsigned keep = 0u;
     if constexpr (kDrop) {
       if (thr) keep = row_keep<VEC, NV>(seed, row_base + row, H, lane, thr);
@@ -235,6 +264,16 @@ __device__ __forceinline__ void fwd_rows(
         }
 #pragma unroll
         for (int j = 0; j < VEC; ++j) s += t[i][j];
+      }
+    }
+    if constexpr (kMulti && kRes) {
+      if (sum != nullptr) {
+        T* hr = sum + row * H;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          const int c = VEC * (lane + 32 * i);
+          if (c < H) st_vec<T, VEC>(hr + c, t[i]);
+        }
       }
     }
     const long long next = row + step;  // in flight while this row reduces
@@ -264,7 +303,7 @@ __device__ __forceinline__ void fwd_rows(
         float o[VEC];
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          o[j] = (t[i][j] - mean) * inv * sw[c + j] + sb[c + j];
+          o[j] = (t[i][j] - mean) * inv * rw[c + j] + rb[c + j];
           if constexpr (!kRes && kDrop) {
             if (thr) o[j] = kept(keep, VEC * i + j, o[j], inv_keep);
           }
@@ -284,6 +323,22 @@ tail_fwd(const T* __restrict__ x, const T* __restrict__ res,
          float eps) {
   fwd_rows<T, VEC, NV, kRes, true>(x, res, w, b, y, rows, H, thr, inv_keep,
                                    seed, row_base, eps);
+}
+
+// The multiway tails of a pre-LN layer at inference (no dropout): K3's
+// y = LN_m(x + res) with the sum stored in `sum` (when not null), or K5's
+// y = LN_m(x) (res null), the weights of row r (w, b) when (r mod seg) <
+// split, else (w2, b2).
+template <typename T, int VEC, int NV, bool kRes>
+__global__ void __launch_bounds__(32 * FWD_WARPS)
+tail_fwd_multiway(const T* __restrict__ x, const T* __restrict__ res,
+                  const float* __restrict__ w, const float* __restrict__ b,
+                  const float* __restrict__ w2, const float* __restrict__ b2,
+                  T* __restrict__ y, T* __restrict__ sum, long long rows,
+                  int H, long long seg, long long split, float eps) {
+  fwd_rows<T, VEC, NV, kRes, false, true>(x, res, w, b, y, rows, H, 0u, 1.f,
+                                          0ull, 0ll, eps, w2, b2, sum, seg,
+                                          split);
 }
 
 // K8: y = LN(x) * w + b; draws no random bits.
@@ -537,6 +592,17 @@ struct TailCall {
 };
 static_assert(sizeof(TailCall) == 128, "TailCall is the caller's 128 bytes");
 
+// The multiway tails' argument block (ops/fused_block.py `_MULTI_CALL`):
+// a TailCall (x, res or 0, w, b, y; rows, H, eps, dtype, device, stream;
+// no dropout) and then the second weight set, the sum's buffer (or 0) and
+// the row segments: row r takes (w, b) when (r mod seg) < split.
+struct MultiwayCall : TailCall {
+  unsigned long long w2, b2, sum;
+  long long seg, split;
+};
+static_assert(sizeof(MultiwayCall) == 168,
+              "MultiwayCall is the caller's 168 bytes");
+
 template <typename P>
 P* ptr(unsigned long long p) {
   return reinterpret_cast<P*>(p);
@@ -577,6 +643,22 @@ struct BwdOp {
   }
 };
 
+struct MultiwayOp {
+  template <typename T, int VEC, int NV, bool kRes>
+  static int run(const MultiwayCall& a) {
+    static const int per_sm =
+        blocks_per_sm(tail_fwd_multiway<T, VEC, NV, kRes>, 32 * FWD_WARPS);
+    tail_fwd_multiway<T, VEC, NV, kRes>
+        <<<grid(a.rows, FWD_WARPS, per_sm, a.device), 32 * FWD_WARPS, 0,
+           stream_of(a)>>>(
+            ptr<const T>(a.x), ptr<const T>(a.res), ptr<const float>(a.w),
+            ptr<const float>(a.b_or_g), ptr<const float>(a.w2),
+            ptr<const float>(a.b2), ptr<T>(a.y_or_dx), ptr<T>(a.sum), a.rows,
+            a.H, a.seg, a.split, a.eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
 struct GridOp {  // the backward's block count, or -(cudaError_t)
   template <typename T, int VEC, int NV, bool kRes>
   static int run(const TailCall& a) {
@@ -588,8 +670,8 @@ struct GridOp {  // the backward's block count, or -(cudaError_t)
 
 // dtype 0: fp32 x 4; dtype 1: bf16 x 8 when H % 8 == 0, else bf16 x 4. NV
 // covers H: up to 256, 768 or 1024 columns a row.
-template <bool kRes, typename Op>
-int dispatch(const TailCall& a) {
+template <bool kRes, typename Op, typename Call = TailCall>
+int dispatch(const Call& a) {
   const int H = a.H, dtype = a.dtype;
   if (a.rows < 1 || H < 4 || H > MAX_H || H % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -613,8 +695,9 @@ int dispatch(const TailCall& a) {
 
 // One entry: the caller's block, run by `run` on its device; the caller
 // gets its own current device back.
-int on_device(const void* raw, int (*run)(const TailCall&)) {
-  TailCall a;
+template <typename Call = TailCall>
+int on_device(const void* raw, int (*run)(const Call&)) {
+  Call a;
   std::memcpy(&a, raw, sizeof a);  // the block may sit at any alignment
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
@@ -628,7 +711,7 @@ int on_device(const void* raw, int (*run)(const TailCall&)) {
 
 template <bool kRes, typename Op>
 int run_call(const void* raw) {
-  return on_device(raw, dispatch<kRes, Op>);
+  return on_device<TailCall>(raw, dispatch<kRes, Op, TailCall>);
 }
 
 template <typename T, int VEC, int NV>
@@ -716,10 +799,25 @@ extern "C" int uniter_ln_drop_bwd(const void* call) {
   return run_call<false, BwdOp>(call);
 }
 
+// The multiway tails: one `MultiwayCall`. res != 0: y = LN_m(x + res) and,
+// with sum != 0, the sum x + res into sum; res == 0: y = LN_m(x). Row r's
+// weights are (w, b) when (r mod seg) < split, else (w2, b2); seg >= 1,
+// 0 <= split <= seg. Layout, dtype and device as the tails above.
+extern "C" int uniter_multiway_tail_fwd(const void* call) {
+  MultiwayCall a;
+  std::memcpy(&a, call, sizeof a);
+  if (a.seg < 1 || a.split < 0 || a.split > a.seg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return a.res ? on_device<MultiwayCall>(call,
+                                         dispatch<true, MultiwayOp, MultiwayCall>)
+               : on_device<MultiwayCall>(call,
+                                         dispatch<false, MultiwayOp, MultiwayCall>);
+}
+
 // K8: one `TailCall` with x, w, b (in b_or_g) and y (in y_or_dx), rows, H
 // (a multiple of 4 up to 2048), eps, dtype, device and stream; the other
 // fields are not read. Bit for bit the launch the tails' K5 row code makes
 // without dropout.
 extern "C" int uniter_layer_norm_fwd(const void* call) {
-  return on_device(call, LnOp::run);
+  return on_device<TailCall>(call, LnOp::run);
 }

@@ -15,6 +15,15 @@ are gathered into the one-process order and rank 0 writes the same files.
 
 Inference runs fp32. TF32 matmuls stay off (set here and stated), so the
 fp32 products keep full precision; turning TF32 on is a separate decision.
+
+The model config's ``model_type`` (default "uniter") chooses the
+model. "beit3" serves ``models.beit3``'s
+``Beit3ForVisualQuestionAnswering`` in the model config's ``dtype``: the
+run directory holds its config (``log/model.json``, torchscale's keys),
+``log/hps.json`` (``num_answer``) and a ``.pt`` state dict under
+torchscale's names; ``--img_db`` is a pixel store (``data/pixel_db.py``)
+and ``--txt_db`` a tokenized txt DB whose tokens are the model's
+vocabulary's. It runs in one process.
 """
 
 from __future__ import annotations
@@ -95,6 +104,11 @@ def main(opts):
     init_process(opts)
     device = torch.device(opts.device)
     hps, model_json = infer.load_train_meta(opts.train_dir)
+    model_type = model_json.get("model_type", "uniter")
+    if model_type == "beit3":
+        return main_beit3(opts, hps, model_json, device)
+    if model_type != "uniter":
+        raise ValueError(f"unknown model_type {model_type!r}")
     cfg = infer.model_config_from_meta(
         model_json, device, dtype="float32",
         attention_impl=getattr(hps, "attention_impl", "xla"))
@@ -119,7 +133,39 @@ def main(opts):
         shuffle=False, drop_last=False, **shard_kw())
     results, all_logits = answer_questions(
         model, loader, label2ans, device, keep_logits=opts.save_logits)
+    return write_results(opts, results, all_logits)
 
+
+def main_beit3(opts, hps, model_json, device):
+    """BEiT-3 VQA from a pixel store and a txt DB (module docstring)."""
+    from uniter_tpu_torch.data.pixel_db import (
+        Beit3BatchLoader, Beit3VqaDataset, PixelDb)
+    from uniter_tpu_torch.data.txt_db import TxtTokDb
+    from uniter_tpu_torch.models.beit3 import (
+        Beit3Config, Beit3ForVisualQuestionAnswering, resolve_beit3_policies)
+    from uniter_tpu_torch.parallel.collectives import data_size
+
+    if data_size() > 1:
+        raise ValueError("BEiT-3 inference runs in one process")
+    cfg = resolve_beit3_policies(Beit3Config.from_dict(model_json), device)
+    model = Beit3ForVisualQuestionAnswering(cfg, num_answer=hps.num_answer)
+    sd = torch.load(infer.resolve_ckpt(opts.train_dir, opts.ckpt),
+                    map_location="cpu", weights_only=True)
+    model.load_state_dict(sd, strict=True)
+    model.to(device).eval()
+    label2ans = load_label2ans(opts, hps.num_answer)
+    ds = Beit3VqaDataset(TxtTokDb(opts.txt_db, max_txt_len=-1),
+                         PixelDb(opts.img_db), cfg.bos_token_id,
+                         cfg.eos_token_id)
+    loader = Beit3BatchLoader(ds, opts.batch_size, cfg.pad_token_id)
+    results, all_logits = answer_questions(
+        model, loader, label2ans, device, keep_logits=opts.save_logits)
+    return write_results(opts, results, all_logits)
+
+
+def write_results(opts, results, all_logits):
+    """``results.json`` (and ``logits.npz``) under ``--output_dir`` on
+    rank 0; the path of ``results.json``."""
     out = os.path.join(opts.output_dir, "results.json")
     if process_index() > 0:
         return out

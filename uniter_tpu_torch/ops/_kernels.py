@@ -44,6 +44,8 @@ SIGNATURES = {
     # the fused tails: one packed argument block (TAIL_CALL)
     **{k: [ctypes.c_char_p] for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
                                       "ln_drop_fwd", "ln_drop_bwd")},
+    # the multiway tails: their own packed block (MULTI_CALL)
+    "multiway_tail_fwd": [ctypes.c_char_p],
     # the backward tails' grid: rows, H, dtype, K4 (1) or K6 (0), device
     "tail_bwd_grid": [_L, _I, _I, _I, _I],
     # K7: its own packed block (IPOT_CALL); K8: the tails' (TAIL_CALL); K9:
@@ -58,7 +60,8 @@ SOURCES = {"mha_fwd": "mha_fwd", "mha_bwd": "mha_bwd", "ipot": "ipot",
            "ffn_fwd": "ffn", "ffn_smem_bytes": "ffn",
            **{k: "fused_tail" for k in ("drop_res_ln_fwd", "drop_res_ln_bwd",
                                         "ln_drop_fwd", "ln_drop_bwd",
-                                        "tail_bwd_grid", "layer_norm_fwd")}}
+                                        "tail_bwd_grid", "layer_norm_fwd",
+                                        "multiway_tail_fwd")}}
 
 # source -> what it links beyond the CUDA runtime: K9 encodes its TMA tensor
 # maps with libcuda's cuTensorMapEncodeTiled
@@ -68,6 +71,9 @@ LINK = {"ffn": ["-lcuda"]}
 # kernel has none), rows, H, the dropout threshold, 1 / (1 - rate), the
 # blocks of part, seed, eps, dtype, device, stream, the dropout row base
 TAIL_CALL = struct.Struct("<8Qqi I f i Q f i i 4x Q q")
+# csrc/fused_tail.cu `MultiwayCall`: a TAIL_CALL, then the second weight set
+# (w2, b2), the sum's buffer (or 0) and the row segments (seg, split)
+MULTI_CALL = struct.Struct(TAIL_CALL.format + "3Q q q")
 # csrc/ipot.cu `IpotCall`, K7's one argument: 8 pointers (the cost C, x_len,
 # y_len, x_pad, y_pad, joint_pad, the plan T, the workspace or 0), B, N, M,
 # iteration, k, form, beta, device, stream

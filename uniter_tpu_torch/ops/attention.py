@@ -53,7 +53,12 @@ from uniter_tpu_torch.ops import _kernels
 from uniter_tpu_torch.ops.dropout import keep_mask, threshold
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SEQ = 512
+# K1's tiles are fixed 64-row blocks of q, k and v whatever S is, so its
+# limit is the wrapper's; K2 stages per-row statistics of the whole
+# sequence in shared memory (``_bwd_smem``) and was built and checked up to
+# 512, which stays its limit
+MAX_SEQ = 1024
+MAX_SEQ_BWD = 512
 MAX_HEAD_DIM = 128
 SMEM_LIMIT = 232448  # dynamic shared memory a block may opt into (227 KB)
 
@@ -289,6 +294,21 @@ def _mha_bwd_tf32_torch(q, k, v, bias, g, out, lse, lse_lo,
                  for t in (dq, dk, dv))
 
 
+def _check_seq(s, name="mha_fwd"):
+    """The sequence-length limit of K1 (``MAX_SEQ``) or of K2
+    (``MAX_SEQ_BWD``, for ``mha_bwd`` and a forward that records a
+    gradient)."""
+    if name == "mha_fwd":
+        if not 1 <= s <= MAX_SEQ:
+            raise ValueError(f"sequence length must be 1..{MAX_SEQ}, got {s}")
+    elif not 1 <= s <= MAX_SEQ_BWD:
+        raise ValueError(
+            f"{name}: sequence length must be 1..{MAX_SEQ_BWD}, got {s}: the "
+            f"backward kernel keeps per-row statistics of the whole sequence "
+            f"in shared memory and is built and checked up to {MAX_SEQ_BWD} "
+            f"(the forward takes up to {MAX_SEQ})")
+
+
 def _check(q, k, v, bias, name="mha_fwd"):
     if not (q.device == k.device == v.device == bias.device):
         raise ValueError("q, k, v and bias must lie on one device")
@@ -304,8 +324,7 @@ def _check(q, k, v, bias, name="mha_fwd"):
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"head dim must be a multiple of 8 up to "
                          f"{MAX_HEAD_DIM}, got {d}")
-    if s > MAX_SEQ or s < 1:
-        raise ValueError(f"sequence length must be 1..{MAX_SEQ}, got {s}")
+    _check_seq(s, name)
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the launch grid")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -601,6 +620,7 @@ class MhaFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, rate, seed, row_base=0, heads_total=None,
                 head0=0):
+        _check_seq(q.shape[1], "mha_bwd")  # before any work
         ctx.rate, ctx.seed = rate, seed
         ctx.hk = dict(row_base=row_base, heads_total=heads_total,
                       head0=head0)

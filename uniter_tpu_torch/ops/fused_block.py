@@ -37,6 +37,12 @@ pair them as the JAX package's custom VJPs do, saving only the inputs and
 the seed (no mask, no statistics).
 
 The backward kernels sum dw/db over their blocks in a fixed order;
+``multiway_tail_fwd`` is the pre-LN, two-expert form of K3/K5 at inference
+(BEiT-3's layers, ``models/beit3.py``): the rows of each sequence before a
+split position take one weight set and the rest another, and K3's form
+also returns the sum it normalised (a pre-LN layer's residual stream);
+``_multiway_tail_torch`` is its plain version.
+
 ``_sum_partials_torch`` is that sum in torch, which the card run holds the
 kernels' dw/db to bit for bit. A wrapper's launch path is kept short, since
 a step makes 52 tail calls: ``_launchable`` looks once at each tensor and
@@ -373,6 +379,70 @@ def inference_tail(x, res, weight, bias, eps: float = 1e-12):
     if not _launchable(rows_like, (weight, bias), 0.0, 0):
         return None
     return _tail_fwd(x, res, weight, bias, 0.0, 0, eps)
+
+
+def _check_split(name, x, split):
+    """A multiway tail's rows: x is [B, S, H] and 0 <= split <= S."""
+    if x.dim() != 3:
+        raise ValueError(f"{name}: needs a [B, S, H] tensor, got "
+                         f"{tuple(x.shape)}")
+    if not 0 <= int(split) <= x.shape[1]:
+        raise ValueError(f"{name}: split {split} lies outside the "
+                         f"{x.shape[1]} positions of a sequence")
+
+
+def _multiway_tail_torch(x, res, w_a, b_a, w_b, b_b, split: int,
+                         eps: float = 1e-5):
+    """The plain multiway tail in fp32: with ``res``, (x + res, LN_m(x +
+    res)), else LN_m(x), in x's dtype; positions < ``split`` of each
+    sequence take (w_a, b_a), the rest (w_b, b_b)."""
+    t = _f32(x) if res is None else _f32(x) + _f32(res)
+    that, _ = _ln_stats(t, eps)
+    pos = torch.arange(x.shape[1], device=x.device)[:, None] < split
+    y = (that * torch.where(pos, _f32(w_a), _f32(w_b))
+         + torch.where(pos, _f32(b_a), _f32(b_b))).to(x.dtype)
+    return y if res is None else (t.to(x.dtype), y)
+
+
+def multiway_tail_fwd(x, res, w_a, b_a, w_b, b_b, split: int,
+                      eps: float = 1e-5, keep_sum: bool = True):
+    """The multiway tails of a pre-LN layer (BEiT-3) at inference, in one
+    launch: with ``res``, ``(x + res, LN_m(x + res))`` (K3's row code; the
+    sum None unless ``keep_sum``), else ``LN_m(x)`` (K5's). x is [B, S, H];
+    the positions of each sequence before ``split`` take (w_a, b_a), the
+    rest (w_b, b_b). A CPU input takes ``_multiway_tail_torch``; a CUDA
+    input launches ``uniter_multiway_tail_fwd`` or raises. Counted in
+    ``.launches``."""
+    rows_like = (x,) if res is None else (x, res)
+    vecs = (w_a, b_a, w_b, b_b)
+    if not (_launchable(rows_like, vecs, 0.0, 0) and x.dim() == 3
+            and 0 <= split <= x.shape[1]):
+        _check("multiway_tail_fwd", rows_like, vecs, 0.0, 0)
+        _check_split("multiway_tail_fwd", x, split)
+        if x.device.type == "cpu":
+            out = _multiway_tail_torch(x, res, w_a, b_a, w_b, b_b, split,
+                                       eps)
+            return out if res is None or keep_sum else (None, out[1])
+    h = x.shape[-1]
+    y = torch.empty_like(x)
+    hsum = torch.empty_like(x) if res is not None and keep_sum else None
+    idx = x.device.index
+    call = _kernels.MULTI_CALL.pack(
+        x.data_ptr(), 0 if res is None else res.data_ptr(), w_a.data_ptr(),
+        b_a.data_ptr(), y.data_ptr(), 0, 0, 0, x.numel() // h, h, 0, 1.0, 0,
+        0, float(eps), _DTYPE_CODE[x.dtype], idx,
+        torch._C._cuda_getCurrentRawStream(idx), 0, w_b.data_ptr(),
+        b_b.data_ptr(), 0 if hsum is None else hsum.data_ptr(), x.shape[1],
+        int(split))
+    rc = _kernels.entry("multiway_tail_fwd")(call)
+    if rc:
+        raise RuntimeError(f"multiway_tail_fwd kernel launch failed: "
+                           f"cudaError_t {rc} at {tuple(x.shape)} {x.dtype}")
+    multiway_tail_fwd.launches += 1
+    return y if res is None else (hsum, y)
+
+
+multiway_tail_fwd.launches = 0
 
 
 class DropResLNFunction(torch.autograd.Function):

@@ -184,6 +184,10 @@ def optim_kwargs(opts) -> dict:
 def model_config_from_opts(opts, **overrides) -> UniterConfig:
     with open(opts.model_config) as f:
         raw = json.load(f)
+    if raw.get("model_type", "uniter") != "uniter":
+        raise NotImplementedError(
+            f"training a {raw['model_type']!r} model is not supported: the "
+            f"port trains UNITER; BEiT-3 (models/beit3.py) serves only")
     cfg = UniterConfig.from_dict(
         raw, dtype=opts.dtype,
         attention_impl=getattr(opts, "attention_impl", "auto"),

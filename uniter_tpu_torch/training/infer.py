@@ -138,21 +138,28 @@ def eval_batches(predict_fn, loader, device, prefetch: int = 2,
     with the NEXT batch's host collate and transfer overlapped with the
     current predict (``DevicePrefetcher``). Yields
     ``(host_batch, device_outputs)``; rows past the real row count are
-    the collate's padding rows. ``group`` rows form one example (NLVR2's
+    the collate's padding rows (a batch's rows: its ``attn_mask``'s, or
+    without one its ``input_ids``'). Each predict is the root span
+    ``infer.batch`` (``utils.trace``), the batch's index its request.
+    ``group`` rows form one example (NLVR2's
     paired models read rows (2i, 2i+1) as a pair, ``inf_nlvr2.py:65-67``):
     the batch goes to the device whole, so the groups stay intact, and a
     batch whose row count ``group`` does not divide raises."""
     from uniter_tpu_torch.data.loader import DevicePrefetcher
 
+    from uniter_tpu_torch.utils import trace
+
     device = torch.device(device)
     it = DevicePrefetcher(iter(loader), lambda b: (b, to_device(b, device)),
                           depth=prefetch)
     try:
-        for batch, db in it:
-            rows = db["attn_mask"].shape[0]
+        for index, (batch, db) in enumerate(it):
+            rows = db["attn_mask" if "attn_mask" in db
+                      else "input_ids"].shape[0]
             if rows % group:
                 raise ValueError(f"{rows} rows do not form groups of {group}")
-            with torch.inference_mode():
+            with trace.span("infer.batch", request=index), \
+                    torch.inference_mode():
                 out = predict_fn(db)
             yield batch, out
     finally:
