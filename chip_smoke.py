@@ -269,6 +269,8 @@ TAIL_TIMED = {(9984, 768): ("drop_res_ln_fwd", "drop_res_ln_bwd"),
 # pairs of 64 text + 100 image tokens): the inference route's K3/K5
 # launches there, forward only at rate 0
 SCORE_TILE = (32 * 128 * (64 + 100), 768)
+# the same tile's FFN intermediate: the in-place GELU's shape
+GELU_TILE = (SCORE_TILE[0], 3072)
 TAIL_FWD_TOL_FP32 = 1e-5
 TAIL_BWD_TOL_FP32 = 1e-4  # dx/dres, as K2's
 TAIL_DWDB_REL = 1e-4  # dw/db: sums over rows in another order, of max|ref|
@@ -1321,7 +1323,72 @@ def tail_phase(torch):
     tail_row_base(torch, fb, keep_mask, gen)
     tail_score_tile(torch, fb, gen)
     timing["launch_path"] = launch_path(torch, fb)
+    timing["gelu"] = gelu_score_tile(torch, gen)
     return worst, timing
+
+
+def gelu_score_tile(torch, gen):
+    """The scorer's GELU at ``GELU_TILE`` in bf16 and fp32: the in-place
+    route (``BertIntermediate`` under ``inference_mode``: ``gelu_``, the
+    library's erf GELU in place) against the fp32 erf formula, row block
+    by row block (fp32 1e-6 + 1e-6 |ref|, bf16 2^-8 |ref| + 1e-3); then
+    call times (CUDA events, ms; each call moves gigabytes) of the route,
+    with the five-pass composition (``gelu``: div, erf, add, mul, mul; the
+    route under autograd) before and after, against the byte bound of one
+    read and one write. Returns {dtype: times and errors}."""
+    import math
+
+    from uniter_tpu_torch.ops import activations as act
+
+    rows, mid = GELU_TILE
+    block = 65536
+    out = {}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        torch.cuda.empty_cache()
+        x = torch.randn(rows, mid, generator=gen, device="cuda", dtype=dtype)
+        x0 = x.clone()
+        with torch.inference_mode():
+            act.gelu_(x)
+        worst, excess = 0.0, -1.0
+        for r in range(0, rows, block):
+            v = x0[r:r + block].float()
+            want = v * 0.5 * (1.0 + torch.erf(v * (1.0 / math.sqrt(2.0))))
+            d = (x[r:r + block].float() - want).abs_()
+            want.abs_()
+            lim = (1e-6 + 1e-6 * want if dtype == torch.float32
+                   else 2.0**-8 * want + 1e-3)
+            worst = max(worst, d.max().item())
+            excess = max(excess, (d - lim).max().item())
+            del v, want, d, lim
+        ok = excess <= 0
+        tol = ("1e-6 + 1e-6 |ref|" if dtype == torch.float32
+               else "2^-8 |ref| + 1e-3")
+        # the route in place on x (its values drift from call to call, its
+        # bytes do not); the composition out of place from x0
+        route = lambda: act.gelu_(x)  # noqa: E731
+        chain = lambda: act.gelu(x0)  # noqa: E731
+        e0 = cuda_ms(torch, chain, 5, 1)
+        t = [cuda_ms(torch, route, 10, 2), cuda_ms(torch, route, 10, 2)]
+        e1 = cuda_ms(torch, chain, 5, 1)
+        nbytes = 2 * x0.numel() * x0.element_size()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        res = {"ms": sum(t) / 2, "chain_ms": (e0 + e1) / 2,
+               "bound_ms": bound, "max_abs_err": worst}
+        out[dname] = res
+        print(f"[gelu] {GELU_TILE} {dname} in place (the library's erf "
+              f"GELU): max|diff| from the fp32 erf formula {worst:.2e} "
+              f"({tol}) {'ok' if ok else 'FAIL'}; ms a call: route "
+              f"{res['ms']:.3f} (turns {t[0]:.3f}, {t[1]:.3f}), five-pass "
+              f"composition {res['chain_ms']:.3f} ({e0:.3f}, {e1:.3f}); "
+              f"byte bound {bound:.3f} ({nbytes / 1e9:.2f} GB): route "
+              f"{100 * bound / res['ms']:.1f}%, composition "
+              f"{100 * bound / res['chain_ms']:.1f}%")
+        check(ok, f"the in-place GELU disagrees with the erf formula at "
+              f"{GELU_TILE} {dname}")
+        del x, x0
+        torch.cuda.empty_cache()
+    return out
 
 
 def tail_score_tile(torch, fb, gen):
@@ -6231,16 +6298,16 @@ def main(argv):
         "library_device_ms": None,
         "tp_launches_per_step": dist["tp"]["launches"]["ffn_fwd"]})
     for dname in ("bfloat16", "float32"):
-        err, kt = beit3_k1_res[dname]
+        err, bt = beit3_k1_res[dname]
         bound, by = bound_ms(*BEIT3_K1, dname, False)
         kernels.append({
             "name": "mha_fwd", "route": "cuda", "shape": list(BEIT3_K1),
             "dtype": dname, "source": "uniter_tpu_torch/csrc/mha_fwd.cu",
             "launches": beit3_serve_res["launches"]["mha_fwd"],
-            "max_abs_err": err, "ms": kt["fwd"][1], "device_ms": kt["fwd"][0],
+            "max_abs_err": err, "ms": bt["fwd"][1], "device_ms": bt["fwd"][0],
             "bound_ms": bound, "bound_by": by,
-            "library_ms": kt["sdpa_fwd"][1],
-            "library_device_ms": kt["sdpa_fwd"][0]})
+            "library_ms": bt["sdpa_fwd"][1],
+            "library_device_ms": bt["sdpa_fwd"][0]})
     for (name, dname), tt in beit3_tail_res.items():
         kernels.append({
             "name": f"multiway_tail_fwd ({name})", "route": "cuda",

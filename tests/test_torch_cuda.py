@@ -43,6 +43,10 @@ scores within 1.0 standard deviation of its plain tails and of fp32,
 with the tails' LayerNorm weights and biases drawn away from 1 and 0 (a
 dropped or swapped weight and bias reads 2.2 or more).
 
+The FFN's GELU at inference runs in place in FC1's output at
+uniter-base widths, within one rounding of the erf formula, with one
+[rows, 3072] tensor at the forward's peak.
+
 K7 (``csrc/ipot.cu``) is held against ``ops.ot.ipot`` at the pretraining
 shapes, in all three of its forms and at their edges, with ragged and
 all-padding examples, a joint padding that is not the outer OR of the
@@ -717,6 +721,46 @@ def test_scorer_through_the_fused_tails(gen, monkeypatch):
                                     ("plain-fp32", plain, ref))}
     print(f"score gaps {gaps}")
     assert all(g <= 1.0 for g in gaps.values()), gaps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1001, 9984])
+def test_ffn_gelu_in_place_at_inference(gen, dtype, rows):
+    """``BertIntermediate`` at uniter-base widths (768 -> 3072) under
+    ``inference_mode``: the GELU runs in FC1's output (the same storage),
+    with the bits of ``gelu_`` on a copy of the same FC1 output and within
+    one rounding of the erf formula in float64 (fp32 1e-6 + 1e-6 |ref|,
+    bf16 half a step + 1e-3); the forward's peak holds one [rows, 3072]
+    tensor beyond its input, not two."""
+    from uniter_tpu_torch.config import base_config
+    from uniter_tpu_torch.models.encoder import BertIntermediate
+    from uniter_tpu_torch.ops import activations as act
+
+    torch.manual_seed(0)
+    mod = BertIntermediate(base_config()).to("cuda", dtype)
+    x = torch.randn(rows, 768, generator=gen, device="cuda").to(dtype)
+    fc1 = []
+    hook = mod.dense.register_forward_hook(
+        lambda m, i, o: fc1.append(o.clone()))
+    with torch.inference_mode():
+        mod(x)
+    hook.remove()
+    h = fc1[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        out = mod(x)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert out.dtype == dtype and out.shape == (rows, 3072)
+    assert peak < 1.5 * out.numel() * out.element_size(), peak
+    assert torch.equal(out, act.gelu_(h.clone()))
+    want = act.gelu(h.double())
+    diff = (out.double() - want).abs()
+    if dtype == torch.float32:
+        assert bool((diff <= 1e-6 + 1e-6 * want.abs()).all())
+    else:
+        assert _close(out, want.float(), dtype, 0.0)
 
 
 def test_vqa_train_step_through_fused_tails(gen):

@@ -29,7 +29,8 @@ fp32, rounded once after the affine). Every LayerNorm that no fused tail
 takes (the image embeddings' two, each tail that neither fused route
 takes) follows ``layer_norm_impl``: "cuda" is K8, "xla" the plain one.
 Each tail counts the route it took in ``utils.trace``: ``tail.fused``
-(a fused route) or ``tail.plain``.
+(a fused route) or ``tail.plain``. The FFN's erf GELU in a forward that
+records no gradient runs in place on FC1's output in one pass.
 With ``ffn_impl="cuda"`` and the gelu activation each layer's FFN runs as
 one ``ops.ffn.FfnFunction`` (K9 on the card) over the same
 ``intermediate.dense`` and ``output.dense`` parameters. The plain tails'
@@ -66,7 +67,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from uniter_tpu_torch.config import UniterConfig
-from uniter_tpu_torch.ops.activations import ACT2FN
+from uniter_tpu_torch.ops.activations import ACT2FN, gelu, gelu_
 from uniter_tpu_torch.ops.attention import multi_head_attention
 from uniter_tpu_torch.ops.dropout import (
     batch_block, drop, live_seed, rows_before)
@@ -378,13 +379,21 @@ class BertAttention(nn.Module):
 
 
 class BertIntermediate(nn.Module):
+    """FC1 and the activation. With the erf GELU and no gradient recorded
+    the GELU runs in place in one pass (``gelu_``) on FC1's output, which
+    nothing else holds: one [rows, intermediate] tensor live, not the
+    composition's several."""
+
     def __init__(self, cfg: UniterConfig):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.intermediate_size)
         self.act = ACT2FN[cfg.hidden_act]
 
     def forward(self, x):
-        return self.act(self.dense(x))
+        h = self.dense(x)
+        if self.act is gelu and not torch.is_grad_enabled():
+            return gelu_(h)
+        return self.act(h)
 
 
 class BertOutput(nn.Module):
