@@ -530,6 +530,7 @@ def test_pretrain_cli_resume_equals_straight_run(dbs, caplog, monkeypatch):
     the rerun replays the task draws, the loaders' positions and the
     dropout masks, so weights and moments end bit for bit equal."""
     from uniter_tpu_torch import pretrain
+    from uniter_tpu_torch.training import driver
 
     class PreemptAfter:
         """Stands in for the SIGTERM guard: asks to stop after n polls."""
@@ -551,12 +552,12 @@ def test_pretrain_cli_resume_equals_straight_run(dbs, caplog, monkeypatch):
     caplog.set_level(logging.INFO)
     straight = pretrain.main(_opts(dbs, "straight", 4, **kw)[1])
     assert straight.step == 4
-    real = pretrain.MixedTaskLoop
-    monkeypatch.setattr(pretrain, "MixedTaskLoop", lambda **k: real(
+    real = driver.MixedTaskLoop
+    monkeypatch.setattr(driver, "MixedTaskLoop", lambda **k: real(
         **{**k, "preempt": PreemptAfter(2)}))
     part = pretrain.main(_opts(dbs, "resumed", 4, **kw)[1])
     assert part.step == 2
-    monkeypatch.setattr(pretrain, "MixedTaskLoop", real)
+    monkeypatch.setattr(driver, "MixedTaskLoop", real)
     resumed = pretrain.main(_opts(dbs, "resumed", 4, **kw)[1])
     assert resumed.step == 4
     log = caplog.text

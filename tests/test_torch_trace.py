@@ -57,20 +57,23 @@ def _loss(m, b, g):
 
 
 def _train_loop(kind, steps, profile_dir=None):
+    from uniter_tpu_torch.train_itm_hard_negatives import HardNegLoop
     from uniter_tpu_torch.training.loop import MixedTaskLoop, TrainLoop
     from uniter_tpu_torch.training.step import make_train_step
 
+    common = dict(state=_tiny_state(), device="cpu", num_train_steps=steps,
+                  valid_steps=0, log_steps=1, preempt=False,
+                  profile_dir=profile_dir)
     if kind == "train":
-        return TrainLoop(loss_fn=_loss, state=_tiny_state(),
-                         train_loader=_batches(steps + 4), device="cpu",
-                         num_train_steps=steps, valid_steps=0, log_steps=1,
-                         preempt=False, profile_dir=profile_dir)
+        return TrainLoop(loss_fn=_loss, train_loader=_batches(steps + 4),
+                         **common)
     step = make_train_step(_loss)
+    if kind == "hard_neg":
+        return HardNegLoop(stream=iter(_batches(steps + 4)), step_fn=step,
+                           mined_per_step=1, **common)
     return MixedTaskLoop(
         meta=itertools.cycle([("a_0", b) for b in _batches(3)]),
-        get_step=lambda task: step, state=_tiny_state(), device="cpu",
-        num_train_steps=steps, valid_steps=0, log_steps=1, preempt=False,
-        profile_dir=profile_dir)
+        get_step=lambda task: step, **common)
 
 
 # a tiny retrieval corpus: 5 captions of 3, 5, 1, 4, 2 words (+ CLS and
@@ -127,8 +130,8 @@ def test_off_records_nothing_and_enters_no_record_function(scorer_model):
             return x + 1
 
         assert f(1) == 2
-        _train_loop("train", 3).run()
-        _train_loop("mixed", 3).run()
+        for kind in ("train", "mixed", "hard_neg"):
+            _train_loop(kind, 3).run()
         fast_score_matrix(scorer_model, _eval_ds(), T_B, R_B, txt_tile=4,
                           img_tile=2, dtype="float32")
     entered.assert_not_called()
@@ -137,7 +140,7 @@ def test_off_records_nothing_and_enters_no_record_function(scorer_model):
     assert trace.span("a") is trace.span("a", request=2)
 
 
-@pytest.mark.parametrize("kind", ["train", "mixed"])
+@pytest.mark.parametrize("kind", ["train", "mixed", "hard_neg"])
 def test_loop_spans_nest_share_the_step_and_reach_the_trace(tmp_path, kind,
                                                             caplog):
     """``--profile_dir``'s window (steps 4-5 of a 6-step run) is a session:
@@ -236,27 +239,53 @@ def _score_spans(snap, n_tiles):
     return root
 
 
-def test_scorer_spans_nest_and_count_the_slots(scorer_model, tmp_path):
-    """A 5 x 3 matrix in tiles of 4 x 2: the texts padded to 8 rows and
-    the images to 4, so 4 tiles of 8 pairs, 14 slots a pair; the real
-    pairs hold every caption length (+ 2) against each image and every
-    region count (R-capped) against each caption."""
-    from uniter_tpu_torch.utils.itm_fast import fast_score_matrix
+def _scorer_call(scorer_model, which, txt_chunk=4):
+    from uniter_tpu_torch.utils.itm_fast import (fast_score_matrix,
+                                                 fast_windowed_scores)
 
+    if which == "matrix":
+        return fast_score_matrix(scorer_model, _eval_ds(), T_B, R_B,
+                                 txt_tile=txt_chunk, img_tile=2,
+                                 dtype="float32")[0]
+    return fast_windowed_scores(scorer_model, _eval_ds(bs=2), T_B, R_B,
+                                txt_chunk=txt_chunk, dtype="float32")[0]
+
+
+# the windowed view's real pairs: each caption's length (+ 2) twice, and
+# the region counts (R-capped) of its window of 2 images from its own
+# (i % 3)
+NBB_R = [2, 6, 6]
+WINDOWS = sum(NBB_R[i % 3] + NBB_R[(i + 1) % 3] for i in range(5))
+
+
+@pytest.mark.parametrize("which,shape,n_tiles,counts", [
+    # a 5 x 3 matrix in tiles of 4 x 2: the texts padded to 8 rows and the
+    # images to 4, so 4 tiles of 8 pairs, 14 slots a pair; the real pairs
+    # hold every caption length (+ 2) against each image and every region
+    # count (R-capped) against each caption; 4 residual tails a tile
+    # (layer 0 and the CLS layer), an embedding tail a text tile and an
+    # image chunk: all plain on the CPU
+    ("matrix", (5, 3), 4, {"itm.slots": 8 * 4 * 14,
+                           "itm.valid_slots": 3 * 25 + 5 * 14,
+                           "tail.plain": 4 * 4 + 2 + 2}),
+    # 5 captions in chunks of 4 (padded to 8), each against its window of 2
+    # images: 8 x 2 pairs of 14 slots; a chunk: its text tail and 4
+    # residual tails; the image corpus in one chunk
+    ("windowed", (5, 2), 2, {"itm.slots": 8 * 2 * 14,
+                             "itm.valid_slots": 2 * 25 + WINDOWS,
+                             "tail.plain": 2 * (1 + 4) + 1})])
+def test_scorer_spans_nest_and_count_the_slots(scorer_model, tmp_path, which,
+                                               shape, n_tiles, counts):
+    """Each scorer's call is one ``itm.score`` with its children
+    (``_score_spans``), in the session and in the exported trace, and
+    counts the slots by hand; the next call is the next request."""
     trace.span("off")
     with _session() as p:
-        mat, _ = fast_score_matrix(scorer_model, _eval_ds(), T_B, R_B,
-                                   txt_tile=4, img_tile=2, dtype="float32")
-    assert mat.shape == (5, 3)
+        mat = _scorer_call(scorer_model, which)
+    assert mat.shape == shape
     snap = trace.snapshot()
-    first = _score_spans(snap, 4)
-    assert snap["counts"] == {"itm.slots": 8 * 4 * 14,
-                              # 3 x (5+7+3+6+4) + 5 x (2+6+6)
-                              "itm.valid_slots": 3 * 25 + 5 * 14,
-                              # 4 residual tails a tile (layer 0 and the
-                              # CLS layer), an embedding tail a text tile
-                              # and an image chunk: all plain on the CPU
-                              "tail.plain": 4 * 4 + 2 + 2}
+    first = _score_spans(snap, n_tiles)
+    assert snap["counts"] == counts
     path = str(tmp_path / "trace.json")
     p.export_chrome_trace(path)
     with open(path) as f:
@@ -264,35 +293,27 @@ def test_scorer_spans_nest_and_count_the_slots(scorer_model, tmp_path):
                  if e.get("cat") == "user_annotation"}
     assert {"itm.score", "itm.build_arrays", "itm.upload", "itm.tile",
             "itm.readback"} <= names
-    # the next call is the next request
     trace.span("off")
     with _session():
-        fast_score_matrix(scorer_model, _eval_ds(), T_B, R_B, txt_tile=4,
-                          img_tile=2, dtype="float32")
-    assert _score_spans(trace.snapshot(), 4)["request"] == \
+        _scorer_call(scorer_model, which)
+    assert _score_spans(trace.snapshot(), n_tiles)["request"] == \
         first["request"] + 1
 
 
 def test_windowed_scorer_counts_the_slots(scorer_model):
-    """5 captions in chunks of 4 (padded to 8), each against its window of
-    2 images from its own (i % 3): 8 x 2 pairs of 14 slots; the real pairs
-    add twice each caption's length and its window's region counts."""
-    from uniter_tpu_torch.utils.itm_fast import fast_windowed_scores
-
+    """5 captions in chunks of 2 (padded to 6), each against its window of
+    2 images from its own (i % 3): 6 x 2 pairs of 14 slots; the real pairs
+    add twice each caption's length and its window's region counts, the
+    padding row none."""
     trace.span("off")
     with _session():
-        mat, _ = fast_windowed_scores(scorer_model, _eval_ds(bs=2), T_B, R_B,
-                                      txt_chunk=4, dtype="float32")
+        mat = _scorer_call(scorer_model, "windowed", txt_chunk=2)
     assert mat.shape == (5, 2)
-    snap = trace.snapshot()
-    _score_spans(snap, 2)
-    nbb = [2, 6, 6]
-    windows = sum(nbb[i % 3] + nbb[(i + 1) % 3] for i in range(5))
-    assert snap["counts"] == {"itm.slots": 8 * 2 * 14,
-                              "itm.valid_slots": 2 * 25 + windows,
-                              # a chunk: its text tail and 4 residual tails;
-                              # the image corpus in one chunk
-                              "tail.plain": 2 * (1 + 4) + 1}
+    assert trace.snapshot()["counts"] == {
+        "itm.slots": 6 * 2 * 14, "itm.valid_slots": 2 * 25 + WINDOWS,
+        # 3 chunks: a text tail and 4 residual tails each; the image
+        # corpus in one chunk
+        "tail.plain": 3 * (1 + 4) + 1}
 
 
 def test_threads_lose_no_span_or_count():

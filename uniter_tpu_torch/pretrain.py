@@ -35,20 +35,15 @@ import torch
 
 from uniter_tpu_torch.data.datasets import ConcatDataset, ImageDbGroup
 from uniter_tpu_torch.data.itm import ItmDataset
-from uniter_tpu_torch.data.loader import AccumLoader, BucketLoader, MetaLoader
+from uniter_tpu_torch.data.loader import BucketLoader
 from uniter_tpu_torch.data.mlm import MlmDataset
 from uniter_tpu_torch.data.mrm import MrcDataset, MrfrDataset
 from uniter_tpu_torch.models.checkpoint import pretrain_head_state_dict
 from uniter_tpu_torch.models.pretrain import UniterForPretraining
 from uniter_tpu_torch.training import driver, infer
-from uniter_tpu_torch.training.loop import MixedTaskLoop, pretrain_loss_units
-from uniter_tpu_torch.training.optim import build_optimizer
-from uniter_tpu_torch.training.sched import get_lr_schedule
-from uniter_tpu_torch.training.step import TrainState, make_train_step
 from uniter_tpu_torch.utils.const import IMG_DIM, IMG_LABEL_DIM
 from uniter_tpu_torch.utils.logger import LOGGER
 from uniter_tpu_torch.utils.misc import parse_with_config
-from uniter_tpu_torch.utils.save import TrainStateSaver
 
 
 def load_pretrain_heads(model, sd):
@@ -204,60 +199,19 @@ def main(opts):
                 opts.itm_ot_lambda)
 
     loaders = create_dataloaders(opts.train_datasets, opts)
-    for loader, _ in loaders.values():
-        driver.check_token_range(cfg, loader.dataset)
-    accum = opts.gradient_accumulation_steps
-    if accum > 1:
-        loaders = {name: (AccumLoader(loader, accum), ratio)
-                   for name, (loader, ratio) in loaders.items()}
-    meta = MetaLoader(loaders, accum_steps=1, seed=opts.seed)
     val_loaders = {}
     if opts.val_datasets:
         raw = create_dataloaders(opts.val_datasets, opts, train=False)
         val_loaders = {name: loader for name, (loader, _r) in raw.items()}
 
-    sched = get_lr_schedule(opts.learning_rate, opts.warmup_steps,
-                            opts.num_train_steps)
-    opt = build_optimizer(model, sched, **driver.optim_kwargs(opts))
-    state = TrainState(step=0, model=model, opt=opt)
-    saver = TrainStateSaver(opts.output_dir)
-    if saver.restore(state, seed=opts.seed) is not None:
-        LOGGER.info("resumed from step %d", state.step)
+    def loss_fn(m, batch, generator, task):
+        lam = opts.itm_ot_lambda if task.startswith("itm") else 0.0
+        return m.scalar_loss(batch, task, ot_lambda=lam, deterministic=False,
+                             generator=generator)
 
-    step_fns = {}
-
-    def get_step(task):
-        if task not in step_fns:
-            lam = opts.itm_ot_lambda if task.startswith("itm") else 0.0
-
-            def loss_fn(m, batch, generator, _task=task, _lam=lam):
-                return m.scalar_loss(batch, _task, ot_lambda=_lam,
-                                     deterministic=False,
-                                     generator=generator)
-            step_fns[task] = make_train_step(
-                loss_fn, loss_scale="sum", accum_steps=accum)
-        return step_fns[task]
-
-    def validate_fn(state, step):
-        return (validate(state.model, val_loaders, opts.device)
-                if val_loaders else {})
-
-    cdt = cfg.compute_dtype
-    loop = MixedTaskLoop(
-        meta=meta, get_step=get_step, state=state, device=opts.device,
-        num_train_steps=opts.num_train_steps, valid_steps=opts.valid_steps,
-        log_steps=getattr(opts, "log_steps", 100), validate_fn=validate_fn,
-        saver=saver, seed=opts.seed, loss_units_fn=pretrain_loss_units,
-        transfer_dtype=None if cdt == torch.float32 else cdt,
-        lr_schedule=sched, wire_codec=driver.wire_codec(opts),
-        profile_dir=getattr(opts, "profile_dir", None))
-    try:
-        state = loop.run()
-    finally:
-        for loader in meta.loaders.values():
-            getattr(loader, "base", loader).close()
-    LOGGER.info("training finished at step %d", state.step)
-    return state
+    return driver.run_pretraining(opts, model=model, loaders=loaders,
+                                  val_loaders=val_loaders, validate=validate,
+                                  loss_fn=loss_fn)
 
 
 def get_parser():

@@ -31,7 +31,6 @@ import itertools
 import time
 
 import numpy as np
-import torch
 
 from uniter_tpu_torch import train_itm
 from uniter_tpu_torch.data.itm import (
@@ -39,14 +38,11 @@ from uniter_tpu_torch.data.itm import (
     hard_neg_collate)
 from uniter_tpu_torch.models.itm import UniterForImageTextRetrievalHardNeg
 from uniter_tpu_torch.parallel.collectives import data_size
-from uniter_tpu_torch.parallel.fsdp import local_params
 from uniter_tpu_torch.training import driver
-from uniter_tpu_torch.training.optim import build_optimizer
-from uniter_tpu_torch.training.sched import get_lr_schedule
-from uniter_tpu_torch.training.step import TrainState, make_train_step
+from uniter_tpu_torch.training.loop import LoopCore
+from uniter_tpu_torch.training.step import make_train_step
 from uniter_tpu_torch.utils.logger import LOGGER, TB_LOGGER
 from uniter_tpu_torch.utils.misc import parse_with_config
-from uniter_tpu_torch.utils.save import TrainStateSaver
 
 
 class HnLoader:
@@ -113,13 +109,38 @@ def hard_neg_loss(model, batch, generator):
     return (loss / world if world > 1 else loss), {}
 
 
+class HardNegLoop(LoopCore):
+    """The mining stream (``stacked_batches``) under the loop core: one
+    step function over it, a ``loss`` scalar at every step, ``perf/hn_per_s``
+    (mined negatives per second since the last log, reference
+    train_itm_hard_negatives.py:228-237) at each log boundary, and the
+    recall's log line at each validation. The streams are fast-forwarded
+    before the loop."""
+
+    def __init__(self, *, stream, step_fn, mined_per_step: int, **kw):
+        super().__init__(**kw)
+        self.stream = stream
+        self.step_fn = step_fn
+        self.mined = mined_per_step
+
+    def _source(self):
+        return self.stream
+
+    def _meter(self, step, tag, value):
+        TB_LOGGER.add_scalar("loss", value, step)
+
+    def _log(self, step, metrics):
+        now = time.time()
+        TB_LOGGER.add_scalar("perf/hn_per_s", (step - self.start_step)
+                             * self.mined / (now - self.t_start), step)
+        self.t_start, self.start_step = now, step
+
+    def _log_valid(self, step, logs):
+        LOGGER.info("step %d: r_mean %.4f", step, logs["r_mean"])
+
+
 def main(opts):
-    from uniter_tpu_torch.data.loader import DevicePrefetcher
     from uniter_tpu_torch.data.txt_db import TxtTokDb
-    from uniter_tpu_torch.training.loop import (
-        NanGuard, bound_inflight, finish_saves, train_batch_to_device,
-        warn_preempted)
-    from uniter_tpu_torch.training.preempt import PreemptionGuard
 
     if (opts.negative_size + 1) % 8:
         raise ValueError("candidate count (negative_size + 1) must be a "
@@ -148,13 +169,7 @@ def main(opts):
                         t_bucket, r_bucket, opts.seed + 1)
     val_ds = train_itm.build_val_dataset(opts)
 
-    sched = get_lr_schedule(opts.learning_rate, opts.warmup_steps,
-                            opts.num_train_steps)
-    state = TrainState(step=0, model=model, opt=build_optimizer(
-        model, sched, **driver.optim_kwargs(opts)))
-    saver = TrainStateSaver(opts.output_dir)
-    if saver.restore(state, seed=opts.seed) is not None:
-        LOGGER.info("resumed from step %d", state.step)
+    sched, state, saver = driver.resumable_state(opts, model)
     # each step consumed train_batch_size candidate batches, strictly
     # alternating image side / text side (image side first), so the two
     # streams split ceil / floor
@@ -164,68 +179,18 @@ def main(opts):
         loader_t.skip_batches(n_consumed // 2)
         LOGGER.info("resumed from step %d: fast-forwarded mining streams "
                     "by %d candidate batches", state.step, n_consumed)
-
-    # loss_scale "sum" x the 1/N share = the one-process "mean" step
-    step = make_train_step(hard_neg_loss, loss_scale="sum",
-                           accum_steps=opts.train_batch_size // world,
-                           accum_split=True)
-    device, cdt = torch.device(opts.device), cfg.compute_dtype
-    it = DevicePrefetcher(
-        stacked_batches(loader_i, loader_t, opts.train_batch_size,
-                        n_consumed),
-        lambda b: train_batch_to_device(
-            b, device, None if cdt == torch.float32 else cdt,
-            driver.wire_codec(opts)), depth=2)
-    guard = NanGuard()
-    pending = []
-    last_saved = -1
-    t_window, window_start = time.time(), state.step
-
-    def flush():
-        for s, dev_loss in pending:
-            val = float(dev_loss)
-            guard.check(val, s)
-            TB_LOGGER.add_scalar("loss", val, s)
-        pending.clear()
-
-    try:
-        with PreemptionGuard() as preempt:
-            while state.step < opts.num_train_steps:
-                state, metrics = step(state, next(it), opts.seed)
-                pending.append((state.step, metrics["loss"]))
-                bound_inflight(pending)
-                if state.step % opts.log_steps == 0:
-                    flush()
-                    # reference telemetry (train_itm_hard_negatives.py:
-                    # 228-237): mined hard negatives consumed per second
-                    hn = ((state.step - window_start) * opts.train_batch_size
-                          * opts.hard_neg_size)
-                    TB_LOGGER.add_scalar("perf/hn_per_s",
-                                         hn / (time.time() - t_window),
-                                         state.step)
-                    t_window, window_start = time.time(), state.step
-                if opts.valid_steps and state.step % opts.valid_steps == 0:
-                    flush()
-                    with local_params(state.model):
-                        logs = train_itm.validate_retrieval(state.model,
-                                                            val_ds)
-                    LOGGER.info("step %d: r_mean %.4f", state.step,
-                                logs["r_mean"])
-                    TB_LOGGER.log_scalar_dict(
-                        {f"valid/{k}": v for k, v in logs.items()},
-                        step=state.step)
-                    saver.save(state.step, state, opts.seed, block=False)
-                    last_saved = state.step
-                if preempt.poll():
-                    flush()
-                    warn_preempted(state.step, opts.num_train_steps, True)
-                    break
-            flush()
-            finish_saves(saver, state, opts.seed, last_saved)
-    finally:
-        it.close()
-    LOGGER.info("training finished at step %d", state.step)
-    return state
+    # the JAX driver profiles no hard-negative run: no profile_dir
+    return driver.run_loop(
+        HardNegLoop, opts, state, saver, sched, profile_dir=None,
+        stream=stacked_batches(loader_i, loader_t, opts.train_batch_size,
+                               n_consumed),
+        # loss_scale "sum" x the 1/N share = the one-process "mean" step
+        step_fn=make_train_step(hard_neg_loss, loss_scale="sum",
+                                accum_steps=opts.train_batch_size // world,
+                                accum_split=True),
+        mined_per_step=opts.train_batch_size * opts.hard_neg_size,
+        validate_fn=lambda st, step: train_itm.validate_retrieval(
+            st.model, val_ds))
 
 
 def get_parser():

@@ -41,6 +41,7 @@ the backward: ``parallel/fsdp.py``) act as in the JAX drivers
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -52,14 +53,16 @@ from torch import nn
 
 from uniter_tpu_torch.config import UniterConfig, resolve_kernel_policies
 from uniter_tpu_torch.data.buckets import BucketSpec, size_multiple
+from uniter_tpu_torch.data.loader import AccumLoader, MetaLoader
 from uniter_tpu_torch.models.checkpoint import load_torch_checkpoint
 from uniter_tpu_torch.parallel.collectives import (
     all_gather_list, barrier, data_index, data_size, init_distributed,
     is_distributed, num_processes, process_index)
-from uniter_tpu_torch.training.loop import TrainLoop
+from uniter_tpu_torch.training.loop import (
+    MixedTaskLoop, TrainLoop, pretrain_loss_units)
 from uniter_tpu_torch.training.optim import build_optimizer
 from uniter_tpu_torch.training.sched import get_lr_schedule
-from uniter_tpu_torch.training.step import TrainState
+from uniter_tpu_torch.training.step import TrainState, make_train_step
 from uniter_tpu_torch.utils.logger import LOGGER, TB_LOGGER, add_log_to_file
 from uniter_tpu_torch.utils.misc import set_random_seed
 from uniter_tpu_torch.utils.save import TrainStateSaver, save_training_meta
@@ -423,6 +426,35 @@ def place_state(model: nn.Module, learning_rate, *, fsdp: bool = False,
     return TrainState(step=0, model=model, opt=opt)
 
 
+def resumable_state(opts, model):
+    """The schedule, the train state over ``build_optimizer`` (no
+    tensor-parallel cut, as ``place_state`` makes) and its saver, resumed
+    from ``output_dir`` when it holds one: (sched, state, saver)."""
+    sched = get_lr_schedule(opts.learning_rate, opts.warmup_steps,
+                            opts.num_train_steps)
+    state = TrainState(step=0, model=model, opt=build_optimizer(
+        model, sched, **optim_kwargs(opts)))
+    saver = TrainStateSaver(opts.output_dir)
+    if saver.restore(state, seed=opts.seed) is not None:
+        LOGGER.info("resumed from step %d", state.step)
+    return sched, state, saver
+
+
+def run_loop(loop_cls, opts, state, saver, sched, **kw):
+    """``loop_cls`` (a ``training/loop.py`` ``LoopCore``) with the flags
+    every training CLI passes it alike, and ``kw``, run to its end."""
+    cdt = state.model.uniter.config.compute_dtype
+    kw = {"profile_dir": getattr(opts, "profile_dir", None), **kw}
+    state = loop_cls(
+        state=state, device=opts.device, num_train_steps=opts.num_train_steps,
+        valid_steps=opts.valid_steps,
+        log_steps=getattr(opts, "log_steps", 100), saver=saver,
+        seed=opts.seed, transfer_dtype=None if cdt == torch.float32 else cdt,
+        lr_schedule=sched, wire_codec=wire_codec(opts), **kw).run()
+    LOGGER.info("training finished at step %d", state.step)
+    return state
+
+
 def run_training(opts, *, model, loss_fn, train_loader, validate_fn=None,
                  lr_mul_paths: Sequence[str] = (), loss_scale: str = "sum",
                  best_metric: Optional[str] = None):
@@ -452,19 +484,45 @@ def run_training(opts, *, model, loss_fn, train_loader, validate_fn=None,
     ds = getattr(train_loader, "dataset", None)
     if ds is not None:
         check_token_range(model.uniter.config, ds)
-    cdt = model.uniter.config.compute_dtype
-    loop = TrainLoop(
-        loss_fn=loss_fn, state=state, train_loader=train_loader,
-        device=opts.device, num_train_steps=opts.num_train_steps,
+    return run_loop(
+        TrainLoop, opts, state, saver, sched, loss_fn=loss_fn,
+        train_loader=train_loader, validate_fn=validate_fn,
         gradient_accumulation_steps=opts.gradient_accumulation_steps,
-        valid_steps=opts.valid_steps,
-        log_steps=getattr(opts, "log_steps", 100),
-        validate_fn=validate_fn, saver=saver, seed=opts.seed,
-        transfer_dtype=None if cdt == torch.float32 else cdt,
         steps_per_call=getattr(opts, "steps_per_call", 1),
-        lr_schedule=sched, loss_scale=loss_scale, best_metric=best_metric,
-        best_value=best_value, wire_codec=wire_codec(opts),
-        profile_dir=getattr(opts, "profile_dir", None))
-    state = loop.run()
-    LOGGER.info("training finished at step %d", state.step)
-    return state
+        loss_scale=loss_scale, best_metric=best_metric,
+        best_value=best_value)
+
+
+def run_pretraining(opts, *, model, loaders, val_loaders, validate, loss_fn):
+    """The pretraining CLIs' run (``pretrain``, ``pretrain_vcr``): the
+    task loaders (name -> (loader, ratio)) checked against the
+    vocabulary, grouped by ``--gradient_accumulation_steps`` and mixed by
+    a seeded ``MetaLoader``; ``resumable_state``; one step function per
+    task over ``loss_fn(model, batch, generator, task)``; ``validate(model,
+    val_loaders, device)`` at ``valid_steps``; and ``MixedTaskLoop``. The
+    train loaders are closed at the end. ``model`` is on ``opts.device``
+    already."""
+    for loader, _ in loaders.values():
+        check_token_range(model.uniter.config, loader.dataset)
+    accum = opts.gradient_accumulation_steps
+    if accum > 1:
+        loaders = {name: (AccumLoader(loader, accum), ratio)
+                   for name, (loader, ratio) in loaders.items()}
+    meta = MetaLoader(loaders, accum_steps=1, seed=opts.seed)
+    sched, state, saver = resumable_state(opts, model)
+    # one step function per task, built at its first draw
+    get_step = functools.cache(lambda task: make_train_step(
+        functools.partial(loss_fn, task=task), loss_scale="sum",
+        accum_steps=accum))
+
+    def validate_fn(state, step):
+        return (validate(state.model, val_loaders, opts.device)
+                if val_loaders else {})
+
+    try:
+        return run_loop(MixedTaskLoop, opts, state, saver, sched, meta=meta,
+                        get_step=get_step, validate_fn=validate_fn,
+                        loss_units_fn=pretrain_loss_units)
+    finally:
+        for loader in meta.loaders.values():
+            getattr(loader, "base", loader).close()

@@ -1,6 +1,8 @@
 """The hot loops (counterpart of ``uniter_tpu/training/loop.py``): the
 fine-tune ``TrainLoop`` (reference train_nlvr2.py:55-276) and the
-pretraining ``MixedTaskLoop`` (reference pretrain.py:255-365).
+pretraining ``MixedTaskLoop`` (reference pretrain.py:255-365), both, and
+``train_itm_hard_negatives.py``'s loop, one ``LoopCore`` that each gives
+only what is its own.
 
 Step-based loop over an infinite bucketed loader, each batch copied to the
 device by the ``DevicePrefetcher`` thread (pinned, non-blocking) while the
@@ -27,23 +29,18 @@ still caps how many unread steps pile up. The JAX loop's ahead-of-time
 compile of every bucket (``--warmup_compile``) and its mesh placement of
 batches have no counterpart on one eager device.
 
-Both loops take the JAX loops' ``wire_codec`` (``"int8"``: ``img_feat``
+The loops take the JAX loops' ``wire_codec`` (``"int8"``: ``img_feat``
 crosses to the card as per-row int8 and an fp32 scale, dequantized there;
 JAX ``loop.py:95-180``) and ``profile_dir`` (a ``torch.profiler`` trace of
 one window of steps, ``ProfileWindow``; JAX ``loop.py:204-210``), and
 save asynchronously at their periodic saves (``TrainStateSaver.save(...,
 block=False)``: the host copy is taken before the call returns, the disk
 write runs in a thread); the final save blocks.
-
-``MixedTaskLoop`` draws (task, batch) pairs from a ``MetaLoader``, runs one
-step function per task, keeps a loss meter per task and the reference's
-throughput scalars (``perf/{name}_ex_per_s``, ``_in_per_s``,
-``_loss_per_s``), validates and saves at ``valid_steps`` and resumes by
-replaying the task draws (``meta.skip_steps``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Dict, Iterable, Optional
@@ -96,17 +93,6 @@ def _crossed(step: int, k: int, every: int) -> bool:
     """True when [step-k, step] crossed a multiple of ``every`` (with
     steps_per_call k > 1, exact equality would skip boundaries)."""
     return step // every > (step - k) // every
-
-
-def warn_preempted(step: int, total: int, has_saver: bool):
-    if has_saver:
-        LOGGER.warning(
-            "preempted at step %d/%d — saving resumable checkpoint and "
-            "exiting (rerun the same command to resume)", step, total)
-    else:
-        LOGGER.warning(
-            "preempted at step %d/%d — exiting WITHOUT a checkpoint "
-            "(no saver configured)", step, total)
 
 
 class NanGuard:
@@ -240,11 +226,6 @@ class ProfileWindow:
         self.dir = None
 
 
-def host_weight(batch) -> int:
-    return int(batch.get(
-        "ex_weight", np.ones(batch["input_ids"].shape[:-1])).sum())
-
-
 def summed(counts: dict) -> dict:
     """Host counts summed key by key over the ranks (one host gather, at a
     log boundary): the global batch's examples, whatever share of its
@@ -255,182 +236,6 @@ def summed(counts: dict) -> dict:
 
     ranks = all_gather_list(counts, data_group())
     return {k: sum(r[k] for r in ranks) for k in counts}
-
-
-class TrainLoop:
-    def __init__(
-        self,
-        *,
-        loss_fn: Callable,  # (model, batch, generator) -> (scalar, metrics)
-        state: TrainState,
-        train_loader: Iterable,
-        device,
-        num_train_steps: int,
-        gradient_accumulation_steps: int = 1,
-        valid_steps: int = 1000,
-        log_steps: int = 100,
-        validate_fn: Optional[Callable] = None,  # (state, step) -> dict
-        saver=None,
-        seed: int = 0,
-        loss_scale: str = "sum",
-        transfer_dtype=None,
-        steps_per_call: int = 1,
-        preempt=True,
-        lr_schedule=None,
-        best_metric: Optional[str] = None,
-        best_value: Optional[float] = None,
-        wire_codec: Optional[str] = None,
-        profile_dir: Optional[str] = None,
-    ):
-        self.state = state
-        self.device = torch.device(device)
-        self.train_loader = train_loader
-        self._base_loader = train_loader
-        self.num_train_steps = num_train_steps
-        self.accum = gradient_accumulation_steps
-        self.valid_steps = valid_steps
-        self.log_steps = log_steps
-        self.validate_fn = validate_fn
-        self.saver = saver
-        self.seed = seed
-        self.transfer_dtype = transfer_dtype
-        self.wire_codec = wire_codec
-        self.window = ProfileWindow(profile_dir, num_train_steps, device)
-        self.k = steps_per_call
-        self.lr_schedule = lr_schedule
-        # best-checkpoint tracking on a validation metric (reference
-        # train_re.py:259-263): best_value seeds the running max (a resumed
-        # run passes the saved value, a fresh one None)
-        self.best_metric = best_metric
-        self.best_value = best_value
-        if self.k > 1 and num_train_steps % self.k:
-            LOGGER.warning(
-                "steps_per_call=%d does not divide num_train_steps=%d: the "
-                "run stops at step %d", self.k, num_train_steps,
-                ((num_train_steps + self.k - 1) // self.k) * self.k)
-        if self.accum > 1 or self.k > 1:
-            from uniter_tpu_torch.data.loader import AccumLoader
-
-            self.train_loader = AccumLoader(train_loader,
-                                            max(self.accum, self.k))
-        if preempt is True:
-            from uniter_tpu_torch.training.preempt import PreemptionGuard
-
-            preempt = PreemptionGuard()
-        self.preempt = preempt or None
-        self.preempted = False
-        self.step_fn = make_train_step(
-            loss_fn, loss_scale=loss_scale, accum_steps=self.accum,
-            steps_per_call=self.k)
-        self._it = None
-
-    def run(self) -> TrainState:
-        try:
-            if self.preempt is not None:
-                with self.preempt:
-                    return self._run()
-            return self._run()
-        finally:
-            self.window.close()
-            if self._it is not None:
-                self._it.close()
-            self._it = None
-
-    def _run(self):
-        from uniter_tpu_torch.data.loader import DevicePrefetcher
-
-        state = self.state
-        meter = RunningMeter("loss")
-        guard = NanGuard()
-        start_step = state.step
-        if start_step > 0:
-            LOGGER.info("resuming from step %d", start_step)
-            if hasattr(self._base_loader, "skip_batches"):
-                # one stacked batch serves k steps; AccumLoader converts
-                self.train_loader.skip_batches(start_step // self.k)
-                LOGGER.info("fast-forwarded train loader to step %d",
-                            start_step)
-            self.window.resume(start_step)
-        n_examples = 0
-        t_start = time.time()
-
-        def put(batch):
-            return host_weight(batch), train_batch_to_device(
-                batch, self.device, self.transfer_dtype, self.wire_codec)
-
-        self._it = it = DevicePrefetcher(iter(self.train_loader), put,
-                                         depth=2)
-        global_step = start_step
-        last_saved = -1
-        pending = []  # (first step, loss tensor or [k])
-
-        def flush():
-            with trace.span("loop.readback"):
-                for s0, dev_loss in pending:
-                    vals = np.asarray(dev_loss.cpu() if isinstance(
-                        dev_loss, torch.Tensor) else dev_loss).reshape(-1)
-                    for j, v in enumerate(vals):
-                        guard.check(float(v), s0 + j)
-                        meter(float(v))
-            pending.clear()
-
-        while global_step < self.num_train_steps:
-            with trace.span("loop.feed_wait", request=global_step):
-                n_ex, batch = next(it)
-            n_examples += n_ex
-            self.window.begin(global_step)
-            with trace.span("loop.step", request=global_step):
-                state, metrics = self.step_fn(state, batch, self.seed)
-            pending.append((global_step + 1, metrics["loss"]))
-            bound_inflight(pending)
-            global_step += self.k
-            self.window.end(global_step)
-            if _crossed(global_step, self.k, self.log_steps):
-                flush()
-                ex_per_s = (summed({"ex": n_examples})["ex"]
-                            / (time.time() - t_start))
-                TB_LOGGER.add_scalar("loss", meter.val, global_step)
-                TB_LOGGER.add_scalar("grad_norm", float(metrics["grad_norm"]),
-                                     global_step)
-                if self.lr_schedule is not None:
-                    TB_LOGGER.add_scalar(
-                        "lr", float(self.lr_schedule(global_step)),
-                        global_step)
-                TB_LOGGER.add_scalar("perf/ex_per_s", ex_per_s, global_step)
-                LOGGER.info("step %d/%d loss %.4f (%.1f ex/s)", global_step,
-                            self.num_train_steps, meter.val or 0.0, ex_per_s)
-            if self.valid_steps and _crossed(global_step, self.k,
-                                             self.valid_steps):
-                flush()
-                improved = None
-                if self.validate_fn is not None:
-                    with local_params(state.model):
-                        logs = self.validate_fn(state, global_step)
-                    if logs:
-                        TB_LOGGER.log_scalar_dict(
-                            {f"valid/{k}": v for k, v in logs.items()},
-                            step=global_step)
-                    if self.best_metric and logs and self.best_metric in logs:
-                        v = float(logs[self.best_metric])
-                        if self.best_value is None or v > self.best_value:
-                            self.best_value = improved = v
-                if self.saver is not None:
-                    # an improvement rides the same save as
-                    # model_step_best.pt; the write overlaps training
-                    self.saver.save(global_step, state, self.seed,
-                                    best_value=improved, block=False)
-                    last_saved = global_step
-            if self.preempt is not None and self.preempt.poll():
-                flush()
-                self.preempted = True
-                warn_preempted(global_step, self.num_train_steps,
-                               self.saver is not None)
-                break
-        flush()
-        assert global_step == state.step
-        finish_saves(self.saver, state, self.seed, last_saved)
-        self.state = state
-        return state
 
 
 def finish_saves(saver, state, seed: int, last_saved: int):
@@ -448,29 +253,28 @@ def finish_saves(saver, state, seed: int, last_saved: int):
     barrier()
 
 
-def pretrain_loss_units(task: str, batch) -> int:
-    """Per-task loss-unit counts (the reference's n_loss_units,
-    pretrain.py:266-293): masked tokens (mlm), masked regions (mrm),
-    examples (itm)."""
-    if task == "mlm":
-        return int((batch["mlm_tgt"] != -1).sum())
-    if task.startswith("mr"):
-        return int(batch["mrm_valid"].sum())
-    return int(batch["ex_weight"].sum())
+class LoopCore:
+    """The sequence every training loop runs, held once: each item copied
+    to the device by the prefetch thread (``DevicePrefetcher``), the step,
+    the deferred loss readback checked by ``NanGuard``, the log
+    boundaries, validation under ``local_params`` with the best export of
+    ``best_metric``, the asynchronous periodic save, the preemption stop
+    and the final save (``finish_saves``); the ``loop.feed_wait``,
+    ``loop.step`` and ``loop.readback`` spans and the ``--profile_dir``
+    window. A loop supplies what is its own: the items (``_source()``),
+    what the prefetch thread counts of each (``_host``), the step that runs
+    it (``_take``), how a read-back loss is metered (``_meter(step, tag,
+    value)``), what a log boundary writes (``_log(step, metrics)``) and a
+    validation logs (``_log_valid``), how a resume fast-forwards
+    (``_resume``), and ``k``, the steps one call advances."""
 
-
-class MixedTaskLoop:
-    """Pretraining hot loop (reference pretrain.py:255-365): mixed-task
-    batches from a MetaLoader, one step function per task, batches copied
-    to the device by the prefetch thread, per-task loss meters and
-    throughput telemetry, deferred metric readback, periodic validation and
-    checkpoints, resume with the task mix fast-forwarded, preemption."""
+    k = 1
+    best_metric: Optional[str] = None
+    best_value: Optional[float] = None
 
     def __init__(
         self,
         *,
-        meta: Iterable,  # yields (name, batch) forever
-        get_step: Callable[[str], Callable],  # task -> step function
         state: TrainState,
         device,
         num_train_steps: int,
@@ -479,16 +283,12 @@ class MixedTaskLoop:
         validate_fn: Optional[Callable] = None,  # (state, step) -> dict
         saver=None,
         seed: int = 0,
-        loss_units_fn: Optional[Callable] = None,  # (task, batch) -> int
         transfer_dtype=None,
         preempt=True,
         lr_schedule=None,
         wire_codec: Optional[str] = None,
         profile_dir: Optional[str] = None,
     ):
-        self.meta = meta
-        self.lr_schedule = lr_schedule
-        self.get_step = get_step
         self.state = state
         self.device = torch.device(device)
         self.num_train_steps = num_train_steps
@@ -497,8 +297,8 @@ class MixedTaskLoop:
         self.validate_fn = validate_fn
         self.saver = saver
         self.seed = seed
-        self.loss_units_fn = loss_units_fn
         self.transfer_dtype = transfer_dtype
+        self.lr_schedule = lr_schedule
         self.wire_codec = wire_codec
         self.window = ProfileWindow(profile_dir, num_train_steps, device)
         if preempt is True:
@@ -509,21 +309,30 @@ class MixedTaskLoop:
         self.preempted = False
         self._it = None
 
-    def _counters(self, name, batch):
-        n_ex = (int(batch["ex_weight"].sum()) if "ex_weight" in batch
-                else int(batch["input_ids"].shape[0]))
-        n_in = int(batch["attn_mask"].sum()) if "attn_mask" in batch else n_ex
-        task = name.split("_")[0]
-        n_loss = (int(self.loss_units_fn(task, batch))
-                  if self.loss_units_fn is not None else n_ex)
-        return n_ex, n_in, n_loss
+    def _resume(self, step: int):
+        """Fast-forward the items past the ``step`` steps already taken."""
+
+    def _host(self, item):
+        """On the prefetch thread: (host counts, host batch) of an item."""
+        return None, item
+
+    def _take(self, info):
+        """(step function, meter tag) of an item, given its host counts."""
+        return self.step_fn, None
+
+    def _log_valid(self, step: int, logs: dict):
+        """The log line of a validation, if the loop writes one."""
+
+    def _put(self, item):
+        info, batch = self._host(item)
+        return info, train_batch_to_device(batch, self.device,
+                                           self.transfer_dtype,
+                                           self.wire_codec)
 
     def run(self) -> TrainState:
         try:
-            if self.preempt is not None:
-                with self.preempt:
-                    return self._run()
-            return self._run()
+            with self.preempt or contextlib.nullcontext():
+                return self._run()
         finally:
             self.window.close()
             if self._it is not None:
@@ -535,113 +344,239 @@ class MixedTaskLoop:
 
         state = self.state
         guard = NanGuard()
-        task2loss: Dict[str, RunningMeter] = {}
-        n_examples: Dict[str, int] = {}
-        n_in_units: Dict[str, int] = {}
-        n_loss_units: Dict[str, int] = {}
-        t_start = time.time()
-        global_step = state.step
+        step = state.step
+        if step > 0:
+            self._resume(step)
+            self.window.resume(step)
+        self.t_start, self.start_step = time.time(), step
+        self._it = it = DevicePrefetcher(iter(self._source()), self._put,
+                                         depth=2)
         last_saved = -1
-        if global_step > 0:
-            LOGGER.info("resuming from step %d", global_step)
-            # replay the task draws and skip each task loader's consumed
-            # batches (no record fetches)
-            if hasattr(self.meta, "skip_steps"):
-                self.meta.skip_steps(global_step)
-                LOGGER.info("fast-forwarded task mix by %d steps",
-                            global_step)
-            self.window.resume(global_step)
-
-        def put(item):
-            name, batch = item
-            return (name, self._counters(name, batch),
-                    train_batch_to_device(batch, self.device,
-                                          self.transfer_dtype,
-                                          self.wire_codec))
-
-        self._it = it = DevicePrefetcher(iter(self.meta), put, depth=2)
-        pending = []  # (step, name, loss device scalar)
+        pending = []  # (first step, meter tag, loss tensor or [k])
 
         def flush():
             with trace.span("loop.readback"):
-                for s, name, dev_loss in pending:
-                    val = float(dev_loss)
-                    guard.check(val, s)
-                    task2loss.setdefault(
-                        name, RunningMeter(f"loss/{name}"))(val)
+                for s0, tag, dev_loss in pending:
+                    vals = np.asarray(dev_loss.cpu() if isinstance(
+                        dev_loss, torch.Tensor) else dev_loss).reshape(-1)
+                    for j, v in enumerate(vals):
+                        guard.check(float(v), s0 + j)
+                        self._meter(s0 + j, tag, float(v))
             pending.clear()
 
-        while global_step < self.num_train_steps:
-            with trace.span("loop.feed_wait", request=global_step):
-                name, (n_ex, n_in, n_loss), batch = next(it)
-            task = name.split("_")[0]
-            n_examples[name] = n_examples.get(name, 0) + n_ex
-            n_in_units[name] = n_in_units.get(name, 0) + n_in
-            n_loss_units[name] = n_loss_units.get(name, 0) + n_loss
-            self.window.begin(global_step)
-            with trace.span("loop.step", request=global_step):
-                state, metrics = self.get_step(task)(state, batch,
-                                                     self.seed)
-            global_step += 1
-            self.window.end(global_step)
-            pending.append((global_step, name, metrics["loss"]))
+        while step < self.num_train_steps:
+            with trace.span("loop.feed_wait", request=step):
+                info, batch = next(it)
+            step_fn, tag = self._take(info)
+            self.window.begin(step)
+            with trace.span("loop.step", request=step):
+                state, metrics = step_fn(state, batch, self.seed)
+            pending.append((step + 1, tag, metrics["loss"]))
             bound_inflight(pending)
-            if global_step % self.log_steps == 0:
+            step += self.k
+            self.window.end(step)
+            if _crossed(step, self.k, self.log_steps):
                 flush()
-                dt = time.time() - t_start
-                TB_LOGGER.log_scalar_dict(
-                    {m.name: m.val for m in task2loss.values()
-                     if m.val is not None}, step=global_step)
-                if self.lr_schedule is not None:
-                    TB_LOGGER.add_scalar(
-                        "lr", float(self.lr_schedule(global_step)),
-                        global_step)
-                # reference logs grad_norm every window (pretrain.py:330-332)
-                TB_LOGGER.add_scalar(
-                    "grad_norm", float(metrics["grad_norm"]), global_step)
-                # the global batch's counts (a host gather over ranks)
-                got = summed({(kind, t): c[t] for kind, c in (
-                    ("ex", n_examples), ("in", n_in_units),
-                    ("loss", n_loss_units)) for t in n_examples})
-                tot_ex = sum(got["ex", t] for t in n_examples)
-                TB_LOGGER.add_scalar("perf/ex_per_s", tot_ex / dt,
-                                     global_step)
-                for t_name in n_examples:
-                    TB_LOGGER.add_scalar(f"perf/{t_name}_ex_per_s",
-                                         got["ex", t_name] / dt, global_step)
-                    TB_LOGGER.add_scalar(f"perf/{t_name}_in_per_s",
-                                         got["in", t_name] / dt, global_step)
-                    TB_LOGGER.add_scalar(f"perf/{t_name}_loss_per_s",
-                                         got["loss", t_name] / dt,
-                                         global_step)
-                LOGGER.info(
-                    "step %d/%d (%.0f ex/s) %s", global_step,
-                    self.num_train_steps, tot_ex / dt,
-                    {m.name: round(m.val, 4) for m in task2loss.values()
-                     if m.val is not None})
-            if self.valid_steps and global_step % self.valid_steps == 0:
+                self._log(step, metrics)
+            if self.valid_steps and _crossed(step, self.k, self.valid_steps):
                 flush()
+                improved = None
                 if self.validate_fn is not None:
                     with local_params(state.model):
-                        logs = self.validate_fn(state, global_step)
+                        logs = self.validate_fn(state, step)
                     if logs:
-                        LOGGER.info("step %d validation: %s", global_step,
-                                    logs)
+                        self._log_valid(step, logs)
                         TB_LOGGER.log_scalar_dict(
                             {f"valid/{k}": v for k, v in logs.items()},
-                            step=global_step)
+                            step=step)
+                    if self.best_metric and logs and self.best_metric in logs:
+                        v = float(logs[self.best_metric])
+                        if self.best_value is None or v > self.best_value:
+                            self.best_value = improved = v
                 if self.saver is not None:
-                    self.saver.save(global_step, state, self.seed,
-                                    block=False)
-                    last_saved = global_step
+                    # an improvement rides the same save as
+                    # model_step_best.pt; the write overlaps training
+                    self.saver.save(step, state, self.seed,
+                                    best_value=improved, block=False)
+                    last_saved = step
             if self.preempt is not None and self.preempt.poll():
                 flush()
                 self.preempted = True
-                warn_preempted(global_step, self.num_train_steps,
-                               self.saver is not None)
+                LOGGER.warning(
+                    "preempted at step %d/%d — %s", step, self.num_train_steps,
+                    "saving resumable checkpoint and exiting (rerun the same "
+                    "command to resume)" if self.saver is not None else
+                    "exiting WITHOUT a checkpoint (no saver configured)")
                 break
         flush()
-        assert global_step == state.step
+        assert step == state.step
         finish_saves(self.saver, state, self.seed, last_saved)
         self.state = state
         return state
+
+
+class TrainLoop(LoopCore):
+    """The fine-tune loop (reference train_nlvr2.py:55-276): one step
+    function over an infinite bucketed loader, grouped by
+    ``AccumLoader`` for accumulation or ``steps_per_call`` k; one EMA loss
+    meter and the reference's ``loss``, ``grad_norm``, ``lr`` and
+    ``perf/ex_per_s``; resume with ``skip_batches(step // k)``."""
+
+    def __init__(
+        self,
+        *,
+        loss_fn: Callable,  # (model, batch, generator) -> (scalar, metrics)
+        train_loader: Iterable,
+        gradient_accumulation_steps: int = 1,
+        loss_scale: str = "sum",
+        steps_per_call: int = 1,
+        best_metric: Optional[str] = None,
+        best_value: Optional[float] = None,
+        **kw,
+    ):
+        super().__init__(**kw)
+        num_train_steps = self.num_train_steps
+        self.train_loader = train_loader
+        self._base_loader = train_loader
+        self.accum = gradient_accumulation_steps
+        self.k = steps_per_call
+        # best-checkpoint tracking on a validation metric (reference
+        # train_re.py:259-263): best_value seeds the running max (a resumed
+        # run passes the saved value, a fresh one None)
+        self.best_metric = best_metric
+        self.best_value = best_value
+        if self.k > 1 and num_train_steps % self.k:
+            LOGGER.warning(
+                "steps_per_call=%d does not divide num_train_steps=%d: the "
+                "run stops at step %d", self.k, num_train_steps,
+                ((num_train_steps + self.k - 1) // self.k) * self.k)
+        if self.accum > 1 or self.k > 1:
+            from uniter_tpu_torch.data.loader import AccumLoader
+
+            self.train_loader = AccumLoader(train_loader,
+                                            max(self.accum, self.k))
+        self.step_fn = make_train_step(
+            loss_fn, loss_scale=loss_scale, accum_steps=self.accum,
+            steps_per_call=self.k)
+        self.meter = RunningMeter("loss")
+        self.n_examples = 0
+
+    def _resume(self, step):
+        LOGGER.info("resuming from step %d", step)
+        if hasattr(self._base_loader, "skip_batches"):
+            # one stacked batch serves k steps; AccumLoader converts
+            self.train_loader.skip_batches(step // self.k)
+            LOGGER.info("fast-forwarded train loader to step %d", step)
+
+    def _source(self):
+        return self.train_loader
+
+    def _host(self, batch):
+        return int(batch.get("ex_weight", np.ones(
+            batch["input_ids"].shape[:-1])).sum()), batch
+
+    def _take(self, n_ex):
+        self.n_examples += n_ex
+        return self.step_fn, None
+
+    def _meter(self, step, tag, value):
+        self.meter(value)
+
+    def _log(self, step, metrics):
+        ex_per_s = (summed({"ex": self.n_examples})["ex"]
+                    / (time.time() - self.t_start))
+        TB_LOGGER.add_scalar("loss", self.meter.val, step)
+        TB_LOGGER.add_scalar("grad_norm", float(metrics["grad_norm"]), step)
+        if self.lr_schedule is not None:
+            TB_LOGGER.add_scalar("lr", float(self.lr_schedule(step)), step)
+        TB_LOGGER.add_scalar("perf/ex_per_s", ex_per_s, step)
+        LOGGER.info("step %d/%d loss %.4f (%.1f ex/s)", step,
+                    self.num_train_steps, self.meter.val or 0.0, ex_per_s)
+
+
+def pretrain_loss_units(task: str, batch) -> int:
+    """Per-task loss-unit counts (the reference's n_loss_units,
+    pretrain.py:266-293): masked tokens (mlm), masked regions (mrm),
+    examples (itm)."""
+    if task == "mlm":
+        return int((batch["mlm_tgt"] != -1).sum())
+    if task.startswith("mr"):
+        return int(batch["mrm_valid"].sum())
+    return int(batch["ex_weight"].sum())
+
+
+class MixedTaskLoop(LoopCore):
+    """The pretraining loop (reference pretrain.py:255-365): (task, batch)
+    pairs from a ``MetaLoader``, one step function per task, a loss meter
+    per task and the reference's throughput scalars
+    (``perf/{name}_ex_per_s``, ``_in_per_s``, ``_loss_per_s``); resume by
+    replaying the task draws (``meta.skip_steps``)."""
+
+    def __init__(
+        self,
+        *,
+        meta: Iterable,  # yields (name, batch) forever
+        get_step: Callable[[str], Callable],  # task -> step function
+        loss_units_fn: Optional[Callable] = None,  # (task, batch) -> int
+        **kw,
+    ):
+        super().__init__(**kw)
+        self.meta = meta
+        self.get_step = get_step
+        self.loss_units_fn = loss_units_fn
+        self.task2loss: Dict[str, RunningMeter] = {}
+        # name -> [examples, input units, loss units]
+        self.counts: Dict[str, list] = {}
+
+    def _resume(self, step):
+        LOGGER.info("resuming from step %d", step)
+        # replay the task draws and skip each task loader's consumed
+        # batches (no record fetches)
+        if hasattr(self.meta, "skip_steps"):
+            self.meta.skip_steps(step)
+            LOGGER.info("fast-forwarded task mix by %d steps", step)
+
+    def _source(self):
+        return self.meta
+
+    def _host(self, item):
+        name, batch = item
+        n_ex = (int(batch["ex_weight"].sum()) if "ex_weight" in batch
+                else int(batch["input_ids"].shape[0]))
+        n_in = int(batch["attn_mask"].sum()) if "attn_mask" in batch else n_ex
+        n_loss = (int(self.loss_units_fn(name.split("_")[0], batch))
+                  if self.loss_units_fn is not None else n_ex)
+        return (name, (n_ex, n_in, n_loss)), batch
+
+    def _take(self, info):
+        name, counts = info
+        self.counts[name] = [a + b for a, b in zip(
+            self.counts.get(name, (0, 0, 0)), counts)]
+        return self.get_step(name.split("_")[0]), name
+
+    def _meter(self, step, name, value):
+        self.task2loss.setdefault(name, RunningMeter(f"loss/{name}"))(value)
+
+    def _log(self, step, metrics):
+        dt = time.time() - self.t_start
+        meters = [m for m in self.task2loss.values() if m.val is not None]
+        TB_LOGGER.log_scalar_dict({m.name: m.val for m in meters}, step=step)
+        if self.lr_schedule is not None:
+            TB_LOGGER.add_scalar("lr", float(self.lr_schedule(step)), step)
+        # reference logs grad_norm every window (pretrain.py:330-332)
+        TB_LOGGER.add_scalar("grad_norm", float(metrics["grad_norm"]), step)
+        # the global batch's counts (a host gather over ranks)
+        kinds = ("ex", "in", "loss")
+        got = summed({(kind, t): c[i] for t, c in self.counts.items()
+                      for i, kind in enumerate(kinds)})
+        tot_ex = sum(got["ex", t] for t in self.counts)
+        TB_LOGGER.add_scalar("perf/ex_per_s", tot_ex / dt, step)
+        for t in self.counts:
+            for kind in kinds:
+                TB_LOGGER.add_scalar(f"perf/{t}_{kind}_per_s",
+                                     got[kind, t] / dt, step)
+        LOGGER.info("step %d/%d (%.0f ex/s) %s", step, self.num_train_steps,
+                    tot_ex / dt, {m.name: round(m.val, 4) for m in meters})
+
+    def _log_valid(self, step, logs):
+        LOGGER.info("step %d validation: %s", step, logs)

@@ -172,16 +172,6 @@ class _Scorer:
                           i_mask.repeat(ct, 1)], 1)
         return self.score_rows(emb, mask).reshape(ct, ci)
 
-    @trace.span("itm.tile")
-    def window(self, t_emb, t_mask, w_idx, i_emb_all, imask_all):
-        """Each of ct texts against its gathered window ``w_idx`` [ct, bs]
-        -> [ct, bs]."""
-        ct, bs = w_idx.shape
-        idx = w_idx.reshape(-1)
-        emb = torch.cat([t_emb.repeat_interleave(bs, 0), i_emb_all[idx]], 1)
-        mask = torch.cat([t_mask.repeat_interleave(bs, 0), imask_all[idx]], 1)
-        return self.score_rows(emb, mask).reshape(ct, bs)
-
     def embed_img_corpus(self, img_feat, img_pos, chunk, dtype):
         """Embed the image corpus in ``chunk``-row calls -> [n_pad, R, H] on
         the device; the raw features never stay there."""
@@ -204,6 +194,109 @@ def _masks(scorer, lens, width):
         np.int32))
 
 
+class _Cross:
+    """The columns of ``fast_score_matrix``: every image, crossed with a
+    text tile ``img_tile`` images at a time, the corpus embedded in chunks
+    of as many."""
+
+    def __init__(self, img_tile: int):
+        self.chunk = img_tile
+
+    def select(self, ds, mine, n_img, txt_tile):
+        """-> (the result's columns, the columns computed)."""
+        return n_img, -(-n_img // self.chunk) * self.chunk
+
+    def upload(self, scorer):
+        pass
+
+    def tiles(self, scorer, out, rows, t_emb, t_mask, i_emb, i_mask):
+        """Score each tile of the text tile ``rows`` into ``out`` (no tile's
+        scores outlive their copy) and yield its images' indices."""
+        for ij in range(0, i_emb.shape[0], self.chunk):
+            cols = slice(ij, ij + self.chunk)
+            out[rows, cols] = scorer.tile(t_emb, t_mask, i_emb[cols],
+                                          i_mask[cols])
+            yield np.arange(ij, ij + self.chunk)[None]
+
+
+class _Windows:
+    """The columns of ``fast_windowed_scores``: each text's circular
+    window of ``bs`` images (gt first, data/itm.py ``_window``), gathered
+    by index from the corpus embedded in one call."""
+
+    def select(self, ds, mine, n_img, txt_tile):
+        js = np.asarray([ds._img_pos[ds.txt2img[t]] for t in ds.ids],
+                        np.int64).reshape(-1)
+        win = (js[:, None] + np.arange(ds.bs)[None, :]) % max(n_img, 1)
+        self.win = _pad_rows(win[mine], txt_tile)
+        self.chunk = max(n_img, 1)
+        return ds.bs, ds.bs
+
+    def upload(self, scorer):
+        self.d_win = scorer.put(self.win.astype(np.int64))
+
+    def tiles(self, scorer, out, rows, t_emb, t_mask, i_emb, i_mask):
+        """Each text of ``rows`` against its gathered window: one tile."""
+        bs = self.win.shape[1]
+        with trace.span("itm.tile"):
+            idx = self.d_win[rows].reshape(-1)
+            emb = torch.cat([t_emb.repeat_interleave(bs, 0), i_emb[idx]], 1)
+            mask = torch.cat([t_mask.repeat_interleave(bs, 0), i_mask[idx]], 1)
+            scores = scorer.score_rows(emb, mask).reshape(-1, bs)
+        out[rows] = scores
+        yield self.win[rows]
+
+
+def _score(model, ds, t_bucket, r_bucket, txt_tile, dtype, cls_path, side):
+    """The call path of both scorers, the span ``itm.score`` (the call
+    number its request): the dataset's arrays, this rank's texts padded to
+    ``txt_tile`` rows and the images to ``side.chunk`` (extra rows repeat
+    row 0; trimmed at the end), the upload, the tiles and the readback,
+    then the rows of every rank. ``side`` (``_Cross`` or ``_Windows``)
+    gives the images each text meets."""
+    with trace.span("itm.score", request=next(_CALLS)):
+        txt_ids, txt_len, img_feat, img_pos, img_nbb = build_eval_arrays(
+            ds, t_bucket, r_bucket)
+        n_all, n_img = len(txt_ids), img_feat.shape[0]
+        mine = my_rows(n_all)
+        n_cols, width = side.select(ds, mine, n_img, txt_tile)
+        txt_ids, txt_len = txt_ids[mine], txt_len[mine]
+        n_txt = len(txt_ids)
+        if n_txt == 0:
+            return (gather_rows(np.zeros((0, n_cols), np.float32), n_all),
+                    list(ds.ids))
+        t_sel = _pad_rows(txt_ids, txt_tile)
+        tlen_sel = _pad_rows(txt_len, txt_tile)
+        nbb = _pad_rows(img_nbb, side.chunk)
+        model.eval()
+        scorer = _Scorer(model, cls_path)
+        with torch.inference_mode():
+            with trace.span("itm.upload"):
+                d_txt = scorer.put(t_sel)
+                d_tmask = _masks(scorer, tlen_sel, t_bucket)
+                d_imask = _masks(scorer, nbb, r_bucket)
+                # the image corpus embedded once, H-wide, on the device
+                d_img_emb = scorer.embed_img_corpus(
+                    img_feat, img_pos, side.chunk, getattr(torch, dtype))
+                side.upload(scorer)
+            out = torch.empty((t_sel.shape[0], width), dtype=torch.float32,
+                              device=scorer.device)
+            for ti in range(0, t_sel.shape[0], txt_tile):
+                rows = slice(ti, ti + txt_tile)
+                # each text tile embedded once, reused across its columns
+                t_emb = scorer.embed_txt(d_txt[rows])
+                for img in side.tiles(scorer, out, rows, t_emb,
+                                      d_tmask[rows], d_img_emb, d_imask):
+                    if trace.on():
+                        r = np.arange(ti, ti + txt_tile)[:, None]
+                        _count_slots(tlen_sel[r] + nbb[img],
+                                     (r < n_txt) & (img < n_img),
+                                     t_bucket + r_bucket)
+            with trace.span("itm.readback"):
+                mat = out[:n_txt, :n_cols].cpu().numpy()
+        return gather_rows(mat, n_all), list(ds.ids)
+
+
 def fast_score_matrix(model, eval_ds, t_bucket, r_bucket, *,
                       txt_tile: int = 32, img_tile: int = 128,
                       dtype="bfloat16", cls_path: bool = True):
@@ -213,51 +306,8 @@ def fast_score_matrix(model, eval_ds, t_bucket, r_bucket, *,
     ``model`` lies on its device and computes in its config's dtype. Each
     rank scores ``my_rows`` of the texts (module docstring). One call is
     the span ``itm.score`` (the call number its request)."""
-    with trace.span("itm.score", request=next(_CALLS)):
-        txt_ids, txt_len, img_feat, img_pos, img_nbb = build_eval_arrays(
-            eval_ds, t_bucket, r_bucket)
-        n_all, n_img = len(txt_ids), img_feat.shape[0]
-        mine = my_rows(n_all)
-        txt_ids, txt_len = txt_ids[mine], txt_len[mine]
-        n_txt = len(txt_ids)
-        if n_txt == 0:
-            return (gather_rows(np.zeros((0, n_img), np.float32), n_all),
-                    list(eval_ds.ids))
-        # pad to tile multiples (extra rows repeat row 0; trimmed at the end)
-        t_sel = _pad_rows(txt_ids, txt_tile)
-        tlen_sel = _pad_rows(txt_len, txt_tile)
-        nbb_p = _pad_rows(img_nbb, img_tile)
-        cdt = getattr(torch, dtype)
-        model.eval()
-        scorer = _Scorer(model, cls_path)
-        with torch.inference_mode():
-            with trace.span("itm.upload"):
-                d_txt = scorer.put(t_sel)
-                d_tmask = _masks(scorer, tlen_sel, t_bucket)
-                d_imask = _masks(scorer, nbb_p, r_bucket)
-                # the image corpus embedded once, H-wide, on the device
-                d_img_emb = scorer.embed_img_corpus(img_feat, img_pos,
-                                                    img_tile, cdt)
-            out = torch.empty((t_sel.shape[0], nbb_p.shape[0]),
-                              dtype=torch.float32, device=scorer.device)
-            for ti in range(0, t_sel.shape[0], txt_tile):
-                # each text tile embedded once, reused across the image
-                # tiles
-                t_emb = scorer.embed_txt(d_txt[ti:ti + txt_tile])
-                for ij in range(0, nbb_p.shape[0], img_tile):
-                    out[ti:ti + txt_tile, ij:ij + img_tile] = scorer.tile(
-                        t_emb, d_tmask[ti:ti + txt_tile],
-                        d_img_emb[ij:ij + img_tile],
-                        d_imask[ij:ij + img_tile])
-                    if trace.on():
-                        rows = np.arange(ti, ti + txt_tile)[:, None]
-                        cols = np.arange(ij, ij + img_tile)[None]
-                        _count_slots(tlen_sel[rows] + nbb_p[cols],
-                                     (rows < n_txt) & (cols < n_img),
-                                     t_bucket + r_bucket)
-            with trace.span("itm.readback"):
-                mat = out[:n_txt, :n_img].cpu().numpy()
-        return gather_rows(mat, n_all), list(eval_ds.ids)
+    return _score(model, eval_ds, t_bucket, r_bucket, txt_tile, dtype,
+                  cls_path, _Cross(img_tile))
 
 
 def fast_windowed_scores(model, val_ds, t_bucket, r_bucket, *,
@@ -270,49 +320,5 @@ def fast_windowed_scores(model, val_ds, t_bucket, r_bucket, *,
     ``txt_chunk`` texts' circular windows from it by index. Each rank
     scores ``my_rows`` of the texts (module docstring). One call is the
     span ``itm.score`` (the call number its request)."""
-    with trace.span("itm.score", request=next(_CALLS)):
-        txt_ids, txt_len, img_feat, img_pos, img_nbb = build_eval_arrays(
-            val_ds, t_bucket, r_bucket)
-        n_all, n_img, bs = len(txt_ids), img_feat.shape[0], val_ds.bs
-        # circular window positions per text (gt first — data/itm.py
-        # _window)
-        js = np.asarray([val_ds._img_pos[val_ds.txt2img[t]]
-                         for t in val_ds.ids], np.int64).reshape(-1)
-        win = (js[:, None] + np.arange(bs)[None, :]) % max(n_img, 1)
-        mine = my_rows(n_all)
-        txt_ids, txt_len, win = txt_ids[mine], txt_len[mine], win[mine]
-        n_txt = len(txt_ids)
-        if n_txt == 0:
-            return (gather_rows(np.zeros((0, bs), np.float32), n_all),
-                    list(val_ds.ids))
-        t_sel = _pad_rows(txt_ids, txt_chunk)
-        tlen_sel = _pad_rows(txt_len, txt_chunk)
-        win_p = _pad_rows(win, txt_chunk)
-        cdt = getattr(torch, dtype)
-        model.eval()
-        scorer = _Scorer(model, cls_path)
-        with torch.inference_mode():
-            with trace.span("itm.upload"):
-                d_txt = scorer.put(t_sel)
-                d_tmask = _masks(scorer, tlen_sel, t_bucket)
-                d_win = scorer.put(win_p.astype(np.int64))
-                d_imask = _masks(scorer, img_nbb, r_bucket)
-                d_img_emb = scorer.embed_img_corpus(
-                    img_feat, img_pos, max(n_img, 1), cdt)[:n_img]
-            out = torch.empty((t_sel.shape[0], bs), dtype=torch.float32,
-                              device=scorer.device)
-            for ci in range(0, t_sel.shape[0], txt_chunk):
-                t_emb = scorer.embed_txt(d_txt[ci:ci + txt_chunk])
-                out[ci:ci + txt_chunk] = scorer.window(
-                    t_emb, d_tmask[ci:ci + txt_chunk],
-                    d_win[ci:ci + txt_chunk], d_img_emb, d_imask)
-                if trace.on():
-                    rows = np.arange(ci, ci + txt_chunk)[:, None]
-                    _count_slots(tlen_sel[rows] + img_nbb[win_p[ci:ci
-                                                              + txt_chunk]],
-                                 np.broadcast_to(rows < n_txt,
-                                                 (txt_chunk, bs)),
-                                 t_bucket + r_bucket)
-            with trace.span("itm.readback"):
-                mat = out[:n_txt].cpu().numpy()
-        return gather_rows(mat, n_all), list(val_ds.ids)
+    return _score(model, val_ds, t_bucket, r_bucket, txt_chunk, dtype,
+                  cls_path, _Windows())
